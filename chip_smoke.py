@@ -1,0 +1,263 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``vlm_tpu_torch``) on one NVIDIA GPU.
+
+Run from the repository root, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure:
+
+1. device: require CUDA; print the card's name and power limit;
+2. build: compile the CUDA kernels from ``vlm_tpu_torch/csrc``;
+3. kernels: each kernel against its plain PyTorch version at the serving
+   path's shapes, with error, tolerance and both times;
+4. slice: PaliGemma-3B at full width, bf16, random weights from a seed,
+   through the port's continuous batcher (32 slots, 96 synthetic 224 px
+   images fed through the normalisation kernel, a 60-id prompt, up to 32 new
+   tokens with per-image caps from [8, 32]); every kernel must have launched
+   and no plain version may have run;
+5. reference: a depth-cut copy of the model (full widths, 2 vision and 2
+   decoder layers) on the card against the same weights in fp32 on the CPU,
+   through prefill and rotating-window decode steps.
+
+Prints a JSON line of per-kernel results, then as its last line
+``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+SLOTS, N_IMAGES, PROMPT_IDS, NEW = 32, 96, 60, 32
+REF_TOL = 5e-2     # bf16 on the card vs fp32 on the CPU, relative to max|ref|
+
+
+def device_phase(torch):
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(gpu.splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return gpu.splitlines()[0]
+
+
+def kernel_phase(gpu):
+    from vlm_tpu_torch.testing import kernel_checks
+    records = kernel_checks.run("cuda", iters=20)
+    for r in records:
+        print(f"[kernel] {r['kernel']} {r['case']}: max_abs_err "
+              f"{r['max_abs_err']:.3e} (tol {r['tol']:.1e}) kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
+              f"[{'ok' if r['ok'] else 'FAIL'}] ({gpu})")
+    bad = [r for r in records if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions: "
+                           f"{bad}")
+    return records
+
+
+def slice_phase(torch, np, gpu):
+    from vlm_tpu_torch.generate.batcher import ContinuousBatcher
+    from vlm_tpu_torch.models.factory import create_model
+    from vlm_tpu_torch.models.vlm import num_image_tokens
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.preprocess import normalize_images
+
+    t0 = time.perf_counter()
+    model = create_model("paligemma", quantization="bf16", size="3b",
+                         device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.module.parameters())
+    print(f"[slice] PaliGemma-3B built: {n_params} params, "
+          f"{time.perf_counter() - t0:.1f} s ({gpu})")
+    cfg = model.cfg
+    dec = cfg.decoder
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (N_IMAGES, 224, 224, 3), dtype=np.uint8)
+    post_ids = np.concatenate([[dec.bos_token_id], rng.integers(
+        3, dec.vocab_size, PROMPT_IDS - 1)]).astype(np.int32)
+    prompt_len = num_image_tokens(cfg) + PROMPT_IDS
+    caps = rng.integers(8, NEW + 1, N_IMAGES)
+
+    def pixel_fn(idxs):
+        u8 = torch.from_numpy(images[idxs]).to("cuda", non_blocking=True)
+        return normalize_images(u8, recipe=model.recipe)
+
+    def batcher():
+        return ContinuousBatcher(model.module, cfg, batch_size=SLOTS,
+                                 max_prompt_len=prompt_len,
+                                 max_new_tokens=NEW)
+
+    run_kw = dict(pre_ids_row=np.zeros((0,), np.int32),
+                  post_ids_row=post_ids, prompt_len_scalar=prompt_len)
+    batcher().run(pixel_fn, n_images=8, max_new_per_image=[4] * 8,
+                  **run_kw)                                   # warm-up
+    torch.cuda.synchronize()
+
+    b = batcher()
+    _lib.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = b.run(pixel_fn, n_images=N_IMAGES, max_new_per_image=caps,
+                **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launches)
+    plain = dict(_lib.plain_calls)
+
+    if any(o is None for o in out):
+        raise RuntimeError("some images returned no tokens")
+    over = [i for i, o in enumerate(out) if len(o) > caps[i]]
+    if over:
+        raise RuntimeError(f"images {over} exceed their caps")
+    toks = [t for o in out for t in o]
+    if any(not 0 <= t < dec.vocab_size for t in toks):
+        raise RuntimeError("token ids out of the vocabulary")
+    if min(launches.values()) <= 0:
+        raise RuntimeError(f"a kernel never launched on the path: {launches}")
+    if any(plain.values()):
+        raise RuntimeError(f"plain versions ran on the path: {plain}")
+    lat = np.asarray(b.last_latency_s) * 1e3
+    print(f"[slice] {N_IMAGES} images, {len(toks)} tokens in {wall:.3f} s: "
+          f"{N_IMAGES / wall:.3f} img/s, {len(toks) / wall:.1f} tok/s, "
+          f"latency p50 {np.percentile(lat, 50):.1f} ms p99 "
+          f"{np.percentile(lat, 99):.1f} ms ({gpu})")
+    print(f"[slice] max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({gpu})")
+    print(f"[slice] launches {launches}, plain calls {plain}, "
+          f"loop {b.last_stats}")
+
+    # finite next-token logits of the expected shape at full size
+    with torch.inference_mode():
+        from vlm_tpu_torch.models.decoder import init_kv_cache
+        g = 4
+        cache = init_kv_cache(dec, g, prompt_len, torch.bfloat16, "cuda")
+        ids = torch.from_numpy(post_ids).cuda()[None].expand(g, -1)
+        logits = model.module.prefill(
+            pixel_fn(list(range(g))), ids[:, :0], ids, cache,
+            torch.full((g,), prompt_len, dtype=torch.int32, device="cuda"))
+    if logits.shape != (g, dec.vocab_size) or not torch.isfinite(
+            logits).all():
+        raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return launches, dict(wall_s=wall, img_per_s=N_IMAGES / wall)
+
+
+def reference_phase(torch, np, gpu):
+    """Full-width, depth-cut model: bf16 kernels on the card against fp32
+    plain versions on the CPU, same weights, same inputs."""
+    from vlm_tpu_torch.models.configs import paligemma_config
+    from vlm_tpu_torch.models.decoder import init_kv_cache
+    from vlm_tpu_torch.models.layers import init_random_
+    from vlm_tpu_torch.models.vlm import VLMModule, num_image_tokens
+    from vlm_tpu_torch.ops.preprocess import RECIPES, normalize_images
+
+    full = paligemma_config("3b")
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, layers=2),
+        decoder=dataclasses.replace(full.decoder, layers=2))
+    gpu_mod = init_random_(VLMModule(cfg, dtype=torch.bfloat16,
+                                     device="cuda"), seed=1)
+    cpu_mod = VLMModule(cfg, dtype=torch.float32, device="cpu")
+    cpu_mod.load_state_dict({k: v.float().cpu()
+                             for k, v in gpu_mod.state_dict().items()})
+    rng = np.random.default_rng(1)
+    b, steps = 2, 3
+    u8 = torch.from_numpy(rng.integers(0, 256, (b, 224, 224, 3),
+                                       dtype=np.uint8))
+    post = torch.from_numpy(rng.integers(3, 1000, (b, PROMPT_IDS),
+                                         dtype=np.int32))
+    plen = num_image_tokens(cfg) + PROMPT_IDS
+    recipe = RECIPES["paligemma"]
+    worst = 0.0
+    with torch.inference_mode():
+        runs = {}
+        for dev, mod, dtype in (("cuda", gpu_mod, torch.bfloat16),
+                                ("cpu", cpu_mod, torch.float32)):
+            cache = init_kv_cache(cfg.decoder, b, plen + steps, dtype, dev)
+            pl = torch.full((b,), plen, dtype=torch.int32, device=dev)
+            px = normalize_images(u8.to(dev), recipe=recipe,
+                                  compute_dtype=dtype)
+            ids = post.to(dev)
+            runs[dev] = dict(cache=cache, pl=pl, logits=[mod.prefill(
+                px, ids[:, :0], ids, cache, pl).float().cpu()])
+        for step in range(steps):
+            tok = runs["cuda"]["logits"][-1].argmax(-1).int()
+            for dev, mod in (("cuda", gpu_mod), ("cpu", cpu_mod)):
+                r = runs[dev]
+                i32 = dict(dtype=torch.int32, device=dev)
+                window = (torch.tensor(plen, **i32), steps,
+                          torch.zeros(b, **i32),
+                          torch.full((b,), step + 1, **i32))
+                r["logits"].append(mod.decode_step(
+                    tok.to(dev)[:, None], r["pl"] + step, r["cache"],
+                    write_col=torch.tensor(plen + step, **i32),
+                    kv_window=window).float().cpu())
+        for got, ref in zip(runs["cuda"]["logits"], runs["cpu"]["logits"]):
+            if not torch.isfinite(got).all():
+                raise RuntimeError("non-finite logits on the card")
+            worst = max(worst, float((got - ref).abs().max()
+                                     / ref.abs().max()))
+    print(f"[reference] depth-cut PaliGemma (2+2 layers, full width): "
+          f"prefill + {steps} decode steps, max |card - cpu| / max|cpu| = "
+          f"{worst:.3e} (tol {REF_TOL:.0e}) ({gpu})")
+    if worst > REF_TOL:
+        raise RuntimeError("card disagrees with the CPU reference")
+
+
+def main() -> int:
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    try:
+        from vlm_tpu_torch.ops import _lib
+        from vlm_tpu_torch.testing.kernel_checks import KERNELS
+    except ImportError as e:
+        print(f"chip_smoke: run from the repository root ({e})",
+              file=sys.stderr)
+        return 2
+
+    gpu = device_phase(torch)
+    t0 = time.perf_counter()
+    _lib.lib()
+    print(f"[build] kernels from vlm_tpu_torch/csrc: "
+          f"{time.perf_counter() - t0:.1f} s (nvcc "
+          f"{_lib.last_build['seconds']:.1f} s) ({gpu})")
+    records = kernel_phase(gpu)
+    launches, _ = slice_phase(torch, np, gpu)
+    reference_phase(torch, np, gpu)
+
+    kernels = []
+    for key, meta in KERNELS.items():
+        mine = [r for r in records if r["kernel"] == key]
+        main_case = next(r for r in mine if r["on_path"])
+        kernels.append({
+            "name": meta["name"], "route": "cuda", "source": meta["source"],
+            "replaces": meta["replaces"], "launches": launches[meta["name"]],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "case": main_case["case"]})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Needs an NVIDIA GPU (sm_90a) and nvcc; skips without CUDA. Imports no JAX,
+so on a machine without it run the file without the suite's conftest:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def test_every_kernel_matches_plain(card):
+    from vlm_tpu_torch.testing import kernel_checks
+    records = kernel_checks.run(card, iters=2)
+    assert {r["kernel"] for r in records} == {"B1", "B2", "B3", "B4"}
+    bad = [r for r in records if not r["ok"]]
+    assert not bad, bad
+
+
+def test_wrappers_launch_on_cuda_and_never_fall_back(card):
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.attention import flash_attention
+    from vlm_tpu_torch.ops.preprocess import RECIPES, normalize_images
+    _lib.reset_counts()
+    q = torch.randn(1, 2, 8, 64, device=card, dtype=torch.bfloat16)
+    flash_attention(q, q, q)
+    torch.cuda.synchronize()
+    assert _lib.launches["flash_attention"] == 1
+    assert _lib.plain_calls["flash_attention"] == 0
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(q.float(), q.float(), q.float())
+    u8 = torch.zeros(1, 4, 4, 3, dtype=torch.uint8, device=card)
+    with pytest.raises(TypeError, match="bfloat16"):
+        normalize_images(u8, recipe=RECIPES["paligemma"],
+                         compute_dtype=torch.float32)

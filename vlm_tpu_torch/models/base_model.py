@@ -1,0 +1,153 @@
+"""User-facing model objects (``vlm_tpu/models/base_model.py``):
+``VLMModel(...).generate_dataset(paths, prompt)`` on the continuous batcher,
+the call ``run_zero_shot`` makes.
+
+Weights are random, drawn on the device from ``seed``; loading HF weights
+is ROADMAP A14. The tokenizer, the image files and PIL are reached only
+inside :meth:`VLMModel.generate_dataset`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence
+
+import torch
+
+from ..generate.batcher import ContinuousBatcher
+from ..generate.decode import build_prompt_ids
+from ..ops.preprocess import load_batch, normalize_images, recipe_for
+from .configs import VLM_CONFIGS, VLMConfig
+from .layers import init_random_
+from .vlm import VLMModule, num_image_tokens
+
+_DTYPES = {"fp32": torch.float32, "fp16": torch.bfloat16,
+           "bf16": torch.bfloat16}
+
+
+def compute_dtype_for(quantization: Optional[str]) -> torch.dtype:
+    """fp32 -> float32; fp16/bf16 -> bfloat16 (``vlm_tpu``'s policy); the
+    integer weight modes are not ported yet."""
+    q = (quantization or "fp32").lower()
+    if q == "8bit":
+        raise NotImplementedError("8bit is not ported yet (ROADMAP A10)")
+    if q == "4bit":
+        raise NotImplementedError("4bit is not ported yet (ROADMAP A11)")
+    if q not in _DTYPES:
+        raise ValueError(f"Unknown quantization {quantization!r}; allowed: "
+                         f"fp32 fp16 bf16 8bit 4bit")
+    return _DTYPES[q]
+
+
+class VLMModel:
+    """Base VLM; subclasses define the prompt template
+    (:meth:`format_prompt`)."""
+
+    family: str = ""
+    DEFAULT_SIZE = "test"
+
+    def __init__(self, model_id: Optional[str] = None, device=None,
+                 quantization: str = "fp32", *, size: Optional[str] = None,
+                 seed: int = 0, batch_size: int = 8, mesh=None,
+                 kv_cache: Optional[str] = None,
+                 quantize_vision: Optional[bool] = None):
+        if model_id:
+            raise NotImplementedError(
+                f"model_id {model_id!r}: loading checkpoint weights is not "
+                f"ported yet (ROADMAP A14); the port runs random weights")
+        if mesh and int((mesh or {}).get("model", 1)) > 1:
+            raise NotImplementedError("tensor parallelism (mesh.model > 1) is "
+                                      "not ported yet (ROADMAP A17)")
+        if quantize_vision:
+            raise NotImplementedError("a quantized vision tower is not "
+                                      "ported yet (ROADMAP A10)")
+        if str(kv_cache or "").lower() == "int8":
+            raise NotImplementedError("the int8 KV cache is not ported yet "
+                                      "(ROADMAP A10)")
+        self.quantization = quantization
+        self.dtype = compute_dtype_for(quantization)
+        self.device = torch.device(device or (
+            "cuda" if torch.cuda.is_available() else "cpu"))
+        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
+            raise ValueError("the CUDA kernels take bfloat16: use "
+                             "quantization bf16 on the card")
+        self.cfg: VLMConfig = VLM_CONFIGS[self.family](
+            size or self.DEFAULT_SIZE)
+        self.batch_size = batch_size
+        self.recipe = recipe_for(self.family)
+        if self.recipe.image_size != self.cfg.vision.image_size:
+            self.recipe = dataclasses.replace(
+                self.recipe, image_size=self.cfg.vision.image_size)
+        self.module = VLMModule(self.cfg, dtype=self.dtype,
+                                device=self.device)
+        init_random_(self.module, seed)
+        self.module.eval()
+        self._tokenizer = None
+
+    @property
+    def tokenizer(self):
+        """``vlm_tpu``'s tokenizer (a byte-level fallback without files),
+        imported at first use."""
+        if self._tokenizer is None:
+            from vlm_tpu.data.tokenizer import load_tokenizer
+            dec = self.cfg.decoder
+            self._tokenizer = load_tokenizer(
+                None, bos_id=dec.bos_token_id, eos_id=dec.eos_token_id,
+                pad_id=dec.pad_token_id)
+        return self._tokenizer
+
+    def format_prompt(self, prompt: str):
+        """(pre_text, post_text, add_bos_to_pre, add_bos_to_post): the text
+        around the image-token block."""
+        raise NotImplementedError
+
+    def generate_dataset(self, image_paths: Sequence, prompt: str,
+                         max_tokens: int = 100,
+                         batch_size: Optional[int] = None, progress=None,
+                         num_beams: int = 1, temperature: float = 0.0,
+                         top_k: int = 0, top_p: float = 1.0,
+                         seed: int = 0) -> List[Optional[str]]:
+        """Continuous-batched generation over image files; decoded texts in
+        input order (None for inputs an interrupt left unfinished)."""
+        if num_beams > 1:
+            raise NotImplementedError("beam search is not ported yet "
+                                      "(ROADMAP A15)")
+        tok = self.tokenizer
+        pre_t, post_t, bos_pre, bos_post = self.format_prompt(prompt)
+        pre_ids, post_ids, prompt_len = build_prompt_ids(
+            tok, pre_t, post_t, num_image_tokens(self.cfg), 1,
+            add_bos_to_pre=bos_pre, add_bos_to_post=bos_post)
+        paths = list(image_paths)
+
+        def pixel_fn(idxs):
+            batch = torch.from_numpy(load_batch([paths[i] for i in idxs],
+                                                self.recipe))
+            return normalize_images(batch.to(self.device), recipe=self.recipe,
+                                    compute_dtype=self.dtype)
+
+        generator = None
+        if temperature > 0:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(seed)
+        batcher = ContinuousBatcher(
+            self.module, self.cfg, batch_size=batch_size or self.batch_size,
+            max_prompt_len=int(prompt_len[0]), max_new_tokens=max_tokens,
+            eos_id=tok.eos_id, pad_id=tok.pad_id, temperature=temperature,
+            top_k=top_k, top_p=top_p, generator=generator)
+        token_lists = batcher.run(
+            pixel_fn, pre_ids_row=pre_ids[0].numpy(),
+            post_ids_row=post_ids[0].numpy(),
+            prompt_len_scalar=int(prompt_len[0]), n_images=len(paths),
+            progress=progress)
+        return [tok.decode(t).strip() if t is not None else None
+                for t in token_lists]
+
+
+class PaLIGemmaModel(VLMModel):
+    """PaliGemma-3B-mix-224: image tokens first, then BOS + prompt +
+    newline."""
+    family = "paligemma"
+    DEFAULT_SIZE = "3b"
+
+    def format_prompt(self, prompt: str):
+        return "", f"{prompt}\n", False, True

@@ -1,0 +1,240 @@
+"""Decoder-only LM (``vlm_tpu/models/decoder.py``), the Gemma path:
+Gemma's ``(1+w)`` RMSNorm and sqrt(hidden) embedding scale, half-rotation
+RoPE in fp32, MQA/GQA, the gated ``gelu_tanh`` MLP and the tied head.
+
+The KV cache is a dict of per-layer tuples of ``[B, max_len, KV, D]``
+tensors, updated in place (JAX donated the buffers instead). Activations
+keep the ``[B, S, H, D]`` layout of the projections; attention reads them
+through strided views, so no head transpose is ever copied.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import flash_attention
+from ..ops.decode_attention import decode_attention
+from ..ops.kvcache import kv_scatter_write, kv_uniform_write
+from .configs import DecoderConfig
+from .layers import Dense, RMSNorm, activation
+
+# ------------------------- rotary embeddings -------------------------
+
+
+def rope_table(head_dim: int, max_pos: int, theta: float,
+               device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) tables [max_pos, head_dim//2] in float32."""
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                             device=device) / head_dim))
+    t = torch.arange(max_pos, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """Rotate the halves (x[..., :d/2], x[..., d/2:]) in fp32, the
+    LLaMA/Gemma convention. x: [B, S, H, D]; positions: [B, S]."""
+    d2 = x.shape[-1] // 2
+    positions = positions.long()
+    c = cos[positions][:, :, None, :]          # [B, S, 1, d2]
+    s = sin[positions][:, :, None, :]
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+# ------------------------- KV cache -------------------------
+
+def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None) -> Dict[str, tuple]:
+    """Per-layer tuples of zeroed ``k``/``v`` [B, max_len, KV, D] tensors:
+    a layer's write touches only its own buffer."""
+    if dtype == "int8" or dtype == torch.int8:
+        raise NotImplementedError("the int8 KV cache is not ported yet "
+                                  "(ROADMAP A10: int8 forms of B2 and B3)")
+    shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+    return {"k": tuple(torch.zeros(shape, dtype=dtype, device=device)
+                       for _ in range(cfg.layers)),
+            "v": tuple(torch.zeros(shape, dtype=dtype, device=device)
+                       for _ in range(cfg.layers))}
+
+
+def write_kv(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
+             v: torch.Tensor, start: Union[int, torch.Tensor],
+             uniform: bool = False) -> None:
+    """Write ``k``/``v`` [B, S, KV, D] into the caches at ``start``, in place
+    (``vlm_tpu``'s ``_write_kv``). One row per slot goes through B3: at the
+    shared column ``start[0]`` (``uniform``) or at each slot's ``start[b]``.
+    The prefill's rows (``start`` an int, every slot from the same column)
+    are a slice copy."""
+    s = k.shape[1]
+    if s == 1:
+        writer = kv_uniform_write if uniform else kv_scatter_write
+        writer(ck, cv, k, v, start)
+    elif uniform and isinstance(start, int):
+        ck[:, start:start + s] = k
+        cv[:, start:start + s] = v
+    else:
+        raise ValueError("a multi-row KV write needs one shared int column")
+
+
+# ------------------------- modules -------------------------
+
+class DecoderAttention(nn.Module):
+    def __init__(self, cfg: DecoderConfig, dd: dict):
+        super().__init__()
+        self.cfg = cfg
+        hd = cfg.head_dim
+        self.q_proj = Dense(cfg.hidden, cfg.heads * hd, cfg.attn_bias, **dd)
+        self.k_proj = Dense(cfg.hidden, cfg.kv_heads * hd, cfg.attn_bias, **dd)
+        self.v_proj = Dense(cfg.hidden, cfg.kv_heads * hd, cfg.attn_bias, **dd)
+        self.o_proj = Dense(cfg.heads * hd, cfg.hidden, cfg.attn_bias, **dd)
+
+    def forward(self, x, positions, rope, cache_kv=None, write_start=None,
+                kv_len=None, causal=True, prefix_len=None,
+                uniform_write=False, kv_valid=None, kv_window=None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        hd = cfg.head_dim
+        q = self.q_proj(x).view(b, s, cfg.heads, hd)
+        k = self.k_proj(x).view(b, s, cfg.kv_heads, hd)
+        v = self.v_proj(x).view(b, s, cfg.kv_heads, hd)
+        cos, sin = rope
+        q = apply_rope(q, positions, cos, sin)
+        k = apply_rope(k, positions, cos, sin)
+        if cache_kv is not None:
+            write_kv(cache_kv[0], cache_kv[1], k, v, write_start,
+                     uniform=uniform_write)
+        if cache_kv is not None and s == 1:
+            # decode step: attend over the cache in its own layout
+            o = decode_attention(q.transpose(1, 2), cache_kv[0], cache_kv[1],
+                                 kv_len=kv_len, kv_valid=kv_valid,
+                                 kv_window=kv_window)
+        else:
+            # prefill or full forward: self-attention over the new tokens
+            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal,
+                                kv_len=kv_len, prefix_len=prefix_len)
+        return self.o_proj(o.transpose(1, 2).reshape(b, s, cfg.heads * hd))
+
+
+class DecoderMLP(nn.Module):
+    def __init__(self, cfg: DecoderConfig, dd: dict):
+        super().__init__()
+        self.gate_proj = Dense(cfg.hidden, cfg.mlp_dim, cfg.attn_bias, **dd)
+        self.up_proj = Dense(cfg.hidden, cfg.mlp_dim, cfg.attn_bias, **dd)
+        self.down_proj = Dense(cfg.mlp_dim, cfg.hidden, cfg.attn_bias, **dd)
+        self.act = activation(cfg.act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, cfg: DecoderConfig, dd: dict):
+        super().__init__()
+        norm = dict(eps=cfg.norm_eps, gemma_style=cfg.gemma_norm, **dd)
+        self.input_norm = RMSNorm(cfg.hidden, **norm)
+        self.attn = DecoderAttention(cfg, dd)
+        self.post_attn_norm = RMSNorm(cfg.hidden, **norm)
+        self.mlp = DecoderMLP(cfg, dd)
+
+    def forward(self, x, positions, rope, *args):
+        x = x + self.attn(self.input_norm(x), positions, rope, *args)
+        return x + self.mlp(self.post_attn_norm(x))
+
+
+class Embed(nn.Module):
+    """Token table ``weight`` [vocab, hidden]; also the tied head."""
+
+    def __init__(self, vocab: int, hidden: int, *, dtype, device):
+        super().__init__()
+        self.weight = nn.Parameter(
+            torch.empty(vocab, hidden, dtype=dtype, device=device),
+            requires_grad=False)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.weight.normal_(0.0, 0.02, generator=gen)
+
+
+class Decoder(nn.Module):
+    """Decoder LM over ``input_ids`` [B,S] or pre-merged ``input_embeds``
+    [B,S,H]; returns ``logits``."""
+
+    def __init__(self, cfg: DecoderConfig, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        unsupported = []
+        if cfg.norm != "rmsnorm" or not cfg.final_norm:
+            unsupported.append(f"norm={cfg.norm}")
+        if cfg.pos != "rope":
+            unsupported.append(f"pos={cfg.pos}")
+        if not cfg.gated_mlp:
+            unsupported.append("plain FFN")
+        if not cfg.tie_embeddings:
+            unsupported.append("untied lm_head")
+        if unsupported:
+            raise NotImplementedError(
+                f"decoder features {unsupported} are not ported yet (ROADMAP "
+                f"A12 LLaVA, A13 BLIP-2); the port runs the Gemma decoder")
+        self.cfg = cfg
+        self.dtype = dtype
+        dd = dict(dtype=dtype, device=device)
+        self.embed = Embed(cfg.vocab_size, cfg.hidden, **dd)
+        self.blocks = nn.ModuleList(DecoderBlock(cfg, dd)
+                                    for _ in range(cfg.layers))
+        self.final_norm = RMSNorm(cfg.hidden, cfg.norm_eps,
+                                  gemma_style=cfg.gemma_norm, **dd)
+        cos, sin = rope_table(cfg.head_dim, cfg.max_position, cfg.rope_theta,
+                              device=device)
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings times sqrt(hidden), the scale rounded to the
+        compute dtype first (45.25 in bf16, not 45.2548), as JAX does."""
+        x = F.embedding(input_ids.long(), self.embed.weight).to(self.dtype)
+        if self.cfg.embed_scale:
+            x = x * torch.tensor(self.cfg.hidden ** 0.5, dtype=self.dtype,
+                                 device=x.device)
+        return x
+
+    def forward(self, *, input_ids: Optional[torch.Tensor] = None,
+                input_embeds: Optional[torch.Tensor] = None,
+                positions: Optional[torch.Tensor] = None,
+                cache: Optional[Dict[str, tuple]] = None,
+                write_start=None,
+                kv_len: Optional[torch.Tensor] = None,
+                causal: bool = True,
+                prefix_len: Optional[torch.Tensor] = None,
+                logits_index: Optional[torch.Tensor] = None,
+                uniform_write: bool = False,
+                kv_valid: Optional[torch.Tensor] = None,
+                kv_window=None,
+                logits_dtype=None) -> torch.Tensor:
+        """Arguments as in ``vlm_tpu``'s ``Decoder.__call__``. ``cache`` is
+        updated in place. ``logits_index`` [B] keeps one position per row
+        ([B, 1, V]); logits default to float32 (an exact upcast of the
+        compute-dtype head)."""
+        if input_embeds is None:
+            input_embeds = self.embed_tokens(input_ids)
+        x = input_embeds.to(self.dtype)
+        b, s, _ = x.shape
+        if positions is None:
+            positions = torch.arange(s, device=x.device).expand(b, s)
+        rope = (self.rope_cos, self.rope_sin)
+        for i, block in enumerate(self.blocks):
+            cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None \
+                else None
+            x = block(x, positions, rope, cache_kv, write_start, kv_len,
+                      causal, prefix_len, uniform_write, kv_valid, kv_window)
+        x = self.final_norm(x)
+        if logits_index is not None:
+            idx = logits_index.long().clamp(0, s - 1)
+            x = x[torch.arange(b, device=x.device), idx][:, None]
+        logits = F.linear(x.to(self.dtype), self.embed.weight)
+        return logits.to(logits_dtype or torch.float32)

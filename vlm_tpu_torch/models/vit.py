@@ -1,0 +1,124 @@
+"""ViT vision encoder (``vlm_tpu/models/vit.py``): SigLIP, CLIP and EVA
+variants by :class:`ViTConfig`.
+
+Pixels come in NHWC, as in JAX. The patch embedding is an unfold plus one
+matmul (the weight holds the HWIO conv kernel flattened to
+``[hidden, P*P*3]``); attention runs through B1.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from ..ops.attention import flash_attention
+from .configs import ViTConfig
+from .layers import Dense, LayerNorm, activation
+
+
+class ViTAttention(nn.Module):
+    def __init__(self, cfg: ViTConfig, dd: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.q_proj = Dense(cfg.hidden, cfg.hidden, **dd)
+        self.k_proj = Dense(cfg.hidden, cfg.hidden, use_bias=cfg.k_bias, **dd)
+        self.v_proj = Dense(cfg.hidden, cfg.hidden, **dd)
+        self.out_proj = Dense(cfg.hidden, cfg.hidden, **dd)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        b, s, _ = x.shape
+
+        def heads(t):       # [B, S, hidden] -> [B, H, S, Dh] view
+            return t.view(b, s, cfg.heads, cfg.head_dim).transpose(1, 2)
+
+        o = flash_attention(heads(self.q_proj(x)), heads(self.k_proj(x)),
+                            heads(self.v_proj(x)), causal=False)
+        return self.out_proj(o.transpose(1, 2).reshape(b, s, cfg.hidden))
+
+
+class ViTBlock(nn.Module):
+    def __init__(self, cfg: ViTConfig, dd: dict):
+        super().__init__()
+        norm = dict(eps=cfg.layer_norm_eps, dtype=dd["dtype"],
+                    device=dd["device"])
+        self.ln1 = LayerNorm(cfg.hidden, **norm)
+        self.attn = ViTAttention(cfg, dd)
+        self.ln2 = LayerNorm(cfg.hidden, **norm)
+        self.fc1 = Dense(cfg.hidden, cfg.mlp_dim, **dd)
+        self.fc2 = Dense(cfg.mlp_dim, cfg.hidden, **dd)
+        self.act = activation(cfg.act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return x + self.fc2(self.act(self.fc1(self.ln2(x))))
+
+
+class ViTEncoder(nn.Module):
+    """``forward(pixels [B,H,W,3])`` returns a dict with
+    ``last_hidden_state`` [B,S,D] (per-config post-norm semantics),
+    ``hidden_states`` (embeddings first, or None) and ``pooled`` [B,D]
+    (CLS after the final LN; None without a CLS token)."""
+
+    def __init__(self, cfg: ViTConfig, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        dd = dict(dtype=dtype, device=device)
+        p = cfg.patch_size
+        self.patch_embed = Dense(p * p * 3, cfg.hidden,
+                                 use_bias=cfg.patch_bias, **dd)
+        self.cls_token = nn.Parameter(
+            torch.empty(1, 1, cfg.hidden, **dd),
+            requires_grad=False) if cfg.use_cls_token else None
+        self.pos_embed = nn.Parameter(
+            torch.empty(1, cfg.seq_len, cfg.hidden, **dd), requires_grad=False)
+        norm = dict(eps=cfg.layer_norm_eps, **dd)
+        self.pre_ln = LayerNorm(cfg.hidden, **norm) if cfg.pre_layernorm \
+            else None
+        self.blocks = nn.ModuleList(ViTBlock(cfg, dd)
+                                    for _ in range(cfg.layers))
+        self.post_ln = LayerNorm(cfg.hidden, **norm)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.pos_embed.normal_(0.0, 0.02, generator=gen)
+        if self.cls_token is not None:
+            self.cls_token.zero_()
+
+    def forward(self, pixels: torch.Tensor,
+                keep_hidden_states: bool = True) -> Dict[str, Any]:
+        cfg = self.cfg
+        b, hh, ww, c = pixels.shape
+        p = cfg.patch_size
+        # unfold NHWC into [B, N, (ph, pw, c)] patches: the conv's HWIO order
+        patches = pixels.to(self.dtype).reshape(
+            b, hh // p, p, ww // p, p, c).permute(0, 1, 3, 2, 4, 5).reshape(
+            b, (hh // p) * (ww // p), p * p * c)
+        x = self.patch_embed(patches)
+        if self.cls_token is not None:
+            x = torch.cat([self.cls_token.expand(b, 1, cfg.hidden), x], dim=1)
+        x = x + self.pos_embed
+        if self.pre_ln is not None:
+            x = self.pre_ln(x)
+        hidden_states = [x] if keep_hidden_states else None
+        for block in self.blocks:
+            x = block(x)
+            if keep_hidden_states:
+                hidden_states.append(x)
+        if cfg.post_layernorm == "all":
+            last = self.post_ln(x)
+            # BLIP-2 applies the post LN a second time to the pooled CLS
+            pooled = self.post_ln(last[:, 0:1])[:, 0] \
+                if cfg.use_cls_token else None
+        else:   # "pooled_only" (CLIP): last_hidden_state is not post-normed
+            last = x
+            pooled = self.post_ln(x[:, 0:1])[:, 0] \
+                if cfg.use_cls_token else None
+        return {
+            "last_hidden_state": last,
+            "hidden_states": tuple(hidden_states) if keep_hidden_states
+            else None,
+            "pooled": pooled,
+        }

@@ -1,0 +1,126 @@
+"""Assembled VLM (``vlm_tpu/models/vlm.py``): vision tower -> projector ->
+token merge -> decoder. PaliGemma's layout is [256 image tokens]
+[BOS + prompt + "\\n"], a prefix-LM: the prompt prefix attends
+bidirectionally, generated tokens causally.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from .configs import VLMConfig
+from .decoder import Decoder
+from .projector import build_projector
+from .vit import ViTEncoder
+
+
+class VLMModule(nn.Module):
+    def __init__(self, cfg: VLMConfig, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        self.vision = ViTEncoder(cfg.vision, dtype=dtype, device=device)
+        self.projector = build_projector(cfg, dtype=dtype, device=device)
+        self.decoder = Decoder(cfg.decoder, dtype=dtype, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.decoder.embed.weight.device
+
+    # ---------------- vision ----------------
+    def encode_images(self, pixels: torch.Tensor) -> torch.Tensor:
+        """[B,H,W,3] normalized pixels -> [B, T_img, decoder_hidden]."""
+        cfg = self.cfg
+        out = self.vision(pixels,
+                          keep_hidden_states=cfg.vision_feature_layer != -1)
+        if cfg.vision_feature_layer == -1:
+            feats = out["last_hidden_state"]
+        else:
+            feats = out["hidden_states"][cfg.vision_feature_layer]
+        if cfg.drop_cls_for_llm and cfg.vision.use_cls_token:
+            feats = feats[:, 1:]
+        return self.projector(feats)
+
+    # ---------------- merge + decode ----------------
+    def merge_embeds(self, pre_ids: torch.Tensor, image_embeds: torch.Tensor,
+                     post_ids: torch.Tensor) -> torch.Tensor:
+        """[B,P1],[B,T,H],[B,P2] -> [B, P1+T+P2, H]."""
+        parts = []
+        if pre_ids.shape[1] > 0:
+            parts.append(self.decoder.embed_tokens(pre_ids))
+        parts.append(image_embeds.to(self.dtype))
+        if post_ids.shape[1] > 0:
+            parts.append(self.decoder.embed_tokens(post_ids))
+        return torch.cat(parts, dim=1)
+
+    def forward(self, pixels: torch.Tensor, pre_ids: torch.Tensor,
+                post_ids: torch.Tensor,
+                kv_len: Optional[torch.Tensor] = None,
+                prefix_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full forward without a cache: logits [B, S, V]. For prefix-LM
+        families ``prefix_len`` marks the bidirectional prefix; without it
+        the whole input is prefix."""
+        embeds = self.merge_embeds(pre_ids, self.encode_images(pixels),
+                                   post_ids)
+        if self.cfg.prefix_lm and prefix_len is None:
+            return self.decoder(input_embeds=embeds, kv_len=kv_len,
+                                causal=False)
+        return self.decoder(input_embeds=embeds, kv_len=kv_len, causal=True,
+                            prefix_len=prefix_len if self.cfg.prefix_lm
+                            else None)
+
+    def prefill(self, pixels: torch.Tensor, pre_ids: torch.Tensor,
+                post_ids: torch.Tensor, cache: Dict[str, tuple],
+                prompt_len: torch.Tensor) -> torch.Tensor:
+        """Run the prompt through the decoder, writing the cache in place
+        from column 0; ``prompt_len`` [B] are the true merged lengths.
+        Returns next-token logits [B, V] in the compute dtype."""
+        embeds = self.merge_embeds(pre_ids, self.encode_images(pixels),
+                                   post_ids)
+        b, s, _ = embeds.shape
+        positions = torch.arange(s, device=embeds.device).expand(b, s)
+        logits = self.decoder(
+            input_embeds=embeds, positions=positions, cache=cache,
+            write_start=0, kv_len=prompt_len,
+            causal=not self.cfg.prefix_lm, logits_index=prompt_len - 1,
+            uniform_write=True, logits_dtype=self.dtype)
+        return logits[:, 0]
+
+    def decode_step(self, token_ids: torch.Tensor, seq_len: torch.Tensor,
+                    cache: Dict[str, tuple],
+                    write_col: Optional[torch.Tensor] = None,
+                    kv_valid: Optional[torch.Tensor] = None,
+                    kv_window=None) -> torch.Tensor:
+        """One token per sequence: ``token_ids`` [B,1]; ``seq_len`` [B] is
+        the new token's position. Returns logits [B, V].
+
+        ``write_col`` (a 0-d tensor) with ``kv_valid`` [B, L] or
+        ``kv_window`` ``(pcol, W, acol, gcnt)``: the continuous batcher's
+        rotating window. Every slot writes its row at the same column; the
+        mask marks each slot's live rows; RoPE positions still come from
+        ``seq_len``."""
+        positions = seq_len[:, None]
+        if write_col is not None:
+            write_start = write_col.reshape(1).expand(seq_len.shape[0])
+        else:
+            write_start = seq_len
+        masked = kv_valid is not None or kv_window is not None
+        logits = self.decoder(
+            input_ids=token_ids, positions=positions, cache=cache,
+            write_start=write_start,
+            kv_len=None if masked else seq_len + 1, causal=False,
+            uniform_write=write_col is not None,
+            kv_valid=kv_valid, kv_window=kv_window, logits_dtype=self.dtype)
+        return logits[:, 0]
+
+
+def num_image_tokens(cfg: VLMConfig) -> int:
+    if cfg.projector == "qformer":
+        return cfg.qformer.num_query_tokens
+    n = cfg.vision.num_patches
+    if not cfg.drop_cls_for_llm and cfg.vision.use_cls_token:
+        n += 1
+    return n

@@ -1,0 +1,160 @@
+"""Build and bind the port's CUDA kernels.
+
+All of ``vlm_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+build runs at the first kernel launch (or an explicit :func:`build`), goes
+to ``vlm_tpu_torch/_build/`` (git-ignored) under a name that carries the
+hash of the sources and flags, and is reused while that hash holds.
+Importing this module builds nothing and imports no toolchain.
+
+Each kernel wrapper counts its launches in :data:`launches`; each plain
+PyTorch version counts its calls in :data:`plain_calls`, so a run can show
+which path it took.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+# -Xptxas -v: registers, shared memory and spills per kernel, kept in
+# last_build["log"]
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+KERNELS = ("flash_attention", "decode_attention", "kv_write", "normalize")
+launches = {name: 0 for name in KERNELS}
+plain_calls = {name: 0 for name in KERNELS}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
+_SIGNATURES = {
+    "vlm_flash_attention": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
+    "vlm_decode_attention": [_P] * 9 + [_I] * 7 + [_L] * 6 + [_F, _P],
+    "vlm_kv_write": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],
+    "vlm_normalize": [_P, _P, _L, _P, _P, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: what the last build did: {"path", "seconds", "cached", "log"}
+last_build: dict = {}
+
+
+def reset_counts() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+        plain_calls[name] = 0
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for the current sources and
+    flags exists; returns its path. The compiler's output lands in
+    ``last_build["log"]``."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out = BUILD_DIR / f"libvlm_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        last_build.update(path=str(out), seconds=0.0, cached=True, log="")
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)
+    last_build.update(path=str(out), seconds=time.perf_counter() - t0,
+                      cached=False, log=proc.stdout + proc.stderr)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.vlm_error_string.argtypes = [ctypes.c_int]
+            handle.vlm_error_string.restype = ctypes.c_char_p
+            _lib = handle
+        return _lib
+
+
+def launch(kernel: str, fn_name: str, *args) -> None:
+    """Call one C entry point and raise if CUDA refused the launch; counts
+    the launch under ``kernel``."""
+    handle = lib()
+    rc = getattr(handle, fn_name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA error {rc} "
+                           f"({handle.vlm_error_string(rc).decode()})")
+    launches[kernel] += 1
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Every tensor on the current CUDA device, else raise."""
+    dev = torch.cuda.current_device()
+    for t in tensors:
+        if t.device.type != "cuda" or t.device.index != dev:
+            raise ValueError(f"{name}: expected tensors on cuda:{dev}, got "
+                             f"{t.device}")
+
+
+def check_bf16(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
+                            f"{t.dtype}")
+
+
+def is_cpu(t: torch.Tensor, name: str) -> bool:
+    """Dispatch rule of every wrapper: CPU tensors take the plain version,
+    CUDA tensors the kernel, anything else raises."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"{name}: unsupported device {t.device}")

@@ -1,0 +1,119 @@
+"""Decode-step attention over the KV cache: the plain version and the B2
+kernel (``csrc/decode_attention.cu``).
+
+One query token per slot, q ``[B, H, 1, D]``, against the cache in its
+native ``[B, S, KV, D]`` layout. Masks: ``kv_len`` ``[B]``; ``kv_valid``
+``[B, S]``; or ``kv_window = (pcol, W, acol, gcnt)``, the continuous
+batcher's rotating window as scalars (``pcol`` an int or a 0-d tensor,
+``W`` an int, ``acol``/``gcnt`` ``[B]``), which replaces ``kv_valid`` and
+composes with ``kv_len``. Contract of ``vlm_tpu``'s
+``flash_decode_attention``: a fully masked row returns 0, not the mean of V.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _lib
+
+NEG_INF = -1e30
+_MODE_LEN, _MODE_VALID, _MODE_WINDOW = 0, 1, 2
+
+
+def window_mask(s_total: int, kv_window: Tuple, device) -> torch.Tensor:
+    """[B, S] liveness of the rotating window, the formula the kernel
+    evaluates per row (floor mod, like ``jnp.mod``)."""
+    pcol, window, acol, gcnt = kv_window
+    pcol = torch.as_tensor(pcol, device=device)
+    rows = torch.arange(s_total, device=device)[None, :]
+    age = torch.remainder(rows - pcol - acol.to(device)[:, None], window)
+    return (rows < torch.clamp(pcol, max=s_total)) | (
+        (rows < torch.clamp(pcol + window, max=s_total))
+        & (age < gcnt.to(device)[:, None]))
+
+
+def live_rows(b: int, s_total: int, device, kv_len=None, kv_valid=None,
+              kv_window=None) -> torch.Tensor:
+    rows = torch.arange(s_total, device=device)[None, :]
+    live = torch.ones((b, s_total), dtype=torch.bool, device=device)
+    if kv_len is not None:
+        live = live & (rows < kv_len.to(device)[:, None])
+    if kv_window is not None:
+        live = live & window_mask(s_total, kv_window, device)
+    elif kv_valid is not None:
+        live = live & kv_valid.to(device)
+    return live
+
+
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, kv_len: Optional[torch.Tensor] = None,
+                           kv_valid: Optional[torch.Tensor] = None,
+                           kv_window: Optional[Tuple] = None) -> torch.Tensor:
+    """Streaming-softmax semantics in one pass: fp32 scores, masked rows
+    weigh 0, the denominator is clamped to 1e-30."""
+    _lib.plain_calls["decode_attention"] += 1
+    b, h, _, d = q.shape
+    s_total, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, d).float()
+    s = torch.einsum("bngd,bsnd->bngs", qg, k.float()) * (d ** -0.5)
+    live = live_rows(b, s_total, q.device, kv_len, kv_valid,
+                     kv_window)[:, None, None, :]
+    s = torch.where(live, s, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(live, torch.exp(s - m), 0.0)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bngs,bsnd->bngd", p, v.float()) / denom
+    return out.reshape(b, h, 1, d).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     kv_len: Optional[torch.Tensor] = None,
+                     kv_valid: Optional[torch.Tensor] = None,
+                     kv_window: Optional[Tuple] = None) -> torch.Tensor:
+    """B2. Returns ``[B, H, 1, D]`` whose memory is ``[B, 1, H, D]``."""
+    if _lib.is_cpu(q, "decode_attention"):
+        return decode_attention_plain(q, k, v, kv_len=kv_len,
+                                      kv_valid=kv_valid, kv_window=kv_window)
+    b, h, sq, d = q.shape
+    s_total, kvh = k.shape[1], k.shape[2]
+    _lib.check_cuda("decode_attention", q, k, v)
+    _lib.check_bf16("decode_attention", q, k, v)
+    if (sq != 1 or k.shape != (b, s_total, kvh, d) or v.shape != k.shape
+            or h % kvh or h // kvh > 32 or d > 256 or d % 2):
+        raise ValueError(f"decode_attention: unsupported shapes "
+                         f"q={tuple(q.shape)} k={tuple(k.shape)}")
+    if not (k.is_contiguous() and v.is_contiguous()) or q.stride(3) != 1:
+        raise ValueError("decode_attention: needs contiguous caches and a "
+                         "contiguous query head dim")
+    dev = q.device
+    i32 = dict(device=dev, dtype=torch.int32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    kvl = kv_len.to(**i32).contiguous() if kv_len is not None else None
+    valid = pcol = acol = gcnt = None
+    window = 0
+    if kv_window is not None:
+        mode = _MODE_WINDOW
+        pcol_v, window, acol_v, gcnt_v = kv_window
+        window = int(window)
+        pcol = torch.as_tensor(pcol_v).to(**i32).reshape(1)
+        acol = acol_v.to(**i32).contiguous()
+        gcnt = gcnt_v.to(**i32).contiguous()
+    elif kv_valid is not None:
+        mode = _MODE_VALID
+        valid = kv_valid.to(device=dev, dtype=torch.bool).contiguous()
+    else:
+        mode = _MODE_LEN
+    o = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    _lib.launch(
+        "decode_attention", "vlm_decode_attention",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(kvl),
+        ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt), b, h, kvh, s_total, d,
+        window, mode, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        o.stride(0), o.stride(1), d ** -0.5, _lib.stream_ptr(q))
+    return o

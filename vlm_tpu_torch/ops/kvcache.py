@@ -1,0 +1,82 @@
+"""In-place KV-cache row writes: the plain masked write and the B3 kernel
+(``csrc/kv_write.cu``).
+
+Caches are ``[B, L, KV, D]``; new rows ``[B, S, KV, D]``; ``start`` ``[B]``
+int on the caches' device, so no write offset ever waits on the host.
+Every function updates the caches in place and returns them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _lib
+
+
+def kv_masked_write(cache: torch.Tensor, new: torch.Tensor,
+                    start: torch.Tensor) -> torch.Tensor:
+    """Plain version (``vlm_tpu.ops.kvcache.kv_masked_write``): a masked
+    select over the length axis, written back in place."""
+    b, s = new.shape[:2]
+    max_len = cache.shape[1]
+    pos = torch.arange(max_len, device=cache.device)[None, :]
+    rel = pos - start.to(cache.device).long()[:, None]          # [B, L]
+    in_window = (rel >= 0) & (rel < s)
+    if s == 1:
+        update = new.expand(b, max_len, *new.shape[2:])
+    else:
+        idx = rel.clamp(0, s - 1)[:, :, None, None].expand(
+            b, max_len, *new.shape[2:])
+        update = torch.gather(new, 1, idx)
+    cache.copy_(torch.where(in_window[:, :, None, None],
+                            update.to(cache.dtype), cache))
+    return cache
+
+
+def _write(k_cache, v_cache, k_new, v_new, start, uniform: bool):
+    name = "kv_uniform_write" if uniform else "kv_scatter_write"
+    if k_new.shape[1] != 1:
+        raise ValueError(f"{name} writes one row per slot (got S="
+                         f"{k_new.shape[1]})")
+    b = k_cache.shape[0]
+    if _lib.is_cpu(k_cache, name):
+        _lib.plain_calls["kv_write"] += 1
+        pos = start[:1].expand(b) if uniform else start
+        kv_masked_write(k_cache, k_new, pos)
+        kv_masked_write(v_cache, v_new, pos)
+        return k_cache, v_cache
+    _lib.check_cuda(name, k_cache, v_cache, k_new, v_new, start)
+    if not all(t.is_contiguous() for t in (k_cache, v_cache, k_new, v_new)):
+        raise ValueError(f"{name}: needs contiguous caches and rows")
+    if (v_cache.shape != k_cache.shape or k_new.shape != v_new.shape
+            or k_new.shape[0] != b or k_new.shape[2:] != k_cache.shape[2:]
+            or k_new.dtype != k_cache.dtype or v_new.dtype != v_cache.dtype
+            or v_cache.dtype != k_cache.dtype):
+        raise ValueError(f"{name}: rows {tuple(k_new.shape)} {k_new.dtype} "
+                         f"do not match caches {tuple(k_cache.shape)} "
+                         f"{k_cache.dtype}")
+    start = start.to(torch.int32).contiguous()
+    if start.numel() < (1 if uniform else b):
+        raise ValueError(f"{name}: start holds {start.numel()} offsets")
+    row_bytes = k_cache[0, 0].numel() * k_cache.element_size()
+    _lib.launch("kv_write", "vlm_kv_write", k_cache.data_ptr(),
+                v_cache.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+                start.data_ptr(), int(uniform), b, k_cache.shape[1],
+                row_bytes, k_cache.stride(0) * k_cache.element_size(),
+                k_new.stride(0) * k_new.element_size(),
+                _lib.stream_ptr(k_cache))
+    return k_cache, v_cache
+
+
+def kv_uniform_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     k_new: torch.Tensor, v_new: torch.Tensor,
+                     start: torch.Tensor):
+    """B3, uniform mode: every slot's row lands at column ``start[0]``."""
+    return _write(k_cache, v_cache, k_new, v_new, start, uniform=True)
+
+
+def kv_scatter_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                     k_new: torch.Tensor, v_new: torch.Tensor,
+                     start: torch.Tensor):
+    """B3, scatter mode: slot ``b``'s row lands at column ``start[b]``."""
+    return _write(k_cache, v_cache, k_new, v_new, start, uniform=False)

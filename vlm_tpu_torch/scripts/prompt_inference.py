@@ -1,0 +1,92 @@
+#!/usr/bin/env python
+"""Zero-shot prompt inference over a dataset with the PyTorch/CUDA port.
+
+Same YAML surface as ``scripts/prompt_inference.py``; runs the port's model
+through ``vlm_tpu.evaluation.run_zero_shot`` (the continuous batcher), on
+the GPU when one is present:
+
+    python vlm_tpu_torch/scripts/prompt_inference.py \\
+        --config configs/prompt_inference.yaml [--limit N]
+
+The dataset readers and the evaluator are ``vlm_tpu``'s shared layers; the
+evaluator still reaches JAX through ``vlm_tpu.core`` (ROADMAP), so this
+script needs JAX installed even though the model does not use it.
+"""
+
+import argparse
+import json
+import os
+import sys
+from pathlib import Path
+
+REPO_ROOT = Path(__file__).resolve().parents[2]
+if str(REPO_ROOT) not in sys.path:
+    sys.path.insert(0, str(REPO_ROOT))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Zero-shot inference with the PyTorch port (YAML config)")
+    parser.add_argument("--config", type=str,
+                        default="configs/prompt_inference.yaml")
+    parser.add_argument("--limit", type=int, default=None,
+                        help="optional cap on the number of images")
+    args = parser.parse_args(argv)
+    os.environ.setdefault("VLM_TPU_ROOT", str(REPO_ROOT))
+
+    import yaml
+
+    from vlm_tpu.data.dataset_factory import DatasetFactory
+    from vlm_tpu.evaluation import run_zero_shot
+    from vlm_tpu_torch.models.factory import create_model
+
+    root = os.environ["VLM_TPU_ROOT"]
+    cfg_path = args.config if os.path.isabs(args.config) \
+        else os.path.join(root, args.config)
+    with open(cfg_path, "r", encoding="utf-8") as f:
+        cfg = yaml.safe_load(f)
+    if not cfg.get("continuous_batching", True):
+        raise NotImplementedError("the wave engine is not ported yet "
+                                  "(ROADMAP A6); use continuous batching")
+
+    model_name = cfg["model_name"]
+    quantization = cfg["quantization"]
+    dataset_name = cfg["dataset_name"]
+    output_dir = os.path.join(
+        root, f"eval/prompt_inference/{model_name}_{quantization}/"
+        f"{dataset_name}")
+    os.makedirs(output_dir, exist_ok=True)
+    print("Output directory:", output_dir)
+
+    model = create_model(
+        model_name, model_id=cfg.get("model_id"), quantization=quantization,
+        size=cfg.get("model_size"), mesh=cfg.get("mesh"),
+        kv_cache=cfg.get("kv_cache"),
+        quantize_vision=cfg.get("quantize_vision"))
+    ds_cfg = cfg.get("dataset", {}) or {}
+    dataset = DatasetFactory.create_dataset(
+        dataset_name, base_path=ds_cfg.get("base_path", None), split="test",
+        transform=None)
+    prompts = cfg.get("prompts", {}) or {}
+    prompt = prompts.get(dataset_name) or prompts.get("face_dataset", "")
+    if not prompt:
+        raise ValueError("No prompt found in config (section 'prompts').")
+    with open(os.path.join(output_dir, "used_config.yaml"), "w",
+              encoding="utf-8") as f:
+        yaml.safe_dump(cfg, f, sort_keys=False, allow_unicode=True)
+
+    gen = {k: cfg[k] for k in
+           ("num_beams", "temperature", "top_k", "top_p", "seed")
+           if cfg.get(k) is not None}
+    print(f"Running inference on dataset: {dataset_name} on "
+          f"{model.device} (batch={cfg.get('batch_size', 32)})")
+    summary = run_zero_shot(model, dataset, prompt, output_dir,
+                            max_tokens=int(cfg.get("max_tokens", 100)),
+                            batch_size=int(cfg.get("batch_size", 32)),
+                            limit=args.limit, generation=gen)
+    print(json.dumps({k: v for k, v in summary.items() if k != "metrics"}))
+    return summary
+
+
+if __name__ == "__main__":
+    main()

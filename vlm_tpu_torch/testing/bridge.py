@@ -1,0 +1,68 @@
+"""Convert a ``vlm_tpu`` flax parameter tree into the port's state dict.
+
+The input is the tree as numpy arrays (unboxed from flax's partitioning
+metadata), e.g. ``jax.tree.map(np.asarray, flax.core.meta.unbox(params))``.
+Names map one to one: ``block_<i>`` becomes ``blocks.<i>``; a Dense
+``kernel`` [in, out] becomes ``weight`` [out, in]; the patch embedding's
+HWIO conv kernel [P, P, 3, hidden] becomes the unfold-matmul weight
+[hidden, P*P*3]; norm ``scale`` and the token table's ``embedding`` become
+``weight``; ``bias``, ``pos_embed`` and ``cls_token`` copy across.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+_BLOCK = re.compile(r"^block_(\d+)$")
+
+
+def _flatten(tree: Mapping, prefix=()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _flatten(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val)
+
+
+def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """``params``: the ``{"params": {...}}`` tree of a ``VLMModule`` (or
+    any of its submodules' trees)."""
+    tree = params.get("params", params)
+    out = {}
+    for path, arr in _flatten(tree):
+        *mods, leaf = path
+        names = []
+        for m in mods:
+            hit = _BLOCK.match(m)
+            names.append(f"blocks.{hit.group(1)}" if hit else m)
+        if leaf == "kernel":
+            if arr.ndim == 4:                 # HWIO conv -> [out, P*P*C]
+                arr = arr.reshape(-1, arr.shape[-1])
+            arr = arr.T
+            leaf = "weight"
+        elif leaf in ("scale", "embedding"):
+            leaf = "weight"
+        out[".".join(names + [leaf])] = torch.tensor(arr)
+    return out
+
+
+def load_flax_params(module: torch.nn.Module, params: Mapping) -> None:
+    """Copy a flax tree into ``module`` (every parameter must be covered)."""
+    state = flax_to_state_dict(params)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"bridge mismatch: missing {missing[:5]}, "
+                       f"unexpected {extra[:5]}")
+    with torch.no_grad():
+        for name, tensor in own.items():
+            src = state[name]
+            if tuple(src.shape) != tuple(tensor.shape):
+                raise ValueError(f"{name}: flax {tuple(src.shape)} vs port "
+                                 f"{tuple(tensor.shape)}")
+            tensor.copy_(src.to(tensor.dtype))
