@@ -10,15 +10,19 @@ Phases, each of which raises on failure:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the CUDA kernels from ``vlm_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the serving
-   path's shapes, with error, tolerance and both times;
-4. slice: PaliGemma-3B at full width, bf16, random weights from a seed,
-   through the port's continuous batcher (32 slots, 96 synthetic 224 px
-   images fed through the normalisation kernel, a 60-id prompt, up to 32 new
-   tokens with per-image caps from [8, 32]); every kernel must have launched
-   and no plain version may have run;
-5. reference: a depth-cut copy of the model (full widths, 2 vision and 2
-   decoder layers) on the card against the same weights in fp32 on the CPU,
-   through prefill and rotating-window decode steps.
+   paths' shapes, with error, tolerance and both times;
+4. bf16 slice: PaliGemma-3B at full width, bf16, random weights from a
+   seed, through the port's continuous batcher (32 slots, 96 synthetic
+   224 px images fed through the normalisation kernel, a 60-id prompt, up
+   to 32 new tokens with per-image caps from [8, 32]); every kernel of the
+   path must have launched and no plain version may have run;
+5. bf16 reference: a depth-cut copy of the model (full widths, 2 vision and
+   2 decoder layers) on the card against the same weights in fp32 on the
+   CPU, through prefill and rotating-window decode steps;
+6. 8bit slice: the same traffic with int8 decoder weights (the llm.int8
+   prefill, the weight-only decode products) and the int8 KV cache;
+7. 8bit reference: the depth-cut copy with int8 decoder and vision weights
+   and the int8 cache on the card against fp32 compute on the CPU.
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -34,7 +38,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 SLOTS, N_IMAGES, PROMPT_IDS, NEW = 32, 96, 60, 32
-REF_TOL = 5e-2     # bf16 on the card vs fp32 on the CPU, relative to max|ref|
+# bf16 on the card vs fp32 on the CPU, relative to max|ref|; the 8bit model
+# quantizes activations from bf16 on the card and from fp32 on the CPU, so
+# one int8 step (1/127 of a row's abs-max) can flip where they differ
+REF_TOL = 5e-2
+# the launch counters each slice must move (ops._lib.KERNELS)
+PATH_KERNELS = {
+    "bf16": ("flash_attention", "decode_attention", "kv_write", "normalize"),
+    "8bit": ("flash_attention", "decode_attention_int8", "kv_write_int8",
+             "normalize", "int8_matmul", "int8xint8_matmul"),
+}
 
 
 def device_phase(torch):
@@ -52,8 +65,9 @@ def kernel_phase(gpu):
     from vlm_tpu_torch.testing import kernel_checks
     records = kernel_checks.run("cuda", iters=20)
     for r in records:
+        tol = f"{r['tol']:.1e}" + (" x max|plain|" if r["rel"] else "")
         print(f"[kernel] {r['kernel']} {r['case']}: max_abs_err "
-              f"{r['max_abs_err']:.3e} (tol {r['tol']:.1e}) kernel "
+              f"{r['max_abs_err']:.3e} (tol {tol}) kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
               f"[{'ok' if r['ok'] else 'FAIL'}] ({gpu})")
     bad = [r for r in records if not r["ok"]]
@@ -63,19 +77,26 @@ def kernel_phase(gpu):
     return records
 
 
-def slice_phase(torch, np, gpu):
+def slice_phase(torch, np, gpu, quantization):
+    """Serve the recipe with ``quantization`` "bf16" or "8bit" (with the
+    int8 KV cache); returns the launch counts of the timed run."""
     from vlm_tpu_torch.generate.batcher import ContinuousBatcher
     from vlm_tpu_torch.models.factory import create_model
     from vlm_tpu_torch.models.vlm import num_image_tokens
     from vlm_tpu_torch.ops import _lib
     from vlm_tpu_torch.ops.preprocess import normalize_images
 
+    tag = f"[slice {quantization}]"
     t0 = time.perf_counter()
-    model = create_model("paligemma", quantization="bf16", size="3b",
-                         device="cuda", seed=0)
+    model = create_model("paligemma", quantization=quantization, size="3b",
+                         device="cuda", seed=0,
+                         kv_cache="int8" if quantization == "8bit" else None)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.module.parameters())
-    print(f"[slice] PaliGemma-3B built: {n_params} params, "
+    n_bytes = sum(p.numel() * p.element_size()
+                  for p in model.module.parameters())
+    print(f"{tag} PaliGemma-3B built: {n_params} params, {n_bytes} bytes, "
+          f"KV cache {model.cache_dtype}, "
           f"{time.perf_counter() - t0:.1f} s ({gpu})")
     cfg = model.cfg
     dec = cfg.decoder
@@ -93,7 +114,8 @@ def slice_phase(torch, np, gpu):
     def batcher():
         return ContinuousBatcher(model.module, cfg, batch_size=SLOTS,
                                  max_prompt_len=prompt_len,
-                                 max_new_tokens=NEW)
+                                 max_new_tokens=NEW,
+                                 cache_dtype=model.cache_dtype)
 
     run_kw = dict(pre_ids_row=np.zeros((0,), np.int32),
                   post_ids_row=post_ids, prompt_len_scalar=prompt_len)
@@ -120,25 +142,27 @@ def slice_phase(torch, np, gpu):
     toks = [t for o in out for t in o]
     if any(not 0 <= t < dec.vocab_size for t in toks):
         raise RuntimeError("token ids out of the vocabulary")
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"a kernel never launched on the path: {launches}")
+    idle = [k for k in PATH_KERNELS[quantization] if launches[k] <= 0]
+    if idle:
+        raise RuntimeError(f"kernels never launched on the path: {idle} "
+                           f"({launches})")
     if any(plain.values()):
         raise RuntimeError(f"plain versions ran on the path: {plain}")
     lat = np.asarray(b.last_latency_s) * 1e3
-    print(f"[slice] {N_IMAGES} images, {len(toks)} tokens in {wall:.3f} s: "
+    print(f"{tag} {N_IMAGES} images, {len(toks)} tokens in {wall:.3f} s: "
           f"{N_IMAGES / wall:.3f} img/s, {len(toks) / wall:.1f} tok/s, "
           f"latency p50 {np.percentile(lat, 50):.1f} ms p99 "
           f"{np.percentile(lat, 99):.1f} ms ({gpu})")
-    print(f"[slice] max_memory_allocated "
+    print(f"{tag} max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({gpu})")
-    print(f"[slice] launches {launches}, plain calls {plain}, "
+    print(f"{tag} launches {launches}, plain calls {plain}, "
           f"loop {b.last_stats}")
 
     # finite next-token logits of the expected shape at full size
     with torch.inference_mode():
         from vlm_tpu_torch.models.decoder import init_kv_cache
         g = 4
-        cache = init_kv_cache(dec, g, prompt_len, torch.bfloat16, "cuda")
+        cache = init_kv_cache(dec, g, prompt_len, model.cache_dtype, "cuda")
         ids = torch.from_numpy(post_ids).cuda()[None].expand(g, -1)
         logits = model.module.prefill(
             pixel_fn(list(range(g))), ids[:, :0], ids, cache,
@@ -151,9 +175,10 @@ def slice_phase(torch, np, gpu):
     return launches, dict(wall_s=wall, img_per_s=N_IMAGES / wall)
 
 
-def reference_phase(torch, np, gpu):
+def reference_phase(torch, np, gpu, quantization):
     """Full-width, depth-cut model: bf16 kernels on the card against fp32
-    plain versions on the CPU, same weights, same inputs."""
+    plain versions on the CPU, same weights, same inputs. "8bit": int8
+    decoder and vision weights and the int8 KV cache on both sides."""
     from vlm_tpu_torch.models.configs import paligemma_config
     from vlm_tpu_torch.models.decoder import init_kv_cache
     from vlm_tpu_torch.models.layers import init_random_
@@ -164,11 +189,18 @@ def reference_phase(torch, np, gpu):
     cfg = dataclasses.replace(
         full, vision=dataclasses.replace(full.vision, layers=2),
         decoder=dataclasses.replace(full.decoder, layers=2))
+    bits = 8 if quantization == "8bit" else 0
+    quant = dict(quant_bits=bits, vision_quant_bits=bits)
+    cache_dtypes = {"cuda": torch.bfloat16, "cpu": torch.float32}
+    if bits:
+        cache_dtypes = dict.fromkeys(cache_dtypes, "int8")
     gpu_mod = init_random_(VLMModule(cfg, dtype=torch.bfloat16,
-                                     device="cuda"), seed=1)
-    cpu_mod = VLMModule(cfg, dtype=torch.float32, device="cpu")
-    cpu_mod.load_state_dict({k: v.float().cpu()
-                             for k, v in gpu_mod.state_dict().items()})
+                                     device="cuda", **quant), seed=1)
+    cpu_mod = VLMModule(cfg, dtype=torch.float32, device="cpu", **quant)
+    # int8 weights stay int8; only floating tensors widen to fp32
+    cpu_mod.load_state_dict({
+        k: (v.float() if v.is_floating_point() else v).cpu()
+        for k, v in gpu_mod.state_dict().items()})
     rng = np.random.default_rng(1)
     b, steps = 2, 3
     u8 = torch.from_numpy(rng.integers(0, 256, (b, 224, 224, 3),
@@ -182,7 +214,8 @@ def reference_phase(torch, np, gpu):
         runs = {}
         for dev, mod, dtype in (("cuda", gpu_mod, torch.bfloat16),
                                 ("cpu", cpu_mod, torch.float32)):
-            cache = init_kv_cache(cfg.decoder, b, plen + steps, dtype, dev)
+            cache = init_kv_cache(cfg.decoder, b, plen + steps,
+                                  cache_dtypes[dev], dev)
             pl = torch.full((b,), plen, dtype=torch.int32, device=dev)
             px = normalize_images(u8.to(dev), recipe=recipe,
                                   compute_dtype=dtype)
@@ -206,9 +239,9 @@ def reference_phase(torch, np, gpu):
                 raise RuntimeError("non-finite logits on the card")
             worst = max(worst, float((got - ref).abs().max()
                                      / ref.abs().max()))
-    print(f"[reference] depth-cut PaliGemma (2+2 layers, full width): "
-          f"prefill + {steps} decode steps, max |card - cpu| / max|cpu| = "
-          f"{worst:.3e} (tol {REF_TOL:.0e}) ({gpu})")
+    print(f"[reference {quantization}] depth-cut PaliGemma (2+2 layers, "
+          f"full width): prefill + {steps} decode steps, max |card - cpu| / "
+          f"max|cpu| = {worst:.3e} (tol {REF_TOL:.0e}) ({gpu})")
     if worst > REF_TOL:
         raise RuntimeError("card disagrees with the CPU reference")
 
@@ -239,19 +272,34 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{_lib.last_build['seconds']:.1f} s) ({gpu})")
     records = kernel_phase(gpu)
-    launches, _ = slice_phase(torch, np, gpu)
-    reference_phase(torch, np, gpu)
+    launches = {}
+    for quantization in ("bf16", "8bit"):
+        path, _ = slice_phase(torch, np, gpu, quantization)
+        reference_phase(torch, np, gpu, quantization)
+        for name, n in path.items():
+            launches[name] = launches.get(name, 0) + n
 
     kernels = []
     for key, meta in KERNELS.items():
-        mine = [r for r in records if r["kernel"] == key]
-        main_case = next(r for r in mine if r["on_path"])
-        kernels.append({
+        forms = []
+        for form in meta["forms"]:
+            mine = [r for r in records if r["form"] == form]
+            main_case = next(r for r in mine if r["on_path"])
+            forms.append({
+                "form": form, "launches": launches[form],
+                "max_abs_err": max(r["max_abs_err"] for r in mine),
+                "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                "case": main_case["case"]})
+        entry = {
             "name": meta["name"], "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches[meta["name"]],
-            "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "case": main_case["case"]})
+            "replaces": meta["replaces"],
+            "launches": sum(f["launches"] for f in forms),
+            "max_abs_err": max(f["max_abs_err"] for f in forms),
+            "ms": forms[0]["ms"], "plain_ms": forms[0]["plain_ms"],
+            "case": forms[0]["case"]}
+        if len(forms) > 1:
+            entry["forms"] = forms
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ def card():
 def test_every_kernel_matches_plain(card):
     from vlm_tpu_torch.testing import kernel_checks
     records = kernel_checks.run(card, iters=2)
-    assert {r["kernel"] for r in records} == {"B1", "B2", "B3", "B4"}
+    assert {r["kernel"] for r in records} == {"B1", "B2", "B3", "B4", "B5",
+                                              "B6"}
     bad = [r for r in records if not r["ok"]]
     assert not bad, bad
 
@@ -44,3 +45,26 @@ def test_wrappers_launch_on_cuda_and_never_fall_back(card):
     with pytest.raises(TypeError, match="bfloat16"):
         normalize_images(u8, recipe=RECIPES["paligemma"],
                          compute_dtype=torch.float32)
+
+
+def test_int8_wrappers_launch_on_cuda_and_raise_on_wrong_types(card):
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.quant import (int8_matmul, int8xint8_matmul,
+                                         quantize_activations)
+    _lib.reset_counts()
+    x = torch.randn(4, 64, device=card, dtype=torch.bfloat16)
+    q = torch.randint(-127, 128, (32, 64), device=card).to(torch.int8)
+    s = torch.rand(32, device=card)
+    int8_matmul(x, q, s)
+    qx, sx = quantize_activations(x)
+    int8xint8_matmul(qx, sx, q, s)
+    torch.cuda.synchronize()
+    assert _lib.launches["int8_matmul"] == 1
+    assert _lib.launches["int8xint8_matmul"] == 1
+    assert _lib.plain_calls["int8_matmul"] == 0
+    with pytest.raises(TypeError, match="int8"):
+        int8_matmul(x, q.float(), s)
+    with pytest.raises(TypeError, match="bfloat16"):
+        int8_matmul(x.float(), q, s)
+    with pytest.raises(ValueError, match="K % 16"):
+        int8_matmul(x[:, :40], q[:, :40].contiguous(), s)

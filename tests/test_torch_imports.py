@@ -1,7 +1,8 @@
 """The port stands without JAX: a fresh interpreter imports every module of
-vlm_tpu_torch and runs a tiny slice end to end (model, batcher, all four
-ops' CPU versions), and neither jax, flax nor triton is ever imported, nor
-is the kernel library built."""
+vlm_tpu_torch and runs two tiny slices end to end (model, batcher, every
+op's CPU version: fp32, then 8bit with the int8 KV cache and a prompt long
+enough for the llm.int8 prefill), and neither jax, flax nor triton is ever
+imported, nor is the kernel library built."""
 
 import json
 import subprocess
@@ -25,21 +26,27 @@ from vlm_tpu_torch.models.factory import create_model
 from vlm_tpu_torch.models.vlm import num_image_tokens
 from vlm_tpu_torch.ops import _lib
 from vlm_tpu_torch.ops.preprocess import normalize_images
-model = create_model("paligemma", quantization="fp32", size="test",
-                     device="cpu")
-s = model.cfg.vision.image_size
-u8 = np.random.default_rng(0).integers(0, 256, (5, s, s, 3), dtype=np.uint8)
-plen = num_image_tokens(model.cfg) + 2
-out = ContinuousBatcher(model.module, model.cfg, batch_size=2,
-                        max_prompt_len=plen, max_new_tokens=3).run(
-    lambda idxs: normalize_images(torch.from_numpy(u8[idxs]),
-                                  recipe=model.recipe,
-                                  compute_dtype=torch.float32),
-    pre_ids_row=np.zeros((0,), np.int32),
-    post_ids_row=np.asarray([2, 9], np.int32), prompt_len_scalar=plen,
-    n_images=5)
+def serve(quantization, post, **kw):
+    model = create_model("paligemma", quantization=quantization, size="test",
+                         device="cpu", **kw)
+    s = model.cfg.vision.image_size
+    u8 = np.random.default_rng(0).integers(0, 256, (5, s, s, 3),
+                                           dtype=np.uint8)
+    plen = num_image_tokens(model.cfg) + len(post)
+    return ContinuousBatcher(model.module, model.cfg, batch_size=2,
+                             max_prompt_len=plen, max_new_tokens=3,
+                             cache_dtype=model.cache_dtype).run(
+        lambda idxs: normalize_images(torch.from_numpy(u8[idxs]),
+                                      recipe=model.recipe,
+                                      compute_dtype=model.dtype),
+        pre_ids_row=np.zeros((0,), np.int32),
+        post_ids_row=np.asarray(post, np.int32), prompt_len_scalar=plen,
+        n_images=5)
+out = serve("fp32", [2, 9])
+# 2 x (16 + 250) = 532 prefill rows: the llm.int8 product
+out8 = serve("8bit", [2] + [9] * 249, kv_cache="int8")
 print(json.dumps({
-    "modules": mods, "tokens": out,
+    "modules": mods, "tokens": out, "tokens8": out8,
     "loaded": sorted(m for m in ("jax", "flax", "triton") if m in sys.modules),
     "plain_calls": _lib.plain_calls, "lib_loaded": _lib._lib is not None}))
 """
@@ -57,6 +64,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert {"vlm_tpu_torch.models.base_model", "vlm_tpu_torch.ops.kvcache",
             "vlm_tpu_torch.scripts.prompt_inference",
             "vlm_tpu_torch.testing.kernel_checks"} <= set(res["modules"])
-    assert len(res["tokens"]) == 5
-    assert all(t is not None and len(t) <= 3 for t in res["tokens"])
+    for toks in (res["tokens"], res["tokens8"]):
+        assert len(toks) == 5
+        assert all(t is not None and len(t) <= 3 for t in toks)
     assert min(res["plain_calls"].values()) > 0

@@ -98,8 +98,10 @@ def test_layernorm_and_dense():
 
 
 def test_dense_quantized_modes_point_to_roadmap():
-    with pytest.raises(NotImplementedError, match="A10"):
-        layers.Dense(4, 4, quant_bits=8)
+    """8bit is ported (int8 q [out, in], fp32 scale [out]); 4bit is A11."""
+    d = layers.Dense(4, 6, quant_bits=8)
+    assert d.q.dtype == torch.int8 and tuple(d.q.shape) == (6, 4)
+    assert d.scale.dtype == torch.float32 and tuple(d.scale.shape) == (6,)
     with pytest.raises(NotImplementedError, match="A11"):
         layers.Dense(4, 4, quant_bits=4)
 
@@ -248,9 +250,16 @@ def test_model_classes_and_roadmap_errors():
         assert torch.equal(a, b)                   # seeded random init
     assert create_model("paligemma", quantization="fp16", size="test",
                         device="cpu").dtype == torch.bfloat16
-    for kw, item in ((dict(quantization="8bit"), "A10"),
-                     (dict(quantization="4bit"), "A11"),
-                     (dict(kv_cache="int8"), "A10"),
+    # 8bit: bf16 compute with int8 block weights; the int8 KV cache
+    m8 = create_model("paligemma", quantization="8bit", size="test",
+                      device="cpu")
+    assert m8.dtype == torch.bfloat16 and m8.policy.quantized_bits == 8
+    assert m8.module.decoder.blocks[0].mlp.down_proj.q.dtype == torch.int8
+    assert m8.module.vision.blocks[0].fc1.weight.dtype == torch.bfloat16
+    assert m8.cache_dtype == torch.bfloat16
+    assert create_model("paligemma", size="test", device="cpu",
+                        kv_cache="int8").cache_dtype == "int8"
+    for kw, item in ((dict(quantization="4bit"), "A11"),
                      (dict(mesh={"data": 1, "model": 2}), "A17"),
                      (dict(model_id="/nonexistent"), "A14")):
         with pytest.raises(NotImplementedError, match=item):
@@ -274,7 +283,7 @@ def test_run_zero_shot_through_port(mivia_base, tmp_path):
     assert (tmp_path / "out" / "metrics.json").exists()
 
 
-def test_cli_runs_the_port(mivia_base, tmp_path, monkeypatch):
+def _run_cli(mivia_base, tmp_path, monkeypatch, **extra):
     import yaml
 
     from vlm_tpu.data.dataset_factory import DatasetFactory
@@ -283,7 +292,7 @@ def test_cli_runs_the_port(mivia_base, tmp_path, monkeypatch):
            "quantization": "fp32", "dataset_name": "MiviaPar",
            "max_tokens": 2, "batch_size": 2,
            "dataset": {"base_path": str(mivia_base)},
-           "prompts": {"MiviaPar": "colors?"}}
+           "prompts": {"MiviaPar": "colors?"}, **extra}
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(cfg))
     monkeypatch.setenv("VLM_TPU_ROOT", str(tmp_path))
@@ -295,5 +304,27 @@ def test_cli_runs_the_port(mivia_base, tmp_path, monkeypatch):
     DatasetFactory.load_task_map(force=True)
     summary = main(["--config", str(path), "--limit", "3"])
     assert summary["images_completed"] == 3
-    assert (tmp_path / "eval" / "prompt_inference" / "paligemma_fp32" /
-            "MiviaPar" / "metrics.json").exists()
+    assert (tmp_path / "eval" / "prompt_inference" /
+            f"paligemma_{cfg['quantization']}" / "MiviaPar" /
+            "metrics.json").exists()
+
+
+def test_cli_runs_the_port(mivia_base, tmp_path, monkeypatch):
+    _run_cli(mivia_base, tmp_path, monkeypatch)
+
+
+def test_cli_runs_the_port_8bit_int8_kv(mivia_base, tmp_path, monkeypatch):
+    """8bit weights, the int8 KV cache, a quantized tower and the
+    ``int8_prefill`` key, which the CLI hands to the int8 layers through
+    ``VLM_TPU_INT8_PREFILL`` (restored afterwards by monkeypatch)."""
+    from vlm_tpu_torch.ops import _lib
+    monkeypatch.setenv("VLM_TPU_INT8_PREFILL", "dynamic")
+    _lib.reset_counts()
+    _run_cli(mivia_base, tmp_path, monkeypatch, quantization="8bit",
+             kv_cache="int8", quantize_vision=True,
+             int8_prefill="dynamic_noout")
+    import os
+    assert os.environ["VLM_TPU_INT8_PREFILL"] == "dynamic_noout"
+    assert min(_lib.plain_calls[k] for k in (
+        "int8_matmul", "kv_write_int8", "decode_attention_int8")) > 0
+    assert _lib.plain_calls["kv_write"] == 0

@@ -11,6 +11,20 @@
 // when the row allows it, and the write offset read on the device so the
 // host never waits for it. It copies bytes, so any cache dtype works.
 // Offsets outside [0, L) write nothing, like the reference's masked write.
+//
+// int8 form (`vlm_kv_write_int8`): replaces the same kernel on an int8
+// cache together with the quantize step in front of it
+// (vlm_tpu/models/decoder.py `_write_kv` -> `quantize_kv_rows`). Each new
+// bf16 (slot, row, kv head) row is quantized by abs-max/127 and its int8
+// values and fp32 scale are written in place, fused in one launch. S rows
+// per slot land at columns start .. start + S - 1, so the same launch
+// serves the decode step (S = 1, uniform or per-slot column) and the
+// prefill (S = prompt length at column 0): admission quantizes on the card
+// too. One warp per (slot, row, kv head) row, D <= 256 values in registers.
+// The arithmetic is `quantize_activations`' bit for bit: the scale is
+// max(absmax, 1e-8) / 127 in fp32, each value x / scale by IEEE division
+// (no reciprocal, no fast math), rounded half to even (rintf), clamped to
+// +-127.
 #include "common.cuh"
 
 namespace {
@@ -39,6 +53,51 @@ __global__ void kv_write_kernel(char* __restrict__ k_cache,
   }
 }
 
+constexpr int kMaxD = 256;
+constexpr int kPerLane = kMaxD / 32;
+
+// grid (B * S, 2): block (slot b, new row s) of K (y = 0) or V (y = 1)
+__global__ void kv_write_int8_kernel(int8_t* __restrict__ k_q,
+                                     float* __restrict__ k_s,
+                                     int8_t* __restrict__ v_q,
+                                     float* __restrict__ v_s,
+                                     const __nv_bfloat16* __restrict__ k_new,
+                                     const __nv_bfloat16* __restrict__ v_new,
+                                     const int* __restrict__ start, int uniform,
+                                     int S, int L, int KV, int D) {
+  const int b = blockIdx.x / S;
+  const int s = blockIdx.x - b * S;
+  const int pos = (uniform ? start[0] : start[b]) + s;
+  if (pos < 0 || pos >= L) return;
+  const bool is_v = blockIdx.y != 0;
+  const __nv_bfloat16* src =
+      (is_v ? v_new : k_new) + (int64_t)blockIdx.x * KV * D;
+  const int64_t cache_row = (int64_t)b * L + pos;
+  int8_t* dq = (is_v ? v_q : k_q) + cache_row * KV * D;
+  float* ds = (is_v ? v_s : k_s) + cache_row * KV;
+  const int lane = threadIdx.x % 32;
+  for (int h = threadIdx.x / 32; h < KV; h += blockDim.x / 32) {
+    float vals[kPerLane];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int d = lane + 32 * i;
+      vals[i] = d < D ? __bfloat162float(src[h * D + d]) : 0.f;
+      amax = fmaxf(amax, fabsf(vals[i]));
+    }
+    amax = vlm::warp_max(amax);
+    const float scale = fmaxf(amax, 1e-8f) / 127.0f;
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int d = lane + 32 * i;
+      if (d < D)
+        dq[h * D + d] = static_cast<int8_t>(
+            fminf(fmaxf(rintf(__fdiv_rn(vals[i], scale)), -127.f), 127.f));
+    }
+    if (lane == 0) ds[h] = scale;
+  }
+}
+
 }  // namespace
 
 extern "C" int vlm_kv_write(void* k_cache, void* v_cache, const void* k_new,
@@ -50,5 +109,23 @@ extern "C" int vlm_kv_write(void* k_cache, void* v_cache, const void* k_new,
       static_cast<char*>(k_cache), static_cast<char*>(v_cache),
       static_cast<const char*>(k_new), static_cast<const char*>(v_new), start,
       uniform, L, row_bytes, cache_sb, new_sb);
+  return (int)cudaGetLastError();
+}
+
+// Caches: values [B, L, KV, D] int8, scales [B, L, KV, 1] fp32; new rows
+// [B, S, KV, D] bf16; all contiguous.
+extern "C" int vlm_kv_write_int8(void* k_q, void* k_s, void* v_q, void* v_s,
+                                 const void* k_new, const void* v_new,
+                                 const int* start, int uniform, int B, int S,
+                                 int L, int KV, int D, void* stream) {
+  if (B <= 0 || S <= 0 || KV <= 0 || D <= 0 || D > kMaxD)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid(B * S, 2);
+  const int threads = 32 * (KV < 8 ? KV : 8);
+  kv_write_int8_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(k_q), static_cast<float*>(k_s),
+      static_cast<int8_t*>(v_q), static_cast<float*>(v_s),
+      static_cast<const __nv_bfloat16*>(k_new),
+      static_cast<const __nv_bfloat16*>(v_new), start, uniform, S, L, KV, D);
   return (int)cudaGetLastError();
 }

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..data.pipeline import prefetch_batches
-from ..models.decoder import init_kv_cache
+from ..models.decoder import QuantizedKV, init_kv_cache
 from ..models.vlm import VLMModule
 from .decode import sample
 
@@ -49,7 +49,8 @@ class ContinuousBatcher:
                  admit_block: Optional[int] = None,
                  eos_id: Optional[int] = None, pad_id: Optional[int] = None,
                  temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 cache_dtype=None):
         self.module = module
         self.cfg = cfg
         self.device = module.device
@@ -57,7 +58,8 @@ class ContinuousBatcher:
         self.max_new_tokens = max_new_tokens
         self.max_prompt_len = max_prompt_len
         self.cache_len = max_prompt_len + max_new_tokens
-        self.cache_dtype = module.dtype
+        # "int8" for the quantized cache; default: the compute dtype
+        self.cache_dtype = cache_dtype or module.dtype
         self.eos_id = cfg.decoder.eos_token_id if eos_id is None else eos_id
         self.pad_id = cfg.decoder.pad_token_id if pad_id is None else pad_id
         # ~8 slots per admission, fewer for small batches (vlm_tpu's default;
@@ -112,7 +114,11 @@ class ContinuousBatcher:
                                    prompt_len)
         for full, part in zip(cache["k"] + cache["v"],
                               group["k"] + group["v"]):
-            full[slots, :p] = part                      # in place
+            if isinstance(full, QuantizedKV):           # values and scales
+                for f, t in zip(full, part):
+                    f[slots, :p] = t
+            else:
+                full[slots, :p] = part                  # in place
         first = self._sample(last)
         act_new = (first != self.eos_id) & (caps_new > 1)
         state["hist"][slots] = self.pad_id

@@ -21,22 +21,28 @@ from .configs import VLM_CONFIGS, VLMConfig
 from .layers import init_random_
 from .vlm import VLMModule, num_image_tokens
 
-_DTYPES = {"fp32": torch.float32, "fp16": torch.bfloat16,
-           "bf16": torch.bfloat16}
+@dataclasses.dataclass(frozen=True)
+class DTypePolicy:
+    """Compute dtype and integer weight bits of one quantization mode."""
+    compute_dtype: torch.dtype
+    quantized_bits: int = 0
 
 
-def compute_dtype_for(quantization: Optional[str]) -> torch.dtype:
-    """fp32 -> float32; fp16/bf16 -> bfloat16 (``vlm_tpu``'s policy); the
-    integer weight modes are not ported yet."""
+def policy_for(quantization: Optional[str]) -> DTypePolicy:
+    """``vlm_tpu/core/dtypes.py``'s policy: fp32 -> float32; fp16/bf16 ->
+    bfloat16; 8bit -> bfloat16 compute with int8 weights. 4bit is not
+    ported yet."""
     q = (quantization or "fp32").lower()
+    if q == "fp32":
+        return DTypePolicy(torch.float32)
+    if q in ("fp16", "bf16"):
+        return DTypePolicy(torch.bfloat16)
     if q == "8bit":
-        raise NotImplementedError("8bit is not ported yet (ROADMAP A10)")
+        return DTypePolicy(torch.bfloat16, quantized_bits=8)
     if q == "4bit":
         raise NotImplementedError("4bit is not ported yet (ROADMAP A11)")
-    if q not in _DTYPES:
-        raise ValueError(f"Unknown quantization {quantization!r}; allowed: "
-                         f"fp32 fp16 bf16 8bit 4bit")
-    return _DTYPES[q]
+    raise ValueError(f"Unknown quantization {quantization!r}; allowed: "
+                     f"fp32 fp16 bf16 8bit 4bit")
 
 
 class VLMModel:
@@ -58,14 +64,12 @@ class VLMModel:
         if mesh and int((mesh or {}).get("model", 1)) > 1:
             raise NotImplementedError("tensor parallelism (mesh.model > 1) is "
                                       "not ported yet (ROADMAP A17)")
-        if quantize_vision:
-            raise NotImplementedError("a quantized vision tower is not "
-                                      "ported yet (ROADMAP A10)")
-        if str(kv_cache or "").lower() == "int8":
-            raise NotImplementedError("the int8 KV cache is not ported yet "
-                                      "(ROADMAP A10)")
         self.quantization = quantization
-        self.dtype = compute_dtype_for(quantization)
+        self.policy = policy_for(quantization)
+        self.dtype = self.policy.compute_dtype
+        #: "int8" (QuantizedKV layers) or the compute dtype
+        self.cache_dtype = "int8" if str(kv_cache or "").lower() == "int8" \
+            else self.dtype
         self.device = torch.device(device or (
             "cuda" if torch.cuda.is_available() else "cpu"))
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
@@ -78,8 +82,10 @@ class VLMModel:
         if self.recipe.image_size != self.cfg.vision.image_size:
             self.recipe = dataclasses.replace(
                 self.recipe, image_size=self.cfg.vision.image_size)
-        self.module = VLMModule(self.cfg, dtype=self.dtype,
-                                device=self.device)
+        bits = self.policy.quantized_bits
+        self.module = VLMModule(
+            self.cfg, dtype=self.dtype, device=self.device, quant_bits=bits,
+            vision_quant_bits=bits if quantize_vision else 0)
         init_random_(self.module, seed)
         self.module.eval()
         self._tokenizer = None
@@ -133,7 +139,8 @@ class VLMModel:
             self.module, self.cfg, batch_size=batch_size or self.batch_size,
             max_prompt_len=int(prompt_len[0]), max_new_tokens=max_tokens,
             eos_id=tok.eos_id, pad_id=tok.pad_id, temperature=temperature,
-            top_k=top_k, top_p=top_p, generator=generator)
+            top_k=top_k, top_p=top_p, generator=generator,
+            cache_dtype=self.cache_dtype)
         token_lists = batcher.run(
             pixel_fn, pre_ids_row=pre_ids[0].numpy(),
             post_ids_row=post_ids[0].numpy(),

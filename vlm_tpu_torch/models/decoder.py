@@ -3,14 +3,17 @@ Gemma's ``(1+w)`` RMSNorm and sqrt(hidden) embedding scale, half-rotation
 RoPE in fp32, MQA/GQA, the gated ``gelu_tanh`` MLP and the tied head.
 
 The KV cache is a dict of per-layer tuples of ``[B, max_len, KV, D]``
-tensors, updated in place (JAX donated the buffers instead). Activations
-keep the ``[B, S, H, D]`` layout of the projections; attention reads them
-through strided views, so no head transpose is ever copied.
+tensors, or of :class:`QuantizedKV` pairs for the int8 cache, updated in
+place (JAX donated the buffers instead). Activations keep the
+``[B, S, H, D]`` layout of the projections; attention reads them through
+strided views, so no head transpose is ever copied. ``quant_bits=8`` makes
+the block Dense layers int8; the embedding and the tied head stay in the
+compute dtype, as in ``vlm_tpu``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -18,7 +21,9 @@ from torch import nn
 
 from ..ops.attention import flash_attention
 from ..ops.decode_attention import decode_attention
-from ..ops.kvcache import kv_scatter_write, kv_uniform_write
+from ..ops.kvcache import (kv_quantized_write, kv_scatter_write,
+                           kv_uniform_write)
+from ..ops.quant import quantize_activations
 from .configs import DecoderConfig
 from .layers import Dense, RMSNorm, activation
 
@@ -49,37 +54,66 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cos: torch.Tensor,
 
 # ------------------------- KV cache -------------------------
 
+class QuantizedKV(NamedTuple):
+    """One int8 cache layer: ``q`` [B, max_len, KV, D] int8 and ``scale``
+    [B, max_len, KV, 1] fp32, ``value ~= q * scale``."""
+    q: torch.Tensor
+    scale: torch.Tensor
+
+
+def quantize_kv_rows(x: torch.Tensor) -> QuantizedKV:
+    """abs-max/127 int8 quantization of every (slot, row, kv head) row of
+    [B, S, KV, D]: ``quantize_activations``, as in ``vlm_tpu``."""
+    return QuantizedKV(*quantize_activations(x))
+
+
+def dequantize_kv(ckv: QuantizedKV, dtype) -> torch.Tensor:
+    """The product formed in fp32, rounded to ``dtype`` once."""
+    return (ckv.q.float() * ckv.scale).to(dtype)
+
+
 def init_kv_cache(cfg: DecoderConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device=None) -> Dict[str, tuple]:
-    """Per-layer tuples of zeroed ``k``/``v`` [B, max_len, KV, D] tensors:
-    a layer's write touches only its own buffer."""
-    if dtype == "int8" or dtype == torch.int8:
-        raise NotImplementedError("the int8 KV cache is not ported yet "
-                                  "(ROADMAP A10: int8 forms of B2 and B3)")
+    """Per-layer tuples of zeroed ``k``/``v`` [B, max_len, KV, D] tensors,
+    or :class:`QuantizedKV` layers for ``dtype`` ``"int8"``: a layer's
+    write touches only its own buffers."""
     shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
-    return {"k": tuple(torch.zeros(shape, dtype=dtype, device=device)
-                       for _ in range(cfg.layers)),
-            "v": tuple(torch.zeros(shape, dtype=dtype, device=device)
-                       for _ in range(cfg.layers))}
+
+    def layer():
+        if dtype == "int8" or dtype == torch.int8:
+            return QuantizedKV(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                            device=device))
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return {"k": tuple(layer() for _ in range(cfg.layers)),
+            "v": tuple(layer() for _ in range(cfg.layers))}
 
 
-def write_kv(ck: torch.Tensor, cv: torch.Tensor, k: torch.Tensor,
-             v: torch.Tensor, start: Union[int, torch.Tensor],
-             uniform: bool = False) -> None:
+def write_kv(ck, cv, k: torch.Tensor, v: torch.Tensor,
+             start: Union[int, torch.Tensor], uniform: bool = False) -> None:
     """Write ``k``/``v`` [B, S, KV, D] into the caches at ``start``, in place
     (``vlm_tpu``'s ``_write_kv``). One row per slot goes through B3: at the
     shared column ``start[0]`` (``uniform``) or at each slot's ``start[b]``.
     The prefill's rows (``start`` an int, every slot from the same column)
-    are a slice copy."""
+    are a slice copy. An int8 cache (:class:`QuantizedKV`) takes every
+    write, the prefill's too, through B3's int8 form, which quantizes the
+    rows and writes values and scales."""
     s = k.shape[1]
-    if s == 1:
+    if s > 1 and not (uniform and isinstance(start, int)):
+        raise ValueError("a multi-row KV write needs one shared int column")
+    if isinstance(ck, QuantizedKV):
+        if isinstance(start, int):
+            start = torch.full((1,), start, dtype=torch.int32,
+                               device=k.device)
+        kv_quantized_write(ck, cv, k.contiguous(), v.contiguous(), start,
+                           uniform)
+    elif s == 1:
         writer = kv_uniform_write if uniform else kv_scatter_write
         writer(ck, cv, k, v, start)
-    elif uniform and isinstance(start, int):
+    else:
         ck[:, start:start + s] = k
         cv[:, start:start + s] = v
-    else:
-        raise ValueError("a multi-row KV write needs one shared int column")
 
 
 # ------------------------- modules -------------------------
@@ -110,10 +144,16 @@ class DecoderAttention(nn.Module):
             write_kv(cache_kv[0], cache_kv[1], k, v, write_start,
                      uniform=uniform_write)
         if cache_kv is not None and s == 1:
-            # decode step: attend over the cache in its own layout
-            o = decode_attention(q.transpose(1, 2), cache_kv[0], cache_kv[1],
-                                 kv_len=kv_len, kv_valid=kv_valid,
-                                 kv_window=kv_window)
+            # decode step: attend over the cache in its own layout; an int8
+            # cache enters raw, its scales ride the scores
+            ck, cv = cache_kv
+            scales = {}
+            if isinstance(ck, QuantizedKV):
+                (ck, ks), (cv, vs) = ck, cv
+                scales = dict(k_scale=ks, v_scale=vs)
+            o = decode_attention(q.transpose(1, 2), ck, cv, kv_len=kv_len,
+                                 kv_valid=kv_valid, kv_window=kv_window,
+                                 **scales)
         else:
             # prefill or full forward: self-attention over the new tokens
             o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
@@ -137,7 +177,8 @@ class DecoderMLP(nn.Module):
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: DecoderConfig, dd: dict):
         super().__init__()
-        norm = dict(eps=cfg.norm_eps, gemma_style=cfg.gemma_norm, **dd)
+        norm = dict(eps=cfg.norm_eps, gemma_style=cfg.gemma_norm,
+                    dtype=dd["dtype"], device=dd["device"])
         self.input_norm = RMSNorm(cfg.hidden, **norm)
         self.attn = DecoderAttention(cfg, dd)
         self.post_attn_norm = RMSNorm(cfg.hidden, **norm)
@@ -166,7 +207,7 @@ class Decoder(nn.Module):
     [B,S,H]; returns ``logits``."""
 
     def __init__(self, cfg: DecoderConfig, *, dtype=torch.float32,
-                 device=None):
+                 device=None, quant_bits: int = 0):
         super().__init__()
         unsupported = []
         if cfg.norm != "rmsnorm" or not cfg.final_norm:
@@ -185,7 +226,8 @@ class Decoder(nn.Module):
         self.dtype = dtype
         dd = dict(dtype=dtype, device=device)
         self.embed = Embed(cfg.vocab_size, cfg.hidden, **dd)
-        self.blocks = nn.ModuleList(DecoderBlock(cfg, dd)
+        block_dd = dict(dd, quant_bits=quant_bits)
+        self.blocks = nn.ModuleList(DecoderBlock(cfg, block_dd)
                                     for _ in range(cfg.layers))
         self.final_norm = RMSNorm(cfg.hidden, cfg.norm_eps,
                                   gemma_style=cfg.gemma_norm, **dd)

@@ -3,7 +3,10 @@ variants by :class:`ViTConfig`.
 
 Pixels come in NHWC, as in JAX. The patch embedding is an unfold plus one
 matmul (the weight holds the HWIO conv kernel flattened to
-``[hidden, P*P*3]``); attention runs through B1.
+``[hidden, P*P*3]``); attention runs through B1. ``quant_bits=8`` makes the
+block Dense layers (q/k/v/out, fc1/fc2) int8, as ``vlm_tpu``'s
+``quantize_vision``; the patch embedding and the norms stay in the compute
+dtype.
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ class ViTEncoder(nn.Module):
     ``hidden_states`` (embeddings first, or None) and ``pooled`` [B,D]
     (CLS after the final LN; None without a CLS token)."""
 
-    def __init__(self, cfg: ViTConfig, *, dtype=torch.float32, device=None):
+    def __init__(self, cfg: ViTConfig, *, dtype=torch.float32, device=None,
+                 quant_bits: int = 0):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -78,7 +82,8 @@ class ViTEncoder(nn.Module):
         norm = dict(eps=cfg.layer_norm_eps, **dd)
         self.pre_ln = LayerNorm(cfg.hidden, **norm) if cfg.pre_layernorm \
             else None
-        self.blocks = nn.ModuleList(ViTBlock(cfg, dd)
+        block_dd = dict(dd, quant_bits=quant_bits)
+        self.blocks = nn.ModuleList(ViTBlock(cfg, block_dd)
                                     for _ in range(cfg.layers))
         self.post_ln = LayerNorm(cfg.hidden, **norm)
 

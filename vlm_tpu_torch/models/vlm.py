@@ -18,13 +18,20 @@ from .vit import ViTEncoder
 
 
 class VLMModule(nn.Module):
-    def __init__(self, cfg: VLMConfig, *, dtype=torch.float32, device=None):
+    """``quant_bits`` (8 or 0): the decoder blocks' weights;
+    ``vision_quant_bits``: the vision blocks' (``quantize_vision``). The
+    patch embedding, the projector and the tied head stay in ``dtype``."""
+
+    def __init__(self, cfg: VLMConfig, *, dtype=torch.float32, device=None,
+                 quant_bits: int = 0, vision_quant_bits: int = 0):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
-        self.vision = ViTEncoder(cfg.vision, dtype=dtype, device=device)
+        self.vision = ViTEncoder(cfg.vision, dtype=dtype, device=device,
+                                 quant_bits=vision_quant_bits)
         self.projector = build_projector(cfg, dtype=dtype, device=device)
-        self.decoder = Decoder(cfg.decoder, dtype=dtype, device=device)
+        self.decoder = Decoder(cfg.decoder, dtype=dtype, device=device,
+                               quant_bits=quant_bits)
 
     @property
     def device(self) -> torch.device:

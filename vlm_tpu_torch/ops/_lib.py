@@ -34,7 +34,10 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("flash_attention", "decode_attention", "kv_write", "normalize")
+# one count per kernel form: B2 and B3 each have a bf16 and an int8 form
+KERNELS = ("flash_attention", "decode_attention", "decode_attention_int8",
+           "kv_write", "kv_write_int8", "normalize", "int8_matmul",
+           "int8xint8_matmul")
 launches = {name: 0 for name in KERNELS}
 plain_calls = {name: 0 for name in KERNELS}
 
@@ -44,13 +47,18 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "vlm_flash_attention": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
-    "vlm_decode_attention": [_P] * 9 + [_I] * 7 + [_L] * 6 + [_F, _P],
+    "vlm_decode_attention": [_P] * 11 + [_I] * 7 + [_L] * 6 + [_F, _P],
     "vlm_kv_write": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],
+    "vlm_kv_write_int8": [_P] * 7 + [_I] * 6 + [_P],
     "vlm_normalize": [_P, _P, _L, _P, _P, _P],
+    "vlm_int8_matmul": [_P] * 6 + [_I] * 4 + [_P],
+    "vlm_int8xint8_matmul": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_sm_counts: dict = {}
+_tile_counters: dict = {}
 #: what the last build did: {"path", "seconds", "cached", "log"}
 last_build: dict = {}
 
@@ -130,6 +138,33 @@ def launch(kernel: str, fn_name: str, *args) -> None:
     launches[kernel] += 1
 
 
+def split_k(device: torch.device, tiles: int, k_tiles: int, per_sm: int,
+            max_splits: int, min_k_tiles: int) -> int:
+    """How many blocks share each output tile's K range (the GEMMs'
+    split-K), so that about ``per_sm`` blocks per SM are in flight, each
+    with at least ``min_k_tiles`` K steps; no split is left empty."""
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    target = per_sm * _sm_counts[device.index]
+    if tiles >= target:
+        return 1
+    splits = max(1, min(-(-target // tiles), max_splits,
+                        k_tiles // min_k_tiles))
+    per = -(-k_tiles // splits)
+    return -(-k_tiles // per)
+
+
+def tile_counters(device: torch.device, n: int) -> torch.Tensor:
+    """Zeroed int32 arrival counters, one per output tile, for split-K
+    launches on ``device``; every launch leaves them zeroed again."""
+    buf = _tile_counters.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _tile_counters[device.index] = buf
+    return buf
+
+
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -144,10 +179,23 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
 
 
 def check_bf16(name: str, *tensors: torch.Tensor) -> None:
+    check_dtype(name, torch.bfloat16, *tensors)
+
+
+def check_dtype(name: str, dtype: torch.dtype, *tensors: torch.Tensor) -> None:
     for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: the CUDA kernel takes {dtype}, got "
                             f"{t.dtype}")
+
+
+def check_contiguous(name: str, *tensors: torch.Tensor) -> None:
+    """Contiguous, with a 16-byte aligned base (the kernels' vector loads)."""
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: needs contiguous, 16-byte aligned "
+                             f"tensors, got shape {tuple(t.shape)} strides "
+                             f"{t.stride()}")
 
 
 def is_cpu(t: torch.Tensor, name: str) -> bool:

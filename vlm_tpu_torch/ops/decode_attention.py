@@ -8,6 +8,10 @@ batcher's rotating window as scalars (``pcol`` an int or a 0-d tensor,
 ``W`` an int, ``acol``/``gcnt`` ``[B]``), which replaces ``kv_valid`` and
 composes with ``kv_len``. Contract of ``vlm_tpu``'s
 ``flash_decode_attention``: a fully masked row returns 0, not the mean of V.
+
+An int8 cache comes with ``k_scale``/``v_scale`` ``[B, S, KV, 1]`` fp32
+(the int8 form of B2): the scales multiply the scores and the
+probabilities, ``q.(k8 s) == (q.k8) s``, and the values enter as int8.
 """
 
 from __future__ import annotations
@@ -47,24 +51,47 @@ def live_rows(b: int, s_total: int, device, kv_len=None, kv_valid=None,
     return live
 
 
+def _row_scale(scale: torch.Tensor) -> torch.Tensor:
+    """[B, S, KV, 1] per-row scales -> [B, KV, 1, S] against the scores."""
+    return scale[..., 0].float().permute(0, 2, 1)[:, :, None, :]
+
+
+def _check_scales(k, k_scale, v_scale):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale must be given together")
+    if (k.dtype == torch.int8) != (k_scale is not None):
+        raise ValueError("an int8 cache needs k_scale/v_scale, and only an "
+                         "int8 cache takes them")
+
+
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, kv_len: Optional[torch.Tensor] = None,
                            kv_valid: Optional[torch.Tensor] = None,
-                           kv_window: Optional[Tuple] = None) -> torch.Tensor:
+                           kv_window: Optional[Tuple] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Streaming-softmax semantics in one pass: fp32 scores, masked rows
-    weigh 0, the denominator is clamped to 1e-30."""
-    _lib.plain_calls["decode_attention"] += 1
+    weigh 0, the denominator is clamped to 1e-30; int8 caches scale the
+    scores by ``k_scale`` and the probabilities by ``v_scale``."""
+    _check_scales(k, k_scale, v_scale)
+    _lib.plain_calls["decode_attention_int8" if k_scale is not None
+                     else "decode_attention"] += 1
     b, h, _, d = q.shape
     s_total, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     qg = q.reshape(b, kvh, g, d).float()
     s = torch.einsum("bngd,bsnd->bngs", qg, k.float()) * (d ** -0.5)
+    if k_scale is not None:
+        s = s * _row_scale(k_scale)
     live = live_rows(b, s_total, q.device, kv_len, kv_valid,
                      kv_window)[:, None, None, :]
     s = torch.where(live, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(live, torch.exp(s - m), 0.0)
     denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if v_scale is not None:
+        p = p * _row_scale(v_scale)
     out = torch.einsum("bngs,bsnd->bngd", p, v.float()) / denom
     return out.reshape(b, h, 1, d).to(q.dtype)
 
@@ -72,22 +99,38 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_len: Optional[torch.Tensor] = None,
                      kv_valid: Optional[torch.Tensor] = None,
-                     kv_window: Optional[Tuple] = None) -> torch.Tensor:
-    """B2. Returns ``[B, H, 1, D]`` whose memory is ``[B, 1, H, D]``."""
+                     kv_window: Optional[Tuple] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """B2. Returns ``[B, H, 1, D]`` whose memory is ``[B, 1, H, D]``. A
+    bf16 cache, or an int8 cache with its fp32 ``k_scale``/``v_scale``."""
     if _lib.is_cpu(q, "decode_attention"):
         return decode_attention_plain(q, k, v, kv_len=kv_len,
-                                      kv_valid=kv_valid, kv_window=kv_window)
+                                      kv_valid=kv_valid, kv_window=kv_window,
+                                      k_scale=k_scale, v_scale=v_scale)
+    _check_scales(k, k_scale, v_scale)
+    int8 = k_scale is not None
     b, h, sq, d = q.shape
     s_total, kvh = k.shape[1], k.shape[2]
     _lib.check_cuda("decode_attention", q, k, v)
-    _lib.check_bf16("decode_attention", q, k, v)
+    _lib.check_bf16("decode_attention", q)
+    _lib.check_dtype("decode_attention", torch.int8 if int8
+                     else torch.bfloat16, k, v)
     if (sq != 1 or k.shape != (b, s_total, kvh, d) or v.shape != k.shape
-            or h % kvh or h // kvh > 32 or d > 256 or d % 2):
+            or h % kvh or h // kvh > 32 or d > 256 or d % (4 if int8 else 2)):
         raise ValueError(f"decode_attention: unsupported shapes "
                          f"q={tuple(q.shape)} k={tuple(k.shape)}")
     if not (k.is_contiguous() and v.is_contiguous()) or q.stride(3) != 1:
         raise ValueError("decode_attention: needs contiguous caches and a "
                          "contiguous query head dim")
+    if int8:
+        _lib.check_cuda("decode_attention", k_scale, v_scale)
+        _lib.check_dtype("decode_attention", torch.float32, k_scale, v_scale)
+        if (k_scale.shape != (b, s_total, kvh, 1)
+                or v_scale.shape != k_scale.shape
+                or not (k_scale.is_contiguous() and v_scale.is_contiguous())):
+            raise ValueError(f"decode_attention: scales must be contiguous "
+                             f"[B, S, KV, 1], got {tuple(k_scale.shape)}")
     dev = q.device
     i32 = dict(device=dev, dtype=torch.int32)
 
@@ -111,9 +154,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mode = _MODE_LEN
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     _lib.launch(
-        "decode_attention", "vlm_decode_attention",
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(kvl),
-        ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt), b, h, kvh, s_total, d,
+        "decode_attention_int8" if int8 else "decode_attention",
+        "vlm_decode_attention",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(k_scale),
+        ptr(v_scale), ptr(kvl), ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt),
+        b, h, kvh, s_total, d,
         window, mode, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         o.stride(0), o.stride(1), d ** -0.5, _lib.stream_ptr(q))
     return o

@@ -1,8 +1,10 @@
 """In-place KV-cache row writes: the plain masked write and the B3 kernel
-(``csrc/kv_write.cu``).
+(``csrc/kv_write.cu``) in its bf16 and int8 forms.
 
 Caches are ``[B, L, KV, D]``; new rows ``[B, S, KV, D]``; ``start`` ``[B]``
 int on the caches' device, so no write offset ever waits on the host.
+An int8 cache layer is a ``(q, scale)`` pair, values ``[B, L, KV, D]``
+int8 and scales ``[B, L, KV, 1]`` fp32 (``models.decoder.QuantizedKV``).
 Every function updates the caches in place and returns them.
 """
 
@@ -11,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import _lib
+from .quant import quantize_activations
 
 
 def kv_masked_write(cache: torch.Tensor, new: torch.Tensor,
@@ -80,3 +83,52 @@ def kv_scatter_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
                      start: torch.Tensor):
     """B3, scatter mode: slot ``b``'s row lands at column ``start[b]``."""
     return _write(k_cache, v_cache, k_new, v_new, start, uniform=False)
+
+
+def kv_quantized_write_plain(k_cache, v_cache, k_new: torch.Tensor,
+                             v_new: torch.Tensor, start: torch.Tensor,
+                             uniform: bool):
+    """Plain int8 form: ``quantize_activations`` per (slot, row, kv head)
+    row, then the masked write of values and scales."""
+    _lib.plain_calls["kv_write_int8"] += 1
+    pos = start[:1].expand(k_cache[0].shape[0]) if uniform else start
+    for (cq, cs), new in ((k_cache, k_new), (v_cache, v_new)):
+        q, scale = quantize_activations(new)
+        kv_masked_write(cq, q, pos)
+        kv_masked_write(cs, scale, pos)
+    return k_cache, v_cache
+
+
+def kv_quantized_write(k_cache, v_cache, k_new: torch.Tensor,
+                       v_new: torch.Tensor, start: torch.Tensor,
+                       uniform: bool):
+    """B3, int8 form: quantize the new rows ``[B, S, KV, D]`` and write
+    values and scales into the ``(q, scale)`` caches, row ``s`` of slot
+    ``b`` at column ``start[0] + s`` (``uniform``) or ``start[b] + s``."""
+    name = "kv_quantized_write"
+    if _lib.is_cpu(k_new, name):
+        return kv_quantized_write_plain(k_cache, v_cache, k_new, v_new,
+                                        start, uniform)
+    (kq, ks), (vq, vs) = k_cache, v_cache
+    _lib.check_cuda(name, kq, ks, vq, vs, k_new, v_new, start)
+    _lib.check_dtype(name, torch.int8, kq, vq)
+    _lib.check_dtype(name, torch.float32, ks, vs)
+    _lib.check_bf16(name, k_new, v_new)
+    b, length, kvh, d = kq.shape
+    s = k_new.shape[1]
+    if (vq.shape != kq.shape or ks.shape != (b, length, kvh, 1)
+            or vs.shape != ks.shape or k_new.shape != (b, s, kvh, d)
+            or v_new.shape != k_new.shape or d > 256):
+        raise ValueError(f"{name}: rows {tuple(k_new.shape)} do not match "
+                         f"the int8 cache {tuple(kq.shape)} / scales "
+                         f"{tuple(ks.shape)} (D <= 256)")
+    if not all(t.is_contiguous() for t in (kq, ks, vq, vs, k_new, v_new)):
+        raise ValueError(f"{name}: needs contiguous caches and rows")
+    start = start.to(torch.int32).contiguous()
+    if start.numel() < (1 if uniform else b):
+        raise ValueError(f"{name}: start holds {start.numel()} offsets")
+    _lib.launch("kv_write_int8", "vlm_kv_write_int8", kq.data_ptr(),
+                ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+                k_new.data_ptr(), v_new.data_ptr(), start.data_ptr(),
+                int(uniform), b, s, length, kvh, d, _lib.stream_ptr(kq))
+    return k_cache, v_cache

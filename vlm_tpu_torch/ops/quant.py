@@ -1,0 +1,227 @@
+"""int8 weight quantization and the two int8 matrix products
+(``vlm_tpu/ops/quant.py``, its int8 half): the plain versions and the B5
+(``csrc/int8_matmul.cu``) and B6 (``csrc/int8xint8_matmul.cu``) kernels.
+
+Layout: a :class:`QuantizedWeight` holds ``q`` ``[out, in]`` int8 and
+``scale`` ``[out]`` fp32, ``weight ~= q * scale[:, None]``: the
+``nn.Linear`` layout of the port's ``Dense`` (``vlm_tpu`` stores ``q``
+``[in, out]`` and ``scale`` ``[1, out]``), and the column-major B operand
+both kernels read as it is. The 4bit (int4, grouped) half is ROADMAP A11.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from . import _lib
+
+
+class QuantizedWeight(NamedTuple):
+    """q [out, in] int8, scale [out] fp32, group_size == 0 (int8)."""
+    q: torch.Tensor
+    scale: torch.Tensor
+    group_size: int = 0
+
+
+def _int4_not_ported():
+    return NotImplementedError("4bit (int4, grouped) weights are not ported "
+                               "yet (ROADMAP A11: kernel B7)")
+
+
+# ------------------------------ quantize ------------------------------
+
+def _abs_max_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """max(absmax, 1e-8) / 127 by true division. PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal, which can differ in the
+    last bit, so the divisor is a tensor."""
+    return absmax.clamp_min(1e-8) / torch.full_like(absmax, 127.0)
+
+
+def quantize_int8(w: torch.Tensor) -> QuantizedWeight:
+    """Per-output-channel symmetric int8 quantization of ``w`` [out, in]."""
+    w = w.float()
+    scale = _abs_max_scale(w.abs().amax(dim=1))
+    q = torch.clamp(torch.round(w / scale[:, None]), -127, 127).to(torch.int8)
+    return QuantizedWeight(q=q, scale=scale)
+
+
+def quantize_int4(w: torch.Tensor, group_size: int = 128) -> QuantizedWeight:
+    raise _int4_not_ported()
+
+
+def dequantize(qw: QuantizedWeight, dtype=torch.float32) -> torch.Tensor:
+    """[out, in] in ``dtype``: the product formed in fp32, rounded once."""
+    if qw.group_size:
+        raise _int4_not_ported()
+    return (qw.q.float() * qw.scale[:, None]).to(dtype)
+
+
+def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization (llm.int8 without outliers):
+    x [..., K] -> (q int8 [..., K], scale fp32 [..., 1]). Plain tensor code
+    on either device, as JAX computed it in XLA: abs-max / 127 floored at
+    1e-8 / 127, IEEE division, round half to even, clamp to +-127."""
+    xf = x.float()
+    scale = _abs_max_scale(xf.abs().amax(dim=-1, keepdim=True))
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+# ------------------------------ B5 ------------------------------
+
+def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      out_dtype=None) -> torch.Tensor:
+    """x [m, K] @ (q [N, K] int8)^T, fp32 accumulate, per-column scale on
+    the accumulator, one rounding to ``out_dtype`` (default x's)."""
+    _lib.plain_calls["int8_matmul"] += 1
+    y = torch.matmul(x.float(), q.float().T) * scale
+    return y.to(out_dtype or x.dtype)
+
+
+def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                out_dtype=None) -> torch.Tensor:
+    """B5, the weight-only int8 product: x [m, K], q [N, K] int8, scale
+    [N] fp32 -> [m, N]. On the card x and the output are bf16."""
+    if _lib.is_cpu(x, "int8_matmul"):
+        return int8_matmul_plain(x, q, scale, out_dtype)
+    name = "int8_matmul"
+    out_dtype = out_dtype or x.dtype
+    _lib.check_cuda(name, x, q, scale)
+    _lib.check_bf16(name, x)
+    _lib.check_dtype(name, torch.int8, q)
+    _lib.check_dtype(name, torch.float32, scale)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel writes bfloat16, not "
+                        f"{out_dtype}")
+    m, k = x.shape
+    n = q.shape[0]
+    if q.shape != (n, k) or scale.shape != (n,) or k % 16 or n % 2:
+        raise ValueError(f"{name}: unsupported shapes x={tuple(x.shape)} "
+                         f"q={tuple(q.shape)} scale={tuple(scale.shape)} "
+                         f"(needs K % 16 == 0, N even)")
+    _lib.check_contiguous(name, x, q, scale)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    tiles = -(-n // 64) * -(-m // (32 if m <= 32 else 64))
+    splits = _lib.split_k(x.device, tiles, -(-k // 64), per_sm=4,
+                          max_splits=16, min_k_tiles=4)
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) \
+        if splits > 1 else None
+    _lib.launch(name, "vlm_int8_matmul", x.data_ptr(), q.data_ptr(),
+                scale.data_ptr(), y.data_ptr(),
+                ws.data_ptr() if ws is not None else None,
+                _lib.tile_counters(x.device, tiles).data_ptr(), m, n, k,
+                splits, _lib.stream_ptr(x))
+    return y
+
+
+# ------------------------------ B6 ------------------------------
+
+def int8xint8_matmul_plain(qx: torch.Tensor, sx: torch.Tensor,
+                           qw: torch.Tensor, sw: torch.Tensor,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """Exact int32 product, then ``float(acc) * sx * sw`` in that order."""
+    _lib.plain_calls["int8xint8_matmul"] += 1
+    acc = torch._int_mm(qx, qw.T)
+    return (acc.float() * sx.reshape(-1, 1) * sw).to(out_dtype)
+
+
+def int8xint8_matmul(qx: torch.Tensor, sx: torch.Tensor, qw: torch.Tensor,
+                     sw: torch.Tensor,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """B6: qx [m, K] int8 with row scales sx [m, 1] fp32, qw [N, K] int8
+    with column scales sw [N] fp32 -> [m, N] fp32 or bf16."""
+    if _lib.is_cpu(qx, "int8xint8_matmul"):
+        return int8xint8_matmul_plain(qx, sx, qw, sw, out_dtype)
+    name = "int8xint8_matmul"
+    _lib.check_cuda(name, qx, sx, qw, sw)
+    _lib.check_dtype(name, torch.int8, qx, qw)
+    _lib.check_dtype(name, torch.float32, sx, sw)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the CUDA kernel writes float32 or "
+                        f"bfloat16, not {out_dtype}")
+    m, k = qx.shape
+    n = qw.shape[0]
+    if (qw.shape != (n, k) or sx.numel() != m or sw.shape != (n,) or k % 16
+            or n % 2):
+        raise ValueError(f"{name}: unsupported shapes qx={tuple(qx.shape)} "
+                         f"qw={tuple(qw.shape)} (needs K % 16 == 0, N even)")
+    _lib.check_contiguous(name, qx, sx, qw, sw)
+    y = torch.empty((m, n), dtype=out_dtype, device=qx.device)
+    tiles = -(-n // 128) * -(-m // 128)
+    splits = _lib.split_k(qx.device, tiles, -(-k // 64), per_sm=2,
+                          max_splits=8, min_k_tiles=8)
+    ws = torch.empty((splits, m, n), dtype=torch.int32, device=qx.device) \
+        if splits > 1 else None
+    _lib.launch(name, "vlm_int8xint8_matmul", qx.data_ptr(), sx.data_ptr(),
+                qw.data_ptr(), sw.data_ptr(), y.data_ptr(),
+                ws.data_ptr() if ws is not None else None,
+                _lib.tile_counters(qx.device, tiles).data_ptr(), m, n, k,
+                splits, int(out_dtype == torch.bfloat16),
+                _lib.stream_ptr(qx))
+    return y
+
+
+# ------------------------- the int8 matmul modes -------------------------
+
+def quant_matmul_dynamic(x: torch.Tensor, qw: QuantizedWeight, *,
+                         out_dtype=None) -> torch.Tensor:
+    """llm.int8 without outliers: per-row int8 activations x int8 weights
+    through B6. ``x`` [m, K] -> [m, N]."""
+    if qw.group_size:
+        raise _int4_not_ported()
+    qx, sx = quantize_activations(x)
+    return int8xint8_matmul(qx, sx, qw.q, qw.scale,
+                            out_dtype=out_dtype or x.dtype)
+
+
+def quant_matmul_outlier(x: torch.Tensor, qw: QuantizedWeight, *,
+                         n_outliers: int = 32,
+                         out_dtype=None) -> torch.Tensor:
+    """llm.int8 with outlier decomposition: the ``n_outliers`` input
+    columns of largest |x| take a bf16 product against their dequantized
+    weight columns (plain ``torch.matmul``, as JAX left it to XLA, with the
+    reference's bf16 casts kept even in fp32 compute), and the rest goes
+    through :func:`quant_matmul_dynamic` with those columns zeroed."""
+    if qw.group_size:
+        raise _int4_not_ported()
+    out_dtype = out_dtype or x.dtype
+    k = x.shape[-1]
+    col_mag = x.float().abs().amax(dim=0)                        # [K]
+    idx = torch.topk(col_mag, min(n_outliers, k)).indices
+    x_out = x[:, idx].to(torch.bfloat16).float()                 # [m, n_out]
+    w_out = (qw.q[:, idx].float() * qw.scale[:, None]).to(
+        torch.bfloat16).float()                                  # [N, n_out]
+    y_out = torch.matmul(x_out, w_out.T).to(torch.bfloat16)
+    y_int8 = quant_matmul_dynamic(x.index_fill(1, idx, 0), qw,
+                                  out_dtype=torch.float32)
+    return (y_int8 + y_out.float()).to(out_dtype)
+
+
+def quant_matmul_dequant(x: torch.Tensor, qw: QuantizedWeight, *,
+                         out_dtype=None) -> torch.Tensor:
+    """One-pass dequantize, then ``torch.matmul`` with fp32 accumulation
+    (``quant_matmul(use_pallas=False)``): the weight in bf16 for a bf16
+    result, else fp32. JAX computed this outside any kernel too."""
+    out_dtype = out_dtype or x.dtype
+    w = dequantize(qw, torch.bfloat16 if out_dtype == torch.bfloat16
+                   else torch.float32)
+    return torch.matmul(x.to(w.dtype), w.T).to(out_dtype)
+
+
+def dense_int8(x2: torch.Tensor, qw: QuantizedWeight, mode: str,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """The int8 dispatch of ``vlm_tpu``'s ``Dense`` on the row count of the
+    flattened input: fewer than 512 rows take the weight-only product (B5,
+    the int8 branch of ``quant_matmul``); otherwise ``mode``
+    (``VLM_TPU_INT8_PREFILL``) picks outlier decomposition plus B6
+    (``dynamic``), B6 alone (``dynamic_noout``) or the plain dequantized
+    product (``dequant``)."""
+    if x2.shape[0] < 512:
+        return int8_matmul(x2, qw.q, qw.scale, out_dtype=out_dtype)
+    if mode == "dequant":
+        return quant_matmul_dequant(x2, qw, out_dtype=out_dtype)
+    if mode == "dynamic_noout":
+        return quant_matmul_dynamic(x2, qw, out_dtype=out_dtype)
+    return quant_matmul_outlier(x2, qw, out_dtype=out_dtype)

@@ -58,6 +58,10 @@ def main(argv=None):
     os.makedirs(output_dir, exist_ok=True)
     print("Output directory:", output_dir)
 
+    if cfg.get("int8_prefill"):
+        # the int8 prefill product (dequant | dynamic | dynamic_noout), read
+        # and validated when the model's int8 layers are built
+        os.environ["VLM_TPU_INT8_PREFILL"] = str(cfg["int8_prefill"]).lower()
     model = create_model(
         model_name, model_id=cfg.get("model_id"), quantization=quantization,
         size=cfg.get("model_size"), mesh=cfg.get("mesh"),

@@ -3,10 +3,12 @@
 The input is the tree as numpy arrays (unboxed from flax's partitioning
 metadata), e.g. ``jax.tree.map(np.asarray, flax.core.meta.unbox(params))``.
 Names map one to one: ``block_<i>`` becomes ``blocks.<i>``; a Dense
-``kernel`` [in, out] becomes ``weight`` [out, in]; the patch embedding's
-HWIO conv kernel [P, P, 3, hidden] becomes the unfold-matmul weight
-[hidden, P*P*3]; norm ``scale`` and the token table's ``embedding`` become
-``weight``; ``bias``, ``pos_embed`` and ``cls_token`` copy across.
+``kernel`` [in, out] becomes ``weight`` [out, in]; an int8 Dense's
+``q_kernel`` [in, out] becomes ``q`` [out, in] and its ``scale`` [1, out]
+becomes ``scale`` [out]; the patch embedding's HWIO conv kernel
+[P, P, 3, hidden] becomes the unfold-matmul weight [hidden, P*P*3]; a
+norm's ``scale`` and the token table's ``embedding`` become ``weight``;
+``bias``, ``pos_embed`` and ``cls_token`` copy across.
 """
 
 from __future__ import annotations
@@ -21,11 +23,13 @@ _BLOCK = re.compile(r"^block_(\d+)$")
 
 
 def _flatten(tree: Mapping, prefix=()):
+    """(path, array, whether the leaf's module is an int8 Dense)"""
+    quantized = "q_kernel" in tree
     for key, val in tree.items():
         if isinstance(val, Mapping):
             yield from _flatten(val, prefix + (key,))
         else:
-            yield prefix + (key,), np.asarray(val)
+            yield prefix + (key,), np.asarray(val), quantized
 
 
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -33,7 +37,7 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     any of its submodules' trees)."""
     tree = params.get("params", params)
     out = {}
-    for path, arr in _flatten(tree):
+    for path, arr, quantized in _flatten(tree):
         *mods, leaf = path
         names = []
         for m in mods:
@@ -44,6 +48,10 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 arr = arr.reshape(-1, arr.shape[-1])
             arr = arr.T
             leaf = "weight"
+        elif leaf == "q_kernel":
+            arr, leaf = arr.T, "q"
+        elif leaf == "scale" and quantized:   # an int8 Dense's [1, out]
+            arr = arr.reshape(-1)
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
         out[".".join(names + [leaf])] = torch.tensor(arr)

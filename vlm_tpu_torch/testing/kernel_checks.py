@@ -1,7 +1,8 @@
 """Each CUDA kernel against its plain PyTorch version, on the card, at the
-shapes the PaliGemma-3B serving path gives it (32 slots, 224 px images,
-prompt length 316, 32 new tokens, admission groups of 4), plus small cases
-for the mask modes the path does not reach.
+shapes the PaliGemma-3B serving paths give it (32 slots, 224 px images,
+prompt length 316, 32 new tokens, admission groups of 4; bf16, and 8bit
+with the int8 KV cache), plus cases for the mask modes and shapes the paths
+do not reach.
 
 Used by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``. Attention
 outputs are bf16 and both versions accumulate in fp32 from the same bf16
@@ -9,7 +10,17 @@ inputs, but round at other places: the plain version rounds the normalised
 probabilities to bf16 before the P.V product (as the JAX reference does),
 B1 rounds the unnormalised ones (its tensor-core operands), B2 keeps them in
 fp32. So they agree within ``ATTN_TOL``, a few bf16 ulps at 1. The KV
-write must be bitwise; normalisation within one bf16 ulp.
+write must be bitwise, its int8 form too (values and scales);
+normalisation within one bf16 ulp.
+
+B5 (weight-only int8 GEMM) accumulates the same fp32 products as its plain
+version in another order, then both scale and round once to bf16: they
+agree within ``GEMM_REL_TOL`` (two bf16 ulps) of the largest output. B6
+(int8 x int8) sums exactly in int32 and applies the scales in the plain
+version's order, so its fp32 output is bitwise equal; its bf16 output may
+differ by one bf16 ulp (``GEMM_REL_TOL / 2``, stated relative to the
+largest output). The GEMMs are timed with the L2 cache flushed before each
+launch: the serving path streams every weight once per step, cold.
 """
 
 from __future__ import annotations
@@ -22,22 +33,42 @@ import torch
 from ..ops import _lib
 from ..ops.attention import attention_plain, flash_attention
 from ..ops.decode_attention import decode_attention, decode_attention_plain
-from ..ops.kvcache import kv_masked_write, kv_scatter_write, kv_uniform_write
+from ..ops.kvcache import (kv_masked_write, kv_quantized_write,
+                           kv_quantized_write_plain, kv_scatter_write,
+                           kv_uniform_write)
 from ..ops.preprocess import RECIPES, normalize_images, normalize_plain
+from ..ops.quant import (int8_matmul, int8_matmul_plain, int8xint8_matmul,
+                         int8xint8_matmul_plain, quantize_activations)
 
 ATTN_TOL = 2e-2
 NORM_TOL = 2.0 ** -7
+GEMM_REL_TOL = 2.0 ** -7
 
+# "forms": the launch counter of each form of the kernel (_lib.KERNELS)
 KERNELS = {
     "B1": dict(name="flash_attention", source="vlm_tpu_torch/csrc/flash_attention.cu",
-               replaces="vlm_tpu/ops/attention.py:112"),
+               replaces="vlm_tpu/ops/attention.py:112",
+               forms=("flash_attention",)),
     "B2": dict(name="decode_attention", source="vlm_tpu_torch/csrc/decode_attention.cu",
-               replaces="vlm_tpu/ops/decode_attention.py:72"),
+               replaces="vlm_tpu/ops/decode_attention.py:72",
+               forms=("decode_attention", "decode_attention_int8")),
     "B3": dict(name="kv_write", source="vlm_tpu_torch/csrc/kv_write.cu",
-               replaces="vlm_tpu/ops/kvcache.py:34"),
+               replaces="vlm_tpu/ops/kvcache.py:34",
+               forms=("kv_write", "kv_write_int8")),
     "B4": dict(name="normalize", source="vlm_tpu_torch/csrc/normalize.cu",
-               replaces="vlm_tpu/ops/preprocess.py:119"),
+               replaces="vlm_tpu/ops/preprocess.py:119",
+               forms=("normalize",)),
+    "B5": dict(name="int8_matmul", source="vlm_tpu_torch/csrc/int8_matmul.cu",
+               replaces="vlm_tpu/ops/quant.py:252",
+               forms=("int8_matmul",)),
+    "B6": dict(name="int8xint8_matmul",
+               source="vlm_tpu_torch/csrc/int8xint8_matmul.cu",
+               replaces="vlm_tpu/ops/quant.py:110",
+               forms=("int8xint8_matmul",)),
 }
+# Gemma-2B block products (K, N): q/o, k/v, gate/up, down; SigLIP fc1/fc2
+GEMMA_KN = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
+SIGLIP_KN = ((1152, 4304), (4304, 1152))
 
 # the serving path's shapes (PaliGemma-3B)
 SLOTS, PROMPT, NEW, GROUP = 32, 316, 32, 4
@@ -46,15 +77,18 @@ CACHE = PROMPT + NEW
 
 @dataclasses.dataclass
 class Case:
-    kernel: str                 # B1..B4
+    kernel: str                 # B1..B6
     case: str
     kernel_fn: Callable[[], torch.Tensor]
     plain_fn: Callable[[], torch.Tensor]
     tol: float
-    on_path: bool               # the serving path's own shape
+    on_path: bool               # a serving path's own shape
     # what to time, where it differs from the compared call
     time_kernel: Optional[Callable[[], object]] = None
     time_plain: Optional[Callable[[], object]] = None
+    form: str = ""              # the launch counter; default: the kernel's
+    rel: bool = False           # tol is relative to max |plain|
+    cold: bool = False          # flush the L2 cache before each timed call
 
 
 def _bhsd(gen, b, s, h, d, dev):
@@ -107,14 +141,25 @@ def cases(device) -> List[Case]:
     valid = torch.rand(SLOTS, CACHE, generator=gen, device=dev) < 0.5
     valid[7] = False                                  # fully masked row
     pcol = torch.tensor(PROMPT, **i32)
-    for case, kw, on_path in (
-            ("window_32slots", dict(kv_window=(pcol, NEW, acol, gcnt)), True),
-            ("kv_len_32slots", dict(kv_len=kv_len), False),
-            ("kv_valid_32slots", dict(kv_valid=valid), False)):
-        out.append(Case("B2", case,
-                        lambda kw=kw: decode_attention(q, kc, vc, **kw),
-                        lambda kw=kw: decode_attention_plain(q, kc, vc, **kw),
-                        ATTN_TOL, on_path))
+    # the int8 cache: the same rows quantized per (slot, row, kv head)
+    kq, ks = quantize_activations(kc)
+    vq, vs = quantize_activations(vc)
+    for form, kk, vv, scales in (
+            ("decode_attention", kc, vc, {}),
+            ("decode_attention_int8", kq, vq, dict(k_scale=ks, v_scale=vs))):
+        tag = "_int8" if scales else ""
+        for case, kw, on_path in (
+                ("window_32slots", dict(kv_window=(pcol, NEW, acol, gcnt)),
+                 True),
+                ("kv_len_32slots", dict(kv_len=kv_len), False),
+                ("kv_valid_32slots", dict(kv_valid=valid), False)):
+            kw = dict(kw, **scales)
+            out.append(Case(
+                "B2", case + tag,
+                lambda kw=kw, kk=kk, vv=vv: decode_attention(q, kk, vv, **kw),
+                lambda kw=kw, kk=kk, vv=vv: decode_attention_plain(
+                    q, kk, vv, **kw),
+                ATTN_TOL, on_path, form=form))
 
     # the per-step KV row write, in place on clones of the cache
     k_new = torch.randn(SLOTS, 1, 1, 256, generator=gen, device=dev).to(
@@ -147,12 +192,87 @@ def cases(device) -> List[Case]:
     b3("uniform_32slots", kv_uniform_write, wcol, True)
     b3("scatter_32slots", kv_scatter_write, per_slot, False)
 
+    # int8 form: quantize and write values and scales, bitwise
+    def b3_int8(case, k_rows, v_rows, cache, start, uniform, on_path):
+        def write(fn, caches):
+            fn(caches[0], caches[1], k_rows, v_rows, start, uniform)
+            return torch.cat([t.float().flatten() for c in caches for t in c])
+
+        def fresh():
+            return tuple(tuple(t.clone() for t in c) for c in cache)
+        mine = fresh()
+        out.append(Case(
+            "B3", case, lambda: write(kv_quantized_write, fresh()),
+            lambda: write(kv_quantized_write_plain, fresh()), 0.0, on_path,
+            time_kernel=lambda: kv_quantized_write(
+                mine[0], mine[1], k_rows, v_rows, start, uniform),
+            time_plain=lambda: kv_quantized_write_plain(
+                mine[0], mine[1], k_rows, v_rows, start, uniform),
+            form="kv_write_int8"))
+
+    cache8 = ((kq, ks), (vq, vs))
+    b3_int8("int8_uniform_32slots", k_new, v_new, cache8, wcol, True, True)
+    b3_int8("int8_scatter_32slots", k_new, v_new, cache8, per_slot, False,
+            False)
+    # admission: the prompt's rows of a group of 4 at column 0
+    k_pre = torch.randn(GROUP, PROMPT, 1, 256, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v_pre = torch.randn(GROUP, PROMPT, 1, 256, generator=gen, device=dev).to(
+        torch.bfloat16)
+    group8 = tuple((torch.zeros(GROUP, PROMPT, 1, 256, dtype=torch.int8,
+                                device=dev),
+                    torch.zeros(GROUP, PROMPT, 1, 1, device=dev))
+                   for _ in range(2))
+    b3_int8("int8_prefill_g4_s316", k_pre, v_pre, group8,
+            torch.zeros(1, **i32), True, True)
+
     u8 = torch.randint(0, 256, (GROUP, 224, 224, 3), generator=gen,
                        device=dev).to(torch.uint8)
     recipe = RECIPES["paligemma"]
     out.append(Case("B4", "u8_g4_224",
                     lambda: normalize_images(u8, recipe=recipe),
                     lambda: normalize_plain(u8, recipe), NORM_TOL, True))
+
+    # B5: the weight-only int8 products of the 8bit decode step (m = 32
+    # slots) and of a one-image admission (m = 316)
+    def weights(k, n):
+        qw = torch.randint(-127, 128, (n, k), generator=gen, device=dev).to(
+            torch.int8)
+        sw = torch.rand(n, generator=gen, device=dev) * (2 / k ** 0.5 / 64)
+        return qw, sw
+
+    gemma_w = {kn: weights(*kn) for kn in GEMMA_KN}
+    for m in (SLOTS, PROMPT):
+        # gate/up first: the main case of the JSON line
+        for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
+            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+            qw, sw = gemma_w[(k, n)]
+            out.append(Case(
+                "B5", f"m{m}_k{k}_n{n}",
+                lambda x=x, qw=qw, sw=sw: int8_matmul(x, qw, sw),
+                lambda x=x, qw=qw, sw=sw: int8_matmul_plain(x, qw, sw),
+                GEMM_REL_TOL, True, rel=True, cold=True))
+
+    # B6: the llm.int8 prefill product of a Gemma admission (m = 4 x 316,
+    # fp32 out for the outlier sum) and the quantized SigLIP tower's MLP at
+    # m = 2 x 256 (ragged N = 4304 and ragged K = 64 x 67 + 16), bf16 out
+    def b6(m, k, n, qw, sw, out_dtype, on_path):
+        qx = torch.randint(-127, 128, (m, k), generator=gen, device=dev).to(
+            torch.int8)
+        sx = torch.rand(m, 1, generator=gen, device=dev) * (4 / 127)
+        exact = out_dtype == torch.float32
+        tag = "fp32" if exact else "bf16"
+        out.append(Case(
+            "B6", f"m{m}_k{k}_n{n}_{tag}",
+            lambda: int8xint8_matmul(qx, sx, qw, sw, out_dtype),
+            lambda: int8xint8_matmul_plain(qx, sx, qw, sw, out_dtype),
+            0.0 if exact else GEMM_REL_TOL / 2, on_path, rel=not exact,
+            cold=True))
+
+    for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
+        b6(GROUP * PROMPT, k, n, *gemma_w[(k, n)], torch.float32, True)
+    for k, n in SIGLIP_KN:
+        b6(2 * 256, k, n, *weights(k, n), torch.bfloat16, False)
     return out
 
 
@@ -162,17 +282,30 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
         float(diff.max())
 
 
-def _ms(fn, iters: int) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+# ~0.1 s of GPU clock cycles: long enough for the host to queue every
+# timed call behind it
+_SLEEP_CYCLES = 200_000_000
+
+
+def _ms(fn, iters: int, flush: Optional[torch.Tensor] = None) -> float:
+    """Mean device ms of ``fn`` over ``iters`` calls. The calls are queued
+    behind a sleep kernel, so the card runs them back to back and the
+    events time the device, not the host's enqueue (which bounds the small
+    kernels' wrappers). With ``flush``, a buffer larger than the L2 cache
+    is overwritten before each call, outside the timed span."""
     fn()
     torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(_SLEEP_CYCLES)
+    for start, end in events:
+        if flush is not None:
+            flush.zero_()
+        start.record()
         fn()
-    end.record()
+        end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
 def run(device="cuda", iters: int = 20) -> List[Dict]:
@@ -181,19 +314,25 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
     The launch counters are reset at the end: launches made here do not
     count toward the serving path's."""
     records = []
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     for c in cases(device):
         got = c.kernel_fn()
         want = c.plain_fn()
         torch.cuda.synchronize()
         err = _max_err(got, want)
+        bound = c.tol * (float(want.float().abs().max()) if c.rel else 1.0)
         tk = c.time_kernel or c.kernel_fn
         tp = c.time_plain or c.plain_fn
-        p1 = _ms(tp, iters)
-        k1 = _ms(tk, iters)
-        k2 = _ms(tk, iters)
-        p2 = _ms(tp, iters)
-        records.append(dict(kernel=c.kernel, case=c.case, on_path=c.on_path,
-                            max_abs_err=err, tol=c.tol, ok=err <= c.tol,
+        fl = flush if c.cold else None
+        p1 = _ms(tp, iters, fl)
+        k1 = _ms(tk, iters, fl)
+        k2 = _ms(tk, iters, fl)
+        p2 = _ms(tp, iters, fl)
+        form = c.form or KERNELS[c.kernel]["name"]
+        records.append(dict(kernel=c.kernel, form=form, case=c.case,
+                            on_path=c.on_path, max_abs_err=err, tol=c.tol,
+                            rel=c.rel, ok=err <= bound,
                             ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2))
+    del flush
     _lib.reset_counts()
     return records
