@@ -22,7 +22,17 @@ Phases, each of which raises on failure:
 6. 8bit slice: the same traffic with int8 decoder weights (the llm.int8
    prefill, the weight-only decode products) and the int8 KV cache;
 7. 8bit reference: the depth-cut copy with int8 decoder and vision weights
-   and the int8 cache on the card against fp32 compute on the CPU.
+   and the int8 cache on the card against fp32 compute on the CPU;
+8. 4bit slice: the same traffic with grouped int4 decoder weights (B7 at
+   every decode product, the dequantized product at the admissions' 1264
+   rows) and the bf16 KV cache;
+9. 4bit reference: the depth-cut copy with int4 decoder and vision weights
+   against fp32 compute on the CPU, through a 2-image prefill (512 rows and
+   more: the dequantized product), a 1-image prefill (B7 at 256 and 316
+   rows, SigLIP fc2 at group 16) and decode steps.
+
+Each slice's launch counts are set to 0 just before it is driven and read
+just after.
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -47,6 +57,8 @@ PATH_KERNELS = {
     "bf16": ("flash_attention", "decode_attention", "kv_write", "normalize"),
     "8bit": ("flash_attention", "decode_attention_int8", "kv_write_int8",
              "normalize", "int8_matmul", "int8xint8_matmul"),
+    "4bit": ("flash_attention", "decode_attention", "kv_write", "normalize",
+             "int4_matmul"),
 }
 
 
@@ -78,8 +90,9 @@ def kernel_phase(gpu):
 
 
 def slice_phase(torch, np, gpu, quantization):
-    """Serve the recipe with ``quantization`` "bf16" or "8bit" (with the
-    int8 KV cache); returns the launch counts of the timed run."""
+    """Serve the recipe with ``quantization`` "bf16", "8bit" (with the
+    int8 KV cache) or "4bit"; returns the launch counts of the timed
+    run."""
     from vlm_tpu_torch.generate.batcher import ContinuousBatcher
     from vlm_tpu_torch.models.factory import create_model
     from vlm_tpu_torch.models.vlm import num_image_tokens
@@ -150,8 +163,9 @@ def slice_phase(torch, np, gpu, quantization):
         raise RuntimeError(f"plain versions ran on the path: {plain}")
     lat = np.asarray(b.last_latency_s) * 1e3
     print(f"{tag} {N_IMAGES} images, {len(toks)} tokens in {wall:.3f} s: "
-          f"{N_IMAGES / wall:.3f} img/s, {len(toks) / wall:.1f} tok/s, "
-          f"latency p50 {np.percentile(lat, 50):.1f} ms p99 "
+          f"{N_IMAGES / wall:.3f} img/s, {len(toks) / wall:.1f} tok/s "
+          f"({gpu})")
+    print(f"{tag} latency p50 {np.percentile(lat, 50):.1f} ms p99 "
           f"{np.percentile(lat, 99):.1f} ms ({gpu})")
     print(f"{tag} max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({gpu})")
@@ -178,37 +192,62 @@ def slice_phase(torch, np, gpu, quantization):
 def reference_phase(torch, np, gpu, quantization):
     """Full-width, depth-cut model: bf16 kernels on the card against fp32
     plain versions on the CPU, same weights, same inputs. "8bit": int8
-    decoder and vision weights and the int8 KV cache on both sides."""
+    decoder and vision weights and the int8 KV cache on both sides. "4bit":
+    int4 decoder and vision weights, and a 1-image prefill after the
+    2-image one, so that B7 takes the prefill's products too."""
     from vlm_tpu_torch.models.configs import paligemma_config
-    from vlm_tpu_torch.models.decoder import init_kv_cache
     from vlm_tpu_torch.models.layers import init_random_
     from vlm_tpu_torch.models.vlm import VLMModule, num_image_tokens
-    from vlm_tpu_torch.ops.preprocess import RECIPES, normalize_images
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.preprocess import RECIPES
 
     full = paligemma_config("3b")
     cfg = dataclasses.replace(
         full, vision=dataclasses.replace(full.vision, layers=2),
         decoder=dataclasses.replace(full.decoder, layers=2))
-    bits = 8 if quantization == "8bit" else 0
+    bits = {"8bit": 8, "4bit": 4}.get(quantization, 0)
     quant = dict(quant_bits=bits, vision_quant_bits=bits)
     cache_dtypes = {"cuda": torch.bfloat16, "cpu": torch.float32}
-    if bits:
+    if bits == 8:
         cache_dtypes = dict.fromkeys(cache_dtypes, "int8")
     gpu_mod = init_random_(VLMModule(cfg, dtype=torch.bfloat16,
                                      device="cuda", **quant), seed=1)
     cpu_mod = VLMModule(cfg, dtype=torch.float32, device="cpu", **quant)
-    # int8 weights stay int8; only floating tensors widen to fp32
+    # integer weights stay as they are; only floating tensors widen to fp32
     cpu_mod.load_state_dict({
         k: (v.float() if v.is_floating_point() else v).cpu()
         for k, v in gpu_mod.state_dict().items()})
     rng = np.random.default_rng(1)
-    b, steps = 2, 3
-    u8 = torch.from_numpy(rng.integers(0, 256, (b, 224, 224, 3),
-                                       dtype=np.uint8))
-    post = torch.from_numpy(rng.integers(3, 1000, (b, PROMPT_IDS),
-                                         dtype=np.int32))
+    steps = 3
     plen = num_image_tokens(cfg) + PROMPT_IDS
     recipe = RECIPES["paligemma"]
+    worst = 0.0
+    for b in (2, 1) if bits == 4 else (2,):
+        u8 = torch.from_numpy(rng.integers(0, 256, (b, 224, 224, 3),
+                                           dtype=np.uint8))
+        post = torch.from_numpy(rng.integers(3, 1000, (b, PROMPT_IDS),
+                                             dtype=np.int32))
+        _lib.reset_counts()
+        worst = max(worst, _compare(torch, gpu_mod, cpu_mod, cfg, u8, post,
+                                    plen, steps, cache_dtypes, recipe))
+        if bits == 4 and not _lib.launches["int4_matmul"]:
+            raise RuntimeError("B7 never launched in the 4bit reference")
+    _lib.reset_counts()
+    print(f"[reference {quantization}] depth-cut PaliGemma (2+2 layers, "
+          f"full width): prefill + {steps} decode steps"
+          f"{' (2 and 1 images)' if bits == 4 else ''}, max |card - cpu| / "
+          f"max|cpu| = {worst:.3e} (tol {REF_TOL:.0e}) ({gpu})")
+    if worst > REF_TOL:
+        raise RuntimeError("card disagrees with the CPU reference")
+
+
+def _compare(torch, gpu_mod, cpu_mod, cfg, u8, post, plen, steps,
+             cache_dtypes, recipe):
+    """Prefill ``u8`` and ``steps`` rotating-window decode steps on both
+    modules; the worst max |card - cpu| / max |cpu| over the logits."""
+    from vlm_tpu_torch.models.decoder import init_kv_cache
+    from vlm_tpu_torch.ops.preprocess import normalize_images
+    b = u8.shape[0]
     worst = 0.0
     with torch.inference_mode():
         runs = {}
@@ -239,11 +278,7 @@ def reference_phase(torch, np, gpu, quantization):
                 raise RuntimeError("non-finite logits on the card")
             worst = max(worst, float((got - ref).abs().max()
                                      / ref.abs().max()))
-    print(f"[reference {quantization}] depth-cut PaliGemma (2+2 layers, "
-          f"full width): prefill + {steps} decode steps, max |card - cpu| / "
-          f"max|cpu| = {worst:.3e} (tol {REF_TOL:.0e}) ({gpu})")
-    if worst > REF_TOL:
-        raise RuntimeError("card disagrees with the CPU reference")
+    return worst
 
 
 def main() -> int:
@@ -273,7 +308,7 @@ def main() -> int:
           f"{_lib.last_build['seconds']:.1f} s) ({gpu})")
     records = kernel_phase(gpu)
     launches = {}
-    for quantization in ("bf16", "8bit"):
+    for quantization in ("bf16", "8bit", "4bit"):
         path, _ = slice_phase(torch, np, gpu, quantization)
         reference_phase(torch, np, gpu, quantization)
         for name, n in path.items():

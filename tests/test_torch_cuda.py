@@ -24,7 +24,7 @@ def test_every_kernel_matches_plain(card):
     from vlm_tpu_torch.testing import kernel_checks
     records = kernel_checks.run(card, iters=2)
     assert {r["kernel"] for r in records} == {"B1", "B2", "B3", "B4", "B5",
-                                              "B6"}
+                                              "B6", "B7"}
     bad = [r for r in records if not r["ok"]]
     assert not bad, bad
 
@@ -68,3 +68,26 @@ def test_int8_wrappers_launch_on_cuda_and_raise_on_wrong_types(card):
         int8_matmul(x.float(), q, s)
     with pytest.raises(ValueError, match="K % 16"):
         int8_matmul(x[:, :40], q[:, :40].contiguous(), s)
+
+
+def test_int4_wrapper_launches_on_cuda_and_raises_on_wrong_types(card):
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.quant import int4_matmul
+    _lib.reset_counts()
+    x = torch.randn(4, 64, device=card, dtype=torch.bfloat16)
+    q = torch.randint(-128, 128, (32, 32), device=card).to(torch.int8)
+    s = torch.rand(32, 2, device=card)
+    y = int4_matmul(x, q, s, 32)
+    torch.cuda.synchronize()
+    assert y.shape == (4, 32) and y.dtype == torch.bfloat16
+    assert _lib.launches["int4_matmul"] == 1
+    assert _lib.plain_calls["int4_matmul"] == 0
+    with pytest.raises(TypeError, match="bfloat16"):
+        int4_matmul(x.float(), q, s, 32)
+    with pytest.raises(TypeError, match="int8"):
+        int4_matmul(x, q.to(torch.uint8), s, 32)
+    with pytest.raises(TypeError, match="float32"):
+        int4_matmul(x, q, s.to(torch.bfloat16), 32)
+    with pytest.raises(ValueError, match="group_size % 16"):
+        int4_matmul(x, q, torch.rand(32, 8, device=card), 8)
+    assert _lib.launches["int4_matmul"] == 1

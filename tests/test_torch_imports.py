@@ -1,7 +1,7 @@
 """The port stands without JAX: a fresh interpreter imports every module of
-vlm_tpu_torch and runs two tiny slices end to end (model, batcher, every
+vlm_tpu_torch and runs three tiny slices end to end (model, batcher, every
 op's CPU version: fp32, then 8bit with the int8 KV cache and a prompt long
-enough for the llm.int8 prefill), and neither jax, flax nor triton is ever
+enough for the llm.int8 prefill, then 4bit with an int4 tower), and neither jax, flax nor triton is ever
 imported, nor is the kernel library built."""
 
 import json
@@ -45,8 +45,9 @@ def serve(quantization, post, **kw):
 out = serve("fp32", [2, 9])
 # 2 x (16 + 250) = 532 prefill rows: the llm.int8 product
 out8 = serve("8bit", [2] + [9] * 249, kv_cache="int8")
+out4 = serve("4bit", [2, 9], quantize_vision=True)
 print(json.dumps({
-    "modules": mods, "tokens": out, "tokens8": out8,
+    "modules": mods, "tokens": out, "tokens8": out8, "tokens4": out4,
     "loaded": sorted(m for m in ("jax", "flax", "triton") if m in sys.modules),
     "plain_calls": _lib.plain_calls, "lib_loaded": _lib._lib is not None}))
 """
@@ -64,7 +65,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert {"vlm_tpu_torch.models.base_model", "vlm_tpu_torch.ops.kvcache",
             "vlm_tpu_torch.scripts.prompt_inference",
             "vlm_tpu_torch.testing.kernel_checks"} <= set(res["modules"])
-    for toks in (res["tokens"], res["tokens8"]):
+    for toks in (res["tokens"], res["tokens8"], res["tokens4"]):
         assert len(toks) == 5
         assert all(t is not None and len(t) <= 3 for t in toks)
     assert min(res["plain_calls"].values()) > 0

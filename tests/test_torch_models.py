@@ -98,12 +98,18 @@ def test_layernorm_and_dense():
 
 
 def test_dense_quantized_modes_point_to_roadmap():
-    """8bit is ported (int8 q [out, in], fp32 scale [out]); 4bit is A11."""
+    """Both quantized modes are ported: 8bit (int8 q [out, in], fp32 scale
+    [out]) and 4bit (packed int4 q [out, in/2], fp32 group scales
+    [out, in/group]); other bit widths are refused."""
     d = layers.Dense(4, 6, quant_bits=8)
     assert d.q.dtype == torch.int8 and tuple(d.q.shape) == (6, 4)
     assert d.scale.dtype == torch.float32 and tuple(d.scale.shape) == (6,)
-    with pytest.raises(NotImplementedError, match="A11"):
-        layers.Dense(4, 4, quant_bits=4)
+    d4 = layers.Dense(256, 6, quant_bits=4)
+    assert d4.q.dtype == torch.int8 and tuple(d4.q.shape) == (6, 128)
+    assert d4.group_size == 128
+    assert d4.scale.dtype == torch.float32 and tuple(d4.scale.shape) == (6, 2)
+    with pytest.raises(ValueError, match="0, 4 or 8"):
+        layers.Dense(4, 4, quant_bits=2)
 
 
 def test_rope_matches_jax():
@@ -259,8 +265,15 @@ def test_model_classes_and_roadmap_errors():
     assert m8.cache_dtype == torch.bfloat16
     assert create_model("paligemma", size="test", device="cpu",
                         kv_cache="int8").cache_dtype == "int8"
-    for kw, item in ((dict(quantization="4bit"), "A11"),
-                     (dict(mesh={"data": 1, "model": 2}), "A17"),
+    # 4bit: bf16 compute with packed int4 block weights and group scales
+    m4 = create_model("paligemma", quantization="4bit", size="test",
+                      device="cpu")
+    assert m4.dtype == torch.bfloat16 and m4.policy.quantized_bits == 4
+    down = m4.module.decoder.blocks[0].mlp.down_proj
+    assert down.q.dtype == torch.int8 and tuple(down.q.shape) == (64, 64)
+    assert tuple(down.scale.shape) == (64, 1) and down.group_size == 128
+    assert m4.module.vision.blocks[0].fc1.weight.dtype == torch.bfloat16
+    for kw, item in ((dict(mesh={"data": 1, "model": 2}), "A17"),
                      (dict(model_id="/nonexistent"), "A14")):
         with pytest.raises(NotImplementedError, match=item):
             create_model("paligemma", size="test", device="cpu", **kw)
@@ -328,3 +341,13 @@ def test_cli_runs_the_port_8bit_int8_kv(mivia_base, tmp_path, monkeypatch):
     assert min(_lib.plain_calls[k] for k in (
         "int8_matmul", "kv_write_int8", "decode_attention_int8")) > 0
     assert _lib.plain_calls["kv_write"] == 0
+
+
+def test_cli_runs_the_port_4bit(mivia_base, tmp_path, monkeypatch):
+    """``quantization: 4bit`` reaches ``create_model`` as it is: packed
+    int4 weights, the B7 product (plain on the CPU) at decode."""
+    from vlm_tpu_torch.ops import _lib
+    _lib.reset_counts()
+    _run_cli(mivia_base, tmp_path, monkeypatch, quantization="4bit")
+    assert _lib.plain_calls["int4_matmul"] > 0
+    assert _lib.plain_calls["int8_matmul"] == 0

@@ -73,8 +73,14 @@ def test_quantize_int8_bitwise():
                                   np.asarray(ref.scale).reshape(-1))
     np.testing.assert_allclose(tq.dequantize(got).numpy(),
                                np.asarray(jq.dequantize(ref)).T, **TOL)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tq.quantize_int4(_t(w.T))
+    # the int4 half is ported too: groups of 16 along in = 48
+    ref4 = jq.quantize_int4(jnp.asarray(w), group_size=16)
+    got4 = tq.quantize_int4(_t(w.T), group_size=16)
+    np.testing.assert_array_equal(got4.q.numpy(), np.asarray(ref4.q).T)
+    np.testing.assert_array_equal(got4.scale.numpy(),
+                                  np.asarray(ref4.scale).T)
+    with pytest.raises(ValueError, match="group_size"):
+        tq.quantize_int4(_t(w.T))                  # 48 % 128 != 0
 
 
 def test_quantize_activations_and_kv_rows_bitwise():

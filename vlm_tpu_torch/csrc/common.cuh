@@ -89,6 +89,17 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                "l"(gmem), "r"(pred ? 16 : 0));
 }
 
+// 4- or 8-byte asynchronous copy (through L1: .cg takes 16 bytes only), for
+// rows whose pitch is not a multiple of 16 bytes; zero-fills when !pred.
+template <int kBytes>
+__device__ __forceinline__ void cp_async_small(void* smem, const void* gmem,
+                                               bool pred) {
+  static_assert(kBytes == 4 || kBytes == 8, "cp.async.ca takes 4 or 8 bytes");
+  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(gmem), "n"(kBytes), "r"(pred ? kBytes : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -10,6 +10,7 @@ inside :meth:`VLMModel.generate_dataset`.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence
 
 import torch
@@ -30,8 +31,8 @@ class DTypePolicy:
 
 def policy_for(quantization: Optional[str]) -> DTypePolicy:
     """``vlm_tpu/core/dtypes.py``'s policy: fp32 -> float32; fp16/bf16 ->
-    bfloat16; 8bit -> bfloat16 compute with int8 weights. 4bit is not
-    ported yet."""
+    bfloat16; 8bit -> bfloat16 compute with int8 weights; 4bit -> bfloat16
+    compute with grouped int4 weights."""
     q = (quantization or "fp32").lower()
     if q == "fp32":
         return DTypePolicy(torch.float32)
@@ -40,9 +41,17 @@ def policy_for(quantization: Optional[str]) -> DTypePolicy:
     if q == "8bit":
         return DTypePolicy(torch.bfloat16, quantized_bits=8)
     if q == "4bit":
-        raise NotImplementedError("4bit is not ported yet (ROADMAP A11)")
+        return DTypePolicy(torch.bfloat16, quantized_bits=4)
     raise ValueError(f"Unknown quantization {quantization!r}; allowed: "
                      f"fp32 fp16 bf16 8bit 4bit")
+
+
+def resolve_quantize_vision(flag: Optional[bool]) -> bool:
+    """``quantize_vision``: an explicit value wins, else
+    ``VLM_TPU_QUANT_VISION=1`` (``vlm_tpu``'s resolve_quantize_vision)."""
+    if flag is None:
+        return os.environ.get("VLM_TPU_QUANT_VISION", "0") == "1"
+    return bool(flag)
 
 
 class VLMModel:
@@ -67,9 +76,7 @@ class VLMModel:
         self.quantization = quantization
         self.policy = policy_for(quantization)
         self.dtype = self.policy.compute_dtype
-        #: "int8" (QuantizedKV layers) or the compute dtype
-        self.cache_dtype = "int8" if str(kv_cache or "").lower() == "int8" \
-            else self.dtype
+        self.kv_cache = kv_cache
         self.device = torch.device(device or (
             "cuda" if torch.cuda.is_available() else "cpu"))
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
@@ -83,12 +90,23 @@ class VLMModel:
             self.recipe = dataclasses.replace(
                 self.recipe, image_size=self.cfg.vision.image_size)
         bits = self.policy.quantized_bits
+        self.quantize_vision = resolve_quantize_vision(quantize_vision)
         self.module = VLMModule(
             self.cfg, dtype=self.dtype, device=self.device, quant_bits=bits,
-            vision_quant_bits=bits if quantize_vision else 0)
+            vision_quant_bits=bits if self.quantize_vision else 0)
         init_random_(self.module, seed)
         self.module.eval()
         self._tokenizer = None
+
+    @property
+    def cache_dtype(self):
+        """The KV cache's dtype: "int8" (QuantizedKV layers) or the compute
+        dtype. An explicit ``kv_cache`` wins; without one,
+        ``VLM_TPU_KV_CACHE=int8`` is read here, at generation time, as
+        ``vlm_tpu``'s ``kv_cache_dtype`` reads it."""
+        choice = self.kv_cache if self.kv_cache is not None else \
+            os.environ.get("VLM_TPU_KV_CACHE", "")
+        return "int8" if str(choice).lower() == "int8" else self.dtype
 
     @property
     def tokenizer(self):

@@ -6,9 +6,9 @@ The KV cache is a dict of per-layer tuples of ``[B, max_len, KV, D]``
 tensors, or of :class:`QuantizedKV` pairs for the int8 cache, updated in
 place (JAX donated the buffers instead). Activations keep the
 ``[B, S, H, D]`` layout of the projections; attention reads them through
-strided views, so no head transpose is ever copied. ``quant_bits=8`` makes
-the block Dense layers int8; the embedding and the tied head stay in the
-compute dtype, as in ``vlm_tpu``.
+strided views, so no head transpose is ever copied. ``quant_bits`` 8 or 4
+makes the block Dense layers int8 or grouped int4; the embedding and the
+tied head stay in the compute dtype, as in ``vlm_tpu``.
 """
 
 from __future__ import annotations

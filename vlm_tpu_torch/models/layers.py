@@ -4,7 +4,8 @@
 Parameters live in the compute dtype (fp32, or bf16 for the bf16 and 8bit
 policies, as ``vlm_tpu`` stores them); norms compute in fp32 and cast back;
 a dense layer feeds its operands in the compute dtype with fp32
-accumulation. An 8bit dense layer keeps int8 weights with fp32 scales.
+accumulation. An 8bit dense layer keeps int8 weights with fp32 scales, a
+4bit one packed int4 weights with fp32 group scales.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.quant import QuantizedWeight, dense_int8
+from ..ops.quant import QuantizedWeight, dense_int4, dense_int8
 
 
 def int8_prefill_mode() -> str:
@@ -29,6 +30,34 @@ def int8_prefill_mode() -> str:
         raise ValueError(f"VLM_TPU_INT8_PREFILL={mode!r}: expected "
                          f"dequant|dynamic|dynamic_noout")
     return mode
+
+
+def int4_prefill_mode() -> str:
+    """``VLM_TPU_INT4_PREFILL``, validated as ``vlm_tpu`` does: ``dequant``
+    (the default and the port's only mode: 512 rows or more take the plain
+    dequantized product); ``fused`` (B7 at every row count) is on ROADMAP's
+    do-not-port list."""
+    mode = os.environ.get("VLM_TPU_INT4_PREFILL", "dequant").lower()
+    if mode not in ("dequant", "fused"):
+        raise ValueError(f"VLM_TPU_INT4_PREFILL={mode!r}: expected "
+                         f"dequant|fused")
+    if mode == "fused":
+        raise NotImplementedError(
+            "VLM_TPU_INT4_PREFILL=fused is on ROADMAP's do-not-port list "
+            "(TPU A/B knobs); the port runs dequant")
+    return mode
+
+
+def int4_group_size(in_dim: int) -> int:
+    """``vlm_tpu``'s group fallback: the largest halving of
+    ``min(128, in_dim)`` that divides ``in_dim`` (SigLIP's mlp_dim
+    4304 = 16 * 269 gets 16; 1152 and every Gemma dim 128)."""
+    gs = min(128, in_dim)
+    while gs > 1 and in_dim % gs:
+        gs //= 2
+    if in_dim % 2 or gs < 2:
+        raise ValueError(f"no int4 group for in_dim={in_dim}")
+    return gs
 
 
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -98,27 +127,35 @@ class Dense(nn.Module):
     ``[out, in]`` int8 and ``scale`` ``[out]`` fp32 (inference only), and
     the product dispatches on the flattened row count like ``vlm_tpu``'s:
     B5 below 512 rows, else the ``VLM_TPU_INT8_PREFILL`` mode, read and
-    validated when the layer is built."""
+    validated when the layer is built. ``quant_bits=4``: ``q``
+    ``[out, in/2]`` packed int4 and ``scale`` ``[out, in/group_size]`` fp32
+    (:func:`int4_group_size`); B7 below 512 rows, else the plain dequantized
+    product (``VLM_TPU_INT4_PREFILL=dequant``, validated when built)."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, *,
                  dtype=torch.float32, device=None, quant_bits: int = 0):
         super().__init__()
-        if quant_bits == 4:
-            raise NotImplementedError(
-                "4bit weights are not ported yet (ROADMAP A11: kernel B7)")
-        if quant_bits not in (0, 8):
+        if quant_bits not in (0, 4, 8):
             raise ValueError(f"quant_bits must be 0, 4 or 8, got {quant_bits}")
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.dtype = dtype
         self.quant_bits = quant_bits
-        if quant_bits:
+        self.group_size = 0
+        if quant_bits == 8:
             self.int8_mode = int8_prefill_mode()
+            q_shape, s_shape = (out_dim, in_dim), (out_dim,)
+        elif quant_bits == 4:
+            int4_prefill_mode()
+            self.group_size = int4_group_size(in_dim)
+            q_shape = (out_dim, in_dim // 2)
+            s_shape = (out_dim, in_dim // self.group_size)
+        if quant_bits:
             self.q = nn.Parameter(
-                torch.empty(out_dim, in_dim, dtype=torch.int8, device=device),
+                torch.empty(q_shape, dtype=torch.int8, device=device),
                 requires_grad=False)
             self.scale = nn.Parameter(
-                torch.empty(out_dim, dtype=torch.float32, device=device),
+                torch.empty(s_shape, dtype=torch.float32, device=device),
                 requires_grad=False)
         else:
             self.weight = nn.Parameter(
@@ -130,8 +167,9 @@ class Dense(nn.Module):
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         if self.quant_bits:
-            # vlm_tpu's q_init / s_init: int8 in [-112, 112) and a scale
-            # that gives the dequantized weights a lecun-normal magnitude
+            # vlm_tpu's q_init / s_init: bytes in [-112, 112) (int8 values,
+            # or two nibbles) and a scale that gives the dequantized weights
+            # a lecun-normal magnitude
             self.q.random_(-112, 112, generator=gen)
             self.scale.fill_((1.0 / self.in_dim) ** 0.5 / 64.0)
         else:
@@ -147,8 +185,9 @@ class Dense(nn.Module):
             # before the one rounding to the compute dtype.
             return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
         x2 = x.reshape(-1, self.in_dim).to(self.dtype).contiguous()
-        y = dense_int8(x2, QuantizedWeight(self.q, self.scale),
-                       self.int8_mode, self.dtype)
+        qw = QuantizedWeight(self.q, self.scale, self.group_size)
+        y = dense_int4(x2, qw, self.dtype) if self.quant_bits == 4 else \
+            dense_int8(x2, qw, self.int8_mode, self.dtype)
         y = y.reshape(*x.shape[:-1], self.out_dim)
         if self.bias is not None:
             # as vlm_tpu: the product rounds to the compute dtype first

@@ -3,10 +3,10 @@ variants by :class:`ViTConfig`.
 
 Pixels come in NHWC, as in JAX. The patch embedding is an unfold plus one
 matmul (the weight holds the HWIO conv kernel flattened to
-``[hidden, P*P*3]``); attention runs through B1. ``quant_bits=8`` makes the
-block Dense layers (q/k/v/out, fc1/fc2) int8, as ``vlm_tpu``'s
-``quantize_vision``; the patch embedding and the norms stay in the compute
-dtype.
+``[hidden, P*P*3]``); attention runs through B1. ``quant_bits`` 8 or 4
+makes the block Dense layers (q/k/v/out, fc1/fc2) int8 or grouped int4, as
+``vlm_tpu``'s ``quantize_vision``; the patch embedding and the norms stay
+in the compute dtype.
 """
 
 from __future__ import annotations

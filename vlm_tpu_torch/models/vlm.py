@@ -18,9 +18,10 @@ from .vit import ViTEncoder
 
 
 class VLMModule(nn.Module):
-    """``quant_bits`` (8 or 0): the decoder blocks' weights;
-    ``vision_quant_bits``: the vision blocks' (``quantize_vision``). The
-    patch embedding, the projector and the tied head stay in ``dtype``."""
+    """``quant_bits`` (8, 4 or 0): the decoder blocks' weights, int8,
+    grouped int4 or unquantized; ``vision_quant_bits``: the vision blocks'
+    (``quantize_vision``). The patch embedding, the projector and the tied
+    head stay in ``dtype``."""
 
     def __init__(self, cfg: VLMConfig, *, dtype=torch.float32, device=None,
                  quant_bits: int = 0, vision_quant_bits: int = 0):

@@ -1,10 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
-All of ``vlm_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, loaded with ``ctypes``. The
-build runs at the first kernel launch (or an explicit :func:`build`), goes
-to ``vlm_tpu_torch/_build/`` (git-ignored) under a name that carries the
-hash of the sources and flags, and is reused while that hash holds.
+Each of ``vlm_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc`` for
+``sm_90a``, all started together, and the objects link into one shared
+library with a plain C interface, loaded with ``ctypes``. The build runs at
+the first kernel launch (or an explicit :func:`build`), goes to
+``vlm_tpu_torch/_build/`` (git-ignored) under a name that carries the hash
+of the sources and flags, and is reused while that hash holds.
 Importing this module builds nothing and imports no toolchain.
 
 Each kernel wrapper counts its launches in :data:`launches`; each plain
@@ -32,12 +33,12 @@ BUILD_DIR = PKG_DIR / "_build"
 # -Xptxas -v: registers, shared memory and spills per kernel, kept in
 # last_build["log"]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # one count per kernel form: B2 and B3 each have a bf16 and an int8 form
 KERNELS = ("flash_attention", "decode_attention", "decode_attention_int8",
            "kv_write", "kv_write_int8", "normalize", "int8_matmul",
-           "int8xint8_matmul")
+           "int8xint8_matmul", "int4_matmul")
 launches = {name: 0 for name in KERNELS}
 plain_calls = {name: 0 for name in KERNELS}
 
@@ -53,6 +54,7 @@ _SIGNATURES = {
     "vlm_normalize": [_P, _P, _L, _P, _P, _P],
     "vlm_int8_matmul": [_P] * 6 + [_I] * 4 + [_P],
     "vlm_int8xint8_matmul": [_P] * 7 + [_I] * 5 + [_P],
+    "vlm_int4_matmul": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()
@@ -98,16 +100,32 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    objs, procs = [], []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(p.args[-3], log) for p, log in zip(procs, logs)
+              if p.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+             *map(str, objs)], capture_output=True, text=True)
+        if link.returncode != 0:
+            failed.append(("link", link.stdout + link.stderr))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{src}:\n{log}" for src, log in failed))
     os.replace(tmp, out)
     last_build.update(path=str(out), seconds=time.perf_counter() - t0,
-                      cached=False, log=proc.stdout + proc.stderr)
+                      cached=False, log="".join(logs))
     return out
 
 

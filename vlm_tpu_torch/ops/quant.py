@@ -1,12 +1,20 @@
-"""int8 weight quantization and the two int8 matrix products
-(``vlm_tpu/ops/quant.py``, its int8 half): the plain versions and the B5
-(``csrc/int8_matmul.cu``) and B6 (``csrc/int8xint8_matmul.cu``) kernels.
+"""Weight quantization and the quantized matrix products
+(``vlm_tpu/ops/quant.py``): int8 per output channel with the B5
+(``csrc/int8_matmul.cu``) and B6 (``csrc/int8xint8_matmul.cu``) kernels,
+and grouped int4 with the B7 kernel (``csrc/int4_matmul.cu``), each beside
+its plain version.
 
-Layout: a :class:`QuantizedWeight` holds ``q`` ``[out, in]`` int8 and
-``scale`` ``[out]`` fp32, ``weight ~= q * scale[:, None]``: the
-``nn.Linear`` layout of the port's ``Dense`` (``vlm_tpu`` stores ``q``
-``[in, out]`` and ``scale`` ``[1, out]``), and the column-major B operand
-both kernels read as it is. The 4bit (int4, grouped) half is ROADMAP A11.
+Layouts, all in the ``nn.Linear`` form of the port's ``Dense`` and read by
+the kernels as their column-major B operand:
+
+- int8: ``q`` ``[out, in]`` int8 and ``scale`` ``[out]`` fp32,
+  ``weight ~= q * scale[:, None]`` (``vlm_tpu`` stores ``q`` ``[in, out]``
+  and ``scale`` ``[1, out]``);
+- int4: ``q`` ``[out, in/2]`` int8, byte ``j`` of row ``n`` holding input
+  row ``2j`` in its low nibble and ``2j+1`` in its high nibble, both
+  sign-extended, and ``scale`` ``[out, in/group]`` fp32, one per group of
+  ``group_size`` inputs: ``vlm_tpu``'s ``[in/2, out]`` bytes and
+  ``[in/group, out]`` scales, transposed.
 """
 
 from __future__ import annotations
@@ -19,24 +27,20 @@ from . import _lib
 
 
 class QuantizedWeight(NamedTuple):
-    """q [out, in] int8, scale [out] fp32, group_size == 0 (int8)."""
+    """int8: q [out, in], scale [out], group_size == 0. int4: q [out, in/2]
+    (two nibbles a byte), scale [out, in/group_size], group_size > 0."""
     q: torch.Tensor
     scale: torch.Tensor
     group_size: int = 0
 
 
-def _int4_not_ported():
-    return NotImplementedError("4bit (int4, grouped) weights are not ported "
-                               "yet (ROADMAP A11: kernel B7)")
-
-
 # ------------------------------ quantize ------------------------------
 
-def _abs_max_scale(absmax: torch.Tensor) -> torch.Tensor:
-    """max(absmax, 1e-8) / 127 by true division. PyTorch's CUDA division
+def _abs_max_scale(absmax: torch.Tensor, qmax: float = 127.0) -> torch.Tensor:
+    """max(absmax, 1e-8) / qmax by true division. PyTorch's CUDA division
     by a Python scalar multiplies by its reciprocal, which can differ in the
     last bit, so the divisor is a tensor."""
-    return absmax.clamp_min(1e-8) / torch.full_like(absmax, 127.0)
+    return absmax.clamp_min(1e-8) / torch.full_like(absmax, qmax)
 
 
 def quantize_int8(w: torch.Tensor) -> QuantizedWeight:
@@ -48,14 +52,41 @@ def quantize_int8(w: torch.Tensor) -> QuantizedWeight:
 
 
 def quantize_int4(w: torch.Tensor, group_size: int = 128) -> QuantizedWeight:
-    raise _int4_not_ported()
+    """Group-wise symmetric int4 quantization of ``w`` [out, in]: groups of
+    ``group_size`` run along ``in``; abs-max / 7 per group, round half to
+    even, clamp to +-7, two nibbles packed a byte."""
+    w = w.float()
+    n, k = w.shape
+    if k % group_size or k % 2:
+        raise ValueError(f"in = {k} must divide by group_size = {group_size}"
+                         f" and by 2")
+    wg = w.reshape(n, k // group_size, group_size)
+    scale = _abs_max_scale(wg.abs().amax(dim=2), 7.0)          # [out, g]
+    q = torch.clamp(torch.round(wg / scale[:, :, None]), -7, 7).to(
+        torch.int32).reshape(n, k)
+    packed = (q[:, 1::2] << 4) | (q[:, 0::2] & 0xF)
+    return QuantizedWeight(q=packed.to(torch.int8), scale=scale,
+                           group_size=group_size)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """[out, in/2] packed bytes -> [out, in] int8 nibbles, sign-extended.
+    Widened to int32 first, as JAX does: shifts of int8 tensors wrap."""
+    a = packed.to(torch.int32)
+    lo = (a << 28) >> 28
+    hi = a >> 4
+    return torch.stack((lo, hi), dim=-1).reshape(packed.shape[0], -1).to(
+        torch.int8)
 
 
 def dequantize(qw: QuantizedWeight, dtype=torch.float32) -> torch.Tensor:
     """[out, in] in ``dtype``: the product formed in fp32, rounded once."""
-    if qw.group_size:
-        raise _int4_not_ported()
-    return (qw.q.float() * qw.scale[:, None]).to(dtype)
+    if not qw.group_size:
+        return (qw.q.float() * qw.scale[:, None]).to(dtype)
+    q = unpack_int4(qw.q).float()
+    n, k = q.shape
+    w = q.reshape(n, k // qw.group_size, qw.group_size) * qw.scale[:, :, None]
+    return w.reshape(n, k).to(dtype)
 
 
 def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -163,14 +194,66 @@ def int8xint8_matmul(qx: torch.Tensor, sx: torch.Tensor, qw: torch.Tensor,
     return y
 
 
-# ------------------------- the int8 matmul modes -------------------------
+# ------------------------------ B7 ------------------------------
+
+def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                      group_size: int, out_dtype=None) -> torch.Tensor:
+    """The dequantized product (``quant_matmul(use_pallas=False)``): the
+    weight formed as ``nibble * scale`` in fp32 and rounded once, to bf16
+    for a bf16 result, else fp32, then ``torch.matmul`` with fp32
+    accumulation and one rounding to ``out_dtype`` (default x's)."""
+    _lib.plain_calls["int4_matmul"] += 1
+    return quant_matmul_dequant(x, QuantizedWeight(q, scale, group_size),
+                                out_dtype=out_dtype)
+
+
+def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                group_size: int, out_dtype=None) -> torch.Tensor:
+    """B7, the grouped int4 product: x [m, K], q [N, K/2] packed int4,
+    scale [N, K/group_size] fp32 -> [m, N]. On the card x and the output
+    are bf16, K and group_size divide by 16 and N is even."""
+    if _lib.is_cpu(x, "int4_matmul"):
+        return int4_matmul_plain(x, q, scale, group_size, out_dtype)
+    name = "int4_matmul"
+    out_dtype = out_dtype or x.dtype
+    _lib.check_cuda(name, x, q, scale)
+    _lib.check_bf16(name, x)
+    _lib.check_dtype(name, torch.int8, q)
+    _lib.check_dtype(name, torch.float32, scale)
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel writes bfloat16, not "
+                        f"{out_dtype}")
+    m, k = x.shape
+    n = q.shape[0]
+    if (group_size <= 0 or group_size % 16 or k % 16 or k % group_size
+            or n % 2 or q.shape != (n, k // 2)
+            or scale.shape != (n, k // group_size)):
+        raise ValueError(f"{name}: unsupported shapes x={tuple(x.shape)} "
+                         f"q={tuple(q.shape)} scale={tuple(scale.shape)} "
+                         f"group_size={group_size} (needs K % 16 == 0, "
+                         f"group_size % 16 == 0, N even)")
+    _lib.check_contiguous(name, x, q, scale)
+    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    tiles = -(-n // 64) * -(-m // (32 if m <= 32 else 64))
+    splits = _lib.split_k(x.device, tiles, -(-k // 64), per_sm=4,
+                          max_splits=16, min_k_tiles=4)
+    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) \
+        if splits > 1 else None
+    _lib.launch(name, "vlm_int4_matmul", x.data_ptr(), q.data_ptr(),
+                scale.data_ptr(), y.data_ptr(),
+                ws.data_ptr() if ws is not None else None,
+                _lib.tile_counters(x.device, tiles).data_ptr(), m, n, k,
+                group_size, splits, _lib.stream_ptr(x))
+    return y
+
+
+# ------------------------- the quantized matmul modes -------------------------
 
 def quant_matmul_dynamic(x: torch.Tensor, qw: QuantizedWeight, *,
                          out_dtype=None) -> torch.Tensor:
     """llm.int8 without outliers: per-row int8 activations x int8 weights
-    through B6. ``x`` [m, K] -> [m, N]."""
-    if qw.group_size:
-        raise _int4_not_ported()
+    through B6. ``x`` [m, K] -> [m, N]. int8 weights only."""
+    assert qw.group_size == 0, "dynamic path requires int8 weights"
     qx, sx = quantize_activations(x)
     return int8xint8_matmul(qx, sx, qw.q, qw.scale,
                             out_dtype=out_dtype or x.dtype)
@@ -183,9 +266,9 @@ def quant_matmul_outlier(x: torch.Tensor, qw: QuantizedWeight, *,
     columns of largest |x| take a bf16 product against their dequantized
     weight columns (plain ``torch.matmul``, as JAX left it to XLA, with the
     reference's bf16 casts kept even in fp32 compute), and the rest goes
-    through :func:`quant_matmul_dynamic` with those columns zeroed."""
-    if qw.group_size:
-        raise _int4_not_ported()
+    through :func:`quant_matmul_dynamic` with those columns zeroed. int8
+    weights only."""
+    assert qw.group_size == 0, "outlier decomposition requires int8 weights"
     out_dtype = out_dtype or x.dtype
     k = x.shape[-1]
     col_mag = x.float().abs().amax(dim=0)                        # [K]
@@ -201,9 +284,10 @@ def quant_matmul_outlier(x: torch.Tensor, qw: QuantizedWeight, *,
 
 def quant_matmul_dequant(x: torch.Tensor, qw: QuantizedWeight, *,
                          out_dtype=None) -> torch.Tensor:
-    """One-pass dequantize, then ``torch.matmul`` with fp32 accumulation
-    (``quant_matmul(use_pallas=False)``): the weight in bf16 for a bf16
-    result, else fp32. JAX computed this outside any kernel too."""
+    """One-pass dequantize (int8 or int4), then ``torch.matmul`` with fp32
+    accumulation (``quant_matmul(use_pallas=False)``): the weight in bf16
+    for a bf16 result, else fp32. JAX computed this outside any kernel
+    too."""
     out_dtype = out_dtype or x.dtype
     w = dequantize(qw, torch.bfloat16 if out_dtype == torch.bfloat16
                    else torch.float32)
@@ -225,3 +309,15 @@ def dense_int8(x2: torch.Tensor, qw: QuantizedWeight, mode: str,
     if mode == "dynamic_noout":
         return quant_matmul_dynamic(x2, qw, out_dtype=out_dtype)
     return quant_matmul_outlier(x2, qw, out_dtype=out_dtype)
+
+
+def dense_int4(x2: torch.Tensor, qw: QuantizedWeight,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """The int4 dispatch of ``vlm_tpu``'s ``Dense`` with
+    ``VLM_TPU_INT4_PREFILL=dequant``: fewer than 512 rows take B7, more the
+    plain dequantized product, which unpacks each weight once instead of
+    once per row tile."""
+    if x2.shape[0] < 512:
+        return int4_matmul(x2, qw.q, qw.scale, qw.group_size,
+                           out_dtype=out_dtype)
+    return quant_matmul_dequant(x2, qw, out_dtype=out_dtype)

@@ -3,9 +3,12 @@
 The input is the tree as numpy arrays (unboxed from flax's partitioning
 metadata), e.g. ``jax.tree.map(np.asarray, flax.core.meta.unbox(params))``.
 Names map one to one: ``block_<i>`` becomes ``blocks.<i>``; a Dense
-``kernel`` [in, out] becomes ``weight`` [out, in]; an int8 Dense's
-``q_kernel`` [in, out] becomes ``q`` [out, in] and its ``scale`` [1, out]
-becomes ``scale`` [out]; the patch embedding's HWIO conv kernel
+``kernel`` [in, out] becomes ``weight`` [out, in]; a quantized Dense's
+``q_kernel`` becomes ``q``, transposed (int8 [in, out] -> [out, in], packed
+int4 [in/2, out] -> [out, in/2]) and its ``scale`` [groups, out] becomes
+``scale`` [out, groups], squeezed to [out] for one group (int8's [1, out];
+an int4 Dense with one group gets its [out, 1] back in
+:func:`load_flax_params`); the patch embedding's HWIO conv kernel
 [P, P, 3, hidden] becomes the unfold-matmul weight [hidden, P*P*3]; a
 norm's ``scale`` and the token table's ``embedding`` become ``weight``;
 ``bias``, ``pos_embed`` and ``cls_token`` copy across.
@@ -23,7 +26,7 @@ _BLOCK = re.compile(r"^block_(\d+)$")
 
 
 def _flatten(tree: Mapping, prefix=()):
-    """(path, array, whether the leaf's module is an int8 Dense)"""
+    """(path, array, whether the leaf's module is a quantized Dense)"""
     quantized = "q_kernel" in tree
     for key, val in tree.items():
         if isinstance(val, Mapping):
@@ -50,8 +53,8 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         elif leaf == "q_kernel":
             arr, leaf = arr.T, "q"
-        elif leaf == "scale" and quantized:   # an int8 Dense's [1, out]
-            arr = arr.reshape(-1)
+        elif leaf == "scale" and quantized:   # [groups, out] -> [out, groups]
+            arr = arr.T[:, 0] if arr.shape[0] == 1 else arr.T
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
         out[".".join(names + [leaf])] = torch.tensor(arr)
@@ -70,6 +73,9 @@ def load_flax_params(module: torch.nn.Module, params: Mapping) -> None:
     with torch.no_grad():
         for name, tensor in own.items():
             src = state[name]
+            if name.endswith(".scale") and tuple(tensor.shape) == (
+                    *src.shape, 1):
+                src = src[:, None]            # an int4 Dense with one group
             if tuple(src.shape) != tuple(tensor.shape):
                 raise ValueError(f"{name}: flax {tuple(src.shape)} vs port "
                                  f"{tuple(tensor.shape)}")

@@ -1,8 +1,8 @@
 """Each CUDA kernel against its plain PyTorch version, on the card, at the
 shapes the PaliGemma-3B serving paths give it (32 slots, 224 px images,
-prompt length 316, 32 new tokens, admission groups of 4; bf16, and 8bit
-with the int8 KV cache), plus cases for the mask modes and shapes the paths
-do not reach.
+prompt length 316, 32 new tokens, admission groups of 4; bf16, 8bit with
+the int8 KV cache, and 4bit), plus cases for the mask modes and shapes the
+paths do not reach.
 
 Used by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``. Attention
 outputs are bf16 and both versions accumulate in fp32 from the same bf16
@@ -19,8 +19,11 @@ agree within ``GEMM_REL_TOL`` (two bf16 ulps) of the largest output. B6
 (int8 x int8) sums exactly in int32 and applies the scales in the plain
 version's order, so its fp32 output is bitwise equal; its bf16 output may
 differ by one bf16 ulp (``GEMM_REL_TOL / 2``, stated relative to the
-largest output). The GEMMs are timed with the L2 cache flushed before each
-launch: the serving path streams every weight once per step, cold.
+largest output). B7 (grouped int4) forms the same bf16 weights as its plain
+version (``nibble * scale`` in fp32, rounded once) and accumulates them in
+fp32 in another order: ``GEMM_REL_TOL`` of the largest output. The GEMMs
+are timed with the L2 cache flushed before each launch: the serving path
+streams every weight once per step, cold.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from ..ops.kvcache import (kv_masked_write, kv_quantized_write,
                            kv_quantized_write_plain, kv_scatter_write,
                            kv_uniform_write)
 from ..ops.preprocess import RECIPES, normalize_images, normalize_plain
-from ..ops.quant import (int8_matmul, int8_matmul_plain, int8xint8_matmul,
+from ..ops.quant import (int4_matmul, int4_matmul_plain, int8_matmul,
+                         int8_matmul_plain, int8xint8_matmul,
                          int8xint8_matmul_plain, quantize_activations)
 
 ATTN_TOL = 2e-2
@@ -65,6 +69,9 @@ KERNELS = {
                source="vlm_tpu_torch/csrc/int8xint8_matmul.cu",
                replaces="vlm_tpu/ops/quant.py:110",
                forms=("int8xint8_matmul",)),
+    "B7": dict(name="int4_matmul", source="vlm_tpu_torch/csrc/int4_matmul.cu",
+               replaces="vlm_tpu/ops/quant.py:300",
+               forms=("int4_matmul",)),
 }
 # Gemma-2B block products (K, N): q/o, k/v, gate/up, down; SigLIP fc1/fc2
 GEMMA_KN = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
@@ -77,7 +84,7 @@ CACHE = PROMPT + NEW
 
 @dataclasses.dataclass
 class Case:
-    kernel: str                 # B1..B6
+    kernel: str                 # B1..B7
     case: str
     kernel_fn: Callable[[], torch.Tensor]
     plain_fn: Callable[[], torch.Tensor]
@@ -273,6 +280,38 @@ def cases(device) -> List[Case]:
         b6(GROUP * PROMPT, k, n, *gemma_w[(k, n)], torch.float32, True)
     for k, n in SIGLIP_KN:
         b6(2 * 256, k, n, *weights(k, n), torch.bfloat16, False)
+
+    # B7: packed int4 bytes (every nibble, -8 included) and fp32 group
+    # scales that give lecun-sized weights
+    def weights4(k, n, gs):
+        q4 = torch.randint(-128, 128, (n, k // 2), generator=gen,
+                           device=dev).to(torch.int8)
+        s4 = (0.5 + torch.rand(n, k // gs, generator=gen, device=dev)) / (
+            4 * k ** 0.5)
+        return q4, s4, gs
+
+    def b7(m, k, n, w4, on_path):
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        out.append(Case(
+            "B7", f"m{m}_k{k}_n{n}_gs{w4[2]}",
+            lambda: int4_matmul(x, *w4), lambda: int4_matmul_plain(x, *w4),
+            GEMM_REL_TOL, on_path, rel=True, cold=True))
+
+    gemma_w4 = {kn: weights4(*kn, 128) for kn in GEMMA_KN}
+    # the 4bit decode step (m = 32 slots) first, gate/up its main case; a
+    # one-image admission (m = 316); one row
+    for m, on_path in ((SLOTS, True), (PROMPT, False), (1, False)):
+        for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
+            b7(m, k, n, gemma_w4[(k, n)], on_path)
+    # the int4 tower of one image (m = 256): fc1 at group 128, fc2 at group
+    # 16 with 2152-byte packed rows and a ragged K tail (4304 = 64 * 67 + 16)
+    b7(256, 1152, 4304, weights4(1152, 4304, 128), False)
+    b7(256, 4304, 1152, weights4(4304, 1152, 16), False)
+    b7(9, 128, 100, weights4(128, 100, 32), False)   # JAX's padding test
+    # an admission of 4 (m = 1264) runs the dequantized product; B7 here
+    # is timed against it for a later dispatch decision
+    for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
+        b7(GROUP * PROMPT, k, n, gemma_w4[(k, n)], False)
     return out
 
 
