@@ -91,3 +91,26 @@ def test_int4_wrapper_launches_on_cuda_and_raises_on_wrong_types(card):
     with pytest.raises(ValueError, match="group_size % 16"):
         int4_matmul(x, q, torch.rand(32, 8, device=card), 8)
     assert _lib.launches["int4_matmul"] == 1
+
+
+def test_b6_and_b2_wrappers_raise_on_what_the_kernels_do_not_take(card):
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.decode_attention import decode_attention
+    from vlm_tpu_torch.ops.quant import int8xint8_matmul
+    _lib.reset_counts()
+    qx = torch.randint(-127, 128, (4, 48), device=card).to(torch.int8)
+    qw = torch.randint(-127, 128, (32, 48), device=card).to(torch.int8)
+    sx, sw = torch.rand(4, 1, device=card), torch.rand(32, device=card)
+    with pytest.raises(ValueError, match="K % 16"):
+        int8xint8_matmul(qx[:, :40].contiguous(), sx, qw[:, :40].contiguous(),
+                         sw)
+    with pytest.raises(TypeError, match="int8"):
+        int8xint8_matmul(qx.float(), sx, qw, sw)
+    q = torch.randn(2, 8, 1, 64, device=card, dtype=torch.bfloat16)
+    c8 = torch.zeros(2, 10, 1, 64, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="k_scale"):
+        decode_attention(q, c8, c8)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        decode_attention(q, c8.bfloat16()[..., :30], c8.bfloat16()[..., :30])
+    assert _lib.launches["int8xint8_matmul"] == 0
+    assert _lib.launches["decode_attention"] == 0

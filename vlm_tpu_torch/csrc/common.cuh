@@ -29,26 +29,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Copy `rows` rows of `d` bf16 values (d even) from a strided source into a
-// shared tile with row pitch `ld`, zero-filling rows at or beyond `limit`.
-// Loads are bf16x2 words: the wrapper guarantees even strides and 4-byte
-// aligned base pointers.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ld,
-                                          const __nv_bfloat16* src,
-                                          int64_t row_stride, int row0,
-                                          int rows, int limit, int d) {
-  const int half = d / 2;
-  for (int i = threadIdx.x; i < rows * half; i += blockDim.x) {
-    const int r = i / half;
-    const int c = (i - r * half) * 2;
-    __nv_bfloat162 val = __floats2bfloat162_rn(0.f, 0.f);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const __nv_bfloat162*>(
-          src + (int64_t)(row0 + r) * row_stride + c);
-    *reinterpret_cast<__nv_bfloat162*>(dst + r * ld + c) = val;
-  }
-}
-
 // ---- tensor-core and async-copy building blocks (mma.sync, cp.async) ----
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
@@ -117,6 +97,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // the partials in split order (so the result does not depend on which
 // block finished last) and writes the output. It resets the tile's counter
 // for the next launch on the stream. Call from every thread of the block.
+// B5 and B7 split K this way; B2 splits its cache rows the same way.
 __device__ __forceinline__ void split_k_range(int kt_total, int& begin,
                                               int& end) {
   const int per = (kt_total + gridDim.z - 1) / gridDim.z;

@@ -1,29 +1,56 @@
-// B2: decode-step attention, one query token per slot against the KV cache.
+// B2: decode-step attention, one query token per slot against the KV cache,
+// as split-S flash-decoding on tensor cores.
 //
 // Replaces vlm_tpu/ops/decode_attention.py `_decode_kernel` (launched by
 // `_decode_call`, public `flash_decode_attention`), in its bf16-cache and
 // int8-cache forms. The cache keeps its write-friendly [B, S, KV, D] layout.
 //
-// What bounds it on the H100: bytes. Each step streams every live slot's
-// K and V rows once (Gemma MQA: S x 256 x 2 B per tensor per slot) and does
-// only 2 FMAs per cache element per query head (the int8 form: half the
-// bytes, plus 8 bytes of scales per row). The design reads each cache
-// row from device memory exactly once for all query heads that share it:
-// one block per (slot, kv head) holds that kv head's G query heads (8 for
-// Gemma MQA), one warp per query head, and stages 32-row K/V tiles in
-// shared memory where all G warps reuse them. The TPU kernel's
-// block-diagonal query operand existed only to feed the MXU and is not
-// carried over. A split over S with a combine pass, for occupancy at small
-// batch, is later work.
+// What bounds it on the H100: bytes, and the latency of reaching them. Each
+// step streams every live slot's K and V rows once (Gemma MQA: S x 256 x 2 B
+// per tensor per slot; the int8 form half of that plus 8 bytes of scales a
+// row) and does 2 MACs per cache element per query head. At the serving
+// shape (32 slots x 348 rows) that is 11.4 MB, 3.4 us at 3.35 TB/s; one
+// block per (slot, kv head) gave 32 blocks for 132 SMs, each walking its
+// rows serially, and ran at ~80 GB/s.
 //
-// int8 cache (the TPU kernel's has_scales mode): K/V rows arrive as int8
-// with per-(slot, row, kv head) fp32 scales [B, S, KV, 1]; the tiles are
-// staged as int8, half the bytes of the bf16 form, and widened in
-// registers. The scales ride the scores and probabilities instead of the
-// values, q.(k8 s) == (q.k8) s and sum p (v8 s) == sum (p s) v8: the score
-// is dot(q, k8) * D^-0.5 * ks[row] and each row's probability is multiplied
-// by vs[row] before the P.V sum, while the softmax denominator sums the
-// unscaled probabilities.
+// The design:
+// - Grid (KV x head groups of 8, B, splits). The wrapper's planner
+//   (`ops/decode_attention.py: split_plan`) cuts S into splits of whole
+//   64-row tiles so that about two blocks an SM are in flight; each split
+//   holds at least one tile and the splits cover S exactly.
+// - Both products on tensor cores (mma.sync.m16n8k16, bf16 in, fp32 out),
+//   the products the TPU kernel ran on its matrix unit, without its
+//   block-diagonal query operand. Each of the 4 warps takes 16 rows of a
+//   64-row tile. Scores S^T = K_tile . Q^T: the cache rows are the 16-row
+//   operand, the block's 8 query heads N = 8, Q staged once (through shared
+//   memory, while the first tile is in flight) into registers as bf16 with
+//   D^-1/2 folded in (as the TPU kernel folds it into q^T).
+//   P^T is rounded to bf16 (as the TPU kernel rounds P before P.V),
+//   transposed in registers with movmatrix, and O^T = V^T . P^T takes V
+//   through ldmatrix.trans.
+// - int8 cache: tiles are staged as int8 (half the bytes) and widened to
+//   bf16 in registers; every int8 value is exact in bf16. k_scale multiplies
+//   the scores and v_scale the probabilities (q.(k8 s) == (q.k8) s and
+//   sum p (v8 s) == sum (p s) v8), while the softmax denominator sums the
+//   unscaled probabilities.
+// - A two-stage cp.async ring: tile i + 1 is in flight while tile i is
+//   computed. Rows at or past the block's live limit (kv_len, or in the
+//   window form min(pcol + W, S)) are never loaded, so dead tiles cost no
+//   bytes.
+// - Each warp keeps its own running (max, sum, acc) over its rows; the
+//   block merges its 4 warps in shared memory. With one split it writes the
+//   output; otherwise each split writes (m, l, acc[8, D]) in fp32 to the
+//   wrapper's workspace and the last block to arrive for a (slot, kv head,
+//   head group) merges the splits in split order (vlm::split_k_last), so
+//   the result does not depend on arrival order, in the same launch. A
+//   split or warp with no live row has l = 0 and weighs 0 in the merge.
+//   Both merges are vectorised over float4 with their weights formed once
+//   per head: element-serial merges had cost 25 us of L2 latency.
+// - What bounds it now (H100, the serving window, PERF.md): ~15 us of
+//   device time, of which ~3.3 us is the cache's bytes; the rest is the
+//   latency of the block's dependent phases (mask scalars, tile, the two
+//   products, the block merge, the last block's merge). That is also why
+//   the int8 form, with half the bytes, is no faster.
 //
 // Masks: kv_len; an arbitrary kv_valid [B, S]; or the continuous batcher's
 // rotating window rebuilt from scalars: row r is live iff r < min(pcol, S),
@@ -35,210 +62,508 @@
 
 namespace {
 
-constexpr int kTileS = 32;
+constexpr int kTile = 64;           // cache rows a step: 16 per warp
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kHeads = 8;           // query heads a block: the mma's N
 constexpr int kMaxD = 256;
-constexpr int kDimsPerLane = kMaxD / 32;
+constexpr int kMaxDT = kMaxD / 16;  // 16-wide slices of the head dim
+constexpr int kMaxSplits = 64;
 
 enum Mode { kLen = 0, kValid = 1, kWindow = 2 };
 
-// Copy `rows` int8 rows of `d` bytes (d % 4 == 0) from a strided source
-// into a shared tile of byte pitch `ld`, zero-filling rows at or past `limit`.
-__device__ __forceinline__ void load_tile_s8(int8_t* dst, int ld,
-                                             const int8_t* src,
-                                             int64_t row_stride, int row0,
-                                             int rows, int limit, int d) {
-  const int words = d / 4;
-  for (int i = threadIdx.x; i < rows * words; i += blockDim.x) {
-    const int r = i / words;
-    const int c = (i - r * words) * 4;
-    uint32_t val = 0;
-    if (row0 + r < limit)
-      val = vlm::ld32(src + (int64_t)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint32_t*>(dst + r * ld + c) = val;
-  }
+struct Params {
+  const __nv_bfloat16* q;
+  const void* k;
+  const void* v;
+  __nv_bfloat16* o;
+  const float* k_scale;
+  const float* v_scale;
+  const int* kv_len;
+  const uint8_t* kv_valid;
+  const int* pcol;
+  const int* acol;
+  const int* gcnt;
+  float* ws;      // splits > 1: [tiles, splits, kHeads * (2 + dp)]
+  int* counters;  // splits > 1: one zeroed int per (slot, kv head, group)
+  int H, KV, S, D, window, mode, rows_per_split;
+  int64_t q_sb, q_sh, c_sb, c_ss, o_sb, o_sh;
+  float scale;
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p,
+                                            bool trans) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if (trans)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(a));
+}
+
+// The 8x8 bf16 matrix held as an mma fragment (lane: row lane/4, columns
+// 2 (lane%4) and +1), transposed across the warp.
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t widen2(int8_t lo, int8_t hi) {
+  return vlm::pack_bf16(static_cast<float>(lo), static_cast<float>(hi));
 }
 
 // T: __nv_bfloat16 (bf16 cache) or int8_t (int8 cache with scales)
 template <typename T>
-__global__ void decode_kernel(
-    const __nv_bfloat16* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, __nv_bfloat16* __restrict__ o,
-    const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-    const int* __restrict__ kv_len, const uint8_t* __restrict__ kv_valid,
-    const int* __restrict__ pcol, const int* __restrict__ acol,
-    const int* __restrict__ gcnt, int H, int KV, int S, int D, int window,
-    int mode, int64_t q_sb, int64_t q_sh, int64_t c_sb, int64_t c_ss,
-    int64_t o_sb, int64_t o_sh, float scale) {
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const Params p) {
   constexpr bool kInt8 = sizeof(T) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int G = H / KV;
-  // tile row pitch in elements: an odd number of 32-bit words, so lanes
-  // reading their own rows hit distinct banks
-  const int ld = kInt8 ? D + 4 : D + 2;
-  float* q_sm = reinterpret_cast<float*>(smem);  // [G, D] fp32
-  T* k_tile = reinterpret_cast<T*>(q_sm + G * D);
-  T* v_tile = k_tile + kTileS * ld;
-
-  const int kvh = blockIdx.x;
+  const int G = p.H / p.KV;
+  const int groups = (G + kHeads - 1) / kHeads;
+  const int kvh = blockIdx.x / groups;
+  const int h0 = (blockIdx.x % groups) * kHeads;  // within the kv head
+  const int nh = min(kHeads, G - h0);
   const int b = blockIdx.y;
-  const int g = threadIdx.x / 32;
+  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int h = kvh * G + g;
+  const int g = lane / 4, t = lane % 4;
+  const int dp = (p.D + 15) & ~15;
+  const int ndt = dp / 16;
+  const int dbytes = p.D * static_cast<int>(sizeof(T));
+  const int pbytes = dp * static_cast<int>(sizeof(T));
+  // row pitch: 16 B past the padded row, so ldmatrix's 8 row addresses
+  // fall in 8 distinct 16-byte bank groups
+  const int pitch = pbytes + 16;
+  const int tile_bytes = kTile * pitch;
+  const int bufs = min(2, p.rows_per_split / kTile);
 
-  for (int i = threadIdx.x; i < G * D; i += blockDim.x) {
-    const int gg = i / D, d = i - gg * D;
-    q_sm[i] = __bfloat162float(q[b * q_sb + (kvh * G + gg) * q_sh + d]);
-  }
-
-  const int kvl = kv_len ? kv_len[b] : S;
+  const int kvl = p.kv_len ? p.kv_len[b] : p.S;
+  int limit = min(p.S, kvl);
   int pc = 0, ac = 0, gc = 0;
-  if (mode == kWindow) {
-    pc = *pcol;
-    ac = acol[b];
-    gc = gcnt[b];
+  if (p.mode == kWindow) {
+    pc = *p.pcol;
+    ac = p.acol[b];
+    gc = p.gcnt[b];
+    limit = min(limit, pc + p.window);
   }
-  const T* kb = k + b * c_sb + (int64_t)kvh * D;
-  const T* vb = v + b * c_sb + (int64_t)kvh * D;
+  const int s_begin = blockIdx.z * p.rows_per_split;
+  const int s_end = min(limit, s_begin + p.rows_per_split);
+  const int nt = s_end > s_begin ? (s_end - s_begin + kTile - 1) / kTile : 0;
 
-  float m = vlm::kNegInf, l = 0.f;
-  float acc[kDimsPerLane];
+  // zero the pad columns [D, dp) of every staged row once: the copies
+  // never write them, and 0 x garbage could be NaN in the products
+  const int pad_words = (pbytes - dbytes) / 4;
+  for (int i = threadIdx.x; i < bufs * 2 * kTile * pad_words; i += kThreads)
+    *reinterpret_cast<uint32_t*>(smem + (i / pad_words) * pitch + dbytes +
+                                 (i % pad_words) * 4) = 0;
+
+  const int64_t row_bytes = p.c_ss * static_cast<int64_t>(sizeof(T));
+  const unsigned char* kbase = static_cast<const unsigned char*>(p.k) +
+      (b * p.c_sb + static_cast<int64_t>(kvh) * p.D) * sizeof(T);
+  const unsigned char* vbase = static_cast<const unsigned char*>(p.v) +
+      (b * p.c_sb + static_cast<int64_t>(kvh) * p.D) * sizeof(T);
+  const bool vec16 = dbytes % 16 == 0 && row_bytes % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(kbase) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(vbase) % 16 == 0;
+
+  // rows [r0, r0 + 64) of K and V into buffer j; rows at or past s_end are
+  // zero-filled without being read. Each thread walks its chunks by
+  // increments: a division per chunk cost more than the copies.
+  const int width = vec16 ? 16 : 4;
+  const int chunks = dbytes / width;  // a row's copies
+  const int r_first = threadIdx.x / chunks;
+  const int c_first = threadIdx.x - r_first * chunks;
+  const int r_step = kThreads / chunks, c_step = kThreads - r_step * chunks;
+  auto load = [&](int j, int r0) {
 #pragma unroll
-  for (int i = 0; i < kDimsPerLane; ++i) acc[i] = 0.f;
-
-  for (int s0 = 0; s0 < S; s0 += kTileS) {
-    __syncthreads();
-    if constexpr (kInt8) {
-      load_tile_s8(k_tile, ld, kb, c_ss, s0, kTileS, S, D);
-      load_tile_s8(v_tile, ld, vb, c_ss, s0, kTileS, S, D);
-    } else {
-      vlm::load_tile(k_tile, ld, kb, c_ss, s0, kTileS, S, D);
-      vlm::load_tile(v_tile, ld, vb, c_ss, s0, kTileS, S, D);
+    for (int which = 0; which < 2; ++which) {
+      const unsigned char* base = which ? vbase : kbase;
+      unsigned char* dst = smem + (2 * j + which) * tile_bytes;
+      int r = r_first, c = c_first;
+      while (r < kTile) {
+        const bool ok = r0 + r < s_end;
+        const unsigned char* src = ok ? base + (r0 + r) * row_bytes + c * width : base;
+        if (vec16) vlm::cp_async16(dst + r * pitch + c * 16, src, ok);
+        else vlm::cp_async_small<4>(dst + r * pitch + c * 4, src, ok);
+        r += r_step;
+        c += c_step;
+        if (c >= chunks) {
+          c -= chunks;
+          ++r;
+        }
+      }
     }
-    __syncthreads();
+  };
 
-    const int r = s0 + lane;
-    bool live;
-    if (mode == kWindow) {
-      const int age = (((r - pc - ac) % window) + window) % window;
-      live = (r < min(pc, S)) || (r < min(pc + window, S) && age < gc);
-      live = live && r < kvl;
-    } else {
-      live = r < min(S, kvl);
-      if (mode == kValid && live) live = kv_valid[(int64_t)b * S + r] != 0;
+  auto live = [&](int r) {
+    if (r >= s_end) return false;
+    if (p.mode == kWindow) {
+      const int age = (((r - pc - ac) % p.window) + p.window) % p.window;
+      return r < pc || age < gc;
+    }
+    if (p.mode == kValid) return p.kv_valid[static_cast<int64_t>(b) * p.S + r] != 0;
+    return true;
+  };
+
+  // this warp's running state for heads 2t, 2t + 1; acc is O^T [d, head]
+  float m[2] = {vlm::kNegInf, vlm::kNegInf}, l[2] = {0.f, 0.f};
+  float acc[kMaxDT][4];
+#pragma unroll
+  for (int i = 0; i < kMaxDT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  if (nt > 0) {
+    load(0, s_begin);
+    vlm::cp_async_commit();
+  }
+
+  // the block's 8 query heads into shared memory as bf16 pairs, zero past
+  // nh heads and past D: one round of independent loads while tile 0 is in
+  // flight (the wrapper passes q with even strides and a 4-byte base)
+  unsigned char* q_sm = smem + bufs * 2 * tile_bytes;
+  const int qpitch = dp * 2 + 16;
+  const int qwords = dp / 2;
+  const uint32_t* qg = reinterpret_cast<const uint32_t*>(
+      p.q + b * p.q_sb + static_cast<int64_t>(kvh * G + h0) * p.q_sh);
+#pragma unroll
+  for (int k = 0; k < kHeads * kMaxD / 2 / kThreads; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    if (i < kHeads * qwords) {
+      const int h = i / qwords, w = i - h * qwords;
+      uint32_t x = 0;
+      if (h < nh && 2 * w < p.D) x = __ldg(qg + h * (p.q_sh / 2) + w);
+      *reinterpret_cast<uint32_t*>(q_sm + h * qpitch + 4 * w) = x;
+    }
+  }
+  __syncthreads();
+  // Q^T as the B operand: lane (g, t) holds head h0 + g, dims 2t, 2t + 1
+  // (b0) and 2t + 8, 2t + 9 (b1) of each 16-wide slice, times D^-1/2
+  uint32_t qf[kMaxDT][2];
+#pragma unroll
+  for (int kk = 0; kk < kMaxDT; ++kk)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      qf[kk][hf] = 0;
+      if (kk < ndt) {
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            q_sm + g * qpitch + 2 * (kk * 16 + 2 * t + 8 * hf)));
+        qf[kk][hf] = vlm::pack_bf16(x.x * p.scale, x.y * p.scale);
+      }
     }
 
-    float s = vlm::kNegInf;
-    if (live) {
-      const float* qrow = q_sm + g * D;
-      const T* krow = k_tile + lane * ld;
-      float dot = 0.f;
+  for (int i = 0; i < nt; ++i) {
+    if (i + 1 < nt) {
+      load((i + 1) & 1, s_begin + (i + 1) * kTile);
+      vlm::cp_async_commit();
+      vlm::cp_async_wait<1>();
+    } else {
+      vlm::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile i landed for every warp
+    const unsigned char* kt = smem + (i & 1) * 2 * tile_bytes;
+    const unsigned char* vt = kt + tile_bytes;
+    const int rw = warp * 16;
+
+    // scores S^T [16 rows, 8 heads]: lane holds rows g, g + 8 x heads 2t, 2t+1
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kMaxDT; ++kk) {
+      if (kk >= ndt) break;
+      uint32_t a[4];
       if constexpr (kInt8) {
-        for (int c = 0; c < D; c += 4) {
-          const char4 kc = *reinterpret_cast<const char4*>(krow + c);
-          dot = fmaf(qrow[c], static_cast<float>(kc.x), dot);
-          dot = fmaf(qrow[c + 1], static_cast<float>(kc.y), dot);
-          dot = fmaf(qrow[c + 2], static_cast<float>(kc.z), dot);
-          dot = fmaf(qrow[c + 3], static_cast<float>(kc.w), dot);
-        }
-        s = dot * scale * k_scale[((int64_t)b * S + r) * KV + kvh];
+        const unsigned char* kr = kt + (rw + g) * pitch + kk * 16 + 2 * t;
+        const char2 c0 = *reinterpret_cast<const char2*>(kr);
+        const char2 c1 = *reinterpret_cast<const char2*>(kr + 8 * pitch);
+        const char2 c2 = *reinterpret_cast<const char2*>(kr + 8);
+        const char2 c3 = *reinterpret_cast<const char2*>(kr + 8 * pitch + 8);
+        a[0] = widen2(c0.x, c0.y);
+        a[1] = widen2(c1.x, c1.y);
+        a[2] = widen2(c2.x, c2.y);
+        a[3] = widen2(c3.x, c3.y);
       } else {
-        for (int c = 0; c < D; c += 2) {
-          const float2 kf = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(krow + c));
-          dot = fmaf(qrow[c], kf.x, dot);
-          dot = fmaf(qrow[c + 1], kf.y, dot);
-        }
-        s = dot * scale;
+        ldmatrix_x4(a, kt + (rw + (lane & 7) + ((lane >> 3) & 1) * 8) * pitch +
+                           (kk * 16 + (lane >> 4) * 8) * 2, false);
       }
+      vlm::mma16816(s, a, qf[kk][0], qf[kk][1]);
     }
-    const float m_new = fmaxf(m, vlm::warp_max(s));
-    const float corr = expf(m - m_new);
-    const float p = live ? expf(s - m_new) : 0.f;
-    l = l * corr + vlm::warp_sum(p);
-    m = m_new;
-    // the probability this row's V values are weighted with
-    float pv = p;
+
+    const int r_lo = s_begin + i * kTile + rw + g;
+    const int r_hi = r_lo + 8;
+    const bool lv0 = live(r_lo), lv1 = live(r_hi);
     if constexpr (kInt8) {
-      if (live) pv = p * v_scale[((int64_t)b * S + r) * KV + kvh];
+      const float k0 = lv0 ? p.k_scale[(static_cast<int64_t>(b) * p.S + r_lo) * p.KV + kvh] : 0.f;
+      const float k1 = lv1 ? p.k_scale[(static_cast<int64_t>(b) * p.S + r_hi) * p.KV + kvh] : 0.f;
+      s[0] *= k0;
+      s[1] *= k0;
+      s[2] *= k1;
+      s[3] *= k1;
     }
+    if (!lv0) s[0] = s[1] = vlm::kNegInf;
+    if (!lv1) s[2] = s[3] = vlm::kNegInf;
+    // per-head max and sum over the 16 rows: the lanes that share t
+    float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
 #pragma unroll
-    for (int i = 0; i < kDimsPerLane; ++i) acc[i] *= corr;
-    const int smax = min(kTileS, S - s0);
-    for (int j = 0; j < smax; ++j) {
-      const float pj = __shfl_sync(vlm::kFullMask, pv, j);
-      if (pj == 0.f) continue;  // masked row (warp-uniform)
-      const T* vrow = v_tile + j * ld;
+    for (int o = 4; o < 32; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(vlm::kFullMask, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(vlm::kFullMask, mx1, o));
+    }
+    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+    const float c0 = expf(m[0] - mn0), c1 = expf(m[1] - mn1);
+    float p0 = lv0 ? expf(s[0] - mn0) : 0.f;
+    float p1 = lv0 ? expf(s[1] - mn1) : 0.f;
+    float p2 = lv1 ? expf(s[2] - mn0) : 0.f;
+    float p3 = lv1 ? expf(s[3] - mn1) : 0.f;
+    float sum0 = p0 + p2, sum1 = p1 + p3;
 #pragma unroll
-      for (int i = 0; i < kDimsPerLane; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) {
-          float vf;
-          if constexpr (kInt8) vf = static_cast<float>(vrow[d]);
-          else vf = __bfloat162float(vrow[d]);
-          acc[i] = fmaf(pj, vf, acc[i]);
-        }
+    for (int o = 4; o < 32; o <<= 1) {
+      sum0 += __shfl_xor_sync(vlm::kFullMask, sum0, o);
+      sum1 += __shfl_xor_sync(vlm::kFullMask, sum1, o);
+    }
+    l[0] = l[0] * c0 + sum0;
+    l[1] = l[1] * c1 + sum1;
+    m[0] = mn0;
+    m[1] = mn1;
+    if constexpr (kInt8) {
+      const float v0 = lv0 ? p.v_scale[(static_cast<int64_t>(b) * p.S + r_lo) * p.KV + kvh] : 0.f;
+      const float v1 = lv1 ? p.v_scale[(static_cast<int64_t>(b) * p.S + r_hi) * p.KV + kvh] : 0.f;
+      p0 *= v0;
+      p1 *= v0;
+      p2 *= v1;
+      p3 *= v1;
+    }
+    // P^T as the B operand [rows, heads]: lane (g, t) needs rows 2t, 2t + 1
+    // of head g; it holds rows g, g + 8 of heads 2t, 2t + 1: a transpose
+    const uint32_t pb0 = transpose8x8(vlm::pack_bf16(p0, p1));
+    const uint32_t pb1 = transpose8x8(vlm::pack_bf16(p2, p3));
+#pragma unroll
+    for (int mt = 0; mt < kMaxDT; ++mt) {
+      if (mt >= ndt) break;
+      acc[mt][0] *= c0;
+      acc[mt][1] *= c1;
+      acc[mt][2] *= c0;
+      acc[mt][3] *= c1;
+      uint32_t a[4];
+      if constexpr (kInt8) {
+        const int8_t* vr = reinterpret_cast<const int8_t*>(vt) +
+                           (rw + 2 * t) * pitch + mt * 16 + g;
+        a[0] = widen2(vr[0], vr[pitch]);
+        a[1] = widen2(vr[8], vr[pitch + 8]);
+        a[2] = widen2(vr[8 * pitch], vr[9 * pitch]);
+        a[3] = widen2(vr[8 * pitch + 8], vr[9 * pitch + 8]);
+      } else {
+        ldmatrix_x4(a, vt + (rw + (lane & 7) + (lane >> 4) * 8) * pitch +
+                           (mt * 16 + ((lane >> 3) & 1) * 8) * 2, true);
       }
+      vlm::mma16816(acc[mt], a, pb0, pb1);
     }
+    __syncthreads();  // every warp is done with this buffer
   }
 
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  __nv_bfloat16* orow = o + b * o_sb + h * o_sh;
+  // merge the 4 warps: [warp][head] max and sum, [warp][head][dp] acc
+  __syncthreads();
+  float* red_m = reinterpret_cast<float*>(smem);  // then each warp's weight
+  float* red_l = red_m + kWarps * kHeads;
+  float* red_acc = red_l + kWarps * kHeads;
+  float* blk_m = red_acc + kWarps * kHeads * dp;  // [8] the block's max
+  float* blk_l = blk_m + kHeads;                  // [8] the block's sum
+  if (g == 0) {
 #pragma unroll
-  for (int i = 0; i < kDimsPerLane; ++i) {
-    const int d = lane + 32 * i;
-    if (d < D) orow[d] = __float2bfloat16(acc[i] * inv);
+    for (int j = 0; j < 2; ++j) {
+      red_m[warp * kHeads + 2 * t + j] = m[j];
+      red_l[warp * kHeads + 2 * t + j] = l[j];
+    }
   }
+#pragma unroll
+  for (int mt = 0; mt < kMaxDT; ++mt) {
+    if (mt >= ndt) break;
+    float* base = red_acc + warp * kHeads * dp + mt * 16 + g;
+    base[(2 * t) * dp] = acc[mt][0];
+    base[(2 * t + 1) * dp] = acc[mt][1];
+    base[(2 * t) * dp + 8] = acc[mt][2];
+    base[(2 * t + 1) * dp + 8] = acc[mt][3];
+  }
+  __syncthreads();
+  if (threadIdx.x < kHeads) {
+    const int h = threadIdx.x;
+    float mx = vlm::kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w * kHeads + h]);
+    float lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float lw = red_l[w * kHeads + h];
+      const float wt = lw > 0.f ? expf(red_m[w * kHeads + h] - mx) : 0.f;
+      red_m[w * kHeads + h] = wt;
+      lsum += lw * wt;
+    }
+    blk_m[h] = mx;
+    blk_l[h] = lsum;
+  }
+  __syncthreads();
+
+  const int splits = gridDim.z;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int part = kHeads * (2 + dp);  // m[8], l[8], acc[8, dp]
+  const int dq = dp / 4;               // float4 groups a head
+  constexpr int kGroups = kHeads * kMaxD / 4 / kThreads;
+  __nv_bfloat16* ob = p.o + b * p.o_sb;
+  const int hq0 = kvh * G + h0;  // first query head of this block
+  auto store = [&](int h, int d, float4 a, float scale) {
+    const float x[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d + e < p.D) ob[(hq0 + h) * p.o_sh + d + e] = __float2bfloat16(x[e] * scale);
+  };
+  float* pw = p.ws + (static_cast<int64_t>(tile) * splits + blockIdx.z) * part;
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int i = threadIdx.x + q * kThreads;
+    if (i >= kHeads * dq) break;
+    const int h = i / dq, d = (i - h * dq) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt = red_m[w * kHeads + h];
+      const float4 v = *reinterpret_cast<const float4*>(red_acc + (w * kHeads + h) * dp + d);
+      a.x += wt * v.x;
+      a.y += wt * v.y;
+      a.z += wt * v.z;
+      a.w += wt * v.w;
+    }
+    if (splits > 1)
+      *reinterpret_cast<float4*>(pw + 2 * kHeads + h * dp + d) = a;
+    else if (h < nh)
+      store(h, d, a, 1.f / fmaxf(blk_l[h], 1e-30f));
+  }
+  if (splits == 1) return;
+  if (threadIdx.x < kHeads) {
+    pw[threadIdx.x] = blk_m[threadIdx.x];
+    pw[kHeads + threadIdx.x] = blk_l[threadIdx.x];
+  }
+  if (!vlm::split_k_last(p.counters)) return;
+
+  // the last block of this (slot, kv head, group): merge in split order.
+  // Each split's weight exp(m_z - max) (0 for a split with no live row) is
+  // formed once per head in shared memory; then each thread sums its
+  // elements' partials, split by split, with its loads all in flight.
+  const float* pt = p.ws + static_cast<int64_t>(tile) * splits * part;
+  float* wz = reinterpret_cast<float*>(smem);  // [splits, 8]: m_z, then w_z
+  float* lz = wz + splits * kHeads;            // [splits, 8]
+  float* inv = lz + splits * kHeads;           // [8]: 1 / sum of l
+  for (int i = threadIdx.x; i < splits * kHeads; i += kThreads) {
+    const int z = i / kHeads, h = i - z * kHeads;
+    wz[i] = __ldcg(pt + z * part + h);
+    lz[i] = __ldcg(pt + z * part + kHeads + h);
+  }
+  __syncthreads();
+  if (threadIdx.x < kHeads) {
+    const int h = threadIdx.x;
+    float mx = vlm::kNegInf;
+    for (int z = 0; z < splits; ++z) mx = fmaxf(mx, wz[z * kHeads + h]);
+    float lsum = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      const float lw = lz[z * kHeads + h];
+      const float wt = lw > 0.f ? expf(wz[z * kHeads + h] - mx) : 0.f;
+      wz[z * kHeads + h] = wt;
+      lsum += lw * wt;
+    }
+    inv[h] = 1.f / fmaxf(lsum, 1e-30f);
+  }
+  __syncthreads();
+  int hs[kGroups], ds[kGroups];
+  float4 a[kGroups];
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int i = threadIdx.x + q * kThreads;
+    hs[q] = i < nh * dq ? i / dq : -1;
+    ds[q] = hs[q] < 0 ? 0 : (i - hs[q] * dq) * 4;
+    a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll 2
+  for (int z = 0; z < splits; ++z) {
+    const float* pz = pt + z * part + 2 * kHeads;
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q) {
+      if (hs[q] < 0) continue;
+      const float wt = wz[z * kHeads + hs[q]];
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(pz + hs[q] * dp + ds[q]));
+      a[q].x += wt * v.x;
+      a[q].y += wt * v.y;
+      a[q].z += wt * v.z;
+      a[q].w += wt * v.w;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q)
+    if (hs[q] >= 0) store(hs[q], ds[q], a[q], inv[hs[q]]);
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const float* k_scale, const float* v_scale, const int* kv_len,
-           const void* kv_valid, const int* pcol, const int* acol,
-           const int* gcnt, int B, int H, int KV, int S, int D, int window,
-           int mode, int64_t q_sb, int64_t q_sh, int64_t c_sb, int64_t c_ss,
-           int64_t o_sb, int64_t o_sh, float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  const int ld = sizeof(T) == 1 ? D + 4 : D + 2;
-  const size_t smem = sizeof(float) * G * D + 2 * sizeof(T) * kTileS * ld;
+int launch(const Params& p, int B, cudaStream_t stream) {
+  const int G = p.H / p.KV;
+  const int groups = (G + kHeads - 1) / kHeads;
+  const int dp = (p.D + 15) & ~15;
+  const int pitch = dp * static_cast<int>(sizeof(T)) + 16;
+  const int bufs = min(2, p.rows_per_split / kTile);
+  const size_t tiles = static_cast<size_t>(bufs) * 2 * kTile * pitch +
+                       kHeads * (2 * dp + 16);  // the ring, then Q
+  const size_t red = sizeof(float) * (kWarps * kHeads * (2 + dp) + 2 * kHeads);
+  // the last block's merge keeps 2 x 8 floats a split (kMaxSplits) and 8
+  const size_t merge = sizeof(float) * (2 * kMaxSplits + 1) * kHeads;
+  size_t smem = tiles > red ? tiles : red;
+  smem = smem > merge ? smem : merge;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dim3 grid(KV, B);
-  decode_kernel<T><<<grid, 32 * G, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<__nv_bfloat16*>(o), k_scale,
-      v_scale, kv_len, static_cast<const uint8_t*>(kv_valid), pcol, acol, gcnt,
-      H, KV, S, D, window, mode, q_sb, q_sh, c_sb, c_ss, o_sb, o_sh, scale);
-  return (int)cudaGetLastError();
+  const int splits = (max(p.S, 1) + p.rows_per_split - 1) / p.rows_per_split;
+  dim3 grid(p.KV * groups, B, splits);
+  decode_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // k_scale == nullptr: bf16 cache; otherwise an int8 cache with fp32 scales
-// k_scale / v_scale [B, S, KV, 1]. Cache strides are in elements.
+// k_scale / v_scale [B, S, KV, 1]. Cache strides are in elements. The S
+// rows are cut into splits of rows_per_split (a multiple of 64); with more
+// than one split, ws holds KV * ceil(G / 8) * B * splits * 8 * (2 + dp)
+// floats (dp: D rounded up to 16) and counters one zeroed int per
+// (slot, kv head, group of 8 heads), left zeroed by the kernel.
 extern "C" int vlm_decode_attention(
     const void* q, const void* k, const void* v, void* o, const void* k_scale,
     const void* v_scale, const int* kv_len, const void* kv_valid,
-    const int* pcol, const int* acol, const int* gcnt, int B, int H, int KV,
-    int S, int D, int window, int mode, int64_t q_sb, int64_t q_sh,
-    int64_t c_sb, int64_t c_ss, int64_t o_sb, int64_t o_sh, float scale,
-    void* stream) {
+    const int* pcol, const int* acol, const int* gcnt, void* ws,
+    void* counters, int B, int H, int KV, int S, int D, int window, int mode,
+    int rows_per_split, int64_t q_sb, int64_t q_sh, int64_t c_sb,
+    int64_t c_ss, int64_t o_sb, int64_t o_sh, float scale, void* stream) {
   const bool int8 = k_scale != nullptr;
-  if (D > kMaxD || D % (int8 ? 4 : 2) != 0 || KV <= 0 || H % KV != 0 ||
-      H / KV > 32 || (mode == kWindow && window <= 0) ||
-      int8 != (v_scale != nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (D <= 0 || D > kMaxD || D % (int8 ? 4 : 2) != 0 || KV <= 0 ||
+      H % KV != 0 || H / KV > 32 || (mode == kWindow && window <= 0) ||
+      int8 != (v_scale != nullptr) || rows_per_split <= 0 ||
+      rows_per_split % kTile != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(q) % 4 || q_sb % 2 || q_sh % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows_per_split < S &&
+      (!ws || !counters || (S + rows_per_split - 1) / rows_per_split > kMaxSplits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{static_cast<const __nv_bfloat16*>(q), k, v,
+           static_cast<__nv_bfloat16*>(o), static_cast<const float*>(k_scale),
+           static_cast<const float*>(v_scale), kv_len,
+           static_cast<const uint8_t*>(kv_valid), pcol, acol, gcnt,
+           static_cast<float*>(ws), static_cast<int*>(counters), H, KV, S, D,
+           window, mode, rows_per_split, q_sb, q_sh, c_sb, c_ss, o_sb, o_sh,
+           scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  if (int8)
-    return launch<int8_t>(q, k, v, o, ks, vs, kv_len, kv_valid, pcol, acol,
-                          gcnt, B, H, KV, S, D, window, mode, q_sb, q_sh, c_sb,
-                          c_ss, o_sb, o_sh, scale, st);
-  return launch<__nv_bfloat16>(q, k, v, o, ks, vs, kv_len, kv_valid, pcol,
-                               acol, gcnt, B, H, KV, S, D, window, mode, q_sb,
-                               q_sh, c_sb, c_ss, o_sb, o_sh, scale, st);
+  return int8 ? launch<int8_t>(p, B, st) : launch<__nv_bfloat16>(p, B, st);
 }

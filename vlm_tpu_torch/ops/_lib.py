@@ -48,12 +48,12 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "vlm_flash_attention": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _I, _P],
-    "vlm_decode_attention": [_P] * 11 + [_I] * 7 + [_L] * 6 + [_F, _P],
+    "vlm_decode_attention": [_P] * 13 + [_I] * 8 + [_L] * 6 + [_F, _P],
     "vlm_kv_write": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],
     "vlm_kv_write_int8": [_P] * 7 + [_I] * 6 + [_P],
     "vlm_normalize": [_P, _P, _L, _P, _P, _P],
     "vlm_int8_matmul": [_P] * 6 + [_I] * 4 + [_P],
-    "vlm_int8xint8_matmul": [_P] * 7 + [_I] * 5 + [_P],
+    "vlm_int8xint8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "vlm_int4_matmul": [_P] * 6 + [_I] * 5 + [_P],
 }
 
@@ -156,15 +156,20 @@ def launch(kernel: str, fn_name: str, *args) -> None:
     launches[kernel] += 1
 
 
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device (cached)."""
+    if device.index not in _sm_counts:
+        _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_counts[device.index]
+
+
 def split_k(device: torch.device, tiles: int, k_tiles: int, per_sm: int,
             max_splits: int, min_k_tiles: int) -> int:
     """How many blocks share each output tile's K range (the GEMMs'
     split-K), so that about ``per_sm`` blocks per SM are in flight, each
     with at least ``min_k_tiles`` K steps; no split is left empty."""
-    if device.index not in _sm_counts:
-        _sm_counts[device.index] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    target = per_sm * _sm_counts[device.index]
+    target = per_sm * sm_count(device)
     if tiles >= target:
         return 1
     splits = max(1, min(-(-target // tiles), max_splits,

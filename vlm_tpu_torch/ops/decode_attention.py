@@ -12,6 +12,12 @@ composes with ``kv_len``. Contract of ``vlm_tpu``'s
 An int8 cache comes with ``k_scale``/``v_scale`` ``[B, S, KV, 1]`` fp32
 (the int8 form of B2): the scales multiply the scores and the
 probabilities, ``q.(k8 s) == (q.k8) s``, and the values enter as int8.
+
+On the card B2 is split-S flash-decoding: :func:`split_plan` cuts the S
+rows into splits of whole 64-row tiles, one block per (kv head, group of 8
+query heads, slot, split), and the last block of each (slot, kv head,
+group) merges the splits' (max, sum, acc) in the same launch, through a
+workspace this wrapper allocates.
 """
 
 from __future__ import annotations
@@ -24,6 +30,23 @@ from . import _lib
 
 NEG_INF = -1e30
 _MODE_LEN, _MODE_VALID, _MODE_WINDOW = 0, 1, 2
+# the kernel's geometry: cache rows a step, query heads a block
+TILE_ROWS, HEADS_PER_BLOCK, MAX_SPLITS = 64, 8, 64
+
+
+def split_plan(s_total: int, blocks: int,
+               sm_count: int) -> Tuple[int, int]:
+    """How B2 cuts the S cache rows: ``(splits, rows_per_split)``.
+    ``blocks`` is KV x head groups x B, the grid without splits. Each split
+    is a whole number of 64-row tiles, holds at least one, and the splits
+    cover S exactly; their count brings the grid to about two blocks an SM
+    where S has enough tiles, and stays within the kernel's
+    ``MAX_SPLITS``."""
+    n_tiles = max(1, -(-s_total // TILE_ROWS))
+    want = min(MAX_SPLITS,
+               max(1, -(-2 * sm_count // max(1, blocks))))
+    per = -(-n_tiles // min(want, n_tiles))
+    return -(-n_tiles // per), per * TILE_ROWS
 
 
 def window_mask(s_total: int, kv_window: Tuple, device) -> torch.Tensor:
@@ -123,6 +146,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (k.is_contiguous() and v.is_contiguous()) or q.stride(3) != 1:
         raise ValueError("decode_attention: needs contiguous caches and a "
                          "contiguous query head dim")
+    if q.stride(0) % 2 or q.stride(1) % 2 or q.data_ptr() % 4:
+        q = q.contiguous()      # the kernel reads q as bf16 pairs
     if int8:
         _lib.check_cuda("decode_attention", k_scale, v_scale)
         _lib.check_dtype("decode_attention", torch.float32, k_scale, v_scale)
@@ -153,12 +178,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         mode = _MODE_LEN
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    blocks = kvh * -(-(h // kvh) // HEADS_PER_BLOCK) * b
+    splits, rows = split_plan(s_total, blocks, _lib.sm_count(dev))
+    ws = counters = None
+    if splits > 1:
+        dp = -(-d // 16) * 16
+        ws = torch.empty(blocks * splits * HEADS_PER_BLOCK * (2 + dp),
+                         dtype=torch.float32, device=dev)
+        counters = _lib.tile_counters(dev, blocks)
     _lib.launch(
         "decode_attention_int8" if int8 else "decode_attention",
         "vlm_decode_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(k_scale),
         ptr(v_scale), ptr(kvl), ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt),
-        b, h, kvh, s_total, d,
-        window, mode, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        o.stride(0), o.stride(1), d ** -0.5, _lib.stream_ptr(q))
+        ptr(ws), ptr(counters), b, h, kvh, s_total, d, window, mode, rows,
+        q.stride(0), q.stride(1), k.stride(0), k.stride(1), o.stride(0),
+        o.stride(1), d ** -0.5, _lib.stream_ptr(q))
     return o

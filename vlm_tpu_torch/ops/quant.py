@@ -180,17 +180,9 @@ def int8xint8_matmul(qx: torch.Tensor, sx: torch.Tensor, qw: torch.Tensor,
                          f"qw={tuple(qw.shape)} (needs K % 16 == 0, N even)")
     _lib.check_contiguous(name, qx, sx, qw, sw)
     y = torch.empty((m, n), dtype=out_dtype, device=qx.device)
-    tiles = -(-n // 128) * -(-m // 128)
-    splits = _lib.split_k(qx.device, tiles, -(-k // 64), per_sm=2,
-                          max_splits=8, min_k_tiles=8)
-    ws = torch.empty((splits, m, n), dtype=torch.int32, device=qx.device) \
-        if splits > 1 else None
     _lib.launch(name, "vlm_int8xint8_matmul", qx.data_ptr(), sx.data_ptr(),
-                qw.data_ptr(), sw.data_ptr(), y.data_ptr(),
-                ws.data_ptr() if ws is not None else None,
-                _lib.tile_counters(qx.device, tiles).data_ptr(), m, n, k,
-                splits, int(out_dtype == torch.bfloat16),
-                _lib.stream_ptr(qx))
+                qw.data_ptr(), sw.data_ptr(), y.data_ptr(), m, n, k,
+                int(out_dtype == torch.bfloat16), _lib.stream_ptr(qx))
     return y
 
 

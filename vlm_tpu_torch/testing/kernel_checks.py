@@ -6,12 +6,15 @@ paths do not reach.
 
 Used by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``. Attention
 outputs are bf16 and both versions accumulate in fp32 from the same bf16
-inputs, but round at other places: the plain version rounds the normalised
-probabilities to bf16 before the P.V product (as the JAX reference does),
-B1 rounds the unnormalised ones (its tensor-core operands), B2 keeps them in
-fp32. So they agree within ``ATTN_TOL``, a few bf16 ulps at 1. The KV
-write must be bitwise, its int8 form too (values and scales);
-normalisation within one bf16 ulp.
+inputs, but round at other places: B1's plain version rounds the
+normalised probabilities to bf16 before the P.V product (as the JAX
+reference does) and B2's keeps them in fp32, while both kernels round the
+unnormalised ones to bf16 (their tensor-core operands, as the TPU kernels
+round theirs) and B2 rounds the query scaled by D^-1/2 to bf16. So they
+agree within ``ATTN_TOL``, a few bf16 ulps at 1. B2 is timed with the L2
+cache flushed (``_cold``: the decode step reads each layer's cache from
+device memory) and warm. The KV write must be bitwise, its int8 form too
+(values and scales); normalisation within one bf16 ulp.
 
 B5 (weight-only int8 GEMM) accumulates the same fp32 products as its plain
 version in another order, then both scale and round once to bf16: they
@@ -19,11 +22,13 @@ agree within ``GEMM_REL_TOL`` (two bf16 ulps) of the largest output. B6
 (int8 x int8) sums exactly in int32 and applies the scales in the plain
 version's order, so its fp32 output is bitwise equal; its bf16 output may
 differ by one bf16 ulp (``GEMM_REL_TOL / 2``, stated relative to the
-largest output). B7 (grouped int4) forms the same bf16 weights as its plain
-version (``nibble * scale`` in fp32, rounded once) and accumulates them in
-fp32 in another order: ``GEMM_REL_TOL`` of the largest output. The GEMMs
-are timed with the L2 cache flushed before each launch: the serving path
-streams every weight once per step, cold.
+largest output). B6's cases below 17 rows compare with the plain version
+on CPU copies (``torch._int_mm`` on the card takes more than 16 rows),
+whose time is then not measured. B7 (grouped int4) forms the same bf16
+weights as its plain version (``nibble * scale`` in fp32, rounded once)
+and accumulates them in fp32 in another order: ``GEMM_REL_TOL`` of the
+largest output. The GEMMs are timed with the L2 cache flushed before each
+launch: the serving path streams every weight once per step, cold.
 """
 
 from __future__ import annotations
@@ -96,6 +101,7 @@ class Case:
     form: str = ""              # the launch counter; default: the kernel's
     rel: bool = False           # tol is relative to max |plain|
     cold: bool = False          # flush the L2 cache before each timed call
+    plain_timed: bool = True    # False: the plain version runs on the CPU
 
 
 def _bhsd(gen, b, s, h, d, dev):
@@ -132,7 +138,8 @@ def cases(device) -> List[Case]:
        causal=True, prefix_len=torch.tensor([20, 5], **i32),
        kv_len=torch.tensor([60, 64], **i32))
 
-    # decode attention over the 32-slot cache
+    # decode attention over the 32-slot cache, timed cold (the slice reads
+    # each layer's cache from device memory) and warm (from the L2 cache)
     q = torch.randn(SLOTS, 1, 8, 256, generator=gen, device=dev).to(
         torch.bfloat16).transpose(1, 2)
     kc = torch.randn(SLOTS, CACHE, 1, 256, generator=gen, device=dev).to(
@@ -151,22 +158,64 @@ def cases(device) -> List[Case]:
     # the int8 cache: the same rows quantized per (slot, row, kv head)
     kq, ks = quantize_activations(kc)
     vq, vs = quantize_activations(vc)
-    for form, kk, vv, scales in (
-            ("decode_attention", kc, vc, {}),
-            ("decode_attention_int8", kq, vq, dict(k_scale=ks, v_scale=vs))):
-        tag = "_int8" if scales else ""
-        for case, kw, on_path in (
-                ("window_32slots", dict(kv_window=(pcol, NEW, acol, gcnt)),
-                 True),
-                ("kv_len_32slots", dict(kv_len=kv_len), False),
-                ("kv_valid_32slots", dict(kv_valid=valid), False)):
-            kw = dict(kw, **scales)
-            out.append(Case(
-                "B2", case + tag,
-                lambda kw=kw, kk=kk, vv=vv: decode_attention(q, kk, vv, **kw),
-                lambda kw=kw, kk=kk, vv=vv: decode_attention_plain(
-                    q, kk, vv, **kw),
-                ATTN_TOL, on_path, form=form))
+
+    def b2(case, q, kk, vv, kw, on_path, scales, cold=False):
+        form = "decode_attention_int8" if scales else "decode_attention"
+        kw = dict(kw, **scales)
+        name = case + ("_int8" if scales else "") + ("_cold" if cold else "")
+        out.append(Case(
+            "B2", name,
+            lambda: decode_attention(q, kk, vv, **kw),
+            lambda: decode_attention_plain(q, kk, vv, **kw),
+            ATTN_TOL, on_path, form=form, cold=cold))
+
+    for kk, vv, scales in ((kc, vc, {}),
+                           (kq, vq, dict(k_scale=ks, v_scale=vs))):
+        for cold in (True, False):
+            b2("window_32slots", q, kk, vv,
+               dict(kv_window=(pcol, NEW, acol, gcnt)), True, scales, cold)
+        b2("kv_len_32slots", q, kk, vv, dict(kv_len=kv_len), False, scales)
+        b2("kv_valid_32slots", q, kk, vv, dict(kv_valid=valid), False,
+           scales)
+
+    # shapes and masks the serving path does not reach: MHA (G = 1,
+    # D = 128), GQA (G = 4, D = 64), one row, a ragged last tile, a long
+    # cache cut into many splits with whole splits and whole rows masked
+    def cache(b, s, kvh, d):
+        kk = torch.randn(b, s, kvh, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        vv = torch.randn(b, s, kvh, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+        kq, ks = quantize_activations(kk)
+        vq, vs = quantize_activations(vv)
+        return ((kk, vv, {}), (kq, vq, dict(k_scale=ks, v_scale=vs)))
+
+    def query(b, h, d):
+        return torch.randn(b, 1, h, d, generator=gen, device=dev).to(
+            torch.bfloat16).transpose(1, 2)
+
+    for case, (b, h, kvh, s, d), kw in (
+            ("mha_g1_d128_s100", (4, 8, 8, 100, 128),
+             dict(kv_len=torch.tensor([100, 37, 0, 64], **i32))),
+            ("gqa_g4_d64_s100", (4, 8, 2, 100, 64),
+             dict(kv_len=torch.tensor([1, 99, 100, 65], **i32))),
+            ("s1", (3, 8, 1, 1, 256), dict(kv_len=torch.tensor([1, 0, 1],
+                                                             **i32))),
+            ("s2048_kv_len", (4, 8, 1, 2048, 256),
+             dict(kv_len=torch.tensor([2048, 300, 0, 1500], **i32))),
+            ("g32_d72_s130", (2, 32, 1, 130, 72), {})):
+        qq = query(b, h, d)
+        for kk, vv, scales in cache(b, s, kvh, d):
+            b2(case, qq, kk, vv, kw, False, scales)
+    # kv_valid over 2048 rows: slot 0 has rows only in the first and last
+    # 64, so the splits between hold no live row; slot 1 has none
+    qq = query(4, 8, 256)
+    live = torch.rand(4, 2048, generator=gen, device=dev) < 0.3
+    live[0, 64:-64] = False
+    live[1] = False
+    for kk, vv, scales in cache(4, 2048, 1, 256):
+        b2("s2048_dead_splits", qq, kk, vv, dict(kv_valid=live), False,
+           scales)
 
     # the per-step KV row write, in place on clones of the cache
     k_new = torch.randn(SLOTS, 1, 1, 256, generator=gen, device=dev).to(
@@ -269,17 +318,28 @@ def cases(device) -> List[Case]:
         sx = torch.rand(m, 1, generator=gen, device=dev) * (4 / 127)
         exact = out_dtype == torch.float32
         tag = "fp32" if exact else "bf16"
+        # torch._int_mm on the card takes more than 16 rows; below that the
+        # plain version runs on CPU copies (the same IEEE epilogue) untimed
+        card = m > 16
         out.append(Case(
             "B6", f"m{m}_k{k}_n{n}_{tag}",
             lambda: int8xint8_matmul(qx, sx, qw, sw, out_dtype),
-            lambda: int8xint8_matmul_plain(qx, sx, qw, sw, out_dtype),
+            lambda: int8xint8_matmul_plain(
+                *(t if card else t.cpu() for t in (qx, sx, qw, sw)),
+                out_dtype).to(dev),
             0.0 if exact else GEMM_REL_TOL / 2, on_path, rel=not exact,
-            cold=True))
+            cold=True, plain_timed=card))
 
     for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
         b6(GROUP * PROMPT, k, n, *gemma_w[(k, n)], torch.float32, True)
     for k, n in SIGLIP_KN:
         b6(2 * 256, k, n, *weights(k, n), torch.bfloat16, False)
+    # one and four rows, K less than one 128-byte step, ragged M, N and K
+    # (4304 = 33 x 128 + 80)
+    b6(1, 2048, 2048, *gemma_w[(2048, 2048)], torch.float32, False)
+    b6(4, 64, 32, *weights(64, 32), torch.float32, False)
+    b6(4, 4304, 4304, *weights(4304, 4304), torch.bfloat16, False)
+    b6(300, 4304, 1152, *weights(4304, 1152), torch.float32, False)
 
     # B7: packed int4 bytes (every nibble, -8 included) and fp32 group
     # scales that give lecun-sized weights
@@ -363,10 +423,11 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
         tk = c.time_kernel or c.kernel_fn
         tp = c.time_plain or c.plain_fn
         fl = flush if c.cold else None
-        p1 = _ms(tp, iters, fl)
+        nan = float("nan")
+        p1 = _ms(tp, iters, fl) if c.plain_timed else nan
         k1 = _ms(tk, iters, fl)
         k2 = _ms(tk, iters, fl)
-        p2 = _ms(tp, iters, fl)
+        p2 = _ms(tp, iters, fl) if c.plain_timed else nan
         form = c.form or KERNELS[c.kernel]["name"]
         records.append(dict(kernel=c.kernel, form=form, case=c.case,
                             on_path=c.on_path, max_abs_err=err, tol=c.tol,
