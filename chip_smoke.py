@@ -10,7 +10,10 @@ Phases, each of which raises on failure:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the CUDA kernels from ``vlm_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the serving
-   paths' shapes, with error, tolerance and both times;
+   paths' shapes, with error, tolerance, both times, the bound (the least
+   time the card could take for the work) and, where one PyTorch call
+   computes the same function, that call's time (timed only: the port
+   never calls it);
 4. bf16 slice: PaliGemma-3B at full width, bf16, random weights from a
    seed, through the port's continuous batcher (32 slots, 96 synthetic
    224 px images fed through the normalisation kernel, a 60-id prompt, up
@@ -78,10 +81,18 @@ def kernel_phase(gpu):
     records = kernel_checks.run("cuda", iters=20)
     for r in records:
         tol = f"{r['tol']:.1e}" + (" x max|plain|" if r["rel"] else "")
+        lib = "null" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms"
+        if r["library_err"] is not None:
+            lib += (f" (err {r['library_err']:.3e}"
+                    f"{'' if r['library_ok'] else ', outside tol'})")
         print(f"[kernel] {r['kernel']} {r['case']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {tol}) kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-              f"[{'ok' if r['ok'] else 'FAIL'}] ({gpu})")
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_kind']} (share "
+              f"{r['bound_ms'] / r['ms']:.1%}), library {lib} "
+              f"[{r['library_note']}] [{'ok' if r['ok'] else 'FAIL'}] "
+              f"({gpu})")
     bad = [r for r in records if not r["ok"]]
     if bad:
         raise RuntimeError(f"kernels disagree with their plain versions: "
@@ -324,14 +335,21 @@ def main() -> int:
                 "form": form, "launches": launches[form],
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+                "bound_ms": main_case["bound_ms"],
+                "bound_by": main_case["bound_kind"],
+                "bound_kind": main_case["bound_kind"],
+                "library_ms": main_case["library_ms"],
+                "library": main_case["library_note"],
                 "case": main_case["case"]})
+        main = forms[0]
         entry = {
             "name": meta["name"], "route": "cuda", "source": meta["source"],
             "replaces": meta["replaces"],
             "launches": sum(f["launches"] for f in forms),
             "max_abs_err": max(f["max_abs_err"] for f in forms),
-            "ms": forms[0]["ms"], "plain_ms": forms[0]["plain_ms"],
-            "case": forms[0]["case"]}
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "bound_kind", "library_ms", "library",
+                                    "case")}}
         if len(forms) > 1:
             entry["forms"] = forms
         kernels.append(entry)

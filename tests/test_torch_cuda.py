@@ -29,6 +29,41 @@ def test_every_kernel_matches_plain(card):
     assert not bad, bad
 
 
+# B1 at the shapes of later slices and the layouts the serving path does
+# not give it (kernel_checks builds them)
+B1_LATER = ("clip_l336_g4_h16_s577_d64", "eva_g4_h16_s257_d88",
+            "causal_mha_sq100_sk356_d128", "gqa_g4_contiguous_d64",
+            "causal_sq80_sk48_dead_rows", "d42_padded")
+
+
+@pytest.fixture(scope="module")
+def b1_cases(card):
+    from vlm_tpu_torch.testing import kernel_checks
+    return {c.case: c for c in kernel_checks.cases(card) if c.kernel == "B1"}
+
+
+@pytest.mark.parametrize("case", B1_LATER)
+def test_b1_shapes_of_later_slices(b1_cases, case):
+    c = b1_cases[case]
+    got, want = c.kernel_fn(), c.plain_fn()
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) <= c.tol
+
+
+def test_b1_row_without_keys_is_mean_of_v(card):
+    """kv_len = 0 skips no tile: the reference's uniform weights over all
+    Sk keys, for every head of the MQA group."""
+    from vlm_tpu_torch.ops.attention import flash_attention
+    g = torch.Generator(device=card)
+    g.manual_seed(3)
+    q = torch.randn(2, 8, 70, 256, generator=g, device=card).bfloat16()
+    k = torch.randn(2, 1, 200, 256, generator=g, device=card).bfloat16()
+    v = torch.randn(2, 1, 200, 256, generator=g, device=card).bfloat16()
+    o = flash_attention(q, k, v, kv_len=torch.tensor([0, 130], device=card))
+    mean = v[0, 0].float().mean(dim=0)
+    assert float((o[0].float() - mean).abs().max()) <= 2e-2
+
+
 def test_wrappers_launch_on_cuda_and_never_fall_back(card):
     from vlm_tpu_torch.ops import _lib
     from vlm_tpu_torch.ops.attention import flash_attention

@@ -1,18 +1,32 @@
-"""The port stands without JAX: a fresh interpreter imports every module of
-vlm_tpu_torch and runs three tiny slices end to end (model, batcher, every
-op's CPU version: fp32, then 8bit with the int8 KV cache and a prompt long
-enough for the llm.int8 prefill, then 4bit with an int4 tower), and neither jax, flax nor triton is ever
-imported, nor is the kernel library built."""
+"""The port stands on its own: a fresh interpreter in which ``vlm_tpu``,
+``jax`` and ``flax`` cannot be imported (a ``sys.meta_path`` finder refuses
+them) imports every module of vlm_tpu_torch and runs three tiny slices end
+to end (model, batcher, every op's CPU version: fp32, then 8bit with the
+int8 KV cache and a prompt long enough for the llm.int8 prefill, then 4bit
+with an int4 tower), and another runs the port's CLI ``main()`` on a
+synthetic dataset with ``VLM_TPU_PLATFORM=cpu``. Neither imports triton or
+builds the kernel library."""
 
 import json
 import subprocess
 import sys
 from pathlib import Path
 
+import yaml
+
 REPO = Path(__file__).resolve().parents[1]
 
-SCRIPT = r"""
-import importlib, json, pkgutil, sys
+BLOCKER = r"""
+import sys
+class _Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("vlm_tpu", "jax", "flax"):
+            raise ImportError(f"{name} may not be imported by the port")
+sys.meta_path.insert(0, _Refuse())
+"""
+
+SCRIPT = BLOCKER + r"""
+import importlib, json, pkgutil
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -48,16 +62,21 @@ out8 = serve("8bit", [2] + [9] * 249, kv_cache="int8")
 out4 = serve("4bit", [2, 9], quantize_vision=True)
 print(json.dumps({
     "modules": mods, "tokens": out, "tokens8": out8, "tokens4": out4,
-    "loaded": sorted(m for m in ("jax", "flax", "triton") if m in sys.modules),
+    "loaded": sorted(m for m in ("jax", "flax", "triton", "vlm_tpu")
+                     if m in sys.modules),
     "plain_calls": _lib.plain_calls, "lib_loaded": _lib._lib is not None}))
 """
 
 
-def test_port_imports_and_runs_without_jax(tmp_path):
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=tmp_path,
+def _run(script, tmp_path, **env):
+    return subprocess.run([sys.executable, "-c", script], cwd=tmp_path,
                           env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
-                               "HOME": str(tmp_path)},
+                               "HOME": str(tmp_path), **env},
                           capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_and_runs_without_jax(tmp_path):
+    proc = _run(SCRIPT, tmp_path)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
@@ -69,3 +88,41 @@ def test_port_imports_and_runs_without_jax(tmp_path):
         assert len(toks) == 5
         assert all(t is not None and len(t) <= 3 for t in toks)
     assert min(res["plain_calls"].values()) > 0
+
+
+CLI = BLOCKER + r"""
+import json, os, sys
+import torch
+torch.set_num_threads(1)
+from vlm_tpu_torch.ops import _lib
+from vlm_tpu_torch.scripts.prompt_inference import main
+summary = main(["--config", os.environ["CLI_CONFIG"]])
+print(json.dumps({"summary": summary, "lib_loaded": _lib._lib is not None,
+                  "loaded": sorted(m for m in ("jax", "flax", "triton",
+                                               "vlm_tpu") if m in sys.modules)}))
+"""
+
+
+def test_port_cli_runs_end_to_end_without_jax(tmp_path, mivia_base):
+    """The port's CLI on a synthetic MiviaPar split, at size "test" and
+    fp32 on the CPU (``VLM_TPU_PLATFORM=cpu``), writes its preds and
+    metrics with vlm_tpu, jax and flax unimportable."""
+    cfg = {"model_name": "paligemma", "model_size": "test",
+           "quantization": "fp32", "dataset_name": "MiviaPar",
+           "max_tokens": 3, "batch_size": 2,
+           "dataset": {"base_path": str(mivia_base)},
+           "prompts": {"MiviaPar": "describe"}}
+    path = tmp_path / "cli.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    proc = _run(CLI, tmp_path, CLI_CONFIG=str(path),
+                VLM_TPU_ROOT=str(tmp_path), VLM_TPU_PLATFORM="cpu")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and not res["lib_loaded"]
+    summary = res["summary"]
+    assert summary["images_requested"] == summary["images_completed"] == 4
+    out = tmp_path / "eval" / "prompt_inference" / "paligemma_fp32" / \
+        "MiviaPar"
+    assert len(json.loads((out / "preds.json").read_text())) == 4
+    assert "average_accuracy" in json.loads(
+        (out / "metrics.json").read_text())

@@ -284,6 +284,24 @@ def test_model_classes_and_roadmap_errors():
         m.generate_dataset([], "p", num_beams=2)
 
 
+@pytest.mark.parametrize("ask", ["nothing", "device", "env"])
+def test_create_model_runs_on_the_card_unless_asked(ask, monkeypatch):
+    """Without CUDA, a model with no device raises; it runs on the CPU only
+    when asked, by ``device="cpu"`` or ``VLM_TPU_PLATFORM=cpu``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("VLM_TPU_PLATFORM", raising=False)
+    if ask == "nothing":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            create_model("paligemma", size="test")
+        return
+    kw = {"device": "cpu"} if ask == "device" else {}
+    if ask == "env":
+        monkeypatch.setenv("VLM_TPU_PLATFORM", "cpu")
+    m = create_model("paligemma", size="test", **kw)
+    assert m.device == torch.device("cpu")
+    assert next(m.module.parameters()).device == torch.device("cpu")
+
+
 def test_run_zero_shot_through_port(mivia_base, tmp_path):
     from vlm_tpu.data.mivia_par_dataset import MiviaParDataset
     from vlm_tpu.evaluation import run_zero_shot
@@ -309,6 +327,8 @@ def _run_cli(mivia_base, tmp_path, monkeypatch, **extra):
     path = tmp_path / "cfg.yaml"
     path.write_text(yaml.safe_dump(cfg))
     monkeypatch.setenv("VLM_TPU_ROOT", str(tmp_path))
+    # the CLI's model runs on the card unless asked for the CPU
+    monkeypatch.setenv("VLM_TPU_PLATFORM", "cpu")
     (tmp_path / "configs").mkdir()
     import shutil
     from pathlib import Path

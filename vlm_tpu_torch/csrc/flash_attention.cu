@@ -1,256 +1,461 @@
-// B1: fused prefill / encoder attention, softmax(q k^T * scale + masks) v.
+// B1: fused prefill / encoder attention, softmax(q k^T * scale + masks) v,
+// on wgmma and TMA.
 //
 // Replaces vlm_tpu/ops/attention.py `_flash_kernel` (launched by
 // `_flash_attention`). The TPU kernel kept one head's whole K/V resident in
 // VMEM; one Gemma prefill head at S~1100, D=256 is ~560 KB per tensor, more
 // than the 227 KB of shared memory a Hopper block may use. So this kernel
-// streams K/V through shared memory in 64-row tiles with an online softmax.
+// streams K/V through shared memory in 64-key tiles with an online softmax.
 //
-// What bounds it on the H100: matrix math (4 * Sq * Sk * D FLOPs per head),
-// which only the tensor cores deliver at rate. The design is the
-// FlashAttention-2 schedule on mma.sync m16n8k16 (bf16 in, fp32
-// accumulate): a block owns 64 query rows of one (batch, head), each of
-// its 4 warps 16 rows; S = Q K^T and O += P V are warp-level MMAs whose
-// operands come from padded shared-memory tiles (conflict-free 32-bit reads
-// for Q and K, ldmatrix.trans for V); the probabilities never leave
-// registers (the S accumulator is repacked as the A operand of P V). The
-// head dim is padded to a multiple of 16 only inside shared memory (zero
-// columns), so SigLIP's D=72 runs as 80 without a padded copy in device
-// memory; the scale uses the true D. GQA/MQA maps query head h to kv head
-// h / (H / KV) without repeating K/V.
+// What bounds it on the H100: at the serving shapes neither the bytes
+// (q, k, v, o once: 9.4 MB SigLIP, 11.7 MB Gemma, ~3 us at 3.35 TB/s) nor
+// the products (1.2 and 3.2 GFLOP, ~1-3 us at 989 TFLOP/s) but the
+// latency of getting tiles into shared memory and through the tensor
+// cores: the mma.sync kernel this replaces spent its time in synchronous
+// 4-byte tile loads and in shared-memory fragment reads (2 % of the bf16
+// rate). The design:
+// - Rows. A block takes 128 query rows, 64 to each of two consumer
+//   warpgroups, of one (batch, KV head). With grouped-query attention the
+//   rows are (position, query head) pairs of hpb = gcd(G, 64) heads of
+//   the KV head's group (G = H / KV), so one K/V tile feeds all 8 Gemma
+//   heads; SigLIP (G = 1) takes 128 positions of one head. Row r is
+//   position p0 + r / hpb of head h0 + r % hpb (shifts: hpb is a power of
+//   two).
+// - Copies. One producer thread issues TMA loads (cp.async.bulk.tensor)
+//   of the Q tile once and of K and V tiles through a 2-3 stage ring with
+//   full and empty mbarriers, so the next tile lands while this one is
+//   multiplied. TMA, not cp.async: the box arrives in the 128-byte swizzle
+//   that the wgmma descriptors name, rows past Sk or Sq and head-dim
+//   columns past D are zero-filled by the box (no padded copy, no
+//   per-element index arithmetic). A 128-byte swizzle row holds 64 bf16,
+//   so each tile is ceil(D / 64) boxes of 64 columns: SigLIP's 144-byte
+//   rows take two boxes, the second zero past column 72.
+// - Products. S = Q K^T is wgmma m64n64k16 with both operands K-major in
+//   shared memory, over ceil(D / 16) steps of 16 (80 deep for D = 72). The
+//   probabilities stay in registers: the S accumulator is the register A
+//   operand of O += P V (the same fragment layout), and V, row-major
+//   [keys, D] in shared memory, is the transposed (MN-major) B operand,
+//   one m64n64k16 per 64-column block. Online softmax in fp32 registers in
+//   base 2, the row sums kept per thread and reduced once at the end.
+// - Skipped tiles. A block loads and multiplies only the key tiles that
+//   hold a live key of one of its rows (kv_len, the causal limit widened
+//   by the prefix); `flash_plan` / `block_key_tiles` in ops/attention.py
+//   compute the same range. A row with no live key (kv_len = 0, or a
+//   causal row before the first key) must return the mean of V over all
+//   Sk keys, as `_flash_kernel` does with its finite -1e30: a block with
+//   such a row loads every tile, so that row's weights are uniform and no
+//   0/0 forms.
+// - Epilogue. O / l leaves through shared memory: each warpgroup writes
+//   its 64 rows, in bf16 and the 128-byte swizzle, over its own rows of
+//   the Q tile (read by no one after its last product), and one thread
+//   stores them with TMA, which drops rows past Sq and columns past D.
+//   Stores straight from the accumulator layout (4 bytes a thread, 16
+//   contiguous bytes a row per warp instruction) were, by per-phase
+//   timestamps of a block, the largest single phase at D = 256.
+// - Occupancy. One block an SM: 384 threads (two consumer warpgroups and
+//   a producer warpgroup) and up to 197 KB of shared memory at D = 256 (Q
+//   64 KB, two stages of K and V at 64 KB). A launch of 384 threads gets
+//   168 registers a thread, and with one producer warp instead (288
+//   threads) an SM's four register partitions still cap it at 168: at
+//   D = 256 the 128 fp32 output accumulators then spilled 1.1 KB a thread.
+//   So the producer warpgroup gives its registers back (setmaxnreg 40)
+//   and the consumers take 232: no spills at any head dim.
 //
 // Masks follow `_flash_kernel`: causal with the diagonal at the end of the
 // kv axis (offset Sk - Sq), optionally widened by a prefix-LM length, and a
-// per-batch kv_len. Masked scores take the finite -1e30, so a fully masked
-// row returns the mean of V exactly like the reference.
+// per-batch kv_len. Allowed keys of a row are kj < lim, with lim =
+// min(max(pos + Sk - Sq + 1, prefix), kv_len) when causal, kv_len when not.
+// Requirements (the wrapper checks and pads): D even, <= 256; strides of
+// q, k, v multiples of 8 elements and 16-byte aligned bases (TMA).
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kBlockQ = 16 * kWarps;
-constexpr int kBlockK = 64;
+constexpr int kRows = 128;  // query rows of a block
+constexpr int kKeys = 64;   // keys of a K/V tile
+constexpr int kThreads = 3 * 128;
+constexpr int kQBox = kRows * 128;  // one 64-column box of the Q tile
+constexpr int kKVBox = kKeys * 128;  // one 64-column box of a K or V tile
 
-struct Strides {
-  int64_t b, h, s;
+template <int NB>  // 64-column boxes of the head dim
+struct Shape {
+  static constexpr int kStages = NB >= 4 ? 2 : 3;
+  static constexpr int kQBytes = NB * kQBox;
+  static constexpr int kTileBytes = NB * kKVBox;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kSmem =
+      kQBytes + kStages * kStageBytes + 1024 + (2 * kStages + 1) * 8;
 };
 
-using vlm::ld32;
-using vlm::mma16816;
-using vlm::pack_bf16;
+using vlm::desc_sw128;
+using vlm::smem_u32;
 
-// Two transposed 8x8 bf16 matrices: lanes 0-15 address the 16 rows.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
+#define VLM_ACC32(d)                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define VLM_REGS32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d[64 x 64] += a[64 x 16] . b[64 x 16]^T: both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VLM_REGS32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : VLM_ACC32(d)
+      : "l"(da), "l"(db), "r"(1));
 }
 
-// Rows [row0, row0 + rows) of a strided [S, d] matrix into a [rows, dp]
-// shared tile of pitch ld; zero past `limit` rows and past column d.
-__device__ __forceinline__ void load_padded(__nv_bfloat16* dst, int ld,
-                                            const __nv_bfloat16* src,
-                                            int64_t row_stride, int row0,
-                                            int rows, int limit, int d,
-                                            int dp) {
-  const int half = dp / 2;
-  for (int i = threadIdx.x; i < rows * half; i += blockDim.x) {
-    const int r = i / half;
-    const int c = (i - r * half) * 2;
-    uint32_t val = 0;
-    if (row0 + r < limit && c < d)
-      val = ld32(src + (int64_t)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint32_t*>(dst + r * ld + c) = val;
-  }
+// d[64 x 64] += a[64 x 16] . b[16 x 64]: a from registers, b MN-major
+// (row-major [k, n]) in shared memory
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VLM_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : VLM_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const __nv_bfloat16* __restrict__ q,
-             const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-             const int* __restrict__ kv_len, const int* __restrict__ prefix_len,
-             int H, int KV, int Sq, int Sk, int D, Strides qs, Strides ks,
-             Strides vs, Strides os, float scale, int causal) {
-  constexpr int LD = DP + 8;  // row pitch: 16-byte rows, conflict-free reads
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* k_s = q_s + kBlockQ * LD;
-  __nv_bfloat16* v_s = k_s + kBlockK * LD;
+// keep the compiler from moving accumulator accesses across the async span
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y;
+// NB: 64-column boxes of the head dim; KS: 16-deep steps of S = Q K^T
+// (ceil(D / 16) rounded up to a bucket; the zero-filled columns add 0)
+template <int NB, int KS>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const __grid_constant__ CUtensorMap tm_o,
+             const int* __restrict__ kv_len,
+             const int* __restrict__ prefix_len, int H, int KV, int Sq, int Sk,
+             int hpb_log2, float scale_log2, int causal) {
+  using S = Shape<NB>;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = smem;
+  unsigned char* kv_s = smem + S::kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(kv_s + S::kStages * S::kStageBytes);
+  uint64_t* empty = full + S::kStages;
+  uint64_t* q_bar = empty + S::kStages;
+
+  const int P = kRows >> hpb_log2;  // positions of the block
+  const int p0 = blockIdx.x * P;
+  const int h0 = blockIdx.y << hpb_log2;
   const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row group
-  const int t = lane % 4;  // fragment column pair
+  const int kvh = h0 / (H / KV);
 
-  const __nv_bfloat16* kb = k + b * ks.b + kvh * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + kvh * vs.h;
-  const int kvl = kv_len ? kv_len[b] : Sk;
-  const int pfx = prefix_len ? prefix_len[b] : 0;
-  const int offset = Sk - Sq;
-  const int row_lo = q0 + warp * 16 + g;  // rows of c0,c1; +8 for c2,c3
-
-  load_padded(q_s, LD, q + b * qs.b + h * qs.h, qs.s, q0, kBlockQ, Sq, D, DP);
-  const __nv_bfloat16* q_w = q_s + warp * 16 * LD;
-
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < Sk; k0 += kBlockK) {
-    __syncthreads();  // previous tiles consumed, q tile stored
-    load_padded(k_s, LD, kb, ks.s, k0, kBlockK, Sk, D, DP);
-    load_padded(v_s, LD, vb, vs.s, k0, kBlockK, Sk, D, DP);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows and the tile's 64 keys
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      const __nv_bfloat16* qa = q_w + g * LD + kk * 16 + 2 * t;
-      const uint32_t a[4] = {ld32(qa), ld32(qa + 8 * LD), ld32(qa + 8),
-                             ld32(qa + 8 * LD + 8)};
-#pragma unroll
-      for (int j = 0; j < kBlockK / 8; ++j) {
-        const __nv_bfloat16* kr = k_s + (j * 8 + g) * LD + kk * 16 + 2 * t;
-        mma16816(s[j], a, ld32(kr), ld32(kr + 8));
-      }
-    }
-
-    // scale, mask, online softmax over the rows row_lo and row_lo + 8
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = row_lo + (e >> 1) * 8;
-        const int kj = k0 + j * 8 + 2 * t + (e & 1);
-        bool allowed = true;
-        if (causal) allowed = (kj <= qi + offset) || (kj < pfx);
-        if (kj >= kvl) allowed = false;
-        float x = allowed ? s[j][e] * scale : vlm::kNegInf;
-        if (kj >= Sk) x = -INFINITY;  // past the keys: no weight
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(vlm::kFullMask, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(vlm::kFullMask, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      corr[i] = __expf(m[i] - m_new);
-      m[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        sum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      sum[i] += __shfl_xor_sync(vlm::kFullMask, sum[i], 1);
-      sum[i] += __shfl_xor_sync(vlm::kFullMask, sum[i], 2);
-      l[i] = l[i] * corr[i] + sum[i];
-    }
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      acc[n][0] *= corr[0];
-      acc[n][1] *= corr[0];
-      acc[n][2] *= corr[1];
-      acc[n][3] *= corr[1];
-    }
-
-    // O += P V, P repacked from the S accumulators as bf16 A operands
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const __nv_bfloat16* vr = v_s + (kk * 16 + (lane & 15)) * LD;
-#pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vr + n * 8);
-        mma16816(acc[n], a, b0, b1);
-      }
-    }
+  // the block's key range: block_key_tiles in ops/attention.py
+  const int kvl = min(kv_len ? kv_len[b] : Sk, Sk);
+  const int pfx = causal && prefix_len ? prefix_len[b] : 0;
+  const int off = Sk - Sq;
+  int lim_first = kvl, lim_last = kvl;
+  if (causal) {
+    lim_first = min(max(p0 + off + 1, pfx), kvl);
+    lim_last = min(max(min(p0 + P, Sq) + off, pfx), kvl);
   }
+  const int keys = lim_first <= 0 ? Sk : lim_last;  // a dead row: every key
+  const int n_tiles = (keys + kKeys - 1) / kKeys;
 
+  if (threadIdx.x == 256) {  // the producer's descriptors, fetched early
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tm_q) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tm_k) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tm_v) : "memory");
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      vlm::mbar_init(&full[s], 1);
+      vlm::mbar_init(&empty[s], 8);  // one arrival a consumer warp
+    }
+    vlm::mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer warpgroup: hands its registers to the consumers; one thread
+    // loads Q, then keeps the K/V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      vlm::mbar_expect_tx(q_bar, S::kQBytes);
+      for (int c = 0; c < NB; ++c) {
+        if (hpb_log2 == 0)
+          vlm::tma_load_4d(q_s + c * kQBox, &tm_q, q_bar, 64 * c, p0, h0, b);
+        else
+          vlm::tma_load_5d(q_s + c * kQBox, &tm_q, q_bar, 64 * c, 0,
+                           blockIdx.y, p0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % S::kStages;
+        if (i >= S::kStages) vlm::mbar_wait(&empty[s], ((i / S::kStages) - 1) & 1);
+        unsigned char* st = kv_s + s * S::kStageBytes;
+        vlm::mbar_expect_tx(&full[s], S::kStageBytes);
+        for (int c = 0; c < NB; ++c) {
+          vlm::tma_load_4d(st + c * kKVBox, &tm_k, &full[s], 64 * c,
+                           i * kKeys, kvh, b);
+          vlm::tma_load_4d(st + S::kTileBytes + c * kKVBox, &tm_v, &full[s],
+                           64 * c, i * kKeys, kvh, b);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    // consumer warpgroup wg: rows [64 wg, 64 wg + 64) of the block; this
+    // thread's rows are r and r + 8 (the wgmma accumulator layout: element
+    // 4 j + e is row 16 warp + g + 8 (e >> 1), column 8 j + 2 t + (e & 1))
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    int pos[2], lim[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = row_lo + i * 8;
-    if (qi >= Sq) continue;
-    const float inv = 1.f / l[i];
-    __nv_bfloat16* orow = o + b * os.b + h * os.h + qi * os.s;
+    for (int i = 0; i < 2; ++i) {
+      const int r = wg * 64 + warp * 16 + g + 8 * i;
+      pos[i] = p0 + (r >> hpb_log2);
+      lim[i] = causal ? min(max(pos[i] + off + 1, pfx), kvl) : kvl;
+    }
+    const int lim_min = min(min(lim[0], lim[1]), Sk);
+
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    float acc[NB][32];
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int d = n * 8 + 2 * t;  // D is even: d < D means d + 1 < D
-      if (d < D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
-            acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+    vlm::mbar_wait(q_bar, 0);
+    const uint32_t q_base = smem_u32(q_s) + wg * 64 * 128;
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % S::kStages;
+      vlm::mbar_wait(&full[s], (i / S::kStages) & 1);
+      const uint32_t k_base = smem_u32(kv_s + s * S::kStageBytes);
+      const uint32_t v_base = k_base + S::kTileBytes;
+
+      // S = Q K^T over the head dim in steps of 16 (32 bytes of a 128-byte
+      // swizzle row; a new 64-column box every 4 steps)
+      float sc[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) sc[j] = 0.f;
+      fence_acc(sc);
+      vlm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        wgmma_ss(sc, desc_sw128(q_base + (kk / 4) * kQBox + (kk % 4) * 32),
+                 desc_sw128(k_base + (kk / 4) * kKVBox + (kk % 4) * 32));
+      vlm::wgmma_commit();
+      vlm::wgmma_wait<0>();
+      fence_acc(sc);
+
+      // scale, mask, online softmax (base 2) over rows r and r + 8
+      const int k0 = i * kKeys;
+      const bool partial = k0 + kKeys > lim_min;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[4 * j + e] * scale_log2;
+          if (partial) {
+            const int kj = k0 + 8 * j + 2 * t + (e & 1);
+            if (kj >= lim[e >> 1]) x = vlm::kNegInf;
+            if (kj >= Sk) x = -INFINITY;  // past the keys: no weight
+          }
+          sc[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(vlm::kFullMask, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(vlm::kFullMask, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float p = exp2f(sc[j] - m[(j >> 1) & 1]);
+        sc[j] = p;
+        l[(j >> 1) & 1] += p;
+      }
+      // P (bf16) from the S accumulators: the A fragments of 16 keys a step,
+      // formed before the products start
+      uint32_t pa[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) pa[j] = vlm::pack_bf16(sc[2 * j], sc[2 * j + 1]);
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) acc[c][j] *= corr[(j >> 1) & 1];
+
+      // O += P V: V's 64-column boxes one wgmma each, 16 key rows = 2048
+      // bytes a step
+#pragma unroll
+      for (int c = 0; c < NB; ++c) fence_acc(acc[c]);
+      vlm::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < NB; ++c)
+          wgmma_rs(acc[c], pa + 4 * kk,
+                   desc_sw128(v_base + c * kKVBox + kk * 2048));
+      vlm::wgmma_commit();
+      vlm::wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NB; ++c) fence_acc(acc[c]);
+      if (lane == 0) vlm::mbar_arrive(&empty[s]);
+    }
+
+    // O / l in bf16 into this warpgroup's own rows of the Q tile (no
+    // longer read), in the 128-byte swizzle the O map names (16-byte chunk
+    // j of row r at chunk j ^ (r % 8): conflict-free), then one thread
+    // stores the 64-row boxes with TMA, which drops rows past Sq and
+    // columns past D
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(vlm::kFullMask, l[r], 1);
+      l[r] += __shfl_xor_sync(vlm::kFullMask, l[r], 2);
+    }
+    unsigned char* o_s = q_s + wg * 64 * 128;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float inv = 1.f / l[r];
+      const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(
+              o_s + c * kQBox + row * 128 + ((j ^ (row & 7)) * 16) + 4 * t) =
+              __floats2bfloat162_rn(acc[c][4 * j + 2 * r] * inv,
+                                    acc[c][4 * j + 2 * r + 1] * inv);
+    }
+    vlm::fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+    if (threadIdx.x % 128 == 0) {
+      for (int c = 0; c < NB; ++c) {
+        if (hpb_log2 == 0)
+          vlm::tma_store_4d(&tm_o, o_s + c * kQBox, 64 * c, p0 + 64 * wg, h0, b);
+        else
+          vlm::tma_store_5d(&tm_o, o_s + c * kQBox, 64 * c, 0, blockIdx.y,
+                            p0 + wg * (P / 2), b);
+      }
+      vlm::tma_store_drain();
     }
   }
 }
 
-template <int DP>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* kv_len, const int* prefix_len, int B, int H, int KV,
-           int Sq, int Sk, int D, Strides qs, Strides ks, Strides vs,
-           Strides os, float scale, int causal, cudaStream_t stream) {
-  const int smem = (kBlockQ + 2 * kBlockK) * (DP + 8) * (int)sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <int NB, int KS>
+int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+           const CUtensorMap& to, const int* kv_len, const int* prefix_len,
+           int B, int H, int KV, int Sq, int Sk, int hpb_log2,
+           float scale_log2, int causal, cudaStream_t stream) {
+  // the shared-memory limit, raised once a device (a host call per launch
+  // otherwise)
+  static unsigned raised = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 32 || !(raised >> dev & 1u)) {
+    err = cudaFuncSetAttribute(flash_kernel<NB, KS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Shape<NB>::kSmem);
     if (err != cudaSuccess) return (int)err;
+    if (dev < 32) raised |= 1u << dev;
   }
-  dim3 grid((Sq + kBlockQ - 1) / kBlockQ, H, B);
-  flash_kernel<DP><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      kv_len, prefix_len, H, KV, Sq, Sk, D, qs, ks, vs, os, scale, causal);
+  const int P = kRows >> hpb_log2;
+  dim3 grid((Sq + P - 1) / P, H >> hpb_log2, B);
+  flash_kernel<NB, KS><<<grid, kThreads, Shape<NB>::kSmem, stream>>>(
+      tq, tk, tv, to, kv_len, prefix_len, H, KV, Sq, Sk, hpb_log2, scale_log2,
+      causal);
   return (int)cudaGetLastError();
+}
+
+cuuint64_t bytes(int64_t elems) { return static_cast<cuuint64_t>(elems) * 2; }
+
+// q or o [B, H, Sq, D] with element strides (batch, head, seq): boxes of
+// `rows` rows of 64 columns, rows being positions of one head ([D, Sq, H,
+// B]) when hpb = 1, else (position, head) pairs of hpb heads ([D, hpb,
+// H / hpb, Sq, B])
+bool rows_map(CUtensorMap* map, const void* ptr, int B, int H, int Sq, int D,
+              int hpb, int64_t sb, int64_t sh, int64_t ss, int rows) {
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (hpb == 1) {
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Sq, (cuuint64_t)H,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {bytes(ss), bytes(sh), bytes(sb)};
+    const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+    return vlm::tensor_map_sw128(map, bf16, ptr, 4, dims, strides, box);
+  }
+  const cuuint64_t dims[5] = {(cuuint64_t)D, (cuuint64_t)hpb,
+                              (cuuint64_t)(H / hpb), (cuuint64_t)Sq,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[4] = {bytes(sh), bytes(sh * hpb), bytes(ss),
+                                 bytes(sb)};
+  const cuuint32_t box[5] = {64, (cuuint32_t)hpb, 1, (cuuint32_t)(rows / hpb),
+                             1};
+  return vlm::tensor_map_sw128(map, bf16, ptr, 5, dims, strides, box);
 }
 
 }  // namespace
 
+// q [B, H, Sq, D], k/v [B, KV, Sk, D] with element strides (batch, head,
+// seq) and a contiguous head dim; o likewise, all TMA-strided. hpb: query heads packed into
+// a block's rows (flash_plan). Returns cudaErrorInvalidValue for what it
+// does not take and cudaErrorNotSupported if a tensor map is refused.
 extern "C" int vlm_flash_attention(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
-    const int* prefix_len, int B, int H, int KV, int Sq, int Sk, int D,
+    const int* prefix_len, int B, int H, int KV, int Sq, int Sk, int D, int hpb,
     int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
     int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
     int64_t o_sh, int64_t o_ss, float scale, int causal, void* stream) {
-  if (D > 256 || D % 2 != 0 || KV <= 0 || H % KV != 0 || Sk < 1)
+  int hpb_log2 = 0;
+  while ((1 << hpb_log2) < hpb) ++hpb_log2;
+  if (D > 256 || D < 2 || D % 2 != 0 || KV <= 0 || H % KV != 0 || Sk < 1 ||
+      Sq < 1 || hpb < 1 || hpb > 64 || (1 << hpb_log2) != hpb ||
+      (H / KV) % hpb != 0)
     return (int)cudaErrorInvalidValue;
-  const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss},
-      vs{v_sb, v_sh, v_ss}, os{o_sb, o_sh, o_ss};
+  const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tq, tk, tv, to;
+  // Q loads a block's 128 rows, O stores each warpgroup's 64
+  bool ok = rows_map(&tq, q, B, H, Sq, D, hpb, q_sb, q_sh, q_ss, kRows) &&
+            rows_map(&to, o, B, H, Sq, D, hpb, o_sb, o_sh, o_ss, kRows / 2);
+  const cuuint64_t kv_dims[4] = {(cuuint64_t)D, (cuuint64_t)Sk, (cuuint64_t)KV,
+                                 (cuuint64_t)B};
+  const cuuint64_t k_strides[3] = {bytes(k_ss), bytes(k_sh), bytes(k_sb)};
+  const cuuint64_t v_strides[3] = {bytes(v_ss), bytes(v_sh), bytes(v_sb)};
+  const cuuint32_t kv_box[4] = {64, kKeys, 1, 1};
+  ok = ok && vlm::tensor_map_sw128(&tk, bf16, k, 4, kv_dims, k_strides, kv_box);
+  ok = ok && vlm::tensor_map_sw128(&tv, bf16, v, 4, kv_dims, v_strides, kv_box);
+  if (!ok) return (int)cudaErrorNotSupported;
+
+  const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VLM_FLASH(DP)                                                        \
-  return launch<DP>(q, k, v, o, kv_len, prefix_len, B, H, KV, Sq, Sk, D, qs, \
-                    ks, vs, os, scale, causal, st)
-  if (D <= 32) VLM_FLASH(32);
-  if (D <= 64) VLM_FLASH(64);
-  if (D <= 80) VLM_FLASH(80);
-  if (D <= 96) VLM_FLASH(96);
-  if (D <= 128) VLM_FLASH(128);
-  VLM_FLASH(256);
+#define VLM_FLASH(NB, KS)                                                  \
+  return launch<NB, KS>(tq, tk, tv, to, kv_len, prefix_len, B, H, KV, Sq, Sk, \
+                        hpb_log2, scale_log2, causal, st)
+  if (D <= 64) VLM_FLASH(1, 4);
+  if (D <= 80) VLM_FLASH(2, 5);
+  if (D <= 96) VLM_FLASH(2, 6);
+  if (D <= 128) VLM_FLASH(2, 8);
+  if (D <= 192) VLM_FLASH(3, 12);
+  VLM_FLASH(4, 16);
 #undef VLM_FLASH
 }
 

@@ -48,8 +48,6 @@
 //
 // Requirements (checked by the wrapper and here): K % 16 == 0, N even,
 // contiguous operands and output, 16-byte aligned bases.
-#include <cuda.h>
-
 #include "common.cuh"
 
 namespace {
@@ -68,71 +66,16 @@ constexpr int kStageBytes = kTileA + kTileB;
 constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
 static_assert(kBM == 128 && kBN == 128, "one tensor-map box for both operands");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using vlm::desc_sw128;
+using vlm::mbar_arrive;
+using vlm::mbar_expect_tx;
+using vlm::mbar_init;
+using vlm::mbar_wait;
+using vlm::smem_u32;
+using vlm::wgmma_commit;
+using vlm::wgmma_fence;
+using vlm::wgmma_wait;
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase with this parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// a [box rows, 128 bytes] tile at (k0, row0) of a 2-D tensor map
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int k0, int row0) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(k0),
-      "r"(row0)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile under the 128-byte swizzle: rows of
-// 128 bytes, 8-row groups 1024 bytes apart (SBO), LBO unused (1)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // keep the compiler from moving accumulator accesses across the async span
 __device__ __forceinline__ void fence_acc(int* d) {
 #pragma unroll
@@ -200,8 +143,8 @@ int8xint8_kernel(const __grid_constant__ CUtensorMap tm_x,
         if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
         unsigned char* st = smem + s * kStageBytes;
         mbar_expect_tx(&full[s], kStageBytes);
-        tma_load(st, &tm_x, &full[s], i * kBK, m0);
-        tma_load(st + kTileA, &tm_w, &full[s], i * kBK, n0);
+        vlm::tma_load_2d(st, &tm_x, &full[s], i * kBK, m0);
+        vlm::tma_load_2d(st + kTileA, &tm_w, &full[s], i * kBK, n0);
       }
     }
     return;
@@ -260,47 +203,15 @@ int8xint8_kernel(const __grid_constant__ CUtensorMap tm_x,
   }
 }
 
-// ---- host: tensor maps through the driver entry point ----
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // [rows, K] int8, K-major, 128-byte boxes of 128 rows; false if the driver
 // refuses it
 bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int k) {
-  EncodeTiled fn = encode_fn();
-  if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};
   const cuuint32_t box[2] = {kBK, 128};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return vlm::tensor_map_sw128(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 2,
+                               dims, strides, box);
 }
 
 }  // namespace

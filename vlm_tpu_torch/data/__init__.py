@@ -1,1 +1,3 @@
-"""Host-side data helpers the serving path needs without ``vlm_tpu.data``."""
+"""The data layer of the zero-shot path: the port's own copies of
+``vlm_tpu.data``'s dataset readers, label parsers, dataset registry and
+tokenizers, and the batcher's background prefetch."""

@@ -5,6 +5,9 @@ the call ``run_zero_shot`` makes.
 Weights are random, drawn on the device from ``seed``; loading HF weights
 is ROADMAP A14. The tokenizer, the image files and PIL are reached only
 inside :meth:`VLMModel.generate_dataset`.
+
+A model runs on the card unless the caller asks for the CPU
+(:func:`resolve_device`).
 """
 
 from __future__ import annotations
@@ -46,6 +49,20 @@ def policy_for(quantization: Optional[str]) -> DTypePolicy:
                      f"fp32 fp16 bf16 8bit 4bit")
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a model runs on: ``device`` when given; else the CPU if
+    ``VLM_TPU_PLATFORM=cpu`` (``vlm_tpu``'s switch), else the card. With
+    neither and no CUDA device, raises rather than fall back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if os.environ.get("VLM_TPU_PLATFORM", "").lower() == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' or set "
+                           "VLM_TPU_PLATFORM=cpu to run on the CPU")
+    return torch.device("cuda")
+
+
 def resolve_quantize_vision(flag: Optional[bool]) -> bool:
     """``quantize_vision``: an explicit value wins, else
     ``VLM_TPU_QUANT_VISION=1`` (``vlm_tpu``'s resolve_quantize_vision)."""
@@ -77,8 +94,7 @@ class VLMModel:
         self.policy = policy_for(quantization)
         self.dtype = self.policy.compute_dtype
         self.kv_cache = kv_cache
-        self.device = torch.device(device or (
-            "cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
             raise ValueError("the CUDA kernels take bfloat16: use "
                              "quantization bf16 on the card")
@@ -110,10 +126,10 @@ class VLMModel:
 
     @property
     def tokenizer(self):
-        """``vlm_tpu``'s tokenizer (a byte-level fallback without files),
-        imported at first use."""
+        """The tokenizer (a byte-level fallback without files), imported
+        at first use."""
         if self._tokenizer is None:
-            from vlm_tpu.data.tokenizer import load_tokenizer
+            from ..data.tokenizer import load_tokenizer
             dec = self.cfg.decoder
             self._tokenizer = load_tokenizer(
                 None, bos_id=dec.bos_token_id, eos_id=dec.eos_token_id,

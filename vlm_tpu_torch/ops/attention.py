@@ -9,12 +9,20 @@ causal), ``kv_len`` and ``kv_valid``, all with the finite ``-1e30``.
 
 :func:`flash_attention` is the B1 wrapper (``csrc/flash_attention.cu``):
 the kernel for CUDA tensors, the plain version for CPU tensors.
+:func:`flash_plan` and :func:`block_key_tiles` are its host-side plan (the
+grid, the packing of (position, head) rows, the K/V tiles each block loads),
+held against :func:`attention_plain` on the CPU by
+``tests/test_torch_flash_plan.py``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import _lib
@@ -60,10 +68,69 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
-def _strides(t: torch.Tensor):
-    """(batch, head, seq) element strides of a [B, H, S, D] view whose last
-    dimension is contiguous."""
-    return t.stride(0), t.stride(1), t.stride(2)
+# B1's tiling: query rows of a block, keys of a K/V tile
+ROWS, KEYS = 128, 64
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashPlan:
+    """How B1 cuts the work. A block takes :data:`ROWS` query rows of one
+    (batch, KV head): ``positions`` positions x ``heads_per_block`` query
+    heads of that KV head's group, row ``r`` being position ``p0 + r //
+    heads_per_block`` of head ``h0 + r % heads_per_block``. ``grid`` is
+    (position tiles, H / heads_per_block head groups, B)."""
+    heads_per_block: int
+    positions: int
+    grid: Tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=256)
+def flash_plan(b: int, h: int, kvh: int, sq: int) -> FlashPlan:
+    """The grid and row packing of B1 for q ``[b, h, sq, D]`` over ``kvh``
+    KV heads: gcd(G, 64) heads of a group share a block, so one K/V tile
+    feeds them all (all 8 Gemma heads; SigLIP, G = 1, one head)."""
+    hpb = math.gcd(h // kvh, 64)
+    pos = ROWS // hpb
+    return FlashPlan(hpb, pos, (-(-sq // pos), h // hpb, b))
+
+
+def row_limits(positions: np.ndarray, sq: int, sk: int, causal: bool,
+               kv_len: Optional[int], prefix_len: Optional[int]) -> np.ndarray:
+    """Keys ``kj < lim`` are live for a row at each position: ``kv_len``,
+    narrowed by the causal limit (diagonal at the end of the kv axis) and
+    widened by the prefix, as in ``attention_plain``."""
+    kvl = sk if kv_len is None else min(int(kv_len), sk)
+    pos = np.asarray(positions)
+    if not causal:
+        return np.full(pos.shape, kvl)
+    pfx = 0 if prefix_len is None else int(prefix_len)
+    return np.minimum(np.maximum(pos + sk - sq + 1, pfx), kvl)
+
+
+def block_key_tiles(plan: FlashPlan, tile: int, sq: int, sk: int,
+                    causal: bool, kv_len: Optional[int] = None,
+                    prefix_len: Optional[int] = None) -> int:
+    """How many K/V tiles (from the first) block ``tile`` of a batch row
+    loads: those holding a live key of one of its rows. A block with a row
+    that has no live key loads every tile, so that row's uniform weights
+    give the mean of V over all ``sk`` keys, as the reference does."""
+    p0 = tile * plan.positions
+    ends = row_limits(np.array([p0, min(p0 + plan.positions, sq) - 1]), sq,
+                      sk, causal, kv_len, prefix_len)
+    keys = sk if ends[0] <= 0 else int(ends[1])
+    return -(-keys // KEYS)
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself if TMA can read it (16-byte aligned base and strides,
+    contiguous head dim), else a copy whose head dim is padded to 8."""
+    if t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+            st % 8 == 0 for st in t.stride()[:3]):
+        return t
+    b, h, s, d = t.shape
+    buf = t.new_zeros((b, s, h, -(-d // 8) * 8))
+    buf[..., :d] = t.transpose(1, 2)
+    return buf.transpose(1, 2)[..., :d]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -83,16 +150,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _lib.check_cuda("flash_attention", q, k, v)
     _lib.check_bf16("flash_attention", q, k, v)
     if (k.shape != (b, kvh, sk, d) or v.shape != k.shape or h % kvh
-            or d > 256 or d % 2 or sk < 1):
+            or d > 256 or d % 2 or sk < 1 or sq < 1):
         raise ValueError(f"flash_attention: unsupported shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
-    for t in (q, k, v):
-        if t.stride(3) != 1 or any(s % 2 for s in t.stride()[:3]) \
-                or t.data_ptr() % 4:
-            raise ValueError("flash_attention: needs a contiguous head dim, "
-                             "even strides and 4-byte aligned data")
-    o = torch.empty((b, sq, h, d), dtype=q.dtype,
-                    device=q.device).transpose(1, 2)
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("flash_attention: needs a contiguous head dim")
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
+    plan = flash_plan(b, h, kvh, sq)
+    # [B, Sq, H, D] memory (the head dim padded to 8 for TMA's 16-byte rows)
+    o = torch.empty((b, sq, h, -(-d // 8) * 8), dtype=q.dtype, device=q.device)
+    o = (o if d % 8 == 0 else o[..., :d]).transpose(1, 2)
     kvl = pfx = None
     if kv_len is not None:
         kvl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
@@ -103,6 +170,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         kvl.data_ptr() if kvl is not None else None,
         pfx.data_ptr() if pfx is not None else None,
-        b, h, kvh, sq, sk, d, *_strides(q), *_strides(k), *_strides(v),
-        *_strides(o), d ** -0.5, int(causal), _lib.stream_ptr(q))
+        b, h, kvh, sq, sk, d, plan.heads_per_block, *q.stride()[:3],
+        *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], d ** -0.5,
+        int(causal), _lib.stream_ptr(q))
     return o

@@ -2,15 +2,16 @@
 """Zero-shot prompt inference over a dataset with the PyTorch/CUDA port.
 
 Same YAML surface as ``scripts/prompt_inference.py``; runs the port's model
-through ``vlm_tpu.evaluation.run_zero_shot`` (the continuous batcher), on
-the GPU when one is present:
+through the port's ``run_zero_shot`` (the continuous batcher) on the card:
 
     python vlm_tpu_torch/scripts/prompt_inference.py \\
         --config configs/prompt_inference.yaml [--limit N]
 
-The dataset readers and the evaluator are ``vlm_tpu``'s shared layers; the
-evaluator still reaches JAX through ``vlm_tpu.core`` (ROADMAP), so this
-script needs JAX installed even though the model does not use it.
+``VLM_TPU_PLATFORM=cpu`` runs it on the CPU instead (fp32 or a "test"
+size); without it and without a CUDA device the model refuses to build.
+Imports only the port (dataset readers, tokenizer, evaluator and config
+helpers are its own copies); reading the YAML config needs PyYAML and
+reading images needs Pillow.
 """
 
 import argparse
@@ -34,17 +35,15 @@ def main(argv=None):
     args = parser.parse_args(argv)
     os.environ.setdefault("VLM_TPU_ROOT", str(REPO_ROOT))
 
-    import yaml
-
-    from vlm_tpu.data.dataset_factory import DatasetFactory
-    from vlm_tpu.evaluation import run_zero_shot
+    from vlm_tpu_torch.core.config import load_config, save_config
+    from vlm_tpu_torch.data.dataset_factory import DatasetFactory
+    from vlm_tpu_torch.evaluation import run_zero_shot
     from vlm_tpu_torch.models.factory import create_model
 
     root = os.environ["VLM_TPU_ROOT"]
     cfg_path = args.config if os.path.isabs(args.config) \
         else os.path.join(root, args.config)
-    with open(cfg_path, "r", encoding="utf-8") as f:
-        cfg = yaml.safe_load(f)
+    cfg = load_config(cfg_path)
     if not cfg.get("continuous_batching", True):
         raise NotImplementedError("the wave engine is not ported yet "
                                   "(ROADMAP A6); use continuous batching")
@@ -75,9 +74,7 @@ def main(argv=None):
     prompt = prompts.get(dataset_name) or prompts.get("face_dataset", "")
     if not prompt:
         raise ValueError("No prompt found in config (section 'prompts').")
-    with open(os.path.join(output_dir, "used_config.yaml"), "w",
-              encoding="utf-8") as f:
-        yaml.safe_dump(cfg, f, sort_keys=False, allow_unicode=True)
+    save_config(cfg, os.path.join(output_dir, "used_config.yaml"))
 
     gen = {k: cfg[k] for k in
            ("num_beams", "temperature", "top_k", "top_p", "seed")

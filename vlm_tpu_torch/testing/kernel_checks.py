@@ -29,18 +29,35 @@ weights as its plain version (``nibble * scale`` in fp32, rounded once)
 and accumulates them in fp32 in another order: ``GEMM_REL_TOL`` of the
 largest output. The GEMMs are timed with the L2 cache flushed before each
 launch: the serving path streams every weight once per step, cold.
+
+Beside its times, each case carries its work: the operations and the bytes
+its function needs (each input read once, each output written once;
+attention counts the keys each row's result depends on), computed from its
+shapes by :func:`attention_work`, :func:`decode_work` and
+:func:`gemm_work`, and from them :func:`bound_ms`, the least time the card
+could take: the larger of bytes over the HBM rate and operations over the
+dense tensor-core peak of their type (:data:`HBM_BYTES_PER_S`,
+:data:`PEAK_OPS_PER_S`; NVIDIA's H100 SXM data sheet, at its 700 W power
+limit). And, where one PyTorch call computes the same function, that call
+(``library_fn``), timed the same way and compared once with the plain
+version; the port never calls it. Where there is none, ``library_note``
+says why.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional
+import functools
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..ops import _lib
-from ..ops.attention import attention_plain, flash_attention
-from ..ops.decode_attention import decode_attention, decode_attention_plain
+from ..ops.attention import attention_plain, flash_attention, row_limits
+from ..ops.decode_attention import (decode_attention, decode_attention_plain,
+                                    live_rows)
 from ..ops.kvcache import (kv_masked_write, kv_quantized_write,
                            kv_quantized_write_plain, kv_scatter_write,
                            kv_uniform_write)
@@ -52,6 +69,10 @@ from ..ops.quant import (int4_matmul, int4_matmul_plain, int8_matmul,
 ATTN_TOL = 2e-2
 NORM_TOL = 2.0 ** -7
 GEMM_REL_TOL = 2.0 ** -7
+
+# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 # "forms": the launch counter of each form of the kernel (_lib.KERNELS)
 KERNELS = {
@@ -102,6 +123,82 @@ class Case:
     rel: bool = False           # tol is relative to max |plain|
     cold: bool = False          # flush the L2 cache before each timed call
     plain_timed: bool = True    # False: the plain version runs on the CPU
+    # (operations, bytes, peak): the work the function needs
+    work: Tuple[float, float, str] = (0.0, 0.0, "bf16")
+    # one PyTorch call for the same function, its output as compared with
+    # the plain version (None: compare its return), whether to compare, and
+    # a note: why there is no call, or what the call leaves out
+    library_fn: Optional[Callable[[], object]] = None
+    library_out: Optional[Callable[[object], torch.Tensor]] = None
+    library_compare: bool = True
+    library_note: str = ""
+
+
+def bound_ms(ops: float, nbytes: float, peak: str) -> Tuple[float, str]:
+    """The least time the card could take for ``ops`` operations of type
+    ``peak`` that move ``nbytes``: (ms, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _ints(t) -> Optional[List[int]]:
+    return None if t is None else [int(x) for x in torch.as_tensor(t).cpu()]
+
+
+def attention_limits(b: int, sq: int, sk: int, causal: bool = False,
+                     kv_len=None, prefix_len=None) -> np.ndarray:
+    """[b, sq] live keys of each row (keys kj < limit are live)."""
+    kvl, pfx = _ints(kv_len), _ints(prefix_len)
+    return np.stack([row_limits(np.arange(sq), sq, sk, causal,
+                                None if kvl is None else kvl[i],
+                                None if pfx is None else pfx[i])
+                     for i in range(b)])
+
+
+def attention_work(b: int, h: int, kvh: int, sq: int, sk: int, d: int,
+                   causal: bool = False, kv_len=None, prefix_len=None,
+                   elem: int = 2) -> Tuple[float, float, str]:
+    """B1: 4 d FLOPs per (row, key) over the keys each row's result depends
+    on (a row with no live key: all sk, the mean of V), for every head;
+    q, k, v read and o written once."""
+    lim = attention_limits(b, sq, sk, causal, kv_len, prefix_len)
+    keys = np.where(lim <= 0, sk, np.minimum(lim, sk)).sum()
+    return (4.0 * d * h * float(keys),
+            float(elem * d * (2 * b * h * sq + 2 * b * kvh * sk)), "bf16")
+
+
+def decode_work(h: int, kvh: int, d: int, live: Sequence[int], kv_elem: int,
+                scales: bool) -> Tuple[float, float, str]:
+    """B2: one query row a slot over its live cache rows (``live``, per
+    slot): q read, o written, the live K and V rows (and their fp32 scales
+    in the int8 form) read once."""
+    rows = float(sum(live))
+    row_bytes = kvh * (d * kv_elem + (4 if scales else 0))
+    return (4.0 * d * h * rows,
+            float(2 * 2 * len(live) * h * d) + 2 * rows * row_bytes, "bf16")
+
+
+def gemm_work(m: int, k: int, n: int, x_bytes: float, w_bytes: float,
+              s_bytes: float, y_elem: int, peak: str
+              ) -> Tuple[float, float, str]:
+    """B5-B7: 2 m k n operations; activations, weights and scales read
+    once, the [m, n] output written once."""
+    return (2.0 * m * k * n, float(x_bytes + w_bytes + s_bytes + m * n * y_elem),
+            peak)
+
+
+def _library(build: Callable[[], Callable[[], object]]
+             ) -> Tuple[Optional[Callable], str]:
+    """(fn, "") for the call ``build()`` returns (its set-up done there,
+    outside the timed span) if it runs once, else (None, the refusal): a
+    library call that does not exist for the card or refuses the shape."""
+    try:
+        fn = build()
+        fn()
+        return fn, ""
+    except (RuntimeError, NotImplementedError, TypeError) as e:
+        return None, str(e).strip().splitlines()[0][:160]
 
 
 def _bhsd(gen, b, s, h, d, dev):
@@ -118,9 +215,27 @@ def cases(device) -> List[Case]:
     out = []
 
     def b1(case, q, k, v, on_path=False, **kw):
-        out.append(Case("B1", case, lambda: flash_attention(q, k, v, **kw),
-                        lambda: attention_plain(q, k, v, **kw), ATTN_TOL,
-                        on_path))
+        b, h, sq, d = q.shape
+        kvh, sk = k.shape[1], k.shape[2]
+        causal = kw.get("causal", False)
+        mask_kw = dict(causal=causal, kv_len=kw.get("kv_len"),
+                       prefix_len=kw.get("prefix_len"))
+        # SDPA's boolean mask, built outside the timed span
+        lim = attention_limits(b, sq, sk, **mask_kw)
+        mask = None
+        if causal or kw.get("kv_len") is not None:
+            mask = (torch.arange(sk, device=dev)[None, None, :] <
+                    torch.as_tensor(lim, device=dev)[:, :, None])[:, None]
+        out.append(Case(
+            "B1", case, lambda: flash_attention(q, k, v, **kw),
+            lambda: attention_plain(q, k, v, **kw), ATTN_TOL, on_path,
+            work=attention_work(b, h, kvh, sq, sk, d, **mask_kw),
+            library_fn=lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=h != kvh),
+            # a row with no live key: the reference's mean of V, SDPA's
+            # own convention
+            library_compare=bool((lim > 0).all()),
+            library_note="scaled_dot_product_attention, boolean mask"))
 
     # SigLIP So400m tower: 16 heads of 72 over 256 patches, no mask
     b1("siglip_g4_h16_s256_d72", *(_bhsd(gen, GROUP, 256, 16, 72, dev)
@@ -137,6 +252,28 @@ def cases(device) -> List[Case]:
        _bhsd(gen, 2, 64, 1, 256, dev), _bhsd(gen, 2, 64, 1, 256, dev),
        causal=True, prefix_len=torch.tensor([20, 5], **i32),
        kv_len=torch.tensor([60, 64], **i32))
+    # the towers and decoders of later slices: CLIP-L/336 (16 x 64 over
+    # 577 tokens), EVA ViT-g (16 x 88 over 257), a Vicuna-7B prefill
+    # (32 x 128, MHA) of 100 new tokens after 256 cached ones
+    b1("clip_l336_g4_h16_s577_d64", *(_bhsd(gen, GROUP, 577, 16, 64, dev)
+                                      for _ in range(3)))
+    b1("eva_g4_h16_s257_d88", *(_bhsd(gen, GROUP, 257, 16, 88, dev)
+                                for _ in range(3)))
+    b1("causal_mha_sq100_sk356_d128", _bhsd(gen, 2, 100, 32, 128, dev),
+       _bhsd(gen, 2, 356, 32, 128, dev), _bhsd(gen, 2, 356, 32, 128, dev),
+       causal=True, kv_len=torch.tensor([356, 300], **i32))
+    # contiguous [B, H, S, D] operands with G = 4, a causal query longer
+    # than the keys (rows before the first key see none), and a head dim
+    # TMA cannot stride (the wrapper pads it)
+    def bhsd(b, h, s, d):
+        return torch.randn(b, h, s, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+    b1("gqa_g4_contiguous_d64", bhsd(2, 8, 70, 64), bhsd(2, 2, 70, 64),
+       bhsd(2, 2, 70, 64), kv_len=torch.tensor([70, 33], **i32))
+    b1("causal_sq80_sk48_dead_rows", bhsd(2, 4, 80, 128), bhsd(2, 4, 48, 128),
+       bhsd(2, 4, 48, 128), causal=True)
+    b1("d42_padded", bhsd(2, 2, 33, 42), bhsd(2, 2, 33, 42),
+       bhsd(2, 2, 33, 42), kv_len=torch.tensor([0, 20], **i32))
 
     # decode attention over the 32-slot cache, timed cold (the slice reads
     # each layer's cache from device memory) and warm (from the L2 cache)
@@ -161,13 +298,30 @@ def cases(device) -> List[Case]:
 
     def b2(case, q, kk, vv, kw, on_path, scales, cold=False):
         form = "decode_attention_int8" if scales else "decode_attention"
+        b, h, _, d = q.shape
+        live = live_rows(b, kk.shape[1], dev, **kw)
         kw = dict(kw, **scales)
         name = case + ("_int8" if scales else "") + ("_cold" if cold else "")
+        lib = dict(library_note="no PyTorch call attends over an int8 cache "
+                                "with per-row scales")
+        if not scales:
+            # the cache [B, S, KV, D] as SDPA's [B, KV, S, D] view
+            mask = live[:, None, None, :]
+            lib = dict(
+                library_fn=lambda: F.scaled_dot_product_attention(
+                    q, kk.transpose(1, 2), vv.transpose(1, 2),
+                    attn_mask=mask, enable_gqa=h != kk.shape[2]),
+                # a slot with no live row: the plain version's 0, SDPA's
+                # own convention
+                library_compare=bool(live.any(dim=1).all()),
+                library_note="scaled_dot_product_attention, boolean mask")
         out.append(Case(
             "B2", name,
             lambda: decode_attention(q, kk, vv, **kw),
             lambda: decode_attention_plain(q, kk, vv, **kw),
-            ATTN_TOL, on_path, form=form, cold=cold))
+            ATTN_TOL, on_path, form=form, cold=cold,
+            work=decode_work(h, kk.shape[2], d, _ints(live.sum(dim=1)),
+                             kk.element_size(), bool(scales)), **lib))
 
     for kk, vv, scales in ((kc, vc, {}),
                            (kq, vq, dict(k_scale=ks, v_scale=vs))):
@@ -238,12 +392,28 @@ def cases(device) -> List[Case]:
             kv_masked_write(ck, k_new, start)
             kv_masked_write(cv, v_new, start)
             return torch.cat([ck, cv])
+        # the library: one indexed copy of each slot's row (K, then V)
+        rows = torch.arange(SLOTS, device=dev)
+        cols = start.long().expand(SLOTS)
+
+        def library(ck, cv):
+            ck.index_put_((rows, cols), k_new[:, 0])
+            cv.index_put_((rows, cols), v_new[:, 0])
+            return ck, cv
         ck, cv = kc.clone(), vc.clone()
+        lk, lv = kc.clone(), vc.clone()
         out.append(Case(
             "B3", case, kernel, plain, 0.0, on_path,
             time_kernel=lambda: writer(ck, cv, k_new, v_new, start),
             time_plain=lambda: (kv_masked_write(ck, k_new, start),
-                                kv_masked_write(cv, v_new, start))))
+                                kv_masked_write(cv, v_new, start)),
+            work=(0.0, 2.0 * 2 * k_new.numel() * k_new.element_size(),
+                  "bf16"),
+            library_fn=lambda: library(lk, lv),
+            library_out=lambda _: torch.cat(
+                library(kc.clone(), vc.clone())),
+            library_note="index_put_ of the rows, once for K and once "
+                         "for V"))
 
     b3("uniform_32slots", kv_uniform_write, wcol, True)
     b3("scatter_32slots", kv_scatter_write, per_slot, False)
@@ -257,6 +427,8 @@ def cases(device) -> List[Case]:
         def fresh():
             return tuple(tuple(t.clone() for t in c) for c in cache)
         mine = fresh()
+        # bf16 rows read; int8 rows and fp32 scales written
+        n_rows = k_rows.numel() // k_rows.shape[-1]
         out.append(Case(
             "B3", case, lambda: write(kv_quantized_write, fresh()),
             lambda: write(kv_quantized_write_plain, fresh()), 0.0, on_path,
@@ -264,7 +436,10 @@ def cases(device) -> List[Case]:
                 mine[0], mine[1], k_rows, v_rows, start, uniform),
             time_plain=lambda: kv_quantized_write_plain(
                 mine[0], mine[1], k_rows, v_rows, start, uniform),
-            form="kv_write_int8"))
+            form="kv_write_int8",
+            work=(0.0, 2.0 * (3 * k_rows.numel() + 4 * n_rows), "bf16"),
+            library_note="no PyTorch call quantizes rows and writes values "
+                         "and scales"))
 
     cache8 = ((kq, ks), (vq, vs))
     b3_int8("int8_uniform_32slots", k_new, v_new, cache8, wcol, True, True)
@@ -287,7 +462,11 @@ def cases(device) -> List[Case]:
     recipe = RECIPES["paligemma"]
     out.append(Case("B4", "u8_g4_224",
                     lambda: normalize_images(u8, recipe=recipe),
-                    lambda: normalize_plain(u8, recipe), NORM_TOL, True))
+                    lambda: normalize_plain(u8, recipe), NORM_TOL, True,
+                    work=(0.0, 3.0 * u8.numel(), "bf16"),
+                    library_note="no single PyTorch call: the cast, the "
+                                 "scale and shift and the layout change "
+                                 "are separate operators"))
 
     # B5: the weight-only int8 products of the 8bit decode step (m = 32
     # slots) and of a one-image admission (m = 316)
@@ -303,11 +482,18 @@ def cases(device) -> List[Case]:
         for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
             x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
             qw, sw = gemma_w[(k, n)]
+            sw16 = sw.to(torch.bfloat16)
+            fn, why = _library(lambda x=x, qw=qw, sw16=sw16: functools.partial(
+                torch._weight_int8pack_mm, x, qw, sw16))
             out.append(Case(
                 "B5", f"m{m}_k{k}_n{n}",
                 lambda x=x, qw=qw, sw=sw: int8_matmul(x, qw, sw),
                 lambda x=x, qw=qw, sw=sw: int8_matmul_plain(x, qw, sw),
-                GEMM_REL_TOL, True, rel=True, cold=True))
+                GEMM_REL_TOL, True, rel=True, cold=True,
+                work=gemm_work(m, k, n, 2 * m * k, n * k, 4 * n, 2, "bf16"),
+                library_fn=fn,
+                library_note=why or "torch._weight_int8pack_mm, scales in "
+                                    "bf16"))
 
     # B6: the llm.int8 prefill product of a Gemma admission (m = 4 x 316,
     # fp32 out for the outlier sum) and the quantized SigLIP tower's MLP at
@@ -321,6 +507,17 @@ def cases(device) -> List[Case]:
         # torch._int_mm on the card takes more than 16 rows; below that the
         # plain version runs on CPU copies (the same IEEE epilogue) untimed
         card = m > 16
+        lib = dict(library_note="torch._int_mm on the card takes more "
+                                "than 16 rows")
+        if card:
+            # the int32 product alone, timed; the epilogue applied outside
+            # the timed span for the comparison
+            lib = dict(
+                library_fn=lambda: torch._int_mm(qx, qw.t()),
+                library_out=lambda acc: (acc.float() * sx * sw).to(
+                    out_dtype),
+                library_note="torch._int_mm: the int32 product without "
+                             "the scale epilogue")
         out.append(Case(
             "B6", f"m{m}_k{k}_n{n}_{tag}",
             lambda: int8xint8_matmul(qx, sx, qw, sw, out_dtype),
@@ -328,7 +525,9 @@ def cases(device) -> List[Case]:
                 *(t if card else t.cpu() for t in (qx, sx, qw, sw)),
                 out_dtype).to(dev),
             0.0 if exact else GEMM_REL_TOL / 2, on_path, rel=not exact,
-            cold=True, plain_timed=card))
+            cold=True, plain_timed=card,
+            work=gemm_work(m, k, n, m * k, n * k, 4 * (m + n),
+                           4 if exact else 2, "int8"), **lib))
 
     for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
         b6(GROUP * PROMPT, k, n, *gemma_w[(k, n)], torch.float32, True)
@@ -352,10 +551,22 @@ def cases(device) -> List[Case]:
 
     def b7(m, k, n, w4, on_path):
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        q4, s4, gs = w4
+        def library():
+            packed, sz = _int4pack(q4, s4)
+            return functools.partial(torch._weight_int4pack_mm, x, packed, gs,
+                                     sz)
+        fn, why = _library(library)
         out.append(Case(
-            "B7", f"m{m}_k{k}_n{n}_gs{w4[2]}",
+            "B7", f"m{m}_k{k}_n{n}_gs{gs}",
             lambda: int4_matmul(x, *w4), lambda: int4_matmul_plain(x, *w4),
-            GEMM_REL_TOL, on_path, rel=True, cold=True))
+            GEMM_REL_TOL, on_path, rel=True, cold=True,
+            work=gemm_work(m, k, n, 2 * m * k, n * k // 2, 4 * n * (k // gs),
+                           2, "bf16"),
+            library_fn=fn,
+            library_note=why or "torch._weight_int4pack_mm on weights "
+                                "repacked by _convert_weight_to_int4pack, "
+                                "scales in bf16"))
 
     gemma_w4 = {kn: weights4(*kn, 128) for kn in GEMMA_KN}
     # the 4bit decode step (m = 32 slots) first, gate/up its main case; a
@@ -373,6 +584,23 @@ def cases(device) -> List[Case]:
     for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
         b7(GROUP * PROMPT, k, n, gemma_w4[(k, n)], False)
     return out
+
+
+def _int4pack(q4: torch.Tensor, s4: torch.Tensor):
+    """The port's int4 weights (q [N, K/2], element 2i in the low nibble,
+    signed; fp32 scales [N, K/gs]) in ``torch._weight_int4pack_mm``'s
+    form: unsigned nibbles (signed + 8, element 2i high) packed by
+    ``torch._convert_weight_to_int4pack``, and bf16 (scale, zero 0) pairs
+    [K/gs, N, 2], for which (u - 8) * scale is the same weight."""
+    a = q4.to(torch.int32)
+    lo, hi = ((a << 28) >> 28) + 8, (a >> 4) + 8
+    u8 = ((lo << 4) | hi).to(torch.uint8)
+    k = q4.shape[1] * 2
+    inner = 8 if k % 256 == 0 else 4 if k % 128 == 0 else 2
+    packed = torch._convert_weight_to_int4pack(u8, inner)
+    sz = torch.stack((s4.to(torch.bfloat16), torch.zeros_like(
+        s4, dtype=torch.bfloat16)), dim=-1).transpose(0, 1).contiguous()
+    return packed, sz
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -409,9 +637,11 @@ def _ms(fn, iters: int, flush: Optional[torch.Tensor] = None) -> float:
 
 def run(device="cuda", iters: int = 20) -> List[Dict]:
     """Compare and time every case; returns one record per case. Timing
-    alternates plain, kernel, kernel, plain and averages each version.
-    The launch counters are reset at the end: launches made here do not
-    count toward the serving path's."""
+    alternates plain, kernel, library, library, kernel, plain and averages
+    each version. The library call is compared with the plain version once
+    (``library_ok``; a disagreement is reported, not fatal: it is the
+    yardstick, not the port). The launch counters are reset at the end:
+    launches made here do not count toward the serving path's."""
     records = []
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     for c in cases(device):
@@ -419,20 +649,37 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
         want = c.plain_fn()
         torch.cuda.synchronize()
         err = _max_err(got, want)
-        bound = c.tol * (float(want.float().abs().max()) if c.rel else 1.0)
+        tol = c.tol * (float(want.float().abs().max()) if c.rel else 1.0)
+        lib_err = None
+        if c.library_fn is not None and c.library_compare:
+            res = c.library_fn()
+            lib_err = _max_err(c.library_out(res) if c.library_out else res,
+                               want)
         tk = c.time_kernel or c.kernel_fn
         tp = c.time_plain or c.plain_fn
         fl = flush if c.cold else None
         nan = float("nan")
         p1 = _ms(tp, iters, fl) if c.plain_timed else nan
         k1 = _ms(tk, iters, fl)
+        lib_ms = None
+        if c.library_fn is not None:
+            lib_ms = (_ms(c.library_fn, iters, fl)
+                      + _ms(c.library_fn, iters, fl)) / 2
         k2 = _ms(tk, iters, fl)
         p2 = _ms(tp, iters, fl) if c.plain_timed else nan
         form = c.form or KERNELS[c.kernel]["name"]
+        ops, nbytes, peak = c.work
+        b_ms, b_kind = bound_ms(ops, nbytes, peak)
         records.append(dict(kernel=c.kernel, form=form, case=c.case,
                             on_path=c.on_path, max_abs_err=err, tol=c.tol,
-                            rel=c.rel, ok=err <= bound,
-                            ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2))
+                            rel=c.rel, ok=err <= tol,
+                            ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
+                            ops=ops, bytes=nbytes, peak=peak, bound_ms=b_ms,
+                            bound_kind=b_kind, library_ms=lib_ms,
+                            library_err=lib_err,
+                            library_ok=None if lib_err is None
+                            else lib_err <= tol,
+                            library_note=c.library_note))
     del flush
     _lib.reset_counts()
     return records
