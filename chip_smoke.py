@@ -13,7 +13,8 @@ Phases, each of which raises on failure:
    paths' shapes, with error, tolerance, both times, the bound (the least
    time the card could take for the work) and, where one PyTorch call
    computes the same function, that call's time (timed only: the port
-   never calls it);
+   never calls it); kernel and library call also profiled (their kernels'
+   own device time, without the events' floor);
 4. bf16 slice: PaliGemma-3B at full width, bf16, random weights from a
    seed, through the port's continuous batcher (32 slots, 96 synthetic
    224 px images fed through the normalisation kernel, a 60-id prompt, up
@@ -86,9 +87,13 @@ def kernel_phase(gpu):
         if r["library_err"] is not None:
             lib += (f" (err {r['library_err']:.3e}"
                     f"{'' if r['library_ok'] else ', outside tol'})")
+        dev = " ".join(
+            f"{k} {'null' if r[k] is None else f'{r[k]:.4f}'}"
+            for k in ("device_ms", "library_device_ms"))
         print(f"[kernel] {r['kernel']} {r['case']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {tol}) kernel "
-              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"profiled {dev}, bound "
               f"{r['bound_ms']:.4f} ms by {r['bound_kind']} (share "
               f"{r['bound_ms'] / r['ms']:.1%}), library {lib} "
               f"[{r['library_note']}] [{'ok' if r['ok'] else 'FAIL'}] "
@@ -339,6 +344,8 @@ def main() -> int:
                 "bound_by": main_case["bound_kind"],
                 "bound_kind": main_case["bound_kind"],
                 "library_ms": main_case["library_ms"],
+                "device_ms": main_case["device_ms"],
+                "library_device_ms": main_case["library_device_ms"],
                 "library": main_case["library_note"],
                 "case": main_case["case"]})
         main = forms[0]
@@ -348,7 +355,8 @@ def main() -> int:
             "launches": sum(f["launches"] for f in forms),
             "max_abs_err": max(f["max_abs_err"] for f in forms),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "bound_kind", "library_ms", "library",
+                                    "bound_kind", "library_ms", "device_ms",
+                                    "library_device_ms", "library",
                                     "case")}}
         if len(forms) > 1:
             entry["forms"] = forms

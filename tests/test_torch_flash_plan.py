@@ -1,26 +1,39 @@
 """B1's host-side plan against the plain version, on the CPU.
 
 ``flash_plan`` packs (position, query head) rows of one KV head's group
-into blocks of ``ROWS`` rows and ``block_key_tiles`` says how many 64-key
-tiles each block loads. A numpy emulation of what each block of
-``csrc/flash_attention.cu`` computes (its rows, the tiles the plan gives
-it, the per-row key limits, the online softmax in base 2 with the finite
--1e30 for masked keys and no weight past the last key) must reproduce
-``attention_plain`` in every mask mode: fp32 throughout, atol = rtol =
-1e-5 (the emulation and the plain version sum in another order). So the
-plan may skip tiles only where skipping changes nothing, and a row with no
-live key still gets the mean of V.
+into blocks of ``ROWS`` rows and gives the grid the wrapper launches;
+``block_key_tiles`` below says how many 64-key tiles each block loads. A
+numpy emulation of what each block of ``csrc/flash_attention.cu`` computes
+(its rows, those tiles, the per-row key limits, the online softmax in base
+2 with the finite -1e30 for masked keys and no weight past the last key)
+must reproduce ``attention_plain`` in every mask mode: fp32 throughout,
+atol = rtol = 1e-5 (the emulation and the plain version sum in another
+order). So the kernel may skip tiles only where skipping changes nothing,
+and a row with no live key still gets the mean of V.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vlm_tpu_torch.ops.attention import (KEYS, ROWS, attention_plain,
-                                         block_key_tiles, flash_plan,
-                                         row_limits)
+from vlm_tpu_torch.ops.attention import KEYS, ROWS, attention_plain, flash_plan
+from vlm_tpu_torch.testing.kernel_checks import row_limits
 
 NEG = np.float32(-1e30)
+
+
+def block_key_tiles(plan, tile, sq, sk, causal, kv_len=None, prefix_len=None):
+    """How many K/V tiles (from the first) block ``tile`` of a batch row
+    loads, as ``flash_kernel`` computes it (the lines under "the block's
+    key range" in csrc/flash_attention.cu): the tiles holding a live key of
+    one of its rows. A block with a row that has no live key loads every
+    tile, so that row's uniform weights give the mean of V over all ``sk``
+    keys, as the reference does."""
+    p0 = tile * plan.positions
+    ends = row_limits(np.array([p0, min(p0 + plan.positions, sq) - 1]), sq,
+                      sk, causal, kv_len, prefix_len)
+    keys = sk if ends[0] <= 0 else int(ends[1])
+    return -(-keys // KEYS)
 
 
 def emulate(q, k, v, causal=False, kv_len=None, prefix_len=None):

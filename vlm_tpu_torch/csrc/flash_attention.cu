@@ -39,8 +39,8 @@
 //   base 2, the row sums kept per thread and reduced once at the end.
 // - Skipped tiles. A block loads and multiplies only the key tiles that
 //   hold a live key of one of its rows (kv_len, the causal limit widened
-//   by the prefix); `flash_plan` / `block_key_tiles` in ops/attention.py
-//   compute the same range. A row with no live key (kv_len = 0, or a
+//   by the prefix); tests/test_torch_flash_plan.py emulates the range on
+//   the CPU. A row with no live key (kv_len = 0, or a
 //   causal row before the first key) must return the mean of V over all
 //   Sk keys, as `_flash_kernel` does with its finite -1e30: a block with
 //   such a row loads every tile, so that row's weights are uniform and no
@@ -158,7 +158,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int b = blockIdx.z;
   const int kvh = h0 / (H / KV);
 
-  // the block's key range: block_key_tiles in ops/attention.py
+  // the block's key range (block_key_tiles in
+  // tests/test_torch_flash_plan.py mirrors these lines)
   const int kvl = min(kv_len ? kv_len[b] : Sk, Sk);
   const int pfx = causal && prefix_len ? prefix_len[b] : 0;
   const int off = Sk - Sq;
@@ -364,7 +365,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tm_q,
 template <int NB, int KS>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
            const CUtensorMap& to, const int* kv_len, const int* prefix_len,
-           int B, int H, int KV, int Sq, int Sk, int hpb_log2,
+           dim3 grid, int H, int KV, int Sq, int Sk, int hpb_log2,
            float scale_log2, int causal, cudaStream_t stream) {
   // the shared-memory limit, raised once a device (a host call per launch
   // otherwise)
@@ -379,8 +380,6 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
     if (err != cudaSuccess) return (int)err;
     if (dev < 32) raised |= 1u << dev;
   }
-  const int P = kRows >> hpb_log2;
-  dim3 grid((Sq + P - 1) / P, H >> hpb_log2, B);
   flash_kernel<NB, KS><<<grid, kThreads, Shape<NB>::kSmem, stream>>>(
       tq, tk, tv, to, kv_len, prefix_len, H, KV, Sq, Sk, hpb_log2, scale_log2,
       causal);
@@ -416,20 +415,24 @@ bool rows_map(CUtensorMap* map, const void* ptr, int B, int H, int Sq, int D,
 }  // namespace
 
 // q [B, H, Sq, D], k/v [B, KV, Sk, D] with element strides (batch, head,
-// seq) and a contiguous head dim; o likewise, all TMA-strided. hpb: query heads packed into
-// a block's rows (flash_plan). Returns cudaErrorInvalidValue for what it
-// does not take and cudaErrorNotSupported if a tensor map is refused.
+// seq) and a contiguous head dim; o likewise, all TMA-strided. hpb (query
+// heads packed into a block's rows) and the grid (position tiles, H / hpb,
+// B) are flash_plan's in ops/attention.py. Returns cudaErrorInvalidValue
+// for what it does not take and cudaErrorNotSupported if a tensor map is
+// refused.
 extern "C" int vlm_flash_attention(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
     const int* prefix_len, int B, int H, int KV, int Sq, int Sk, int D, int hpb,
-    int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
-    int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
-    int64_t o_sh, int64_t o_ss, float scale, int causal, void* stream) {
+    int grid_x, int grid_y, int grid_z, int64_t q_sb, int64_t q_sh,
+    int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb,
+    int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
+    float scale, int causal, void* stream) {
   int hpb_log2 = 0;
   while ((1 << hpb_log2) < hpb) ++hpb_log2;
   if (D > 256 || D < 2 || D % 2 != 0 || KV <= 0 || H % KV != 0 || Sk < 1 ||
       Sq < 1 || hpb < 1 || hpb > 64 || (1 << hpb_log2) != hpb ||
-      (H / KV) % hpb != 0)
+      (H / KV) % hpb != 0 || (int64_t)grid_x * (kRows / hpb) < Sq ||
+      grid_y * hpb != H || grid_z != B)
     return (int)cudaErrorInvalidValue;
   const CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv, to;
@@ -448,7 +451,8 @@ extern "C" int vlm_flash_attention(
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VLM_FLASH(NB, KS)                                                  \
-  return launch<NB, KS>(tq, tk, tv, to, kv_len, prefix_len, B, H, KV, Sq, Sk, \
+  return launch<NB, KS>(tq, tk, tv, to, kv_len, prefix_len,              \
+                        dim3(grid_x, grid_y, grid_z), H, KV, Sq, Sk,         \
                         hpb_log2, scale_log2, causal, st)
   if (D <= 64) VLM_FLASH(1, 4);
   if (D <= 80) VLM_FLASH(2, 5);

@@ -9,10 +9,9 @@ causal), ``kv_len`` and ``kv_valid``, all with the finite ``-1e30``.
 
 :func:`flash_attention` is the B1 wrapper (``csrc/flash_attention.cu``):
 the kernel for CUDA tensors, the plain version for CPU tensors.
-:func:`flash_plan` and :func:`block_key_tiles` are its host-side plan (the
-grid, the packing of (position, head) rows, the K/V tiles each block loads),
-held against :func:`attention_plain` on the CPU by
-``tests/test_torch_flash_plan.py``.
+:func:`flash_plan` is its host-side plan (the grid it launches and the
+packing of (position, head) rows), held against :func:`attention_plain` on
+the CPU by ``tests/test_torch_flash_plan.py``.
 """
 
 from __future__ import annotations
@@ -22,7 +21,6 @@ import functools
 import math
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
 from . import _lib
@@ -94,33 +92,6 @@ def flash_plan(b: int, h: int, kvh: int, sq: int) -> FlashPlan:
     return FlashPlan(hpb, pos, (-(-sq // pos), h // hpb, b))
 
 
-def row_limits(positions: np.ndarray, sq: int, sk: int, causal: bool,
-               kv_len: Optional[int], prefix_len: Optional[int]) -> np.ndarray:
-    """Keys ``kj < lim`` are live for a row at each position: ``kv_len``,
-    narrowed by the causal limit (diagonal at the end of the kv axis) and
-    widened by the prefix, as in ``attention_plain``."""
-    kvl = sk if kv_len is None else min(int(kv_len), sk)
-    pos = np.asarray(positions)
-    if not causal:
-        return np.full(pos.shape, kvl)
-    pfx = 0 if prefix_len is None else int(prefix_len)
-    return np.minimum(np.maximum(pos + sk - sq + 1, pfx), kvl)
-
-
-def block_key_tiles(plan: FlashPlan, tile: int, sq: int, sk: int,
-                    causal: bool, kv_len: Optional[int] = None,
-                    prefix_len: Optional[int] = None) -> int:
-    """How many K/V tiles (from the first) block ``tile`` of a batch row
-    loads: those holding a live key of one of its rows. A block with a row
-    that has no live key loads every tile, so that row's uniform weights
-    give the mean of V over all ``sk`` keys, as the reference does."""
-    p0 = tile * plan.positions
-    ends = row_limits(np.array([p0, min(p0 + plan.positions, sq) - 1]), sq,
-                      sk, causal, kv_len, prefix_len)
-    keys = sk if ends[0] <= 0 else int(ends[1])
-    return -(-keys // KEYS)
-
-
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself if TMA can read it (16-byte aligned base and strides,
     contiguous head dim), else a copy whose head dim is padded to 8."""
@@ -170,7 +141,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         kvl.data_ptr() if kvl is not None else None,
         pfx.data_ptr() if pfx is not None else None,
-        b, h, kvh, sq, sk, d, plan.heads_per_block, *q.stride()[:3],
+        b, h, kvh, sq, sk, d, plan.heads_per_block, *plan.grid,
+        *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], d ** -0.5,
         int(causal), _lib.stream_ptr(q))
     return o

@@ -41,7 +41,10 @@ dense tensor-core peak of their type (:data:`HBM_BYTES_PER_S`,
 limit). And, where one PyTorch call computes the same function, that call
 (``library_fn``), timed the same way and compared once with the plain
 version; the port never calls it. Where there is none, ``library_note``
-says why.
+says why. Kernel and library call are timed twice: with CUDA events
+(``ms``, ``library_ms``: device time plus a floor of a few µs a call) and
+under the profiler (``device_ms``, ``library_device_ms``: their kernels'
+own time), which compares short kernels without the floor.
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import _lib
-from ..ops.attention import attention_plain, flash_attention, row_limits
+from ..ops.attention import attention_plain, flash_attention
 from ..ops.decode_attention import (decode_attention, decode_attention_plain,
                                     live_rows)
 from ..ops.kvcache import (kv_masked_write, kv_quantized_write,
@@ -144,6 +147,19 @@ def bound_ms(ops: float, nbytes: float, peak: str) -> Tuple[float, str]:
 
 def _ints(t) -> Optional[List[int]]:
     return None if t is None else [int(x) for x in torch.as_tensor(t).cpu()]
+
+
+def row_limits(positions: np.ndarray, sq: int, sk: int, causal: bool,
+               kv_len: Optional[int], prefix_len: Optional[int]) -> np.ndarray:
+    """Keys ``kj < lim`` are live for a row at each position: ``kv_len``,
+    narrowed by the causal limit (diagonal at the end of the kv axis) and
+    widened by the prefix, as in ``attention_plain`` and B1."""
+    kvl = sk if kv_len is None else min(int(kv_len), sk)
+    pos = np.asarray(positions)
+    if not causal:
+        return np.full(pos.shape, kvl)
+    pfx = 0 if prefix_len is None else int(prefix_len)
+    return np.minimum(np.maximum(pos + sk - sq + 1, pfx), kvl)
 
 
 def attention_limits(b: int, sq: int, sk: int, causal: bool = False,
@@ -635,15 +651,56 @@ def _ms(fn, iters: int, flush: Optional[torch.Tensor] = None) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def _profiled(run) -> Dict[str, float]:
+    """Device µs of each kernel (by name, its own time) that ``run()``
+    launches, under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")}
+
+
+def _device_ms(fn, iters: int, flush: Optional[torch.Tensor] = None,
+               flush_kernels: frozenset = frozenset()) -> Optional[float]:
+    """Mean device ms of ``fn``'s kernels a call, from the profiler: the sum
+    of their own times, with no event floor (a few µs a call in
+    :func:`_ms`) and no gap between launches. The flush's kernels
+    (``flush_kernels``, by name) are left out. A session now and then
+    records no kernel at all, so it is run up to three times; None if none
+    saw a kernel."""
+    fn()
+    torch.cuda.synchronize()
+
+    def calls():
+        for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
+            fn()
+    for _ in range(3):
+        us = sum(t for k, t in _profiled(calls).items()
+                 if k not in flush_kernels)
+        if us > 0:
+            return us / iters / 1e3
+    return None
+
+
 def run(device="cuda", iters: int = 20) -> List[Dict]:
     """Compare and time every case; returns one record per case. Timing
     alternates plain, kernel, library, library, kernel, plain and averages
     each version. The library call is compared with the plain version once
     (``library_ok``; a disagreement is reported, not fatal: it is the
-    yardstick, not the port). The launch counters are reset at the end:
-    launches made here do not count toward the serving path's."""
+    yardstick, not the port). Kernel and library call are then profiled
+    once more (``device_ms``, ``library_device_ms``: :func:`_device_ms`).
+    The launch counters are reset at the end: launches made here do not
+    count toward the serving path's."""
     records = []
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+    flush_kernels = frozenset(_profiled(flush.zero_))
     for c in cases(device):
         got = c.kernel_fn()
         want = c.plain_fn()
@@ -667,6 +724,9 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
                       + _ms(c.library_fn, iters, fl)) / 2
         k2 = _ms(tk, iters, fl)
         p2 = _ms(tp, iters, fl) if c.plain_timed else nan
+        dev_ms = _device_ms(tk, iters, fl, flush_kernels)
+        lib_dev_ms = None if c.library_fn is None else _device_ms(
+            c.library_fn, iters, fl, flush_kernels)
         form = c.form or KERNELS[c.kernel]["name"]
         ops, nbytes, peak = c.work
         b_ms, b_kind = bound_ms(ops, nbytes, peak)
@@ -676,6 +736,7 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
                             ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                             ops=ops, bytes=nbytes, peak=peak, bound_ms=b_ms,
                             bound_kind=b_kind, library_ms=lib_ms,
+                            device_ms=dev_ms, library_device_ms=lib_dev_ms,
                             library_err=lib_err,
                             library_ok=None if lib_err is None
                             else lib_err <= tol,

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""B1's time at its two serving shapes and the device profile of one
+"""B1's time at its two serving shapes and the device profile of one bf16
 PaliGemma-3B admission, on one NVIDIA GPU; prints one JSON line.
 
     python vlm_tpu_torch/testing/profile_admission.py [--root DIR]
-        [--quant bf16|8bit|4bit] [--admissions 3]
+        [--admissions 3]
 
 ``--root`` is the checkout whose ``vlm_tpu_torch`` is measured (default:
 this one), so one command can time two trees in turns with this script:
@@ -13,8 +13,15 @@ the port's public calls (``flash_attention``, ``create_model``,
 - ``b1_ms``: device ms of ``flash_attention`` on the kernel checks' two
   on-path inputs (SigLIP [4, 16, 256, 72]; Gemma prefill [4, 8, 316, 256]
   MQA with kv_len [316, 290, 316, 0]), 20 calls queued behind a sleep
-  kernel, timed with CUDA events; ``b1_host_us``: the host's µs to enqueue
-  one call (200 calls behind a sleep kernel, so none waits on the card);
+  kernel, timed with CUDA events;
+- ``device_us``: µs a call of the kernels' own device time under
+  ``torch.profiler`` (no event floor), for B1 and for SDPA
+  (``scaled_dot_product_attention`` with the same boolean kv_len mask and
+  ``enable_gqa``, the library yardstick) on the same inputs, 20 calls each;
+- ``host_us``: the host's µs to enqueue one call, five runs of 200 calls
+  behind a sleep kernel (so none waits on the card), sorted: B1's wrapper
+  (``wrapper``), its C entry point alone with the wrapper's arguments
+  (``c_call``: tensor maps and launch), and SDPA (``sdpa``);
 - ``admission``: an admission of 4 images at full width and depth, random
   weights from seed 0: normalisation, tower, projector and Gemma prefill
   of the 316-token prompt into a 4-row cache. Host wall ms (synchronised,
@@ -36,7 +43,6 @@ PROMPT_IDS, GROUP = 60, 4
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
-    ap.add_argument("--quant", default="bf16")
     ap.add_argument("--admissions", type=int, default=3)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -44,11 +50,13 @@ def main(argv=None):
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_admission: needs a CUDA device")
+    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     from vlm_tpu_torch.models.decoder import init_kv_cache
     from vlm_tpu_torch.models.factory import create_model
     from vlm_tpu_torch.models.vlm import num_image_tokens
+    from vlm_tpu_torch.ops import _lib
     from vlm_tpu_torch.ops.attention import flash_attention
     from vlm_tpu_torch.ops.preprocess import normalize_images
     from vlm_tpu_torch.testing.kernel_checks import _SLEEP_CYCLES, _ms
@@ -68,22 +76,62 @@ def main(argv=None):
     gem = [bhsd(GROUP, 316, 8, 256), bhsd(GROUP, 316, 1, 256),
            bhsd(GROUP, 316, 1, 256)]
     kvl = torch.tensor([316, 290, 316, 0], dtype=torch.int32, device=dev)
+    mask = (torch.arange(316, device=dev)[None] < kvl[:, None])[:, None,
+                                                                 None]
     calls = {"siglip": lambda: flash_attention(*sig),
              "gemma": lambda: flash_attention(*gem, kv_len=kvl)}
+    sdpa = {"siglip": lambda: F.scaled_dot_product_attention(*sig),
+            "gemma": lambda: F.scaled_dot_product_attention(
+                *gem, attn_mask=mask, enable_gqa=True)}
     b1_ms = {k: _ms(fn, 20) for k, fn in calls.items()}
-    b1_host_us = {}
-    for k, fn in calls.items():
-        torch.cuda.synchronize()
-        torch.cuda._sleep(_SLEEP_CYCLES)
-        t0 = time.perf_counter()
-        for _ in range(200):
-            fn()
-        b1_host_us[k] = (time.perf_counter() - t0) / 200 * 1e6
-        torch.cuda.synchronize()
 
-    model = create_model("paligemma", quantization=args.quant, size="3b",
-                         device="cuda", seed=0,
-                         kv_cache="int8" if args.quant == "8bit" else None)
+    def device_us(fn, n=20):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return sum(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+                   for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")) / n
+
+    def host_us(fn, n=200):
+        fn()
+        runs = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(_SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            runs.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+        return sorted(runs)
+
+    def c_call(fn):
+        """The C entry point of ``fn``'s launch, bound to its arguments."""
+        seen = []
+        launch = _lib.launch
+        _lib.launch = lambda *a: seen.append(a) or launch(*a)
+        try:
+            fn()
+        finally:
+            _lib.launch = launch
+        _, name, *c_args = seen[0]
+        entry = getattr(_lib.lib(), name)
+        return lambda: entry(*c_args)
+
+    device = {k: {"b1": device_us(calls[k]), "sdpa": device_us(sdpa[k])}
+              for k in calls}
+    host = {k: {"wrapper": host_us(calls[k]),
+                "c_call": host_us(c_call(calls[k])),
+                "sdpa": host_us(sdpa[k])} for k in calls}
+
+    model = create_model("paligemma", quantization="bf16", size="3b",
+                         device="cuda", seed=0)
     cfg = model.cfg
     rng = np.random.default_rng(0)
     u8 = torch.from_numpy(rng.integers(0, 256, (GROUP, 224, 224, 3),
@@ -127,8 +175,8 @@ def main(argv=None):
     rows.sort(key=lambda r: -r[1])
     b1 = [r for r in rows if "flash_kernel" in r[0]]
     print(json.dumps({
-        "root": args.root, "gpu": gpu, "quant": args.quant, "b1_ms": b1_ms,
-        "b1_host_us": b1_host_us,
+        "root": args.root, "gpu": gpu, "b1_ms": b1_ms, "device_us": device,
+        "host_us": host,
         "admission": {
             "wall_ms": walls, "device_ms": sum(r[1] for r in rows),
             "kernels": sum(r[2] for r in rows),
