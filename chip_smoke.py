@@ -33,7 +33,12 @@ Phases, each of which raises on failure:
 9. 4bit reference: the depth-cut copy with int4 decoder and vision weights
    against fp32 compute on the CPU, through a 2-image prefill (512 rows and
    more: the dequantized product), a 1-image prefill (B7 at 256 and 316
-   rows, SigLIP fc2 at group 16) and decode steps.
+   rows, SigLIP fc2 at group 16) and decode steps;
+10. fp32 slice: ``create_model("paligemma", size="3b", device="cuda")``
+    with its default quantization, fp32, through the fp32 forms of B1, B2
+    and B4 (16 images, up to 8 new tokens);
+11. fp32 reference: the depth-cut copy in fp32 on the card against the CPU
+    (``REF_TOL_FP32``).
 
 Each slice's launch counts are set to 0 just before it is driven and read
 just after.
@@ -56,6 +61,12 @@ SLOTS, N_IMAGES, PROMPT_IDS, NEW = 32, 96, 60, 32
 # quantizes activations from bf16 on the card and from fp32 on the CPU, so
 # one int8 step (1/127 of a row's abs-max) can flip where they differ
 REF_TOL = 5e-2
+# fp32 on both sides (no TF32 on the card): only the order of the sums
+# differs
+REF_TOL_FP32 = 1e-3
+# the fp32 slice: fewer images and tokens (fp32 weights stream twice the
+# bytes of bf16's, and the mode is for correctness)
+FP32_IMAGES, FP32_NEW = 16, 8
 # the launch counters each slice must move (ops._lib.KERNELS)
 PATH_KERNELS = {
     "bf16": ("flash_attention", "decode_attention", "kv_write", "normalize"),
@@ -63,6 +74,8 @@ PATH_KERNELS = {
              "normalize", "int8_matmul", "int8xint8_matmul"),
     "4bit": ("flash_attention", "decode_attention", "kv_write", "normalize",
              "int4_matmul"),
+    "fp32": ("flash_attention_fp32", "decode_attention_fp32", "kv_write",
+             "normalize_fp32"),
 }
 
 
@@ -94,7 +107,7 @@ def kernel_phase(gpu):
               f"{r['max_abs_err']:.3e} (tol {tol}) kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"profiled {dev}, bound "
-              f"{r['bound_ms']:.4f} ms by {r['bound_kind']} (share "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} (share "
               f"{r['bound_ms'] / r['ms']:.1%}), library {lib} "
               f"[{r['library_note']}] [{'ok' if r['ok'] else 'FAIL'}] "
               f"({gpu})")
@@ -105,10 +118,10 @@ def kernel_phase(gpu):
     return records
 
 
-def slice_phase(torch, np, gpu, quantization):
+def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW):
     """Serve the recipe with ``quantization`` "bf16", "8bit" (with the
-    int8 KV cache) or "4bit"; returns the launch counts of the timed
-    run."""
+    int8 KV cache), "4bit", or "fp32" (the model's default, so not passed);
+    returns the launch counts of the timed run."""
     from vlm_tpu_torch.generate.batcher import ContinuousBatcher
     from vlm_tpu_torch.models.factory import create_model
     from vlm_tpu_torch.models.vlm import num_image_tokens
@@ -117,9 +130,10 @@ def slice_phase(torch, np, gpu, quantization):
 
     tag = f"[slice {quantization}]"
     t0 = time.perf_counter()
-    model = create_model("paligemma", quantization=quantization, size="3b",
-                         device="cuda", seed=0,
-                         kv_cache="int8" if quantization == "8bit" else None)
+    kw = {} if quantization == "fp32" else dict(
+        quantization=quantization,
+        kv_cache="int8" if quantization == "8bit" else None)
+    model = create_model("paligemma", size="3b", device="cuda", seed=0, **kw)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.module.parameters())
     n_bytes = sum(p.numel() * p.element_size()
@@ -130,20 +144,21 @@ def slice_phase(torch, np, gpu, quantization):
     cfg = model.cfg
     dec = cfg.decoder
     rng = np.random.default_rng(0)
-    images = rng.integers(0, 256, (N_IMAGES, 224, 224, 3), dtype=np.uint8)
+    images = rng.integers(0, 256, (n_images, 224, 224, 3), dtype=np.uint8)
     post_ids = np.concatenate([[dec.bos_token_id], rng.integers(
         3, dec.vocab_size, PROMPT_IDS - 1)]).astype(np.int32)
     prompt_len = num_image_tokens(cfg) + PROMPT_IDS
-    caps = rng.integers(8, NEW + 1, N_IMAGES)
+    caps = rng.integers(min(8, new), new + 1, n_images)
 
     def pixel_fn(idxs):
         u8 = torch.from_numpy(images[idxs]).to("cuda", non_blocking=True)
-        return normalize_images(u8, recipe=model.recipe)
+        return normalize_images(u8, recipe=model.recipe,
+                                compute_dtype=model.dtype)
 
     def batcher():
         return ContinuousBatcher(model.module, cfg, batch_size=SLOTS,
                                  max_prompt_len=prompt_len,
-                                 max_new_tokens=NEW,
+                                 max_new_tokens=new,
                                  cache_dtype=model.cache_dtype)
 
     run_kw = dict(pre_ids_row=np.zeros((0,), np.int32),
@@ -156,7 +171,7 @@ def slice_phase(torch, np, gpu, quantization):
     _lib.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = b.run(pixel_fn, n_images=N_IMAGES, max_new_per_image=caps,
+    out = b.run(pixel_fn, n_images=n_images, max_new_per_image=caps,
                 **run_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -178,8 +193,8 @@ def slice_phase(torch, np, gpu, quantization):
     if any(plain.values()):
         raise RuntimeError(f"plain versions ran on the path: {plain}")
     lat = np.asarray(b.last_latency_s) * 1e3
-    print(f"{tag} {N_IMAGES} images, {len(toks)} tokens in {wall:.3f} s: "
-          f"{N_IMAGES / wall:.3f} img/s, {len(toks) / wall:.1f} tok/s "
+    print(f"{tag} {n_images} images, {len(toks)} tokens in {wall:.3f} s: "
+          f"{n_images / wall:.3f} img/s, {len(toks) / wall:.1f} tok/s "
           f"({gpu})")
     print(f"{tag} latency p50 {np.percentile(lat, 50):.1f} ms p99 "
           f"{np.percentile(lat, 99):.1f} ms ({gpu})")
@@ -202,7 +217,7 @@ def slice_phase(torch, np, gpu, quantization):
         raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
     del model, cache, logits
     torch.cuda.empty_cache()
-    return launches, dict(wall_s=wall, img_per_s=N_IMAGES / wall)
+    return launches, dict(wall_s=wall, img_per_s=n_images / wall)
 
 
 def reference_phase(torch, np, gpu, quantization):
@@ -210,7 +225,8 @@ def reference_phase(torch, np, gpu, quantization):
     plain versions on the CPU, same weights, same inputs. "8bit": int8
     decoder and vision weights and the int8 KV cache on both sides. "4bit":
     int4 decoder and vision weights, and a 1-image prefill after the
-    2-image one, so that B7 takes the prefill's products too."""
+    2-image one, so that B7 takes the prefill's products too. "fp32": the
+    fp32 kernels on the card, within ``REF_TOL_FP32``."""
     from vlm_tpu_torch.models.configs import paligemma_config
     from vlm_tpu_torch.models.layers import init_random_
     from vlm_tpu_torch.models.vlm import VLMModule, num_image_tokens
@@ -223,11 +239,13 @@ def reference_phase(torch, np, gpu, quantization):
         decoder=dataclasses.replace(full.decoder, layers=2))
     bits = {"8bit": 8, "4bit": 4}.get(quantization, 0)
     quant = dict(quant_bits=bits, vision_quant_bits=bits)
-    cache_dtypes = {"cuda": torch.bfloat16, "cpu": torch.float32}
+    card = torch.float32 if quantization == "fp32" else torch.bfloat16
+    tol = REF_TOL_FP32 if quantization == "fp32" else REF_TOL
+    cache_dtypes = {"cuda": card, "cpu": torch.float32}
     if bits == 8:
         cache_dtypes = dict.fromkeys(cache_dtypes, "int8")
-    gpu_mod = init_random_(VLMModule(cfg, dtype=torch.bfloat16,
-                                     device="cuda", **quant), seed=1)
+    gpu_mod = init_random_(VLMModule(cfg, dtype=card, device="cuda",
+                                     **quant), seed=1)
     cpu_mod = VLMModule(cfg, dtype=torch.float32, device="cpu", **quant)
     # integer weights stay as they are; only floating tensors widen to fp32
     cpu_mod.load_state_dict({
@@ -245,20 +263,24 @@ def reference_phase(torch, np, gpu, quantization):
                                              dtype=np.int32))
         _lib.reset_counts()
         worst = max(worst, _compare(torch, gpu_mod, cpu_mod, cfg, u8, post,
-                                    plen, steps, cache_dtypes, recipe))
+                                    plen, steps, cache_dtypes, recipe, card))
         if bits == 4 and not _lib.launches["int4_matmul"]:
             raise RuntimeError("B7 never launched in the 4bit reference")
+        idle = [k for k in PATH_KERNELS["fp32"][:2] + ("normalize_fp32",)
+                if not _lib.launches[k]] if quantization == "fp32" else []
+        if idle:
+            raise RuntimeError(f"{idle} never launched in the fp32 reference")
     _lib.reset_counts()
     print(f"[reference {quantization}] depth-cut PaliGemma (2+2 layers, "
           f"full width): prefill + {steps} decode steps"
           f"{' (2 and 1 images)' if bits == 4 else ''}, max |card - cpu| / "
-          f"max|cpu| = {worst:.3e} (tol {REF_TOL:.0e}) ({gpu})")
-    if worst > REF_TOL:
+          f"max|cpu| = {worst:.3e} (tol {tol:.0e}) ({gpu})")
+    if worst > tol:
         raise RuntimeError("card disagrees with the CPU reference")
 
 
 def _compare(torch, gpu_mod, cpu_mod, cfg, u8, post, plen, steps,
-             cache_dtypes, recipe):
+             cache_dtypes, recipe, card_dtype):
     """Prefill ``u8`` and ``steps`` rotating-window decode steps on both
     modules; the worst max |card - cpu| / max |cpu| over the logits."""
     from vlm_tpu_torch.models.decoder import init_kv_cache
@@ -267,7 +289,7 @@ def _compare(torch, gpu_mod, cpu_mod, cfg, u8, post, plen, steps,
     worst = 0.0
     with torch.inference_mode():
         runs = {}
-        for dev, mod, dtype in (("cuda", gpu_mod, torch.bfloat16),
+        for dev, mod, dtype in (("cuda", gpu_mod, card_dtype),
                                 ("cpu", cpu_mod, torch.float32)):
             cache = init_kv_cache(cfg.decoder, b, plen + steps,
                                   cache_dtypes[dev], dev)
@@ -310,7 +332,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     try:
         from vlm_tpu_torch.ops import _lib
-        from vlm_tpu_torch.testing.kernel_checks import KERNELS
+        from vlm_tpu_torch.testing.kernel_checks import (FORM_SOURCES,
+                                                         KERNELS)
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -324,8 +347,10 @@ def main() -> int:
           f"{_lib.last_build['seconds']:.1f} s) ({gpu})")
     records = kernel_phase(gpu)
     launches = {}
-    for quantization in ("bf16", "8bit", "4bit"):
-        path, _ = slice_phase(torch, np, gpu, quantization)
+    for quantization in ("bf16", "8bit", "4bit", "fp32"):
+        size = dict(n_images=FP32_IMAGES, new=FP32_NEW) \
+            if quantization == "fp32" else {}
+        path, _ = slice_phase(torch, np, gpu, quantization, **size)
         reference_phase(torch, np, gpu, quantization)
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
@@ -337,12 +362,13 @@ def main() -> int:
             mine = [r for r in records if r["form"] == form]
             main_case = next(r for r in mine if r["on_path"])
             forms.append({
-                "form": form, "launches": launches[form],
+                "form": form,
+                "source": FORM_SOURCES.get(form, meta["source"]),
+                "launches": launches[form],
                 "max_abs_err": max(r["max_abs_err"] for r in mine),
                 "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
                 "bound_ms": main_case["bound_ms"],
-                "bound_by": main_case["bound_kind"],
-                "bound_kind": main_case["bound_kind"],
+                "bound_by": main_case["bound_by"],
                 "library_ms": main_case["library_ms"],
                 "device_ms": main_case["device_ms"],
                 "library_device_ms": main_case["library_device_ms"],
@@ -355,7 +381,7 @@ def main() -> int:
             "launches": sum(f["launches"] for f in forms),
             "max_abs_err": max(f["max_abs_err"] for f in forms),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                    "bound_kind", "library_ms", "device_ms",
+                                    "library_ms", "device_ms",
                                     "library_device_ms", "library",
                                     "case")}}
         if len(forms) > 1:

@@ -69,8 +69,9 @@ def test_greedy_tokens_identical_to_jax_batcher(models, slots, admit, caps):
     assert b.last_stats["admits"] == -(-n // admit)
     # on the CPU every op took its plain version
     assert _lib.launches == dict.fromkeys(_lib.KERNELS, 0)
-    assert min(_lib.plain_calls[k] for k in
-               ("flash_attention", "decode_attention", "kv_write")) > 0
+    assert min(_lib.plain_calls[k] for k in ("flash_attention_fp32",
+                                             "decode_attention_fp32",
+                                             "kv_write")) > 0
 
 
 def test_all_caps_one_and_single_slot(models):

@@ -74,12 +74,19 @@ def test_wrappers_launch_on_cuda_and_never_fall_back(card):
     torch.cuda.synchronize()
     assert _lib.launches["flash_attention"] == 1
     assert _lib.plain_calls["flash_attention"] == 0
-    with pytest.raises(TypeError, match="bfloat16"):
-        flash_attention(q.float(), q.float(), q.float())
+    flash_attention(q.float(), q.float(), q.float())     # the fp32 form
+    torch.cuda.synchronize()
+    assert _lib.launches["flash_attention_fp32"] == 1
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention(q.float(), q, q)
     u8 = torch.zeros(1, 4, 4, 3, dtype=torch.uint8, device=card)
-    with pytest.raises(TypeError, match="bfloat16"):
+    normalize_images(u8, recipe=RECIPES["paligemma"],
+                     compute_dtype=torch.float32)
+    assert _lib.launches["normalize_fp32"] == 1
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
         normalize_images(u8, recipe=RECIPES["paligemma"],
-                         compute_dtype=torch.float32)
+                         compute_dtype=torch.float16)
+    assert sum(_lib.plain_calls.values()) == 0
 
 
 def test_int8_wrappers_launch_on_cuda_and_raise_on_wrong_types(card):
@@ -123,9 +130,83 @@ def test_int4_wrapper_launches_on_cuda_and_raises_on_wrong_types(card):
         int4_matmul(x, q.to(torch.uint8), s, 32)
     with pytest.raises(TypeError, match="float32"):
         int4_matmul(x, q, s.to(torch.bfloat16), 32)
-    with pytest.raises(ValueError, match="group_size % 16"):
+    with pytest.raises(ValueError, match="group_size 16, 32, 64 or 128"):
         int4_matmul(x, q, torch.rand(32, 8, device=card), 8)
     assert _lib.launches["int4_matmul"] == 1
+
+
+# the fp32 forms and B5 / B7 at every shape kernel_checks holds (names as
+# kernel_checks.cases builds them)
+FP32_CASES = ("fp32_siglip_g4_h16_s256_d72", "fp32_gemma_prefill_g4_s316_kvlen",
+              "fp32_prefix_kvlen_gqa_s64", "fp32_causal_sq80_sk48_dead_rows",
+              "fp32_window_32slots_cold", "fp32_window_32slots",
+              "fp32_kv_len_32slots", "fp32_kv_valid_32slots", "fp32_u8_g4_224")
+GEMMA = ((2048, 16384), (2048, 2048), (16384, 2048), (2048, 256))
+STREAM_CASES = tuple(
+    [f"B5 m{m}_k{k}_n{n}" for m in (32, 316, 1) for k, n in GEMMA]
+    + ["B5 m256_k1152_n4304", "B5 m256_k4304_n1152"]
+    + [f"B7 m{m}_k{k}_n{n}_gs128" for m in (32, 316, 1, 1264)
+       for k, n in GEMMA]
+    + ["B7 m256_k1152_n4304_gs128", "B7 m256_k4304_n1152_gs16",
+       "B7 m9_k128_n100_gs32"])
+
+
+@pytest.fixture(scope="module")
+def all_cases(card):
+    from vlm_tpu_torch.testing import kernel_checks
+    return {f"{c.kernel} {c.case}": c for c in kernel_checks.cases(card)}
+
+
+def _check(c):
+    got, want = c.kernel_fn(), c.plain_fn()
+    torch.cuda.synchronize()
+    tol = c.tol * (float(want.float().abs().max()) if c.rel else 1.0)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("case", FP32_CASES)
+def test_fp32_forms_match_plain(all_cases, case):
+    c = next(v for k, v in all_cases.items() if k.split(" ")[1] == case)
+    _check(c)
+
+
+@pytest.mark.parametrize("case", STREAM_CASES)
+def test_b5_b7_weight_stream_at_every_shape(all_cases, case):
+    _check(all_cases[case])
+
+
+def test_default_fp32_model_serves_a_prompt(card):
+    """``create_model`` with no quantization is fp32 and runs on the card
+    through the fp32 forms, no plain version."""
+    import numpy as np
+
+    from vlm_tpu_torch.generate.batcher import ContinuousBatcher
+    from vlm_tpu_torch.models.factory import create_model
+    from vlm_tpu_torch.models.vlm import num_image_tokens
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.preprocess import normalize_images
+    model = create_model("paligemma", size="test")
+    assert model.dtype == torch.float32 and model.device.type == "cuda"
+    s = model.cfg.vision.image_size
+    u8 = np.random.default_rng(0).integers(0, 256, (3, s, s, 3),
+                                           dtype=np.uint8)
+    post = np.asarray([2, 9, 11], np.int32)
+    plen = num_image_tokens(model.cfg) + len(post)
+    _lib.reset_counts()
+    out = ContinuousBatcher(model.module, model.cfg, batch_size=2,
+                            max_prompt_len=plen, max_new_tokens=4,
+                            cache_dtype=model.cache_dtype).run(
+        lambda idxs: normalize_images(torch.from_numpy(u8[idxs]).to(card),
+                                      recipe=model.recipe,
+                                      compute_dtype=model.dtype),
+        pre_ids_row=np.zeros((0,), np.int32), post_ids_row=post,
+        prompt_len_scalar=plen, n_images=3)
+    torch.cuda.synchronize()
+    assert all(o is not None and 0 < len(o) <= 4 for o in out)
+    for k in ("flash_attention_fp32", "decode_attention_fp32",
+              "normalize_fp32", "kv_write"):
+        assert _lib.launches[k] > 0, k
+    assert sum(_lib.plain_calls.values()) == 0
 
 
 def test_b6_and_b2_wrappers_raise_on_what_the_kernels_do_not_take(card):

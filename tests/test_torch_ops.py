@@ -99,8 +99,8 @@ def test_b1_wrapper_takes_plain_only_on_cpu():
     _lib.reset_counts()
     x = torch.zeros(1, 2, 4, 8)
     flash_attention(x, x, x)
-    assert _lib.plain_calls["flash_attention"] == 1
-    assert _lib.launches["flash_attention"] == 0
+    assert _lib.plain_calls["flash_attention_fp32"] == 1   # fp32 inputs
+    assert _lib.launches["flash_attention_fp32"] == 0
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(x.to("meta"), x.to("meta"), x.to("meta"))
 

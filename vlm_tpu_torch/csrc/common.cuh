@@ -90,22 +90,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// ---- split-K: blocks of one output tile share the K range ----
+// ---- split reduction: blocks of one output tile share its work ----
 //
-// Block z of gridDim.z takes K tiles [begin, end) of kt_total. After its
-// partial sums are stored in the workspace, `split_k_last` returns true in
-// exactly one block per output tile: the last to arrive, which then sums
-// the partials in split order (so the result does not depend on which
-// block finished last) and writes the output. It resets the tile's counter
-// for the next launch on the stream. Call from every thread of the block.
-// B5 and B7 split K this way; B2 splits its cache rows the same way.
-__device__ __forceinline__ void split_k_range(int kt_total, int& begin,
-                                              int& end) {
-  const int per = (kt_total + gridDim.z - 1) / gridDim.z;
-  begin = blockIdx.z * per;
-  end = min(kt_total, begin + per);
-}
-
+// After its partial results are stored in a workspace, `split_k_last`
+// returns true in exactly one block per output tile (the blocks of one
+// tile differ in blockIdx.z): the last to arrive, which then merges the
+// partials in split order (so the result does not depend on which block
+// finished last) and writes the output. It resets the tile's counter for
+// the next launch on the stream. Call from every thread of the block. B2
+// splits its cache rows this way.
 __device__ __forceinline__ bool split_k_last(int* counters) {
   __shared__ int last;
   __threadfence();  // this block's partials are visible device-wide
@@ -273,18 +266,27 @@ inline EncodeTiled encode_tiled_fn() {
 }
 
 // A tensor map of `rank` dimensions (innermost first; strides in bytes of
-// dimensions 1..rank-1) with 128-byte swizzled boxes and zero fill out of
-// bounds; false if the driver refuses it.
-inline bool tensor_map_sw128(CUtensorMap* map, CUtensorMapDataType type,
-                             const void* ptr, int rank, const cuuint64_t* dims,
-                             const cuuint64_t* strides, const cuuint32_t* box) {
+// dimensions 1..rank-1) with the given swizzle of its boxes and zero fill
+// out of bounds; false if the driver refuses it.
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the same with 128-byte swizzled boxes (the wgmma operands of B1 and B6)
+inline bool tensor_map_sw128(CUtensorMap* map, CUtensorMapDataType type,
+                             const void* ptr, int rank, const cuuint64_t* dims,
+                             const cuuint64_t* strides, const cuuint32_t* box) {
+  return tensor_map(map, type, ptr, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace vlm

@@ -58,6 +58,13 @@
 // window composes with kv_len. The mod is a floor mod (jnp.mod); C's %
 // truncates, hence ((x % W) + W) % W. Masked rows get probability 0, so a
 // fully masked row returns 0, the TPU kernel's contract.
+//
+// The fp32 form (vlm_decode_attention_fp32, for models that run with
+// quantization "fp32") takes an fp32 cache with the same masks in exact
+// fp32 on the CUDA cores: a correctness mode, so one block of 4 warps a
+// (slot, query head), each warp walking every fourth live row with a
+// warp-wide dot product and its own running max and sum, the 4 warps
+// merged in shared memory.
 #include "common.cuh"
 
 namespace {
@@ -531,6 +538,109 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- fp32 form ----
+
+constexpr int kDL32 = kMaxD / 32;  // head dims a lane
+
+struct Params32 {
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
+  const int* kv_len;
+  const uint8_t* kv_valid;
+  const int* pcol;
+  const int* acol;
+  const int* gcnt;
+  int H, KV, S, D, window, mode;
+  int64_t q_sb, q_sh, c_sb, c_ss, o_sb, o_sh;
+  float scale;
+};
+
+__global__ void __launch_bounds__(kThreads) decode_fp32_kernel(const Params32 p) {
+  __shared__ float red_m[kWarps], red_l[kWarps];
+  __shared__ float red_acc[kWarps][kMaxD];
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (p.H / p.KV);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int limit = p.kv_len ? min(p.S, p.kv_len[b]) : p.S;
+  int pc = 0, ac = 0, gc = 0;
+  if (p.mode == kWindow) {
+    pc = *p.pcol;
+    ac = p.acol[b];
+    gc = p.gcnt[b];
+    limit = min(limit, pc + p.window);
+  }
+  float qr[kDL32];
+  const float* qp = p.q + b * p.q_sb + h * p.q_sh;
+#pragma unroll
+  for (int i = 0; i < kDL32; ++i) {
+    const int d = lane + 32 * i;
+    qr[i] = d < p.D ? qp[d] : 0.f;
+  }
+  float m = -INFINITY, l = 0.f, acc[kDL32];
+#pragma unroll
+  for (int i = 0; i < kDL32; ++i) acc[i] = 0.f;
+  const float* kb = p.k + b * p.c_sb + (int64_t)kvh * p.D;
+  const float* vb = p.v + b * p.c_sb + (int64_t)kvh * p.D;
+  for (int r = warp; r < limit; r += kWarps) {
+    if (p.mode == kWindow) {
+      const int age = (((r - pc - ac) % p.window) + p.window) % p.window;
+      if (!(r < pc || age < gc)) continue;
+    } else if (p.mode == kValid && !p.kv_valid[(int64_t)b * p.S + r]) {
+      continue;
+    }
+    const float* kr = kb + (int64_t)r * p.c_ss;
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDL32; ++i) {
+      const int d = lane + 32 * i;
+      if (d < p.D) s = fmaf(qr[i], kr[d], s);
+    }
+    s = vlm::warp_sum(s) * p.scale;
+    const float mn = fmaxf(m, s);
+    const float c = expf(m - mn), pr = expf(s - mn);
+    l = l * c + pr;
+    m = mn;
+    const float* vr = vb + (int64_t)r * p.c_ss;
+#pragma unroll
+    for (int i = 0; i < kDL32; ++i) {
+      const int d = lane + 32 * i;
+      if (d < p.D) acc[i] = fmaf(pr, vr[d], acc[i] * c);
+    }
+  }
+  if (lane == 0) {
+    red_m[warp] = m;
+    red_l[warp] = l;
+  }
+#pragma unroll
+  for (int i = 0; i < kDL32; ++i) {
+    const int d = lane + 32 * i;
+    if (d < p.D) red_acc[warp][d] = acc[i];
+  }
+  __syncthreads();
+  // a warp with no live row has l = 0 and weighs 0; no live row at all: 0
+  float mx = -INFINITY;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w)
+    if (red_l[w] > 0.f) mx = fmaxf(mx, red_m[w]);
+  float wt[kWarps], lsum = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    wt[w] = red_l[w] > 0.f ? expf(red_m[w] - mx) : 0.f;
+    lsum += red_l[w] * wt[w];
+  }
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
+  float* orow = p.o + b * p.o_sb + h * p.o_sh;
+  for (int d = threadIdx.x; d < p.D; d += kThreads) {
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) a += wt[w] * red_acc[w][d];
+    orow[d] = a * inv;
+  }
+}
+
 }  // namespace
 
 // k_scale == nullptr: bf16 cache; otherwise an int8 cache with fp32 scales
@@ -566,4 +676,25 @@ extern "C" int vlm_decode_attention(
            scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return int8 ? launch<int8_t>(p, B, st) : launch<__nv_bfloat16>(p, B, st);
+}
+
+// The fp32 form: q [B, H, 1, D] and the cache [B, S, KV, D] in fp32, the
+// masks of vlm_decode_attention; strides in elements.
+extern "C" int vlm_decode_attention_fp32(
+    const void* q, const void* k, const void* v, void* o, const int* kv_len,
+    const void* kv_valid, const int* pcol, const int* acol, const int* gcnt,
+    int B, int H, int KV, int S, int D, int window, int mode, int64_t q_sb,
+    int64_t q_sh, int64_t c_sb, int64_t c_ss, int64_t o_sb, int64_t o_sh,
+    float scale, void* stream) {
+  if (B <= 0 || D <= 0 || D > kMaxD || KV <= 0 || H % KV != 0 ||
+      (mode == kWindow && window <= 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params32 p{static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), static_cast<float*>(o), kv_len,
+                   static_cast<const uint8_t*>(kv_valid), pcol, acol, gcnt, H,
+                   KV, S, D, window, mode, q_sb, q_sh, c_sb, c_ss, o_sb, o_sh,
+                   scale};
+  decode_fp32_kernel<<<dim3(H, B), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,477 @@
+// The weight-streaming mainloop of B5 (int8) and B7 (grouped int4): the
+// products y [M, N] = x [M, K] . W^T with M < 512 rows, where the weights
+// q [N, row_bytes] are the bytes the card must move and x is small.
+//
+// What bounds them on the H100: weight bytes (2 M FLOPs a weight, M <= 64
+// at decode). The first design (64-column strips, 64-wide K steps, a
+// 3-stage ring of 2-4 KB, byte-wise fragment loads) kept about 16 KB of
+// weights in flight an SM and re-staged a 32 x 64 tile of x for every
+// 2 KB of int4; this mainloop is its redesign:
+//
+// - A block of 8 warps owns BN = 128 output columns (16 a warp; 64, 8 a
+//   warp, where 128-column blocks would leave an SM one block or none, so
+//   that its SM gets a second block to overlap) for BM = MI x 16
+//   rows (16, 32 or 64, every warp all of them: each weight is dequantized
+//   once a block) and walks its K range in chunks of 128 bytes of every
+//   weight row (128 int8 or 256 int4 weights) through a ring of `stages`
+//   chunks, as many as fit in half an SM's shared memory (two blocks an
+//   SM): 64-96 KB of weights in flight an SM at m = 32 (32-128 KB over
+//   the tiles and formats). A chunk is two sub-chunks of 64 bytes a row,
+//   each laid out [BN rows, 64 bytes] beside its x [BM rows, 64 or 128 k]
+//   and (int4) its group scales [BN, 128 / gs]. The
+//   weights arrive by TMA (one thread issues a [BN rows, 64 bytes] box a
+//   sub-chunk), x and the scales by cp.async from L2; all of a chunk
+//   completes on one mbarrier (the TMA's bytes and every thread's cp.async
+//   arrivals), so the ring's depth is chosen at launch. Rows that TMA
+//   cannot stride (packed int4 rows only 8-byte aligned: SigLIP fc2's
+//   2,152 bytes) take the same kernel with 8-byte cp.async copies. Past the
+//   ragged M, N and K edges everything is zero-filled; nothing is copied or
+//   padded at call time. The chunk and the ring were chosen in development
+//   copies on the H100 (128-byte chunks against 64- and 256-byte ones, one
+//   warp row against two at 64 rows); the tile's columns and the split by
+//   `testing/profile_quant.py --plans` (PERF.md §6).
+// - Whole-word weights: each lane loads one 16-byte word of one weight row
+//   a sub-chunk (lanes of a quad side by side: conflict-free) and uses all
+//   of it. The mma.sync.m16n8k16 fragment of lane (g, t) holds logical k
+//   {2t, 2t+1, 2t+8, 2t+9} of a step; here logical k L of step s is the
+//   physical k  16 t + 4 s + 2 (L / 8) + L % 2  (int8: 4 steps a
+//   sub-chunk) or  32 t + 4 s + ...  (int4: 8 steps), a bijection on the
+//   sub-chunk. x is read through the same map, so the sum is the same
+//   product: lane (g, t) reads x[g][16 t ..] (int8) or x[g][32 t ..] (int4)
+//   as 16-byte words. x's 16-byte pieces are swizzled in shared memory
+//   (piece p of row r at p ^ (2 (p / 8 % 2)) ^ (r % 2)) so those reads are
+//   conflict-free too.
+// - Dequantization in registers, the numbers of the plain versions: an
+//   int8 byte becomes fp32 by one byte permute into 2^23 + (q + 128) and
+//   one subtraction, then a bf16 pair (exact); an int4 nibble by a mask
+//   into 2^23 + (n + 8), a subtraction, and the product with its group's
+//   fp32 scale, rounded once to bf16 (Fmt::kInt4).
+// - Split K without a workspace: the wrapper's plan (ops/quant.py:
+//   `stream_plan`) gives each output tile `splits` <= 8 blocks, one thread
+//   block cluster, block z taking chunks [z per, (z + 1) per). Each block
+//   leaves its fp32 partials in its own shared memory; after a cluster
+//   barrier, block r sums the pairs q with q % splits == r over the
+//   cluster's blocks in rank order through distributed shared memory (a
+//   fixed order: deterministic) and writes them. No device-memory round
+//   trip, no counters, no serial last block.
+#pragma once
+
+#include <cooperative_groups.h>
+
+#include "common.cuh"
+
+namespace vlm {
+namespace ws {
+
+namespace cg = cooperative_groups;
+
+constexpr int kSub = 64;       // bytes of each weight row a sub-chunk
+constexpr int kSubs = 2;       // sub-chunks a chunk: 128 bytes a row
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kMaxSplits = 8;  // the portable cluster size
+constexpr int kMaxStages = 8;
+// the full barriers come first, the ring after them (TMA boxes: 128-byte
+// aligned)
+constexpr int kRing = 128;
+// a block's shared memory: two blocks an SM of 227 KB. (All of it for a
+// grid of one block an SM or fewer was slower at down and q/o: a cluster
+// of 8 such blocks needs 8 free SMs of one GPC, and 16 clusters no longer
+// fit in one wave. PERF.md §6.)
+constexpr int kSmemBlock = 113 * 1024;
+
+enum class Fmt { kInt8, kInt4 };
+
+template <Fmt F>
+struct Traits;
+template <>
+struct Traits<Fmt::kInt8> {
+  static constexpr int kK = 64;     // weights (k) a sub-chunk
+  static constexpr int kSteps = 4;  // k16 steps a sub-chunk
+};
+template <>
+struct Traits<Fmt::kInt4> {
+  static constexpr int kK = 128;
+  static constexpr int kSteps = 8;
+};
+
+// shared-memory position (in 16-byte pieces) of x's piece p of row r
+__device__ __forceinline__ int x_piece(int r, int p) {
+  return p ^ (((p >> 3) & 1) << 1) ^ (r & 1);
+}
+
+// int8 bytes 0-3 of a word (already XORed with 0x80808080: q + 128) as two
+// bf16x2 fragment registers, exactly
+__device__ __forceinline__ void widen_s8x4(uint32_t u, uint32_t& b0,
+                                           uint32_t& b1) {
+  float f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + j)) - 8388736.f;
+  b0 = pack_bf16(f[0], f[1]);
+  b1 = pack_bf16(f[2], f[3]);
+}
+
+// the 4 nibbles at bit `sh` of a word (already XORed with 0x88888888: n +
+// 8) times the group's fp32 scale, each rounded once to bf16
+__device__ __forceinline__ void dequant_s4x4(uint32_t u, int sh, float s,
+                                             uint32_t& b0, uint32_t& b1) {
+  float f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = (__uint_as_float(0x4B000000u | ((u >> (sh + 4 * j)) & 0xFu)) -
+            8388616.f) * s;
+  b0 = pack_bf16(f[0], f[1]);
+  b1 = pack_bf16(f[2], f[3]);
+}
+
+// word i of a 16-byte vector, for a constant i (no address taken: the
+// vector stays in registers)
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// every cp.async this thread issued so far arrives on `bar` when done (the
+// arrival counts toward the barrier's expected count)
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+struct Args {
+  const __nv_bfloat16* x;  // [M, K]
+  const uint8_t* q;        // [N, row_bytes]
+  const float* scale;      // int8: [N]; int4: [N, G]
+  __nv_bfloat16* y;        // [M, N]
+  int M, N, K, row_bytes;
+  int G, lg;               // int4: groups a row, log2(group size)
+  int per;                 // chunks a split
+  int stages;              // chunks in the ring
+};
+
+// bytes of one sub-chunk's weights, x and scales in the ring of a block of
+// bm rows and bn columns
+template <Fmt F>
+__host__ __device__ constexpr int sub_bytes(int bm, int bn, int slots) {
+  return bn * kSub + bm * Traits<F>::kK * 2 + bn * slots * 4;
+}
+
+// MI m16 tiles a warp (BM = 16 MI rows), NI n8 tiles a warp (the block's
+// BN = 64 NI columns: 128, or 64 where a grid of 128-column blocks would
+// leave an SM one block or none, ops/quant.py `stream_plan`). LD: how the
+// weights move, 0 by TMA boxes of [BN rows, 64 bytes] from `tm_q` (rows
+// 16-byte aligned), 8 by 8-byte cp.async (rows 8-byte aligned)
+template <Fmt F, int MI, int NI, int LD>
+__global__ void __launch_bounds__(kThreads)
+stream_kernel(const __grid_constant__ CUtensorMap tm_q, const Args a) {
+  using T = Traits<F>;
+  constexpr bool kInt4 = F == Fmt::kInt4;
+  constexpr int BM = MI * 16;
+  constexpr int kNI = NI;
+  constexpr int kBN = kWarps * NI * 8;
+  constexpr int kXRow = T::kK * 2;         // bytes of a staged x row
+  constexpr int kXPieces = T::kK / 8;      // its 16-byte pieces
+  constexpr int kWSub = kBN * kSub;
+  constexpr int kXSub = BM * kXRow;
+  const int slots = kInt4 ? (T::kK >> a.lg) : 0;  // group scales a sub-chunk
+  const int sub = sub_bytes<F>(BM, kBN, slots);
+  const int stage_bytes = kSubs * sub;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // one a stage
+  unsigned char* ring = smem + kRing;
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * BM;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int chunks = (a.row_bytes + kSubs * kSub - 1) / (kSubs * kSub);
+  const int c_begin = blockIdx.z * a.per;
+  const int nk = max(0, min(chunks, c_begin + a.per) - c_begin);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s)
+      mbar_init(&full[s], kThreads + (LD == 0 ? 1 : 0));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  auto load = [&](int stage, int c) {
+    unsigned char* st = ring + stage * stage_bytes;
+    if constexpr (LD == 0) {
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&full[stage], kSubs * kWSub);
+#pragma unroll
+        for (int u = 0; u < kSubs; ++u)
+          tma_load_2d(st + u * sub, &tm_q, &full[stage], (c * kSubs + u) * kSub,
+                      n0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSubs; ++u) {
+      unsigned char* base = st + u * sub;
+      const int sc = c * kSubs + u;  // the sub-chunk's index along the row
+      // weights: 128 rows x 64 bytes, dense; past N and the row's end zero
+      if constexpr (LD != 0) {
+        constexpr int kWP = kSub / LD;
+        for (int i = threadIdx.x; i < kBN * kWP; i += kThreads) {
+          const int r = i / kWP, p = i % kWP;
+          const int off = sc * kSub + p * LD;
+          const bool ok = n0 + r < a.N && off < a.row_bytes;
+          cp_async_small<LD>(base + r * kSub + p * LD,
+                             ok ? a.q + (int64_t)(n0 + r) * a.row_bytes + off
+                                : a.q, ok);
+        }
+      }
+      // x: BM rows x kK bf16, swizzled pieces
+      unsigned char* xd = base + kWSub;
+      for (int i = threadIdx.x; i < BM * kXPieces; i += kThreads) {
+        const int r = i / kXPieces, p = i % kXPieces;
+        const int k = sc * T::kK + p * 8;
+        const bool ok = m0 + r < a.M && k < a.K;
+        cp_async16(xd + r * kXRow + x_piece(r, p) * 16,
+                   ok ? a.x + (int64_t)(m0 + r) * a.K + k : a.x, ok);
+      }
+      if constexpr (kInt4) {
+        float* sd = reinterpret_cast<float*>(xd + kXSub);
+        for (int i = threadIdx.x; i < kBN * slots; i += kThreads) {
+          const int r = i / slots, j = sc * slots + i % slots;
+          const bool ok = n0 + r < a.N && j < a.G;
+          cp_async_small<4>(sd + i, ok ? a.scale + (int64_t)(n0 + r) * a.G + j
+                                       : a.scale, ok);
+        }
+      }
+    }
+    cp_async_arrive(&full[stage]);
+  };
+
+  float acc[MI][kNI][4];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni)
+      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+
+  // one sub-chunk's products: weights, x and scales at `base`
+  auto compute = [&](const unsigned char* base) {
+    const unsigned char* xt = base + kWSub;
+    // this lane's 16-byte word of each of its kNI weight rows
+    uint4 w[kNI];
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          base + ((warp * kNI + ni) * 8 + g) * kSub + 16 * t);
+      const uint32_t flip = kInt4 ? 0x88888888u : 0x80808080u;
+      w[ni] = make_uint4(v.x ^ flip, v.y ^ flip, v.z ^ flip, v.w ^ flip);
+    }
+    // int8: one half of 4 steps; int4: two, x pieces 4t + 2h and + 1
+#pragma unroll
+    for (int h = 0; h < T::kSteps / 4; ++h) {
+      float sc[kNI];
+      if constexpr (kInt4) {
+        const float* st = reinterpret_cast<const float*>(xt + kXSub);
+#pragma unroll
+        for (int ni = 0; ni < kNI; ++ni)
+          sc[ni] = st[((warp * kNI + ni) * 8 + g) * slots +
+                      ((32 * t + 16 * h) >> a.lg)];
+      }
+      // two steps a piece e of x: rows g and g + 8 of each m16 tile
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint4 xa[MI][2];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int r = mi * 16 + g + 8 * hr;
+            const int p = (kInt4 ? 4 * t + 2 * h : 2 * t) + e;
+            xa[mi][hr] = *reinterpret_cast<const uint4*>(
+                xt + r * kXRow + x_piece(r, p) * 16);
+          }
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2) {
+          // A: physical k 4s..4s+3 of the lane's span, s = 2e + s2
+          uint32_t af[MI][4];
+#pragma unroll
+          for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const uint4 v = xa[mi][hr];
+              af[mi][hr] = s2 ? v.z : v.x;      // a0 / a1: k 4s, 4s + 1
+              af[mi][2 + hr] = s2 ? v.w : v.y;  // a2 / a3: k 4s + 2, 4s + 3
+            }
+#pragma unroll
+          for (int ni = 0; ni < kNI; ++ni) {
+            uint32_t b0, b1;
+            if constexpr (kInt4) {
+              // bytes 8h + 2e + s2 .. of the word: k 32t + 16h + 4s .. + 3
+              dequant_s4x4(word(w[ni], 2 * h + e), 16 * s2, sc[ni], b0, b1);
+            } else {
+              widen_s8x4(word(w[ni], 2 * e + s2), b0, b1);
+            }
+#pragma unroll
+            for (int mi = 0; mi < MI; ++mi)
+              mma16816(acc[mi][ni], af[mi], b0, b1);
+          }
+        }
+      }
+    }
+  };
+
+  for (int s = 0; s < a.stages - 1; ++s)
+    if (s < nk) load(s, c_begin + s);
+  for (int i = 0; i < nk; ++i) {
+    __syncthreads();  // chunk i - 1 consumed by every warp: its slot is free
+    const int next = i + a.stages - 1;
+    if (next < nk) load(next % a.stages, c_begin + next);
+    const int stage = i % a.stages;
+    mbar_wait(&full[stage], (i / a.stages) & 1);
+    const unsigned char* st = ring + stage * stage_bytes;
+#pragma unroll
+    for (int u = 0; u < kSubs; ++u) compute(st + u * sub);
+  }
+
+  // one output pair: (mi, ni, hr) of this lane, two columns
+  auto store = [&](int mi, int ni, int hr, float v0, float v1) {
+    const int row = m0 + mi * 16 + g + 8 * hr;
+    const int col = n0 + (warp * kNI + ni) * 8 + 2 * t;  // N even: col + 1 < N
+    if (row >= a.M || col >= a.N) return;
+    if constexpr (!kInt4) {
+      v0 *= a.scale[col];
+      v1 *= a.scale[col + 1];
+    }
+    *reinterpret_cast<__nv_bfloat162*>(a.y + (int64_t)row * a.N + col) =
+        __floats2bfloat162_rn(v0, v1);
+  };
+
+  const int splits = gridDim.z;
+  if (splits == 1) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          store(mi, ni, hr, acc[mi][ni][2 * hr], acc[mi][ni][2 * hr + 1]);
+    return;
+  }
+
+  // the cluster's partials: [pair q][thread] float2 in each block's ring
+  // (every chunk has landed: each warp waited for each one)
+  constexpr int kPairs = MI * kNI * 2;
+  __syncthreads();  // every warp is done with the ring
+  float2* part = reinterpret_cast<float2*>(ring);
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        part[((mi * kNI + ni) * 2 + hr) * kThreads + threadIdx.x] =
+            make_float2(acc[mi][ni][2 * hr], acc[mi][ni][2 * hr + 1]);
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's partials are in place
+  const int rank = (int)cluster.block_rank();
+  for (int q = rank; q < kPairs; q += splits) {
+    float2 sum = make_float2(0.f, 0.f);
+    for (int z = 0; z < splits; ++z) {
+      const float2 v =
+          cluster.map_shared_rank(part, z)[q * kThreads + threadIdx.x];
+      sum.x += v.x;
+      sum.y += v.y;
+    }
+    const int hr = q % 2, ni = (q / 2) % kNI, mi = q / (2 * kNI);
+    store(mi, ni, hr, sum.x, sum.y);
+  }
+  cluster.sync();  // no block leaves while another reads its partials
+}
+
+using KernelFn = void (*)(const CUtensorMap, const Args);
+
+template <Fmt F, int NI, int LD>
+KernelFn kernel_for(int bm) {
+  return bm == 16   ? stream_kernel<F, 1, NI, LD>
+         : bm == 32 ? stream_kernel<F, 2, NI, LD>
+         : bm == 64 ? stream_kernel<F, 4, NI, LD>
+                    : nullptr;
+}
+
+// Launch the kernel of `bm` rows (16, 32 or 64) and `bn` columns (64 or
+// 128: the plan's tile) with `splits` blocks of one cluster on each output
+// tile and a ring of as many chunks as fit in kSmemBlock (at most
+// kMaxStages). The TMA route (LD == 0) encodes its tensor map here: [N
+// rows, row_bytes] bytes.
+template <Fmt F, int LD>
+int launch(Args a, int bm, int bn, int splits, cudaStream_t stream) {
+  const KernelFn kernel = bn == 128  ? kernel_for<F, 2, LD>(bm)
+                          : bn == 64 ? kernel_for<F, 1, LD>(bm)
+                                     : nullptr;
+  if (kernel == nullptr || splits < 1 || splits > kMaxSplits)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tm = {};
+  if (LD == 0) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.row_bytes),
+                                static_cast<cuuint64_t>(a.N)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.row_bytes)};
+    const cuuint32_t box[2] = {kSub, static_cast<cuuint32_t>(bn)};
+    if (!tensor_map(&tm, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.q, 2, dims, strides,
+                    box, CU_TENSOR_MAP_SWIZZLE_NONE))
+      return (int)cudaErrorNotSupported;
+  }
+  const int slots = F == Fmt::kInt4 ? (Traits<F>::kK >> a.lg) : 0;
+  const int stage_bytes = kSubs * sub_bytes<F>(bm, bn, slots);
+  a.stages = (kSmemBlock - kRing) / stage_bytes;
+  if (a.stages > kMaxStages) a.stages = kMaxStages;
+  if (a.stages < 2) a.stages = 2;
+  // the ring also holds the cluster's partials: [pairs][threads] float2
+  const int partials = (bm / 16) * (bn / 64) * 2 * kThreads * 8;
+  const int ring = a.stages * stage_bytes;
+  const int smem = kRing + (ring > partials ? ring : partials);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.N + bn - 1) / bn, (a.M + bm - 1) / bm, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, tm, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// How many clusters of `splits` blocks of the mainloop's shape (kThreads
+// threads, kSmemBlock bytes of shared memory: the most a launch takes) the
+// current device runs at once. A cluster's blocks must share one GPC, so
+// fewer clusters of 8 fit than the SMs suggest (on the H100, 30 at two
+// blocks an SM); ops/quant.py `stream_plan` keeps a grid's clusters within
+// one wave of them.
+inline int max_clusters(int splits, int* count) {
+  const KernelFn kernel = stream_kernel<Fmt::kInt8, 2, 2, 0>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBlock);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBlock;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(
+      count, reinterpret_cast<const void*>(kernel), &cfg);
+}
+
+}  // namespace ws
+}  // namespace vlm

@@ -3,8 +3,9 @@
 The port's own copy of ``vlm_tpu/evaluation/evaluator.py``. Where that
 module calls scikit-learn, this one computes the same metrics in numpy
 (:func:`accuracy_score`, :func:`confusion_matrix`,
-:func:`mean_absolute_error`), so the port needs neither; matplotlib draws
-the PNGs when it is installed and is imported only then.
+:func:`mean_absolute_error`), and where it draws the confusion matrices
+with matplotlib this one draws them with Pillow (:func:`draw_confusion_png`,
+imported when a PNG is written), so the port needs neither.
 ``tests/test_torch_shared_layers.py`` holds the artifacts equal to
 ``vlm_tpu``'s.
 
@@ -64,6 +65,81 @@ def mean_absolute_error(y_true: Sequence, y_pred: Sequence) -> float:
     """Mean of ``|true - predicted|`` (``sklearn.metrics.mean_absolute_error``)."""
     return float(np.average(np.abs(np.asarray(y_true, dtype=np.float64)
                                    - np.asarray(y_pred, dtype=np.float64))))
+
+
+# matplotlib's "Blues" colormap at 9 evenly spaced stops (ColorBrewer)
+_BLUES = ((247, 251, 255), (222, 235, 247), (198, 219, 239), (158, 202, 225),
+          (107, 174, 214), (66, 146, 198), (33, 113, 181), (8, 81, 156),
+          (8, 48, 107))
+
+
+def _blues(frac: float) -> tuple:
+    """The colour of ``frac`` in [0, 1] on the Blues ramp."""
+    x = min(max(frac, 0.0), 1.0) * (len(_BLUES) - 1)
+    i = min(int(x), len(_BLUES) - 2)
+    f = x - i
+    return tuple(int(round(a + (b - a) * f))
+                 for a, b in zip(_BLUES[i], _BLUES[i + 1]))
+
+
+def draw_confusion_png(cm, labels, title: str, output_path) -> None:
+    """A 600 x 500 PNG of the confusion matrix with Pillow: the recipe of
+    ``vlm_tpu``'s matplotlib figure (reference
+    ``evaluate_dataset.py:52-68``): a Blues heat map with a colour bar,
+    predicted labels along x rotated 45 degrees, true labels along y, each
+    cell's count in white above half the largest count and black below,
+    and the title ``"<TASK> - Acc: <acc>"``."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    cm = np.asarray(cm)
+    n = max(cm.shape[0], 1)
+    font = ImageFont.load_default()
+    img = Image.new("RGB", (600, 500), "white")
+    draw = ImageDraw.Draw(img)
+    left, top, side = 150, 40, 330
+    cell = side / n
+    vmax = float(cm.max()) if cm.size else 0.0
+    thresh = vmax / 2.0
+    for i in range(cm.shape[0]):
+        for j in range(cm.shape[1]):
+            v = float(cm[i, j])
+            box = (left + j * cell, top + i * cell,
+                   left + (j + 1) * cell, top + (i + 1) * cell)
+            draw.rectangle(box, fill=_blues(v / vmax if vmax else 0.0))
+            draw.text(((box[0] + box[2]) / 2, (box[1] + box[3]) / 2),
+                      str(cm[i, j]), anchor="mm", font=font,
+                      fill="white" if v > thresh else "black")
+    draw.rectangle((left, top, left + side, top + side), outline="black")
+    for i, lab in enumerate(labels):
+        mid = top + (i + 0.5) * cell
+        draw.text((left - 6, mid), str(lab), anchor="rm", font=font,
+                  fill="black")
+        # x labels: drawn on their own strip, rotated 45 degrees
+        w = int(draw.textlength(str(lab), font=font)) + 4
+        strip = Image.new("RGBA", (w, 14), (255, 255, 255, 0))
+        ImageDraw.Draw(strip).text((0, 1), str(lab), font=font,
+                                   fill="black")
+        rot = strip.rotate(45, expand=True)
+        x = int(left + (i + 0.5) * cell) - rot.width
+        img.paste(rot, (x, top + side + 4), rot)
+    draw.text((left + side / 2, 490), "Predicted", anchor="ms", font=font,
+              fill="black")
+    ylab = Image.new("RGBA", (60, 14), (255, 255, 255, 0))
+    ImageDraw.Draw(ylab).text((0, 1), "True", font=font, fill="black")
+    ylab = ylab.rotate(90, expand=True)
+    img.paste(ylab, (10, int(top + side / 2 - ylab.height / 2)), ylab)
+    draw.text((left + side / 2, 20), title, anchor="mm", font=font,
+              fill="black")
+    # the colour bar, 0 to the largest count
+    bx = left + side + 30
+    for y in range(side):
+        draw.line((bx, top + side - 1 - y, bx + 18, top + side - 1 - y),
+                  fill=_blues(y / max(side - 1, 1)))
+    draw.rectangle((bx, top, bx + 18, top + side), outline="black")
+    for frac in (0.0, 0.5, 1.0):
+        draw.text((bx + 24, top + side - frac * side),
+                  f"{vmax * frac:g}", anchor="lm", font=font, fill="black")
+    img.save(output_path, format="PNG")
 
 
 def _resolve_output_dir(output_dir) -> Path:
@@ -129,37 +205,8 @@ class Evaluator:
 
     @staticmethod
     def _plot_confusion_matrix(cm, labels, task, acc, output_path):
-        # Rendering recipe (Blues colormap, rotated x labels, per-cell
-        # counts with threshold-switched text color, title format) is
-        # carried over from the reference implementation at
-        # reference/datasets_vlm/evaluate_dataset.py:52-68 so the PNG
-        # artifacts are visually identical for downstream consumers.
-        try:
-            import matplotlib
-        except ImportError:
-            print(f"[WARN] matplotlib is not installed: {output_path} not "
-                  f"drawn")
-            return
-        matplotlib.use("Agg")
-        import matplotlib.pyplot as plt
-
-        plt.figure(figsize=(6, 5))
-        plt.imshow(cm, interpolation="nearest", cmap="Blues")
-        plt.colorbar()
-        plt.xticks(ticks=range(len(labels)), labels=labels,
-                   rotation=45, ha="right")
-        plt.yticks(ticks=range(len(labels)), labels=labels)
-        plt.xlabel("Predicted")
-        plt.ylabel("True")
-        plt.title(f"{task.upper()} - Acc: {acc:.4f}")
-        thresh = cm.max() / 2.0 if cm.size else 0.0
-        for i in range(cm.shape[0]):
-            for j in range(cm.shape[1]):
-                plt.text(j, i, str(cm[i, j]), ha="center", va="center",
-                         color="white" if cm[i, j] > thresh else "black")
-        plt.tight_layout()
-        plt.savefig(output_path)
-        plt.close()
+        draw_confusion_png(cm, labels, f"{task.upper()} - Acc: {acc:.4f}",
+                           output_path)
 
     # ------------------------- MiviaPar -------------------------
     @staticmethod

@@ -18,6 +18,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..core.mesh import mesh_from_config
 from ..generate.batcher import ContinuousBatcher
 from ..generate.decode import build_prompt_ids
 from ..ops.preprocess import load_batch, normalize_images, recipe_for
@@ -87,17 +88,12 @@ class VLMModel:
             raise NotImplementedError(
                 f"model_id {model_id!r}: loading checkpoint weights is not "
                 f"ported yet (ROADMAP A14); the port runs random weights")
-        if mesh and int((mesh or {}).get("model", 1)) > 1:
-            raise NotImplementedError("tensor parallelism (mesh.model > 1) is "
-                                      "not ported yet (ROADMAP A17)")
+        mesh_from_config(mesh)      # one device: raises for any other mesh
         self.quantization = quantization
         self.policy = policy_for(quantization)
         self.dtype = self.policy.compute_dtype
         self.kv_cache = kv_cache
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
-            raise ValueError("the CUDA kernels take bfloat16: use "
-                             "quantization bf16 on the card")
         self.cfg: VLMConfig = VLM_CONFIGS[self.family](
             size or self.DEFAULT_SIZE)
         self.batch_size = batch_size

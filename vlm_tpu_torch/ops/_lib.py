@@ -9,8 +9,9 @@ of the sources and flags, and is reused while that hash holds.
 Importing this module builds nothing and imports no toolchain.
 
 Each kernel wrapper counts its launches in :data:`launches`; each plain
-PyTorch version counts its calls in :data:`plain_calls`, so a run can show
-which path it took.
+PyTorch version counts its calls in :data:`plain_calls` under the form its
+inputs select (fp32 operands: the ``_fp32`` form), so a run can show which
+path it took.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,9 +36,11 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# one count per kernel form: B2 and B3 each have a bf16 and an int8 form
-KERNELS = ("flash_attention", "decode_attention", "decode_attention_int8",
-           "kv_write", "kv_write_int8", "normalize", "int8_matmul",
+# one count per kernel form: B1, B2 and B4 each have an fp32 form, B2 and
+# B3 an int8 form
+KERNELS = ("flash_attention", "flash_attention_fp32", "decode_attention",
+           "decode_attention_int8", "decode_attention_fp32", "kv_write",
+           "kv_write_int8", "normalize", "normalize_fp32", "int8_matmul",
            "int8xint8_matmul", "int4_matmul")
 launches = {name: 0 for name in KERNELS}
 plain_calls = {name: 0 for name in KERNELS}
@@ -48,18 +51,23 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "vlm_flash_attention": [_P] * 6 + [_I] * 10 + [_L] * 12 + [_F, _I, _P],
+    "vlm_flash_attention_fp32": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _I,
+                                                                    _P],
     "vlm_decode_attention": [_P] * 13 + [_I] * 8 + [_L] * 6 + [_F, _P],
+    "vlm_decode_attention_fp32": [_P] * 9 + [_I] * 7 + [_L] * 6 + [_F, _P],
     "vlm_kv_write": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],
     "vlm_kv_write_int8": [_P] * 7 + [_I] * 6 + [_P],
-    "vlm_normalize": [_P, _P, _L, _P, _P, _P],
-    "vlm_int8_matmul": [_P] * 6 + [_I] * 4 + [_P],
+    "vlm_normalize": [_P, _P, _L, _P, _P, _I, _P],
+    "vlm_int8_matmul": [_P] * 4 + [_I] * 7 + [_P],
     "vlm_int8xint8_matmul": [_P] * 5 + [_I] * 4 + [_P],
-    "vlm_int4_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    "vlm_int4_matmul": [_P] * 4 + [_I] * 8 + [_P],
+    "vlm_stream_clusters": [_I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _sm_counts: dict = {}
+_max_clusters: dict = {}
 _tile_counters: dict = {}
 #: what the last build did: {"path", "seconds", "cached", "log"}
 last_build: dict = {}
@@ -164,23 +172,30 @@ def sm_count(device: torch.device) -> int:
     return _sm_counts[device.index]
 
 
-def split_k(device: torch.device, tiles: int, k_tiles: int, per_sm: int,
-            max_splits: int, min_k_tiles: int) -> int:
-    """How many blocks share each output tile's K range (the GEMMs'
-    split-K), so that about ``per_sm`` blocks per SM are in flight, each
-    with at least ``min_k_tiles`` K steps; no split is left empty."""
-    target = per_sm * sm_count(device)
-    if tiles >= target:
-        return 1
-    splits = max(1, min(-(-target // tiles), max_splits,
-                        k_tiles // min_k_tiles))
-    per = -(-k_tiles // splits)
-    return -(-k_tiles // per)
+def max_clusters(device: torch.device) -> Tuple[int, ...]:
+    """``[s]``: how many thread block clusters of s blocks (1-8) of B5's
+    and B7's mainloop a CUDA device runs at once (index 0 unused;
+    cached)."""
+    if device.index not in _max_clusters:
+        handle = lib()
+        count = ctypes.c_int()
+        got = [0]
+        with torch.cuda.device(device):
+            for s in range(1, 9):
+                rc = handle.vlm_stream_clusters(s, ctypes.byref(count))
+                if rc != 0:
+                    raise RuntimeError(
+                        f"vlm_stream_clusters: CUDA error {rc} "
+                        f"({handle.vlm_error_string(rc).decode()})")
+                got.append(count.value)
+        _max_clusters[device.index] = tuple(got)
+    return _max_clusters[device.index]
 
 
 def tile_counters(device: torch.device, n: int) -> torch.Tensor:
-    """Zeroed int32 arrival counters, one per output tile, for split-K
-    launches on ``device``; every launch leaves them zeroed again."""
+    """Zeroed int32 arrival counters, one per (slot, KV head, head group),
+    for B2's split-S launches on ``device``; every launch leaves them
+    zeroed again."""
     buf = _tile_counters.get(device.index)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)

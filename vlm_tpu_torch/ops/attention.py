@@ -7,8 +7,10 @@ contracts against the shared KV heads without repeating them; masks are
 causal with the diagonal at the end of the kv axis, prefix-LM (only with
 causal), ``kv_len`` and ``kv_valid``, all with the finite ``-1e30``.
 
-:func:`flash_attention` is the B1 wrapper (``csrc/flash_attention.cu``):
-the kernel for CUDA tensors, the plain version for CPU tensors.
+:func:`flash_attention` is the B1 wrapper: for CUDA tensors the bf16
+kernel (``csrc/flash_attention.cu``) or the fp32 one
+(``csrc/flash_attention_fp32.cu``), by the operands' dtype; for CPU
+tensors the plain version.
 :func:`flash_plan` is its host-side plan (the grid it launches and the
 packing of (position, head) rows), held against :func:`attention_plain` on
 the CPU by ``tests/test_torch_flash_plan.py``.
@@ -36,7 +38,8 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_layout: str = "bhsd") -> torch.Tensor:
     """Reference attention; scores and softmax in fp32, probabilities
     rounded to v's dtype before the P.V product (as the JAX reference)."""
-    _lib.plain_calls["flash_attention"] += 1
+    _lib.plain_calls["flash_attention_fp32" if q.dtype == torch.float32
+                     else "flash_attention"] += 1
     b, h, sq, d = q.shape
     if kv_layout == "bshd":
         kvh, sk = k.shape[2], k.shape[1]
@@ -119,23 +122,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     _lib.check_cuda("flash_attention", q, k, v)
-    _lib.check_bf16("flash_attention", q, k, v)
+    fp32 = q.dtype == torch.float32
+    _lib.check_dtype("flash_attention", torch.float32 if fp32
+                     else torch.bfloat16, q, k, v)
     if (k.shape != (b, kvh, sk, d) or v.shape != k.shape or h % kvh
             or d > 256 or d % 2 or sk < 1 or sq < 1):
         raise ValueError(f"flash_attention: unsupported shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: needs a contiguous head dim")
-    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
-    plan = flash_plan(b, h, kvh, sq)
-    # [B, Sq, H, D] memory (the head dim padded to 8 for TMA's 16-byte rows)
-    o = torch.empty((b, sq, h, -(-d // 8) * 8), dtype=q.dtype, device=q.device)
-    o = (o if d % 8 == 0 else o[..., :d]).transpose(1, 2)
     kvl = pfx = None
     if kv_len is not None:
         kvl = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
     if causal and prefix_len is not None:
         pfx = prefix_len.to(device=q.device, dtype=torch.int32).contiguous()
+    if fp32:
+        return _flash_fp32(q, k, v, kvl, pfx, causal)
+    q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
+    plan = flash_plan(b, h, kvh, sq)
+    # [B, Sq, H, D] memory (the head dim padded to 8 for TMA's 16-byte rows)
+    o = torch.empty((b, sq, h, -(-d // 8) * 8), dtype=q.dtype, device=q.device)
+    o = (o if d % 8 == 0 else o[..., :d]).transpose(1, 2)
     _lib.launch(
         "flash_attention", "vlm_flash_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -145,4 +152,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], d ** -0.5,
         int(causal), _lib.stream_ptr(q))
+    return o
+
+
+def _flash_fp32(q, k, v, kvl, pfx, causal) -> torch.Tensor:
+    """B1's fp32 form: exact fp32 on the CUDA cores, any strides with a
+    contiguous head dim; the output's memory is [B, Sq, H, D]."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    o = torch.empty((b, sq, h, d), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    _lib.launch(
+        "flash_attention_fp32", "vlm_flash_attention_fp32",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        kvl.data_ptr() if kvl is not None else None,
+        pfx.data_ptr() if pfx is not None else None,
+        b, h, kvh, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], d ** -0.5, int(causal),
+        _lib.stream_ptr(q))
     return o

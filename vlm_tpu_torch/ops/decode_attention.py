@@ -13,7 +13,9 @@ An int8 cache comes with ``k_scale``/``v_scale`` ``[B, S, KV, 1]`` fp32
 (the int8 form of B2): the scales multiply the scores and the
 probabilities, ``q.(k8 s) == (q.k8) s``, and the values enter as int8.
 
-On the card B2 is split-S flash-decoding: :func:`split_plan` cuts the S
+An fp32 query and cache (models that run with quantization "fp32") take
+B2's fp32 form, exact fp32 on the CUDA cores, one block a (slot, query
+head). Otherwise, on the card B2 is split-S flash-decoding: :func:`split_plan` cuts the S
 rows into splits of whole 64-row tiles, one block per (kv head, group of 8
 query heads, slot, split), and the last block of each (slot, kv head,
 group) merges the splits' (max, sum, acc) in the same launch, through a
@@ -99,6 +101,7 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores by ``k_scale`` and the probabilities by ``v_scale``."""
     _check_scales(k, k_scale, v_scale)
     _lib.plain_calls["decode_attention_int8" if k_scale is not None
+                     else "decode_attention_fp32" if q.dtype == torch.float32
                      else "decode_attention"] += 1
     b, h, _, d = q.shape
     s_total, kvh = k.shape[1], k.shape[2]
@@ -126,7 +129,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B2. Returns ``[B, H, 1, D]`` whose memory is ``[B, 1, H, D]``. A
-    bf16 cache, or an int8 cache with its fp32 ``k_scale``/``v_scale``."""
+    bf16 cache, an int8 cache with its fp32 ``k_scale``/``v_scale`` (both
+    with a bf16 query), or an fp32 query and cache."""
     if _lib.is_cpu(q, "decode_attention"):
         return decode_attention_plain(q, k, v, kv_len=kv_len,
                                       kv_valid=kv_valid, kv_window=kv_window,
@@ -136,9 +140,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, h, sq, d = q.shape
     s_total, kvh = k.shape[1], k.shape[2]
     _lib.check_cuda("decode_attention", q, k, v)
-    _lib.check_bf16("decode_attention", q)
+    fp32 = q.dtype == torch.float32 and not int8
+    _lib.check_dtype("decode_attention", torch.float32 if fp32
+                     else torch.bfloat16, q)
     _lib.check_dtype("decode_attention", torch.int8 if int8
-                     else torch.bfloat16, k, v)
+                     else q.dtype, k, v)
     if (sq != 1 or k.shape != (b, s_total, kvh, d) or v.shape != k.shape
             or h % kvh or h // kvh > 32 or d > 256 or d % (4 if int8 else 2)):
         raise ValueError(f"decode_attention: unsupported shapes "
@@ -146,8 +152,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (k.is_contiguous() and v.is_contiguous()) or q.stride(3) != 1:
         raise ValueError("decode_attention: needs contiguous caches and a "
                          "contiguous query head dim")
-    if q.stride(0) % 2 or q.stride(1) % 2 or q.data_ptr() % 4:
-        q = q.contiguous()      # the kernel reads q as bf16 pairs
+    if not fp32 and (q.stride(0) % 2 or q.stride(1) % 2 or q.data_ptr() % 4):
+        q = q.contiguous()      # the bf16 kernel reads q as bf16 pairs
     if int8:
         _lib.check_cuda("decode_attention", k_scale, v_scale)
         _lib.check_dtype("decode_attention", torch.float32, k_scale, v_scale)
@@ -178,6 +184,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         mode = _MODE_LEN
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    if fp32:
+        _lib.launch(
+            "decode_attention_fp32", "vlm_decode_attention_fp32",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(kvl),
+            ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt), b, h, kvh, s_total,
+            d, window, mode, q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), o.stride(0), o.stride(1), d ** -0.5,
+            _lib.stream_ptr(q))
+        return o
     blocks = kvh * -(-(h // kvh) // HEADS_PER_BLOCK) * b
     splits, rows = split_plan(s_total, blocks, _lib.sm_count(dev))
     ws = counters = None

@@ -108,7 +108,8 @@ def _constants(recipe: PreprocessRecipe):
 
 def normalize_plain(batch_u8: torch.Tensor, recipe: PreprocessRecipe,
                     compute_dtype=torch.bfloat16) -> torch.Tensor:
-    _lib.plain_calls["normalize"] += 1
+    _lib.plain_calls["normalize_fp32" if compute_dtype == torch.float32
+                     else "normalize"] += 1
     scale, bias = _constants(recipe)
     x = batch_u8.float() * torch.from_numpy(scale).to(batch_u8.device)
     x = x + torch.from_numpy(bias).to(batch_u8.device)
@@ -118,22 +119,24 @@ def normalize_plain(batch_u8: torch.Tensor, recipe: PreprocessRecipe,
 def normalize_images(batch_u8: torch.Tensor, *, recipe: PreprocessRecipe,
                      compute_dtype=torch.bfloat16) -> torch.Tensor:
     """B4. uint8 ``[B, S, S, 3]`` -> normalized ``[B, S, S, 3]`` in
-    ``compute_dtype`` (bf16 on the card)."""
+    ``compute_dtype``: bf16 or fp32 on the card (one kernel templated on
+    the output type, with its own launch counter for fp32)."""
     if _lib.is_cpu(batch_u8, "normalize_images"):
         return normalize_plain(batch_u8, recipe, compute_dtype)
     _lib.check_cuda("normalize_images", batch_u8)
     if batch_u8.dtype != torch.uint8 or batch_u8.shape[-1] != 3:
         raise ValueError(f"normalize_images: expected uint8 [..., 3], got "
                          f"{batch_u8.dtype} {tuple(batch_u8.shape)}")
-    if compute_dtype != torch.bfloat16:
-        raise TypeError(f"normalize_images: the CUDA kernel writes bfloat16, "
-                        f"not {compute_dtype}")
+    if compute_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"normalize_images: the CUDA kernel writes bfloat16 "
+                        f"or float32, not {compute_dtype}")
     x = batch_u8.contiguous()
     if x.data_ptr() % 4:
         raise ValueError("normalize_images: input must be 4-byte aligned")
-    out = torch.empty(x.shape, dtype=torch.bfloat16, device=x.device)
+    out = torch.empty(x.shape, dtype=compute_dtype, device=x.device)
     scale, bias = _constants(recipe)
-    _lib.launch("normalize", "vlm_normalize", x.data_ptr(), out.data_ptr(),
-                x.numel(), scale.ctypes.data, bias.ctypes.data,
-                _lib.stream_ptr(x))
+    fp32 = compute_dtype == torch.float32
+    _lib.launch("normalize_fp32" if fp32 else "normalize", "vlm_normalize",
+                x.data_ptr(), out.data_ptr(), x.numel(), scale.ctypes.data,
+                bias.ctypes.data, int(fp32), _lib.stream_ptr(x))
     return out

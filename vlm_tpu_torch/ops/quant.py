@@ -19,7 +19,7 @@ the kernels as their column-major B operand:
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -100,6 +100,73 @@ def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
+# ----------------------- B5 and B7: the host plan -----------------------
+
+# the weight-streaming mainloop's geometry (csrc/weight_stream.cuh): bytes
+# of each weight row a chunk, columns of a block (64 or 128), blocks of one
+# cluster at most
+CHUNK_BYTES, BLOCK_COLS, MAX_SPLITS = 128, (64, 128), 8
+
+
+class StreamPlan(NamedTuple):
+    """How B5 and B7 cut ``y [m, n]``: output tiles of ``bm`` rows by
+    ``bn`` columns; each tile's K range, ``chunks`` chunks of
+    :data:`CHUNK_BYTES` of every weight row, split over ``splits`` blocks
+    of one thread block cluster, block z taking chunks ``[z * per,
+    min(chunks, (z + 1) * per))``; ``grid`` is (column tiles, row tiles,
+    splits)."""
+    bm: int
+    bn: int
+    splits: int
+    per: int
+    chunks: int
+    grid: Tuple[int, int, int]
+
+
+def stream_plan(m: int, n: int, row_bytes: int, sms: int,
+                clusters: Sequence[int]) -> StreamPlan:
+    """The tile and the K split of B5 (``row_bytes`` = K) and B7 (K / 2)
+    for ``m`` rows on ``sms`` SMs: 16, 32 or 64 rows a tile, and K split
+    over the largest power of two of blocks (at most :data:`MAX_SPLITS`,
+    at most one a chunk) that keeps the grid within two blocks an SM for
+    tiles of 32 rows or fewer, four for 64-row tiles (whose blocks do four
+    times the tensor-core work a byte). ``clusters[s]``
+    (``_lib.max_clusters``: how many clusters of s blocks the device runs
+    at once) keeps the tiles' clusters in one wave: if they
+    overflow it, the largest smaller count above half the power of two
+    whose clusters all fit is taken. Tiles are 128 columns, or 64 where
+    128 leaves an SM one block or none and 64 gives the grid more blocks
+    (a block alone on its SM does not overlap its loads with its
+    arithmetic). The splits cover K exactly, none empty. (Chosen from a
+    sweep of tiles and splits on the H100: ``testing/profile_quant.py
+    --plans``, PERF.md §6.)"""
+    bm = 16 if m <= 16 else 32 if m <= 32 else 64
+    chunks = -(-row_bytes // CHUNK_BYTES)
+
+    def plan_for(bn):
+        grid_n, grid_m = -(-n // bn), -(-m // bm)
+        tiles = grid_n * grid_m
+        room = max(1, min(MAX_SPLITS, chunks,
+                          (2 if bm <= 32 else 4) * sms // tiles))
+        splits = 1 << (room.bit_length() - 1)
+        if clusters[splits] < tiles:
+            splits = next((s for s in range(splits - 1, splits // 2, -1)
+                           if clusters[s] >= tiles), splits)
+        per = -(-chunks // splits)
+        splits = -(-chunks // per)
+        return StreamPlan(bm, bn, splits, per, chunks,
+                          (grid_n, grid_m, splits))
+
+    def blocks(plan):
+        return plan.grid[0] * plan.grid[1] * plan.grid[2]
+
+    wide = plan_for(BLOCK_COLS[1])
+    if blocks(wide) > sms:
+        return wide
+    narrow = plan_for(BLOCK_COLS[0])
+    return narrow if blocks(narrow) > blocks(wide) else wide
+
+
 # ------------------------------ B5 ------------------------------
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
@@ -134,16 +201,11 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                          f"(needs K % 16 == 0, N even)")
     _lib.check_contiguous(name, x, q, scale)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    tiles = -(-n // 64) * -(-m // (32 if m <= 32 else 64))
-    splits = _lib.split_k(x.device, tiles, -(-k // 64), per_sm=4,
-                          max_splits=16, min_k_tiles=4)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) \
-        if splits > 1 else None
+    plan = stream_plan(m, n, k, _lib.sm_count(x.device),
+                       _lib.max_clusters(x.device))
     _lib.launch(name, "vlm_int8_matmul", x.data_ptr(), q.data_ptr(),
-                scale.data_ptr(), y.data_ptr(),
-                ws.data_ptr() if ws is not None else None,
-                _lib.tile_counters(x.device, tiles).data_ptr(), m, n, k,
-                splits, _lib.stream_ptr(x))
+                scale.data_ptr(), y.data_ptr(), m, n, k, plan.bm, plan.bn,
+                plan.splits, plan.per, _lib.stream_ptr(x))
     return y
 
 
@@ -203,7 +265,8 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 group_size: int, out_dtype=None) -> torch.Tensor:
     """B7, the grouped int4 product: x [m, K], q [N, K/2] packed int4,
     scale [N, K/group_size] fp32 -> [m, N]. On the card x and the output
-    are bf16, K and group_size divide by 16 and N is even."""
+    are bf16, K divides by 16, group_size is 16, 32, 64 or 128 (every
+    group ``models.layers.int4_group_size`` gives) and N is even."""
     if _lib.is_cpu(x, "int4_matmul"):
         return int4_matmul_plain(x, q, scale, group_size, out_dtype)
     name = "int4_matmul"
@@ -217,25 +280,20 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                         f"{out_dtype}")
     m, k = x.shape
     n = q.shape[0]
-    if (group_size <= 0 or group_size % 16 or k % 16 or k % group_size
+    if (group_size not in (16, 32, 64, 128) or k % 16 or k % group_size
             or n % 2 or q.shape != (n, k // 2)
             or scale.shape != (n, k // group_size)):
         raise ValueError(f"{name}: unsupported shapes x={tuple(x.shape)} "
                          f"q={tuple(q.shape)} scale={tuple(scale.shape)} "
                          f"group_size={group_size} (needs K % 16 == 0, "
-                         f"group_size % 16 == 0, N even)")
+                         f"group_size 16, 32, 64 or 128, N even)")
     _lib.check_contiguous(name, x, q, scale)
     y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    tiles = -(-n // 64) * -(-m // (32 if m <= 32 else 64))
-    splits = _lib.split_k(x.device, tiles, -(-k // 64), per_sm=4,
-                          max_splits=16, min_k_tiles=4)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device) \
-        if splits > 1 else None
+    plan = stream_plan(m, n, k // 2, _lib.sm_count(x.device),
+                       _lib.max_clusters(x.device))
     _lib.launch(name, "vlm_int4_matmul", x.data_ptr(), q.data_ptr(),
-                scale.data_ptr(), y.data_ptr(),
-                ws.data_ptr() if ws is not None else None,
-                _lib.tile_counters(x.device, tiles).data_ptr(), m, n, k,
-                group_size, splits, _lib.stream_ptr(x))
+                scale.data_ptr(), y.data_ptr(), m, n, k, group_size, plan.bm,
+                plan.bn, plan.splits, plan.per, _lib.stream_ptr(x))
     return y
 
 

@@ -36,6 +36,7 @@ def main(argv=None):
     os.environ.setdefault("VLM_TPU_ROOT", str(REPO_ROOT))
 
     from vlm_tpu_torch.core.config import load_config, save_config
+    from vlm_tpu_torch.core.mesh import mesh_from_config
     from vlm_tpu_torch.data.dataset_factory import DatasetFactory
     from vlm_tpu_torch.evaluation import run_zero_shot
     from vlm_tpu_torch.models.factory import create_model
@@ -48,6 +49,7 @@ def main(argv=None):
         raise NotImplementedError("the wave engine is not ported yet "
                                   "(ROADMAP A6); use continuous batching")
 
+    mesh_from_config(cfg.get("mesh"))   # the port runs on one device
     model_name = cfg["model_name"]
     quantization = cfg["quantization"]
     dataset_name = cfg["dataset_name"]

@@ -72,25 +72,31 @@ from ..ops.quant import (int4_matmul, int4_matmul_plain, int8_matmul,
 ATTN_TOL = 2e-2
 NORM_TOL = 2.0 ** -7
 GEMM_REL_TOL = 2.0 ** -7
+# the fp32 forms against their fp32 plain versions, relative to the largest
+# output: the same fp32 arithmetic, its sums (up to 348 keys of 256 dims)
+# and its softmax normalisation taken in another order
+FP32_TOL = 2e-5
 
-# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit
+# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit; fp32 on the
+# CUDA cores (the fp32 forms use no TF32)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 
 # "forms": the launch counter of each form of the kernel (_lib.KERNELS)
 KERNELS = {
     "B1": dict(name="flash_attention", source="vlm_tpu_torch/csrc/flash_attention.cu",
                replaces="vlm_tpu/ops/attention.py:112",
-               forms=("flash_attention",)),
+               forms=("flash_attention", "flash_attention_fp32")),
     "B2": dict(name="decode_attention", source="vlm_tpu_torch/csrc/decode_attention.cu",
                replaces="vlm_tpu/ops/decode_attention.py:72",
-               forms=("decode_attention", "decode_attention_int8")),
+               forms=("decode_attention", "decode_attention_int8",
+                      "decode_attention_fp32")),
     "B3": dict(name="kv_write", source="vlm_tpu_torch/csrc/kv_write.cu",
                replaces="vlm_tpu/ops/kvcache.py:34",
                forms=("kv_write", "kv_write_int8")),
     "B4": dict(name="normalize", source="vlm_tpu_torch/csrc/normalize.cu",
                replaces="vlm_tpu/ops/preprocess.py:119",
-               forms=("normalize",)),
+               forms=("normalize", "normalize_fp32")),
     "B5": dict(name="int8_matmul", source="vlm_tpu_torch/csrc/int8_matmul.cu",
                replaces="vlm_tpu/ops/quant.py:252",
                forms=("int8_matmul",)),
@@ -102,6 +108,9 @@ KERNELS = {
                replaces="vlm_tpu/ops/quant.py:300",
                forms=("int4_matmul",)),
 }
+# forms whose source is not their kernel's
+FORM_SOURCES = {"flash_attention_fp32":
+                "vlm_tpu_torch/csrc/flash_attention_fp32.cu"}
 # Gemma-2B block products (K, N): q/o, k/v, gate/up, down; SigLIP fc1/fc2
 GEMMA_KN = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 SIGLIP_KN = ((1152, 4304), (4304, 1152))
@@ -174,25 +183,28 @@ def attention_limits(b: int, sq: int, sk: int, causal: bool = False,
 
 def attention_work(b: int, h: int, kvh: int, sq: int, sk: int, d: int,
                    causal: bool = False, kv_len=None, prefix_len=None,
-                   elem: int = 2) -> Tuple[float, float, str]:
+                   elem: int = 2, peak: str = "bf16"
+                   ) -> Tuple[float, float, str]:
     """B1: 4 d FLOPs per (row, key) over the keys each row's result depends
     on (a row with no live key: all sk, the mean of V), for every head;
-    q, k, v read and o written once."""
+    q, k, v read and o written once (``elem`` bytes each: 4 in fp32)."""
     lim = attention_limits(b, sq, sk, causal, kv_len, prefix_len)
     keys = np.where(lim <= 0, sk, np.minimum(lim, sk)).sum()
     return (4.0 * d * h * float(keys),
-            float(elem * d * (2 * b * h * sq + 2 * b * kvh * sk)), "bf16")
+            float(elem * d * (2 * b * h * sq + 2 * b * kvh * sk)), peak)
 
 
 def decode_work(h: int, kvh: int, d: int, live: Sequence[int], kv_elem: int,
-                scales: bool) -> Tuple[float, float, str]:
+                scales: bool, q_elem: int = 2, peak: str = "bf16"
+                ) -> Tuple[float, float, str]:
     """B2: one query row a slot over its live cache rows (``live``, per
-    slot): q read, o written, the live K and V rows (and their fp32 scales
-    in the int8 form) read once."""
+    slot): q read, o written (``q_elem`` bytes each), the live K and V rows
+    (and their fp32 scales in the int8 form) read once."""
     rows = float(sum(live))
     row_bytes = kvh * (d * kv_elem + (4 if scales else 0))
     return (4.0 * d * h * rows,
-            float(2 * 2 * len(live) * h * d) + 2 * rows * row_bytes, "bf16")
+            float(2 * q_elem * len(live) * h * d) + 2 * rows * row_bytes,
+            peak)
 
 
 def gemm_work(m: int, k: int, n: int, x_bytes: float, w_bytes: float,
@@ -233,6 +245,7 @@ def cases(device) -> List[Case]:
     def b1(case, q, k, v, on_path=False, **kw):
         b, h, sq, d = q.shape
         kvh, sk = k.shape[1], k.shape[2]
+        fp32 = q.dtype == torch.float32
         causal = kw.get("causal", False)
         mask_kw = dict(causal=causal, kv_len=kw.get("kv_len"),
                        prefix_len=kw.get("prefix_len"))
@@ -244,8 +257,12 @@ def cases(device) -> List[Case]:
                     torch.as_tensor(lim, device=dev)[:, :, None])[:, None]
         out.append(Case(
             "B1", case, lambda: flash_attention(q, k, v, **kw),
-            lambda: attention_plain(q, k, v, **kw), ATTN_TOL, on_path,
-            work=attention_work(b, h, kvh, sq, sk, d, **mask_kw),
+            lambda: attention_plain(q, k, v, **kw),
+            FP32_TOL if fp32 else ATTN_TOL, on_path, rel=fp32,
+            form="flash_attention_fp32" if fp32 else "",
+            work=attention_work(b, h, kvh, sq, sk, d, **mask_kw,
+                                elem=q.element_size(),
+                                peak="fp32" if fp32 else "bf16"),
             library_fn=lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=h != kvh),
             # a row with no live key: the reference's mean of V, SDPA's
@@ -313,7 +330,9 @@ def cases(device) -> List[Case]:
     vq, vs = quantize_activations(vc)
 
     def b2(case, q, kk, vv, kw, on_path, scales, cold=False):
-        form = "decode_attention_int8" if scales else "decode_attention"
+        fp32 = q.dtype == torch.float32
+        form = "decode_attention_int8" if scales else \
+            "decode_attention_fp32" if fp32 else "decode_attention"
         b, h, _, d = q.shape
         live = live_rows(b, kk.shape[1], dev, **kw)
         kw = dict(kw, **scales)
@@ -335,9 +354,12 @@ def cases(device) -> List[Case]:
             "B2", name,
             lambda: decode_attention(q, kk, vv, **kw),
             lambda: decode_attention_plain(q, kk, vv, **kw),
-            ATTN_TOL, on_path, form=form, cold=cold,
+            FP32_TOL if fp32 else ATTN_TOL, on_path, form=form, cold=cold,
+            rel=fp32,
             work=decode_work(h, kk.shape[2], d, _ints(live.sum(dim=1)),
-                             kk.element_size(), bool(scales)), **lib))
+                             kk.element_size(), bool(scales),
+                             q.element_size(), "fp32" if fp32 else "bf16"),
+            **lib))
 
     for kk, vv, scales in ((kc, vc, {}),
                            (kq, vq, dict(k_scale=ks, v_scale=vs))):
@@ -386,6 +408,32 @@ def cases(device) -> List[Case]:
     for kk, vv, scales in cache(4, 2048, 1, 256):
         b2("s2048_dead_splits", qq, kk, vv, dict(kv_valid=live), False,
            scales)
+
+    # the fp32 forms (quantization "fp32") at the fp32 slice's shapes: the
+    # tower and Gemma prefill of an admission of 4, the decode window over
+    # 32 slots; and the masks the slice does not reach. SDPA in fp32 (no
+    # TF32: chip_smoke.py turns it off) is their yardstick.
+    def f32(b, s, h, d):
+        return torch.randn(b, s, h, d, generator=gen, device=dev).transpose(
+            1, 2)
+    b1("fp32_siglip_g4_h16_s256_d72", *(f32(GROUP, 256, 16, 72)
+                                        for _ in range(3)), on_path=True)
+    b1("fp32_gemma_prefill_g4_s316_kvlen", f32(GROUP, PROMPT, 8, 256),
+       f32(GROUP, PROMPT, 1, 256), f32(GROUP, PROMPT, 1, 256), on_path=True,
+       kv_len=torch.tensor([PROMPT, 290, PROMPT, 0], **i32))
+    b1("fp32_prefix_kvlen_gqa_s64", f32(2, 64, 4, 128), f32(2, 64, 2, 128),
+       f32(2, 64, 2, 128), causal=True,
+       prefix_len=torch.tensor([20, 5], **i32),
+       kv_len=torch.tensor([60, 64], **i32))
+    b1("fp32_causal_sq80_sk48_dead_rows", f32(2, 80, 4, 64), f32(2, 48, 4, 64),
+       f32(2, 48, 4, 64), causal=True)
+    q32, kc32, vc32 = q.float(), kc.float(), vc.float()
+    for cold in (True, False):
+        b2("fp32_window_32slots", q32, kc32, vc32,
+           dict(kv_window=(pcol, NEW, acol, gcnt)), True, {}, cold)
+    b2("fp32_kv_len_32slots", q32, kc32, vc32, dict(kv_len=kv_len), False, {})
+    b2("fp32_kv_valid_32slots", q32, kc32, vc32, dict(kv_valid=valid), False,
+       {})
 
     # the per-step KV row write, in place on clones of the cache
     k_new = torch.randn(SLOTS, 1, 1, 256, generator=gen, device=dev).to(
@@ -483,6 +531,15 @@ def cases(device) -> List[Case]:
                     library_note="no single PyTorch call: the cast, the "
                                  "scale and shift and the layout change "
                                  "are separate operators"))
+    out.append(Case("B4", "fp32_u8_g4_224",
+                    lambda: normalize_images(u8, recipe=recipe,
+                                             compute_dtype=torch.float32),
+                    lambda: normalize_plain(u8, recipe, torch.float32), 0.0,
+                    True, form="normalize_fp32",
+                    work=(0.0, 5.0 * u8.numel(), "fp32"),
+                    library_note="no single PyTorch call: the cast, the "
+                                 "scale and shift and the layout change "
+                                 "are separate operators"))
 
     # B5: the weight-only int8 products of the 8bit decode step (m = 32
     # slots) and of a one-image admission (m = 316)
@@ -492,24 +549,27 @@ def cases(device) -> List[Case]:
         sw = torch.rand(n, generator=gen, device=dev) * (2 / k ** 0.5 / 64)
         return qw, sw
 
+    def b5(m, k, n, qw, sw, on_path):
+        x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
+        sw16 = sw.to(torch.bfloat16)
+        fn, why = _library(lambda: functools.partial(
+            torch._weight_int8pack_mm, x, qw, sw16))
+        out.append(Case(
+            "B5", f"m{m}_k{k}_n{n}", lambda: int8_matmul(x, qw, sw),
+            lambda: int8_matmul_plain(x, qw, sw), GEMM_REL_TOL, on_path,
+            rel=True, cold=True,
+            work=gemm_work(m, k, n, 2 * m * k, n * k, 4 * n, 2, "bf16"),
+            library_fn=fn,
+            library_note=why or "torch._weight_int8pack_mm, scales in bf16"))
+
     gemma_w = {kn: weights(*kn) for kn in GEMMA_KN}
-    for m in (SLOTS, PROMPT):
-        # gate/up first: the main case of the JSON line
+    # the 8bit decode step (m = 32 slots) first, gate/up its main case; a
+    # one-image admission (m = 316); one row; the int8 tower of one image
+    for m, on_path in ((SLOTS, True), (PROMPT, True), (1, False)):
         for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
-            x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
-            qw, sw = gemma_w[(k, n)]
-            sw16 = sw.to(torch.bfloat16)
-            fn, why = _library(lambda x=x, qw=qw, sw16=sw16: functools.partial(
-                torch._weight_int8pack_mm, x, qw, sw16))
-            out.append(Case(
-                "B5", f"m{m}_k{k}_n{n}",
-                lambda x=x, qw=qw, sw=sw: int8_matmul(x, qw, sw),
-                lambda x=x, qw=qw, sw=sw: int8_matmul_plain(x, qw, sw),
-                GEMM_REL_TOL, True, rel=True, cold=True,
-                work=gemm_work(m, k, n, 2 * m * k, n * k, 4 * n, 2, "bf16"),
-                library_fn=fn,
-                library_note=why or "torch._weight_int8pack_mm, scales in "
-                                    "bf16"))
+            b5(m, k, n, *gemma_w[(k, n)], on_path)
+    for k, n in SIGLIP_KN:
+        b5(256, k, n, *weights(k, n), False)
 
     # B6: the llm.int8 prefill product of a Gemma admission (m = 4 x 316,
     # fp32 out for the outlier sum) and the quantized SigLIP tower's MLP at
@@ -729,13 +789,13 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
             c.library_fn, iters, fl, flush_kernels)
         form = c.form or KERNELS[c.kernel]["name"]
         ops, nbytes, peak = c.work
-        b_ms, b_kind = bound_ms(ops, nbytes, peak)
+        b_ms, b_by = bound_ms(ops, nbytes, peak)
         records.append(dict(kernel=c.kernel, form=form, case=c.case,
                             on_path=c.on_path, max_abs_err=err, tol=c.tol,
                             rel=c.rel, ok=err <= tol,
                             ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                             ops=ops, bytes=nbytes, peak=peak, bound_ms=b_ms,
-                            bound_kind=b_kind, library_ms=lib_ms,
+                            bound_by=b_by, library_ms=lib_ms,
                             device_ms=dev_ms, library_device_ms=lib_dev_ms,
                             library_err=lib_err,
                             library_ok=None if lib_err is None
