@@ -79,6 +79,20 @@ def test_wrappers_launch_on_cuda_and_never_fall_back(card):
     assert _lib.launches["flash_attention_fp32"] == 1
     with pytest.raises(TypeError, match="float32"):
         flash_attention(q.float(), q, q)
+    # B2's fp32 form over a cache long enough to be cut into splits (the
+    # workspace and counters path): its own counter only
+    from vlm_tpu_torch.ops.decode_attention import (TILE_ROWS_FP32,
+                                                    decode_attention,
+                                                    split_plan)
+    qd = torch.randn(2, 8, 1, 256, device=card)
+    kc = torch.randn(2, 348, 1, 256, device=card)
+    assert split_plan(348, 2, _lib.sm_count(card), TILE_ROWS_FP32)[0] > 1
+    before = dict(_lib.launches)
+    decode_attention(qd, kc, kc, kv_len=torch.tensor([348, 100], device=card))
+    torch.cuda.synchronize()
+    moved = {k for k in _lib.launches if _lib.launches[k] != before[k]}
+    assert moved == {"decode_attention_fp32"}
+    assert _lib.launches["decode_attention_fp32"] == 1
     u8 = torch.zeros(1, 4, 4, 3, dtype=torch.uint8, device=card)
     normalize_images(u8, recipe=RECIPES["paligemma"],
                      compute_dtype=torch.float32)
@@ -139,6 +153,7 @@ def test_int4_wrapper_launches_on_cuda_and_raises_on_wrong_types(card):
 # kernel_checks.cases builds them)
 FP32_CASES = ("fp32_siglip_g4_h16_s256_d72", "fp32_gemma_prefill_g4_s316_kvlen",
               "fp32_prefix_kvlen_gqa_s64", "fp32_causal_sq80_sk48_dead_rows",
+              "fp32_clip_l336_g4_h16_s577_d64", "fp32_eva_g4_h16_s257_d88",
               "fp32_window_32slots_cold", "fp32_window_32slots",
               "fp32_kv_len_32slots", "fp32_kv_valid_32slots", "fp32_u8_g4_224")
 GEMMA = ((2048, 16384), (2048, 2048), (16384, 2048), (2048, 256))

@@ -17,6 +17,17 @@ CASES = [
                                          kv_len=[316, 290, 316, 0]),
      4 * 256 * 8 * 316 * (316 + 290 + 316 + 316), 11_649_024, 3.477e-3,
      "bytes"),
+    # B1's fp32 form at SigLIP and at the Gemma prefill: fp32 operands,
+    # three TF32 products a product, so bound by operations at 494.7 / 3
+    # TFLOP/s (7.3 and 19.4 us)
+    ("b1_fp32_siglip", kc.attention_work(4, 16, 16, 256, 256, 72, elem=4,
+                                         peak="fp32_3xtf32"),
+     1_207_959_552, 18_874_368, 7.325e-3, "operations"),
+    ("b1_fp32_gemma_kvlen", kc.attention_work(
+        4, 8, 1, 316, 316, 256, kv_len=[316, 290, 316, 0], elem=4,
+        peak="fp32_3xtf32"),
+     4 * 256 * 8 * 316 * (316 + 290 + 316 + 316), 23_298_048, 1.9435e-2,
+     "operations"),
     # causal, Sq = 2 < Sk = 4: rows see 3 and 4 keys
     ("b1_causal", kc.attention_work(1, 1, 1, 2, 4, 8, causal=True),
      4 * 8 * (3 + 4), 2 * 8 * (2 * 2 + 2 * 4), None, "bytes"),

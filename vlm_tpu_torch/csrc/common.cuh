@@ -61,6 +61,39 @@ __device__ __forceinline__ void mma16832_s8(int* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// ---- fp32 products on tensor cores: three TF32 products (B1, B2 fp32) ----
+//
+// x = hi + lo with hi = x rounded to TF32 (10 mantissa bits, to nearest,
+// ties away: cvt.rna.tf32's rounding) and lo = x - hi, exact in fp32; the
+// tensor core reads only lo's top 10 mantissa bits (it truncates), an error
+// of at most 2^-21 |x|. a b is then lo_a hi_b + hi_a lo_b + hi_a hi_b (the
+// lo_a lo_b term, ~2^-22 a b, is dropped), each product exact in the
+// tensor core and summed in fp32: fp32 accuracy at a third of the TF32
+// rate. One TF32 product alone keeps 11 significant bits.
+//
+// hi by integer add and mask: 2 instructions for finite x, where
+// cvt.rna.tf32.f32 compiles to 4 (it also guards NaN and infinity, which
+// are never split here), so a split costs 3 instructions instead of ~9
+// (testing/tf32_bench.py times both).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a (16x8, row) * b (8x8, col), tf32 operands, fp32 accumulators.
+// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2
+// (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g); c0, c1
+// (g, 2t and 2t + 1), c2, c3 (g + 8, the same). Not volatile: the compiler
+// may interleave independent products.
+__device__ __forceinline__ void mma1688_tf32(float* c, const uint32_t* a,
+                                             uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // 16-byte asynchronous copy global -> shared; zero-fills when !pred (the
 // source is then not read, but must still be a valid address).
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -79,6 +112,49 @@ __device__ __forceinline__ void cp_async_small(void* smem, const void* gmem,
   const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
                "l"(gmem), "n"(kBytes), "r"(pred ? kBytes : 0));
+}
+
+// Rows [0, n) of an fp32 tile into shared memory at `pitch` floats a row:
+// row r from src + r * stride (elements) for r < valid, zero-filled (not
+// read) for the rest; the first D floats of each row, in copies of `width`
+// bytes (16, 8 or 4: what the row starts' alignment allows). Each thread
+// walks its copies by increments, without a division per copy.
+__device__ __forceinline__ void load_rows_f32(float* dst, int pitch,
+                                              const float* src,
+                                              int64_t stride, int n,
+                                              int valid, int D, int width) {
+  const int per = width / 4;
+  const int chunks = D / per;  // copies a row
+  const int nt = blockDim.x;
+  int r = threadIdx.x / chunks, c = threadIdx.x - r * chunks;
+  const int r_step = nt / chunks, c_step = nt - r_step * chunks;
+  while (r < n) {
+    const bool ok = r < valid;
+    const float* s = ok ? src + r * stride + c * per : src;
+    float* d = dst + r * pitch + c * per;
+    if (width == 16) cp_async16(d, s, ok);
+    else if (width == 8) cp_async_small<8>(d, s, ok);
+    else cp_async_small<4>(d, s, ok);
+    r += r_step;
+    c += c_step;
+    if (c >= chunks) {
+      c -= chunks;
+      ++r;
+    }
+  }
+}
+
+// the widest copy (16, 8 or 4 bytes) that a base pointer and row strides
+// (in floats) of D-float rows allow
+__host__ __device__ inline int copy_width_f32(const void* base, int D,
+                                              int64_t s0, int64_t s1,
+                                              int64_t s2) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(base);
+  if (a % 16 == 0 && D % 4 == 0 && s0 % 4 == 0 && s1 % 4 == 0 && s2 % 4 == 0)
+    return 16;
+  if (a % 8 == 0 && D % 2 == 0 && s0 % 2 == 0 && s1 % 2 == 0 && s2 % 2 == 0)
+    return 8;
+  return 4;
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -60,11 +60,9 @@
 // fully masked row returns 0, the TPU kernel's contract.
 //
 // The fp32 form (vlm_decode_attention_fp32, for models that run with
-// quantization "fp32") takes an fp32 cache with the same masks in exact
-// fp32 on the CUDA cores: a correctness mode, so one block of 4 warps a
-// (slot, query head), each warp walking every fourth live row with a
-// warp-wide dot product and its own running max and sum, the 4 warps
-// merged in shared memory.
+// quantization "fp32") takes an fp32 cache with the same masks, splits and
+// merge at fp32 accuracy: each product as three TF32 products on the tensor
+// cores (see "fp32 form" below).
 #include "common.cuh"
 
 namespace {
@@ -125,6 +123,167 @@ __device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
 
 __device__ __forceinline__ uint32_t widen2(int8_t lo, int8_t hi) {
   return vlm::pack_bf16(static_cast<float>(lo), static_cast<float>(hi));
+}
+
+__device__ __forceinline__ void store_out(__nv_bfloat16* o, float x) {
+  *o = __float2bfloat16(x);
+}
+__device__ __forceinline__ void store_out(float* o, float x) { *o = x; }
+
+// The end of every form: the block's kW warps each hold a running max and
+// sum (m, l) for heads 2t and 2t + 1 of its 8 and the O^T accumulators acc
+// (lane (g, t): dims 16 mt + g and + 8 of heads 2t and 2t + 1). Merge the
+// warps in shared memory; with one split write the output (ob: the slot's
+// output, hq0: the block's first query head, nh heads); otherwise write
+// this split's (m, l, acc) to ws and let the last block of the (slot, kv
+// head, group) merge the splits in split order (vlm::split_k_last).
+template <int kW, int kDT, typename OutT>
+__device__ __forceinline__ void finish(unsigned char* smem, const float (&m)[2],
+                                       const float (&l)[2],
+                                       const float (&acc)[kDT][4], int D,
+                                       int nh, OutT* ob, int64_t o_sh,
+                                       int hq0, float* ws, int* counters) {
+  constexpr int kNT = kW * 32;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int dp = (D + 15) & ~15;
+  const int ndt = dp / 16;
+  // merge the kW warps: [warp][head] max and sum, [warp][head][dp] acc
+  __syncthreads();
+  float* red_m = reinterpret_cast<float*>(smem);  // then each warp's weight
+  float* red_l = red_m + kW * kHeads;
+  float* red_acc = red_l + kW * kHeads;
+  float* blk_m = red_acc + kW * kHeads * dp;  // [8] the block's max
+  float* blk_l = blk_m + kHeads;                  // [8] the block's sum
+  if (g == 0) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      red_m[warp * kHeads + 2 * t + j] = m[j];
+      red_l[warp * kHeads + 2 * t + j] = l[j];
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < kDT; ++mt) {
+    if (mt >= ndt) break;
+    float* base = red_acc + warp * kHeads * dp + mt * 16 + g;
+    base[(2 * t) * dp] = acc[mt][0];
+    base[(2 * t + 1) * dp] = acc[mt][1];
+    base[(2 * t) * dp + 8] = acc[mt][2];
+    base[(2 * t + 1) * dp + 8] = acc[mt][3];
+  }
+  __syncthreads();
+  if (threadIdx.x < kHeads) {
+    const int h = threadIdx.x;
+    float mx = vlm::kNegInf;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) mx = fmaxf(mx, red_m[w * kHeads + h]);
+    float lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      const float lw = red_l[w * kHeads + h];
+      const float wt = lw > 0.f ? expf(red_m[w * kHeads + h] - mx) : 0.f;
+      red_m[w * kHeads + h] = wt;
+      lsum += lw * wt;
+    }
+    blk_m[h] = mx;
+    blk_l[h] = lsum;
+  }
+  __syncthreads();
+
+  const int splits = gridDim.z;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  const int part = kHeads * (2 + dp);  // m[8], l[8], acc[8, dp]
+  const int dq = dp / 4;               // float4 groups a head
+  constexpr int kGroups = kHeads * kMaxD / 4 / kNT;
+  auto store = [&](int h, int d, float4 a, float scale) {
+    const float x[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d + e < D) store_out(ob + (hq0 + h) * o_sh + d + e, x[e] * scale);
+  };
+  float* pw = ws + (static_cast<int64_t>(tile) * splits + blockIdx.z) * part;
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int i = threadIdx.x + q * kNT;
+    if (i >= kHeads * dq) break;
+    const int h = i / dq, d = (i - h * dq) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      const float wt = red_m[w * kHeads + h];
+      const float4 v = *reinterpret_cast<const float4*>(red_acc + (w * kHeads + h) * dp + d);
+      a.x += wt * v.x;
+      a.y += wt * v.y;
+      a.z += wt * v.z;
+      a.w += wt * v.w;
+    }
+    if (splits > 1)
+      *reinterpret_cast<float4*>(pw + 2 * kHeads + h * dp + d) = a;
+    else if (h < nh)
+      store(h, d, a, 1.f / fmaxf(blk_l[h], 1e-30f));
+  }
+  if (splits == 1) return;
+  if (threadIdx.x < kHeads) {
+    pw[threadIdx.x] = blk_m[threadIdx.x];
+    pw[kHeads + threadIdx.x] = blk_l[threadIdx.x];
+  }
+  if (!vlm::split_k_last(counters)) return;
+
+  // the last block of this (slot, kv head, group): merge in split order.
+  // Each split's weight exp(m_z - max) (0 for a split with no live row) is
+  // formed once per head in shared memory; then each thread sums its
+  // elements' partials, split by split, with its loads all in flight.
+  const float* pt = ws + static_cast<int64_t>(tile) * splits * part;
+  float* wz = reinterpret_cast<float*>(smem);  // [splits, 8]: m_z, then w_z
+  float* lz = wz + splits * kHeads;            // [splits, 8]
+  float* inv = lz + splits * kHeads;           // [8]: 1 / sum of l
+  for (int i = threadIdx.x; i < splits * kHeads; i += kNT) {
+    const int z = i / kHeads, h = i - z * kHeads;
+    wz[i] = __ldcg(pt + z * part + h);
+    lz[i] = __ldcg(pt + z * part + kHeads + h);
+  }
+  __syncthreads();
+  if (threadIdx.x < kHeads) {
+    const int h = threadIdx.x;
+    float mx = vlm::kNegInf;
+    for (int z = 0; z < splits; ++z) mx = fmaxf(mx, wz[z * kHeads + h]);
+    float lsum = 0.f;
+    for (int z = 0; z < splits; ++z) {
+      const float lw = lz[z * kHeads + h];
+      const float wt = lw > 0.f ? expf(wz[z * kHeads + h] - mx) : 0.f;
+      wz[z * kHeads + h] = wt;
+      lsum += lw * wt;
+    }
+    inv[h] = 1.f / fmaxf(lsum, 1e-30f);
+  }
+  __syncthreads();
+  int hs[kGroups], ds[kGroups];
+  float4 a[kGroups];
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q) {
+    const int i = threadIdx.x + q * kNT;
+    hs[q] = i < nh * dq ? i / dq : -1;
+    ds[q] = hs[q] < 0 ? 0 : (i - hs[q] * dq) * 4;
+    a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll 2
+  for (int z = 0; z < splits; ++z) {
+    const float* pz = pt + z * part + 2 * kHeads;
+#pragma unroll
+    for (int q = 0; q < kGroups; ++q) {
+      if (hs[q] < 0) continue;
+      const float wt = wz[z * kHeads + hs[q]];
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(pz + hs[q] * dp + ds[q]));
+      a[q].x += wt * v.x;
+      a[q].y += wt * v.y;
+      a[q].z += wt * v.z;
+      a[q].w += wt * v.w;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kGroups; ++q)
+    if (hs[q] >= 0) store(hs[q], ds[q], a[q], inv[hs[q]]);
 }
 
 // T: __nv_bfloat16 (bf16 cache) or int8_t (int8 cache with scales)
@@ -373,143 +532,8 @@ decode_kernel(const Params p) {
     __syncthreads();  // every warp is done with this buffer
   }
 
-  // merge the 4 warps: [warp][head] max and sum, [warp][head][dp] acc
-  __syncthreads();
-  float* red_m = reinterpret_cast<float*>(smem);  // then each warp's weight
-  float* red_l = red_m + kWarps * kHeads;
-  float* red_acc = red_l + kWarps * kHeads;
-  float* blk_m = red_acc + kWarps * kHeads * dp;  // [8] the block's max
-  float* blk_l = blk_m + kHeads;                  // [8] the block's sum
-  if (g == 0) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      red_m[warp * kHeads + 2 * t + j] = m[j];
-      red_l[warp * kHeads + 2 * t + j] = l[j];
-    }
-  }
-#pragma unroll
-  for (int mt = 0; mt < kMaxDT; ++mt) {
-    if (mt >= ndt) break;
-    float* base = red_acc + warp * kHeads * dp + mt * 16 + g;
-    base[(2 * t) * dp] = acc[mt][0];
-    base[(2 * t + 1) * dp] = acc[mt][1];
-    base[(2 * t) * dp + 8] = acc[mt][2];
-    base[(2 * t + 1) * dp + 8] = acc[mt][3];
-  }
-  __syncthreads();
-  if (threadIdx.x < kHeads) {
-    const int h = threadIdx.x;
-    float mx = vlm::kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w * kHeads + h]);
-    float lsum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float lw = red_l[w * kHeads + h];
-      const float wt = lw > 0.f ? expf(red_m[w * kHeads + h] - mx) : 0.f;
-      red_m[w * kHeads + h] = wt;
-      lsum += lw * wt;
-    }
-    blk_m[h] = mx;
-    blk_l[h] = lsum;
-  }
-  __syncthreads();
-
-  const int splits = gridDim.z;
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int part = kHeads * (2 + dp);  // m[8], l[8], acc[8, dp]
-  const int dq = dp / 4;               // float4 groups a head
-  constexpr int kGroups = kHeads * kMaxD / 4 / kThreads;
-  __nv_bfloat16* ob = p.o + b * p.o_sb;
-  const int hq0 = kvh * G + h0;  // first query head of this block
-  auto store = [&](int h, int d, float4 a, float scale) {
-    const float x[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (d + e < p.D) ob[(hq0 + h) * p.o_sh + d + e] = __float2bfloat16(x[e] * scale);
-  };
-  float* pw = p.ws + (static_cast<int64_t>(tile) * splits + blockIdx.z) * part;
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    const int i = threadIdx.x + q * kThreads;
-    if (i >= kHeads * dq) break;
-    const int h = i / dq, d = (i - h * dq) * 4;
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float wt = red_m[w * kHeads + h];
-      const float4 v = *reinterpret_cast<const float4*>(red_acc + (w * kHeads + h) * dp + d);
-      a.x += wt * v.x;
-      a.y += wt * v.y;
-      a.z += wt * v.z;
-      a.w += wt * v.w;
-    }
-    if (splits > 1)
-      *reinterpret_cast<float4*>(pw + 2 * kHeads + h * dp + d) = a;
-    else if (h < nh)
-      store(h, d, a, 1.f / fmaxf(blk_l[h], 1e-30f));
-  }
-  if (splits == 1) return;
-  if (threadIdx.x < kHeads) {
-    pw[threadIdx.x] = blk_m[threadIdx.x];
-    pw[kHeads + threadIdx.x] = blk_l[threadIdx.x];
-  }
-  if (!vlm::split_k_last(p.counters)) return;
-
-  // the last block of this (slot, kv head, group): merge in split order.
-  // Each split's weight exp(m_z - max) (0 for a split with no live row) is
-  // formed once per head in shared memory; then each thread sums its
-  // elements' partials, split by split, with its loads all in flight.
-  const float* pt = p.ws + static_cast<int64_t>(tile) * splits * part;
-  float* wz = reinterpret_cast<float*>(smem);  // [splits, 8]: m_z, then w_z
-  float* lz = wz + splits * kHeads;            // [splits, 8]
-  float* inv = lz + splits * kHeads;           // [8]: 1 / sum of l
-  for (int i = threadIdx.x; i < splits * kHeads; i += kThreads) {
-    const int z = i / kHeads, h = i - z * kHeads;
-    wz[i] = __ldcg(pt + z * part + h);
-    lz[i] = __ldcg(pt + z * part + kHeads + h);
-  }
-  __syncthreads();
-  if (threadIdx.x < kHeads) {
-    const int h = threadIdx.x;
-    float mx = vlm::kNegInf;
-    for (int z = 0; z < splits; ++z) mx = fmaxf(mx, wz[z * kHeads + h]);
-    float lsum = 0.f;
-    for (int z = 0; z < splits; ++z) {
-      const float lw = lz[z * kHeads + h];
-      const float wt = lw > 0.f ? expf(wz[z * kHeads + h] - mx) : 0.f;
-      wz[z * kHeads + h] = wt;
-      lsum += lw * wt;
-    }
-    inv[h] = 1.f / fmaxf(lsum, 1e-30f);
-  }
-  __syncthreads();
-  int hs[kGroups], ds[kGroups];
-  float4 a[kGroups];
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q) {
-    const int i = threadIdx.x + q * kThreads;
-    hs[q] = i < nh * dq ? i / dq : -1;
-    ds[q] = hs[q] < 0 ? 0 : (i - hs[q] * dq) * 4;
-    a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-#pragma unroll 2
-  for (int z = 0; z < splits; ++z) {
-    const float* pz = pt + z * part + 2 * kHeads;
-#pragma unroll
-    for (int q = 0; q < kGroups; ++q) {
-      if (hs[q] < 0) continue;
-      const float wt = wz[z * kHeads + hs[q]];
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(pz + hs[q] * dp + ds[q]));
-      a[q].x += wt * v.x;
-      a[q].y += wt * v.y;
-      a[q].z += wt * v.z;
-      a[q].w += wt * v.w;
-    }
-  }
-#pragma unroll
-  for (int q = 0; q < kGroups; ++q)
-    if (hs[q] >= 0) store(hs[q], ds[q], a[q], inv[hs[q]]);
+  finish<kWarps, kMaxDT>(smem, m, l, acc, p.D, nh, p.o + b * p.o_sb,
+                         p.o_sh, kvh * G + h0, p.ws, p.counters);
 }
 
 template <typename T>
@@ -540,8 +564,32 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 
 
 // ---- fp32 form ----
+//
+// Split-S like the forms above, with the products at fp32 accuracy: three
+// TF32 products each (common.cuh: split_tf32). A block of 2 warps takes
+// 32-row tiles (16 rows a warp, the mma's M) of one split for the 8 query
+// heads of its group (N = 8), so each cache row is read once for them.
+// S^T = K Q^T: k position t of an 8-dim step is dim 2t and t + 4 is
+// 2t + 1, so a lane loads its K and Q elements as float2; Q, scaled by
+// D^-1/2, stays in registers (64 floats at D = 256). O^T = V^T P^T takes
+// P^T as the B operand: lane (g, t) needs head g at rows t and t + 4 of an
+// 8-row step and holds rows g, g + 8 of heads 2t, 2t + 1, so four shuffles
+// a step move them. K and V rows are padded to a pitch = 8 (mod 16)
+// floats: the 4 rows a half warp reads as float2 (K) and the rows t of a
+// V fragment fall in distinct bank octets. K and V have one shared-memory
+// slot each (67 KB at D = 256: three blocks an SM, so `split_plan` aims at
+// three blocks an SM: the serving window's 348 rows become 11 splits of
+// one tile): V of a tile lands while its scores are formed, K of the next
+// one while V is multiplied. The head dim is padded to 16 NDT (NDT = 4, 8,
+// 16) with zero columns, so no loop checks a bound; the three products are
+// issued term by term over 4 independent accumulators (4 k-steps of S, 4
+// output tiles of P V), so dependent products sit apart.
 
-constexpr int kDL32 = kMaxD / 32;  // head dims a lane
+constexpr int kTile32 = 32;  // cache rows a tile: 16 a warp
+constexpr int kWarps32 = 2;
+constexpr int kThreads32 = 32 * kWarps32;
+
+__host__ __device__ inline int pitch32(int dp) { return dp + 8; }
 
 struct Params32 {
   const float* q;
@@ -553,18 +601,35 @@ struct Params32 {
   const int* pcol;
   const int* acol;
   const int* gcnt;
-  int H, KV, S, D, window, mode;
+  float* ws;
+  int* counters;
+  int H, KV, S, D, window, mode, rows_per_split;
   int64_t q_sb, q_sh, c_sb, c_ss, o_sb, o_sh;
   float scale;
 };
 
-__global__ void __launch_bounds__(kThreads) decode_fp32_kernel(const Params32 p) {
-  __shared__ float red_m[kWarps], red_l[kWarps];
-  __shared__ float red_acc[kWarps][kMaxD];
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int kvh = h / (p.H / p.KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  int limit = p.kv_len ? min(p.S, p.kv_len[b]) : p.S;
+// NDT: 16-dim tiles of the head dim, padded with zero columns to 16 NDT
+// (no bound checked inside the loops, so consecutive products overlap)
+template <int NDT>
+__global__ void __launch_bounds__(kThreads32)
+decode_fp32_kernel(const Params32 p) {
+  constexpr int dp = 16 * NDT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = p.H / p.KV;
+  const int groups = (G + kHeads - 1) / kHeads;
+  const int kvh = blockIdx.x / groups;
+  const int h0 = (blockIdx.x % groups) * kHeads;  // within the kv head
+  const int nh = min(kHeads, G - h0);
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int pitch = pitch32(dp);
+  float* ks = reinterpret_cast<float*>(smem);  // [kTile32][pitch]
+  float* vs = ks + kTile32 * pitch;
+
+  const int kvl = p.kv_len ? p.kv_len[b] : p.S;
+  int limit = min(p.S, kvl);
   int pc = 0, ac = 0, gc = 0;
   if (p.mode == kWindow) {
     pc = *p.pcol;
@@ -572,73 +637,213 @@ __global__ void __launch_bounds__(kThreads) decode_fp32_kernel(const Params32 p)
     gc = p.gcnt[b];
     limit = min(limit, pc + p.window);
   }
-  float qr[kDL32];
-  const float* qp = p.q + b * p.q_sb + h * p.q_sh;
-#pragma unroll
-  for (int i = 0; i < kDL32; ++i) {
-    const int d = lane + 32 * i;
-    qr[i] = d < p.D ? qp[d] : 0.f;
+  const int s_begin = blockIdx.z * p.rows_per_split;
+  const int s_end = min(limit, s_begin + p.rows_per_split);
+  const int nt = s_end > s_begin ? (s_end - s_begin + kTile32 - 1) / kTile32 : 0;
+
+  // zero the pad columns [D, dp) of both slots once
+  const int pad = dp - p.D;
+  for (int i = threadIdx.x; i < 2 * kTile32 * pad; i += kThreads32)
+    ks[(i / pad) * pitch + p.D + i % pad] = 0.f;
+
+  const float* kbase = p.k + b * p.c_sb + static_cast<int64_t>(kvh) * p.D;
+  const float* vbase = p.v + b * p.c_sb + static_cast<int64_t>(kvh) * p.D;
+  const int width = min(vlm::copy_width_f32(p.k, p.D, p.c_sb, p.c_ss, p.D),
+                        vlm::copy_width_f32(p.v, p.D, p.c_sb, p.c_ss, p.D));
+  auto load = [&](float* dst, const float* base, int i) {
+    const int r0 = s_begin + i * kTile32;
+    vlm::load_rows_f32(dst, pitch, base + static_cast<int64_t>(r0) * p.c_ss,
+                       p.c_ss, kTile32, s_end - r0, p.D, width);
+  };
+  if (nt > 0) {
+    load(ks, kbase, 0);
+    vlm::cp_async_commit();
+    load(vs, vbase, 0);
+    vlm::cp_async_commit();
   }
-  float m = -INFINITY, l = 0.f, acc[kDL32];
-#pragma unroll
-  for (int i = 0; i < kDL32; ++i) acc[i] = 0.f;
-  const float* kb = p.k + b * p.c_sb + (int64_t)kvh * p.D;
-  const float* vb = p.v + b * p.c_sb + (int64_t)kvh * p.D;
-  for (int r = warp; r < limit; r += kWarps) {
+
+  auto live = [&](int r) {
+    if (r >= s_end) return false;
     if (p.mode == kWindow) {
       const int age = (((r - pc - ac) % p.window) + p.window) % p.window;
-      if (!(r < pc || age < gc)) continue;
-    } else if (p.mode == kValid && !p.kv_valid[(int64_t)b * p.S + r]) {
-      continue;
+      return r < pc || age < gc;
     }
-    const float* kr = kb + (int64_t)r * p.c_ss;
-    float s = 0.f;
+    if (p.mode == kValid) return p.kv_valid[static_cast<int64_t>(b) * p.S + r] != 0;
+    return true;
+  };
+
+  // Q^T's B fragment of step kk: head h0 + g, dims 8 kk + 2t and + 1, times
+  // D^-1/2 (zero past nh heads and past D), read once while tile 0 lands
+  float qf[2 * NDT][2];
+  {
+    const float* qh = p.q + b * p.q_sb + static_cast<int64_t>(kvh * G + h0 + g) * p.q_sh;
 #pragma unroll
-    for (int i = 0; i < kDL32; ++i) {
-      const int d = lane + 32 * i;
-      if (d < p.D) s = fmaf(qr[i], kr[d], s);
+    for (int kk = 0; kk < 2 * NDT; ++kk)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int d = 8 * kk + 2 * t + e;
+        qf[kk][e] = g < nh && d < p.D ? __ldg(qh + d) * p.scale : 0.f;
+      }
+  }
+
+  // this warp's running state for heads 2t, 2t + 1; acc is O^T [d, head]
+  float m[2] = {vlm::kNegInf, vlm::kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NDT][4];
+#pragma unroll
+  for (int i = 0; i < NDT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int rw = warp * 16;
+
+  for (int i = 0; i < nt; ++i) {
+    vlm::cp_async_wait<1>();  // K of tile i (V may still be in flight)
+    __syncthreads();
+
+    // scores S^T [16 rows, 8 heads]: lane holds rows g, g + 8 x heads 2t,
+    // 2t + 1. Four steps at a time, term by term, each step j of the four
+    // into its own small-terms and hi.hi accumulators, so a product's
+    // accumulator was last written 4 products before (the mma's latency)
+    float sl[4][4], sh[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sl[j][e] = sh[j][e] = 0.f;
+    const float* kr = ks + (rw + g) * pitch + 2 * t;
+#pragma unroll
+    for (int k0 = 0; k0 < 2 * NDT; k0 += 4) {
+      uint32_t ah[4][4], al[4][4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kk = k0 + j;
+        const float2 x0 = *reinterpret_cast<const float2*>(kr + 8 * kk);
+        const float2 x1 = *reinterpret_cast<const float2*>(kr + 8 * pitch + 8 * kk);
+        vlm::split_tf32(x0.x, ah[j][0], al[j][0]);
+        vlm::split_tf32(x1.x, ah[j][1], al[j][1]);
+        vlm::split_tf32(x0.y, ah[j][2], al[j][2]);
+        vlm::split_tf32(x1.y, ah[j][3], al[j][3]);
+        vlm::split_tf32(qf[kk][0], bh[j][0], bl[j][0]);
+        vlm::split_tf32(qf[kk][1], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vlm::mma1688_tf32(sl[j], al[j], bh[j][0], bh[j][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vlm::mma1688_tf32(sl[j], ah[j], bl[j][0], bl[j][1]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) vlm::mma1688_tf32(sh[j], ah[j], bh[j][0], bh[j][1]);
     }
-    s = vlm::warp_sum(s) * p.scale;
-    const float mn = fmaxf(m, s);
-    const float c = expf(m - mn), pr = expf(s - mn);
-    l = l * c + pr;
-    m = mn;
-    const float* vr = vb + (int64_t)r * p.c_ss;
+    __syncthreads();  // every warp is done with K: the next tile's K may land
+    if (i + 1 < nt) load(ks, kbase, i + 1);
+    vlm::cp_async_commit();
+
+    float s[4];
 #pragma unroll
-    for (int i = 0; i < kDL32; ++i) {
-      const int d = lane + 32 * i;
-      if (d < p.D) acc[i] = fmaf(pr, vr[d], acc[i] * c);
+    for (int e = 0; e < 4; ++e)
+      s[e] = ((sh[0][e] + sl[0][e]) + (sh[1][e] + sl[1][e])) +
+             ((sh[2][e] + sl[2][e]) + (sh[3][e] + sl[3][e]));
+    const int r_lo = s_begin + i * kTile32 + rw + g;
+    const int r_hi = r_lo + 8;
+    const bool lv0 = live(r_lo), lv1 = live(r_hi);
+    if (!lv0) s[0] = s[1] = vlm::kNegInf;
+    if (!lv1) s[2] = s[3] = vlm::kNegInf;
+    // per-head max and sum over the 16 rows: the lanes that share t
+    float mx0 = fmaxf(s[0], s[2]), mx1 = fmaxf(s[1], s[3]);
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(vlm::kFullMask, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(vlm::kFullMask, mx1, o));
     }
-  }
-  if (lane == 0) {
-    red_m[warp] = m;
-    red_l[warp] = l;
-  }
+    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+    const float c0 = expf(m[0] - mn0), c1 = expf(m[1] - mn1);
+    float pr[4];
+    pr[0] = lv0 ? expf(s[0] - mn0) : 0.f;
+    pr[1] = lv0 ? expf(s[1] - mn1) : 0.f;
+    pr[2] = lv1 ? expf(s[2] - mn0) : 0.f;
+    pr[3] = lv1 ? expf(s[3] - mn1) : 0.f;
+    float sum0 = pr[0] + pr[2], sum1 = pr[1] + pr[3];
 #pragma unroll
-  for (int i = 0; i < kDL32; ++i) {
-    const int d = lane + 32 * i;
-    if (d < p.D) red_acc[warp][d] = acc[i];
-  }
-  __syncthreads();
-  // a warp with no live row has l = 0 and weighs 0; no live row at all: 0
-  float mx = -INFINITY;
+    for (int o = 4; o < 32; o <<= 1) {
+      sum0 += __shfl_xor_sync(vlm::kFullMask, sum0, o);
+      sum1 += __shfl_xor_sync(vlm::kFullMask, sum1, o);
+    }
+    l[0] = l[0] * c0 + sum0;
+    l[1] = l[1] * c1 + sum1;
+    m[0] = mn0;
+    m[1] = mn1;
+
+    // P^T's B fragment of row step j (rows 8j .. 8j + 7 of the warp's 16):
+    // head g at rows 8j + t and 8j + t + 4, from the lanes that hold them
+    uint32_t pbh[2][2], pbl[2][2];
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w)
-    if (red_l[w] > 0.f) mx = fmaxf(mx, red_m[w]);
-  float wt[kWarps], lsum = 0.f;
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-  for (int w = 0; w < kWarps; ++w) {
-    wt[w] = red_l[w] > 0.f ? expf(red_m[w] - mx) : 0.f;
-    lsum += red_l[w] * wt[w];
-  }
-  const float inv = 1.f / fmaxf(lsum, 1e-30f);
-  float* orow = p.o + b * p.o_sb + h * p.o_sh;
-  for (int d = threadIdx.x; d < p.D; d += kThreads) {
-    float a = 0.f;
+      for (int e = 0; e < 2; ++e) {
+        const int src = (t + 4 * e) * 4 + g / 2;
+        const float u0 = __shfl_sync(vlm::kFullMask, pr[2 * j], src);
+        const float u1 = __shfl_sync(vlm::kFullMask, pr[2 * j + 1], src);
+        vlm::split_tf32(g & 1 ? u1 : u0, pbh[j][e], pbl[j][e]);
+      }
+
+    vlm::cp_async_wait<1>();  // V of tile i
+    __syncthreads();
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) a += wt[w] * red_acc[w][d];
-    orow[d] = a * inv;
+    for (int mt = 0; mt < NDT; ++mt) {
+      acc[mt][0] *= c0;
+      acc[mt][1] *= c1;
+      acc[mt][2] *= c0;
+      acc[mt][3] *= c1;
+    }
+    // 4 output tiles at a time, term by term (as in S)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int m0 = 0; m0 < NDT; m0 += 4) {
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // V^T's A fragment: dims 16 mt + g (+ 8) at rows 8j + t (+ 4)
+          const float* vr = vs + (rw + 8 * j + t) * pitch + 16 * (m0 + i) + g;
+          vlm::split_tf32(vr[0], ah[i][0], al[i][0]);
+          vlm::split_tf32(vr[8], ah[i][1], al[i][1]);
+          vlm::split_tf32(vr[4 * pitch], ah[i][2], al[i][2]);
+          vlm::split_tf32(vr[4 * pitch + 8], ah[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          vlm::mma1688_tf32(acc[m0 + i], al[i], pbh[j][0], pbh[j][1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          vlm::mma1688_tf32(acc[m0 + i], ah[i], pbl[j][0], pbl[j][1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          vlm::mma1688_tf32(acc[m0 + i], ah[i], pbh[j][0], pbh[j][1]);
+      }
+    }
+    __syncthreads();  // every warp is done with V: the next tile's V may land
+    if (i + 1 < nt) load(vs, vbase, i + 1);
+    vlm::cp_async_commit();
   }
+  vlm::cp_async_wait<0>();
+
+  finish<kWarps32, NDT>(smem, m, l, acc, p.D, nh, p.o + b * p.o_sb,
+                         p.o_sh, kvh * G + h0, p.ws, p.counters);
+}
+
+template <int NDT>
+int launch32(const Params32& p, dim3 grid, cudaStream_t stream) {
+  const size_t dp = 16 * NDT;
+  const size_t tiles = sizeof(float) * 2 * kTile32 * pitch32(dp);
+  // the block merge's arrays, at the workspace's dp (D rounded to 16)
+  const size_t red = sizeof(float) *
+      (kWarps32 * kHeads * (2 + ((p.D + 15) & ~15)) + 2 * kHeads);
+  const size_t merge = sizeof(float) * (2 * kMaxSplits + 1) * kHeads;
+  size_t smem = tiles > red ? tiles : red;
+  smem = smem > merge ? smem : merge;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_fp32_kernel<NDT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  decode_fp32_kernel<NDT><<<grid, kThreads32, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -679,22 +884,33 @@ extern "C" int vlm_decode_attention(
 }
 
 // The fp32 form: q [B, H, 1, D] and the cache [B, S, KV, D] in fp32, the
-// masks of vlm_decode_attention; strides in elements.
+// masks, splits, workspace and counters of vlm_decode_attention, but the
+// splits are whole 32-row tiles (rows_per_split a multiple of 32); strides
+// in elements.
 extern "C" int vlm_decode_attention_fp32(
     const void* q, const void* k, const void* v, void* o, const int* kv_len,
     const void* kv_valid, const int* pcol, const int* acol, const int* gcnt,
-    int B, int H, int KV, int S, int D, int window, int mode, int64_t q_sb,
-    int64_t q_sh, int64_t c_sb, int64_t c_ss, int64_t o_sb, int64_t o_sh,
-    float scale, void* stream) {
-  if (B <= 0 || D <= 0 || D > kMaxD || KV <= 0 || H % KV != 0 ||
-      (mode == kWindow && window <= 0))
+    void* ws, void* counters, int B, int H, int KV, int S, int D, int window,
+    int mode, int rows_per_split, int64_t q_sb, int64_t q_sh, int64_t c_sb,
+    int64_t c_ss, int64_t o_sb, int64_t o_sh, float scale, void* stream) {
+  if (B <= 0 || D <= 0 || D > kMaxD || D % 2 || KV <= 0 || H % KV != 0 ||
+      H / KV > 32 || (mode == kWindow && window <= 0) || rows_per_split <= 0 ||
+      rows_per_split % kTile32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (rows_per_split < S &&
+      (!ws || !counters || (S + rows_per_split - 1) / rows_per_split > kMaxSplits))
     return static_cast<int>(cudaErrorInvalidValue);
   const Params32 p{static_cast<const float*>(q), static_cast<const float*>(k),
                    static_cast<const float*>(v), static_cast<float*>(o), kv_len,
-                   static_cast<const uint8_t*>(kv_valid), pcol, acol, gcnt, H,
-                   KV, S, D, window, mode, q_sb, q_sh, c_sb, c_ss, o_sb, o_sh,
-                   scale};
-  decode_fp32_kernel<<<dim3(H, B), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+                   static_cast<const uint8_t*>(kv_valid), pcol, acol, gcnt,
+                   static_cast<float*>(ws), static_cast<int*>(counters), H,
+                   KV, S, D, window, mode, rows_per_split, q_sb, q_sh, c_sb,
+                   c_ss, o_sb, o_sh, scale};
+  const int groups = (H / KV + kHeads - 1) / kHeads;
+  const int splits = (max(S, 1) + rows_per_split - 1) / rows_per_split;
+  const dim3 grid(KV * groups, B, splits);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64) return launch32<4>(p, grid, st);
+  if (D <= 128) return launch32<8>(p, grid, st);
+  return launch32<16>(p, grid, st);
 }

@@ -51,10 +51,10 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "vlm_flash_attention": [_P] * 6 + [_I] * 10 + [_L] * 12 + [_F, _I, _P],
-    "vlm_flash_attention_fp32": [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F, _I,
-                                                                    _P],
+    "vlm_flash_attention_fp32": [_P] * 6 + [_I] * 12 + [_L] * 12 + [_F, _I,
+                                                                     _P],
     "vlm_decode_attention": [_P] * 13 + [_I] * 8 + [_L] * 6 + [_F, _P],
-    "vlm_decode_attention_fp32": [_P] * 9 + [_I] * 7 + [_L] * 6 + [_F, _P],
+    "vlm_decode_attention_fp32": [_P] * 11 + [_I] * 8 + [_L] * 6 + [_F, _P],
     "vlm_kv_write": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],
     "vlm_kv_write_int8": [_P] * 7 + [_I] * 6 + [_P],
     "vlm_normalize": [_P, _P, _L, _P, _P, _I, _P],

@@ -13,7 +13,8 @@ kernel (``csrc/flash_attention.cu``) or the fp32 one
 tensors the plain version.
 :func:`flash_plan` is its host-side plan (the grid it launches and the
 packing of (position, head) rows), held against :func:`attention_plain` on
-the CPU by ``tests/test_torch_flash_plan.py``.
+the CPU by ``tests/test_torch_flash_plan.py`` (bf16 form) and
+``tests/test_torch_fp32_forms.py`` (fp32 form).
 """
 
 from __future__ import annotations
@@ -69,13 +70,39 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
-# B1's tiling: query rows of a block, keys of a K/V tile
+# B1's tiling: query rows of a block, keys of a K/V tile; the fp32 form's
 ROWS, KEYS = 128, 64
+ROWS_FP32, KEYS_FP32 = 64, 32
+
+
+def fp32_key_split(d: int) -> int:
+    """Warps of B1's fp32 form that share a row group of 16 query rows,
+    each taking 32 / that many keys of every tile: 2 from D = 88 on (the
+    faster on the card at EVA's 88, 128 and Gemma's 256, where at D > 128
+    one block fills an SM and twice the warps hide the products' latency),
+    else 1 (the faster at CLIP-L's 64 and SigLIP's 72, where two warps
+    split each Q fragment's work in half)."""
+    return 2 if d > 80 else 1
+
+
+def fp32_rows(b: int, h: int, kvh: int, sq: int, d: int,
+              sm_count: int) -> int:
+    """Query rows a block of B1's fp32 form: 64, or 80 (5 row groups)
+    where a block fills its SM (D > 128), the group's heads divide 80, and
+    80-row blocks fit the grid in one round of the SMs while 64-row blocks
+    do not (Gemma's prefill of 4: 128 blocks instead of 160 on 132 SMs)."""
+    hpb = math.gcd(h // kvh, 64)
+    if d <= 128 or 80 % hpb:
+        return ROWS_FP32
+    blocks = {rows: -(-sq // (rows // hpb)) * (h // hpb) * b
+              for rows in (ROWS_FP32, 80)}
+    return 80 if blocks[80] <= sm_count < blocks[ROWS_FP32] else ROWS_FP32
 
 
 @dataclasses.dataclass(frozen=True)
 class FlashPlan:
-    """How B1 cuts the work. A block takes :data:`ROWS` query rows of one
+    """How B1 cuts the work. A block takes ``rows`` query rows (:data:`ROWS`;
+    the fp32 form :data:`ROWS_FP32`) of one
     (batch, KV head): ``positions`` positions x ``heads_per_block`` query
     heads of that KV head's group, row ``r`` being position ``p0 + r //
     heads_per_block`` of head ``h0 + r % heads_per_block``. ``grid`` is
@@ -86,12 +113,14 @@ class FlashPlan:
 
 
 @functools.lru_cache(maxsize=256)
-def flash_plan(b: int, h: int, kvh: int, sq: int) -> FlashPlan:
+def flash_plan(b: int, h: int, kvh: int, sq: int,
+               rows: int = ROWS) -> FlashPlan:
     """The grid and row packing of B1 for q ``[b, h, sq, D]`` over ``kvh``
-    KV heads: gcd(G, 64) heads of a group share a block, so one K/V tile
-    feeds them all (all 8 Gemma heads; SigLIP, G = 1, one head)."""
+    KV heads, ``rows`` query rows a block: gcd(G, 64) heads of a group
+    share a block, so one K/V tile feeds them all (all 8 Gemma heads;
+    SigLIP, G = 1, one head)."""
     hpb = math.gcd(h // kvh, 64)
-    pos = ROWS // hpb
+    pos = rows // hpb
     return FlashPlan(hpb, pos, (-(-sq // pos), h // hpb, b))
 
 
@@ -156,10 +185,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _flash_fp32(q, k, v, kvl, pfx, causal) -> torch.Tensor:
-    """B1's fp32 form: exact fp32 on the CUDA cores, any strides with a
-    contiguous head dim; the output's memory is [B, Sq, H, D]."""
+    """B1's fp32 form: fp32 accuracy from three TF32 products on the tensor
+    cores, :func:`fp32_rows` rows a block as :func:`flash_plan` packs them,
+    :func:`fp32_key_split` warps a row group, any strides with a contiguous
+    head dim; the output's memory is [B, Sq, H, D]."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
+    rows = fp32_rows(b, h, kvh, sq, d, _lib.sm_count(q.device))
+    plan = flash_plan(b, h, kvh, sq, rows)
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
     _lib.launch(
@@ -167,7 +200,8 @@ def _flash_fp32(q, k, v, kvl, pfx, causal) -> torch.Tensor:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         kvl.data_ptr() if kvl is not None else None,
         pfx.data_ptr() if pfx is not None else None,
-        b, h, kvh, sq, sk, d, *q.stride()[:3], *k.stride()[:3],
+        b, h, kvh, sq, sk, d, plan.heads_per_block, *plan.grid,
+        fp32_key_split(d), rows, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], d ** -0.5, int(causal),
         _lib.stream_ptr(q))
     return o

@@ -13,13 +13,14 @@ An int8 cache comes with ``k_scale``/``v_scale`` ``[B, S, KV, 1]`` fp32
 (the int8 form of B2): the scales multiply the scores and the
 probabilities, ``q.(k8 s) == (q.k8) s``, and the values enter as int8.
 
-An fp32 query and cache (models that run with quantization "fp32") take
-B2's fp32 form, exact fp32 on the CUDA cores, one block a (slot, query
-head). Otherwise, on the card B2 is split-S flash-decoding: :func:`split_plan` cuts the S
-rows into splits of whole 64-row tiles, one block per (kv head, group of 8
-query heads, slot, split), and the last block of each (slot, kv head,
-group) merges the splits' (max, sum, acc) in the same launch, through a
-workspace this wrapper allocates.
+On the card B2 is split-S flash-decoding: :func:`split_plan` cuts the S
+rows into splits of whole tiles (64 rows; 32 in the fp32 form), one block
+per (kv head, group of 8 query heads, slot, split), and the last block of
+each (slot, kv head, group) merges the splits' (max, sum, acc) in the same
+launch, through a workspace this wrapper allocates. An fp32 query and cache
+(models that run with quantization "fp32") take B2's fp32 form, whose
+products are each three TF32 products on the tensor cores (fp32
+accuracy).
 """
 
 from __future__ import annotations
@@ -32,23 +33,24 @@ from . import _lib
 
 NEG_INF = -1e30
 _MODE_LEN, _MODE_VALID, _MODE_WINDOW = 0, 1, 2
-# the kernel's geometry: cache rows a step, query heads a block
-TILE_ROWS, HEADS_PER_BLOCK, MAX_SPLITS = 64, 8, 64
+# the kernel's geometry: cache rows a step (the fp32 form's), query heads a
+# block
+TILE_ROWS, TILE_ROWS_FP32, HEADS_PER_BLOCK, MAX_SPLITS = 64, 32, 8, 64
 
 
-def split_plan(s_total: int, blocks: int,
-               sm_count: int) -> Tuple[int, int]:
+def split_plan(s_total: int, blocks: int, sm_count: int,
+               tile: int = TILE_ROWS, per_sm: int = 2) -> Tuple[int, int]:
     """How B2 cuts the S cache rows: ``(splits, rows_per_split)``.
     ``blocks`` is KV x head groups x B, the grid without splits. Each split
-    is a whole number of 64-row tiles, holds at least one, and the splits
-    cover S exactly; their count brings the grid to about two blocks an SM
-    where S has enough tiles, and stays within the kernel's
-    ``MAX_SPLITS``."""
-    n_tiles = max(1, -(-s_total // TILE_ROWS))
+    is a whole number of ``tile``-row tiles, holds at least one, and the
+    splits cover S exactly; their count brings the grid to about
+    ``per_sm`` blocks an SM (2; the fp32 form's smaller blocks 3) where S
+    has enough tiles, and stays within the kernel's ``MAX_SPLITS``."""
+    n_tiles = max(1, -(-s_total // tile))
     want = min(MAX_SPLITS,
-               max(1, -(-2 * sm_count // max(1, blocks))))
+               max(1, -(-per_sm * sm_count // max(1, blocks))))
     per = -(-n_tiles // min(want, n_tiles))
-    return -(-n_tiles // per), per * TILE_ROWS
+    return -(-n_tiles // per), per * tile
 
 
 def window_mask(s_total: int, kv_window: Tuple, device) -> torch.Tensor:
@@ -184,23 +186,24 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         mode = _MODE_LEN
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
-    if fp32:
-        _lib.launch(
-            "decode_attention_fp32", "vlm_decode_attention_fp32",
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(kvl),
-            ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt), b, h, kvh, s_total,
-            d, window, mode, q.stride(0), q.stride(1), k.stride(0),
-            k.stride(1), o.stride(0), o.stride(1), d ** -0.5,
-            _lib.stream_ptr(q))
-        return o
     blocks = kvh * -(-(h // kvh) // HEADS_PER_BLOCK) * b
-    splits, rows = split_plan(s_total, blocks, _lib.sm_count(dev))
+    splits, rows = split_plan(s_total, blocks, _lib.sm_count(dev),
+                              *((TILE_ROWS_FP32, 3) if fp32 else ()))
     ws = counters = None
     if splits > 1:
         dp = -(-d // 16) * 16
         ws = torch.empty(blocks * splits * HEADS_PER_BLOCK * (2 + dp),
                          dtype=torch.float32, device=dev)
         counters = _lib.tile_counters(dev, blocks)
+    if fp32:
+        _lib.launch(
+            "decode_attention_fp32", "vlm_decode_attention_fp32",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(kvl),
+            ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt), ptr(ws),
+            ptr(counters), b, h, kvh, s_total, d, window, mode, rows,
+            q.stride(0), q.stride(1), k.stride(0), k.stride(1), o.stride(0),
+            o.stride(1), d ** -0.5, _lib.stream_ptr(q))
+        return o
     _lib.launch(
         "decode_attention_int8" if int8 else "decode_attention",
         "vlm_decode_attention",

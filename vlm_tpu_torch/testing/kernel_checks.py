@@ -77,10 +77,13 @@ GEMM_REL_TOL = 2.0 ** -7
 # and its softmax normalisation taken in another order
 FP32_TOL = 2e-5
 
-# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit; fp32 on the
-# CUDA cores (the fp32 forms use no TF32)
+# NVIDIA H100 SXM data sheet, dense, at the 700 W power limit: bf16 and
+# int8 on the tensor cores, fp32 on the CUDA cores, and fp32-accurate
+# products on the tensor cores as three TF32 products each (494.7 TFLOP/s
+# TF32 / 3), the rate of B1's and B2's fp32 forms
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
+                  "fp32_3xtf32": 494.7e12 / 3}
 
 # "forms": the launch counter of each form of the kernel (_lib.KERNELS)
 KERNELS = {
@@ -262,7 +265,7 @@ def cases(device) -> List[Case]:
             form="flash_attention_fp32" if fp32 else "",
             work=attention_work(b, h, kvh, sq, sk, d, **mask_kw,
                                 elem=q.element_size(),
-                                peak="fp32" if fp32 else "bf16"),
+                                peak="fp32_3xtf32" if fp32 else "bf16"),
             library_fn=lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask, enable_gqa=h != kvh),
             # a row with no live key: the reference's mean of V, SDPA's
@@ -358,7 +361,8 @@ def cases(device) -> List[Case]:
             rel=fp32,
             work=decode_work(h, kk.shape[2], d, _ints(live.sum(dim=1)),
                              kk.element_size(), bool(scales),
-                             q.element_size(), "fp32" if fp32 else "bf16"),
+                             q.element_size(),
+                             "fp32_3xtf32" if fp32 else "bf16"),
             **lib))
 
     for kk, vv, scales in ((kc, vc, {}),
@@ -427,6 +431,12 @@ def cases(device) -> List[Case]:
        kv_len=torch.tensor([60, 64], **i32))
     b1("fp32_causal_sq80_sk48_dead_rows", f32(2, 80, 4, 64), f32(2, 48, 4, 64),
        f32(2, 48, 4, 64), causal=True)
+    # the towers of later slices in fp32 (probing's mode): CLIP-L/336 and
+    # EVA ViT-g
+    b1("fp32_clip_l336_g4_h16_s577_d64", *(f32(GROUP, 577, 16, 64)
+                                           for _ in range(3)))
+    b1("fp32_eva_g4_h16_s257_d88", *(f32(GROUP, 257, 16, 88)
+                                     for _ in range(3)))
     q32, kc32, vc32 = q.float(), kc.float(), vc.float()
     for cold in (True, False):
         b2("fp32_window_32slots", q32, kc32, vc32,

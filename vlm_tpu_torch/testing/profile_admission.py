@@ -1,33 +1,44 @@
 #!/usr/bin/env python3
-"""B1's time at its two serving shapes and the device profile of one bf16
-PaliGemma-3B admission, on one NVIDIA GPU; prints one JSON line.
+"""B1's and B2's times at their serving shapes and the device profile of
+a bf16 and an fp32 PaliGemma-3B admission and of an fp32 decode step, on
+one NVIDIA GPU; prints one JSON line.
 
     python vlm_tpu_torch/testing/profile_admission.py [--root DIR]
         [--admissions 3]
 
 ``--root`` is the checkout whose ``vlm_tpu_torch`` is measured (default:
 this one), so one command can time two trees in turns with this script:
-the port's public calls (``flash_attention``, ``create_model``,
-``normalize_images``, ``VLMModule.prefill``) are the same in both.
+the port's public calls (``flash_attention``, ``decode_attention``,
+``create_model``, ``normalize_images``, ``VLMModule.prefill`` and
+``decode_step``) are the same in both.
 
 - ``b1_ms``: device ms of ``flash_attention`` on the kernel checks' two
   on-path inputs (SigLIP [4, 16, 256, 72]; Gemma prefill [4, 8, 316, 256]
-  MQA with kv_len [316, 290, 316, 0]), 20 calls queued behind a sleep
-  kernel, timed with CUDA events;
+  MQA with kv_len [316, 290, 316, 0]), in bf16 and (``fp32_`` keys) in
+  fp32, and in fp32 at the towers of later slices (``fp32_clip``: CLIP-L
+  [4, 16, 577, 64]; ``fp32_eva``: EVA [4, 16, 257, 88]), 20 calls queued
+  behind a sleep kernel, timed with CUDA events;
 - ``device_us``: µs a call of the kernels' own device time under
   ``torch.profiler`` (no event floor), for B1 and for SDPA
   (``scaled_dot_product_attention`` with the same boolean kv_len mask and
-  ``enable_gqa``, the library yardstick) on the same inputs, 20 calls each;
-- ``host_us``: the host's µs to enqueue one call, five runs of 200 calls
-  behind a sleep kernel (so none waits on the card), sorted: B1's wrapper
-  (``wrapper``), its C entry point alone with the wrapper's arguments
-  (``c_call``: tensor maps and launch), and SDPA (``sdpa``);
-- ``admission``: an admission of 4 images at full width and depth, random
-  weights from seed 0: normalisation, tower, projector and Gemma prefill
-  of the 316-token prompt into a 4-row cache. Host wall ms (synchronised,
+  ``enable_gqa``, the library yardstick; fp32 without TF32) on the same
+  inputs, 20 calls each; ``fp32_b2``: the same for ``decode_attention`` on
+  an fp32 cache of 32 slots x 348 rows with the rotating window, after a
+  128 MB flush (``cold``) and without (``warm``);
+- ``host_us``: the host's µs to enqueue one bf16 call, five runs of 200
+  calls behind a sleep kernel (so none waits on the card), sorted: B1's
+  wrapper (``wrapper``), its C entry point alone with the wrapper's
+  arguments (``c_call``: tensor maps and launch), and SDPA (``sdpa``);
+- ``admission`` (bf16) and ``admission_fp32`` (the default quantization):
+  an admission of 4 images at full width and depth, random weights from
+  seed 0: normalisation, tower, projector and Gemma prefill of the
+  316-token prompt into a 4-row cache. Host wall ms (synchronised,
   unprofiled) and, under ``torch.profiler``, the summed device time of the
-  kernels (each kernel's own time, kernel rows only), their count, and B1's
-  share, averaged over ``--admissions``.
+  kernels (each kernel's own time, kernel rows only), their count, and
+  B1's share, averaged over ``--admissions``;
+- ``step_fp32``: one fp32 decode step over 32 slots of a 348-row cache in
+  the batcher's rotating-window form, the same readings a step (B2's
+  share in place of B1's), over ``--admissions`` steps.
 """
 
 import argparse
@@ -38,6 +49,10 @@ import time
 from pathlib import Path
 
 PROMPT_IDS, GROUP = 60, 4
+# the decode window of the kernel checks: 32 slots, a 316-row prompt and 32
+# new tokens
+SLOTS, PROMPT, NEW = 32, 316, 32
+CACHE = PROMPT + NEW
 
 
 def main(argv=None):
@@ -46,20 +61,20 @@ def main(argv=None):
     ap.add_argument("--admissions", type=int, default=3)
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_admission: needs a CUDA device")
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
-    from vlm_tpu_torch.models.decoder import init_kv_cache
     from vlm_tpu_torch.models.factory import create_model
-    from vlm_tpu_torch.models.vlm import num_image_tokens
     from vlm_tpu_torch.ops import _lib
     from vlm_tpu_torch.ops.attention import flash_attention
-    from vlm_tpu_torch.ops.preprocess import normalize_images
-    from vlm_tpu_torch.testing.kernel_checks import _SLEEP_CYCLES, _ms
+    from vlm_tpu_torch.ops.decode_attention import (decode_attention,
+                                                    live_rows)
+    from vlm_tpu_torch.testing.kernel_checks import (_SLEEP_CYCLES,
+                                                     _device_ms, _ms,
+                                                     _profiled)
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -130,8 +145,113 @@ def main(argv=None):
                 "c_call": host_us(c_call(calls[k])),
                 "sdpa": host_us(sdpa[k])} for k in calls}
 
-    model = create_model("paligemma", quantization="bf16", size="3b",
-                         device="cuda", seed=0)
+    # fp32 (no TF32 anywhere): B1 at the same shapes, B2 over the window
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sig32 = [x.float() for x in sig]
+    gem32 = [x.float() for x in gem]
+    clip32 = [bhsd(GROUP, 577, 16, 64).float() for _ in range(3)]
+    eva32 = [bhsd(GROUP, 257, 16, 88).float() for _ in range(3)]
+    calls32 = {"fp32_siglip": lambda: flash_attention(*sig32),
+               "fp32_gemma": lambda: flash_attention(*gem32, kv_len=kvl),
+               "fp32_clip": lambda: flash_attention(*clip32),
+               "fp32_eva": lambda: flash_attention(*eva32)}
+    sdpa32 = {"fp32_siglip": lambda: F.scaled_dot_product_attention(*sig32),
+              "fp32_gemma": lambda: F.scaled_dot_product_attention(
+                  *gem32, attn_mask=mask, enable_gqa=True),
+              "fp32_clip": lambda: F.scaled_dot_product_attention(*clip32),
+              "fp32_eva": lambda: F.scaled_dot_product_attention(*eva32)}
+    b1_ms.update({k: _ms(fn, 20) for k, fn in calls32.items()})
+    device.update({k: {"b1": device_us(calls32[k]),
+                       "sdpa": device_us(sdpa32[k])} for k in calls32})
+    i32 = dict(dtype=torch.int32, device=dev)
+    qd = torch.randn(SLOTS, 1, 8, 256, generator=gen, device=dev).transpose(
+        1, 2)
+    kc = torch.randn(SLOTS, CACHE, 1, 256, generator=gen, device=dev)
+    vc = torch.randn(SLOTS, CACHE, 1, 256, generator=gen, device=dev)
+    acol = torch.randint(0, NEW, (SLOTS,), generator=gen, device=dev).int()
+    gcnt = torch.randint(1, NEW + 1, (SLOTS,), generator=gen,
+                         device=dev).int()
+    window = (torch.tensor(PROMPT, **i32), NEW, acol, gcnt)
+    live = live_rows(SLOTS, CACHE, dev, kv_window=window)[:, None, None]
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    fl_kernels = frozenset(_profiled(flush.zero_))
+    b2 = lambda: decode_attention(qd, kc, vc, kv_window=window)  # noqa: E731
+    b2_sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qd, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=live,
+        enable_gqa=True)
+    device["fp32_b2"] = {
+        "cold": {"b2": _device_ms(b2, 20, flush, fl_kernels) * 1e3,
+                 "sdpa": _device_ms(b2_sdpa, 20, flush, fl_kernels) * 1e3},
+        "warm": {"b2": device_us(b2), "sdpa": device_us(b2_sdpa)}}
+    del flush, kc, vc
+
+    out = {"root": args.root, "gpu": gpu, "b1_ms": b1_ms,
+           "device_us": device, "host_us": host}
+    for quantization in ("bf16", "fp32"):
+        kw = dict(quantization="bf16") if quantization == "bf16" else {}
+        model = create_model("paligemma", size="3b", device="cuda", seed=0,
+                             **kw)
+        key = "admission" if quantization == "bf16" else "admission_fp32"
+        out[key] = profile_admission(torch, model, args.admissions)
+        if quantization == "fp32":
+            out["step_fp32"] = profile_step(torch, model, args.admissions,
+                                            gen)
+        del model
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
+def _device_rows(prof, n):
+    """(kernel, device ms a run, launches a run), kernel rows only, largest
+    first, from a profile of ``n`` runs."""
+    rows = []
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+            rows.append((e.key, us / 1e3 / n, e.count / n))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def _profile_runs(torch, run, n, mark):
+    """Host wall ms of ``n`` synchronised runs of ``run``, then the
+    summed device ms a run under ``torch.profiler``, the kernel count, and
+    the device ms and launches of the kernels whose name holds ``mark``."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        run()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+    rows = _device_rows(prof, n)
+    mine = [r for r in rows if any(m in r[0] for m in mark)]
+    return {"wall_ms": walls, "device_ms": sum(r[1] for r in rows),
+            "kernels": sum(r[2] for r in rows),
+            "kernel_ms": sum(r[1] for r in mine),
+            "kernel_launches": sum(r[2] for r in mine),
+            "top": [(k[:60], round(ms, 4), c) for k, ms, c in rows[:8]]}
+
+
+def profile_admission(torch, model, n):
+    """An admission of ``GROUP`` images into a fresh cache (B1's kernels
+    under ``kernel_ms``: the bf16 ``flash_kernel`` or the fp32
+    ``flash_fp32_kernel``)."""
+    import numpy as np
+
+    from vlm_tpu_torch.models.decoder import init_kv_cache
+    from vlm_tpu_torch.models.vlm import num_image_tokens
+    from vlm_tpu_torch.ops.preprocess import normalize_images
+    dev = torch.device("cuda")
     cfg = model.cfg
     rng = np.random.default_rng(0)
     u8 = torch.from_numpy(rng.integers(0, 256, (GROUP, 224, 224, 3),
@@ -143,46 +263,47 @@ def main(argv=None):
     plen = num_image_tokens(cfg) + PROMPT_IDS
 
     def admission():
-        cache = init_kv_cache(cfg.decoder, GROUP, plen + 32,
+        cache = init_kv_cache(cfg.decoder, GROUP, plen + NEW,
                               model.cache_dtype, "cuda")
-        px = normalize_images(u8, recipe=model.recipe)
+        px = normalize_images(u8, recipe=model.recipe,
+                              compute_dtype=model.dtype)
         return model.module.prefill(
             px, ids[:, :0], ids, cache,
             torch.full((GROUP,), plen, dtype=torch.int32, device=dev))
 
-    with torch.inference_mode():
-        admission()
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(args.admissions):
-            t0 = time.perf_counter()
-            admission()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(args.admissions):
-                admission()
-            torch.cuda.synchronize()
+    got = _profile_runs(torch, admission, n, ("flash_kernel",
+                                              "flash_fp32_kernel"))
+    got["b1_device_ms"] = got.pop("kernel_ms")
+    got["b1_launches"] = got.pop("kernel_launches")
+    return got
 
-    n = args.admissions
-    rows = []
-    for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-            rows.append((e.key, us / 1e3 / n, e.count / n))
-    rows.sort(key=lambda r: -r[1])
-    b1 = [r for r in rows if "flash_kernel" in r[0]]
-    print(json.dumps({
-        "root": args.root, "gpu": gpu, "b1_ms": b1_ms, "device_us": device,
-        "host_us": host,
-        "admission": {
-            "wall_ms": walls, "device_ms": sum(r[1] for r in rows),
-            "kernels": sum(r[2] for r in rows),
-            "b1_device_ms": sum(r[1] for r in b1),
-            "b1_launches": sum(r[2] for r in b1),
-            "top": [(k[:60], round(ms, 4), c) for k, ms, c in rows[:8]]}}))
+
+def profile_step(torch, model, n, gen):
+    """One decode step over ``SLOTS`` slots of a ``CACHE``-row cache in the
+    rotating-window form (B2's kernels under ``kernel_ms``)."""
+    from vlm_tpu_torch.models.decoder import init_kv_cache
+    dev = torch.device("cuda")
+    i32 = dict(dtype=torch.int32, device=dev)
+    cache = init_kv_cache(model.cfg.decoder, SLOTS, CACHE, model.cache_dtype,
+                          "cuda")
+    tok = torch.randint(3, 1000, (SLOTS, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    acol = torch.randint(0, NEW, (SLOTS,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    gcnt = torch.randint(1, NEW, (SLOTS,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    pos = torch.full((SLOTS,), PROMPT + 8, **i32)
+
+    def one():
+        return model.module.decode_step(
+            tok, pos, cache, write_col=torch.tensor(PROMPT + 7, **i32),
+            kv_window=(torch.tensor(PROMPT, **i32), NEW, acol, gcnt))
+
+    got = _profile_runs(torch, one, n, ("decode_fp32_kernel",
+                                        "decode_kernel"))
+    got["b2_device_ms"] = got.pop("kernel_ms")
+    got["b2_launches"] = got.pop("kernel_launches")
+    return got
 
 
 if __name__ == "__main__":

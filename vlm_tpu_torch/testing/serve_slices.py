@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Serve the three ``chip_smoke.py`` slices (bf16; 8bit with the int8 KV
-cache; 4bit) of one checkout on one NVIDIA GPU, without the kernel checks
-and the reference phases; prints each slice's lines and one JSON line.
+"""Serve the four ``chip_smoke.py`` slices (bf16; 8bit with the int8 KV
+cache; 4bit; fp32, the default quantization, at its own smaller size) of
+one checkout on one NVIDIA GPU, without the kernel checks and the
+reference phases; prints each slice's lines and one JSON line.
 
     python vlm_tpu_torch/testing/serve_slices.py [--root DIR]
 
@@ -36,10 +37,12 @@ def main(argv=None):
 
     gpu = chip_smoke.device_phase(torch)
     result = {"root": args.root, "gpu": gpu}
-    for mode in ("bf16", "8bit", "4bit"):
+    for mode in ("bf16", "8bit", "4bit", "fp32"):
+        size = dict(n_images=chip_smoke.FP32_IMAGES,
+                    new=chip_smoke.FP32_NEW) if mode == "fp32" else {}
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
-            _, stats = chip_smoke.slice_phase(torch, np, gpu, mode)
+            _, stats = chip_smoke.slice_phase(torch, np, gpu, mode, **size)
         print(out.getvalue(), end="")
         p50, p99 = LATENCY.search(out.getvalue()).groups()
         result[mode] = {"img_per_s": stats["img_per_s"],
