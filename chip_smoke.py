@@ -17,9 +17,12 @@ Phases, each of which raises on failure:
    own device time, without the events' floor);
 4. bf16 slice: PaliGemma-3B at full width, bf16, random weights from a
    seed, through the port's continuous batcher (32 slots, 96 synthetic
-   224 px images fed through the normalisation kernel, a 60-id prompt, up
-   to 32 new tokens with per-image caps from [8, 32]); every kernel of the
-   path must have launched and no plain version may have run;
+   224 px images fed through the normalisation kernel straight into the
+   patch embedding's layout, a 60-id prompt, up to 32 new tokens with
+   per-image caps from [8, 32]); every kernel of the path must have
+   launched, no plain version may have run, and every decode step must
+   have written its KV rows inside B2's launch (B3's fused forms: as many
+   as B2's launches; no standalone B3 launch but the int8 prefill rows');
 5. bf16 reference: a depth-cut copy of the model (full widths, 2 vision and
    2 decoder layers) on the card against the same weights in fp32 on the
    CPU, through prefill and rotating-window decode steps;
@@ -67,15 +70,18 @@ REF_TOL_FP32 = 1e-3
 # the fp32 slice: fewer images and tokens (fp32 weights stream twice the
 # bytes of bf16's, and the mode is for correctness)
 FP32_IMAGES, FP32_NEW = 16, 8
-# the launch counters each slice must move (ops._lib.KERNELS)
+# the launch counters each slice must move (ops._lib.KERNELS); the second
+# entry is B2's form, the third B3's write inside it
 PATH_KERNELS = {
-    "bf16": ("flash_attention", "decode_attention", "kv_write", "normalize"),
-    "8bit": ("flash_attention", "decode_attention_int8", "kv_write_int8",
-             "normalize", "int8_matmul", "int8xint8_matmul"),
-    "4bit": ("flash_attention", "decode_attention", "kv_write", "normalize",
-             "int4_matmul"),
-    "fp32": ("flash_attention_fp32", "decode_attention_fp32", "kv_write",
-             "normalize_fp32"),
+    "bf16": ("flash_attention", "decode_attention", "kv_write_fused",
+             "normalize"),
+    "8bit": ("flash_attention", "decode_attention_int8",
+             "kv_write_int8_fused", "kv_write_int8", "normalize",
+             "int8_matmul", "int8xint8_matmul"),
+    "4bit": ("flash_attention", "decode_attention", "kv_write_fused",
+             "normalize", "int4_matmul"),
+    "fp32": ("flash_attention_fp32", "decode_attention_fp32",
+             "kv_write_fused", "normalize_fp32"),
 }
 
 
@@ -102,7 +108,11 @@ def kernel_phase(gpu):
                     f"{'' if r['library_ok'] else ', outside tol'})")
         dev = " ".join(
             f"{k} {'null' if r[k] is None else f'{r[k]:.4f}'}"
-            for k in ("device_ms", "library_device_ms"))
+            for k in ("device_ms", "library_device_ms")
+            + (("baseline_device_ms",) if r["baseline_device_ms"] is not None
+               else ()))
+        if r["exact_err"] is not None:
+            dev += f", vs the unfused kernels {r['exact_err']:.3e} (bitwise)"
         print(f"[kernel] {r['kernel']} {r['case']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {tol}) kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -153,7 +163,8 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW):
     def pixel_fn(idxs):
         u8 = torch.from_numpy(images[idxs]).to("cuda", non_blocking=True)
         return normalize_images(u8, recipe=model.recipe,
-                                compute_dtype=model.dtype)
+                                compute_dtype=model.dtype,
+                                patch_size=cfg.vision.patch_size)
 
     def batcher():
         return ContinuousBatcher(model.module, cfg, batch_size=SLOTS,
@@ -192,6 +203,16 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW):
                            f"({launches})")
     if any(plain.values()):
         raise RuntimeError(f"plain versions ran on the path: {plain}")
+    # the decode steps write only inside B2's launch: one fused write a B2
+    # launch, and standalone B3 only for the int8 prefill rows (one launch
+    # a layer an admission)
+    b2_form, fused_form = PATH_KERNELS[quantization][1:3]
+    prefill_rows = dec.layers * b.last_stats["admits"] \
+        if quantization == "8bit" else 0
+    if (launches[fused_form] != launches[b2_form] or launches["kv_write"]
+            or launches["kv_write_int8"] != prefill_rows):
+        raise RuntimeError(f"KV writes outside B2's launch: {launches} "
+                           f"(int8 prefill rows: {prefill_rows})")
     lat = np.asarray(b.last_latency_s) * 1e3
     print(f"{tag} {n_images} images, {len(toks)} tokens in {wall:.3f} s: "
           f"{n_images / wall:.3f} img/s, {len(toks) / wall:.1f} tok/s "
@@ -266,7 +287,7 @@ def reference_phase(torch, np, gpu, quantization):
                                     plen, steps, cache_dtypes, recipe, card))
         if bits == 4 and not _lib.launches["int4_matmul"]:
             raise RuntimeError("B7 never launched in the 4bit reference")
-        idle = [k for k in PATH_KERNELS["fp32"][:2] + ("normalize_fp32",)
+        idle = [k for k in PATH_KERNELS["fp32"]
                 if not _lib.launches[k]] if quantization == "fp32" else []
         if idle:
             raise RuntimeError(f"{idle} never launched in the fp32 reference")
@@ -295,7 +316,8 @@ def _compare(torch, gpu_mod, cpu_mod, cfg, u8, post, plen, steps,
                                   cache_dtypes[dev], dev)
             pl = torch.full((b,), plen, dtype=torch.int32, device=dev)
             px = normalize_images(u8.to(dev), recipe=recipe,
-                                  compute_dtype=dtype)
+                                  compute_dtype=dtype,
+                                  patch_size=cfg.vision.patch_size)
             ids = post.to(dev)
             runs[dev] = dict(cache=cache, pl=pl, logits=[mod.prefill(
                 px, ids[:, :0], ids, cache, pl).float().cpu()])
@@ -360,7 +382,7 @@ def main() -> int:
         forms = []
         for form in meta["forms"]:
             mine = [r for r in records if r["form"] == form]
-            main_case = next(r for r in mine if r["on_path"])
+            main_case = next((r for r in mine if r["on_path"]), mine[0])
             forms.append({
                 "form": form,
                 "source": FORM_SOURCES.get(form, meta["source"]),
@@ -372,11 +394,12 @@ def main() -> int:
                 "library_ms": main_case["library_ms"],
                 "device_ms": main_case["device_ms"],
                 "library_device_ms": main_case["library_device_ms"],
+                "baseline_device_ms": main_case["baseline_device_ms"],
                 "library": main_case["library_note"],
                 "case": main_case["case"]})
         main = forms[0]
         entry = {
-            "name": meta["name"], "route": "cuda", "source": meta["source"],
+            "name": meta["name"], "route": "cuda", "source": main["source"],
             "replaces": meta["replaces"],
             "launches": sum(f["launches"] for f in forms),
             "max_abs_err": max(f["max_abs_err"] for f in forms),

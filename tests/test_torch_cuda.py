@@ -219,7 +219,7 @@ def test_default_fp32_model_serves_a_prompt(card):
     torch.cuda.synchronize()
     assert all(o is not None and 0 < len(o) <= 4 for o in out)
     for k in ("flash_attention_fp32", "decode_attention_fp32",
-              "normalize_fp32", "kv_write"):
+              "normalize_fp32", "kv_write_fused"):
         assert _lib.launches[k] > 0, k
     assert sum(_lib.plain_calls.values()) == 0
 
@@ -245,3 +245,124 @@ def test_b6_and_b2_wrappers_raise_on_what_the_kernels_do_not_take(card):
         decode_attention(q, c8.bfloat16()[..., :30], c8.bfloat16()[..., :30])
     assert _lib.launches["int8xint8_matmul"] == 0
     assert _lib.launches["decode_attention"] == 0
+
+
+# B3's write inside B2's launch, each form, uniform and scatter, columns on
+# tile and split edges and outside the cache (names as kernel_checks builds
+# them), and B4 written straight into the patch embedding's layout
+FUSED_CASES = tuple(f"{tag}fused_{case}" for tag in ("", "int8_", "fp32_")
+                    for case in ("window_32slots", "window_32slots_cold",
+                                 "scatter_kv_len_32slots", "uniform_outside"))
+PATCH_CASES = ("patch14_u8_g4_224", "fp32_patch14_u8_g4_224")
+
+
+@pytest.mark.parametrize("case", FUSED_CASES)
+def test_fused_write_is_b3_then_b2_bitwise(all_cases, case):
+    """Output, caches and int8 scales bitwise those of B3's kernel followed
+    by B2's; within B2's tolerance of the plain versions."""
+    c = all_cases[f"B3 {case}"]
+    got, exact = c.kernel_fn(), c.exact_fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, exact)
+    _check(c)
+
+
+@pytest.mark.parametrize("case", PATCH_CASES)
+def test_patch_layout_normalize_is_bitwise(all_cases, case):
+    c = all_cases[f"B4 {case}"]
+    got, want = c.kernel_fn(), c.plain_fn()
+    torch.cuda.synchronize()
+    assert got.shape == (4, 256, 588) and torch.equal(got, want)
+
+
+def _depth_cut(card, quantization):
+    """PaliGemma-3B at full width with 2 decoder layers (1 vision layer),
+    random weights, and a 32-slot cache of 348 rows."""
+    import dataclasses
+
+    from vlm_tpu_torch.models.configs import paligemma_config
+    from vlm_tpu_torch.models.decoder import init_kv_cache
+    from vlm_tpu_torch.models.layers import init_random_
+    from vlm_tpu_torch.models.vlm import VLMModule
+    full = paligemma_config("3b")
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, layers=1),
+        decoder=dataclasses.replace(full.decoder, layers=2))
+    bits = 8 if quantization == "8bit" else 0
+    dtype = torch.float32 if quantization == "fp32" else torch.bfloat16
+    mod = init_random_(VLMModule(cfg, dtype=dtype, device=card,
+                                 quant_bits=bits), seed=0)
+    cache = init_kv_cache(cfg.decoder, 32, 348,
+                          "int8" if bits else dtype, card)
+    return mod, cfg, cache
+
+
+def _decode_step(mod, cache, card):
+    """One rotating-window decode step, as the batcher makes it."""
+    i32 = dict(dtype=torch.int32, device=card)
+    g = torch.Generator(device=card)
+    g.manual_seed(0)
+    tok = torch.randint(3, 1000, (32, 1), generator=g, device=card,
+                        dtype=torch.int32)
+    acol = torch.randint(0, 32, (32,), generator=g, device=card,
+                         dtype=torch.int32)
+    gcnt = torch.randint(1, 32, (32,), generator=g, device=card,
+                         dtype=torch.int32)
+    pos = torch.full((32,), 324, **i32)
+    return lambda: mod.decode_step(
+        tok, pos, cache, write_col=torch.tensor(323, **i32),
+        kv_window=(torch.tensor(316, **i32), 32, acol, gcnt))
+
+
+@pytest.mark.parametrize("quantization", ["bf16", "8bit", "fp32"])
+def test_decode_step_writes_only_inside_b2(card, quantization):
+    """A decode step launches no standalone B3: one fused write a layer,
+    beside B2's launch."""
+    from vlm_tpu_torch.ops import _lib
+    mod, cfg, cache = _depth_cut(card, quantization)
+    step = _decode_step(mod, cache, card)
+    _lib.reset_counts()
+    with torch.inference_mode():
+        logits = step()
+    torch.cuda.synchronize()
+    layers = cfg.decoder.layers
+    b2, fused = {"bf16": ("decode_attention", "kv_write_fused"),
+                 "8bit": ("decode_attention_int8", "kv_write_int8_fused"),
+                 "fp32": ("decode_attention_fp32", "kv_write_fused")
+                 }[quantization]
+    assert _lib.launches[b2] == layers and _lib.launches[fused] == layers
+    assert _lib.launches["kv_write"] == _lib.launches["kv_write_int8"] == 0
+    assert sum(_lib.plain_calls.values()) == 0
+    assert torch.isfinite(logits).all()
+
+
+def test_decode_step_makes_no_copy_of_the_write_column(card):
+    """The write column reaches B2 as one int32 offset: under the profiler,
+    one bf16 decode step of the depth-cut model launches no copy kernel
+    for the offsets (no aten copy of a [slots] tensor launches a kernel),
+    no standalone B3 kernel, and one B2 kernel a layer."""
+    from torch.profiler import ProfilerActivity, profile
+    mod, cfg, cache = _depth_cut(card, "bf16")
+    step = _decode_step(mod, cache, card)
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            step()
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")]
+    counts = {e.key: e.count for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")}
+    assert not [n for n in names if "kv_write" in n]
+    assert sum(c for n, c in counts.items()
+               if "decode_kernel" in n) == cfg.decoder.layers
+    offset_copies = [
+        e for e in prof.events()
+        if e.name in ("aten::copy_", "aten::clone", "aten::contiguous")
+        and e.input_shapes and e.input_shapes[0] == [32]
+        and (e.kernels or any(c.kernels for c in e.cpu_children))]
+    assert not offset_copies, [(e.name, e.input_shapes)
+                               for e in offset_copies]

@@ -30,6 +30,40 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// B3's int8 row quantization, shared by its kernel and by B2's fused write
+// so the two give the same bytes: one warp quantizes a bf16 row of D <= 256
+// values (lane holds d = lane + 32 i, loaded by `load_row_warp`) by
+// abs-max/127, the arithmetic of `quantize_activations` bit for bit:
+// scale = max(absmax, 1e-8) / 127 in fp32, each value x / scale by IEEE
+// division (no reciprocal, no fast math), rounded half to even (rintf),
+// clamped to +-127. Returns the scale; q[i] is defined for d < D.
+constexpr int kQuantMaxD = 256;
+constexpr int kQuantPerLane = kQuantMaxD / 32;
+
+__device__ __forceinline__ void load_row_warp(
+    const __nv_bfloat16* __restrict__ src, int D, int lane,
+    float (&vals)[kQuantPerLane]) {
+#pragma unroll
+  for (int i = 0; i < kQuantPerLane; ++i) {
+    const int d = lane + 32 * i;
+    vals[i] = d < D ? __bfloat162float(src[d]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ float quantize_row_warp(
+    const float (&vals)[kQuantPerLane], int8_t (&q)[kQuantPerLane]) {
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < kQuantPerLane; ++i) amax = fmaxf(amax, fabsf(vals[i]));
+  amax = warp_max(amax);
+  const float scale = fmaxf(amax, 1e-8f) / 127.0f;
+#pragma unroll
+  for (int i = 0; i < kQuantPerLane; ++i)
+    q[i] = static_cast<int8_t>(
+        fminf(fmaxf(rintf(__fdiv_rn(vals[i], scale)), -127.f), 127.f));
+  return scale;
+}
+
 // ---- tensor-core and async-copy building blocks (mma.sync, cp.async) ----
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
@@ -117,12 +151,15 @@ __device__ __forceinline__ void cp_async_small(void* smem, const void* gmem,
 // Rows [0, n) of an fp32 tile into shared memory at `pitch` floats a row:
 // row r from src + r * stride (elements) for r < valid, zero-filled (not
 // read) for the rest; the first D floats of each row, in copies of `width`
-// bytes (16, 8 or 4: what the row starts' alignment allows). Each thread
-// walks its copies by increments, without a division per copy.
+// bytes (16, 8 or 4: what the row starts' alignment allows). Row `skip`,
+// if it is below `valid`, is neither read nor written: its caller fills it
+// itself. Each thread walks its copies by increments, without a division
+// per copy.
 __device__ __forceinline__ void load_rows_f32(float* dst, int pitch,
                                               const float* src,
                                               int64_t stride, int n,
-                                              int valid, int D, int width) {
+                                              int valid, int D, int width,
+                                              int skip = -1) {
   const int per = width / 4;
   const int chunks = D / per;  // copies a row
   const int nt = blockDim.x;
@@ -132,7 +169,8 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int pitch,
     const bool ok = r < valid;
     const float* s = ok ? src + r * stride + c * per : src;
     float* d = dst + r * pitch + c * per;
-    if (width == 16) cp_async16(d, s, ok);
+    if (ok && r == skip) {
+    } else if (width == 16) cp_async16(d, s, ok);
     else if (width == 8) cp_async_small<8>(d, s, ok);
     else cp_async_small<4>(d, s, ok);
     r += r_step;

@@ -63,6 +63,32 @@
 // quantization "fp32") takes an fp32 cache with the same masks, splits and
 // merge at fp32 accuracy: each product as three TF32 products on the tensor
 // cores (see "fp32 form" below).
+//
+// The fused row write (B3 inside B2; every form). Replaces, on the decode
+// step, vlm_tpu/ops/kvcache.py `_write_kernel` (and, for an int8 cache,
+// the quantize step in front of it, vlm_tpu/models/decoder.py `_write_kv`)
+// followed by this kernel. Standalone, the write was all launch: a few KB
+// against a launch's microseconds, and a host enqueue in a loop whose wall
+// is many times its device time. Here the launch gives the step's new row
+// of every (slot, kv head), k_new / v_new [B, 1, KV, D], and its column
+// wstart[0] (uniform) or wstart[b] (scatter); a column outside [0, S)
+// writes nothing and changes nothing, as in B3. Other blocks of the launch
+// copy cache tiles while the row is written, so no block takes row wpos
+// from the cache in this launch:
+// - every block loads the column and the new rows first (the bf16 and int8
+//   forms; the fp32 form's 255 registers leave no room, it loads them
+//   after its first tile is issued);
+// - every block whose split holds wpos stages the new row (an int8 cache:
+//   quantized by vlm::quantize_row_warp, B3's arithmetic, values and
+//   scale) in shared memory while its first tile is in flight, leaves row
+//   wpos out of its tile copies, and puts the staged row into the tile
+//   after the tile lands and before the barrier that releases it to the
+//   products; the int8 score and probability scales of row wpos come from
+//   the staged scale;
+// - exactly one block per (slot, kv head) writes the row to the cache (and
+//   its scale): head group 0 of the split that holds wpos.
+// Masks, split plan and merge do not change, so the output and the caches
+// are bitwise those of B3's kernel followed by this kernel.
 #include "common.cuh"
 
 namespace {
@@ -79,22 +105,46 @@ enum Mode { kLen = 0, kValid = 1, kWindow = 2 };
 
 struct Params {
   const __nv_bfloat16* q;
-  const void* k;
-  const void* v;
+  void* k;  // written only at the fused write's row
+  void* v;
   __nv_bfloat16* o;
-  const float* k_scale;
-  const float* v_scale;
+  float* k_scale;
+  float* v_scale;
   const int* kv_len;
   const uint8_t* kv_valid;
   const int* pcol;
   const int* acol;
   const int* gcnt;
+  const __nv_bfloat16* k_new;  // the fused write (nullptr: none): [B, 1,
+  const __nv_bfloat16* v_new;  // KV, D] bf16 rows, and their column
+  const int* wstart;           // wstart[0] (uniform) or wstart[b]
   float* ws;      // splits > 1: [tiles, splits, kHeads * (2 + dp)]
   int* counters;  // splits > 1: one zeroed int per (slot, kv head, group)
-  int H, KV, S, D, window, mode, rows_per_split;
+  int H, KV, S, D, window, mode, rows_per_split, uniform;
   int64_t q_sb, q_sh, c_sb, c_ss, o_sb, o_sh;
   float scale;
 };
+
+// The fused write's column for slot b (-1 without a fused write), and the
+// row a block takes from it: the column if the block's split, starting at
+// s_begin, holds it, else -1
+__device__ __forceinline__ int fused_col(const void* k_new, const int* wstart,
+                                         int uniform, int b) {
+  return k_new ? (uniform ? wstart[0] : wstart[b]) : -1;
+}
+__device__ __forceinline__ int fused_row(int col, int s_begin,
+                                         int rows_per_split, int S) {
+  return col >= s_begin && col < min(S, s_begin + rows_per_split) ? col : -1;
+}
+
+// Copy `words` 4-byte words from shared `src` to shared `dst` across the
+// block (the staged new row into its tile)
+__device__ __forceinline__ void copy_words(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int words, int nthreads) {
+  for (int w = threadIdx.x; w < words; w += nthreads)
+    reinterpret_cast<uint32_t*>(dst)[w] = reinterpret_cast<const uint32_t*>(src)[w];
+}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p,
                                             bool trans) {
@@ -301,6 +351,24 @@ decode_kernel(const Params p) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  // the fused write's column and new rows, loaded first by every block:
+  // what they feed waits on no other load. bf16: thread t holds word t of
+  // the K and of the V row; int8: warp 0 the K row, warp 1 the V row, as
+  // vlm::quantize_row_warp takes them
+  const int wcol = fused_col(p.k_new, p.wstart, p.uniform, b);
+  const int64_t new_off = (static_cast<int64_t>(b) * p.KV + kvh) * p.D;
+  uint32_t new_words[2] = {0u, 0u};
+  float new_vals[vlm::kQuantPerLane];
+  if (p.k_new) {
+    if constexpr (kInt8) {
+      if (warp < 2)
+        vlm::load_row_warp((warp ? p.v_new : p.k_new) + new_off, p.D, lane,
+                           new_vals);
+    } else if (threadIdx.x < p.D / 2) {
+      new_words[0] = __ldg(reinterpret_cast<const uint32_t*>(p.k_new + new_off) + threadIdx.x);
+      new_words[1] = __ldg(reinterpret_cast<const uint32_t*>(p.v_new + new_off) + threadIdx.x);
+    }
+  }
   const int dp = (p.D + 15) & ~15;
   const int ndt = dp / 16;
   const int dbytes = p.D * static_cast<int>(sizeof(T));
@@ -323,6 +391,10 @@ decode_kernel(const Params p) {
   const int s_begin = blockIdx.z * p.rows_per_split;
   const int s_end = min(limit, s_begin + p.rows_per_split);
   const int nt = s_end > s_begin ? (s_end - s_begin + kTile - 1) / kTile : 0;
+  // the fused write's row, if this split holds it (else -1), and whether
+  // this block is the one that writes it to the cache
+  const int wpos = fused_row(wcol, s_begin, p.rows_per_split, p.S);
+  const bool writer = wpos >= 0 && blockIdx.x % groups == 0;
 
   // zero the pad columns [D, dp) of every staged row once: the copies
   // never write them, and 0 x garbage could be NaN in the products
@@ -341,7 +413,8 @@ decode_kernel(const Params p) {
                      reinterpret_cast<uintptr_t>(vbase) % 16 == 0;
 
   // rows [r0, r0 + 64) of K and V into buffer j; rows at or past s_end are
-  // zero-filled without being read. Each thread walks its chunks by
+  // zero-filled without being read, and the fused write's row is left out
+  // (staged from k_new / v_new instead). Each thread walks its chunks by
   // increments: a division per chunk cost more than the copies.
   const int width = vec16 ? 16 : 4;
   const int chunks = dbytes / width;  // a row's copies
@@ -357,7 +430,8 @@ decode_kernel(const Params p) {
       while (r < kTile) {
         const bool ok = r0 + r < s_end;
         const unsigned char* src = ok ? base + (r0 + r) * row_bytes + c * width : base;
-        if (vec16) vlm::cp_async16(dst + r * pitch + c * 16, src, ok);
+        if (ok && r0 + r == wpos) {
+        } else if (vec16) vlm::cp_async16(dst + r * pitch + c * 16, src, ok);
         else vlm::cp_async_small<4>(dst + r * pitch + c * 4, src, ok);
         r += r_step;
         c += c_step;
@@ -408,6 +482,45 @@ decode_kernel(const Params p) {
       *reinterpret_cast<uint32_t*>(q_sm + h * qpitch + 4 * w) = x;
     }
   }
+  // the fused write: the new K and V rows staged after Q (rbytes each, then
+  // the int8 form's two scales), written to the cache by the writer block
+  const int rbytes = (dbytes + 15) & ~15;
+  unsigned char* new_sm = q_sm + kHeads * qpitch;
+  const float* new_scale = reinterpret_cast<const float*>(new_sm + 2 * rbytes);
+  if (wpos >= 0) {
+    const int64_t off = b * p.c_sb + static_cast<int64_t>(wpos) * p.c_ss +
+                        static_cast<int64_t>(kvh) * p.D;
+    if constexpr (kInt8) {
+      // warp 0 quantizes K, warp 1 V
+      if (warp < 2) {
+        int8_t qv[vlm::kQuantPerLane];
+        const float sc = vlm::quantize_row_warp(new_vals, qv);
+        int8_t* cache = static_cast<int8_t*>(warp ? p.v : p.k) + off;
+        unsigned char* row = new_sm + warp * rbytes;
+#pragma unroll
+        for (int i = 0; i < vlm::kQuantPerLane; ++i) {
+          const int d = lane + 32 * i;
+          if (d < p.D) {
+            row[d] = static_cast<unsigned char>(qv[i]);
+            if (writer) cache[d] = qv[i];
+          }
+        }
+        if (lane == 0) {
+          reinterpret_cast<float*>(new_sm + 2 * rbytes)[warp] = sc;
+          if (writer)
+            (warp ? p.v_scale : p.k_scale)[(static_cast<int64_t>(b) * p.S + wpos) * p.KV + kvh] = sc;
+        }
+      }
+    } else if (threadIdx.x < p.D / 2) {  // bf16 pairs a row
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        reinterpret_cast<uint32_t*>(new_sm + which * rbytes)[threadIdx.x] = new_words[which];
+        if (writer)
+          reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(which ? p.v : p.k) + off)[threadIdx.x] =
+              new_words[which];
+      }
+    }
+  }
   __syncthreads();
   // Q^T as the B operand: lane (g, t) holds head h0 + g, dims 2t, 2t + 1
   // (b0) and 2t + 8, 2t + 9 (b1) of each 16-wide slice, times D^-1/2
@@ -431,6 +544,15 @@ decode_kernel(const Params p) {
       vlm::cp_async_wait<1>();
     } else {
       vlm::cp_async_wait<0>();
+    }
+    {  // the fused write's row into the tile that holds it
+      const int r0 = s_begin + i * kTile;
+      if (wpos >= r0 && wpos < min(r0 + kTile, s_end)) {
+        const int words = dbytes / 4;
+        unsigned char* row = smem + (i & 1) * 2 * tile_bytes + (wpos - r0) * pitch;
+        copy_words(row, new_sm, words, kThreads);
+        copy_words(row + tile_bytes, new_sm + rbytes, words, kThreads);
+      }
     }
     __syncthreads();  // tile i landed for every warp
     const unsigned char* kt = smem + (i & 1) * 2 * tile_bytes;
@@ -464,8 +586,10 @@ decode_kernel(const Params p) {
     const int r_hi = r_lo + 8;
     const bool lv0 = live(r_lo), lv1 = live(r_hi);
     if constexpr (kInt8) {
-      const float k0 = lv0 ? p.k_scale[(static_cast<int64_t>(b) * p.S + r_lo) * p.KV + kvh] : 0.f;
-      const float k1 = lv1 ? p.k_scale[(static_cast<int64_t>(b) * p.S + r_hi) * p.KV + kvh] : 0.f;
+      const float k0 = !lv0 ? 0.f : r_lo == wpos ? new_scale[0]
+                     : p.k_scale[(static_cast<int64_t>(b) * p.S + r_lo) * p.KV + kvh];
+      const float k1 = !lv1 ? 0.f : r_hi == wpos ? new_scale[0]
+                     : p.k_scale[(static_cast<int64_t>(b) * p.S + r_hi) * p.KV + kvh];
       s[0] *= k0;
       s[1] *= k0;
       s[2] *= k1;
@@ -497,8 +621,10 @@ decode_kernel(const Params p) {
     m[0] = mn0;
     m[1] = mn1;
     if constexpr (kInt8) {
-      const float v0 = lv0 ? p.v_scale[(static_cast<int64_t>(b) * p.S + r_lo) * p.KV + kvh] : 0.f;
-      const float v1 = lv1 ? p.v_scale[(static_cast<int64_t>(b) * p.S + r_hi) * p.KV + kvh] : 0.f;
+      const float v0 = !lv0 ? 0.f : r_lo == wpos ? new_scale[1]
+                     : p.v_scale[(static_cast<int64_t>(b) * p.S + r_lo) * p.KV + kvh];
+      const float v1 = !lv1 ? 0.f : r_hi == wpos ? new_scale[1]
+                     : p.v_scale[(static_cast<int64_t>(b) * p.S + r_hi) * p.KV + kvh];
       p0 *= v0;
       p1 *= v0;
       p2 *= v1;
@@ -543,8 +669,10 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   const int dp = (p.D + 15) & ~15;
   const int pitch = dp * static_cast<int>(sizeof(T)) + 16;
   const int bufs = min(2, p.rows_per_split / kTile);
+  // the ring, then Q, then the fused write's staged rows and scales
+  const size_t rbytes = (p.D * sizeof(T) + 15) & ~static_cast<size_t>(15);
   const size_t tiles = static_cast<size_t>(bufs) * 2 * kTile * pitch +
-                       kHeads * (2 * dp + 16);  // the ring, then Q
+                       kHeads * (2 * dp + 16) + (p.k_new ? 2 * rbytes + 16 : 0);
   const size_t red = sizeof(float) * (kWarps * kHeads * (2 + dp) + 2 * kHeads);
   // the last block's merge keeps 2 x 8 floats a split (kMaxSplits) and 8
   const size_t merge = sizeof(float) * (2 * kMaxSplits + 1) * kHeads;
@@ -593,17 +721,20 @@ __host__ __device__ inline int pitch32(int dp) { return dp + 8; }
 
 struct Params32 {
   const float* q;
-  const float* k;
-  const float* v;
+  float* k;  // written only at the fused write's row
+  float* v;
   float* o;
   const int* kv_len;
   const uint8_t* kv_valid;
   const int* pcol;
   const int* acol;
   const int* gcnt;
+  const float* k_new;  // the fused write, as in Params
+  const float* v_new;
+  const int* wstart;
   float* ws;
   int* counters;
-  int H, KV, S, D, window, mode, rows_per_split;
+  int H, KV, S, D, window, mode, rows_per_split, uniform;
   int64_t q_sb, q_sh, c_sb, c_ss, o_sb, o_sh;
   float scale;
 };
@@ -640,6 +771,14 @@ decode_fp32_kernel(const Params32 p) {
   const int s_begin = blockIdx.z * p.rows_per_split;
   const int s_end = min(limit, s_begin + p.rows_per_split);
   const int nt = s_end > s_begin ? (s_end - s_begin + kTile32 - 1) / kTile32 : 0;
+  // the fused write's row (else -1). The loop reads it back from shared
+  // memory: at D = 256 the kernel sits at 255 registers, and one more live
+  // across the loop spills
+  const int wpos = fused_row(fused_col(p.k_new, p.wstart, p.uniform, b),
+                             s_begin, p.rows_per_split, p.S);
+  __shared__ int wpos_sm;
+  wpos_sm = wpos;  // every thread stores the same value
+  float* new_sm = vs + kTile32 * pitch;  // [2][dp]: the staged K and V rows
 
   // zero the pad columns [D, dp) of both slots once
   const int pad = dp - p.D;
@@ -650,10 +789,13 @@ decode_fp32_kernel(const Params32 p) {
   const float* vbase = p.v + b * p.c_sb + static_cast<int64_t>(kvh) * p.D;
   const int width = min(vlm::copy_width_f32(p.k, p.D, p.c_sb, p.c_ss, p.D),
                         vlm::copy_width_f32(p.v, p.D, p.c_sb, p.c_ss, p.D));
+  // a tile's rows, the fused write's row left out (staged instead)
   auto load = [&](float* dst, const float* base, int i) {
     const int r0 = s_begin + i * kTile32;
+    const int w = wpos_sm;
     vlm::load_rows_f32(dst, pitch, base + static_cast<int64_t>(r0) * p.c_ss,
-                       p.c_ss, kTile32, s_end - r0, p.D, width);
+                       p.c_ss, kTile32, s_end - r0, p.D, width,
+                       w >= 0 ? w - r0 : -1);
   };
   if (nt > 0) {
     load(ks, kbase, 0);
@@ -661,6 +803,31 @@ decode_fp32_kernel(const Params32 p) {
     load(vs, vbase, 0);
     vlm::cp_async_commit();
   }
+  // the fused write: stage the new K and V rows, and write them to the
+  // cache in the writer block, while tile 0 is in flight
+  if (wpos >= 0) {
+    const bool writer = blockIdx.x % groups == 0;
+    const int64_t off = b * p.c_sb + static_cast<int64_t>(wpos) * p.c_ss +
+                        static_cast<int64_t>(kvh) * p.D;
+    const int64_t src_off = (static_cast<int64_t>(b) * p.KV + kvh) * p.D;
+    for (int i = threadIdx.x; i < 2 * p.D; i += kThreads32) {
+      const int which = i >= p.D;
+      const int d = i - which * p.D;
+      const float x = __ldg((which ? p.v_new : p.k_new) + src_off + d);
+      new_sm[which * dp + d] = x;
+      if (writer) (which ? p.v : p.k)[off + d] = x;
+    }
+    __syncthreads();  // staged for every thread (wpos is the block's own)
+  }
+  // the staged row into the tile that holds it (K: which 0, V: 1), after
+  // the tile landed for this thread and before the barrier that releases it
+  auto put_row = [&](float* dst, int which, int i) {
+    const int r0 = s_begin + i * kTile32;
+    const int w = wpos_sm;
+    if (w >= r0 && w < min(r0 + kTile32, s_end))
+      for (int d = threadIdx.x; d < p.D; d += kThreads32)
+        dst[(w - r0) * pitch + d] = vs[kTile32 * pitch + which * dp + d];
+  };
 
   auto live = [&](int r) {
     if (r >= s_end) return false;
@@ -695,6 +862,7 @@ decode_fp32_kernel(const Params32 p) {
 
   for (int i = 0; i < nt; ++i) {
     vlm::cp_async_wait<1>();  // K of tile i (V may still be in flight)
+    put_row(ks, 0, i);
     __syncthreads();
 
     // scores S^T [16 rows, 8 heads]: lane holds rows g, g + 8 x heads 2t,
@@ -782,6 +950,7 @@ decode_fp32_kernel(const Params32 p) {
       }
 
     vlm::cp_async_wait<1>();  // V of tile i
+    put_row(vs, 1, i);
     __syncthreads();
 #pragma unroll
     for (int mt = 0; mt < NDT; ++mt) {
@@ -829,7 +998,9 @@ decode_fp32_kernel(const Params32 p) {
 template <int NDT>
 int launch32(const Params32& p, dim3 grid, cudaStream_t stream) {
   const size_t dp = 16 * NDT;
-  const size_t tiles = sizeof(float) * 2 * kTile32 * pitch32(dp);
+  // the K and V slots, then the fused write's staged rows
+  const size_t tiles = sizeof(float) * (2 * kTile32 * pitch32(dp) +
+                                        (p.k_new ? 2 * dp : 0));
   // the block merge's arrays, at the workspace's dp (D rounded to 16)
   const size_t red = sizeof(float) *
       (kWarps32 * kHeads * (2 + ((p.D + 15) & ~15)) + 2 * kHeads);
@@ -854,18 +1025,28 @@ int launch32(const Params32& p, dim3 grid, cudaStream_t stream) {
 // than one split, ws holds KV * ceil(G / 8) * B * splits * 8 * (2 + dp)
 // floats (dp: D rounded up to 16) and counters one zeroed int per
 // (slot, kv head, group of 8 heads), left zeroed by the kernel.
+// k_new != nullptr: the fused write of k_new / v_new [B, 1, KV, D] bf16
+// (contiguous, 4-byte aligned) at column wstart[0] (uniform) or wstart[b]
+// into the caches (values and scales for an int8 cache) before attending.
 extern "C" int vlm_decode_attention(
-    const void* q, const void* k, const void* v, void* o, const void* k_scale,
-    const void* v_scale, const int* kv_len, const void* kv_valid,
-    const int* pcol, const int* acol, const int* gcnt, void* ws,
-    void* counters, int B, int H, int KV, int S, int D, int window, int mode,
-    int rows_per_split, int64_t q_sb, int64_t q_sh, int64_t c_sb,
-    int64_t c_ss, int64_t o_sb, int64_t o_sh, float scale, void* stream) {
+    const void* q, void* k, void* v, void* o, void* k_scale, void* v_scale,
+    const int* kv_len, const void* kv_valid, const int* pcol, const int* acol,
+    const int* gcnt, const void* k_new, const void* v_new, const int* wstart,
+    void* ws, void* counters, int B, int H, int KV, int S, int D, int window,
+    int mode, int rows_per_split, int uniform, int64_t q_sb, int64_t q_sh,
+    int64_t c_sb, int64_t c_ss, int64_t o_sb, int64_t o_sh, float scale,
+    void* stream) {
   const bool int8 = k_scale != nullptr;
   if (D <= 0 || D > kMaxD || D % (int8 ? 4 : 2) != 0 || KV <= 0 ||
       H % KV != 0 || H / KV > 32 || (mode == kWindow && window <= 0) ||
       int8 != (v_scale != nullptr) || rows_per_split <= 0 ||
       rows_per_split % kTile != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (k_new && (!v_new || !wstart ||
+                (reinterpret_cast<uintptr_t>(k_new) |
+                 reinterpret_cast<uintptr_t>(v_new) |
+                 reinterpret_cast<uintptr_t>(k) |
+                 reinterpret_cast<uintptr_t>(v)) % 4))
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(q) % 4 || q_sb % 2 || q_sh % 2)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -873,12 +1054,14 @@ extern "C" int vlm_decode_attention(
       (!ws || !counters || (S + rows_per_split - 1) / rows_per_split > kMaxSplits))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{static_cast<const __nv_bfloat16*>(q), k, v,
-           static_cast<__nv_bfloat16*>(o), static_cast<const float*>(k_scale),
-           static_cast<const float*>(v_scale), kv_len,
+           static_cast<__nv_bfloat16*>(o), static_cast<float*>(k_scale),
+           static_cast<float*>(v_scale), kv_len,
            static_cast<const uint8_t*>(kv_valid), pcol, acol, gcnt,
+           static_cast<const __nv_bfloat16*>(k_new),
+           static_cast<const __nv_bfloat16*>(v_new), wstart,
            static_cast<float*>(ws), static_cast<int*>(counters), H, KV, S, D,
-           window, mode, rows_per_split, q_sb, q_sh, c_sb, c_ss, o_sb, o_sh,
-           scale};
+           window, mode, rows_per_split, uniform, q_sb, q_sh, c_sb, c_ss,
+           o_sb, o_sh, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return int8 ? launch<int8_t>(p, B, st) : launch<__nv_bfloat16>(p, B, st);
 }
@@ -886,26 +1069,29 @@ extern "C" int vlm_decode_attention(
 // The fp32 form: q [B, H, 1, D] and the cache [B, S, KV, D] in fp32, the
 // masks, splits, workspace and counters of vlm_decode_attention, but the
 // splits are whole 32-row tiles (rows_per_split a multiple of 32); strides
-// in elements.
+// in elements. The fused write as in vlm_decode_attention, with fp32 rows.
 extern "C" int vlm_decode_attention_fp32(
-    const void* q, const void* k, const void* v, void* o, const int* kv_len,
+    const void* q, void* k, void* v, void* o, const int* kv_len,
     const void* kv_valid, const int* pcol, const int* acol, const int* gcnt,
-    void* ws, void* counters, int B, int H, int KV, int S, int D, int window,
-    int mode, int rows_per_split, int64_t q_sb, int64_t q_sh, int64_t c_sb,
+    const void* k_new, const void* v_new, const int* wstart, void* ws,
+    void* counters, int B, int H, int KV, int S, int D, int window, int mode,
+    int rows_per_split, int uniform, int64_t q_sb, int64_t q_sh, int64_t c_sb,
     int64_t c_ss, int64_t o_sb, int64_t o_sh, float scale, void* stream) {
   if (B <= 0 || D <= 0 || D > kMaxD || D % 2 || KV <= 0 || H % KV != 0 ||
       H / KV > 32 || (mode == kWindow && window <= 0) || rows_per_split <= 0 ||
-      rows_per_split % kTile32 != 0)
+      rows_per_split % kTile32 != 0 || (k_new && (!v_new || !wstart)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows_per_split < S &&
       (!ws || !counters || (S + rows_per_split - 1) / rows_per_split > kMaxSplits))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Params32 p{static_cast<const float*>(q), static_cast<const float*>(k),
-                   static_cast<const float*>(v), static_cast<float*>(o), kv_len,
+  const Params32 p{static_cast<const float*>(q), static_cast<float*>(k),
+                   static_cast<float*>(v), static_cast<float*>(o), kv_len,
                    static_cast<const uint8_t*>(kv_valid), pcol, acol, gcnt,
+                   static_cast<const float*>(k_new),
+                   static_cast<const float*>(v_new), wstart,
                    static_cast<float*>(ws), static_cast<int*>(counters), H,
-                   KV, S, D, window, mode, rows_per_split, q_sb, q_sh, c_sb,
-                   c_ss, o_sb, o_sh, scale};
+                   KV, S, D, window, mode, rows_per_split, uniform, q_sb, q_sh,
+                   c_sb, c_ss, o_sb, o_sh, scale};
   const int groups = (H / KV + kHeads - 1) / kHeads;
   const int splits = (max(S, 1) + rows_per_split - 1) / rows_per_split;
   const dim3 grid(KV * groups, B, splits);

@@ -20,11 +20,15 @@
 // per slot land at columns start .. start + S - 1, so the same launch
 // serves the decode step (S = 1, uniform or per-slot column) and the
 // prefill (S = prompt length at column 0): admission quantizes on the card
-// too. One warp per (slot, row, kv head) row, D <= 256 values in registers.
-// The arithmetic is `quantize_activations`' bit for bit: the scale is
-// max(absmax, 1e-8) / 127 in fp32, each value x / scale by IEEE division
-// (no reciprocal, no fast math), rounded half to even (rintf), clamped to
-// +-127.
+// too. One warp per (slot, row, kv head) row, D <= 256 values in registers,
+// through `vlm::load_row_warp` and `vlm::quantize_row_warp` (common.cuh),
+// whose arithmetic is
+// `quantize_activations`' bit for bit.
+//
+// The decode step's write no longer launches this file's kernels: B2
+// (decode_attention.cu) takes the step's new rows and writes them in its
+// own launch (the fused forms). These kernels serve the int8 prefill rows
+// and any write that no B2 launch follows.
 #include "common.cuh"
 
 namespace {
@@ -53,8 +57,7 @@ __global__ void kv_write_kernel(char* __restrict__ k_cache,
   }
 }
 
-constexpr int kMaxD = 256;
-constexpr int kPerLane = kMaxD / 32;
+constexpr int kMaxD = vlm::kQuantMaxD;
 
 // grid (B * S, 2): block (slot b, new row s) of K (y = 0) or V (y = 1)
 __global__ void kv_write_int8_kernel(int8_t* __restrict__ k_q,
@@ -77,22 +80,14 @@ __global__ void kv_write_int8_kernel(int8_t* __restrict__ k_q,
   float* ds = (is_v ? v_s : k_s) + cache_row * KV;
   const int lane = threadIdx.x % 32;
   for (int h = threadIdx.x / 32; h < KV; h += blockDim.x / 32) {
-    float vals[kPerLane];
-    float amax = 0.f;
+    float vals[vlm::kQuantPerLane];
+    int8_t q[vlm::kQuantPerLane];
+    vlm::load_row_warp(src + h * D, D, lane, vals);
+    const float scale = vlm::quantize_row_warp(vals, q);
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
+    for (int i = 0; i < kMaxD / 32; ++i) {
       const int d = lane + 32 * i;
-      vals[i] = d < D ? __bfloat162float(src[h * D + d]) : 0.f;
-      amax = fmaxf(amax, fabsf(vals[i]));
-    }
-    amax = vlm::warp_max(amax);
-    const float scale = fmaxf(amax, 1e-8f) / 127.0f;
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D)
-        dq[h * D + d] = static_cast<int8_t>(
-            fminf(fmaxf(rintf(__fdiv_rn(vals[i], scale)), -127.f), 127.f));
+      if (d < D) dq[h * D + d] = q[i];
     }
     if (lane == 0) ds[h] = scale;
   }

@@ -159,7 +159,8 @@ class VLMModel:
             batch = torch.from_numpy(load_batch([paths[i] for i in idxs],
                                                 self.recipe))
             return normalize_images(batch.to(self.device), recipe=self.recipe,
-                                    compute_dtype=self.dtype)
+                                    compute_dtype=self.dtype,
+                                    patch_size=self.cfg.vision.patch_size)
 
         generator = None
         if temperature > 0:

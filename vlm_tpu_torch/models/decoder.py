@@ -98,7 +98,8 @@ def write_kv(ck, cv, k: torch.Tensor, v: torch.Tensor,
     The prefill's rows (``start`` an int, every slot from the same column)
     are a slice copy. An int8 cache (:class:`QuantizedKV`) takes every
     write, the prefill's too, through B3's int8 form, which quantizes the
-    rows and writes values and scales."""
+    rows and writes values and scales. The decode step does not come here:
+    its write runs inside B2's launch (:class:`DecoderAttention`)."""
     s = k.shape[1]
     if s > 1 and not (uniform and isinstance(start, int)):
         raise ValueError("a multi-row KV write needs one shared int column")
@@ -140,12 +141,10 @@ class DecoderAttention(nn.Module):
         cos, sin = rope
         q = apply_rope(q, positions, cos, sin)
         k = apply_rope(k, positions, cos, sin)
-        if cache_kv is not None:
-            write_kv(cache_kv[0], cache_kv[1], k, v, write_start,
-                     uniform=uniform_write)
         if cache_kv is not None and s == 1:
-            # decode step: attend over the cache in its own layout; an int8
-            # cache enters raw, its scales ride the scores
+            # decode step: one B2 launch writes the new row (B3 fused in)
+            # and attends over the cache in its own layout; an int8 cache
+            # enters raw, its scales ride the scores
             ck, cv = cache_kv
             scales = {}
             if isinstance(ck, QuantizedKV):
@@ -153,9 +152,14 @@ class DecoderAttention(nn.Module):
                 scales = dict(k_scale=ks, v_scale=vs)
             o = decode_attention(q.transpose(1, 2), ck, cv, kv_len=kv_len,
                                  kv_valid=kv_valid, kv_window=kv_window,
-                                 **scales)
+                                 k_new=k.contiguous(), v_new=v.contiguous(),
+                                 write_start=write_start,
+                                 uniform=uniform_write, **scales)
         else:
             # prefill or full forward: self-attention over the new tokens
+            if cache_kv is not None:
+                write_kv(cache_kv[0], cache_kv[1], k, v, write_start,
+                         uniform=uniform_write)
             o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal,
                                 kv_len=kv_len, prefix_len=prefix_len)

@@ -1,7 +1,9 @@
 """ViT vision encoder (``vlm_tpu/models/vit.py``): SigLIP, CLIP and EVA
 variants by :class:`ViTConfig`.
 
-Pixels come in NHWC, as in JAX. The patch embedding is an unfold plus one
+Pixels come in NHWC, as in JAX, or already as patch vectors
+``[B, N, P*P*3]`` in the conv's HWIO order (what B4 writes with
+``patch_size``). The patch embedding is an unfold of NHWC pixels plus one
 matmul (the weight holds the HWIO conv kernel flattened to
 ``[hidden, P*P*3]``); attention runs through B1. ``quant_bits`` 8 or 4
 makes the block Dense layers (q/k/v/out, fc1/fc2) int8 or grouped int4, as
@@ -17,6 +19,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import flash_attention
+from ..ops.preprocess import unfold_patches
 from .configs import ViTConfig
 from .layers import Dense, LayerNorm, activation
 
@@ -60,7 +63,8 @@ class ViTBlock(nn.Module):
 
 
 class ViTEncoder(nn.Module):
-    """``forward(pixels [B,H,W,3])`` returns a dict with
+    """``forward(pixels [B,H,W,3] or patches [B,N,P*P*3])`` returns a dict
+    with
     ``last_hidden_state`` [B,S,D] (per-config post-norm semantics),
     ``hidden_states`` (embeddings first, or None) and ``pooled`` [B,D]
     (CLS after the final LN; None without a CLS token)."""
@@ -95,12 +99,15 @@ class ViTEncoder(nn.Module):
     def forward(self, pixels: torch.Tensor,
                 keep_hidden_states: bool = True) -> Dict[str, Any]:
         cfg = self.cfg
-        b, hh, ww, c = pixels.shape
+        b = pixels.shape[0]
         p = cfg.patch_size
-        # unfold NHWC into [B, N, (ph, pw, c)] patches: the conv's HWIO order
-        patches = pixels.to(self.dtype).reshape(
-            b, hh // p, p, ww // p, p, c).permute(0, 1, 3, 2, 4, 5).reshape(
-            b, (hh // p) * (ww // p), p * p * c)
+        if pixels.dim() == 3:
+            if pixels.shape[-1] != p * p * 3:
+                raise ValueError(f"patch vectors of {p * p * 3} values "
+                                 f"expected, got {tuple(pixels.shape)}")
+            patches = pixels.to(self.dtype)
+        else:
+            patches = unfold_patches(pixels.to(self.dtype), p)
         x = self.patch_embed(patches)
         if self.cls_token is not None:
             x = torch.cat([self.cls_token.expand(b, 1, cfg.hidden), x], dim=1)

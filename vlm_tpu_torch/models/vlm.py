@@ -40,7 +40,8 @@ class VLMModule(nn.Module):
 
     # ---------------- vision ----------------
     def encode_images(self, pixels: torch.Tensor) -> torch.Tensor:
-        """[B,H,W,3] normalized pixels -> [B, T_img, decoder_hidden]."""
+        """[B,H,W,3] normalized pixels, or their [B, N, P*P*3] patch
+        vectors -> [B, T_img, decoder_hidden]."""
         cfg = self.cfg
         out = self.vision(pixels,
                           keep_hidden_states=cfg.vision_feature_layer != -1)
@@ -105,14 +106,15 @@ class VLMModule(nn.Module):
         """One token per sequence: ``token_ids`` [B,1]; ``seq_len`` [B] is
         the new token's position. Returns logits [B, V].
 
-        ``write_col`` (a 0-d tensor) with ``kv_valid`` [B, L] or
+        ``write_col`` (a 0-d int32 tensor) with ``kv_valid`` [B, L] or
         ``kv_window`` ``(pcol, W, acol, gcnt)``: the continuous batcher's
-        rotating window. Every slot writes its row at the same column; the
-        mask marks each slot's live rows; RoPE positions still come from
-        ``seq_len``."""
+        rotating window. Every slot writes its row at the same column,
+        passed on as one offset (an expanded view would cost a copy kernel
+        a layer to make contiguous); the mask marks each slot's live rows;
+        RoPE positions still come from ``seq_len``."""
         positions = seq_len[:, None]
         if write_col is not None:
-            write_start = write_col.reshape(1).expand(seq_len.shape[0])
+            write_start = write_col.reshape(1)
         else:
             write_start = seq_len
         masked = kv_valid is not None or kv_window is not None

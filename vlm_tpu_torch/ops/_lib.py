@@ -37,13 +37,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # one count per kernel form: B1, B2 and B4 each have an fp32 form, B2 and
-# B3 an int8 form
+# B3 an int8 form; B3's write inside B2's launch (the decode step's) counts
+# under B3's fused forms, once per launch, beside B2's own count
 KERNELS = ("flash_attention", "flash_attention_fp32", "decode_attention",
            "decode_attention_int8", "decode_attention_fp32", "kv_write",
-           "kv_write_int8", "normalize", "normalize_fp32", "int8_matmul",
-           "int8xint8_matmul", "int4_matmul")
+           "kv_write_int8", "kv_write_fused", "kv_write_int8_fused",
+           "normalize", "normalize_fp32", "int8_matmul", "int8xint8_matmul",
+           "int4_matmul")
 launches = {name: 0 for name in KERNELS}
-plain_calls = {name: 0 for name in KERNELS}
+# a fused form has no plain version of its own: on the CPU its work is B3's
+# plain write and B2's plain attention, each counted under its own form
+plain_calls = {name: 0 for name in KERNELS if not name.endswith("_fused")}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -53,11 +57,11 @@ _SIGNATURES = {
     "vlm_flash_attention": [_P] * 6 + [_I] * 10 + [_L] * 12 + [_F, _I, _P],
     "vlm_flash_attention_fp32": [_P] * 6 + [_I] * 12 + [_L] * 12 + [_F, _I,
                                                                      _P],
-    "vlm_decode_attention": [_P] * 13 + [_I] * 8 + [_L] * 6 + [_F, _P],
-    "vlm_decode_attention_fp32": [_P] * 11 + [_I] * 8 + [_L] * 6 + [_F, _P],
+    "vlm_decode_attention": [_P] * 16 + [_I] * 9 + [_L] * 6 + [_F, _P],
+    "vlm_decode_attention_fp32": [_P] * 14 + [_I] * 9 + [_L] * 6 + [_F, _P],
     "vlm_kv_write": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],
     "vlm_kv_write_int8": [_P] * 7 + [_I] * 6 + [_P],
-    "vlm_normalize": [_P, _P, _L, _P, _P, _I, _P],
+    "vlm_normalize": [_P, _P] + [_I] * 5 + [_P, _P, _I, _P],
     "vlm_int8_matmul": [_P] * 4 + [_I] * 7 + [_P],
     "vlm_int8xint8_matmul": [_P] * 5 + [_I] * 4 + [_P],
     "vlm_int4_matmul": [_P] * 4 + [_I] * 8 + [_P],
@@ -74,9 +78,9 @@ last_build: dict = {}
 
 
 def reset_counts() -> None:
-    for name in KERNELS:
-        launches[name] = 0
-        plain_calls[name] = 0
+    for counts in (launches, plain_calls):
+        for name in counts:
+            counts[name] = 0
 
 
 def _nvcc() -> str:
@@ -153,15 +157,18 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(kernel: str, fn_name: str, *args) -> None:
+def launch(kernel: str, fn_name: str, *args, fused: str = "") -> None:
     """Call one C entry point and raise if CUDA refused the launch; counts
-    the launch under ``kernel``."""
+    the launch under ``kernel``, and under ``fused`` too where the launch
+    also runs another kernel's work (B3's write inside B2)."""
     handle = lib()
     rc = getattr(handle, fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
                            f"({handle.vlm_error_string(rc).decode()})")
     launches[kernel] += 1
+    if fused:
+        launches[fused] += 1
 
 
 def sm_count(device: torch.device) -> int:

@@ -21,6 +21,13 @@ launch, through a workspace this wrapper allocates. An fp32 query and cache
 (models that run with quantization "fp32") take B2's fp32 form, whose
 products are each three TF32 products on the tensor cores (fp32
 accuracy).
+
+The decode step's KV row write (B3) runs inside the same launch: given
+``k_new``/``v_new`` ``[B, 1, KV, D]`` and ``write_start`` (int32 on the
+device: ``[1]`` with ``uniform``, else ``[B]``), B2 writes each slot's new
+row at its column (quantized, for an int8 cache) and attends over the
+caches with the row in place; the result and the caches are bitwise those
+of B3's kernel followed by B2's.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _lib
+from .kvcache import kv_quantized_write_plain, kv_write_plain
 
 NEG_INF = -1e30
 _MODE_LEN, _MODE_VALID, _MODE_WINDOW = 0, 1, 2
@@ -124,16 +132,57 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, h, 1, d).to(q.dtype)
 
 
+def _write_plain(k, v, k_scale, v_scale, k_new, v_new, start, uniform):
+    """The fused write's plain version: B3's plain write."""
+    if k_scale is not None:
+        kv_quantized_write_plain((k, k_scale), (v, v_scale), k_new, v_new,
+                                 start, uniform)
+    else:
+        kv_write_plain(k, v, k_new, v_new, start, uniform)
+
+
+def _check_rows(k, k_new, v_new, write_start, uniform, int8):
+    """The fused write's rows and column on the card, else raise."""
+    name = "decode_attention"
+    b, _, kvh, d = k.shape
+    _lib.check_cuda(name, k_new, v_new, write_start)
+    _lib.check_dtype(name, torch.bfloat16 if int8 else k.dtype, k_new, v_new)
+    _lib.check_dtype(name, torch.int32, write_start)
+    if (k_new.shape != (b, 1, kvh, d) or v_new.shape != k_new.shape
+            or not (k_new.is_contiguous() and v_new.is_contiguous())
+            or (k_new.data_ptr() | v_new.data_ptr() | k.data_ptr()) % 4):
+        raise ValueError(f"decode_attention: the new rows must be "
+                         f"contiguous [B, 1, KV, D] = {(b, 1, kvh, d)}, got "
+                         f"{tuple(k_new.shape)}")
+    if write_start.numel() < (1 if uniform else b) or (
+            not write_start.is_contiguous()):
+        raise ValueError(f"decode_attention: write_start holds "
+                         f"{write_start.numel()} offsets")
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_len: Optional[torch.Tensor] = None,
                      kv_valid: Optional[torch.Tensor] = None,
                      kv_window: Optional[Tuple] = None,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     v_scale: Optional[torch.Tensor] = None,
+                     k_new: Optional[torch.Tensor] = None,
+                     v_new: Optional[torch.Tensor] = None,
+                     write_start: Optional[torch.Tensor] = None,
+                     uniform: bool = False) -> torch.Tensor:
     """B2. Returns ``[B, H, 1, D]`` whose memory is ``[B, 1, H, D]``. A
     bf16 cache, an int8 cache with its fp32 ``k_scale``/``v_scale`` (both
-    with a bf16 query), or an fp32 query and cache."""
+    with a bf16 query), or an fp32 query and cache. With ``k_new``,
+    ``v_new`` and ``write_start``, first writes each slot's new row into the
+    caches in place (B3 fused into the launch; bf16 rows for an int8
+    cache, else rows of the cache's type)."""
+    if (k_new is None) != (v_new is None) or (
+            (k_new is None) != (write_start is None)):
+        raise ValueError("k_new, v_new and write_start go together")
     if _lib.is_cpu(q, "decode_attention"):
+        if k_new is not None:
+            _write_plain(k, v, k_scale, v_scale, k_new, v_new, write_start,
+                         uniform)
         return decode_attention_plain(q, k, v, kv_len=kv_len,
                                       kv_valid=kv_valid, kv_window=kv_window,
                                       k_scale=k_scale, v_scale=v_scale)
@@ -164,6 +213,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 or not (k_scale.is_contiguous() and v_scale.is_contiguous())):
             raise ValueError(f"decode_attention: scales must be contiguous "
                              f"[B, S, KV, 1], got {tuple(k_scale.shape)}")
+    if k_new is not None:
+        _check_rows(k, k_new, v_new, write_start, uniform, int8)
     dev = q.device
     i32 = dict(device=dev, dtype=torch.int32)
 
@@ -195,21 +246,26 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         ws = torch.empty(blocks * splits * HEADS_PER_BLOCK * (2 + dp),
                          dtype=torch.float32, device=dev)
         counters = _lib.tile_counters(dev, blocks)
+    rows_new = (ptr(k_new), ptr(v_new), ptr(write_start))
+    fused = "" if k_new is None else \
+        "kv_write_int8_fused" if int8 else "kv_write_fused"
     if fp32:
         _lib.launch(
             "decode_attention_fp32", "vlm_decode_attention_fp32",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(kvl),
-            ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt), ptr(ws),
+            ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt), *rows_new, ptr(ws),
             ptr(counters), b, h, kvh, s_total, d, window, mode, rows,
-            q.stride(0), q.stride(1), k.stride(0), k.stride(1), o.stride(0),
-            o.stride(1), d ** -0.5, _lib.stream_ptr(q))
+            int(uniform), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            o.stride(0), o.stride(1), d ** -0.5, _lib.stream_ptr(q),
+            fused=fused)
         return o
     _lib.launch(
         "decode_attention_int8" if int8 else "decode_attention",
         "vlm_decode_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(k_scale),
         ptr(v_scale), ptr(kvl), ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt),
-        ptr(ws), ptr(counters), b, h, kvh, s_total, d, window, mode, rows,
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), o.stride(0),
-        o.stride(1), d ** -0.5, _lib.stream_ptr(q))
+        *rows_new, ptr(ws), ptr(counters), b, h, kvh, s_total, d, window,
+        mode, rows, int(uniform), q.stride(0), q.stride(1), k.stride(0),
+        k.stride(1), o.stride(0), o.stride(1), d ** -0.5, _lib.stream_ptr(q),
+        fused=fused)
     return o

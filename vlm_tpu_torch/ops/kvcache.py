@@ -1,5 +1,7 @@
 """In-place KV-cache row writes: the plain masked write and the B3 kernel
-(``csrc/kv_write.cu``) in its bf16 and int8 forms.
+(``csrc/kv_write.cu``) in its bf16 and int8 forms. The decode step's write
+runs inside B2's launch instead (``ops.decode_attention``, the fused
+forms); these serve the int8 prefill rows and any write no B2 follows.
 
 Caches are ``[B, L, KV, D]``; new rows ``[B, S, KV, D]``; ``start`` ``[B]``
 int on the caches' device, so no write offset ever waits on the host.
@@ -36,6 +38,17 @@ def kv_masked_write(cache: torch.Tensor, new: torch.Tensor,
     return cache
 
 
+def kv_write_plain(k_cache, v_cache, k_new: torch.Tensor,
+                   v_new: torch.Tensor, start: torch.Tensor, uniform: bool):
+    """Plain B3 for a bf16 or fp32 cache: the masked write of one row per
+    slot into both caches, at ``start[0]`` (``uniform``) or ``start[b]``."""
+    _lib.plain_calls["kv_write"] += 1
+    pos = start[:1].expand(k_cache.shape[0]) if uniform else start
+    kv_masked_write(k_cache, k_new, pos)
+    kv_masked_write(v_cache, v_new, pos)
+    return k_cache, v_cache
+
+
 def _write(k_cache, v_cache, k_new, v_new, start, uniform: bool):
     name = "kv_uniform_write" if uniform else "kv_scatter_write"
     if k_new.shape[1] != 1:
@@ -43,11 +56,7 @@ def _write(k_cache, v_cache, k_new, v_new, start, uniform: bool):
                          f"{k_new.shape[1]})")
     b = k_cache.shape[0]
     if _lib.is_cpu(k_cache, name):
-        _lib.plain_calls["kv_write"] += 1
-        pos = start[:1].expand(b) if uniform else start
-        kv_masked_write(k_cache, k_new, pos)
-        kv_masked_write(v_cache, v_new, pos)
-        return k_cache, v_cache
+        return kv_write_plain(k_cache, v_cache, k_new, v_new, start, uniform)
     _lib.check_cuda(name, k_cache, v_cache, k_new, v_new, start)
     if not all(t.is_contiguous() for t in (k_cache, v_cache, k_new, v_new)):
         raise ValueError(f"{name}: needs contiguous caches and rows")

@@ -5,13 +5,14 @@ The host side copies ``vlm_tpu.ops.preprocess`` (PIL resize with the HF
 processors' filters and sizes, bit-exact with it); PIL is imported only
 when an image is resized. The device side turns a uint8 ``[B, H, W, 3]``
 batch into ``x * 1/(255 std) - mean/std`` per channel in the compute dtype,
-NHWC, as the patch embedding consumes it.
+NHWC, or with ``patch_size`` straight into the patch embedding's layout:
+``[B, (H/p)(W/p), p*p*3]``, the conv's HWIO order within a patch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Sequence
+from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -106,23 +107,50 @@ def _constants(recipe: PreprocessRecipe):
         (-mean / std).astype(np.float32)
 
 
+def _check_patches(shape, p: int) -> None:
+    if len(shape) != 4 or shape[-1] != 3 or shape[1] % p or shape[2] % p:
+        raise ValueError(f"patch size {p} needs [B, H, W, 3] images with H "
+                         f"and W divisible by it, got {tuple(shape)}")
+
+
+def unfold_patches(pixels: torch.Tensor, p: int) -> torch.Tensor:
+    """NHWC ``[B, H, W, C]`` -> ``[B, (H/p)(W/p), p*p*C]`` patch vectors in
+    the conv's HWIO order (row in patch, column in patch, channel): the
+    ViT's unfold, a copy."""
+    b, hh, ww, c = pixels.shape
+    _check_patches((b, hh, ww, 3), p)
+    return pixels.reshape(b, hh // p, p, ww // p, p, c).permute(
+        0, 1, 3, 2, 4, 5).reshape(b, (hh // p) * (ww // p), p * p * c)
+
+
 def normalize_plain(batch_u8: torch.Tensor, recipe: PreprocessRecipe,
-                    compute_dtype=torch.bfloat16) -> torch.Tensor:
+                    compute_dtype=torch.bfloat16,
+                    patch_size: Optional[int] = None) -> torch.Tensor:
+    """B4's plain version: NHWC, or with ``patch_size`` the same values
+    unfolded into patch vectors. Each value is fma(x, scale, bias) rounded
+    once to fp32, as the kernel and the reference's interpreted kernel
+    compute it: an 8-bit integer times an fp32 scale plus an fp32 bias is
+    exact in float64, so one rounding of that sum is the FMA's."""
+    if patch_size is not None:
+        _check_patches(tuple(batch_u8.shape), patch_size)
     _lib.plain_calls["normalize_fp32" if compute_dtype == torch.float32
                      else "normalize"] += 1
-    scale, bias = _constants(recipe)
-    x = batch_u8.float() * torch.from_numpy(scale).to(batch_u8.device)
-    x = x + torch.from_numpy(bias).to(batch_u8.device)
-    return x.to(compute_dtype)
+    scale, bias = (torch.from_numpy(c).to(batch_u8.device, torch.float64)
+                   for c in _constants(recipe))
+    x = (batch_u8.double() * scale + bias).float().to(compute_dtype)
+    return x if patch_size is None else unfold_patches(x, patch_size)
 
 
 def normalize_images(batch_u8: torch.Tensor, *, recipe: PreprocessRecipe,
-                     compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """B4. uint8 ``[B, S, S, 3]`` -> normalized ``[B, S, S, 3]`` in
-    ``compute_dtype``: bf16 or fp32 on the card (one kernel templated on
-    the output type, with its own launch counter for fp32)."""
+                     compute_dtype=torch.bfloat16,
+                     patch_size: Optional[int] = None) -> torch.Tensor:
+    """B4. uint8 ``[B, H, W, 3]`` -> normalized ``[B, H, W, 3]`` in
+    ``compute_dtype`` or, with ``patch_size`` p, ``[B, (H/p)(W/p), p*p*3]``
+    patch vectors (H and W divisible by p, else ValueError): bf16 or fp32
+    on the card (one kernel templated on the output type, with its own
+    launch counter for fp32)."""
     if _lib.is_cpu(batch_u8, "normalize_images"):
-        return normalize_plain(batch_u8, recipe, compute_dtype)
+        return normalize_plain(batch_u8, recipe, compute_dtype, patch_size)
     _lib.check_cuda("normalize_images", batch_u8)
     if batch_u8.dtype != torch.uint8 or batch_u8.shape[-1] != 3:
         raise ValueError(f"normalize_images: expected uint8 [..., 3], got "
@@ -131,12 +159,23 @@ def normalize_images(batch_u8: torch.Tensor, *, recipe: PreprocessRecipe,
         raise TypeError(f"normalize_images: the CUDA kernel writes bfloat16 "
                         f"or float32, not {compute_dtype}")
     x = batch_u8.contiguous()
-    if x.data_ptr() % 4:
-        raise ValueError("normalize_images: input must be 4-byte aligned")
-    out = torch.empty(x.shape, dtype=compute_dtype, device=x.device)
+    if patch_size is None:
+        # NHWC is one patch of all the rows: leading dims fold into rows
+        w = x.shape[-2] if x.dim() >= 2 else 1
+        b, hh = 1, max(1, x.numel() // (3 * w))
+        ph, pw, out_shape = hh, w, x.shape
+    else:
+        _check_patches(tuple(x.shape), patch_size)
+        b, hh, w = x.shape[:3]
+        ph = pw = patch_size
+        out_shape = (b, (hh // ph) * (w // pw), ph * pw * 3)
+    out = torch.empty(out_shape, dtype=compute_dtype, device=x.device)
+    if x.numel() == 0:
+        return out
     scale, bias = _constants(recipe)
     fp32 = compute_dtype == torch.float32
     _lib.launch("normalize_fp32" if fp32 else "normalize", "vlm_normalize",
-                x.data_ptr(), out.data_ptr(), x.numel(), scale.ctypes.data,
-                bias.ctypes.data, int(fp32), _lib.stream_ptr(x))
+                x.data_ptr(), out.data_ptr(), b, hh, w, ph, pw,
+                scale.ctypes.data, bias.ctypes.data, int(fp32),
+                _lib.stream_ptr(x))
     return out

@@ -14,7 +14,10 @@ round theirs) and B2 rounds the query scaled by D^-1/2 to bf16. So they
 agree within ``ATTN_TOL``, a few bf16 ulps at 1. B2 is timed with the L2
 cache flushed (``_cold``: the decode step reads each layer's cache from
 device memory) and warm. The KV write must be bitwise, its int8 form too
-(values and scales); normalisation within one bf16 ulp.
+(values and scales); normalisation within one bf16 ulp, its patch layout
+bitwise. B3's write inside B2's launch (the fused forms) must give
+bitwise the output and the caches of B3's kernel followed by B2's
+(``exact_fn``), and B2's tolerance against the plain versions.
 
 B5 (weight-only int8 GEMM) accumulates the same fp32 products as its plain
 version in another order, then both scale and round once to bf16: they
@@ -44,7 +47,11 @@ version; the port never calls it. Where there is none, ``library_note``
 says why. Kernel and library call are timed twice: with CUDA events
 (``ms``, ``library_ms``: device time plus a floor of a few µs a call) and
 under the profiler (``device_ms``, ``library_device_ms``: their kernels'
-own time), which compares short kernels without the floor.
+own time), which compares short kernels without the floor. A redesign
+that takes another kernel's work into its launch also profiles what it
+replaces (``baseline_fn``: B2 alone beside the fused write, the NHWC
+normalisation and the unfold copy beside the patch layout), in
+alternating rounds whose medians are reported.
 """
 
 from __future__ import annotations
@@ -63,8 +70,9 @@ from ..ops.decode_attention import (decode_attention, decode_attention_plain,
                                     live_rows)
 from ..ops.kvcache import (kv_masked_write, kv_quantized_write,
                            kv_quantized_write_plain, kv_scatter_write,
-                           kv_uniform_write)
-from ..ops.preprocess import RECIPES, normalize_images, normalize_plain
+                           kv_uniform_write, kv_write_plain)
+from ..ops.preprocess import (RECIPES, normalize_images, normalize_plain,
+                              unfold_patches)
 from ..ops.quant import (int4_matmul, int4_matmul_plain, int8_matmul,
                          int8_matmul_plain, int8xint8_matmul,
                          int8xint8_matmul_plain, quantize_activations)
@@ -85,7 +93,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12,
                   "fp32_3xtf32": 494.7e12 / 3}
 
-# "forms": the launch counter of each form of the kernel (_lib.KERNELS)
+# "forms": the launch counter of each form of the kernel (_lib.KERNELS),
+# the main path's own first
 KERNELS = {
     "B1": dict(name="flash_attention", source="vlm_tpu_torch/csrc/flash_attention.cu",
                replaces="vlm_tpu/ops/attention.py:112",
@@ -96,7 +105,9 @@ KERNELS = {
                       "decode_attention_fp32")),
     "B3": dict(name="kv_write", source="vlm_tpu_torch/csrc/kv_write.cu",
                replaces="vlm_tpu/ops/kvcache.py:34",
-               forms=("kv_write", "kv_write_int8")),
+               # the decode step's write (inside B2's launch) first
+               forms=("kv_write_fused", "kv_write_int8_fused", "kv_write",
+                      "kv_write_int8")),
     "B4": dict(name="normalize", source="vlm_tpu_torch/csrc/normalize.cu",
                replaces="vlm_tpu/ops/preprocess.py:119",
                forms=("normalize", "normalize_fp32")),
@@ -113,7 +124,10 @@ KERNELS = {
 }
 # forms whose source is not their kernel's
 FORM_SOURCES = {"flash_attention_fp32":
-                "vlm_tpu_torch/csrc/flash_attention_fp32.cu"}
+                "vlm_tpu_torch/csrc/flash_attention_fp32.cu",
+                "kv_write_fused": "vlm_tpu_torch/csrc/decode_attention.cu",
+                "kv_write_int8_fused":
+                "vlm_tpu_torch/csrc/decode_attention.cu"}
 # Gemma-2B block products (K, N): q/o, k/v, gate/up, down; SigLIP fc1/fc2
 GEMMA_KN = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 SIGLIP_KN = ((1152, 4304), (4304, 1152))
@@ -147,6 +161,10 @@ class Case:
     library_out: Optional[Callable[[object], torch.Tensor]] = None
     library_compare: bool = True
     library_note: str = ""
+    # the unfused kernels the case must equal bitwise (None: no such check)
+    exact_fn: Optional[Callable[[], torch.Tensor]] = None
+    # what the redesign replaces, profiled beside it (None: nothing)
+    baseline_fn: Optional[Callable[[], object]] = None
 
 
 def bound_ms(ops: float, nbytes: float, peak: str) -> Tuple[float, str]:
@@ -489,7 +507,8 @@ def cases(device) -> List[Case]:
             library_note="index_put_ of the rows, once for K and once "
                          "for V"))
 
-    b3("uniform_32slots", kv_uniform_write, wcol, True)
+    # the decode step writes inside B2's launch now (the fused cases below)
+    b3("uniform_32slots", kv_uniform_write, wcol, False)
     b3("scatter_32slots", kv_scatter_write, per_slot, False)
 
     # int8 form: quantize and write values and scales, bitwise
@@ -516,7 +535,7 @@ def cases(device) -> List[Case]:
                          "and scales"))
 
     cache8 = ((kq, ks), (vq, vs))
-    b3_int8("int8_uniform_32slots", k_new, v_new, cache8, wcol, True, True)
+    b3_int8("int8_uniform_32slots", k_new, v_new, cache8, wcol, True, False)
     b3_int8("int8_scatter_32slots", k_new, v_new, cache8, per_slot, False,
             False)
     # admission: the prompt's rows of a group of 4 at column 0
@@ -531,25 +550,153 @@ def cases(device) -> List[Case]:
     b3_int8("int8_prefill_g4_s316", k_pre, v_pre, group8,
             torch.zeros(1, **i32), True, True)
 
+    # B3 inside B2's launch: the decode step's row write, on clones of the
+    # window cache, bf16, int8 (bf16 rows quantized in the launch) and fp32
+    def b3_fused(case, q, caches, k_rows, v_rows, start, uniform, kw,
+                 on_path, cold=False):
+        int8 = len(caches) == 4
+        fp32 = q.dtype == torch.float32
+        b, h, _, d = q.shape
+        s_total, kvh = caches[0].shape[1], caches[0].shape[2]
+
+        def fresh():
+            return [t.clone() for t in caches]
+
+        def scales(c):
+            return dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+
+        def attend(c, fused):
+            rows = dict(k_new=k_rows, v_new=v_rows, write_start=start,
+                        uniform=uniform) if fused else {}
+            return decode_attention(q, c[0], c[1], **kw, **scales(c),
+                                    **rows)
+
+        def b3(c):              # B3's own kernel, or its plain version
+            if int8:
+                kv_quantized_write((c[0], c[2]), (c[1], c[3]), k_rows,
+                                   v_rows, start, uniform)
+            else:
+                (kv_uniform_write if uniform else kv_scatter_write)(
+                    c[0], c[1], k_rows, v_rows, start)
+
+        def b3_plain(c):
+            if int8:
+                kv_quantized_write_plain((c[0], c[2]), (c[1], c[3]), k_rows,
+                                         v_rows, start, uniform)
+            else:
+                kv_write_plain(c[0], c[1], k_rows, v_rows, start, uniform)
+
+        def flat(o, c):         # the output, then every cache tensor
+            return torch.cat([o.float().flatten()]
+                             + [t.float().flatten() for t in c])
+
+        def fused():
+            c = fresh()
+            return flat(attend(c, True), c)
+
+        def unfused():
+            c = fresh()
+            b3(c)
+            return flat(attend(c, False), c)
+
+        def plain():
+            c = fresh()
+            b3_plain(c)
+            return flat(decode_attention_plain(q, c[0], c[1], **kw,
+                                               **scales(c)), c)
+        mine, alone, theirs = fresh(), fresh(), fresh()
+        cols = (start[:1].expand(b) if uniform else start).long()
+        written = int(((cols >= 0) & (cols < s_total)).sum())
+        live = live_rows(b, s_total, dev, **kw)
+        ops, nbytes, peak = decode_work(
+            h, kvh, d, _ints(live.sum(dim=1)), caches[0].element_size(),
+            int8, q.element_size(), "fp32_3xtf32" if fp32 else "bf16")
+        # the new rows read and written once: K and V, values (and scales)
+        row_bytes = kvh * ((2 + 1) * d + 4 if int8
+                           else 2 * d * k_rows.element_size())
+        lib = dict(library_note="no PyTorch call quantizes rows and attends "
+                                "over an int8 cache with per-row scales")
+        if not int8 and written == b:
+            # index_put_ of the rows (K, then V), then SDPA over the cache
+            slot = torch.arange(b, device=dev)
+            mask = live[:, None, None, :]
+
+            def library():
+                theirs[0].index_put_((slot, cols), k_rows[:, 0])
+                theirs[1].index_put_((slot, cols), v_rows[:, 0])
+                return F.scaled_dot_product_attention(
+                    q, theirs[0].transpose(1, 2), theirs[1].transpose(1, 2),
+                    attn_mask=mask, enable_gqa=h != kvh)
+            lib = dict(library_fn=library, library_compare=False,
+                       library_note="index_put_ of the rows (K, V), then "
+                                    "scaled_dot_product_attention")
+        elif not int8:
+            lib = dict(library_note="index_put_ takes no column outside "
+                                    "the cache")
+        out.append(Case(
+            "B3", case + ("_cold" if cold else ""), fused, plain,
+            FP32_TOL if fp32 else ATTN_TOL, on_path, rel=fp32, cold=cold,
+            form="kv_write_int8_fused" if int8 else "kv_write_fused",
+            time_kernel=lambda: attend(mine, True),
+            time_plain=lambda: (b3_plain(mine),
+                                decode_attention_plain(q, mine[0], mine[1],
+                                                       **kw, **scales(mine))),
+            work=(ops, nbytes + 2.0 * written * row_bytes, peak),
+            exact_fn=unfused, baseline_fn=lambda: attend(alone, False),
+            **lib))
+
+    # pos on the window's write column (in the last of six 64-row splits;
+    # of eleven 32-row splits in fp32), per slot across tile and split
+    # edges and outside the cache, and one uniform column outside it
+    edges = torch.tensor([0, 31, 32, 63, 64, 127, 128, 255, 319, 320, 347,
+                          -1, CACHE, PROMPT, PROMPT + 7, 200], **i32)
+    fstart = torch.cat([edges, per_slot[len(edges):]])
+    fkv_len = (fstart + 1).clamp(0, CACHE).int()
+    k_new32, v_new32 = k_new.float(), v_new.float()
+    q32 = q.float()
+    forms = (("", q, (kc, vc), k_new, v_new),
+             ("int8_", q, (kq, vq, ks, vs), k_new, v_new),
+             ("fp32_", q32, (kc.float(), vc.float()), k_new32, v_new32))
+    for tag, qq, caches, kr, vr in forms:
+        # cold, as in place (a decode step streams the weights between
+        # two layers' attention), and warm, as B2's own cases
+        for cold in (True, False):
+            b3_fused(f"{tag}fused_window_32slots", qq, caches, kr, vr,
+                     wcol[:1], True, dict(kv_window=(pcol, NEW, acol, gcnt)),
+                     True, cold)
+        b3_fused(f"{tag}fused_scatter_kv_len_32slots", qq, caches, kr, vr,
+                 fstart, False, dict(kv_len=fkv_len), False)
+        b3_fused(f"{tag}fused_uniform_outside", qq, caches, kr, vr,
+                 torch.full((1,), CACHE, **i32), True,
+                 dict(kv_window=(pcol, NEW, acol, gcnt)), False)
+
     u8 = torch.randint(0, 256, (GROUP, 224, 224, 3), generator=gen,
                        device=dev).to(torch.uint8)
     recipe = RECIPES["paligemma"]
-    out.append(Case("B4", "u8_g4_224",
-                    lambda: normalize_images(u8, recipe=recipe),
-                    lambda: normalize_plain(u8, recipe), NORM_TOL, True,
-                    work=(0.0, 3.0 * u8.numel(), "bf16"),
-                    library_note="no single PyTorch call: the cast, the "
-                                 "scale and shift and the layout change "
-                                 "are separate operators"))
-    out.append(Case("B4", "fp32_u8_g4_224",
-                    lambda: normalize_images(u8, recipe=recipe,
-                                             compute_dtype=torch.float32),
-                    lambda: normalize_plain(u8, recipe, torch.float32), 0.0,
-                    True, form="normalize_fp32",
-                    work=(0.0, 5.0 * u8.numel(), "fp32"),
-                    library_note="no single PyTorch call: the cast, the "
-                                 "scale and shift and the layout change "
-                                 "are separate operators"))
+    b4_note = ("no single PyTorch call: the cast, the scale and shift and "
+               "the layout change are separate operators")
+    # the admissions write the patch embedding's layout (SigLIP: 14 px
+    # patches); NHWC stays for callers without a patch size
+    for dtype, tag, form, elem in ((torch.bfloat16, "", "normalize", 2),
+                                   (torch.float32, "fp32_", "normalize_fp32",
+                                    4)):
+        def b4(patch, dtype=dtype):
+            return lambda: normalize_images(u8, recipe=recipe,
+                                            compute_dtype=dtype,
+                                            patch_size=patch)
+        out.append(Case(
+            "B4", f"{tag}u8_g4_224", b4(None),
+            functools.partial(normalize_plain, u8, recipe, dtype),
+            NORM_TOL if elem == 2 else 0.0, False, form=form,
+            work=(0.0, (1.0 + elem) * u8.numel(), "bf16"),
+            library_note=b4_note))
+        out.append(Case(
+            "B4", f"{tag}patch14_u8_g4_224", b4(14),
+            functools.partial(normalize_plain, u8, recipe, dtype, 14), 0.0,
+            True, form=form, work=(0.0, (1.0 + elem) * u8.numel(), "bf16"),
+            baseline_fn=lambda dtype=dtype: unfold_patches(normalize_images(
+                u8, recipe=recipe, compute_dtype=dtype), 14),
+            library_note=b4_note))
 
     # B5: the weight-only int8 products of the 8bit decode step (m = 32
     # slots) and of a one-image admission (m = 316)
@@ -759,6 +906,23 @@ def _device_ms(fn, iters: int, flush: Optional[torch.Tensor] = None,
     return None
 
 
+def _paired_device_ms(fn, base, iters: int, flush, flush_kernels,
+                      rounds: int = 5) -> Tuple[Optional[float],
+                                                Optional[float]]:
+    """:func:`_device_ms` of ``fn`` and of ``base`` in alternating rounds,
+    the median of each: the difference of two short kernels, steady
+    against a session that misses some kernels."""
+    a, b = [], []
+    for _ in range(rounds):
+        a.append(_device_ms(fn, iters, flush, flush_kernels))
+        b.append(_device_ms(base, iters, flush, flush_kernels))
+
+    def median(xs):
+        xs = sorted(x for x in xs if x is not None)
+        return xs[len(xs) // 2] if xs else None
+    return median(a), median(b)
+
+
 def run(device="cuda", iters: int = 20) -> List[Dict]:
     """Compare and time every case; returns one record per case. Timing
     alternates plain, kernel, library, library, kernel, plain and averages
@@ -777,6 +941,9 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
         torch.cuda.synchronize()
         err = _max_err(got, want)
         tol = c.tol * (float(want.float().abs().max()) if c.rel else 1.0)
+        exact_err = None
+        if c.exact_fn is not None:
+            exact_err = _max_err(c.kernel_fn(), c.exact_fn())
         lib_err = None
         if c.library_fn is not None and c.library_compare:
             res = c.library_fn()
@@ -794,7 +961,12 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
                       + _ms(c.library_fn, iters, fl)) / 2
         k2 = _ms(tk, iters, fl)
         p2 = _ms(tp, iters, fl) if c.plain_timed else nan
-        dev_ms = _device_ms(tk, iters, fl, flush_kernels)
+        base_dev_ms = None
+        if c.baseline_fn is None:
+            dev_ms = _device_ms(tk, iters, fl, flush_kernels)
+        else:
+            dev_ms, base_dev_ms = _paired_device_ms(
+                tk, c.baseline_fn, iters, fl, flush_kernels)
         lib_dev_ms = None if c.library_fn is None else _device_ms(
             c.library_fn, iters, fl, flush_kernels)
         form = c.form or KERNELS[c.kernel]["name"]
@@ -802,7 +974,10 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
         b_ms, b_by = bound_ms(ops, nbytes, peak)
         records.append(dict(kernel=c.kernel, form=form, case=c.case,
                             on_path=c.on_path, max_abs_err=err, tol=c.tol,
-                            rel=c.rel, ok=err <= tol,
+                            rel=c.rel, ok=err <= tol and exact_err in (None,
+                                                                      0.0),
+                            exact_err=exact_err,
+                            baseline_device_ms=base_dev_ms,
                             ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2,
                             ops=ops, bytes=nbytes, peak=peak, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib_ms,

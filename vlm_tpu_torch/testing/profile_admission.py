@@ -36,12 +36,18 @@ the port's public calls (``flash_attention``, ``decode_attention``,
   unprofiled) and, under ``torch.profiler``, the summed device time of the
   kernels (each kernel's own time, kernel rows only), their count, and
   B1's share, averaged over ``--admissions``;
-- ``step_fp32``: one fp32 decode step over 32 slots of a 348-row cache in
-  the batcher's rotating-window form, the same readings a step (B2's
-  share in place of B1's), over ``--admissions`` steps.
+- ``step_bf16`` and ``step_fp32``: one bf16 and one fp32 decode step over
+  32 slots of a 348-row cache in the batcher's rotating-window form, the
+  same readings a step (B2's share in place of B1's), over
+  ``--admissions`` steps;
+- in every admission and step: ``b3_launches`` and ``b4_launches``, the
+  standalone B3 (``kv_write``) and B4 (``normalize``) kernels a run, by
+  name. The admissions ask B4 for the patch embedding's layout where the
+  measured tree's ``normalize_images`` takes ``patch_size``.
 """
 
 import argparse
+import inspect
 import json
 import subprocess
 import sys
@@ -194,9 +200,8 @@ def main(argv=None):
                              **kw)
         key = "admission" if quantization == "bf16" else "admission_fp32"
         out[key] = profile_admission(torch, model, args.admissions)
-        if quantization == "fp32":
-            out["step_fp32"] = profile_step(torch, model, args.admissions,
-                                            gen)
+        out[f"step_{quantization}"] = profile_step(torch, model,
+                                                   args.admissions, gen)
         del model
         torch.cuda.empty_cache()
     print(json.dumps(out))
@@ -239,6 +244,9 @@ def _profile_runs(torch, run, n, mark):
             "kernels": sum(r[2] for r in rows),
             "kernel_ms": sum(r[1] for r in mine),
             "kernel_launches": sum(r[2] for r in mine),
+            "b3_launches": sum(r[2] for r in rows if "kv_write" in r[0]),
+            "b4_launches": sum(r[2] for r in rows
+                               if "normalize_kernel" in r[0]),
             "top": [(k[:60], round(ms, 4), c) for k, ms, c in rows[:8]]}
 
 
@@ -261,12 +269,14 @@ def profile_admission(torch, model, n):
                                                         PROMPT_IDS - 1)])
                            ).to(dev, torch.int32)[None].expand(GROUP, -1)
     plen = num_image_tokens(cfg) + PROMPT_IDS
+    patch = dict(patch_size=cfg.vision.patch_size) if "patch_size" in \
+        inspect.signature(normalize_images).parameters else {}
 
     def admission():
         cache = init_kv_cache(cfg.decoder, GROUP, plen + NEW,
                               model.cache_dtype, "cuda")
         px = normalize_images(u8, recipe=model.recipe,
-                              compute_dtype=model.dtype)
+                              compute_dtype=model.dtype, **patch)
         return model.module.prefill(
             px, ids[:, :0], ids, cache,
             torch.full((GROUP,), plen, dtype=torch.int32, device=dev))

@@ -36,7 +36,8 @@ the same in both, and so are the inputs (seeded).
   rotating-window form, 8bit with the int8 KV cache and 4bit: host wall ms
   of each of ``STEPS`` steps (synchronised, unprofiled) and, under
   ``torch.profiler``, the summed device ms of the kernels a step, their
-  count, and the largest items; then ``in_place``: the µs a step of B5's
+  count, the standalone B3 kernels among them (``b3_launches``) and the
+  largest items; then ``in_place``: the µs a step of B5's
   or B7's kernels at each Gemma product (gate and up, down, q and o, k and
   v; 18 layers) where the step runs them, after the product before it and
   with no flush, from a second profiled run whose calls of
@@ -185,6 +186,7 @@ def profile_step(torch, model, slots, gen):
     return {"wall_ms": walls,
             "device_ms": sum(r[1] for r in rows),
             "kernels": sum(r[2] for r in rows),
+            "b3_launches": sum(r[2] for r in rows if "kv_write" in r[0]),
             "top": [(key[:60], round(ms, 4), c) for key, ms, c in rows[:6]],
             "in_place": in_place}
 
