@@ -41,7 +41,20 @@ Phases, each of which raises on failure:
     with its default quantization, fp32, through the fp32 forms of B1, B2
     and B4 (16 images, up to 8 new tokens);
 11. fp32 reference: the depth-cut copy in fp32 on the card against the CPU
-    (``REF_TOL_FP32``).
+    (``REF_TOL_FP32``);
+12. LLaVA bf16 slice: ``create_model("llava", size="7b")`` (CLIP-L/336,
+    the MLP projector, Vicuna-7B with its untied head; MHA, 32 heads of
+    128) in bf16, the same checks as PaliGemma's: 32 slots, 96 synthetic
+    336 px images, BOS + 4 ids before the 576 image tokens and 60 ids
+    after them (a prompt of 641), up to 32 new tokens;
+13. LLaVA bf16 reference: the depth-cut copy (full width, 2 vision and 2
+    decoder layers: the feature tap at -2 is then block 0's output);
+14. LLaVA 8bit slice: the JAX package's LLaVA recipe: int8 decoder
+    weights with ``VLM_TPU_INT8_PREFILL=dynamic_noout`` (B6 at every
+    admission product), the int8 KV cache, 16 slots, admission groups of
+    4, the same traffic;
+15. LLaVA 8bit reference (int8 decoder weights and cache), and an fp32
+    reference (the fp32 forms of B1 and B2 at G = 1, D = 128).
 
 Each slice's launch counts are set to 0 just before it is driven and read
 just after.
@@ -50,8 +63,10 @@ Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
 """
 
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -60,6 +75,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 SLOTS, N_IMAGES, PROMPT_IDS, NEW = 32, 96, 60, 32
+# each model's slice: its label, size, image side, the ids before the image
+# tokens (LLaVA: BOS + "USER: ", 5 ids) and the slots of each mode; the 60
+# prompt ids come after the image tokens (PaliGemma's start with BOS)
+MODELS = {
+    "paligemma": dict(label="PaliGemma-3B", size="3b", image=224,
+                      pre_ids=0, slots={}),
+    "llava": dict(label="LLaVA-1.5-7B", size="7b", image=336, pre_ids=5,
+                  slots={"8bit": 16}),
+}
 # bf16 on the card vs fp32 on the CPU, relative to max|ref|; the 8bit model
 # quantizes activations from bf16 on the card and from fp32 on the CPU, so
 # one int8 step (1/127 of a row's abs-max) can flip where they differ
@@ -128,36 +152,71 @@ def kernel_phase(gpu):
     return records
 
 
-def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW):
-    """Serve the recipe with ``quantization`` "bf16", "8bit" (with the
-    int8 KV cache), "4bit", or "fp32" (the model's default, so not passed);
-    returns the launch counts of the timed run."""
+def prompt_ids(np, rng, dec, pre_ids):
+    """The ids before the image tokens (BOS first) and the 60 after them
+    (BOS first where nothing comes before the image)."""
+    def ids(n, bos):
+        return np.concatenate([[dec.bos_token_id] if bos else [],
+                               rng.integers(3, dec.vocab_size,
+                                            n - bos)]).astype(np.int32)
+    return (ids(pre_ids, True) if pre_ids else np.zeros((0,), np.int32),
+            ids(PROMPT_IDS, not pre_ids))
+
+
+@contextlib.contextmanager
+def int8_prefill(model_name, quantization):
+    """``VLM_TPU_INT8_PREFILL`` while the model's int8 layers are built
+    (they read it then): LLaVA's 8bit recipe takes ``dynamic_noout``,
+    which it yields; other slices keep the default (``dynamic``) and get
+    None."""
+    mode = "dynamic_noout" if (model_name, quantization) == ("llava",
+                                                             "8bit") else None
+    if mode:
+        os.environ["VLM_TPU_INT8_PREFILL"] = mode
+    try:
+        yield mode
+    finally:
+        if mode:
+            del os.environ["VLM_TPU_INT8_PREFILL"]
+
+
+def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
+                model_name="paligemma"):
+    """Serve ``model_name``'s recipe with ``quantization`` "bf16", "8bit"
+    (with the int8 KV cache), "4bit", or "fp32" (the model's default, so
+    not passed); returns the launch counts of the timed run."""
     from vlm_tpu_torch.generate.batcher import ContinuousBatcher
     from vlm_tpu_torch.models.factory import create_model
     from vlm_tpu_torch.models.vlm import num_image_tokens
     from vlm_tpu_torch.ops import _lib
     from vlm_tpu_torch.ops.preprocess import normalize_images
 
-    tag = f"[slice {quantization}]"
+    spec = MODELS[model_name]
+    slots = spec["slots"].get(quantization, SLOTS)
+    tag = f"[slice {quantization}]" if model_name == "paligemma" else \
+        f"[slice {model_name} {quantization}]"
     t0 = time.perf_counter()
     kw = {} if quantization == "fp32" else dict(
         quantization=quantization,
         kv_cache="int8" if quantization == "8bit" else None)
-    model = create_model("paligemma", size="3b", device="cuda", seed=0, **kw)
+    with int8_prefill(model_name, quantization) as mode:
+        model = create_model(model_name, size=spec["size"], device="cuda",
+                             seed=0, **kw)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.module.parameters())
     n_bytes = sum(p.numel() * p.element_size()
                   for p in model.module.parameters())
-    print(f"{tag} PaliGemma-3B built: {n_params} params, {n_bytes} bytes, "
-          f"KV cache {model.cache_dtype}, "
+    print(f"{tag} {spec['label']} built: {n_params} params, {n_bytes} "
+          f"bytes, KV cache {model.cache_dtype}, {slots} slots"
+          f"{', int8 prefill ' + mode if mode else ''}, "
           f"{time.perf_counter() - t0:.1f} s ({gpu})")
     cfg = model.cfg
     dec = cfg.decoder
     rng = np.random.default_rng(0)
-    images = rng.integers(0, 256, (n_images, 224, 224, 3), dtype=np.uint8)
-    post_ids = np.concatenate([[dec.bos_token_id], rng.integers(
-        3, dec.vocab_size, PROMPT_IDS - 1)]).astype(np.int32)
-    prompt_len = num_image_tokens(cfg) + PROMPT_IDS
+    side = spec["image"]
+    images = rng.integers(0, 256, (n_images, side, side, 3), dtype=np.uint8)
+    pre_ids, post_ids = prompt_ids(np, rng, dec, spec["pre_ids"])
+    prompt_len = len(pre_ids) + num_image_tokens(cfg) + PROMPT_IDS
     caps = rng.integers(min(8, new), new + 1, n_images)
 
     def pixel_fn(idxs):
@@ -167,13 +226,13 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW):
                                 patch_size=cfg.vision.patch_size)
 
     def batcher():
-        return ContinuousBatcher(model.module, cfg, batch_size=SLOTS,
+        return ContinuousBatcher(model.module, cfg, batch_size=slots,
                                  max_prompt_len=prompt_len,
                                  max_new_tokens=new,
                                  cache_dtype=model.cache_dtype)
 
-    run_kw = dict(pre_ids_row=np.zeros((0,), np.int32),
-                  post_ids_row=post_ids, prompt_len_scalar=prompt_len)
+    run_kw = dict(pre_ids_row=pre_ids, post_ids_row=post_ids,
+                  prompt_len_scalar=prompt_len)
     batcher().run(pixel_fn, n_images=8, max_new_per_image=[4] * 8,
                   **run_kw)                                   # warm-up
     torch.cuda.synchronize()
@@ -186,6 +245,7 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW):
                 **run_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(_lib.launches)
     plain = dict(_lib.plain_calls)
 
@@ -214,13 +274,16 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW):
         raise RuntimeError(f"KV writes outside B2's launch: {launches} "
                            f"(int8 prefill rows: {prefill_rows})")
     lat = np.asarray(b.last_latency_s) * 1e3
+    print(f"{tag} prompt {prompt_len} ids ({len(pre_ids)} + "
+          f"{num_image_tokens(cfg)} image + {len(post_ids)}), "
+          f"{b.last_stats['admits']} admissions of {b.admit_block}, "
+          f"{b.last_stats['steps']} decode steps")
     print(f"{tag} {n_images} images, {len(toks)} tokens in {wall:.3f} s: "
           f"{n_images / wall:.3f} img/s, {len(toks) / wall:.1f} tok/s "
           f"({gpu})")
     print(f"{tag} latency p50 {np.percentile(lat, 50):.1f} ms p99 "
           f"{np.percentile(lat, 99):.1f} ms ({gpu})")
-    print(f"{tag} max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({gpu})")
+    print(f"{tag} max_memory_allocated {peak / 2**30:.2f} GiB ({gpu})")
     print(f"{tag} launches {launches}, plain calls {plain}, "
           f"loop {b.last_stats}")
 
@@ -229,70 +292,87 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW):
         from vlm_tpu_torch.models.decoder import init_kv_cache
         g = 4
         cache = init_kv_cache(dec, g, prompt_len, model.cache_dtype, "cuda")
-        ids = torch.from_numpy(post_ids).cuda()[None].expand(g, -1)
+        pre, ids = (torch.from_numpy(t).cuda()[None].expand(g, -1)
+                    for t in (pre_ids, post_ids))
         logits = model.module.prefill(
-            pixel_fn(list(range(g))), ids[:, :0], ids, cache,
+            pixel_fn(list(range(g))), pre, ids, cache,
             torch.full((g,), prompt_len, dtype=torch.int32, device="cuda"))
     if logits.shape != (g, dec.vocab_size) or not torch.isfinite(
             logits).all():
         raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
     del model, cache, logits
     torch.cuda.empty_cache()
-    return launches, dict(wall_s=wall, img_per_s=n_images / wall)
+    return launches, dict(wall_s=wall, img_per_s=n_images / wall,
+                          p50_ms=float(np.percentile(lat, 50)),
+                          p99_ms=float(np.percentile(lat, 99)),
+                          peak_gib=peak / 2**30)
 
 
-def reference_phase(torch, np, gpu, quantization):
+def reference_phase(torch, np, gpu, quantization, model_name="paligemma"):
     """Full-width, depth-cut model: bf16 kernels on the card against fp32
     plain versions on the CPU, same weights, same inputs. "8bit": int8
-    decoder and vision weights and the int8 KV cache on both sides. "4bit":
-    int4 decoder and vision weights, and a 1-image prefill after the
-    2-image one, so that B7 takes the prefill's products too. "fp32": the
-    fp32 kernels on the card, within ``REF_TOL_FP32``."""
-    from vlm_tpu_torch.models.configs import paligemma_config
+    decoder weights (PaliGemma's vision weights too, as its slice's
+    reference always had; LLaVA's tower stays bf16, as its recipe) and the
+    int8 KV cache on both sides. "4bit": int4 decoder and vision weights,
+    and a 1-image prefill after the 2-image one, so that B7 takes the
+    prefill's products too. "fp32": the fp32 kernels on the card, within
+    ``REF_TOL_FP32``."""
+    from vlm_tpu_torch.models.configs import VLM_CONFIGS
     from vlm_tpu_torch.models.layers import init_random_
     from vlm_tpu_torch.models.vlm import VLMModule, num_image_tokens
     from vlm_tpu_torch.ops import _lib
     from vlm_tpu_torch.ops.preprocess import RECIPES
 
-    full = paligemma_config("3b")
+    spec = MODELS[model_name]
+    full = VLM_CONFIGS[model_name](spec["size"])
     cfg = dataclasses.replace(
         full, vision=dataclasses.replace(full.vision, layers=2),
         decoder=dataclasses.replace(full.decoder, layers=2))
     bits = {"8bit": 8, "4bit": 4}.get(quantization, 0)
-    quant = dict(quant_bits=bits, vision_quant_bits=bits)
+    quant = dict(quant_bits=bits, vision_quant_bits=bits
+                 if model_name == "paligemma" else 0)
     card = torch.float32 if quantization == "fp32" else torch.bfloat16
     tol = REF_TOL_FP32 if quantization == "fp32" else REF_TOL
     cache_dtypes = {"cuda": card, "cpu": torch.float32}
     if bits == 8:
         cache_dtypes = dict.fromkeys(cache_dtypes, "int8")
-    gpu_mod = init_random_(VLMModule(cfg, dtype=card, device="cuda",
-                                     **quant), seed=1)
-    cpu_mod = VLMModule(cfg, dtype=torch.float32, device="cpu", **quant)
+    with int8_prefill(model_name, quantization):
+        gpu_mod = init_random_(VLMModule(cfg, dtype=card, device="cuda",
+                                         **quant), seed=1)
+        cpu_mod = VLMModule(cfg, dtype=torch.float32, device="cpu", **quant)
     # integer weights stay as they are; only floating tensors widen to fp32
     cpu_mod.load_state_dict({
         k: (v.float() if v.is_floating_point() else v).cpu()
         for k, v in gpu_mod.state_dict().items()})
     rng = np.random.default_rng(1)
     steps = 3
-    plen = num_image_tokens(cfg) + PROMPT_IDS
-    recipe = RECIPES["paligemma"]
+    n_pre = spec["pre_ids"]
+    plen = n_pre + num_image_tokens(cfg) + PROMPT_IDS
+    recipe = RECIPES[model_name]
+    side = spec["image"]
     worst = 0.0
     for b in (2, 1) if bits == 4 else (2,):
-        u8 = torch.from_numpy(rng.integers(0, 256, (b, 224, 224, 3),
+        u8 = torch.from_numpy(rng.integers(0, 256, (b, side, side, 3),
                                            dtype=np.uint8))
-        post = torch.from_numpy(rng.integers(3, 1000, (b, PROMPT_IDS),
-                                             dtype=np.int32))
+        pre, post = (torch.from_numpy(rng.integers(3, 1000, (b, n),
+                                                   dtype=np.int32))
+                     for n in (n_pre, PROMPT_IDS))
         _lib.reset_counts()
-        worst = max(worst, _compare(torch, gpu_mod, cpu_mod, cfg, u8, post,
-                                    plen, steps, cache_dtypes, recipe, card))
+        worst = max(worst, _compare(torch, gpu_mod, cpu_mod, cfg, u8, pre,
+                                    post, plen, steps, cache_dtypes, recipe,
+                                    card))
         if bits == 4 and not _lib.launches["int4_matmul"]:
             raise RuntimeError("B7 never launched in the 4bit reference")
         idle = [k for k in PATH_KERNELS["fp32"]
                 if not _lib.launches[k]] if quantization == "fp32" else []
         if idle:
             raise RuntimeError(f"{idle} never launched in the fp32 reference")
+        if bits == 8 and not _lib.launches["int8xint8_matmul"]:
+            raise RuntimeError("B6 never launched in the 8bit reference")
     _lib.reset_counts()
-    print(f"[reference {quantization}] depth-cut PaliGemma (2+2 layers, "
+    name = "reference" if model_name == "paligemma" else \
+        f"reference {model_name}"
+    print(f"[{name} {quantization}] depth-cut {spec['label']} (2+2 layers, "
           f"full width): prefill + {steps} decode steps"
           f"{' (2 and 1 images)' if bits == 4 else ''}, max |card - cpu| / "
           f"max|cpu| = {worst:.3e} (tol {tol:.0e}) ({gpu})")
@@ -300,7 +380,7 @@ def reference_phase(torch, np, gpu, quantization):
         raise RuntimeError("card disagrees with the CPU reference")
 
 
-def _compare(torch, gpu_mod, cpu_mod, cfg, u8, post, plen, steps,
+def _compare(torch, gpu_mod, cpu_mod, cfg, u8, pre, post, plen, steps,
              cache_dtypes, recipe, card_dtype):
     """Prefill ``u8`` and ``steps`` rotating-window decode steps on both
     modules; the worst max |card - cpu| / max |cpu| over the logits."""
@@ -318,9 +398,8 @@ def _compare(torch, gpu_mod, cpu_mod, cfg, u8, post, plen, steps,
             px = normalize_images(u8.to(dev), recipe=recipe,
                                   compute_dtype=dtype,
                                   patch_size=cfg.vision.patch_size)
-            ids = post.to(dev)
             runs[dev] = dict(cache=cache, pl=pl, logits=[mod.prefill(
-                px, ids[:, :0], ids, cache, pl).float().cpu()])
+                px, pre.to(dev), post.to(dev), cache, pl).float().cpu()])
         for step in range(steps):
             tok = runs["cuda"]["logits"][-1].argmax(-1).int()
             for dev, mod in (("cuda", gpu_mod), ("cpu", cpu_mod)):
@@ -368,14 +447,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{_lib.last_build['seconds']:.1f} s) ({gpu})")
     records = kernel_phase(gpu)
-    launches = {}
-    for quantization in ("bf16", "8bit", "4bit", "fp32"):
-        size = dict(n_images=FP32_IMAGES, new=FP32_NEW) \
-            if quantization == "fp32" else {}
-        path, _ = slice_phase(torch, np, gpu, quantization, **size)
-        reference_phase(torch, np, gpu, quantization)
-        for name, n in path.items():
-            launches[name] = launches.get(name, 0) + n
+    launches = dict.fromkeys(_lib.KERNELS, 0)
+    # (model, mode, whether a slice is served before the reference)
+    for model_name, quantization, serve in (
+            ("paligemma", "bf16", True), ("paligemma", "8bit", True),
+            ("paligemma", "4bit", True), ("paligemma", "fp32", True),
+            ("llava", "bf16", True), ("llava", "8bit", True),
+            ("llava", "fp32", False)):
+        if serve:
+            size = dict(n_images=FP32_IMAGES, new=FP32_NEW) \
+                if quantization == "fp32" else {}
+            path, _ = slice_phase(torch, np, gpu, quantization,
+                                  model_name=model_name, **size)
+            for name, n in path.items():
+                launches[name] += n
+        reference_phase(torch, np, gpu, quantization, model_name)
 
     kernels = []
     for key, meta in KERNELS.items():

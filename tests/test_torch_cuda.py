@@ -275,16 +275,22 @@ def test_patch_layout_normalize_is_bitwise(all_cases, case):
     assert got.shape == (4, 256, 588) and torch.equal(got, want)
 
 
-def _depth_cut(card, quantization):
-    """PaliGemma-3B at full width with 2 decoder layers (1 vision layer),
-    random weights, and a 32-slot cache of 348 rows."""
+# each model's size and prompt length (PaliGemma 316, LLaVA 5 + 576 + 60)
+PROMPTS = {"paligemma": ("3b", 316), "llava": ("7b", 641)}
+
+
+def _depth_cut(card, quantization, model="paligemma", slots=32):
+    """The model at full width with 2 decoder layers (1 vision layer),
+    random weights, and the slots' cache of its prompt and 32 new rows
+    (PaliGemma-3B: 348; LLaVA-1.5-7B: 673)."""
     import dataclasses
 
-    from vlm_tpu_torch.models.configs import paligemma_config
+    from vlm_tpu_torch.models.configs import VLM_CONFIGS
     from vlm_tpu_torch.models.decoder import init_kv_cache
     from vlm_tpu_torch.models.layers import init_random_
     from vlm_tpu_torch.models.vlm import VLMModule
-    full = paligemma_config("3b")
+    size, prompt = PROMPTS[model]
+    full = VLM_CONFIGS[model](size)
     cfg = dataclasses.replace(
         full, vision=dataclasses.replace(full.vision, layers=1),
         decoder=dataclasses.replace(full.decoder, layers=2))
@@ -292,26 +298,27 @@ def _depth_cut(card, quantization):
     dtype = torch.float32 if quantization == "fp32" else torch.bfloat16
     mod = init_random_(VLMModule(cfg, dtype=dtype, device=card,
                                  quant_bits=bits), seed=0)
-    cache = init_kv_cache(cfg.decoder, 32, 348,
+    cache = init_kv_cache(cfg.decoder, slots, prompt + 32,
                           "int8" if bits else dtype, card)
     return mod, cfg, cache
 
 
-def _decode_step(mod, cache, card):
+def _decode_step(mod, cache, card, model="paligemma", slots=32):
     """One rotating-window decode step, as the batcher makes it."""
+    prompt = PROMPTS[model][1]
     i32 = dict(dtype=torch.int32, device=card)
     g = torch.Generator(device=card)
     g.manual_seed(0)
-    tok = torch.randint(3, 1000, (32, 1), generator=g, device=card,
+    tok = torch.randint(3, 1000, (slots, 1), generator=g, device=card,
                         dtype=torch.int32)
-    acol = torch.randint(0, 32, (32,), generator=g, device=card,
+    acol = torch.randint(0, 32, (slots,), generator=g, device=card,
                          dtype=torch.int32)
-    gcnt = torch.randint(1, 32, (32,), generator=g, device=card,
+    gcnt = torch.randint(1, 32, (slots,), generator=g, device=card,
                          dtype=torch.int32)
-    pos = torch.full((32,), 324, **i32)
+    pos = torch.full((slots,), prompt + 8, **i32)
     return lambda: mod.decode_step(
-        tok, pos, cache, write_col=torch.tensor(323, **i32),
-        kv_window=(torch.tensor(316, **i32), 32, acol, gcnt))
+        tok, pos, cache, write_col=torch.tensor(prompt + 7, **i32),
+        kv_window=(torch.tensor(prompt, **i32), 32, acol, gcnt))
 
 
 @pytest.mark.parametrize("quantization", ["bf16", "8bit", "fp32"])
@@ -366,3 +373,174 @@ def test_decode_step_makes_no_copy_of_the_write_column(card):
         and (e.kernels or any(c.kernels for c in e.cpu_children))]
     assert not offset_copies, [(e.name, e.input_shapes)
                                for e in offset_copies]
+
+
+# LLaVA-1.5-7B's serving shapes (kernel_checks' LLaVA block): B1 at CLIP-L
+# and Vicuna's causal MHA prefill, B2 at G = 1, D = 128 over the 32-slot
+# bf16 and 16-slot int8 windows, the standalone int8 prefill rows at KV =
+# 32, B4 at 336 px, B5 at m = 16 and B6 at m = 4 x 641 on Vicuna's three
+# products
+LLAVA_CASES = (
+    "B1 clip_l336_g4_h16_s577_d64", "B1 vicuna_prefill_g4_h32_s641_d128_kvlen",
+    "B1 fp32_vicuna_prefill_g2_h32_s641_d128_kvlen",
+    "B2 llava_window_32slots_cold", "B2 llava_window_32slots",
+    "B2 llava_window_16slots_int8_cold", "B2 llava_window_16slots_int8",
+    "B2 fp32_llava_window_4slots", "B3 llava_int8_prefill_g4_s641_kv32",
+    "B4 patch14_u8_g4_336", "B4 fp32_patch14_u8_g4_336",
+    *(f"B5 m16_k{k}_n{n}" for k, n in ((4096, 4096), (4096, 11008),
+                                       (11008, 4096))),
+    *(f"B6 m2564_k{k}_n{n}_bf16" for k, n in ((4096, 4096), (4096, 11008),
+                                              (11008, 4096))))
+# B3 inside B2 at KV = 32: every slot's row into its own head of K and V
+LLAVA_FUSED = ("llava_fused_window_32slots", "llava_fused_window_32slots_cold",
+               "llava_fused_scatter_kv_len_32slots",
+               "llava_int8_fused_window_16slots",
+               "llava_int8_fused_window_16slots_cold",
+               "llava_int8_fused_scatter_kv_len_16slots",
+               "llava_fp32_fused_window_4slots",
+               "llava_fp32_fused_scatter_kv_len_4slots")
+
+
+@pytest.mark.parametrize("case", LLAVA_CASES)
+def test_llava_shapes_match_plain(all_cases, case):
+    _check(all_cases[case])
+
+
+@pytest.mark.parametrize("case", LLAVA_FUSED)
+def test_llava_fused_write_is_b3_then_b2_bitwise(all_cases, case):
+    c = all_cases[f"B3 {case}"]
+    got, exact = c.kernel_fn(), c.exact_fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, exact)
+    _check(c)
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8", "fp32"])
+def test_fused_write_lands_in_every_kv_head(card, form):
+    """With 32 KV heads (G = 1) every head's block group 0 writes its own
+    head's row: each (slot, head) row at the column equals the new row
+    (int8: its quantized values and scale), and no other row changes."""
+    from vlm_tpu_torch.ops.decode_attention import decode_attention
+    from vlm_tpu_torch.ops.quant import quantize_activations
+    g = torch.Generator(device=card)
+    g.manual_seed(5)
+    b, s, kvh, d, col = 6, 200, 32, 128, 131
+    dtype = torch.float32 if form == "fp32" else torch.bfloat16
+    q = torch.randn(b, kvh, 1, d, generator=g, device=card).to(dtype)
+    k = torch.randn(b, s, kvh, d, generator=g, device=card).to(dtype)
+    v = torch.randn(b, s, kvh, d, generator=g, device=card).to(dtype)
+    kn = torch.randn(b, 1, kvh, d, generator=g, device=card).to(dtype)
+    vn = torch.randn(b, 1, kvh, d, generator=g, device=card).to(dtype)
+    start = torch.full((1,), col, dtype=torch.int32, device=card)
+    kv_len = torch.full((b,), col + 1, dtype=torch.int32, device=card)
+    if form == "int8":
+        (kq, ks), (vq, vs) = quantize_activations(k), quantize_activations(v)
+        caches = [kq, vq, ks, vs]
+        before = [t.clone() for t in caches]
+        decode_attention(q, kq, vq, k_scale=ks, v_scale=vs, kv_len=kv_len,
+                         k_new=kn, v_new=vn, write_start=start, uniform=True)
+        want = [*quantize_activations(kn), *quantize_activations(vn)]
+        got = [kq[:, col:col + 1], ks[:, col:col + 1], vq[:, col:col + 1],
+               vs[:, col:col + 1]]
+        for w, x in zip(want, got):
+            assert torch.equal(w, x)
+    else:
+        caches = [k, v]
+        before = [t.clone() for t in caches]
+        decode_attention(q, k, v, kv_len=kv_len, k_new=kn, v_new=vn,
+                         write_start=start, uniform=True)
+        assert torch.equal(k[:, col:col + 1], kn)
+        assert torch.equal(v[:, col:col + 1], vn)
+    torch.cuda.synchronize()
+    rows = torch.arange(s, device=card) != col
+    for t, t0 in zip(caches, before):
+        assert torch.equal(t[:, rows], t0[:, rows])
+
+
+@pytest.mark.parametrize("quantization", ["bf16", "8bit"])
+def test_llava_decode_step_writes_only_inside_b2(card, quantization):
+    """A LLaVA decode step (MHA, 32 KV heads) launches no standalone B3
+    and no copy of the write column: one B2 launch and one fused write a
+    layer, under the profiler no kv_write kernel and no copy kernel of a
+    [slots] tensor."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlm_tpu_torch.ops import _lib
+    slots = 16 if quantization == "8bit" else 32
+    mod, cfg, cache = _depth_cut(card, quantization, "llava", slots)
+    step = _decode_step(mod, cache, card, "llava", slots)
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        _lib.reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            logits = step()
+            torch.cuda.synchronize()
+    layers = cfg.decoder.layers
+    b2, fused = (("decode_attention_int8", "kv_write_int8_fused")
+                 if quantization == "8bit"
+                 else ("decode_attention", "kv_write_fused"))
+    assert _lib.launches[b2] == layers and _lib.launches[fused] == layers
+    assert _lib.launches["kv_write"] == _lib.launches["kv_write_int8"] == 0
+    assert sum(_lib.plain_calls.values()) == 0
+    assert logits.shape == (slots, 32064) and torch.isfinite(logits).all()
+    names = [e.key for e in prof.key_averages()
+             if str(e.device_type).endswith("CUDA")]
+    assert not [n for n in names if "kv_write" in n]
+    offset_copies = [
+        e for e in prof.events()
+        if e.name in ("aten::copy_", "aten::clone", "aten::contiguous")
+        and e.input_shapes and e.input_shapes[0] == [slots]
+        and (e.kernels or any(c.kernels for c in e.cpu_children))]
+    assert not offset_copies
+
+
+def test_depth_cut_llava_matches_the_cpu(card):
+    """LLaVA at full width (1 CLIP and 2 Vicuna layers), bf16 on the card
+    against the same weights in fp32 on the CPU: prefill of two images
+    with BOS + 4 ids before the image and 8 after, then two rotating-window
+    decode steps; max |card - cpu| / max |cpu| <= 5e-2 (chip_smoke.py's
+    REF_TOL)."""
+    import numpy as np
+
+    from vlm_tpu_torch.models.decoder import init_kv_cache
+    from vlm_tpu_torch.models.vlm import VLMModule
+    from vlm_tpu_torch.ops.preprocess import RECIPES, normalize_images
+    mod, cfg, _ = _depth_cut(card, "bf16", "llava", slots=1)
+    cpu = VLMModule(cfg, dtype=torch.float32, device="cpu")
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in mod.state_dict().items()})
+    rng = np.random.default_rng(2)
+    u8 = torch.from_numpy(rng.integers(0, 256, (2, 336, 336, 3),
+                                       dtype=np.uint8))
+    pre = torch.from_numpy(np.concatenate(
+        [np.ones((2, 1)), rng.integers(3, 1000, (2, 4))], 1).astype(np.int32))
+    post = torch.from_numpy(rng.integers(3, 1000, (2, 8), dtype=np.int32))
+    plen, steps = 5 + 576 + 8, 2
+    logits = {}
+    with torch.inference_mode():
+        for dev, m, dtype in (("cuda", mod, torch.bfloat16),
+                              ("cpu", cpu, torch.float32)):
+            i32 = dict(dtype=torch.int32, device=dev)
+            cache = init_kv_cache(cfg.decoder, 2, plen + steps, dtype, dev)
+            px = normalize_images(u8.to(dev), recipe=RECIPES["llava"],
+                                  compute_dtype=dtype, patch_size=14)
+            pl = torch.full((2,), plen, **i32)
+            out = [m.prefill(px, pre.to(dev), post.to(dev), cache,
+                             pl).float().cpu()]
+            for step in range(steps):
+                tok = logits["cuda"][step].argmax(-1) if dev == "cpu" else \
+                    out[-1].argmax(-1)
+                window = (torch.tensor(plen, **i32), steps,
+                          torch.zeros(2, **i32),
+                          torch.full((2,), step + 1, **i32))
+                out.append(m.decode_step(
+                    tok.to(dev, torch.int32)[:, None], pl + step, cache,
+                    write_col=torch.tensor(plen + step, **i32),
+                    kv_window=window).float().cpu())
+            logits[dev] = out
+    for got, ref in zip(logits["cuda"], logits["cpu"]):
+        assert got.shape == (2, 32064) and torch.isfinite(got).all()
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 5e-2

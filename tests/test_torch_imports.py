@@ -1,11 +1,12 @@
 """The port stands on its own: a fresh interpreter in which ``vlm_tpu``,
 ``jax`` and ``flax`` cannot be imported (a ``sys.meta_path`` finder refuses
-them) imports every module of vlm_tpu_torch and runs three tiny slices end
+them) imports every module of vlm_tpu_torch and runs four tiny slices end
 to end (model, batcher, every op's CPU version: fp32, then 8bit with the
 int8 KV cache and a prompt long enough for the llm.int8 prefill, then 4bit
-with an int4 tower), and another runs the port's CLI ``main()`` on a
-synthetic dataset with ``VLM_TPU_PLATFORM=cpu``. Neither imports triton or
-builds the kernel library."""
+with an int4 tower, then LLaVA in fp32), and others run the port's CLI
+``main()`` on a synthetic dataset with ``VLM_TPU_PLATFORM=cpu``, for
+PaliGemma and for LLaVA. None imports triton or builds the kernel
+library."""
 
 import json
 import subprocess
@@ -40,28 +41,32 @@ from vlm_tpu_torch.models.factory import create_model
 from vlm_tpu_torch.models.vlm import num_image_tokens
 from vlm_tpu_torch.ops import _lib
 from vlm_tpu_torch.ops.preprocess import normalize_images
-def serve(quantization, post, **kw):
-    model = create_model("paligemma", quantization=quantization, size="test",
+def serve(quantization, post, name="paligemma", pre=(), **kw):
+    model = create_model(name, quantization=quantization, size="test",
                          device="cpu", **kw)
     s = model.cfg.vision.image_size
     u8 = np.random.default_rng(0).integers(0, 256, (5, s, s, 3),
                                            dtype=np.uint8)
-    plen = num_image_tokens(model.cfg) + len(post)
+    plen = len(pre) + num_image_tokens(model.cfg) + len(post)
     return ContinuousBatcher(model.module, model.cfg, batch_size=2,
                              max_prompt_len=plen, max_new_tokens=3,
                              cache_dtype=model.cache_dtype).run(
         lambda idxs: normalize_images(torch.from_numpy(u8[idxs]),
                                       recipe=model.recipe,
                                       compute_dtype=model.dtype),
-        pre_ids_row=np.zeros((0,), np.int32),
+        pre_ids_row=np.asarray(pre, np.int32),
         post_ids_row=np.asarray(post, np.int32), prompt_len_scalar=plen,
         n_images=5)
 out = serve("fp32", [2, 9])
 # 2 x (16 + 250) = 532 prefill rows: the llm.int8 product
 out8 = serve("8bit", [2] + [9] * 249, kv_cache="int8")
 out4 = serve("4bit", [2, 9], quantize_vision=True)
+# LLaVA: text before the image, and the config's pad id (past its "test"
+# vocabulary) fed to no idle slot
+outl = serve("fp32", [9, 11], name="llava", pre=[1, 7])
 print(json.dumps({
     "modules": mods, "tokens": out, "tokens8": out8, "tokens4": out4,
+    "tokensl": outl,
     "loaded": sorted(m for m in ("jax", "flax", "triton", "vlm_tpu")
                      if m in sys.modules),
     "plain_calls": _lib.plain_calls, "lib_loaded": _lib._lib is not None}))
@@ -84,7 +89,8 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert {"vlm_tpu_torch.models.base_model", "vlm_tpu_torch.ops.kvcache",
             "vlm_tpu_torch.scripts.prompt_inference",
             "vlm_tpu_torch.testing.kernel_checks"} <= set(res["modules"])
-    for toks in (res["tokens"], res["tokens8"], res["tokens4"]):
+    for toks in (res["tokens"], res["tokens8"], res["tokens4"],
+                 res["tokensl"]):
         assert len(toks) == 5
         assert all(t is not None and len(t) <= 3 for t in toks)
     assert min(res["plain_calls"].values()) > 0
@@ -126,3 +132,22 @@ def test_port_cli_runs_end_to_end_without_jax(tmp_path, mivia_base):
     assert len(json.loads((out / "preds.json").read_text())) == 4
     assert "average_accuracy" in json.loads(
         (out / "metrics.json").read_text())
+
+
+def test_port_cli_runs_llava_without_jax(tmp_path, mivia_base):
+    """The same CLI run with ``model_name: llava`` (size "test", fp32)."""
+    cfg = {"model_name": "llava", "model_size": "test",
+           "quantization": "fp32", "dataset_name": "MiviaPar",
+           "max_tokens": 3, "batch_size": 2,
+           "dataset": {"base_path": str(mivia_base)},
+           "prompts": {"MiviaPar": "describe"}}
+    path = tmp_path / "cli.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    proc = _run(CLI, tmp_path, CLI_CONFIG=str(path),
+                VLM_TPU_ROOT=str(tmp_path), VLM_TPU_PLATFORM="cpu")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and not res["lib_loaded"]
+    assert res["summary"]["images_completed"] == 4
+    out = tmp_path / "eval" / "prompt_inference" / "llava_fp32" / "MiviaPar"
+    assert len(json.loads((out / "preds.json").read_text())) == 4

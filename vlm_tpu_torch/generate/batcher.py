@@ -62,6 +62,16 @@ class ContinuousBatcher:
         self.cache_dtype = cache_dtype or module.dtype
         self.eos_id = cfg.decoder.eos_token_id if eos_id is None else eos_id
         self.pad_id = cfg.decoder.pad_token_id if pad_id is None else pad_id
+        # the token an idle slot is fed: the pad id where it lies in the
+        # vocabulary, else 0. The pad id still fills the history and the
+        # results. An idle slot's logits are discarded and the rows it
+        # writes stay masked for its next occupant; but an id past the
+        # table would raise here, and in vlm_tpu (whose lookup fills such
+        # a row with NaN) makes those rows NaN, which a masked weight of
+        # 0 does not cancel (LLaVA's "test" config: pad 32001, vocabulary
+        # 512).
+        vocab = cfg.decoder.vocab_size
+        self.feed_id = self.pad_id if 0 <= self.pad_id < vocab else 0
         # ~8 slots per admission, fewer for small batches (vlm_tpu's default;
         # tuned on a TPU and to be re-tuned on the card)
         self.admit_block = admit_block or min(
@@ -83,7 +93,7 @@ class ContinuousBatcher:
         b, dev = self.batch_size, self.device
         i32 = dict(dtype=torch.int32, device=dev)
         return {
-            "cur": torch.full((b,), self.pad_id, **i32),
+            "cur": torch.full((b,), self.feed_id, **i32),
             "slen": torch.zeros((b,), **i32),
             "gcnt": torch.zeros((b,), **i32),
             "caps": torch.full((b,), self.max_new_tokens, **i32),
@@ -123,7 +133,7 @@ class ContinuousBatcher:
         act_new = (first != self.eos_id) & (caps_new > 1)
         state["hist"][slots] = self.pad_id
         state["hist"][slots, 0] = first
-        state["cur"][slots] = torch.where(act_new, first, self.pad_id)
+        state["cur"][slots] = torch.where(act_new, first, self.feed_id)
         state["slen"][slots] = prompt_len
         state["gcnt"][slots] = 1
         state["caps"][slots] = caps_new
@@ -149,7 +159,7 @@ class ContinuousBatcher:
         state["slen"] = state["slen"] + act.int()
         state["gcnt"] = gcnt + act.int()
         state["act"] = act & ~finished
-        state["cur"] = torch.where(state["act"], nxt, self.pad_id)
+        state["cur"] = torch.where(state["act"], nxt, self.feed_id)
         state["dstep"] = state["dstep"] + 1
 
     def _chunk(self, state: dict, cache: dict, stop_free: int,

@@ -181,6 +181,16 @@ class VLMModel:
                 for t in token_lists]
 
 
+class LLaVAModel(VLMModel):
+    """LLaVA-1.5-7B: CLIP-L/14-336, the MLP projector and Vicuna-7B, as
+    ``USER: <image>\\n{prompt} ASSISTANT:`` with BOS before ``USER:``."""
+    family = "llava"
+    DEFAULT_SIZE = "7b"
+
+    def format_prompt(self, prompt: str):
+        return "USER: ", f"\n{prompt} ASSISTANT:", True, False
+
+
 class PaLIGemmaModel(VLMModel):
     """PaliGemma-3B-mix-224: image tokens first, then BOS + prompt +
     newline."""

@@ -1,6 +1,7 @@
-"""Decoder-only LM (``vlm_tpu/models/decoder.py``), the Gemma path:
-Gemma's ``(1+w)`` RMSNorm and sqrt(hidden) embedding scale, half-rotation
-RoPE in fp32, MQA/GQA, the gated ``gelu_tanh`` MLP and the tied head.
+"""Decoder-only LM (``vlm_tpu/models/decoder.py``): Gemma (``(1+w)``
+RMSNorm, sqrt(hidden) embedding scale, MQA, the gated ``gelu_tanh`` MLP,
+the tied head) and LLaMA/Vicuna (plain RMSNorm, MHA, the gated SiLU MLP,
+the untied ``lm_head``), with half-rotation RoPE in fp32.
 
 The KV cache is a dict of per-layer tuples of ``[B, max_len, KV, D]``
 tensors, or of :class:`QuantizedKV` pairs for the int8 cache, updated in
@@ -8,7 +9,7 @@ place (JAX donated the buffers instead). Activations keep the
 ``[B, S, H, D]`` layout of the projections; attention reads them through
 strided views, so no head transpose is ever copied. ``quant_bits`` 8 or 4
 makes the block Dense layers int8 or grouped int4; the embedding and the
-tied head stay in the compute dtype, as in ``vlm_tpu``.
+head (tied or ``lm_head``) stay in the compute dtype, as in ``vlm_tpu``.
 """
 
 from __future__ import annotations
@@ -220,12 +221,10 @@ class Decoder(nn.Module):
             unsupported.append(f"pos={cfg.pos}")
         if not cfg.gated_mlp:
             unsupported.append("plain FFN")
-        if not cfg.tie_embeddings:
-            unsupported.append("untied lm_head")
         if unsupported:
             raise NotImplementedError(
                 f"decoder features {unsupported} are not ported yet (ROADMAP "
-                f"A12 LLaVA, A13 BLIP-2); the port runs the Gemma decoder")
+                f"A13: OPT, BLIP-2's decoder)")
         self.cfg = cfg
         self.dtype = dtype
         dd = dict(dtype=dtype, device=device)
@@ -235,6 +234,9 @@ class Decoder(nn.Module):
                                     for _ in range(cfg.layers))
         self.final_norm = RMSNorm(cfg.hidden, cfg.norm_eps,
                                   gemma_style=cfg.gemma_norm, **dd)
+        # the untied head: never quantized, no bias
+        self.lm_head = None if cfg.tie_embeddings else Dense(
+            cfg.hidden, cfg.vocab_size, use_bias=False, **dd)
         cos, sin = rope_table(cfg.head_dim, cfg.max_position, cfg.rope_theta,
                               device=device)
         self.register_buffer("rope_cos", cos, persistent=False)
@@ -265,7 +267,7 @@ class Decoder(nn.Module):
         """Arguments as in ``vlm_tpu``'s ``Decoder.__call__``. ``cache`` is
         updated in place. ``logits_index`` [B] keeps one position per row
         ([B, 1, V]); logits default to float32 (an exact upcast of the
-        compute-dtype head)."""
+        compute-dtype head, tied or ``lm_head``)."""
         if input_embeds is None:
             input_embeds = self.embed_tokens(input_ids)
         x = input_embeds.to(self.dtype)
@@ -282,5 +284,7 @@ class Decoder(nn.Module):
         if logits_index is not None:
             idx = logits_index.long().clamp(0, s - 1)
             x = x[torch.arange(b, device=x.device), idx][:, None]
-        logits = F.linear(x.to(self.dtype), self.embed.weight)
+        head = self.embed.weight if self.lm_head is None else \
+            self.lm_head.weight
+        logits = F.linear(x.to(self.dtype), head)
         return logits.to(logits_dtype or torch.float32)

@@ -4,17 +4,17 @@ from __future__ import annotations
 
 from typing import Optional
 
-from .base_model import PaLIGemmaModel, VLMModel
+from .base_model import LLaVAModel, PaLIGemmaModel, VLMModel
 
-_REGISTRY = {"paligemma": PaLIGemmaModel}
-_LATER = {"llava": "ROADMAP A12", "blip2": "ROADMAP A13"}
+_REGISTRY = {"llava": LLaVAModel, "paligemma": PaLIGemmaModel}
+_LATER = {"blip2": "ROADMAP A13"}
 
 
 def create_model(model_name: str, model_id: Optional[str] = None,
                  device=None, quantization: str = "fp32",
                  **kwargs) -> VLMModel:
-    """Instantiate a VLM by name ("paligemma"; "llava" and "blip2" are
-    not ported yet)."""
+    """Instantiate a VLM by name ("llava" or "paligemma"; "blip2" is not
+    ported yet)."""
     name = model_name.lower()
     if name in _LATER:
         raise NotImplementedError(f"model {name!r} is not ported yet "

@@ -1,10 +1,12 @@
-"""Vision-to-language projector (``vlm_tpu/models/projector.py``):
-PaliGemma's single linear projection. LLaVA's MLP and BLIP-2's Q-Former
-come with their slices (ROADMAP A12, A13)."""
+"""Vision-to-language projectors (``vlm_tpu/models/projector.py``):
+PaliGemma's single linear projection and LLaVA's two-layer GELU MLP.
+BLIP-2's Q-Former comes with its slice (ROADMAP A13). Neither is
+quantized in any mode, as in ``vlm_tpu``."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .configs import VLMConfig
@@ -21,13 +23,25 @@ class LinearProjector(nn.Module):
         return self.proj(x)
 
 
+class MLPProjector(nn.Module):
+    """LLaVA's projector: ``fc1`` (vision width -> decoder width), exact
+    GELU, ``fc2`` (decoder width -> decoder width)."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.fc1 = Dense(in_dim, out_dim, dtype=dtype, device=device)
+        self.fc2 = Dense(out_dim, out_dim, dtype=dtype, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="none"))
+
+
 def build_projector(cfg: VLMConfig, *, dtype, device) -> nn.Module:
-    if cfg.projector == "linear":
-        return LinearProjector(cfg.vision.hidden, cfg.decoder.hidden,
-                               dtype=dtype, device=device)
-    if cfg.projector == "mlp":
-        raise NotImplementedError("the MLP projector (LLaVA) is not ported "
-                                  "yet (ROADMAP A12)")
+    if cfg.projector in ("linear", "mlp"):
+        cls = LinearProjector if cfg.projector == "linear" else MLPProjector
+        return cls(cfg.vision.hidden, cfg.decoder.hidden, dtype=dtype,
+                   device=device)
     if cfg.projector == "qformer":
         raise NotImplementedError("the Q-Former (BLIP-2) is not ported yet "
                                   "(ROADMAP A13)")

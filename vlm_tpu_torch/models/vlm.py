@@ -1,7 +1,9 @@
 """Assembled VLM (``vlm_tpu/models/vlm.py``): vision tower -> projector ->
 token merge -> decoder. PaliGemma's layout is [256 image tokens]
 [BOS + prompt + "\\n"], a prefix-LM: the prompt prefix attends
-bidirectionally, generated tokens causally.
+bidirectionally, generated tokens causally. LLaVA's is [BOS + "USER: "]
+[576 image tokens: CLIP's penultimate layer, CLS dropped]
+["\\n" + prompt + " ASSISTANT:"], causal throughout.
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """Each CUDA kernel against its plain PyTorch version, on the card, at the
 shapes the PaliGemma-3B serving paths give it (32 slots, 224 px images,
 prompt length 316, 32 new tokens, admission groups of 4; bf16, 8bit with
-the int8 KV cache, and 4bit), plus cases for the mask modes and shapes the
-paths do not reach.
+the int8 KV cache, and 4bit) and the LLaVA-1.5-7B paths give it (336 px
+images, prompt length 641, MHA with 32 heads of 128; 32 slots in bf16,
+16 in 8bit with the int8 KV cache), plus cases for the mask modes and
+shapes the paths do not reach.
 
 Used by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``. Attention
 outputs are bf16 and both versions accumulate in fp32 from the same bf16
@@ -135,6 +137,13 @@ SIGLIP_KN = ((1152, 4304), (4304, 1152))
 # the serving path's shapes (PaliGemma-3B)
 SLOTS, PROMPT, NEW, GROUP = 32, 316, 32, 4
 CACHE = PROMPT + NEW
+# LLaVA-1.5-7B's: Vicuna-7B is MHA (32 heads of 128, G = 1), 32 slots in
+# bf16 and 16 in 8bit, a prompt of 5 + 576 + 60 ids, CLIP-L/336 (577
+# tokens of 16 heads of 64); Vicuna's block products (K, N): q/k/v/o,
+# gate/up, down (K = 11008 = 86 x 128)
+LLAVA_SLOTS, LLAVA_SLOTS_8BIT, LLAVA_PROMPT = 32, 16, 641
+LLAVA_CACHE = LLAVA_PROMPT + NEW
+VICUNA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 
 
 @dataclasses.dataclass
@@ -307,10 +316,11 @@ def cases(device) -> List[Case]:
        causal=True, prefix_len=torch.tensor([20, 5], **i32),
        kv_len=torch.tensor([60, 64], **i32))
     # the towers and decoders of later slices: CLIP-L/336 (16 x 64 over
-    # 577 tokens), EVA ViT-g (16 x 88 over 257), a Vicuna-7B prefill
-    # (32 x 128, MHA) of 100 new tokens after 256 cached ones
+    # 577 tokens; LLaVA's tower, on its path), EVA ViT-g (16 x 88 over
+    # 257), a Vicuna-7B prefill (32 x 128, MHA) of 100 new tokens after 256
+    # cached ones
     b1("clip_l336_g4_h16_s577_d64", *(_bhsd(gen, GROUP, 577, 16, 64, dev)
-                                      for _ in range(3)))
+                                      for _ in range(3)), on_path=True)
     b1("eva_g4_h16_s257_d88", *(_bhsd(gen, GROUP, 257, 16, 88, dev)
                                 for _ in range(3)))
     b1("causal_mha_sq100_sk356_d128", _bhsd(gen, 2, 100, 32, 128, dev),
@@ -816,6 +826,115 @@ def cases(device) -> List[Case]:
     # is timed against it for a later dispatch decision
     for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
         b7(GROUP * PROMPT, k, n, gemma_w4[(k, n)], False)
+
+    # ---- LLaVA-1.5-7B's serving shapes (the bf16 and 8bit slices) ----
+    # B1: Vicuna's causal prefill of an admission of 4 (MHA, G = 1: one
+    # head a block), the K/V views of the [B, S, KV, D] projections, one
+    # row's prompt shorter than the rest
+    lp = LLAVA_PROMPT
+    b1("vicuna_prefill_g4_h32_s641_d128_kvlen",
+       *(_bhsd(gen, GROUP, lp, 32, 128, dev) for _ in range(3)), on_path=True,
+       causal=True, kv_len=torch.tensor([lp, lp, lp, 600], **i32))
+    # its fp32 form, as the fp32 depth-cut reference runs it (2 images)
+    b1("fp32_vicuna_prefill_g2_h32_s641_d128_kvlen",
+       *(f32(2, lp, 32, 128) for _ in range(3)), causal=True,
+       kv_len=torch.tensor([lp, 600], **i32))
+
+    # B2 and B3 fused: the rotating window over the MHA cache (32 KV heads
+    # of 128), every slot's new row written into its own head of K and V
+    def llava_window(slots):
+        ac = torch.randint(0, NEW, (slots,), generator=gen, device=dev).int()
+        gc = torch.randint(1, NEW + 1, (slots,), generator=gen,
+                           device=dev).int()
+        gc[1] = 0                                     # a slot not admitted
+        return (torch.tensor(lp, **i32), NEW, ac, gc)
+
+    def rows(slots, dtype=torch.bfloat16):
+        return tuple(torch.randn(slots, 1, 32, 128, generator=gen,
+                                 device=dev).to(dtype) for _ in range(2))
+
+    lwin = llava_window(LLAVA_SLOTS)
+    lq = query(LLAVA_SLOTS, 32, 128)
+    (lk, lv, _), _ = cache(LLAVA_SLOTS, LLAVA_CACHE, 32, 128)
+    for cold in (True, False):
+        b2("llava_window_32slots", lq, lk, lv, dict(kv_window=lwin), True,
+           {}, cold)
+    lkr, lvr = rows(LLAVA_SLOTS)
+    lcol = torch.full((1,), lp + 7, **i32)
+    for cold in (True, False):
+        b3_fused("llava_fused_window_32slots", lq, (lk, lv), lkr, lvr, lcol,
+                 True, dict(kv_window=lwin), True, cold)
+    lstart = torch.randint(0, LLAVA_CACHE, (LLAVA_SLOTS,), generator=gen,
+                           device=dev).int()
+    lstart[:4] = torch.tensor([0, 63, 64, LLAVA_CACHE - 1], **i32)
+    b3_fused("llava_fused_scatter_kv_len_32slots", lq, (lk, lv), lkr, lvr,
+             lstart, False, dict(kv_len=(lstart + 1).int()), False)
+    # 8bit: 16 slots over the int8 cache
+    win8 = llava_window(LLAVA_SLOTS_8BIT)
+    q8 = query(LLAVA_SLOTS_8BIT, 32, 128)
+    _, (kq8, vq8, sc8) = cache(LLAVA_SLOTS_8BIT, LLAVA_CACHE, 32, 128)
+    for cold in (True, False):
+        b2("llava_window_16slots", q8, kq8, vq8, dict(kv_window=win8), True,
+           sc8, cold)
+    kr8, vr8 = rows(LLAVA_SLOTS_8BIT)
+    caches8 = (kq8, vq8, sc8["k_scale"], sc8["v_scale"])
+    for cold in (True, False):
+        b3_fused("llava_int8_fused_window_16slots", q8, caches8, kr8, vr8,
+                 lcol, True, dict(kv_window=win8), True, cold)
+    st8 = lstart[:LLAVA_SLOTS_8BIT].contiguous()
+    b3_fused("llava_int8_fused_scatter_kv_len_16slots", q8, caches8, kr8,
+             vr8, st8, False, dict(kv_len=(st8 + 1).int()), False)
+    # fp32 (the fp32 depth-cut reference's forms at G = 1, D = 128): 4
+    # slots
+    win32 = llava_window(4)
+    q32 = query(4, 32, 128).float()
+    (k32, v32, _), _ = cache(4, LLAVA_CACHE, 32, 128)
+    k32, v32 = k32.float(), v32.float()
+    b2("fp32_llava_window_4slots", q32, k32, v32, dict(kv_window=win32),
+       False, {})
+    kr32, vr32 = rows(4, torch.float32)
+    b3_fused("llava_fp32_fused_window_4slots", q32, (k32, v32), kr32, vr32,
+             lcol, True, dict(kv_window=win32), False)
+    b3_fused("llava_fp32_fused_scatter_kv_len_4slots", q32, (k32, v32),
+             kr32, vr32, lstart[:4].contiguous(),
+             False, dict(kv_len=(lstart[:4] + 1).int()), False)
+    # standalone B3: the 8bit admission's prompt rows of 4 images, int8
+    k_pre = torch.randn(GROUP, lp, 32, 128, generator=gen, device=dev).to(
+        torch.bfloat16)
+    v_pre = torch.randn(GROUP, lp, 32, 128, generator=gen, device=dev).to(
+        torch.bfloat16)
+    group8 = tuple((torch.zeros(GROUP, lp, 32, 128, dtype=torch.int8,
+                                device=dev),
+                    torch.zeros(GROUP, lp, 32, 1, device=dev))
+                   for _ in range(2))
+    b3_int8("llava_int8_prefill_g4_s641_kv32", k_pre, v_pre, group8,
+            torch.zeros(1, **i32), True, True)
+
+    # B4: an admission of 4 CLIP images (336 px) into the patch layout
+    u336 = torch.randint(0, 256, (GROUP, 336, 336, 3), generator=gen,
+                         device=dev).to(torch.uint8)
+    clip = RECIPES["llava"]
+    for dtype, tag, form, elem, on_path in (
+            (torch.bfloat16, "", "normalize", 2, True),
+            (torch.float32, "fp32_", "normalize_fp32", 4, False)):
+        out.append(Case(
+            "B4", f"{tag}patch14_u8_g4_336",
+            functools.partial(normalize_images, u336, recipe=clip,
+                              compute_dtype=dtype, patch_size=14),
+            functools.partial(normalize_plain, u336, clip, dtype, 14), 0.0,
+            on_path, form=form,
+            work=(0.0, (1.0 + elem) * u336.numel(), "bf16"),
+            baseline_fn=lambda dtype=dtype: unfold_patches(normalize_images(
+                u336, recipe=clip, compute_dtype=dtype), 14),
+            library_note=b4_note))
+
+    # B5 at the 8bit decode step's 16 slots and B6 at an admission's
+    # 4 x 641 rows (``dynamic_noout``: bf16 out), Vicuna's three products
+    vicuna_w = {kn: weights(*kn) for kn in VICUNA_KN}
+    for k, n in VICUNA_KN:
+        b5(LLAVA_SLOTS_8BIT, k, n, *vicuna_w[(k, n)], True)
+    for k, n in VICUNA_KN:
+        b6(GROUP * lp, k, n, *vicuna_w[(k, n)], torch.bfloat16, True)
     return out
 
 

@@ -44,11 +44,22 @@ the port's public calls (``flash_attention``, ``decode_attention``,
   standalone B3 (``kv_write``) and B4 (``normalize``) kernels a run, by
   name. The admissions ask B4 for the patch embedding's layout where the
   measured tree's ``normalize_images`` takes ``patch_size``.
+
+``--model llava`` measures LLaVA-1.5-7B's slice instead: B1 at CLIP-L
+[4, 16, 577, 64] and at Vicuna's causal prefill [4, 32, 641, 128] (MHA,
+kv_len [641, 641, 641, 600]) and B2 over the 32-slot MHA cache
+[32, 673, 32, 128] (cold and warm), each beside SDPA (``b1_ms``,
+``device_us``); then an admission of 4 images (BOS + 4 ids, 576 image
+tokens, 60 ids: 641) and a decode step at full width and depth, random
+weights, in bf16 (``admission``, ``step_bf16``: 32 slots) and in the 8bit
+recipe (``admission_8bit``, ``step_8bit``: int8 decoder weights with
+``VLM_TPU_INT8_PREFILL=dynamic_noout``, the int8 cache, 16 slots).
 """
 
 import argparse
 import inspect
 import json
+import os
 import subprocess
 import sys
 import time
@@ -59,19 +70,26 @@ PROMPT_IDS, GROUP = 60, 4
 # new tokens
 SLOTS, PROMPT, NEW = 32, 316, 32
 CACHE = PROMPT + NEW
+# LLaVA-1.5-7B: 336 px, BOS + 4 ids before the 576 image tokens, a prompt
+# of 641; 32 slots in bf16, 16 in 8bit
+LLAVA = dict(image=336, pre_ids=5, prompt=641, slots={"bf16": 32,
+                                                      "8bit": 16})
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--admissions", type=int, default=3)
+    ap.add_argument("--model", choices=("paligemma", "llava"),
+                    default="paligemma")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_admission: needs a CUDA device")
+    if args.model == "llava":
+        return main_llava(torch, args)
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
 
     from vlm_tpu_torch.models.factory import create_model
     from vlm_tpu_torch.ops import _lib
@@ -107,17 +125,7 @@ def main(argv=None):
     b1_ms = {k: _ms(fn, 20) for k, fn in calls.items()}
 
     def device_us(fn, n=20):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return sum(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0))
-                   for e in prof.key_averages()
-                   if str(e.device_type).endswith("CUDA")) / n
+        return _device_us(torch, fn, n)
 
     def host_us(fn, n=200):
         fn()
@@ -207,6 +215,105 @@ def main(argv=None):
     print(json.dumps(out))
 
 
+def _device_us(torch, fn, n=20):
+    """µs a call of ``fn``'s kernels' own device time, ``n`` calls under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")) / n
+
+
+def main_llava(torch, args):
+    """``--model llava``: B1 and B2 at LLaVA's shapes beside SDPA, then a
+    bf16 and an 8bit admission and decode step."""
+    import torch.nn.functional as F
+
+    from vlm_tpu_torch.models.factory import create_model
+    from vlm_tpu_torch.ops.attention import flash_attention
+    from vlm_tpu_torch.ops.decode_attention import (decode_attention,
+                                                    live_rows)
+    from vlm_tpu_torch.testing.kernel_checks import (_device_ms, _ms,
+                                                     _profiled)
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    i32 = dict(dtype=torch.int32, device=dev)
+
+    def bshd(b, s, h, d):
+        return torch.randn(b, s, h, d, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    lp = LLAVA["prompt"]
+    clip = [bshd(GROUP, 577, 16, 64).transpose(1, 2) for _ in range(3)]
+    vic = [bshd(GROUP, lp, 32, 128).transpose(1, 2) for _ in range(3)]
+    kvl = torch.tensor([lp, lp, lp, 600], **i32)
+    causal = (torch.arange(lp, device=dev)[None, :] <=
+              torch.arange(lp, device=dev)[:, None])
+    mask = causal[None, None] & (torch.arange(lp, device=dev)[None, :] <
+                                 kvl[:, None])[:, None, None]
+    calls = {"clip": lambda: flash_attention(*clip),
+             "vicuna": lambda: flash_attention(*vic, causal=True,
+                                               kv_len=kvl)}
+    sdpa = {"clip": lambda: F.scaled_dot_product_attention(*clip),
+            "vicuna": lambda: F.scaled_dot_product_attention(
+                *vic, attn_mask=mask)}
+    slots, cache_rows = LLAVA["slots"]["bf16"], lp + NEW
+    qd = bshd(slots, 1, 32, 128).transpose(1, 2)
+    kc, vc = bshd(slots, cache_rows, 32, 128), bshd(slots, cache_rows, 32,
+                                                    128)
+    acol = torch.randint(0, NEW, (slots,), generator=gen, device=dev).int()
+    gcnt = torch.randint(1, NEW + 1, (slots,), generator=gen,
+                         device=dev).int()
+    window = (torch.tensor(lp, **i32), NEW, acol, gcnt)
+    live = live_rows(slots, cache_rows, dev, kv_window=window)[:, None, None]
+    calls["b2"] = lambda: decode_attention(qd, kc, vc, kv_window=window)
+    sdpa["b2"] = lambda: F.scaled_dot_product_attention(
+        qd, kc.transpose(1, 2), vc.transpose(1, 2), attn_mask=live)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    fl_kernels = frozenset(_profiled(flush.zero_))
+    b1_ms = {k: _ms(fn, 20) for k, fn in calls.items()}
+    device = {k: {"kernel": _device_us(torch, calls[k]),
+                  "sdpa": _device_us(torch, sdpa[k])} for k in calls}
+    device["b2_cold"] = {
+        "kernel": _device_ms(calls["b2"], 20, flush, fl_kernels) * 1e3,
+        "sdpa": _device_ms(sdpa["b2"], 20, flush, fl_kernels) * 1e3}
+    del flush, kc, vc, clip, vic
+    out = {"root": args.root, "gpu": gpu, "model": "llava",
+           "b1_ms": b1_ms, "device_us": device}
+    for quantization in ("bf16", "8bit"):
+        kw = dict(quantization=quantization)
+        if quantization == "8bit":
+            kw["kv_cache"] = "int8"
+            os.environ["VLM_TPU_INT8_PREFILL"] = "dynamic_noout"
+        try:
+            model = create_model("llava", size="7b", device="cuda", seed=0,
+                                 **kw)
+        finally:
+            os.environ.pop("VLM_TPU_INT8_PREFILL", None)
+        key = "admission" if quantization == "bf16" else "admission_8bit"
+        out[key] = profile_admission(torch, model, args.admissions,
+                                     image=LLAVA["image"],
+                                     pre_ids=LLAVA["pre_ids"])
+        out[f"step_{quantization}"] = profile_step(
+            torch, model, args.admissions, gen,
+            slots=LLAVA["slots"][quantization], prompt=lp)
+        del model
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
 def _device_rows(prof, n):
     """(kernel, device ms a run, launches a run), kernel rows only, largest
     first, from a profile of ``n`` runs."""
@@ -250,10 +357,12 @@ def _profile_runs(torch, run, n, mark):
             "top": [(k[:60], round(ms, 4), c) for k, ms, c in rows[:8]]}
 
 
-def profile_admission(torch, model, n):
-    """An admission of ``GROUP`` images into a fresh cache (B1's kernels
-    under ``kernel_ms``: the bf16 ``flash_kernel`` or the fp32
-    ``flash_fp32_kernel``)."""
+def profile_admission(torch, model, n, image=224, pre_ids=0):
+    """An admission of ``GROUP`` images of side ``image`` into a fresh
+    cache, with ``pre_ids`` ids (BOS first) before the image tokens and
+    ``PROMPT_IDS`` after them (BOS first where none come before); B1's
+    kernels under ``kernel_ms``: the bf16 ``flash_kernel`` or the fp32
+    ``flash_fp32_kernel``."""
     import numpy as np
 
     from vlm_tpu_torch.models.decoder import init_kv_cache
@@ -262,13 +371,17 @@ def profile_admission(torch, model, n):
     dev = torch.device("cuda")
     cfg = model.cfg
     rng = np.random.default_rng(0)
-    u8 = torch.from_numpy(rng.integers(0, 256, (GROUP, 224, 224, 3),
+    u8 = torch.from_numpy(rng.integers(0, 256, (GROUP, image, image, 3),
                                        dtype=np.uint8)).to(dev)
-    ids = torch.from_numpy(np.concatenate([[cfg.decoder.bos_token_id],
-                                           rng.integers(3, 1000,
-                                                        PROMPT_IDS - 1)])
-                           ).to(dev, torch.int32)[None].expand(GROUP, -1)
-    plen = num_image_tokens(cfg) + PROMPT_IDS
+
+    def ids(n, bos):
+        row = np.concatenate([[cfg.decoder.bos_token_id] if bos else [],
+                              rng.integers(3, 1000, n - bos)])
+        return torch.from_numpy(row).to(dev, torch.int32)[None].expand(
+            GROUP, -1)
+    pre = ids(pre_ids, True) if pre_ids else ids(0, False)
+    post = ids(PROMPT_IDS, not pre_ids)
+    plen = pre_ids + num_image_tokens(cfg) + PROMPT_IDS
     patch = dict(patch_size=cfg.vision.patch_size) if "patch_size" in \
         inspect.signature(normalize_images).parameters else {}
 
@@ -278,7 +391,7 @@ def profile_admission(torch, model, n):
         px = normalize_images(u8, recipe=model.recipe,
                               compute_dtype=model.dtype, **patch)
         return model.module.prefill(
-            px, ids[:, :0], ids, cache,
+            px, pre, post, cache,
             torch.full((GROUP,), plen, dtype=torch.int32, device=dev))
 
     got = _profile_runs(torch, admission, n, ("flash_kernel",
@@ -288,26 +401,27 @@ def profile_admission(torch, model, n):
     return got
 
 
-def profile_step(torch, model, n, gen):
-    """One decode step over ``SLOTS`` slots of a ``CACHE``-row cache in the
-    rotating-window form (B2's kernels under ``kernel_ms``)."""
+def profile_step(torch, model, n, gen, slots=SLOTS, prompt=PROMPT):
+    """One decode step over ``slots`` slots of a cache of ``prompt`` +
+    ``NEW`` rows in the rotating-window form (B2's kernels under
+    ``kernel_ms``)."""
     from vlm_tpu_torch.models.decoder import init_kv_cache
     dev = torch.device("cuda")
     i32 = dict(dtype=torch.int32, device=dev)
-    cache = init_kv_cache(model.cfg.decoder, SLOTS, CACHE, model.cache_dtype,
-                          "cuda")
-    tok = torch.randint(3, 1000, (SLOTS, 1), generator=gen, device=dev,
+    cache = init_kv_cache(model.cfg.decoder, slots, prompt + NEW,
+                          model.cache_dtype, "cuda")
+    tok = torch.randint(3, 1000, (slots, 1), generator=gen, device=dev,
                         dtype=torch.int32)
-    acol = torch.randint(0, NEW, (SLOTS,), generator=gen, device=dev,
+    acol = torch.randint(0, NEW, (slots,), generator=gen, device=dev,
                          dtype=torch.int32)
-    gcnt = torch.randint(1, NEW, (SLOTS,), generator=gen, device=dev,
+    gcnt = torch.randint(1, NEW, (slots,), generator=gen, device=dev,
                          dtype=torch.int32)
-    pos = torch.full((SLOTS,), PROMPT + 8, **i32)
+    pos = torch.full((slots,), prompt + 8, **i32)
 
     def one():
         return model.module.decode_step(
-            tok, pos, cache, write_col=torch.tensor(PROMPT + 7, **i32),
-            kv_window=(torch.tensor(PROMPT, **i32), NEW, acol, gcnt))
+            tok, pos, cache, write_col=torch.tensor(prompt + 7, **i32),
+            kv_window=(torch.tensor(prompt, **i32), NEW, acol, gcnt))
 
     got = _profile_runs(torch, one, n, ("decode_fp32_kernel",
                                         "decode_kernel"))

@@ -5,12 +5,15 @@ one checkout on one NVIDIA GPU, without the kernel checks and the
 reference phases; prints each slice's lines and one JSON line.
 
     python vlm_tpu_torch/testing/serve_slices.py [--root DIR]
+        [--model paligemma|llava]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and ``vlm_tpu_torch``
 are run (default: this one), so that one command can serve two trees in
 turns, parent and change alternating, with the same traffic. The JSON
 line holds, for each slice, the images per second and the per-image
-latency p50 and p99 in ms, as the slice printed them.
+latency p50 and p99 in ms, as the slice printed them. ``--model llava``
+serves LLaVA-1.5-7B's two slices instead: bf16 (32 slots) and the 8bit
+recipe (16 slots, the int8 KV cache, ``dynamic_noout``).
 """
 
 import argparse
@@ -27,6 +30,8 @@ LATENCY = re.compile(r"latency p50 ([0-9.]+) ms p99 ([0-9.]+) ms")
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
+    ap.add_argument("--model", choices=("paligemma", "llava"),
+                    default="paligemma")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import numpy as np
@@ -36,10 +41,14 @@ def main(argv=None):
     import chip_smoke
 
     gpu = chip_smoke.device_phase(torch)
-    result = {"root": args.root, "gpu": gpu}
-    for mode in ("bf16", "8bit", "4bit", "fp32"):
+    result = {"root": args.root, "gpu": gpu, "model": args.model}
+    modes = ("bf16", "8bit") if args.model == "llava" else (
+        "bf16", "8bit", "4bit", "fp32")
+    for mode in modes:
         size = dict(n_images=chip_smoke.FP32_IMAGES,
                     new=chip_smoke.FP32_NEW) if mode == "fp32" else {}
+        if args.model != "paligemma":     # trees before LLaVA's slice
+            size["model_name"] = args.model   # serve PaliGemma only
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             _, stats = chip_smoke.slice_phase(torch, np, gpu, mode, **size)
