@@ -54,10 +54,24 @@ Phases, each of which raises on failure:
     admission product), the int8 KV cache, 16 slots, admission groups of
     4, the same traffic;
 15. LLaVA 8bit reference (int8 decoder weights and cache), and an fp32
-    reference (the fp32 forms of B1 and B2 at G = 1, D = 128).
+    reference (the fp32 forms of B1 and B2 at G = 1, D = 128);
+16. BLIP-2 bf16 slice: ``create_model("blip2", size="6.7b")`` (EVA ViT-g,
+    the Q-Former through B1, OPT-6.7B with learned positions and its tied
+    head; MHA, 32 heads of 128) in bf16 at full width and depth, the same
+    checks: 32 slots, 96 synthetic 224 px images, the 32 query tokens then
+    BOS + 59 ids (a prompt of 92), up to 32 new tokens;
+17. BLIP-2 bf16 reference: the depth-cut copy (full width, 2 EVA and 2 OPT
+    layers, the Q-Former at its full 12 layers);
+18. BLIP-2 8bit slice: the JAX package's BLIP-2 recipe: int8 decoder and
+    tower weights (``quantize_vision``) with
+    ``VLM_TPU_INT8_PREFILL=dynamic_noout`` (B6 at every admission product),
+    the int8 KV cache, 64 slots, admission groups of 8, the same traffic;
+19. BLIP-2 8bit reference (int8 decoder and tower weights, the int8
+    cache), and an fp32 reference (the fp32 forms of B1 at D = 88, 64 and
+    128 and of B2 at G = 1, D = 128).
 
 Each slice's launch counts are set to 0 just before it is driven and read
-just after.
+just after. Each phase prints its seconds.
 
 Prints a JSON line of per-kernel results, then as its last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX.
@@ -76,13 +90,23 @@ ROOT = Path(__file__).resolve().parent
 
 SLOTS, N_IMAGES, PROMPT_IDS, NEW = 32, 96, 60, 32
 # each model's slice: its label, size, image side, the ids before the image
-# tokens (LLaVA: BOS + "USER: ", 5 ids) and the slots of each mode; the 60
-# prompt ids come after the image tokens (PaliGemma's start with BOS)
+# tokens (LLaVA: BOS + "USER: ", 5 ids) and the slots of each mode (the
+# batcher admits 4 at a time at 16 and 32 slots, 8 at 64); the 60 prompt
+# ids come after the image tokens (PaliGemma's and BLIP-2's start with
+# BOS). The 8bit recipe: ``VLM_TPU_INT8_PREFILL`` (None: the default,
+# ``dynamic``) and whether the tower is quantized (``quantize_vision``);
+# ``ref_vision``: whether the 8bit and 4bit references quantize the tower
 MODELS = {
     "paligemma": dict(label="PaliGemma-3B", size="3b", image=224,
-                      pre_ids=0, slots={}),
+                      pre_ids=0, slots={}, int8_prefill=None,
+                      quantize_vision=False, ref_vision=True),
     "llava": dict(label="LLaVA-1.5-7B", size="7b", image=336, pre_ids=5,
-                  slots={"8bit": 16}),
+                  slots={"8bit": 16}, int8_prefill="dynamic_noout",
+                  quantize_vision=False, ref_vision=False),
+    "blip2": dict(label="BLIP-2 OPT-6.7B", size="6.7b", image=224,
+                  pre_ids=0, slots={"8bit": 64},
+                  int8_prefill="dynamic_noout", quantize_vision=True,
+                  ref_vision=True),
 }
 # bf16 on the card vs fp32 on the CPU, relative to max|ref|; the 8bit model
 # quantizes activations from bf16 on the card and from fp32 on the CPU, so
@@ -166,11 +190,11 @@ def prompt_ids(np, rng, dec, pre_ids):
 @contextlib.contextmanager
 def int8_prefill(model_name, quantization):
     """``VLM_TPU_INT8_PREFILL`` while the model's int8 layers are built
-    (they read it then): LLaVA's 8bit recipe takes ``dynamic_noout``,
-    which it yields; other slices keep the default (``dynamic``) and get
-    None."""
-    mode = "dynamic_noout" if (model_name, quantization) == ("llava",
-                                                             "8bit") else None
+    (they read it then): LLaVA's and BLIP-2's 8bit recipes take
+    ``dynamic_noout``, which it yields; other slices keep the default
+    (``dynamic``) and get None."""
+    mode = MODELS[model_name]["int8_prefill"] if quantization == "8bit" \
+        else None
     if mode:
         os.environ["VLM_TPU_INT8_PREFILL"] = mode
     try:
@@ -198,7 +222,8 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
     t0 = time.perf_counter()
     kw = {} if quantization == "fp32" else dict(
         quantization=quantization,
-        kv_cache="int8" if quantization == "8bit" else None)
+        kv_cache="int8" if quantization == "8bit" else None,
+        quantize_vision=quantization == "8bit" and spec["quantize_vision"])
     with int8_prefill(model_name, quantization) as mode:
         model = create_model(model_name, size=spec["size"], device="cuda",
                              seed=0, **kw)
@@ -208,7 +233,8 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
                   for p in model.module.parameters())
     print(f"{tag} {spec['label']} built: {n_params} params, {n_bytes} "
           f"bytes, KV cache {model.cache_dtype}, {slots} slots"
-          f"{', int8 prefill ' + mode if mode else ''}, "
+          f"{', int8 prefill ' + mode if mode else ''}"
+          f"{', int8 tower' if model.quantize_vision else ''}, "
           f"{time.perf_counter() - t0:.1f} s ({gpu})")
     cfg = model.cfg
     dec = cfg.decoder
@@ -309,11 +335,12 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
 
 
 def reference_phase(torch, np, gpu, quantization, model_name="paligemma"):
-    """Full-width, depth-cut model: bf16 kernels on the card against fp32
+    """Full-width, depth-cut model (2 vision and 2 decoder layers; BLIP-2's
+    Q-Former at its full 12): bf16 kernels on the card against fp32
     plain versions on the CPU, same weights, same inputs. "8bit": int8
-    decoder weights (PaliGemma's vision weights too, as its slice's
-    reference always had; LLaVA's tower stays bf16, as its recipe) and the
-    int8 KV cache on both sides. "4bit": int4 decoder and vision weights,
+    decoder weights (PaliGemma's and BLIP-2's vision weights too, as
+    PaliGemma's reference always had and BLIP-2's recipe has; LLaVA's
+    tower stays bf16, as its recipe) and the int8 KV cache on both sides. "4bit": int4 decoder and vision weights,
     and a 1-image prefill after the 2-image one, so that B7 takes the
     prefill's products too. "fp32": the fp32 kernels on the card, within
     ``REF_TOL_FP32``."""
@@ -329,8 +356,8 @@ def reference_phase(torch, np, gpu, quantization, model_name="paligemma"):
         full, vision=dataclasses.replace(full.vision, layers=2),
         decoder=dataclasses.replace(full.decoder, layers=2))
     bits = {"8bit": 8, "4bit": 4}.get(quantization, 0)
-    quant = dict(quant_bits=bits, vision_quant_bits=bits
-                 if model_name == "paligemma" else 0)
+    quant = dict(quant_bits=bits,
+                 vision_quant_bits=bits if spec["ref_vision"] else 0)
     card = torch.float32 if quantization == "fp32" else torch.bfloat16
     tol = REF_TOL_FP32 if quantization == "fp32" else REF_TOL
     cache_dtypes = {"cuda": card, "cpu": torch.float32}
@@ -372,8 +399,10 @@ def reference_phase(torch, np, gpu, quantization, model_name="paligemma"):
     _lib.reset_counts()
     name = "reference" if model_name == "paligemma" else \
         f"reference {model_name}"
-    print(f"[{name} {quantization}] depth-cut {spec['label']} (2+2 layers, "
-          f"full width): prefill + {steps} decode steps"
+    qformer = f", Q-Former {cfg.qformer.layers} layers" if cfg.qformer \
+        else ""
+    print(f"[{name} {quantization}] depth-cut {spec['label']} (2+2 layers"
+          f"{qformer}, full width): prefill + {steps} decode steps"
           f"{' (2 and 1 images)' if bits == 4 else ''}, max |card - cpu| / "
           f"max|cpu| = {worst:.3e} (tol {tol:.0e}) ({gpu})")
     if worst > tol:
@@ -440,28 +469,39 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
     gpu = device_phase(torch)
     t0 = time.perf_counter()
     _lib.lib()
     print(f"[build] kernels from vlm_tpu_torch/csrc: "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
           f"{_lib.last_build['seconds']:.1f} s) ({gpu})")
+    t0 = time.perf_counter()
     records = kernel_phase(gpu)
+    print(f"[time] kernels {time.perf_counter() - t0:.1f} s")
     launches = dict.fromkeys(_lib.KERNELS, 0)
     # (model, mode, whether a slice is served before the reference)
     for model_name, quantization, serve in (
             ("paligemma", "bf16", True), ("paligemma", "8bit", True),
             ("paligemma", "4bit", True), ("paligemma", "fp32", True),
             ("llava", "bf16", True), ("llava", "8bit", True),
-            ("llava", "fp32", False)):
+            ("llava", "fp32", False), ("blip2", "bf16", True),
+            ("blip2", "8bit", True), ("blip2", "fp32", False)):
         if serve:
             size = dict(n_images=FP32_IMAGES, new=FP32_NEW) \
                 if quantization == "fp32" else {}
+            t0 = time.perf_counter()
             path, _ = slice_phase(torch, np, gpu, quantization,
                                   model_name=model_name, **size)
+            print(f"[time] slice {model_name} {quantization} "
+                  f"{time.perf_counter() - t0:.1f} s")
             for name, n in path.items():
                 launches[name] += n
+        t0 = time.perf_counter()
         reference_phase(torch, np, gpu, quantization, model_name)
+        print(f"[time] reference {model_name} {quantization} "
+              f"{time.perf_counter() - t0:.1f} s")
+    print(f"[time] all phases {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for key, meta in KERNELS.items():

@@ -276,7 +276,8 @@ def test_patch_layout_normalize_is_bitwise(all_cases, case):
 
 
 # each model's size and prompt length (PaliGemma 316, LLaVA 5 + 576 + 60)
-PROMPTS = {"paligemma": ("3b", 316), "llava": ("7b", 641)}
+PROMPTS = {"paligemma": ("3b", 316), "llava": ("7b", 641),
+           "blip2": ("6.7b", 92)}
 
 
 def _depth_cut(card, quantization, model="paligemma", slots=32):
@@ -296,8 +297,11 @@ def _depth_cut(card, quantization, model="paligemma", slots=32):
         decoder=dataclasses.replace(full.decoder, layers=2))
     bits = 8 if quantization == "8bit" else 0
     dtype = torch.float32 if quantization == "fp32" else torch.bfloat16
+    # BLIP-2's 8bit recipe quantizes the tower too
     mod = init_random_(VLMModule(cfg, dtype=dtype, device=card,
-                                 quant_bits=bits), seed=0)
+                                 quant_bits=bits,
+                                 vision_quant_bits=bits if model == "blip2"
+                                 else 0), seed=0)
     cache = init_kv_cache(cfg.decoder, slots, prompt + 32,
                           "int8" if bits else dtype, card)
     return mod, cfg, cache
@@ -543,4 +547,145 @@ def test_depth_cut_llava_matches_the_cpu(card):
             logits[dev] = out
     for got, ref in zip(logits["cuda"], logits["cpu"]):
         assert got.shape == (2, 32064) and torch.isfinite(got).all()
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 5e-2
+
+
+# BLIP-2 OPT-6.7B's serving shapes (kernel_checks' BLIP-2 block): B1 at the
+# Q-Former's self- and cross-attention and at EVA's D = 88, in bf16 and
+# fp32, and at OPT's causal prefill; B2 and B3 fused over OPT's 124-row MHA
+# cache at 32 bf16 and 64 int8 slots; the standalone int8 prefill rows of
+# 8; B4 into EVA's patches; B5 at m = 64 (down: K = 16384); B6 at 8 x 92
+# OPT rows and 8 x 257 EVA rows (K = N = 1408: 11 tiles of 128)
+BLIP2_CASES = (
+    "B1 qformer_self_g4_h12_s32_d64", "B1 qformer_cross_g4_h12_sq32_sk257_d64",
+    "B1 eva_g4_h16_s257_d88", "B1 eva_g8_h16_s257_d88",
+    "B1 opt_prefill_g4_h32_s92_d128_kvlen",
+    "B1 fp32_qformer_self_g2_h12_s32_d64",
+    "B1 fp32_qformer_cross_g2_h12_sq32_sk257_d64",
+    "B1 fp32_eva_g4_h16_s257_d88", "B1 fp32_opt_prefill_g2_h32_s92_d128_kvlen",
+    "B2 blip2_window_32slots", "B2 blip2_window_64slots_int8_cold",
+    "B2 fp32_blip2_window_4slots", "B3 blip2_int8_prefill_g8_s92_kv32",
+    "B4 blip2_patch14_u8_g8_224",
+    *(f"B5 m64_k{k}_n{n}" for k, n in ((4096, 4096), (4096, 16384),
+                                       (16384, 4096))),
+    *(f"B5 m257_k{k}_n{n}" for k, n in ((1408, 1408), (1408, 6144),
+                                        (6144, 1408))),
+    *(f"B6 m736_k{k}_n{n}_bf16" for k, n in ((4096, 4096), (4096, 16384),
+                                             (16384, 4096))),
+    *(f"B6 m2056_k{k}_n{n}_bf16" for k, n in ((1408, 1408), (1408, 6144),
+                                              (6144, 1408))))
+BLIP2_FUSED = ("blip2_fused_window_32slots", "blip2_fused_window_32slots_cold",
+               "blip2_int8_fused_window_64slots",
+               "blip2_int8_fused_window_64slots_cold",
+               "blip2_fp32_fused_window_4slots")
+
+
+@pytest.mark.parametrize("case", BLIP2_CASES)
+def test_blip2_shapes_match_plain(all_cases, case):
+    _check(all_cases[case])
+
+
+@pytest.mark.parametrize("case", BLIP2_FUSED)
+def test_blip2_fused_write_is_b3_then_b2_bitwise(all_cases, case):
+    c = all_cases[f"B3 {case}"]
+    got, exact = c.kernel_fn(), c.exact_fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, exact)
+    _check(c)
+
+
+@pytest.mark.parametrize("quantization", ["bf16", "8bit"])
+def test_blip2_decode_step_writes_only_inside_b2(card, quantization):
+    """A BLIP-2 decode step (OPT: learned positions, MHA) at 32 bf16 or 64
+    int8 slots: one B2 launch and one fused write a layer, no standalone
+    B3, no plain version, finite logits over OPT's 50272 tokens."""
+    from vlm_tpu_torch.ops import _lib
+    slots = 64 if quantization == "8bit" else 32
+    mod, cfg, cache = _depth_cut(card, quantization, "blip2", slots)
+    step = _decode_step(mod, cache, card, "blip2", slots)
+    with torch.inference_mode():
+        step()
+        torch.cuda.synchronize()
+        _lib.reset_counts()
+        logits = step()
+        torch.cuda.synchronize()
+    layers = cfg.decoder.layers
+    b2, fused = (("decode_attention_int8", "kv_write_int8_fused")
+                 if quantization == "8bit"
+                 else ("decode_attention", "kv_write_fused"))
+    assert _lib.launches[b2] == layers and _lib.launches[fused] == layers
+    assert _lib.launches["kv_write"] == _lib.launches["kv_write_int8"] == 0
+    assert sum(_lib.plain_calls.values()) == 0
+    assert logits.shape == (slots, 50272) and torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("quantization", ["bf16", "8bit"])
+def test_depth_cut_blip2_matches_the_cpu(card, quantization):
+    """BLIP-2 at full width (1 EVA and 2 OPT layers, the Q-Former at its
+    full 12), on the card against the same weights in fp32 on the CPU:
+    prefill of two images (the 32 query tokens, BOS + 7 ids), then two
+    rotating-window decode steps; 8bit: int8 decoder and tower weights and
+    the int8 cache on both sides; max |card - cpu| / max |cpu| <= 5e-2
+    (chip_smoke.py's REF_TOL). Every path kernel launches, no plain
+    version runs on the card."""
+    import numpy as np
+
+    from vlm_tpu_torch.models.decoder import init_kv_cache
+    from vlm_tpu_torch.models.vlm import VLMModule
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.preprocess import RECIPES, normalize_images
+    mod, cfg, _ = _depth_cut(card, quantization, "blip2", slots=1)
+    bits = 8 if quantization == "8bit" else 0
+    cpu = VLMModule(cfg, dtype=torch.float32, device="cpu", quant_bits=bits,
+                    vision_quant_bits=bits)
+    cpu.load_state_dict({k: (v.float() if v.is_floating_point() else v).cpu()
+                         for k, v in mod.state_dict().items()})
+    rng = np.random.default_rng(2)
+    u8 = torch.from_numpy(rng.integers(0, 256, (2, 224, 224, 3),
+                                       dtype=np.uint8))
+    pre = torch.zeros((2, 0), dtype=torch.int32)
+    post = torch.from_numpy(np.concatenate(
+        [np.full((2, 1), 2), rng.integers(3, 1000, (2, 7))], 1).astype(
+            np.int32))
+    plen, steps = 32 + 8, 2
+    cache_dtype = {"cuda": "int8" if bits else torch.bfloat16,
+                   "cpu": "int8" if bits else torch.float32}
+    logits = {}
+    _lib.reset_counts()
+    with torch.inference_mode():
+        for dev, m, dtype in (("cuda", mod, torch.bfloat16),
+                              ("cpu", cpu, torch.float32)):
+            i32 = dict(dtype=torch.int32, device=dev)
+            cache = init_kv_cache(cfg.decoder, 2, plen + steps,
+                                  cache_dtype[dev], dev)
+            px = normalize_images(u8.to(dev), recipe=RECIPES["blip2"],
+                                  compute_dtype=dtype, patch_size=14)
+            pl = torch.full((2,), plen, **i32)
+            out = [m.prefill(px, pre.to(dev), post.to(dev), cache,
+                             pl).float().cpu()]
+            for step in range(steps):
+                tok = logits["cuda"][step].argmax(-1) if dev == "cpu" else \
+                    out[-1].argmax(-1)
+                window = (torch.tensor(plen, **i32), steps,
+                          torch.zeros(2, **i32),
+                          torch.full((2,), step + 1, **i32))
+                out.append(m.decode_step(
+                    tok.to(dev, torch.int32)[:, None], pl + step, cache,
+                    write_col=torch.tensor(plen + step, **i32),
+                    kv_window=window).float().cpu())
+            logits[dev] = out
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                card_launches = dict(_lib.launches)
+                card_plain = sum(_lib.plain_calls.values())
+    assert card_plain == 0
+    b2 = "decode_attention_int8" if bits else "decode_attention"
+    assert min(card_launches[k] for k in ("flash_attention", "normalize",
+                                          b2)) > 0
+    if bits:
+        # the 2 x 257 EVA rows take B6 (512 and more), the decoder's B5
+        assert card_launches["int8xint8_matmul"] > 0
+        assert card_launches["int8_matmul"] > 0
+    for got, ref in zip(logits["cuda"], logits["cpu"]):
+        assert got.shape == (2, 50272) and torch.isfinite(got).all()
         assert float((got - ref).abs().max() / ref.abs().max()) <= 5e-2

@@ -3,9 +3,10 @@
 them) imports every module of vlm_tpu_torch and runs four tiny slices end
 to end (model, batcher, every op's CPU version: fp32, then 8bit with the
 int8 KV cache and a prompt long enough for the llm.int8 prefill, then 4bit
-with an int4 tower, then LLaVA in fp32), and others run the port's CLI
-``main()`` on a synthetic dataset with ``VLM_TPU_PLATFORM=cpu``, for
-PaliGemma and for LLaVA. None imports triton or builds the kernel
+with an int4 tower, then LLaVA in fp32, then BLIP-2 in the 8bit recipe with
+the int8 tower and cache), and others run the port's CLI ``main()`` on a
+synthetic dataset with ``VLM_TPU_PLATFORM=cpu``, for PaliGemma, LLaVA and
+BLIP-2. None imports triton or builds the kernel
 library."""
 
 import json
@@ -64,9 +65,12 @@ out4 = serve("4bit", [2, 9], quantize_vision=True)
 # LLaVA: text before the image, and the config's pad id (past its "test"
 # vocabulary) fed to no idle slot
 outl = serve("fp32", [9, 11], name="llava", pre=[1, 7])
+# BLIP-2: the Q-Former, OPT's learned positions; BOS (= EOS) first
+outb = serve("8bit", [2, 9, 11], name="blip2", kv_cache="int8",
+             quantize_vision=True)
 print(json.dumps({
     "modules": mods, "tokens": out, "tokens8": out8, "tokens4": out4,
-    "tokensl": outl,
+    "tokensl": outl, "tokensb": outb,
     "loaded": sorted(m for m in ("jax", "flax", "triton", "vlm_tpu")
                      if m in sys.modules),
     "plain_calls": _lib.plain_calls, "lib_loaded": _lib._lib is not None}))
@@ -87,10 +91,11 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert res["loaded"] == []
     assert not res["lib_loaded"]
     assert {"vlm_tpu_torch.models.base_model", "vlm_tpu_torch.ops.kvcache",
+            "vlm_tpu_torch.data.bpe",
             "vlm_tpu_torch.scripts.prompt_inference",
             "vlm_tpu_torch.testing.kernel_checks"} <= set(res["modules"])
     for toks in (res["tokens"], res["tokens8"], res["tokens4"],
-                 res["tokensl"]):
+                 res["tokensl"], res["tokensb"]):
         assert len(toks) == 5
         assert all(t is not None and len(t) <= 3 for t in toks)
     assert min(res["plain_calls"].values()) > 0
@@ -150,4 +155,23 @@ def test_port_cli_runs_llava_without_jax(tmp_path, mivia_base):
     assert res["loaded"] == [] and not res["lib_loaded"]
     assert res["summary"]["images_completed"] == 4
     out = tmp_path / "eval" / "prompt_inference" / "llava_fp32" / "MiviaPar"
+    assert len(json.loads((out / "preds.json").read_text())) == 4
+
+
+def test_port_cli_runs_blip2_without_jax(tmp_path, mivia_base):
+    """The same CLI run with ``model_name: blip2`` (size "test", fp32)."""
+    cfg = {"model_name": "blip2", "model_size": "test",
+           "quantization": "fp32", "dataset_name": "MiviaPar",
+           "max_tokens": 3, "batch_size": 2,
+           "dataset": {"base_path": str(mivia_base)},
+           "prompts": {"MiviaPar": "describe"}}
+    path = tmp_path / "cli.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    proc = _run(CLI, tmp_path, CLI_CONFIG=str(path),
+                VLM_TPU_ROOT=str(tmp_path), VLM_TPU_PLATFORM="cpu")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and not res["lib_loaded"]
+    assert res["summary"]["images_completed"] == 4
+    out = tmp_path / "eval" / "prompt_inference" / "blip2_fp32" / "MiviaPar"
     assert len(json.loads((out / "preds.json").read_text())) == 4

@@ -282,9 +282,10 @@ def test_model_classes_and_roadmap_errors():
     with pytest.raises(NotImplementedError, match="A14"):
         create_model("paligemma", size="test", device="cpu",
                      model_id="/nonexistent")
-    # LLaVA is ported (tests/test_torch_llava.py); BLIP-2 is A13
-    with pytest.raises(NotImplementedError, match="A13"):
-        create_model("blip2", size="test")
+    # LLaVA and BLIP-2 are ported (tests/test_torch_llava.py,
+    # tests/test_torch_blip2.py)
+    assert type(create_model("blip2", size="test", device="cpu")
+                ).__name__ == "BLIP2OptModel"
     with pytest.raises(NotImplementedError, match="A15"):
         m.generate_dataset([], "p", num_beams=2)
 

@@ -1,5 +1,6 @@
 """The port's own copies of ``vlm_tpu``'s framework-free layers (configs,
-tokenizers, label parsers, datasets, evaluator, zero-shot driver) against
+tokenizers and the byte-level BPE reader, label parsers, datasets,
+evaluator, ``run_zero_shot``) against
 the originals on the CPU: the same values, ids, labels and artifacts.
 
 The port imports nothing of ``vlm_tpu``; only this test imports both.
@@ -14,6 +15,7 @@ import pytest
 import sklearn.metrics
 from test_sentencepiece import _unigram_model, build_model
 
+from vlm_tpu.data import bpe as j_bpe
 from vlm_tpu.data import parsers as j_parsers
 from vlm_tpu.data.dataset_factory import DatasetFactory as JFactory
 from vlm_tpu.data.sentencepiece import BYTE
@@ -22,6 +24,7 @@ from vlm_tpu.data.tokenizer import load_tokenizer as j_load_tokenizer
 from vlm_tpu.evaluation import Evaluator as JEvaluator
 from vlm_tpu.evaluation import run_zero_shot as j_run_zero_shot
 from vlm_tpu.models import configs as j_configs
+from vlm_tpu_torch.data import bpe as t_bpe
 from vlm_tpu_torch.data import parsers as t_parsers
 from vlm_tpu_torch.data.dataset_factory import DatasetFactory as TFactory
 from vlm_tpu_torch.data.tokenizer import ByteTokenizer as TByte
@@ -81,6 +84,83 @@ def test_sentencepiece_reader_same_ids_and_text(model, tmp_path):
         ids = tok.encode(text, add_bos=True)
         assert ids == ref.encode(text, add_bos=True)
         assert tok.decode(ids) == ref.decode(ids)
+
+
+@pytest.fixture(scope="module")
+def bpe_files(tmp_path_factory):
+    """The byte-level BPE ``tests/test_bpe.py`` trains with the tokenizers
+    library (its corpus, vocabulary of 512 and specials), saved as
+    ``tokenizer.json`` and as ``vocab.json`` + ``merges.txt`` with an
+    OPT-style ``tokenizer_config.json`` (BOS = EOS = ``</s>``)."""
+    tokenizers = pytest.importorskip("tokenizers")
+    from test_bpe import CORPUS
+    tok = tokenizers.Tokenizer(tokenizers.models.BPE())
+    tok.pre_tokenizer = tokenizers.pre_tokenizers.ByteLevel(
+        add_prefix_space=False)
+    tok.decoder = tokenizers.decoders.ByteLevel()
+    trainer = tokenizers.trainers.BpeTrainer(
+        vocab_size=512, special_tokens=["<s>", "<pad>", "</s>", "<unk>"],
+        initial_alphabet=tokenizers.pre_tokenizers.ByteLevel.alphabet(),
+        show_progress=False)
+    tok.train_from_iterator(CORPUS, trainer)
+    d = tmp_path_factory.mktemp("bpe")
+    tok.save(str(d / "tokenizer.json"))
+    pair_dir = d / "pair"
+    pair_dir.mkdir()
+    tok.model.save(str(pair_dir))
+    (pair_dir / "tokenizer_config.json").write_text(json.dumps({
+        "bos_token": "</s>", "eos_token": "</s>",
+        "pad_token": "<pad>", "unk_token": "</s>"}))
+    return d
+
+
+BPE_TEXTS = TEXTS + [
+    "Question: what colors are the upper and lower clothes. Answer:",
+    "I'm sure they're right, isn't it? We've 99 problems.",
+    "unicode: naïve café 東京 ¡hola! ∑x²=π", "tabs\tand\nnewlines\r\n x",
+    "</s>Question: hi. Answer:"]
+
+
+@pytest.mark.parametrize("fmt", ["pair", "tokenizer.json"])
+def test_bpe_reader_same_ids_and_text(bpe_files, fmt):
+    """The port's copy of the reader gives vlm_tpu's ids, OPT-style
+    special ids and text on the same files."""
+    load = {"pair": "load_bpe_dir", "tokenizer.json": "load_tokenizer_json"}
+    tok, ref = (getattr(mod, load[fmt])(str(bpe_files / fmt))
+                for mod in (t_bpe, j_bpe))
+    assert (tok.bos_id, tok.eos_id, tok.pad_id) == \
+        (ref.bos_id, ref.eos_id, ref.pad_id)
+    if fmt == "pair":
+        assert tok.bos_id == tok.eos_id != tok.pad_id
+    for text in BPE_TEXTS:
+        for add_bos in (False, True):
+            ids = tok.encode(text, add_bos=add_bos)
+            assert ids == ref.encode(text, add_bos=add_bos)
+            assert tok.decode(ids) == ref.decode(ids)
+    assert t_bpe.bytes_to_unicode() == j_bpe.bytes_to_unicode()
+    for text in BPE_TEXTS:
+        assert t_bpe._pretokenize_fallback(text) == \
+            j_bpe._pretokenize_fallback(text) == j_bpe.pretokenize(text)
+
+
+@pytest.mark.parametrize("fmt", ["pair", "tokenizer.json"])
+def test_load_tokenizer_reads_bpe_files(bpe_files, fmt, monkeypatch):
+    """``load_tokenizer`` without transformers (its HF branch refused) takes
+    the BPE branch in both packages, from a directory and from a
+    ``tokenizer.json`` path, and through ``VLM_TPU_TOKENIZER``."""
+    import vlm_tpu.data.tokenizer as j_tk
+    import vlm_tpu_torch.data.tokenizer as t_tk
+
+    def refuse(path):
+        raise ImportError("transformers absent")
+    for mod in (t_tk, j_tk):
+        monkeypatch.setattr(mod, "HFTokenizer", refuse)
+    monkeypatch.setenv("VLM_TPU_TOKENIZER", str(bpe_files / fmt))
+    tok, ref = t_load_tokenizer(None), j_load_tokenizer(None)
+    assert isinstance(tok, t_bpe.ByteLevelBPE)
+    assert isinstance(ref, j_bpe.ByteLevelBPE)
+    for text in BPE_TEXTS:
+        assert tok.encode(text, add_bos=True) == ref.encode(text, add_bos=True)
 
 
 FACE_ANSWERS = [

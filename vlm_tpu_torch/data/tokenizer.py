@@ -4,9 +4,9 @@ locally, and a deterministic byte-level fallback otherwise.
 The port's own copy of ``vlm_tpu/data/tokenizer.py``, held equal to it by
 ``tests/test_torch_shared_layers.py``, for the tokenizers the zero-shot
 path loads: the byte-level fallback, a SentencePiece ``tokenizer.model``
-(Gemma, LLaMA) through the pure-Python reader, and a local HF tokenizer.
-The byte-level BPE reader of OPT checkpoints (``vlm_tpu/data/bpe.py``) is
-not copied: it comes with the BLIP-2 family.
+(Gemma, LLaMA) through the pure-Python reader, the byte-level BPE files of
+OPT checkpoints through the pure-Python reader (:mod:`.bpe`), and a local
+HF tokenizer.
 
 The reference loads tokenizers implicitly through ``AutoProcessor``
 (`reference/models/base_model.py:31`). Here tokenization is explicit:
@@ -104,8 +104,10 @@ def load_tokenizer(model_path: Optional[str] = None,
     """Tokenizer from ``model_path`` (or ``$VLM_TPU_TOKENIZER``): HF
     tokenizer files when transformers can load them, else a raw
     SentencePiece ``tokenizer.model`` via the dependency-free reader
-    (Vicuna/Gemma checkpoints), else the byte-level fallback (with a WARN:
-    only for genuinely missing files)."""
+    (Vicuna/Gemma checkpoints), else byte-level BPE files via the
+    dependency-free reader (:mod:`.bpe`, OPT/GPT-2 checkpoints:
+    ``vocab.json``+``merges.txt`` or a BPE ``tokenizer.json``), else the
+    byte-level fallback (with a WARN: only for genuinely missing files)."""
     path = model_path or os.getenv("VLM_TPU_TOKENIZER")
     if path and not Path(path).exists():
         # An explicitly requested tokenizer that is missing must not
@@ -127,6 +129,15 @@ def load_tokenizer(model_path: Optional[str] = None,
                 return SPTokenizer(str(sp_file))
             except Exception as e:
                 errors.append(f"sentencepiece: {e}")
+        try:
+            from .bpe import load_bpe_dir, load_tokenizer_json
+            if p.is_file():
+                return load_tokenizer_json(str(p))
+            return load_bpe_dir(str(p))
+        except FileNotFoundError:
+            pass    # no BPE files present — not an error for SP dirs
+        except Exception as e:
+            errors.append(f"byte-level BPE: {e}")
         print(f"[WARN] no loadable tokenizer at {path!r} "
               f"({'; '.join(errors)}); using byte fallback",
               file=sys.stderr)

@@ -58,6 +58,12 @@ class ContinuousBatcher:
         self.max_new_tokens = max_new_tokens
         self.max_prompt_len = max_prompt_len
         self.cache_len = max_prompt_len + max_new_tokens
+        if self.cache_len > cfg.decoder.max_position:
+            # a position past the decoder's table (RoPE's, or OPT's
+            # learned one) would fault on the device; refuse it here
+            raise ValueError(
+                f"prompt {max_prompt_len} + {max_new_tokens} new tokens "
+                f"exceed the decoder's {cfg.decoder.max_position} positions")
         # "int8" for the quantized cache; default: the compute dtype
         self.cache_dtype = cache_dtype or module.dtype
         self.eos_id = cfg.decoder.eos_token_id if eos_id is None else eos_id

@@ -191,6 +191,16 @@ class LLaVAModel(VLMModel):
         return "USER: ", f"\n{prompt} ASSISTANT:", True, False
 
 
+class BLIP2OptModel(VLMModel):
+    """BLIP-2 OPT-6.7B: EVA ViT-g, the Q-Former and OPT-6.7B, as the 32
+    query tokens, then BOS + ``Question: {prompt}. Answer:``."""
+    family = "blip2"
+    DEFAULT_SIZE = "6.7b"
+
+    def format_prompt(self, prompt: str):
+        return "", f"Question: {prompt}. Answer:", False, True
+
+
 class PaLIGemmaModel(VLMModel):
     """PaliGemma-3B-mix-224: image tokens first, then BOS + prompt +
     newline."""

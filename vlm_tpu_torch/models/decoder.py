@@ -1,7 +1,9 @@
 """Decoder-only LM (``vlm_tpu/models/decoder.py``): Gemma (``(1+w)``
 RMSNorm, sqrt(hidden) embedding scale, MQA, the gated ``gelu_tanh`` MLP,
 the tied head) and LLaMA/Vicuna (plain RMSNorm, MHA, the gated SiLU MLP,
-the untied ``lm_head``), with half-rotation RoPE in fp32.
+the untied ``lm_head``), with half-rotation RoPE in fp32; and OPT
+(pre-LayerNorm, learned positions read at ``position + 2``, biased
+projections, the plain ReLU FFN ``fc1`` -> ``down_proj``, the tied head).
 
 The KV cache is a dict of per-layer tuples of ``[B, max_len, KV, D]``
 tensors, or of :class:`QuantizedKV` pairs for the int8 cache, updated in
@@ -26,7 +28,7 @@ from ..ops.kvcache import (kv_quantized_write, kv_scatter_write,
                            kv_uniform_write)
 from ..ops.quant import quantize_activations
 from .configs import DecoderConfig
-from .layers import Dense, RMSNorm, activation
+from .layers import Dense, LayerNorm, RMSNorm, activation
 
 # ------------------------- rotary embeddings -------------------------
 
@@ -139,9 +141,10 @@ class DecoderAttention(nn.Module):
         q = self.q_proj(x).view(b, s, cfg.heads, hd)
         k = self.k_proj(x).view(b, s, cfg.kv_heads, hd)
         v = self.v_proj(x).view(b, s, cfg.kv_heads, hd)
-        cos, sin = rope
-        q = apply_rope(q, positions, cos, sin)
-        k = apply_rope(k, positions, cos, sin)
+        if rope is not None:
+            cos, sin = rope
+            q = apply_rope(q, positions, cos, sin)
+            k = apply_rope(k, positions, cos, sin)
         if cache_kv is not None and s == 1:
             # decode step: one B2 launch writes the new row (B3 fused in)
             # and attends over the cache in its own layout; an int8 cache
@@ -168,25 +171,45 @@ class DecoderAttention(nn.Module):
 
 
 class DecoderMLP(nn.Module):
+    """The gated MLP (``act(gate_proj) * up_proj``), or OPT's plain FFN
+    (``act(fc1)``), then ``down_proj``."""
+
     def __init__(self, cfg: DecoderConfig, dd: dict):
         super().__init__()
-        self.gate_proj = Dense(cfg.hidden, cfg.mlp_dim, cfg.attn_bias, **dd)
-        self.up_proj = Dense(cfg.hidden, cfg.mlp_dim, cfg.attn_bias, **dd)
+        self.gated = cfg.gated_mlp
+        if self.gated:
+            self.gate_proj = Dense(cfg.hidden, cfg.mlp_dim, cfg.attn_bias,
+                                   **dd)
+            self.up_proj = Dense(cfg.hidden, cfg.mlp_dim, cfg.attn_bias, **dd)
+        else:
+            self.fc1 = Dense(cfg.hidden, cfg.mlp_dim, cfg.attn_bias, **dd)
         self.down_proj = Dense(cfg.mlp_dim, cfg.hidden, cfg.attn_bias, **dd)
         self.act = activation(cfg.act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down_proj(self.act(self.gate_proj(x)) * self.up_proj(x))
+        if self.gated:
+            h = self.act(self.gate_proj(x)) * self.up_proj(x)
+        else:
+            h = self.act(self.fc1(x))
+        return self.down_proj(h)
+
+
+def make_norm(cfg: DecoderConfig, dtype, device) -> nn.Module:
+    """RMSNorm (LLaMA, Gemma) or LayerNorm (OPT), by ``cfg.norm``."""
+    if cfg.norm == "rmsnorm":
+        return RMSNorm(cfg.hidden, cfg.norm_eps, gemma_style=cfg.gemma_norm,
+                       dtype=dtype, device=device)
+    if cfg.norm == "layernorm":
+        return LayerNorm(cfg.hidden, cfg.norm_eps, dtype=dtype, device=device)
+    raise ValueError(f"unknown norm {cfg.norm!r}")
 
 
 class DecoderBlock(nn.Module):
     def __init__(self, cfg: DecoderConfig, dd: dict):
         super().__init__()
-        norm = dict(eps=cfg.norm_eps, gemma_style=cfg.gemma_norm,
-                    dtype=dd["dtype"], device=dd["device"])
-        self.input_norm = RMSNorm(cfg.hidden, **norm)
+        self.input_norm = make_norm(cfg, dd["dtype"], dd["device"])
         self.attn = DecoderAttention(cfg, dd)
-        self.post_attn_norm = RMSNorm(cfg.hidden, **norm)
+        self.post_attn_norm = make_norm(cfg, dd["dtype"], dd["device"])
         self.mlp = DecoderMLP(cfg, dd)
 
     def forward(self, x, positions, rope, *args):
@@ -214,33 +237,28 @@ class Decoder(nn.Module):
     def __init__(self, cfg: DecoderConfig, *, dtype=torch.float32,
                  device=None, quant_bits: int = 0):
         super().__init__()
-        unsupported = []
-        if cfg.norm != "rmsnorm" or not cfg.final_norm:
-            unsupported.append(f"norm={cfg.norm}")
-        if cfg.pos != "rope":
-            unsupported.append(f"pos={cfg.pos}")
-        if not cfg.gated_mlp:
-            unsupported.append("plain FFN")
-        if unsupported:
-            raise NotImplementedError(
-                f"decoder features {unsupported} are not ported yet (ROADMAP "
-                f"A13: OPT, BLIP-2's decoder)")
+        if cfg.pos not in ("rope", "learned"):
+            raise ValueError(f"unknown position scheme {cfg.pos!r}")
         self.cfg = cfg
         self.dtype = dtype
         dd = dict(dtype=dtype, device=device)
         self.embed = Embed(cfg.vocab_size, cfg.hidden, **dd)
+        # OPT: a learned table of max_position + 2 rows, read at position + 2
+        self.pos_embed = Embed(cfg.max_position + 2, cfg.hidden, **dd) \
+            if cfg.pos == "learned" else None
         block_dd = dict(dd, quant_bits=quant_bits)
         self.blocks = nn.ModuleList(DecoderBlock(cfg, block_dd)
                                     for _ in range(cfg.layers))
-        self.final_norm = RMSNorm(cfg.hidden, cfg.norm_eps,
-                                  gemma_style=cfg.gemma_norm, **dd)
+        self.final_norm = make_norm(cfg, dtype, device) if cfg.final_norm \
+            else None
         # the untied head: never quantized, no bias
         self.lm_head = None if cfg.tie_embeddings else Dense(
             cfg.hidden, cfg.vocab_size, use_bias=False, **dd)
-        cos, sin = rope_table(cfg.head_dim, cfg.max_position, cfg.rope_theta,
-                              device=device)
-        self.register_buffer("rope_cos", cos, persistent=False)
-        self.register_buffer("rope_sin", sin, persistent=False)
+        if cfg.pos == "rope":
+            cos, sin = rope_table(cfg.head_dim, cfg.max_position,
+                                  cfg.rope_theta, device=device)
+            self.register_buffer("rope_cos", cos, persistent=False)
+            self.register_buffer("rope_sin", sin, persistent=False)
 
     def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
         """Token embeddings times sqrt(hidden), the scale rounded to the
@@ -273,14 +291,25 @@ class Decoder(nn.Module):
         x = input_embeds.to(self.dtype)
         b, s, _ = x.shape
         if positions is None:
+            if s > self.cfg.max_position:
+                raise ValueError(f"{s} positions past the decoder's "
+                                 f"{self.cfg.max_position}")
             positions = torch.arange(s, device=x.device).expand(b, s)
-        rope = (self.rope_cos, self.rope_sin)
+        rope = None
+        if self.pos_embed is not None:
+            # a position past the table raises (IndexError on the CPU, a
+            # device assert on the card); it is never clamped
+            x = x + F.embedding(positions.long() + 2,
+                                self.pos_embed.weight).to(self.dtype)
+        else:
+            rope = (self.rope_cos, self.rope_sin)
         for i, block in enumerate(self.blocks):
             cache_kv = (cache["k"][i], cache["v"][i]) if cache is not None \
                 else None
             x = block(x, positions, rope, cache_kv, write_start, kv_len,
                       causal, prefix_len, uniform_write, kv_valid, kv_window)
-        x = self.final_norm(x)
+        if self.final_norm is not None:
+            x = self.final_norm(x)
         if logits_index is not None:
             idx = logits_index.long().clamp(0, s - 1)
             x = x[torch.arange(b, device=x.device), idx][:, None]

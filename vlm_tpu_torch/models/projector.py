@@ -1,7 +1,6 @@
 """Vision-to-language projectors (``vlm_tpu/models/projector.py``):
-PaliGemma's single linear projection and LLaVA's two-layer GELU MLP.
-BLIP-2's Q-Former comes with its slice (ROADMAP A13). Neither is
-quantized in any mode, as in ``vlm_tpu``."""
+PaliGemma's single linear projection, LLaVA's two-layer GELU MLP and
+BLIP-2's Q-Former. None is quantized in any mode, as in ``vlm_tpu``."""
 
 from __future__ import annotations
 
@@ -9,8 +8,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .configs import VLMConfig
-from .layers import Dense
+from ..ops.attention import flash_attention
+from .configs import QFormerConfig, VLMConfig
+from .layers import Dense, LayerNorm, activation
 
 
 class LinearProjector(nn.Module):
@@ -37,12 +37,96 @@ class MLPProjector(nn.Module):
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
 
 
+class BertAttention(nn.Module):
+    """Post-LN BERT attention, self (``kv`` is ``x``) or cross (``kv`` the
+    image tokens): ``LN(x + out(attn(q(x), k(kv), v(kv))))``, through B1
+    without a mask."""
+
+    def __init__(self, hidden: int, kv_dim: int, heads: int, eps: float,
+                 dd: dict):
+        super().__init__()
+        self.heads = heads
+        self.q = Dense(hidden, hidden, **dd)
+        self.k = Dense(kv_dim, hidden, **dd)
+        self.v = Dense(kv_dim, hidden, **dd)
+        self.out = Dense(hidden, hidden, **dd)
+        self.ln = LayerNorm(hidden, eps, **dd)
+
+    def forward(self, x: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
+        b, s, hidden = x.shape
+        hd = hidden // self.heads
+
+        def heads(t):       # [B, S, hidden] -> [B, H, S, Dh] view
+            return t.view(b, t.shape[1], self.heads, hd).transpose(1, 2)
+
+        o = flash_attention(heads(self.q(x)), heads(self.k(kv)),
+                            heads(self.v(kv)), causal=False)
+        o = self.out(o.transpose(1, 2).reshape(b, s, hidden))
+        return self.ln(x + o)
+
+
+class QFormerLayer(nn.Module):
+    """Self-attention among the queries, cross-attention into the image
+    tokens (on every ``cross_attention_frequency``-th layer), then the
+    exact-GELU FFN with its post LN."""
+
+    def __init__(self, cfg: QFormerConfig, cross: bool, dd: dict):
+        super().__init__()
+        eps = cfg.layer_norm_eps
+        self.self_attn = BertAttention(cfg.hidden, cfg.hidden, cfg.heads,
+                                       eps, dd)
+        self.cross_attn = BertAttention(cfg.hidden, cfg.encoder_hidden,
+                                        cfg.heads, eps, dd) if cross else None
+        self.ffn_up = Dense(cfg.hidden, cfg.mlp_dim, **dd)
+        self.ffn_down = Dense(cfg.mlp_dim, cfg.hidden, **dd)
+        self.ffn_ln = LayerNorm(cfg.hidden, eps, **dd)
+        self.act = activation("gelu")
+
+    def forward(self, x: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+        x = self.self_attn(x, x)
+        if self.cross_attn is not None:
+            x = self.cross_attn(x, img)
+        return self.ffn_ln(x + self.ffn_down(self.act(self.ffn_up(x))))
+
+
+class QFormer(nn.Module):
+    """BLIP-2's bridge: ``query_tokens`` [1, Q, hidden] broadcast over the
+    batch, ``input_ln``, the layers over the image tokens [B, S, D_img],
+    then ``language_projection`` -> [B, Q, out_dim]."""
+
+    def __init__(self, cfg: QFormerConfig, out_dim: int, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        dd = dict(dtype=dtype, device=device)
+        self.query_tokens = nn.Parameter(
+            torch.empty(1, cfg.num_query_tokens, cfg.hidden, **dd),
+            requires_grad=False)
+        self.input_ln = LayerNorm(cfg.hidden, cfg.layer_norm_eps, **dd)
+        self.layers = nn.ModuleList(
+            QFormerLayer(cfg, i % cfg.cross_attention_frequency == 0, dd)
+            for i in range(cfg.layers))
+        self.language_projection = Dense(cfg.hidden, out_dim, **dd)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        self.query_tokens.normal_(0.0, 0.02, generator=gen)
+
+    def forward(self, image_embeds: torch.Tensor) -> torch.Tensor:
+        b = image_embeds.shape[0]
+        x = self.input_ln(self.query_tokens.expand(b, -1, -1))
+        img = image_embeds.to(self.dtype)
+        for layer in self.layers:
+            x = layer(x, img)
+        return self.language_projection(x)
+
+
 def build_projector(cfg: VLMConfig, *, dtype, device) -> nn.Module:
     if cfg.projector in ("linear", "mlp"):
         cls = LinearProjector if cfg.projector == "linear" else MLPProjector
         return cls(cfg.vision.hidden, cfg.decoder.hidden, dtype=dtype,
                    device=device)
     if cfg.projector == "qformer":
-        raise NotImplementedError("the Q-Former (BLIP-2) is not ported yet "
-                                  "(ROADMAP A13)")
+        return QFormer(cfg.qformer, cfg.decoder.hidden, dtype=dtype,
+                       device=device)
     raise ValueError(f"unknown projector {cfg.projector!r}")

@@ -2,7 +2,9 @@
 
 The input is the tree as numpy arrays (unboxed from flax's partitioning
 metadata), e.g. ``jax.tree.map(np.asarray, flax.core.meta.unbox(params))``.
-Names map one to one: ``block_<i>`` becomes ``blocks.<i>``; a Dense
+Names map one to one: ``block_<i>`` becomes ``blocks.<i>``; the Q-Former's
+flat per-layer modules ``<part>_<i>`` (``self_attn``, ``cross_attn``,
+``ffn_up``, ``ffn_down``, ``ffn_ln``) become ``layers.<i>.<part>``; a Dense
 ``kernel`` [in, out] becomes ``weight`` [out, in]; a quantized Dense's
 ``q_kernel`` becomes ``q``, transposed (int8 [in, out] -> [out, in], packed
 int4 [in/2, out] -> [out, in/2]) and its ``scale`` [groups, out] becomes
@@ -10,8 +12,9 @@ int4 [in/2, out] -> [out, in/2]) and its ``scale`` [groups, out] becomes
 an int4 Dense with one group gets its [out, 1] back in
 :func:`load_flax_params`); the patch embedding's HWIO conv kernel
 [P, P, 3, hidden] becomes the unfold-matmul weight [hidden, P*P*3]; a
-norm's ``scale`` and the token table's ``embedding`` become ``weight``;
-``bias``, ``pos_embed`` and ``cls_token`` copy across.
+norm's ``scale`` and a token or position table's ``embedding`` become
+``weight``; ``bias``, the tower's ``pos_embed``, ``cls_token`` and the
+Q-Former's ``query_tokens`` copy across.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 
 _BLOCK = re.compile(r"^block_(\d+)$")
+_QFORMER_PART = re.compile(
+    r"^(self_attn|cross_attn|ffn_up|ffn_down|ffn_ln)_(\d+)$")
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -44,8 +49,10 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
         *mods, leaf = path
         names = []
         for m in mods:
-            hit = _BLOCK.match(m)
-            names.append(f"blocks.{hit.group(1)}" if hit else m)
+            block, part = _BLOCK.match(m), _QFORMER_PART.match(m)
+            names.append(f"blocks.{block.group(1)}" if block else
+                         f"layers.{part.group(2)}.{part.group(1)}" if part
+                         else m)
         if leaf == "kernel":
             if arr.ndim == 4:                 # HWIO conv -> [out, P*P*C]
                 arr = arr.reshape(-1, arr.shape[-1])

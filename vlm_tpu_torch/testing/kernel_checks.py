@@ -3,8 +3,13 @@ shapes the PaliGemma-3B serving paths give it (32 slots, 224 px images,
 prompt length 316, 32 new tokens, admission groups of 4; bf16, 8bit with
 the int8 KV cache, and 4bit) and the LLaVA-1.5-7B paths give it (336 px
 images, prompt length 641, MHA with 32 heads of 128; 32 slots in bf16,
-16 in 8bit with the int8 KV cache), plus cases for the mask modes and
-shapes the paths do not reach.
+16 in 8bit with the int8 KV cache) and the BLIP-2 OPT-6.7B paths give it
+(EVA ViT-g, 16 heads of 88 over 257 tokens; the Q-Former, 12 heads of 64,
+32 queries over themselves and over the 257 image tokens; OPT-6.7B, MHA
+with 32 heads of 128, a prompt of 32 + 60 ids; bf16 at 32 slots and
+admissions of 4, 8bit at 64 slots and admissions of 8 with the int8 KV
+cache and the int8 tower), plus cases for the mask modes and shapes the
+paths do not reach.
 
 Used by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``. Attention
 outputs are bf16 and both versions accumulate in fp32 from the same bf16
@@ -144,6 +149,14 @@ CACHE = PROMPT + NEW
 LLAVA_SLOTS, LLAVA_SLOTS_8BIT, LLAVA_PROMPT = 32, 16, 641
 LLAVA_CACHE = LLAVA_PROMPT + NEW
 VICUNA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
+# BLIP-2 OPT-6.7B's: 32 query tokens + BOS + 59 ids, 32 slots in bf16 and
+# 64 in 8bit (admissions of 8); OPT's block products (K, N): q/k/v/o, fc1,
+# down (K = 16384 = 128 x 128); EVA ViT-g's (int8 with quantize_vision):
+# q/v/out, fc1, fc2
+BLIP2_SLOTS, BLIP2_SLOTS_8BIT, BLIP2_PROMPT, BLIP2_GROUP_8BIT = 32, 64, 92, 8
+BLIP2_CACHE = BLIP2_PROMPT + NEW
+OPT_KN = ((4096, 4096), (4096, 16384), (16384, 4096))
+EVA_KN = ((1408, 1408), (1408, 6144), (6144, 1408))
 
 
 @dataclasses.dataclass
@@ -317,12 +330,12 @@ def cases(device) -> List[Case]:
        kv_len=torch.tensor([60, 64], **i32))
     # the towers and decoders of later slices: CLIP-L/336 (16 x 64 over
     # 577 tokens; LLaVA's tower, on its path), EVA ViT-g (16 x 88 over
-    # 257), a Vicuna-7B prefill (32 x 128, MHA) of 100 new tokens after 256
+    # 257; BLIP-2's tower, on its path), a Vicuna-7B prefill (32 x 128, MHA) of 100 new tokens after 256
     # cached ones
     b1("clip_l336_g4_h16_s577_d64", *(_bhsd(gen, GROUP, 577, 16, 64, dev)
                                       for _ in range(3)), on_path=True)
     b1("eva_g4_h16_s257_d88", *(_bhsd(gen, GROUP, 257, 16, 88, dev)
-                                for _ in range(3)))
+                                for _ in range(3)), on_path=True)
     b1("causal_mha_sq100_sk356_d128", _bhsd(gen, 2, 100, 32, 128, dev),
        _bhsd(gen, 2, 356, 32, 128, dev), _bhsd(gen, 2, 356, 32, 128, dev),
        causal=True, kv_len=torch.tensor([356, 300], **i32))
@@ -935,6 +948,107 @@ def cases(device) -> List[Case]:
         b5(LLAVA_SLOTS_8BIT, k, n, *vicuna_w[(k, n)], True)
     for k, n in VICUNA_KN:
         b6(GROUP * lp, k, n, *vicuna_w[(k, n)], torch.bfloat16, True)
+
+    # ---- BLIP-2 OPT-6.7B's serving shapes (the bf16 and 8bit slices) ----
+    # B1: the EVA tower of an admission of 4 (eva_g4_h16_s257_d88 above);
+    # the Q-Former's self-attention (32 queries, G = 1: one head a block,
+    # 96 dead rows) and cross-attention (32 queries over the 257 image
+    # tokens: a one-key last tile), as views of the [B, S, 12, 64]
+    # projections; OPT's causal prefill (MHA) with one row shorter
+    bp = BLIP2_PROMPT
+    b1("qformer_self_g4_h12_s32_d64",
+       *(_bhsd(gen, GROUP, 32, 12, 64, dev) for _ in range(3)), on_path=True)
+    b1("qformer_cross_g4_h12_sq32_sk257_d64", _bhsd(gen, GROUP, 32, 12, 64,
+                                                    dev),
+       *(_bhsd(gen, GROUP, 257, 12, 64, dev) for _ in range(2)),
+       on_path=True)
+    b1("opt_prefill_g4_h32_s92_d128_kvlen",
+       *(_bhsd(gen, GROUP, bp, 32, 128, dev) for _ in range(3)),
+       on_path=True, causal=True, kv_len=torch.tensor([bp, bp, bp, 80],
+                                                      **i32))
+    # the 8bit slice's admissions of 8: the tower's attention
+    b1("eva_g8_h16_s257_d88", *(_bhsd(gen, BLIP2_GROUP_8BIT, 257, 16, 88,
+                                      dev) for _ in range(3)), on_path=True)
+    # the fp32 forms, as the fp32 depth-cut reference runs them (2 images):
+    # D = 88 (fp32_eva above), 64 at the Q-Former, 128 at OPT
+    b1("fp32_qformer_self_g2_h12_s32_d64", *(f32(2, 32, 12, 64)
+                                             for _ in range(3)))
+    b1("fp32_qformer_cross_g2_h12_sq32_sk257_d64", f32(2, 32, 12, 64),
+       f32(2, 257, 12, 64), f32(2, 257, 12, 64))
+    b1("fp32_opt_prefill_g2_h32_s92_d128_kvlen",
+       *(f32(2, bp, 32, 128) for _ in range(3)), causal=True,
+       kv_len=torch.tensor([bp, 80], **i32))
+
+    # B2 and B3 fused over OPT's MHA cache of 92 + 32 rows: bf16 at 32
+    # slots, int8 at 64, fp32 at 4 (the fp32 reference's G = 1, D = 128)
+    def opt_window(slots):
+        ac = torch.randint(0, NEW, (slots,), generator=gen, device=dev).int()
+        gc = torch.randint(1, NEW + 1, (slots,), generator=gen,
+                           device=dev).int()
+        gc[1] = 0                                     # a slot not admitted
+        return (torch.tensor(bp, **i32), NEW, ac, gc)
+
+    ocol = torch.full((1,), bp + 7, **i32)
+    for slots, int8, on_path in ((BLIP2_SLOTS, False, True),
+                                 (BLIP2_SLOTS_8BIT, True, True),
+                                 (4, False, False)):
+        fp32 = not on_path
+        win = opt_window(slots)
+        qq = query(slots, 32, 128)
+        (kk, vv, _), (kq8, vq8, sc8) = cache(slots, BLIP2_CACHE, 32, 128)
+        kr, vr = rows(slots)
+        tag = "int8_" if int8 else "fp32_" if fp32 else ""
+        if fp32:
+            qq, kk, vv, kr, vr = (t.float() for t in (qq, kk, vv, kr, vr))
+        caches, scales = ((kq8, vq8, sc8["k_scale"], sc8["v_scale"]), sc8) \
+            if int8 else ((kk, vv), {})
+        for cold in (True, False) if on_path else (False,):
+            b2(f"{'fp32_' if fp32 else ''}blip2_window_{slots}slots", qq,
+               caches[0], caches[1], dict(kv_window=win), on_path, scales,
+               cold)
+            b3_fused(f"blip2_{tag}fused_window_{slots}slots", qq, caches, kr,
+                     vr, ocol, True, dict(kv_window=win), on_path, cold)
+    # standalone B3: the 8bit admission's prompt rows of 8 images, int8
+    k_pre, v_pre = (torch.randn(BLIP2_GROUP_8BIT, bp, 32, 128, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+    group8 = tuple((torch.zeros(BLIP2_GROUP_8BIT, bp, 32, 128,
+                                dtype=torch.int8, device=dev),
+                    torch.zeros(BLIP2_GROUP_8BIT, bp, 32, 1, device=dev))
+                   for _ in range(2))
+    b3_int8("blip2_int8_prefill_g8_s92_kv32", k_pre, v_pre, group8,
+            torch.zeros(1, **i32), True, True)
+
+    # B4: an admission of 8 BLIP-2 images (224 px warped, CLIP's mean and
+    # std) into EVA's patch layout, bf16 (both slices' compute dtype)
+    u8g8 = torch.randint(0, 256, (BLIP2_GROUP_8BIT, 224, 224, 3),
+                         generator=gen, device=dev).to(torch.uint8)
+    blip = RECIPES["blip2"]
+    out.append(Case(
+        "B4", "blip2_patch14_u8_g8_224",
+        functools.partial(normalize_images, u8g8, recipe=blip,
+                          compute_dtype=torch.bfloat16, patch_size=14),
+        functools.partial(normalize_plain, u8g8, blip, torch.bfloat16, 14),
+        0.0, True, form="normalize", work=(0.0, 3.0 * u8g8.numel(), "bf16"),
+        baseline_fn=lambda: unfold_patches(normalize_images(
+            u8g8, recipe=blip, compute_dtype=torch.bfloat16), 14),
+        library_note=b4_note))
+
+    # B5 at the 8bit decode step's 64 slots (OPT's three products; down at
+    # K = 16384), and at a one-image admission of the int8 tower (m = 257,
+    # the 8bit depth-cut reference's 1-image rows); B6 at an admission's
+    # 8 x 92 OPT rows and 8 x 257 EVA rows (``dynamic_noout``: bf16 out)
+    opt_w = {kn: weights(*kn) for kn in OPT_KN}
+    eva_w = {kn: weights(*kn) for kn in EVA_KN}
+    for k, n in OPT_KN:
+        b5(BLIP2_SLOTS_8BIT, k, n, *opt_w[(k, n)], True)
+    for k, n in EVA_KN:
+        b5(257, k, n, *eva_w[(k, n)], False)
+    for k, n in OPT_KN:
+        b6(BLIP2_GROUP_8BIT * bp, k, n, *opt_w[(k, n)], torch.bfloat16, True)
+    for k, n in EVA_KN:
+        b6(BLIP2_GROUP_8BIT * 257, k, n, *eva_w[(k, n)], torch.bfloat16,
+           True)
     return out
 
 

@@ -54,6 +54,13 @@ tokens, 60 ids: 641) and a decode step at full width and depth, random
 weights, in bf16 (``admission``, ``step_bf16``: 32 slots) and in the 8bit
 recipe (``admission_8bit``, ``step_8bit``: int8 decoder weights with
 ``VLM_TPU_INT8_PREFILL=dynamic_noout``, the int8 cache, 16 slots).
+``--model blip2`` the same for BLIP-2 OPT-6.7B: B1 at EVA [4, 16, 257,
+88], at the Q-Former's self-attention [4, 12, 32, 64] and cross-attention
+(32 queries over 257 image tokens) and at OPT's causal prefill [4, 32, 92,
+128] (kv_len [92, 92, 92, 80]), B2 over the 32-slot cache [32, 124, 32,
+128]; the admissions (32 query tokens, BOS + 59 ids: 92) and decode steps
+in bf16 (groups of 4, 32 slots) and in the 8bit recipe (int8 decoder and
+tower, ``dynamic_noout``, the int8 cache; groups of 8, 64 slots).
 """
 
 import argparse
@@ -70,25 +77,41 @@ PROMPT_IDS, GROUP = 60, 4
 # new tokens
 SLOTS, PROMPT, NEW = 32, 316, 32
 CACHE = PROMPT + NEW
-# LLaVA-1.5-7B: 336 px, BOS + 4 ids before the 576 image tokens, a prompt
-# of 641; 32 slots in bf16, 16 in 8bit
-LLAVA = dict(image=336, pre_ids=5, prompt=641, slots={"bf16": 32,
-                                                      "8bit": 16})
+# the MHA slices: image side, ids before the image tokens, the prompt, the
+# slots and admission group of each mode, whether the 8bit recipe
+# quantizes the tower, and B1's bf16 inputs of an admission of 4: (Sq, Sk,
+# heads, head dim, and for a causal prefill the last row's kv_len)
+SLICES = {
+    # LLaVA-1.5-7B: 336 px, BOS + 4 ids before the 576 image tokens
+    "llava": dict(image=336, pre_ids=5, prompt=641,
+                  slots={"bf16": 32, "8bit": 16},
+                  group={"bf16": 4, "8bit": 4}, quantize_vision=False,
+                  b1={"clip": (577, 577, 16, 64, None),
+                      "vicuna": (641, 641, 32, 128, 600)}),
+    # BLIP-2 OPT-6.7B: 224 px, the 32 query tokens, then BOS + 59 ids
+    "blip2": dict(image=224, pre_ids=0, prompt=92,
+                  slots={"bf16": 32, "8bit": 64},
+                  group={"bf16": 4, "8bit": 8}, quantize_vision=True,
+                  b1={"eva": (257, 257, 16, 88, None),
+                      "qformer_self": (32, 32, 12, 64, None),
+                      "qformer_cross": (32, 257, 12, 64, None),
+                      "opt": (92, 92, 32, 128, 80)}),
+}
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument("--admissions", type=int, default=3)
-    ap.add_argument("--model", choices=("paligemma", "llava"),
+    ap.add_argument("--model", choices=("paligemma", "llava", "blip2"),
                     default="paligemma")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("profile_admission: needs a CUDA device")
-    if args.model == "llava":
-        return main_llava(torch, args)
+    if args.model != "paligemma":
+        return main_mha(torch, args)
     import torch.nn.functional as F
 
     from vlm_tpu_torch.models.factory import create_model
@@ -232,9 +255,9 @@ def _device_us(torch, fn, n=20):
                if str(e.device_type).endswith("CUDA")) / n
 
 
-def main_llava(torch, args):
-    """``--model llava``: B1 and B2 at LLaVA's shapes beside SDPA, then a
-    bf16 and an 8bit admission and decode step."""
+def main_mha(torch, args):
+    """``--model llava`` or ``blip2``: B1 and B2 at the model's shapes
+    beside SDPA, then a bf16 and an 8bit admission and decode step."""
     import torch.nn.functional as F
 
     from vlm_tpu_torch.models.factory import create_model
@@ -255,21 +278,25 @@ def main_llava(torch, args):
         return torch.randn(b, s, h, d, generator=gen, device=dev).to(
             torch.bfloat16)
 
-    lp = LLAVA["prompt"]
-    clip = [bshd(GROUP, 577, 16, 64).transpose(1, 2) for _ in range(3)]
-    vic = [bshd(GROUP, lp, 32, 128).transpose(1, 2) for _ in range(3)]
-    kvl = torch.tensor([lp, lp, lp, 600], **i32)
-    causal = (torch.arange(lp, device=dev)[None, :] <=
-              torch.arange(lp, device=dev)[:, None])
-    mask = causal[None, None] & (torch.arange(lp, device=dev)[None, :] <
-                                 kvl[:, None])[:, None, None]
-    calls = {"clip": lambda: flash_attention(*clip),
-             "vicuna": lambda: flash_attention(*vic, causal=True,
-                                               kv_len=kvl)}
-    sdpa = {"clip": lambda: F.scaled_dot_product_attention(*clip),
-            "vicuna": lambda: F.scaled_dot_product_attention(
-                *vic, attn_mask=mask)}
-    slots, cache_rows = LLAVA["slots"]["bf16"], lp + NEW
+    spec = SLICES[args.model]
+    lp = spec["prompt"]
+    calls, sdpa = {}, {}
+    for name, (sq, sk, h, d, last) in spec["b1"].items():
+        qkv = [bshd(GROUP, n, h, d).transpose(1, 2) for n in (sq, sk, sk)]
+        if last is None:
+            calls[name] = lambda qkv=qkv: flash_attention(*qkv)
+            sdpa[name] = lambda qkv=qkv: F.scaled_dot_product_attention(*qkv)
+            continue
+        kvl = torch.tensor([sk] * (GROUP - 1) + [last], **i32)
+        causal = (torch.arange(sk, device=dev)[None, :] <=
+                  torch.arange(sq, device=dev)[:, None] + (sk - sq))
+        mask = causal[None, None] & (torch.arange(sk, device=dev)[None, :] <
+                                     kvl[:, None])[:, None, None]
+        calls[name] = lambda qkv=qkv, kvl=kvl: flash_attention(
+            *qkv, causal=True, kv_len=kvl)
+        sdpa[name] = lambda qkv=qkv, mask=mask: \
+            F.scaled_dot_product_attention(*qkv, attn_mask=mask)
+    slots, cache_rows = spec["slots"]["bf16"], lp + NEW
     qd = bshd(slots, 1, 32, 128).transpose(1, 2)
     kc, vc = bshd(slots, cache_rows, 32, 128), bshd(slots, cache_rows, 32,
                                                     128)
@@ -289,26 +316,27 @@ def main_llava(torch, args):
     device["b2_cold"] = {
         "kernel": _device_ms(calls["b2"], 20, flush, fl_kernels) * 1e3,
         "sdpa": _device_ms(sdpa["b2"], 20, flush, fl_kernels) * 1e3}
-    del flush, kc, vc, clip, vic
-    out = {"root": args.root, "gpu": gpu, "model": "llava",
+    del flush, kc, vc, calls, sdpa
+    out = {"root": args.root, "gpu": gpu, "model": args.model,
            "b1_ms": b1_ms, "device_us": device}
     for quantization in ("bf16", "8bit"):
         kw = dict(quantization=quantization)
         if quantization == "8bit":
-            kw["kv_cache"] = "int8"
+            kw.update(kv_cache="int8",
+                      quantize_vision=spec["quantize_vision"])
             os.environ["VLM_TPU_INT8_PREFILL"] = "dynamic_noout"
         try:
-            model = create_model("llava", size="7b", device="cuda", seed=0,
-                                 **kw)
+            model = create_model(args.model, device="cuda", seed=0, **kw)
         finally:
             os.environ.pop("VLM_TPU_INT8_PREFILL", None)
         key = "admission" if quantization == "bf16" else "admission_8bit"
         out[key] = profile_admission(torch, model, args.admissions,
-                                     image=LLAVA["image"],
-                                     pre_ids=LLAVA["pre_ids"])
+                                     image=spec["image"],
+                                     pre_ids=spec["pre_ids"],
+                                     group=spec["group"][quantization])
         out[f"step_{quantization}"] = profile_step(
             torch, model, args.admissions, gen,
-            slots=LLAVA["slots"][quantization], prompt=lp)
+            slots=spec["slots"][quantization], prompt=lp)
         del model
         torch.cuda.empty_cache()
     print(json.dumps(out))
@@ -357,8 +385,8 @@ def _profile_runs(torch, run, n, mark):
             "top": [(k[:60], round(ms, 4), c) for k, ms, c in rows[:8]]}
 
 
-def profile_admission(torch, model, n, image=224, pre_ids=0):
-    """An admission of ``GROUP`` images of side ``image`` into a fresh
+def profile_admission(torch, model, n, image=224, pre_ids=0, group=GROUP):
+    """An admission of ``group`` images of side ``image`` into a fresh
     cache, with ``pre_ids`` ids (BOS first) before the image tokens and
     ``PROMPT_IDS`` after them (BOS first where none come before); B1's
     kernels under ``kernel_ms``: the bf16 ``flash_kernel`` or the fp32
@@ -371,14 +399,14 @@ def profile_admission(torch, model, n, image=224, pre_ids=0):
     dev = torch.device("cuda")
     cfg = model.cfg
     rng = np.random.default_rng(0)
-    u8 = torch.from_numpy(rng.integers(0, 256, (GROUP, image, image, 3),
+    u8 = torch.from_numpy(rng.integers(0, 256, (group, image, image, 3),
                                        dtype=np.uint8)).to(dev)
 
     def ids(n, bos):
         row = np.concatenate([[cfg.decoder.bos_token_id] if bos else [],
                               rng.integers(3, 1000, n - bos)])
         return torch.from_numpy(row).to(dev, torch.int32)[None].expand(
-            GROUP, -1)
+            group, -1)
     pre = ids(pre_ids, True) if pre_ids else ids(0, False)
     post = ids(PROMPT_IDS, not pre_ids)
     plen = pre_ids + num_image_tokens(cfg) + PROMPT_IDS
@@ -386,13 +414,13 @@ def profile_admission(torch, model, n, image=224, pre_ids=0):
         inspect.signature(normalize_images).parameters else {}
 
     def admission():
-        cache = init_kv_cache(cfg.decoder, GROUP, plen + NEW,
+        cache = init_kv_cache(cfg.decoder, group, plen + NEW,
                               model.cache_dtype, "cuda")
         px = normalize_images(u8, recipe=model.recipe,
                               compute_dtype=model.dtype, **patch)
         return model.module.prefill(
             px, pre, post, cache,
-            torch.full((GROUP,), plen, dtype=torch.int32, device=dev))
+            torch.full((group,), plen, dtype=torch.int32, device=dev))
 
     got = _profile_runs(torch, admission, n, ("flash_kernel",
                                               "flash_fp32_kernel"))

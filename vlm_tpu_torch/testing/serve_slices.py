@@ -5,7 +5,7 @@ one checkout on one NVIDIA GPU, without the kernel checks and the
 reference phases; prints each slice's lines and one JSON line.
 
     python vlm_tpu_torch/testing/serve_slices.py [--root DIR]
-        [--model paligemma|llava]
+        [--model paligemma|llava|blip2]
 
 ``--root`` is the checkout whose ``chip_smoke.py`` and ``vlm_tpu_torch``
 are run (default: this one), so that one command can serve two trees in
@@ -13,7 +13,10 @@ turns, parent and change alternating, with the same traffic. The JSON
 line holds, for each slice, the images per second and the per-image
 latency p50 and p99 in ms, as the slice printed them. ``--model llava``
 serves LLaVA-1.5-7B's two slices instead: bf16 (32 slots) and the 8bit
-recipe (16 slots, the int8 KV cache, ``dynamic_noout``).
+recipe (16 slots, the int8 KV cache, ``dynamic_noout``); ``--model blip2``
+BLIP-2 OPT-6.7B's two: bf16 (32 slots, admissions of 4) and the 8bit
+recipe (64 slots, admissions of 8, the int8 KV cache and tower,
+``dynamic_noout``).
 """
 
 import argparse
@@ -30,7 +33,7 @@ LATENCY = re.compile(r"latency p50 ([0-9.]+) ms p99 ([0-9.]+) ms")
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
-    ap.add_argument("--model", choices=("paligemma", "llava"),
+    ap.add_argument("--model", choices=("paligemma", "llava", "blip2"),
                     default="paligemma")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -42,7 +45,7 @@ def main(argv=None):
 
     gpu = chip_smoke.device_phase(torch)
     result = {"root": args.root, "gpu": gpu, "model": args.model}
-    modes = ("bf16", "8bit") if args.model == "llava" else (
+    modes = ("bf16", "8bit") if args.model != "paligemma" else (
         "bf16", "8bit", "4bit", "fp32")
     for mode in modes:
         size = dict(n_images=chip_smoke.FP32_IMAGES,
