@@ -15,58 +15,77 @@ Phases, each of which raises on failure:
    computes the same function, that call's time (timed only: the port
    never calls it); kernel and library call also profiled (their kernels'
    own device time, without the events' floor);
-4. bf16 slice: PaliGemma-3B at full width, bf16, random weights from a
-   seed, through the port's continuous batcher (32 slots, 96 synthetic
+4. checkpoint: a synthetic PaliGemma-3B checkpoint with the real one's
+   key set, shapes and dtypes (the hub layout of
+   ``tests/goldens/manifests/paligemma-3b-mix-224.json``: 603 fp32
+   tensors, 11.69 GB), values drawn from a seed on the card, written as
+   three shards into a temporary directory (deleted at the end); then
+   quantize-on-load: a depth-cut copy loaded on the card in 8bit and in
+   4bit with the tower quantized, 10 Denses' ``q`` and ``scale`` bitwise
+   against the CPU's quantization of the same file tensors;
+5. bf16 slice: PaliGemma-3B at full width, bf16, its weights loaded from
+   that checkpoint through ``create_model(..., model_id=<dir>)`` (the
+   load's seconds, GB/s and device memory printed; the memory bounded by
+   the model plus two fp32 copies of the largest tensor), through the
+   port's continuous batcher (32 slots, 96 synthetic
    224 px images fed through the normalisation kernel straight into the
    patch embedding's layout, a 60-id prompt, up to 32 new tokens with
    per-image caps from [8, 32]); every kernel of the path must have
    launched, no plain version may have run, and every decode step must
    have written its KV rows inside B2's launch (B3's fused forms: as many
    as B2's launches; no standalone B3 launch but the int8 prefill rows');
-5. bf16 reference: a depth-cut copy of the model (full widths, 2 vision and
-   2 decoder layers) on the card against the same weights in fp32 on the
-   CPU, through prefill and rotating-window decode steps;
-6. 8bit slice: the same traffic with int8 decoder weights (the llm.int8
-   prefill, the weight-only decode products) and the int8 KV cache;
-7. 8bit reference: the depth-cut copy with int8 decoder and vision weights
+6. bf16 reference: a depth-cut copy of the model (full widths, 2 vision and
+   2 decoder layers, random weights) on the card against the same weights
+   in fp32 on the CPU, through prefill and rotating-window decode steps;
+7. 8bit slice: the same traffic with int8 decoder weights, quantized on
+   load (the llm.int8 prefill, the weight-only decode products) and the
+   int8 KV cache; then the model round-trips through ``save_checkpoint``
+   and ``model_id``, bitwise;
+8. 8bit reference: the depth-cut copy with int8 decoder and vision weights
    and the int8 cache on the card against fp32 compute on the CPU;
-8. 4bit slice: the same traffic with grouped int4 decoder weights (B7 at
-   every decode product, the dequantized product at the admissions' 1264
-   rows) and the bf16 KV cache;
-9. 4bit reference: the depth-cut copy with int4 decoder and vision weights
-   against fp32 compute on the CPU, through a 2-image prefill (512 rows and
-   more: the dequantized product), a 1-image prefill (B7 at 256 and 316
-   rows, SigLIP fc2 at group 16) and decode steps;
-10. fp32 slice: ``create_model("paligemma", size="3b", device="cuda")``
-    with its default quantization, fp32, through the fp32 forms of B1, B2
-    and B4 (16 images, up to 8 new tokens);
-11. fp32 reference: the depth-cut copy in fp32 on the card against the CPU
+9. 4bit slice: the same traffic with grouped int4 decoder weights, packed
+   on load (B7 at every decode product, the dequantized product at the
+   admissions' 1264 rows) and the bf16 KV cache;
+10. 4bit reference: the depth-cut copy with int4 decoder and vision
+    weights against fp32 compute on the CPU, through a 2-image prefill (512
+    rows and more: the dequantized product), a 1-image prefill (B7 at 256
+    and 316 rows, SigLIP fc2 at group 16) and decode steps;
+11. fp32 slice: ``create_model("paligemma", size="3b", device="cuda",
+    model_id=<dir>)`` with its default quantization, fp32, through the fp32
+    forms of B1, B2 and B4 (16 images, up to 8 new tokens);
+12. fp32 reference: the depth-cut copy in fp32 on the card against the CPU
     (``REF_TOL_FP32``);
-12. LLaVA bf16 slice: ``create_model("llava", size="7b")`` (CLIP-L/336,
-    the MLP projector, Vicuna-7B with its untied head; MHA, 32 heads of
-    128) in bf16, the same checks as PaliGemma's: 32 slots, 96 synthetic
+13. LLaVA bf16 slice (random weights, as BLIP-2's):
+    ``create_model("llava", size="7b")`` (CLIP-L/336, the MLP projector,
+    Vicuna-7B with its untied head; MHA, 32 heads of 128) in bf16, the
+    same checks as PaliGemma's: 32 slots, 96 synthetic
     336 px images, BOS + 4 ids before the 576 image tokens and 60 ids
     after them (a prompt of 641), up to 32 new tokens;
-13. LLaVA bf16 reference: the depth-cut copy (full width, 2 vision and 2
-    decoder layers: the feature tap at -2 is then block 0's output);
-14. LLaVA 8bit slice: the JAX package's LLaVA recipe: int8 decoder
+14. LLaVA bf16 reference: the depth-cut copy (full width, 2 vision and 2
+    decoder layers: the feature tap at -2 is then block 0's output); then
+    the name maps: a depth-cut checkpoint of LLaVA's real key set (layers
+    0-1, the new-style layout, fp16) loaded by ``load_vlm_weights`` on the
+    card in bf16 and on the CPU in fp32, held together as the reference;
+15. LLaVA 8bit slice: the JAX package's LLaVA recipe: int8 decoder
     weights with ``VLM_TPU_INT8_PREFILL=dynamic_noout`` (B6 at every
     admission product), the int8 KV cache, 16 slots, admission groups of
     4, the same traffic;
-15. LLaVA 8bit reference (int8 decoder weights and cache), and an fp32
+16. LLaVA 8bit reference (int8 decoder weights and cache), and an fp32
     reference (the fp32 forms of B1 and B2 at G = 1, D = 128);
-16. BLIP-2 bf16 slice: ``create_model("blip2", size="6.7b")`` (EVA ViT-g,
+17. BLIP-2 bf16 slice: ``create_model("blip2", size="6.7b")`` (EVA ViT-g,
     the Q-Former through B1, OPT-6.7B with learned positions and its tied
     head; MHA, 32 heads of 128) in bf16 at full width and depth, the same
     checks: 32 slots, 96 synthetic 224 px images, the 32 query tokens then
     BOS + 59 ids (a prompt of 92), up to 32 new tokens;
-17. BLIP-2 bf16 reference: the depth-cut copy (full width, 2 EVA and 2 OPT
-    layers, the Q-Former at its full 12 layers);
-18. BLIP-2 8bit slice: the JAX package's BLIP-2 recipe: int8 decoder and
+18. BLIP-2 bf16 reference: the depth-cut copy (full width, 2 EVA and 2 OPT
+    layers, the Q-Former at its full 12 layers); then the name maps from a
+    depth-cut checkpoint of BLIP-2's real key set (the hub layout, fp32,
+    the Q-Former whole), as LLaVA's;
+19. BLIP-2 8bit slice: the JAX package's BLIP-2 recipe: int8 decoder and
     tower weights (``quantize_vision``) with
     ``VLM_TPU_INT8_PREFILL=dynamic_noout`` (B6 at every admission product),
     the int8 KV cache, 64 slots, admission groups of 8, the same traffic;
-19. BLIP-2 8bit reference (int8 decoder and tower weights, the int8
+20. BLIP-2 8bit reference (int8 decoder and tower weights, the int8
     cache), and an fp32 reference (the fp32 forms of B1 at D = 88, 64 and
     128 and of B2 at G = 1, D = 128).
 
@@ -80,9 +99,12 @@ Prints a JSON line of per-kernel results, then as its last line
 import contextlib
 import dataclasses
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -118,6 +140,13 @@ REF_TOL_FP32 = 1e-3
 # the fp32 slice: fewer images and tokens (fp32 weights stream twice the
 # bytes of bf16's, and the mode is for correctness)
 FP32_IMAGES, FP32_NEW = 16, 8
+# the vendored key manifests of the real checkpoints
+MANIFESTS = {"paligemma": "paligemma-3b-mix-224.json",
+             "llava": "llava-1.5-7b-hf.json",
+             "blip2": "blip2-opt-6.7b.json"}
+# the depth-cut checkpoints of LLaVA and BLIP-2: their layout (LLaVA's
+# new-style roots in fp16, BLIP-2's hub names in fp32)
+CKPT_LAYOUTS = {"llava": "new_style", "blip2": "hub"}
 # the launch counters each slice must move (ops._lib.KERNELS); the second
 # entry is B2's form, the third B3's write inside it
 PATH_KERNELS = {
@@ -205,10 +234,14 @@ def int8_prefill(model_name, quantization):
 
 
 def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
-                model_name="paligemma"):
+                model_name="paligemma", model_id=None, round_trip=None):
     """Serve ``model_name``'s recipe with ``quantization`` "bf16", "8bit"
     (with the int8 KV cache), "4bit", or "fp32" (the model's default, so
-    not passed); returns the launch counts of the timed run."""
+    not passed); with ``model_id``, the weights come from that checkpoint
+    directory (its load timed and its peak memory bounded); with
+    ``round_trip`` (a directory), the served model is then saved there in
+    the port's format and loaded back (:func:`round_trip_phase`). Returns
+    the launch counts of the timed run and the slice's numbers."""
     from vlm_tpu_torch.generate.batcher import ContinuousBatcher
     from vlm_tpu_torch.models.factory import create_model
     from vlm_tpu_torch.models.vlm import num_image_tokens
@@ -219,23 +252,30 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
     slots = spec["slots"].get(quantization, SLOTS)
     tag = f"[slice {quantization}]" if model_name == "paligemma" else \
         f"[slice {model_name} {quantization}]"
-    t0 = time.perf_counter()
     kw = {} if quantization == "fp32" else dict(
         quantization=quantization,
         kv_cache="int8" if quantization == "8bit" else None,
         quantize_vision=quantization == "8bit" and spec["quantize_vision"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     with int8_prefill(model_name, quantization) as mode:
         model = create_model(model_name, size=spec["size"], device="cuda",
-                             seed=0, **kw)
+                             seed=0, model_id=model_id, **kw)
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() - base
     n_params = sum(p.numel() for p in model.module.parameters())
-    n_bytes = sum(p.numel() * p.element_size()
-                  for p in model.module.parameters())
+    n_bytes = sum(t.numel() * t.element_size() for t in
+                  (*model.module.parameters(), *model.module.buffers()))
     print(f"{tag} {spec['label']} built: {n_params} params, {n_bytes} "
           f"bytes, KV cache {model.cache_dtype}, {slots} slots"
           f"{', int8 prefill ' + mode if mode else ''}"
           f"{', int8 tower' if model.quantize_vision else ''}, "
-          f"{time.perf_counter() - t0:.1f} s ({gpu})")
+          f"{build_s:.1f} s ({gpu})")
+    if model_id is not None:
+        load_report(tag, model_id, build_s, load_peak, n_bytes, gpu)
     cfg = model.cfg
     dec = cfg.decoder
     rng = np.random.default_rng(0)
@@ -326,7 +366,10 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
     if logits.shape != (g, dec.vocab_size) or not torch.isfinite(
             logits).all():
         raise RuntimeError(f"bad prefill logits {tuple(logits.shape)}")
-    del model, cache, logits
+    del cache, logits
+    if round_trip is not None:
+        round_trip_phase(torch, gpu, model, round_trip)
+    del model
     torch.cuda.empty_cache()
     return launches, dict(wall_s=wall, img_per_s=n_images / wall,
                           p50_ms=float(np.percentile(lat, 50)),
@@ -334,7 +377,29 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
                           peak_gib=peak / 2**30)
 
 
-def reference_phase(torch, np, gpu, quantization, model_name="paligemma"):
+def load_report(tag, model_id, seconds, peak, model_bytes, gpu):
+    """Print a checkpoint load's seconds, GB/s (bytes of the files) and
+    the device memory it took beyond what was allocated before it; fail if
+    that passes the model's own bytes plus two fp32 copies of the
+    checkpoint's largest tensor (the one being written, and its cast or
+    quantized form)."""
+    from vlm_tpu_torch.utils.safetensors_io import open_dir
+    refs = open_dir(model_id).values()
+    file_bytes = sum(Path(f).stat().st_size for f in {r.path for r in refs})
+    largest = max(math.prod(r.shape) for r in refs) * 4
+    bound = model_bytes + 2 * largest
+    print(f"{tag} load from {len({r.path for r in refs})} safetensors files "
+          f"({file_bytes / 1e9:.2f} GB): {seconds:.2f} s, "
+          f"{file_bytes / 1e9 / seconds:.2f} GB/s, max_memory_allocated "
+          f"during the load {peak / 1e9:.2f} GB (model {model_bytes / 1e9:.2f}"
+          f" GB + 2 x {largest / 1e9:.2f} GB = {bound / 1e9:.2f}) ({gpu})")
+    if peak > bound:
+        raise RuntimeError(f"the load took {peak} bytes of device memory, "
+                           f"more than {bound}")
+
+
+def reference_phase(torch, np, gpu, quantization, model_name="paligemma",
+                    ckpt=None):
     """Full-width, depth-cut model (2 vision and 2 decoder layers; BLIP-2's
     Q-Former at its full 12): bf16 kernels on the card against fp32
     plain versions on the CPU, same weights, same inputs. "8bit": int8
@@ -343,8 +408,11 @@ def reference_phase(torch, np, gpu, quantization, model_name="paligemma"):
     tower stays bf16, as its recipe) and the int8 KV cache on both sides. "4bit": int4 decoder and vision weights,
     and a 1-image prefill after the 2-image one, so that B7 takes the
     prefill's products too. "fp32": the fp32 kernels on the card, within
-    ``REF_TOL_FP32``."""
+    ``REF_TOL_FP32``. With ``ckpt`` (a depth-cut HF checkpoint), both
+    modules are filled from it by ``load_vlm_weights`` instead (the card's
+    in its compute dtype, the CPU's in fp32)."""
     from vlm_tpu_torch.models.configs import VLM_CONFIGS
+    from vlm_tpu_torch.models.hf_weights import load_vlm_weights
     from vlm_tpu_torch.models.layers import init_random_
     from vlm_tpu_torch.models.vlm import VLMModule, num_image_tokens
     from vlm_tpu_torch.ops import _lib
@@ -364,13 +432,17 @@ def reference_phase(torch, np, gpu, quantization, model_name="paligemma"):
     if bits == 8:
         cache_dtypes = dict.fromkeys(cache_dtypes, "int8")
     with int8_prefill(model_name, quantization):
-        gpu_mod = init_random_(VLMModule(cfg, dtype=card, device="cuda",
-                                         **quant), seed=1)
+        gpu_mod = VLMModule(cfg, dtype=card, device="cuda", **quant)
         cpu_mod = VLMModule(cfg, dtype=torch.float32, device="cpu", **quant)
-    # integer weights stay as they are; only floating tensors widen to fp32
-    cpu_mod.load_state_dict({
-        k: (v.float() if v.is_floating_point() else v).cpu()
-        for k, v in gpu_mod.state_dict().items()})
+    if ckpt is None:
+        init_random_(gpu_mod, seed=1)
+        # integer weights stay as they are; floating tensors widen to fp32
+        cpu_mod.load_state_dict({
+            k: (v.float() if v.is_floating_point() else v).cpu()
+            for k, v in gpu_mod.state_dict().items()})
+    else:
+        for mod in (gpu_mod, cpu_mod):
+            load_vlm_weights(model_name, cfg, ckpt, mod)
     rng = np.random.default_rng(1)
     steps = 3
     n_pre = spec["pre_ids"]
@@ -399,6 +471,8 @@ def reference_phase(torch, np, gpu, quantization, model_name="paligemma"):
     _lib.reset_counts()
     name = "reference" if model_name == "paligemma" else \
         f"reference {model_name}"
+    if ckpt is not None:
+        name = f"checkpoint {model_name}"
     qformer = f", Q-Former {cfg.qformer.layers} layers" if cfg.qformer \
         else ""
     print(f"[{name} {quantization}] depth-cut {spec['label']} (2+2 layers"
@@ -407,6 +481,126 @@ def reference_phase(torch, np, gpu, quantization, model_name="paligemma"):
           f"max|cpu| = {worst:.3e} (tol {tol:.0e}) ({gpu})")
     if worst > tol:
         raise RuntimeError("card disagrees with the CPU reference")
+
+
+def checkpoint_write_phase(torch, gpu, model_name, path, layout="hub",
+                           layers=None):
+    """Write a synthetic checkpoint of ``model_name`` into ``path`` in three
+    shards: the key set, shapes and dtypes of the real one's ``layout``
+    (``tests/goldens/manifests``), depth-cut to ``layers`` tower and
+    decoder layers when given, values drawn from a seed on the card."""
+    from vlm_tpu_torch.testing.checkpoints import (depth_cut,
+                                                   write_synthetic_checkpoint)
+    doc = json.loads((ROOT / "tests" / "goldens" / "manifests" /
+                      MANIFESTS[model_name]).read_text())
+    manifest = doc[layout]
+    if layers is not None:
+        manifest = depth_cut(manifest, layers)
+    t0 = time.perf_counter()
+    n = write_synthetic_checkpoint(manifest, path, shards=3, seed=0,
+                                   device="cuda")
+    dt = time.perf_counter() - t0
+    dtypes = sorted({m["dtype"] for m in manifest.values()})
+    print(f"[checkpoint {model_name}] wrote {len(manifest)} tensors "
+          f"({layout} layout of {doc['checkpoint']}"
+          f"{f', layers 0-{layers - 1}' if layers else ''}, {dtypes}), "
+          f"{n / 1e9:.2f} GB in 3 shards: {dt:.1f} s, {n / 1e9 / dt:.2f} GB/s"
+          f" ({gpu})")
+
+
+# Denses whose quantize-on-load is held against the CPU: (the port's
+# module, the HF weight it is quantized from); SigLIP's fc2 (in 4304) takes
+# int4 group 16, every other int4 Dense here group 128
+QUANT_SAMPLE = [
+    ("vision.blocks.0.attn.q_proj",
+     "vision_tower.vision_model.encoder.layers.0.self_attn.q_proj.weight"),
+    ("vision.blocks.0.fc1",
+     "vision_tower.vision_model.encoder.layers.0.mlp.fc1.weight"),
+    ("vision.blocks.1.fc2",
+     "vision_tower.vision_model.encoder.layers.1.mlp.fc2.weight"),
+] + [(f"decoder.blocks.{i}.{ours}",
+      f"language_model.model.layers.{i}.{ours.replace('attn', 'self_attn')}"
+      f".weight")
+     for i, ours in ((0, "attn.q_proj"), (0, "attn.k_proj"),
+                     (0, "attn.v_proj"), (1, "attn.o_proj"),
+                     (1, "mlp.gate_proj"), (1, "mlp.up_proj"),
+                     (1, "mlp.down_proj"))]
+
+
+def quantize_on_load_phase(torch, gpu, ckpt):
+    """Load a depth-cut PaliGemma-3B (2+2 layers, full width, the tower
+    quantized too) from ``ckpt`` on the card in 8bit and in 4bit, and hold
+    the ``q`` and ``scale`` of the sampled Denses bitwise against
+    ``quantize_int8`` / ``quantize_int4`` of the same file tensors on the
+    CPU."""
+    from vlm_tpu_torch.models.configs import VLM_CONFIGS
+    from vlm_tpu_torch.models.hf_weights import load_vlm_weights
+    from vlm_tpu_torch.models.vlm import VLMModule
+    from vlm_tpu_torch.ops.quant import quantize_int4, quantize_int8
+    from vlm_tpu_torch.utils.safetensors_io import open_dir
+    full = VLM_CONFIGS["paligemma"]("3b")
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, layers=2),
+        decoder=dataclasses.replace(full.decoder, layers=2))
+    refs = open_dir(ckpt)
+    for bits in (8, 4):
+        t0 = time.perf_counter()
+        mod = load_vlm_weights("paligemma", cfg, ckpt, VLMModule(
+            cfg, dtype=torch.bfloat16, device="cuda", quant_bits=bits,
+            vision_quant_bits=bits))
+        torch.cuda.synchronize()
+        bad, groups = [], set()
+        for name, key in QUANT_SAMPLE:
+            dense = mod.get_submodule(name)
+            w = refs[key].load().float()
+            want = quantize_int4(w, dense.group_size) if bits == 4 else \
+                quantize_int8(w)
+            groups.add(dense.group_size)
+            if not (torch.equal(dense.q.cpu(), want.q)
+                    and torch.equal(dense.scale.cpu(), want.scale)):
+                bad.append(name)
+        dt = time.perf_counter() - t0
+        print(f"[quantize-on-load int{bits}] {len(QUANT_SAMPLE)} Denses of a "
+              f"depth-cut PaliGemma-3B loaded on the card ({dt:.1f} s"
+              f"{f'; groups {sorted(groups)}' if bits == 4 else ''}): q and "
+              f"scale "
+              f"{'bitwise equal to' if not bad else 'DIFFER from'} the CPU's "
+              f"quantization of the file tensors{bad or ''} ({gpu})")
+        if bad:
+            raise RuntimeError(f"quantize-on-load differs from the CPU: {bad}")
+        del mod
+    torch.cuda.empty_cache()
+
+
+def round_trip_phase(torch, gpu, model, path):
+    """Save ``model`` in the port's own format and load it back through
+    ``model_id``: every tensor of the state bitwise equal."""
+    from vlm_tpu_torch.models.factory import create_model
+    t0 = time.perf_counter()
+    model.save_checkpoint(path)
+    saved = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = create_model(model.family, size=MODELS[model.family]["size"],
+                        device="cuda",
+                        model_id=str(path), quantization=model.quantization,
+                        kv_cache=model.kv_cache,
+                        quantize_vision=model.quantize_vision)
+    torch.cuda.synchronize()
+    loaded = time.perf_counter() - t0
+    own = model.module.state_dict()
+    bad = [k for k, t in back.module.state_dict().items()
+           if t.dtype != own[k].dtype or not torch.equal(t, own[k])]
+    size = (Path(path) / "params.safetensors").stat().st_size
+    print(f"[round trip {model.quantization}] save_checkpoint "
+          f"{size / 1e9:.2f} GB in {saved:.1f} s ({size / 1e9 / saved:.2f} "
+          f"GB/s), back through model_id in {loaded:.1f} s "
+          f"({size / 1e9 / loaded:.2f} GB/s): {len(own)} tensors, "
+          f"{'bitwise equal' if not bad else f'{len(bad)} differ'} ({gpu})")
+    if bad:
+        raise RuntimeError(f"the round trip changed {bad[:10]}")
+    del back
+    shutil.rmtree(path)
+    torch.cuda.empty_cache()
 
 
 def _compare(torch, gpu_mod, cpu_mod, cfg, u8, pre, post, plen, steps,
@@ -449,6 +643,53 @@ def _compare(torch, gpu_mod, cpu_mod, cfg, u8, pre, post, plen, steps,
     return worst
 
 
+def run_phases(torch, np, gpu, launches, tmp):
+    """The checkpoint phases, the slices and the references, adding each
+    slice's launch counts into ``launches``. PaliGemma's four slices load
+    their weights from a synthetic full-size checkpoint in ``tmp``; LLaVA's
+    and BLIP-2's name maps run on depth-cut checkpoints there."""
+    pali = tmp / "paligemma"
+    t0 = time.perf_counter()
+    checkpoint_write_phase(torch, gpu, "paligemma", pali)
+    quantize_on_load_phase(torch, gpu, pali)
+    print(f"[time] checkpoint paligemma {time.perf_counter() - t0:.1f} s")
+    # (model, mode, whether a slice is served before the reference)
+    for model_name, quantization, serve in (
+            ("paligemma", "bf16", True), ("paligemma", "8bit", True),
+            ("paligemma", "4bit", True), ("paligemma", "fp32", True),
+            ("llava", "bf16", True), ("llava", "8bit", True),
+            ("llava", "fp32", False), ("blip2", "bf16", True),
+            ("blip2", "8bit", True), ("blip2", "fp32", False)):
+        if serve:
+            size = dict(n_images=FP32_IMAGES, new=FP32_NEW) \
+                if quantization == "fp32" else {}
+            t0 = time.perf_counter()
+            trip = model_name == "paligemma" and quantization == "8bit"
+            path, _ = slice_phase(
+                torch, np, gpu, quantization, model_name=model_name,
+                model_id=str(pali) if model_name == "paligemma" else None,
+                round_trip=tmp / "native" if trip else None, **size)
+            print(f"[time] slice {model_name} {quantization} "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for name, n in path.items():
+                launches[name] += n
+        if (model_name, quantization) == ("paligemma", "fp32"):
+            shutil.rmtree(pali)
+        t0 = time.perf_counter()
+        reference_phase(torch, np, gpu, quantization, model_name)
+        print(f"[time] reference {model_name} {quantization} "
+              f"{time.perf_counter() - t0:.1f} s")
+        if model_name in CKPT_LAYOUTS and quantization == "bf16":
+            t0 = time.perf_counter()
+            cut = tmp / model_name
+            checkpoint_write_phase(torch, gpu, model_name, cut,
+                                   layout=CKPT_LAYOUTS[model_name], layers=2)
+            reference_phase(torch, np, gpu, "bf16", model_name, ckpt=cut)
+            shutil.rmtree(cut)
+            print(f"[time] checkpoint {model_name} "
+                  f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -480,27 +721,11 @@ def main() -> int:
     records = kernel_phase(gpu)
     print(f"[time] kernels {time.perf_counter() - t0:.1f} s")
     launches = dict.fromkeys(_lib.KERNELS, 0)
-    # (model, mode, whether a slice is served before the reference)
-    for model_name, quantization, serve in (
-            ("paligemma", "bf16", True), ("paligemma", "8bit", True),
-            ("paligemma", "4bit", True), ("paligemma", "fp32", True),
-            ("llava", "bf16", True), ("llava", "8bit", True),
-            ("llava", "fp32", False), ("blip2", "bf16", True),
-            ("blip2", "8bit", True), ("blip2", "fp32", False)):
-        if serve:
-            size = dict(n_images=FP32_IMAGES, new=FP32_NEW) \
-                if quantization == "fp32" else {}
-            t0 = time.perf_counter()
-            path, _ = slice_phase(torch, np, gpu, quantization,
-                                  model_name=model_name, **size)
-            print(f"[time] slice {model_name} {quantization} "
-                  f"{time.perf_counter() - t0:.1f} s")
-            for name, n in path.items():
-                launches[name] += n
-        t0 = time.perf_counter()
-        reference_phase(torch, np, gpu, quantization, model_name)
-        print(f"[time] reference {model_name} {quantization} "
-              f"{time.perf_counter() - t0:.1f} s")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
+    try:
+        run_phases(torch, np, gpu, launches, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

@@ -175,3 +175,59 @@ def test_port_cli_runs_blip2_without_jax(tmp_path, mivia_base):
     assert res["summary"]["images_completed"] == 4
     out = tmp_path / "eval" / "prompt_inference" / "blip2_fp32" / "MiviaPar"
     assert len(json.loads((out / "preds.json").read_text())) == 4
+
+
+LOAD = BLOCKER.replace(
+    '("vlm_tpu", "jax", "flax")',
+    '("vlm_tpu", "jax", "flax", "safetensors", "transformers")') + r"""
+import json, os, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from vlm_tpu_torch.generate.batcher import ContinuousBatcher
+from vlm_tpu_torch.models.factory import create_model
+from vlm_tpu_torch.models.vlm import num_image_tokens
+from vlm_tpu_torch.ops import _lib
+kw = dict(size="test", device="cpu", quantization="8bit",
+          quantize_vision=True)
+model = create_model("paligemma", model_id=os.environ["HF_DIR"], **kw)
+model.save_checkpoint(os.environ["OUT_DIR"])
+back = create_model("paligemma", model_id=os.environ["OUT_DIR"], **kw)
+own = model.module.state_dict()
+same = all(torch.equal(t, own[k]) for k, t in back.module.state_dict().items())
+s = back.cfg.vision.image_size
+px = torch.from_numpy(np.random.default_rng(0).normal(
+    size=(3, s, s, 3)).astype(np.float32))
+plen = num_image_tokens(back.cfg) + 2
+toks = ContinuousBatcher(back.module, back.cfg, batch_size=2,
+                         max_prompt_len=plen, max_new_tokens=3).run(
+    lambda idxs: px[idxs], pre_ids_row=np.zeros((0,), np.int32),
+    post_ids_row=np.asarray([2, 9], np.int32), prompt_len_scalar=plen,
+    n_images=3)
+print(json.dumps({
+    "same": same, "tokens": toks, "tokenizer": type(model.tokenizer).__name__,
+    "lib_loaded": _lib._lib is not None,
+    "loaded": sorted(m for m in ("jax", "flax", "triton", "vlm_tpu",
+                                 "safetensors", "transformers")
+                     if m in sys.modules)}))
+"""
+
+
+def test_port_loads_checkpoints_without_jax_or_hf_packages(tmp_path):
+    """``create_model(model_id=...)`` on a tiny HF PaliGemma checkpoint
+    (8bit, quantized on load, the tower too), ``save_checkpoint`` and the
+    port's own format back, then a few tokens, with ``safetensors``,
+    ``transformers``, ``vlm_tpu``, ``jax`` and ``flax`` unimportable: the
+    port needs none of them."""
+    import pytest
+    pytest.importorskip("transformers")
+    from vlm_tpu.testing import HF_BUILDERS
+    HF_BUILDERS["paligemma"](tmp_path / "hf", seed=7)
+    proc = _run(LOAD, tmp_path, HF_DIR=str(tmp_path / "hf"),
+                OUT_DIR=str(tmp_path / "native"))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and not res["lib_loaded"]
+    assert res["same"] and res["tokenizer"] == "ByteTokenizer"
+    assert len(res["tokens"]) == 3 and all(
+        t is not None and len(t) <= 3 for t in res["tokens"])

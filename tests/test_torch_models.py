@@ -279,7 +279,9 @@ def test_model_classes_and_roadmap_errors():
     with pytest.raises(ValueError, match="needs 2 devices"):
         create_model("paligemma", size="test", device="cpu",
                      mesh={"data": 1, "model": 2})
-    with pytest.raises(NotImplementedError, match="A14"):
+    # vlm_tpu's refusal of a path that does not exist (checkpoint loading:
+    # tests/test_torch_hf_weights.py, tests/test_torch_hf_parity.py)
+    with pytest.raises(FileNotFoundError, match="hub ids are not supported"):
         create_model("paligemma", size="test", device="cpu",
                      model_id="/nonexistent")
     # LLaVA and BLIP-2 are ported (tests/test_torch_llava.py,

@@ -2,9 +2,12 @@
 ``VLMModel(...).generate_dataset(paths, prompt)`` on the continuous batcher,
 the call ``run_zero_shot`` makes.
 
-Weights are random, drawn on the device from ``seed``; loading HF weights
-is ROADMAP A14. The tokenizer, the image files and PIL are reached only
-inside :meth:`VLMModel.generate_dataset`.
+Weights are random, drawn on the device from ``seed``, unless ``model_id``
+names a local directory: a checkpoint in the port's own format
+(:mod:`..utils.checkpoint`) or HF safetensors (:mod:`.hf_weights`),
+chosen by the directory's contents. The tokenizer (from ``model_id`` when
+given), the image files and PIL are reached only inside
+:meth:`VLMModel.generate_dataset`.
 
 A model runs on the card unless the caller asks for the CPU
 (:func:`resolve_device`).
@@ -14,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from pathlib import Path
 from typing import List, Optional, Sequence
 
 import torch
@@ -22,7 +26,10 @@ from ..core.mesh import mesh_from_config
 from ..generate.batcher import ContinuousBatcher
 from ..generate.decode import build_prompt_ids
 from ..ops.preprocess import load_batch, normalize_images, recipe_for
+from ..utils.checkpoint import (is_vlm_checkpoint, load_vlm_checkpoint,
+                                save_vlm_checkpoint)
 from .configs import VLM_CONFIGS, VLMConfig
+from .hf_weights import load_vlm_weights
 from .layers import init_random_
 from .vlm import VLMModule, num_image_tokens
 
@@ -48,6 +55,31 @@ def policy_for(quantization: Optional[str]) -> DTypePolicy:
         return DTypePolicy(torch.bfloat16, quantized_bits=4)
     raise ValueError(f"Unknown quantization {quantization!r}; allowed: "
                      f"fp32 fp16 bf16 8bit 4bit")
+
+
+def _checkpoint_kind(model_id) -> str:
+    """"native" (the port's format) or "hf" (safetensors files), by the
+    directory's contents, as ``vlm_tpu`` chooses. A path that does not
+    exist raises ``FileNotFoundError`` (hub ids are never downloaded); a
+    ``vlm_tpu`` directory (flax ``params.msgpack``) or one holding neither
+    format raises too."""
+    p = Path(model_id)
+    if not p.exists():
+        raise FileNotFoundError(
+            f"model_id {model_id!r} is not a local checkpoint directory "
+            f"(hub ids are not supported; convert the checkpoint locally)")
+    if is_vlm_checkpoint(p):
+        return "native"
+    if (p / "params.msgpack").exists():
+        raise ValueError(
+            f"model_id {model_id!r} holds a vlm_tpu checkpoint "
+            f"(params.msgpack, flax msgpack), which is not readable by the "
+            f"port; load the HF safetensors it was made from instead")
+    if p.is_dir() and any(p.glob("*.safetensors")):
+        return "hf"
+    raise FileNotFoundError(
+        f"model_id {model_id!r} holds neither a checkpoint of the port "
+        f"(params.safetensors + config.yaml) nor HF *.safetensors files")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -84,11 +116,9 @@ class VLMModel:
                  seed: int = 0, batch_size: int = 8, mesh=None,
                  kv_cache: Optional[str] = None,
                  quantize_vision: Optional[bool] = None):
-        if model_id:
-            raise NotImplementedError(
-                f"model_id {model_id!r}: loading checkpoint weights is not "
-                f"ported yet (ROADMAP A14); the port runs random weights")
         mesh_from_config(mesh)      # one device: raises for any other mesh
+        self.model_id = model_id
+        weights = _checkpoint_kind(model_id) if model_id else None
         self.quantization = quantization
         self.policy = policy_for(quantization)
         self.dtype = self.policy.compute_dtype
@@ -106,7 +136,13 @@ class VLMModel:
         self.module = VLMModule(
             self.cfg, dtype=self.dtype, device=self.device, quant_bits=bits,
             vision_quant_bits=bits if self.quantize_vision else 0)
-        init_random_(self.module, seed)
+        if weights == "native":
+            load_vlm_checkpoint(model_id, self.module,
+                                self._checkpoint_meta())
+        elif weights == "hf":
+            load_vlm_weights(self.family, self.cfg, model_id, self.module)
+        else:
+            init_random_(self.module, seed)
         self.module.eval()
         self._tokenizer = None
 
@@ -122,15 +158,27 @@ class VLMModel:
 
     @property
     def tokenizer(self):
-        """The tokenizer (a byte-level fallback without files), imported
-        at first use."""
+        """The tokenizer from ``model_id``'s files (a byte-level fallback
+        without them), imported at first use."""
         if self._tokenizer is None:
             from ..data.tokenizer import load_tokenizer
             dec = self.cfg.decoder
             self._tokenizer = load_tokenizer(
-                None, bos_id=dec.bos_token_id, eos_id=dec.eos_token_id,
-                pad_id=dec.pad_token_id)
+                self.model_id, bos_id=dec.bos_token_id,
+                eos_id=dec.eos_token_id, pad_id=dec.pad_token_id)
         return self._tokenizer
+
+    def _checkpoint_meta(self) -> dict:
+        """What a checkpoint of this model records (``vlm_tpu``'s keys);
+        loading one that differs raises."""
+        return {"family": self.family, "quantization": self.quantization,
+                "vision_layers": self.cfg.vision.layers,
+                "decoder_layers": self.cfg.decoder.layers}
+
+    def save_checkpoint(self, path) -> None:
+        """Write the model in the port's format; ``model_id=path`` loads
+        it back."""
+        save_vlm_checkpoint(path, self.module, self._checkpoint_meta())
 
     def format_prompt(self, prompt: str):
         """(pre_text, post_text, add_bos_to_pre, add_bos_to_post): the text
