@@ -10,7 +10,8 @@ Phases, each of which raises on failure:
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile the CUDA kernels from ``vlm_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the serving
-   paths' shapes, with error, tolerance, both times, the bound (the least
+   paths' shapes (B1's differentiable form, forward and backward, at the
+   probing step's), with error, tolerance, both times, the bound (the least
    time the card could take for the work) and, where one PyTorch call
    computes the same function, that call's time (timed only: the port
    never calls it); kernel and library call also profiled (their kernels'
@@ -87,7 +88,22 @@ Phases, each of which raises on failure:
     the int8 KV cache, 64 slots, admission groups of 8, the same traffic;
 20. BLIP-2 8bit reference (int8 decoder and tower weights, the int8
     cache), and an fp32 reference (the fp32 forms of B1 at D = 88, 64 and
-    128 and of B2 at G = 1, D = 128).
+    128 and of B2 at G = 1, D = 128);
+21. probe cache: single-task probing of LLaVA-1.5-7B's CLIP-L/336 tower in
+    fp32 (``configs/train_probe.yaml``'s single profile, random weights)
+    through the port's ``train_probe`` entry point on a synthetic face
+    dataset of 336 px JPEGs (256 train, 64 val, 64 test images, task age)
+    in a temporary project root: the decoder dropped, the features
+    extracted by B4's and B1's fp32 forms, the head trained for 2 epochs;
+22. probe e2e: the same data with the multi profile's backbone block (the
+    last 4 blocks and the embeddings unfrozen) at batch 32 for an epoch and
+    its validation: B1's differentiable form in every block of every step,
+    blocks 20-23 and the embeddings changed, blocks 0-19 bitwise as built;
+23. probe test: the port's ``test_probe`` on that checkpoint: preds, gts
+    and metrics written, the preds the probe's own argmax;
+24. probe reference: a depth-cut CLIP-L (2 blocks, full width) and a
+    linear head, one end-to-end step with the last block unfrozen, card
+    against CPU in fp32: loss and gradients within ``REF_TOL_FP32``.
 
 Each slice's launch counts are set to 0 just before it is driven and read
 just after. Each phase prints its seconds.
@@ -176,6 +192,15 @@ def device_phase(torch):
 def kernel_phase(gpu):
     from vlm_tpu_torch.testing import kernel_checks
     records = kernel_checks.run("cuda", iters=20)
+    diff = kernel_checks.run_diff("cuda", iters=10)
+    for r in diff:
+        print(f"[kernel] B1-diff {r['case']}: forward {r['fwd_ms']:.4f} ms "
+              f"(profiled {r['fwd_device_ms']}, bound {r['fwd_bound_ms']:.4f}"
+              f" by {r['fwd_bound_by']}), backward {r['bwd_ms']:.4f} ms "
+              f"(profiled {r['bwd_device_ms']}, bound {r['bwd_bound_ms']:.4f}"
+              f" by {r['bwd_bound_by']}); the forward against the "
+              f"no-gradient call {r['exact_err']:.3e} (bitwise) ({gpu})")
+    records += diff
     for r in records:
         tol = f"{r['tol']:.1e}" + (" x max|plain|" if r["rel"] else "")
         lib = "null" if r["library_ms"] is None else \
@@ -189,7 +214,9 @@ def kernel_phase(gpu):
             + (("baseline_device_ms",) if r["baseline_device_ms"] is not None
                else ()))
         if r["exact_err"] is not None:
-            dev += f", vs the unfused kernels {r['exact_err']:.3e} (bitwise)"
+            against = "the no-gradient call" if r["kernel"] == "B1-diff" \
+                else "the unfused kernels"
+            dev += f", vs {against} {r['exact_err']:.3e} (bitwise)"
         print(f"[kernel] {r['kernel']} {r['case']}: max_abs_err "
               f"{r['max_abs_err']:.3e} (tol {tol}) kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -690,6 +717,316 @@ def run_phases(torch, np, gpu, launches, tmp):
                   f"{time.perf_counter() - t0:.1f} s")
 
 
+# the probing phases: LLaVA-1.5-7B's tower in fp32, the single profile of
+# configs/train_probe.yaml; the dataset's split sizes and the end-to-end
+# batch (the multi profile's backbone block)
+PROBE_SPLITS = {"train": 256, "val": 64, "test": 64}
+PROBE_E2E_BATCH = 32
+CLIP_BLOCKS = 24
+
+
+def probe_root(tmp, name, base):
+    """A project root whose ``configs/task_datasets.yaml`` maps age to the
+    synthetic dataset under ``base``, made the current one."""
+    import yaml
+    root = tmp / name
+    (root / "configs").mkdir(parents=True)
+    (root / "configs" / "task_datasets.yaml").write_text(yaml.safe_dump(
+        {s: {"age": ["TestDataset"]} for s in PROBE_SPLITS}))
+    os.environ["VLM_TPU_ROOT"] = str(root)
+    return root
+
+
+def probe_data(np, tmp):
+    """The synthetic face dataset: 336 px JPEGs with ages from a seed."""
+    from vlm_tpu_torch.testing.synthetic import make_face_dataset
+    rng = np.random.default_rng(0)
+    base = tmp / "probe_datasets"
+    t0 = time.perf_counter()
+    for split, n in PROBE_SPLITS.items():
+        make_face_dataset(base, "TestDataset", split,
+                          [{"gender": i % 2, "age": int(rng.integers(1, 90))}
+                           for i in range(n)], size=(336, 336))
+    print(f"[probe data] {sum(PROBE_SPLITS.values())} 336 px JPEGs "
+          f"{PROBE_SPLITS}: {time.perf_counter() - t0:.1f} s")
+    return base
+
+
+def probe_config(root, base, name, **over):
+    """``configs/train_probe.yaml`` with the dataset's ``base_path`` and
+    ``over`` (dotted keys of ``common``), written into ``root``."""
+    import yaml
+    cfg = yaml.safe_load((ROOT / "configs" / name).read_text())
+    cfg["common"]["data"]["base_path"] = str(base)
+    for key, val in over.items():
+        *path, leaf = key.split(".")
+        node = cfg["common"]
+        for k in path:
+            node = node[k]
+        node[leaf] = val
+    out = root / name
+    out.write_text(yaml.safe_dump(cfg))
+    return out, cfg
+
+
+def _check_launches(tag, launches, plain, want):
+    """Every count of ``want`` as it must be, and no plain call."""
+    bad = {k: (launches[k], n) for k, n in want.items() if launches[k] != n}
+    if bad:
+        raise RuntimeError(f"{tag}: launches (got, want) {bad} ({launches})")
+    if any(plain.values()):
+        raise RuntimeError(f"{tag}: plain versions ran: {plain}")
+
+
+def probe_cache_phase(torch, gpu, tmp, base):
+    """The feature-cache mode through ``train_probe.main``."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.scripts import train_probe
+    root = probe_root(tmp, "probe_cache", base)
+    path, cfg = probe_config(root, base, "train_probe.yaml",
+                             **{"train.epochs": 2})
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_counts()
+    t0 = time.perf_counter()
+    trainer = train_probe.main(["--config", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_lib.launches), dict(_lib.plain_calls)
+    peak = torch.cuda.max_memory_allocated()
+    bs = trainer.probe.backbone.batch_size
+    batches = sum(-(-PROBE_SPLITS[s] // bs) for s in ("train", "val"))
+    _check_launches("[probe cache]", launches, plain, {
+        "flash_attention_fp32": CLIP_BLOCKS * batches,
+        "normalize_fp32": batches, "flash_attention_diff_fp32": 0})
+    ex, st = trainer.extract_stats, trainer.last_stats
+    if not trainer.use_feature_cache or ex["images"] != \
+            PROBE_SPLITS["train"] + PROBE_SPLITS["val"]:
+        raise RuntimeError(f"[probe cache] no feature cache: {ex}")
+    if len(trainer.history["train"]) != cfg["common"]["train"]["epochs"] or \
+            not all(math.isfinite(v) for v in trainer.history["val"]):
+        raise RuntimeError(f"[probe cache] history {trainer.history}")
+    print(f"[probe cache llava fp32] {ex['images']} images extracted in "
+          f"{ex['seconds']:.2f} s: {ex['images'] / ex['seconds']:.1f} "
+          f"features/s at batch {bs}; head {st['train_steps']} steps in "
+          f"{st['train_s']:.3f} s: {st['train_steps'] / st['train_s']:.1f} "
+          f"steps/s at batch {cfg['common']['data']['batch_size']}; losses "
+          f"{trainer.history}; max_memory_allocated {peak / 2**30:.2f} GiB;"
+          f" {wall:.1f} s in all ({gpu})")
+    print(f"[probe cache llava fp32] launches {launches}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def probe_e2e_phase(torch, gpu, tmp, base):
+    """The end-to-end mode: the multi profile's backbone block at batch
+    32 through ``train_probe.build_trainer`` and ``fit``; returns the
+    launches, the project root and the trainer's run name."""
+    import yaml
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.scripts import train_probe
+    root = probe_root(tmp, "probe_e2e", base)
+    multi = yaml.safe_load((ROOT / "configs" / "train_probe.yaml")
+                           .read_text())["multi"]["model"]["backbone"]
+    path, cfg = probe_config(root, base, "train_probe.yaml", **{
+        "train.epochs": 1, "data.batch_size": PROBE_E2E_BATCH,
+        "model.backbone": multi})
+    trainer = train_probe.build_trainer(["--config", str(path)])
+    module = trainer.probe.backbone.module
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_lib.launches), dict(_lib.plain_calls)
+    recomputes = dict(_lib.recomputes)
+    peak = torch.cuda.max_memory_allocated()
+    st = trainer.last_stats
+    steps = st["train_steps"]
+    val = -(-PROBE_SPLITS["val"] // PROBE_E2E_BATCH)
+    _check_launches("[probe e2e]", launches, plain, {
+        "flash_attention_diff_fp32": CLIP_BLOCKS * steps,
+        "flash_attention_fp32": CLIP_BLOCKS * (steps + val),
+        "normalize_fp32": steps + val})
+    if steps != -(-PROBE_SPLITS["train"] // PROBE_E2E_BATCH) or \
+            recomputes["flash_attention_diff_fp32"] != CLIP_BLOCKS * steps:
+        raise RuntimeError(f"[probe e2e] {steps} steps, recomputes "
+                           f"{recomputes}")
+    first = CLIP_BLOCKS - multi["unfreeze_last_k"]
+    # post_ln: mean pooling does not reach it (a zero gradient, and a decay
+    # of lr x weight_decay that rounds away)
+    embeds = ("patch_embed.", "cls_token", "pos_embed", "pre_ln.")
+    same, moved = [], []
+    for n, p in module.named_parameters():
+        block = int(n.split(".")[1]) if n.startswith("blocks.") else None
+        changed = not torch.equal(p.detach(), before[n])
+        if block is not None and block < first and changed:
+            moved.append(n)
+        if ((block is not None and block >= first) or n.startswith(embeds)) \
+                and not changed:
+            same.append(n)
+    if moved or same:
+        raise RuntimeError(f"[probe e2e] frozen parameters moved {moved[:8]}"
+                           f", trained ones did not {same[:8]}")
+    n_train = sum(p.numel() for p in module.parameters() if p.requires_grad)
+    print(f"[probe e2e llava fp32] blocks {first}-{CLIP_BLOCKS - 1} and the "
+          f"embeddings unfrozen ({n_train} parameters): {steps} steps of "
+          f"{PROBE_E2E_BATCH} in {st['train_s']:.2f} s: "
+          f"{st['train_s'] / steps * 1e3:.1f} ms a step, "
+          f"{st['train_images'] / st['train_s']:.1f} images/s; losses "
+          f"{trainer.history}; blocks 0-{first - 1} bitwise as built, the "
+          f"trained ones all changed; max_memory_allocated "
+          f"{peak / 2**30:.2f} GiB; {wall:.1f} s in all ({gpu})")
+    print(f"[probe e2e llava fp32] launches {launches}, recomputes "
+          f"{recomputes}")
+    run_name = trainer.run_name
+    del trainer, before, module
+    torch.cuda.empty_cache()
+    return launches, root, run_name
+
+
+def probe_test_phase(torch, np, gpu, root, base, run_name):
+    """``test_probe.main`` on the end-to-end checkpoint."""
+    from vlm_tpu_torch.data.dataset_factory import DatasetFactory
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.scripts import test_probe
+    os.environ["VLM_TPU_ROOT"] = str(root)
+    path, cfg = probe_config(root, base, "test_probe.yaml")
+    _lib.reset_counts()
+    t0 = time.perf_counter()
+    tester = test_probe.main(["--config", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_lib.launches), dict(_lib.plain_calls)
+    n = PROBE_SPLITS["test"]
+    batches = -(-n // cfg["common"]["data"]["batch_size"])
+    _check_launches("[probe test]", launches, plain, {
+        "flash_attention_fp32": CLIP_BLOCKS * batches,
+        "normalize_fp32": batches, "flash_attention_diff_fp32": 0})
+    out = root / "probing" / "linear_probing" / "eval" / \
+        "llava_fp32_linear" / "age" / "TestDataset"
+    preds = json.loads((out / "preds.json").read_text())
+    gts = json.loads((out / "gts.json").read_text())
+    metrics = json.loads((out / "metrics.json").read_text())
+    ds = DatasetFactory.create_dataset("TestDataset", split="test",
+                                       base_path=str(base))
+    direct = tester.model.predict([ds[i][0] for i in range(len(ds))])
+    if len(preds) != n or len(gts) != n or \
+            [p["age"] for p in preds] != direct.tolist():
+        raise RuntimeError("[probe test] preds differ from the probe's own "
+                           "argmax")
+    print(f"[probe test] {run_name}: {n} test images in {wall:.1f} s, preds "
+          f"= the probe's argmax, accuracy {metrics['average_accuracy']:.4f}"
+          f" (random weights) ({gpu})")
+    del tester
+    torch.cuda.empty_cache()
+    return launches
+
+
+def probe_reference_phase(torch, np, gpu, card="cuda"):
+    """A depth-cut CLIP-L/336 (2 blocks, full width) and a linear head
+    (dropout 0) on the ``card`` and on the CPU from the same weights: one
+    end-to-end step's loss and gradients (the last block and the
+    embeddings unfrozen), fp32 on both sides."""
+    from vlm_tpu_torch.models.backbone import VisionBackbone
+    from vlm_tpu_torch.models.configs import VLM_CONFIGS
+    from vlm_tpu_torch.models.layers import init_random_
+    from vlm_tpu_torch.models.vit import ViTEncoder
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.preprocess import RECIPES
+    from vlm_tpu_torch.probing.probes import LinearProbe
+    from vlm_tpu_torch.probing.train.singletask_trainer import probe_loss
+    full = VLM_CONFIGS["llava"]("7b")
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, layers=2))
+    probes = {}
+    for dev in (card, "cpu"):
+        tower = ViTEncoder(cfg.vision, dtype=torch.float32, device=dev)
+        bb = VisionBackbone(cfg, tower, torch.float32, RECIPES["llava"])
+        probes[dev] = LinearProbe(bb, 9, dropout_p=0.0, seed=3)
+    init_random_(probes[card].backbone.module, seed=2)
+    for part in ("module", "classifier"):
+        src, dst = (probes[d].classifier if part == "classifier"
+                    else probes[d].backbone.module for d in (card, "cpu"))
+        dst.load_state_dict({k: v.cpu() for k, v in
+                             src.state_dict().items()})
+    rng = np.random.default_rng(4)
+    u8 = rng.integers(0, 256, (4, 336, 336, 3), dtype=np.uint8)
+    y = np.array([0, 3, 8, -1])
+    cw = np.linspace(0.5, 1.5, 9).astype(np.float32)
+    res = {}
+    for dev, probe in probes.items():
+        probe.unfreeze_last_backbone_k_layers(1)
+        _lib.reset_counts()
+        loss = probe_loss(probe, torch.from_numpy(u8), y,
+                          torch.from_numpy(cw).to(dev), train=True)
+        loss.backward()
+        named = {**{f"head.{n}": p for n, p in
+                    probe.classifier.named_parameters()},
+                 **{f"backbone.{n}": p for n, p in
+                    probe.backbone.module.named_parameters()
+                    if p.requires_grad}}
+        res[dev] = (float(loss.detach()),
+                    {n: p.grad.cpu() for n, p in named.items()
+                     if p.grad is not None}, dict(_lib.launches))
+    _lib.reset_counts()
+    (card_loss, grads, launches), (cpu_loss, ref, _) = res[card], res["cpu"]
+    if launches["flash_attention_diff_fp32"] != 2 or set(grads) != set(ref):
+        raise RuntimeError(f"[probe reference] launches {launches}, "
+                           f"gradients {sorted(set(grads) ^ set(ref))}")
+    if not grads["backbone.blocks.1.attn.q_proj.weight"].abs().max() > 0:
+        raise RuntimeError("[probe reference] no gradient reached q_proj "
+                           "through B1")
+    # zero in exact arithmetic, rounding noise on both sides: the key bias
+    # (softmax ignores it) and the last block's fc2 bias (a shift of every
+    # sample's features, which the training-mode BatchNorm removes); held
+    # to tol x the step's largest gradient instead of their own
+    noise = ("backbone.blocks.1.attn.k_proj.bias",
+             "backbone.blocks.1.fc2.bias")
+    largest = max(float(g.abs().max()) for g in ref.values())
+    worst, worst_name = abs(card_loss - cpu_loss) / abs(cpu_loss), "loss"
+    for n, g in ref.items():
+        scale = largest if n in noise else float(g.abs().max())
+        err = float((grads[n] - g).abs().max()) / scale
+        if err > worst:
+            worst, worst_name = err, n
+    print(f"[probe reference] depth-cut CLIP-L/336 (2 blocks, full width), "
+          f"a linear head, one end-to-end step with block 1 and the "
+          f"embeddings unfrozen: loss {card_loss:.6f} (cpu {cpu_loss:.6f}), "
+          f"{len(ref)} gradients, max |card - cpu| / max|cpu| = "
+          f"{worst:.3e} at {worst_name} (tol {REF_TOL_FP32:.0e}; "
+          f"{', '.join(noise)}: / the largest gradient {largest:.3e}, their "
+          f"own max|cpu| "
+          f"{', '.join(f'{float(ref[n].abs().max()):.1e}' for n in noise)})"
+          f" ({gpu})")
+    if not worst <= REF_TOL_FP32:
+        raise RuntimeError("[probe reference] card disagrees with the CPU")
+
+
+def probe_phases(torch, np, gpu, launches, tmp):
+    """The probing phases, adding their launch counts into ``launches``."""
+    t0 = time.perf_counter()
+    base = probe_data(np, tmp)
+    for phase in ("cache", "e2e", "test"):
+        t1 = time.perf_counter()
+        if phase == "cache":
+            path = probe_cache_phase(torch, gpu, tmp, base)
+        elif phase == "e2e":
+            path, root, run_name = probe_e2e_phase(torch, gpu, tmp, base)
+        else:
+            path = probe_test_phase(torch, np, gpu, root, base, run_name)
+        for name, n in path.items():
+            launches[name] += n
+        print(f"[time] probe {phase} {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    probe_reference_phase(torch, np, gpu)
+    print(f"[time] probe reference {time.perf_counter() - t1:.1f} s")
+    print(f"[time] probing {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import numpy as np
@@ -724,6 +1061,7 @@ def main() -> int:
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
         run_phases(torch, np, gpu, launches, tmp)
+        probe_phases(torch, np, gpu, launches, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s")

@@ -689,3 +689,86 @@ def test_depth_cut_blip2_matches_the_cpu(card, quantization):
     for got, ref in zip(logits["cuda"], logits["cpu"]):
         assert got.shape == (2, 50272) and torch.isfinite(got).all()
         assert float((got - ref).abs().max() / ref.abs().max()) <= 5e-2
+
+
+# ------------- B1's differentiable form (probing, end to end) -------------
+
+def test_b1_kernel_output_alone_carries_no_gradient_and_the_form_repairs_it(
+        card):
+    """The fault: B1's launch fills a fresh tensor through ctypes, which
+    autograd cannot see, so a tower's q/k/v lost their gradient on the
+    card (the CPU's plain version hid it). Through ``flash_attention`` the
+    gradient reaches ``q_proj`` and equals autograd through the plain
+    version on the card."""
+    from vlm_tpu_torch.models import vit
+    from vlm_tpu_torch.models.configs import llava_config
+    from vlm_tpu_torch.models.layers import init_random_
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.attention import _flash_forward, attention_plain
+    q = torch.randn(1, 2, 17, 32, device=card, requires_grad=True)
+    assert not _flash_forward(q, q, q).requires_grad
+    cfg = llava_config("7b").vision
+    attn = init_random_(vit.ViTAttention(cfg, dict(dtype=torch.float32,
+                                                   device=card)), seed=0)
+    attn.q_proj.weight.requires_grad_(True)
+    g = torch.Generator(device=card)
+    g.manual_seed(1)
+    x = torch.randn(2, 577, cfg.hidden, generator=g, device=card)
+    w = torch.randn(2, 577, cfg.hidden, generator=g, device=card)
+    _lib.reset_counts()
+    (attn(x) * w).sum().backward()
+    got = attn.q_proj.weight.grad.clone()
+    assert _lib.launches["flash_attention_diff_fp32"] == 1
+    assert _lib.recomputes["flash_attention_diff_fp32"] == 1
+    assert sum(_lib.plain_calls.values()) == 0
+    attn.q_proj.weight.grad = None
+    orig = vit.flash_attention
+    vit.flash_attention = attention_plain
+    try:
+        (attn(x) * w).sum().backward()
+    finally:
+        vit.flash_attention = orig
+    want = attn.q_proj.weight.grad
+    assert float(want.abs().max()) > 0
+    assert float((got - want).abs().max()) <= 2e-5 * float(want.abs().max())
+
+
+def test_b1_diff_matches_plain_in_fp32_and_bf16(card):
+    from vlm_tpu_torch.testing import kernel_checks
+    records = kernel_checks.run_diff(card, iters=2, shape=(4, 16, 577, 64))
+    assert [r["form"] for r in records] == ["flash_attention_diff_fp32",
+                                            "flash_attention_diff"]
+    for r in records:
+        assert r["ok"] and r["exact_err"] == 0.0, r
+
+
+def test_b1_diff_refuses_masks_on_the_card(card):
+    from vlm_tpu_torch.ops.attention import flash_attention
+    q = torch.randn(1, 2, 8, 64, device=card, requires_grad=True)
+    with pytest.raises(ValueError, match="differentiable form"):
+        flash_attention(q, q, q, kv_len=torch.tensor([5], device=card))
+
+
+def test_serving_launches_unchanged_by_the_differentiable_form(card):
+    """A serving decode step and tower pass launch the same kernels with
+    grad mode on as under ``inference_mode``: no parameter needs a
+    gradient, so B1 never takes its differentiable form."""
+    import contextlib
+    from vlm_tpu_torch.ops import _lib
+    mod, cfg, cache = _depth_cut(card, "bf16")
+    step = _decode_step(mod, cache, card)
+    v = cfg.vision
+    px = torch.randn(2, (v.image_size // v.patch_size) ** 2,
+                     v.patch_size ** 2 * 3, device=card).bfloat16()
+    counts = []
+    for ctx in (torch.inference_mode, contextlib.nullcontext):
+        _lib.reset_counts()
+        with ctx():
+            outs = (step(), mod.encode_images(px))
+        torch.cuda.synchronize()
+        counts.append(dict(_lib.launches))
+        assert all(o.grad_fn is None for o in outs)
+    assert counts[0] == counts[1]
+    assert counts[1]["flash_attention"] > 0
+    assert counts[1]["flash_attention_diff"] == 0
+    assert sum(_lib.recomputes.values()) == 0

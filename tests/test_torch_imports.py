@@ -1,12 +1,13 @@
 """The port stands on its own: a fresh interpreter in which ``vlm_tpu``,
-``jax`` and ``flax`` cannot be imported (a ``sys.meta_path`` finder refuses
-them) imports every module of vlm_tpu_torch and runs four tiny slices end
-to end (model, batcher, every op's CPU version: fp32, then 8bit with the
-int8 KV cache and a prompt long enough for the llm.int8 prefill, then 4bit
-with an int4 tower, then LLaVA in fp32, then BLIP-2 in the 8bit recipe with
-the int8 tower and cache), and others run the port's CLI ``main()`` on a
-synthetic dataset with ``VLM_TPU_PLATFORM=cpu``, for PaliGemma, LLaVA and
-BLIP-2. None imports triton or builds the kernel
+``jax``, ``flax`` and ``optax`` cannot be imported (a ``sys.meta_path``
+finder refuses them) imports every module of vlm_tpu_torch and runs four
+tiny slices end to end (model, batcher, every op's CPU version: fp32, then
+8bit with the int8 KV cache and a prompt long enough for the llm.int8
+prefill, then 4bit with an int4 tower, then LLaVA in fp32, then BLIP-2 in
+the 8bit recipe with the int8 tower and cache), and others run the port's
+CLI ``main()`` on a synthetic dataset with ``VLM_TPU_PLATFORM=cpu``, for
+PaliGemma, LLaVA and BLIP-2, and the probing CLIs' ``main()`` (train in
+both modes, then test). None imports triton or builds the kernel
 library."""
 
 import json
@@ -22,7 +23,7 @@ BLOCKER = r"""
 import sys
 class _Refuse:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("vlm_tpu", "jax", "flax"):
+        if name.split(".")[0] in ("vlm_tpu", "jax", "flax", "optax"):
             raise ImportError(f"{name} may not be imported by the port")
 sys.meta_path.insert(0, _Refuse())
 """
@@ -93,7 +94,14 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     assert {"vlm_tpu_torch.models.base_model", "vlm_tpu_torch.ops.kvcache",
             "vlm_tpu_torch.data.bpe",
             "vlm_tpu_torch.scripts.prompt_inference",
-            "vlm_tpu_torch.testing.kernel_checks"} <= set(res["modules"])
+            "vlm_tpu_torch.testing.kernel_checks",
+            "vlm_tpu_torch.models.backbone", "vlm_tpu_torch.data.augment",
+            "vlm_tpu_torch.data.multitask_dataset",
+            "vlm_tpu_torch.probing.heads", "vlm_tpu_torch.probing.probes",
+            "vlm_tpu_torch.probing.train.singletask_trainer",
+            "vlm_tpu_torch.probing.test.singletask_tester",
+            "vlm_tpu_torch.scripts.train_probe",
+            "vlm_tpu_torch.scripts.test_probe"} <= set(res["modules"])
     for toks in (res["tokens"], res["tokens8"], res["tokens4"],
                  res["tokensl"], res["tokensb"]):
         assert len(toks) == 5
@@ -178,8 +186,8 @@ def test_port_cli_runs_blip2_without_jax(tmp_path, mivia_base):
 
 
 LOAD = BLOCKER.replace(
-    '("vlm_tpu", "jax", "flax")',
-    '("vlm_tpu", "jax", "flax", "safetensors", "transformers")') + r"""
+    '("vlm_tpu", "jax", "flax", "optax")',
+    '("vlm_tpu", "jax", "flax", "optax", "safetensors", "transformers")') + r"""
 import json, os, sys
 import numpy as np
 import torch
@@ -231,3 +239,64 @@ def test_port_loads_checkpoints_without_jax_or_hf_packages(tmp_path):
     assert res["same"] and res["tokenizer"] == "ByteTokenizer"
     assert len(res["tokens"]) == 3 and all(
         t is not None and len(t) <= 3 for t in res["tokens"])
+
+
+PROBE = BLOCKER + r"""
+import json, os, shutil, sys
+import torch
+torch.set_num_threads(1)
+from vlm_tpu_torch.ops import _lib
+from vlm_tpu_torch.scripts import test_probe, train_probe
+runs = {}
+for mode in ("cache", "e2e"):
+    trainer = train_probe.main(["--config", os.environ[f"TRAIN_{mode}"]])
+    runs[mode] = [trainer.use_feature_cache, len(trainer.history["train"])]
+    if mode == "cache":     # the same run name: the e2e run would resume it
+        shutil.rmtree(trainer.ckpt_dir)
+tester = test_probe.main(["--config", os.environ["TEST_CONFIG"]])
+print(json.dumps({"runs": runs, "task": tester.task,
+                  "lib_loaded": _lib._lib is not None,
+                  "loaded": sorted(m for m in ("jax", "flax", "optax",
+                                               "triton", "vlm_tpu")
+                                   if m in sys.modules)}))
+"""
+
+
+def test_port_probing_clis_run_without_jax(tmp_path):
+    """The port's ``train_probe`` (feature cache, then end to end with the
+    last block unfrozen) and ``test_probe`` on a synthetic face dataset,
+    from the shipped configs at size "test" on the CPU, with ``vlm_tpu``,
+    ``jax``, ``flax`` and ``optax`` unimportable."""
+    from tests.conftest import make_face_dataset
+    base = tmp_path / "datasets"
+    rows = [{"gender": i % 2, "age": 3 + 9 * i} for i in range(8)]
+    for split in ("train", "val", "test"):
+        make_face_dataset(base, "TestDataset", split, rows)
+    (tmp_path / "configs").mkdir()
+    (tmp_path / "configs" / "task_datasets.yaml").write_text(yaml.safe_dump(
+        {s: {"age": ["TestDataset"]} for s in ("train", "val", "test")}))
+    env = {}
+    for mode, k in (("cache", 0), ("e2e", 1)):
+        cfg = yaml.safe_load((REPO / "configs" / "train_probe.yaml")
+                             .read_text())
+        cfg["common"]["model"]["size"] = "test"
+        cfg["common"]["model"]["backbone"]["unfreeze_last_k"] = k
+        cfg["common"]["data"].update(base_path=str(base), batch_size=4)
+        cfg["common"]["train"]["epochs"] = 1
+        path = tmp_path / f"train_{mode}.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        env[f"TRAIN_{mode}"] = str(path)
+    test_cfg = yaml.safe_load((REPO / "configs" / "test_probe.yaml")
+                              .read_text())
+    test_cfg["common"]["data"]["base_path"] = str(base)
+    (tmp_path / "test.yaml").write_text(yaml.safe_dump(test_cfg))
+    proc = _run(PROBE, tmp_path, VLM_TPU_ROOT=str(tmp_path),
+                VLM_TPU_PLATFORM="cpu",
+                TEST_CONFIG=str(tmp_path / "test.yaml"), **env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and not res["lib_loaded"]
+    assert res["runs"] == {"cache": [True, 1], "e2e": [False, 1]}
+    out = tmp_path / "probing" / "linear_probing" / "eval" / \
+        "llava_fp32_linear" / "age" / "TestDataset"
+    assert len(json.loads((out / "preds.json").read_text())) == 8

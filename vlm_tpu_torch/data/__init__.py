@@ -1,3 +1,4 @@
-"""The data layer of the zero-shot path: the port's own copies of
-``vlm_tpu.data``'s dataset readers, label parsers, dataset registry and
-tokenizers, and the batcher's background prefetch."""
+"""The data layer of the zero-shot and probing paths: the port's own
+copies of ``vlm_tpu.data``'s dataset readers, label parsers, dataset
+registry with the task map and the multi-task dataset, augmentation and
+tokenizers, and the background prefetch."""

@@ -1,6 +1,7 @@
 """User-facing model objects (``vlm_tpu/models/base_model.py``):
 ``VLMModel(...).generate_dataset(paths, prompt)`` on the continuous batcher,
-the call ``run_zero_shot`` makes.
+the call ``run_zero_shot`` makes, and ``get_vision_backbone()``, the tower
+alone for probing.
 
 Weights are random, drawn on the device from ``seed``, unless ``model_id``
 names a local directory: a checkpoint in the port's own format
@@ -16,6 +17,7 @@ A model runs on the card unless the caller asks for the CPU
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 from pathlib import Path
 from typing import List, Optional, Sequence
@@ -28,6 +30,7 @@ from ..generate.decode import build_prompt_ids
 from ..ops.preprocess import load_batch, normalize_images, recipe_for
 from ..utils.checkpoint import (is_vlm_checkpoint, load_vlm_checkpoint,
                                 save_vlm_checkpoint)
+from .backbone import VisionBackbone
 from .configs import VLM_CONFIGS, VLMConfig
 from .hf_weights import load_vlm_weights
 from .layers import init_random_
@@ -227,6 +230,22 @@ class VLMModel:
             progress=progress)
         return [tok.decode(t).strip() if t is not None else None
                 for t in token_lists]
+
+    def get_vision_backbone(self, cleanup: bool = True) -> VisionBackbone:
+        """The vision tower for probing, frozen. ``cleanup=True`` drops the
+        projector and decoder and returns their device memory to the card
+        (LLaVA-7B's fp32 decoder holds ~27 GB)."""
+        backbone = VisionBackbone(
+            self.cfg, self.module.vision, self.dtype, self.recipe,
+            batch_size=self.batch_size,
+            quant_bits=self.policy.quantized_bits if self.quantize_vision
+            else 0)
+        if cleanup:
+            self.module = None
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+        return backbone
 
 
 class LLaVAModel(VLMModel):

@@ -11,7 +11,9 @@ Importing this module builds nothing and imports no toolchain.
 Each kernel wrapper counts its launches in :data:`launches`; each plain
 PyTorch version counts its calls in :data:`plain_calls` under the form its
 inputs select (fp32 operands: the ``_fp32`` form), so a run can show which
-path it took.
+path it took. The backward of B1's differentiable form recomputes the
+attention with plain tensor operations and counts that in
+:data:`recomputes`, apart from the plain versions' calls.
 """
 
 from __future__ import annotations
@@ -38,16 +40,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # one count per kernel form: B1, B2 and B4 each have an fp32 form, B2 and
 # B3 an int8 form; B3's write inside B2's launch (the decode step's) counts
-# under B3's fused forms, once per launch, beside B2's own count
-KERNELS = ("flash_attention", "flash_attention_fp32", "decode_attention",
+# under B3's fused forms, once per launch, beside B2's own count; B1's
+# launch as the forward of its differentiable form (a gradient is needed)
+# counts under the ``_diff`` forms too
+KERNELS = ("flash_attention", "flash_attention_fp32", "flash_attention_diff",
+           "flash_attention_diff_fp32", "decode_attention",
            "decode_attention_int8", "decode_attention_fp32", "kv_write",
            "kv_write_int8", "kv_write_fused", "kv_write_int8_fused",
            "normalize", "normalize_fp32", "int8_matmul", "int8xint8_matmul",
            "int4_matmul")
 launches = {name: 0 for name in KERNELS}
-# a fused form has no plain version of its own: on the CPU its work is B3's
-# plain write and B2's plain attention, each counted under its own form
-plain_calls = {name: 0 for name in KERNELS if not name.endswith("_fused")}
+# a fused or differentiable form has no plain version of its own: on the
+# CPU its work is the plain versions of the kernels it runs (B3's write and
+# B2's attention; B1's), each counted under its own form
+plain_calls = {name: 0 for name in KERNELS
+               if not name.endswith(("_fused", "_diff", "_diff_fp32"))}
+# the backward of B1's differentiable form: recomputes through plain tensor
+# operations, one count per backward
+recomputes = {"flash_attention_diff": 0, "flash_attention_diff_fp32": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,7 +88,7 @@ last_build: dict = {}
 
 
 def reset_counts() -> None:
-    for counts in (launches, plain_calls):
+    for counts in (launches, plain_calls, recomputes):
         for name in counts:
             counts[name] = 0
 
@@ -157,18 +167,19 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(kernel: str, fn_name: str, *args, fused: str = "") -> None:
+def launch(kernel: str, fn_name: str, *args, also: str = "") -> None:
     """Call one C entry point and raise if CUDA refused the launch; counts
-    the launch under ``kernel``, and under ``fused`` too where the launch
-    also runs another kernel's work (B3's write inside B2)."""
+    the launch under ``kernel``, and under ``also`` too where the launch
+    also runs another kernel's work (B3's write inside B2) or serves another
+    form (B1 as its differentiable form's forward)."""
     handle = lib()
     rc = getattr(handle, fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
                            f"({handle.vlm_error_string(rc).decode()})")
     launches[kernel] += 1
-    if fused:
-        launches[fused] += 1
+    if also:
+        launches[also] += 1
 
 
 def sm_count(device: torch.device) -> int:

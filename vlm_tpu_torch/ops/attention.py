@@ -10,7 +10,11 @@ causal), ``kv_len`` and ``kv_valid``, all with the finite ``-1e30``.
 :func:`flash_attention` is the B1 wrapper: for CUDA tensors the bf16
 kernel (``csrc/flash_attention.cu``) or the fp32 one
 (``csrc/flash_attention_fp32.cu``), by the operands' dtype; for CPU
-tensors the plain version.
+tensors the plain version. Where a gradient is needed (grad mode on and
+q, k or v requiring one) it routes to :class:`FlashAttentionFn`, B1's
+differentiable form (``vlm_tpu``'s ``_flash_attention_diff``): the kernel
+as its forward, and a backward that recomputes the attention through
+:func:`attention_plain`'s operators and differentiates that.
 :func:`flash_plan` is its host-side plan (the grid it launches and the
 packing of (position, head) rows), held against :func:`attention_plain` on
 the CPU by ``tests/test_torch_flash_plan.py`` (bf16 form) and
@@ -41,6 +45,15 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rounded to v's dtype before the P.V product (as the JAX reference)."""
     _lib.plain_calls["flash_attention_fp32" if q.dtype == torch.float32
                      else "flash_attention"] += 1
+    return _attention_math(q, k, v, causal=causal, kv_len=kv_len,
+                           kv_valid=kv_valid, prefix_len=prefix_len,
+                           kv_layout=kv_layout)
+
+
+def _attention_math(q, k, v, *, causal=False, kv_len=None, kv_valid=None,
+                    prefix_len=None, kv_layout="bhsd") -> torch.Tensor:
+    """:func:`attention_plain`'s operators, uncounted: also the recompute
+    that :class:`FlashAttentionFn`'s backward differentiates."""
     b, h, sq, d = q.shape
     if kv_layout == "bshd":
         kvh, sk = k.shape[2], k.shape[1]
@@ -144,7 +157,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     contiguous last dimension), ``kv_len``/``prefix_len`` ``[B]`` int.
     ``prefix_len`` widens a causal mask only, as in the reference. Returns
     ``[B, H, Sq, D]`` whose memory is ``[B, Sq, H, D]``, so the caller's
-    merge of the heads is a free reshape."""
+    merge of the heads is a free reshape.
+
+    Where a gradient is needed, :class:`FlashAttentionFn` (``causal`` only,
+    as ``vlm_tpu``'s differentiable form: on the card a call with
+    ``kv_len`` or ``prefix_len`` raises; on the CPU autograd differentiates
+    the plain version). Otherwise the kernel's output, which carries no
+    gradient."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if kv_len is None and prefix_len is None:
+            return FlashAttentionFn.apply(q, k, v, causal)
+        if not _lib.is_cpu(q, "flash_attention"):
+            raise ValueError("flash_attention: the differentiable form takes "
+                             "no kv_len or prefix_len mask")
+        return attention_plain(q, k, v, causal=causal, kv_len=kv_len,
+                               prefix_len=prefix_len)
+    return _flash_forward(q, k, v, causal=causal, kv_len=kv_len,
+                          prefix_len=prefix_len)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B1's differentiable form (``vlm_tpu/ops/attention.py``
+    ``_flash_attention_diff``): the forward is B1 (bf16 or fp32 form; the
+    plain version on the CPU) and counts a launch under
+    ``flash_attention_diff`` / ``flash_attention_diff_fp32`` too; only q, k
+    and v are saved. The backward recomputes softmax(q kᵀ d^-½) v with
+    :func:`attention_plain`'s operators (fp32 scores, p rounded to v's
+    dtype) under grad mode and differentiates them, as ``_flash_diff_bwd``
+    differentiates ``_xla_attention``; it counts in ``_lib.recomputes``,
+    not as a plain version's call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        form = "flash_attention_diff_fp32" if q.dtype == torch.float32 \
+            else "flash_attention_diff"
+        ctx.form, ctx.causal = form, causal
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v, causal=causal, also=form)
+
+    @staticmethod
+    def backward(ctx, g):
+        _lib.recomputes[ctx.form] += 1
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(need)
+                       for t, need in zip(saved, ctx.needs_input_grad))
+            o = _attention_math(q, k, v, causal=ctx.causal)
+            wanted = [t for t in (q, k, v) if t.requires_grad]
+            grads = iter(torch.autograd.grad(o, wanted, g))
+        return (*(next(grads) if t.requires_grad else None
+                  for t in (q, k, v)), None)
+
+
+def _flash_forward(q, k, v, *, causal=False, kv_len=None, prefix_len=None,
+                   also: str = "") -> torch.Tensor:
+    """B1's launch (the plain version for CPU tensors); ``also``: the
+    differentiable form whose forward it is, counted beside the kernel's."""
     if _lib.is_cpu(q, "flash_attention"):
         return attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                prefix_len=prefix_len)
@@ -166,7 +235,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if causal and prefix_len is not None:
         pfx = prefix_len.to(device=q.device, dtype=torch.int32).contiguous()
     if fp32:
-        return _flash_fp32(q, k, v, kvl, pfx, causal)
+        return _flash_fp32(q, k, v, kvl, pfx, causal, also)
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     plan = flash_plan(b, h, kvh, sq)
     # [B, Sq, H, D] memory (the head dim padded to 8 for TMA's 16-byte rows)
@@ -180,11 +249,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         b, h, kvh, sq, sk, d, plan.heads_per_block, *plan.grid,
         *q.stride()[:3],
         *k.stride()[:3], *v.stride()[:3], *o.stride()[:3], d ** -0.5,
-        int(causal), _lib.stream_ptr(q))
+        int(causal), _lib.stream_ptr(q), also=also)
     return o
 
 
-def _flash_fp32(q, k, v, kvl, pfx, causal) -> torch.Tensor:
+def _flash_fp32(q, k, v, kvl, pfx, causal, also="") -> torch.Tensor:
     """B1's fp32 form: fp32 accuracy from three TF32 products on the tensor
     cores, :func:`fp32_rows` rows a block as :func:`flash_plan` packs them,
     :func:`fp32_key_split` warps a row group, any strides with a contiguous
@@ -203,5 +272,5 @@ def _flash_fp32(q, k, v, kvl, pfx, causal) -> torch.Tensor:
         b, h, kvh, sq, sk, d, plan.heads_per_block, *plan.grid,
         fp32_key_split(d), rows, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], d ** -0.5, int(causal),
-        _lib.stream_ptr(q))
+        _lib.stream_ptr(q), also=also)
     return o

@@ -257,7 +257,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             ptr(counters), b, h, kvh, s_total, d, window, mode, rows,
             int(uniform), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
             o.stride(0), o.stride(1), d ** -0.5, _lib.stream_ptr(q),
-            fused=fused)
+            also=fused)
         return o
     _lib.launch(
         "decode_attention_int8" if int8 else "decode_attention",
@@ -267,5 +267,5 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         *rows_new, ptr(ws), ptr(counters), b, h, kvh, s_total, d, window,
         mode, rows, int(uniform), q.stride(0), q.stride(1), k.stride(0),
         k.stride(1), o.stride(0), o.stride(1), d ** -0.5, _lib.stream_ptr(q),
-        fused=fused)
+        also=fused)
     return o

@@ -1,0 +1,104 @@
+"""Probes (``vlm_tpu/probing/probes.py``): a frozen or partly unfrozen
+vision backbone and a classification head.
+
+:class:`LinearProbe`: one head, ``forward(images) -> logits [B, C]``,
+``predict`` = argmax. ``extract_features`` runs the backbone without
+autograd while it is fully frozen (the reference's eval + no_grad switch).
+The multi-task probe is not ported yet (ROADMAP A16b).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import torch
+
+from ..models.backbone import VisionBackbone
+from .heads import make_head
+
+
+class BaseProbe:
+    def __init__(self, backbone: VisionBackbone, freeze_backbone: bool = True):
+        self.backbone = backbone
+        self.backbone.set_freeze(freeze_backbone)
+
+    @property
+    def fully_frozen(self) -> bool:
+        return self.backbone.fully_frozen
+
+    def unfreeze_last_backbone_k_layers(self, k: int, parts: str = "all",
+                                        include_embeddings: bool = True):
+        self.backbone.unfreeze_last_k_layers(
+            k=k, parts=parts, include_embeddings=include_embeddings)
+
+    def set_freeze_backbone(self, freeze: bool):
+        self.backbone.set_freeze(freeze)
+
+    def extract_features(self, images) -> torch.Tensor:
+        if self.fully_frozen:
+            with torch.no_grad():
+                return self.backbone.forward(images)
+        return self.backbone.forward(images)
+
+    def features_fn(self, pixels: torch.Tensor) -> torch.Tensor:
+        """The differentiable path the end-to-end steps take."""
+        return self.backbone.features(pixels)
+
+
+class LinearProbe(BaseProbe):
+    """Single-task probe (reference ``linear_probe.py``); the head's
+    weights are drawn from ``seed`` on the backbone's device."""
+
+    def __init__(self, backbone: VisionBackbone, n_out_classes: int,
+                 freeze_backbone: bool = True, dropout_p: float = 0.3,
+                 deeper_head: bool = False, hidden_dim: int = 512,
+                 seed: int = 0):
+        super().__init__(backbone, freeze_backbone)
+        self.n_out_classes = n_out_classes
+        self.classifier = make_head(backbone.output_dim, n_out_classes,
+                                    dropout_p=dropout_p, deeper=deeper_head,
+                                    hidden_dim=hidden_dim, seed=seed,
+                                    device=backbone.device)
+
+    def forward(self, images) -> torch.Tensor:
+        self.classifier.eval()
+        with torch.no_grad():
+            return self.classifier(self.extract_features(images))
+
+    __call__ = forward
+
+    def predict(self, images) -> torch.Tensor:
+        return self.forward(images).argmax(dim=-1)
+
+    def state_tensors(self, with_backbone: bool) -> Dict[str, torch.Tensor]:
+        """The checkpoint's tensors: the head's state under ``head.``, and
+        with ``with_backbone`` the backbone's trainable parameters under
+        ``backbone.`` (the frozen rest is the model's own weights)."""
+        out = {f"head.{k}": v for k, v in
+               self.classifier.state_dict().items()}
+        if with_backbone:
+            out.update({f"backbone.{n}": p.detach() for n, p in
+                        self.backbone.module.named_parameters()
+                        if p.requires_grad})
+        return out
+
+    def load_state_tensors(self, blob: Mapping[str, torch.Tensor],
+                           with_backbone: bool = True) -> None:
+        """Fill the head (every tensor required) and, with
+        ``with_backbone``, the backbone parameters the blob holds."""
+        head = {k[len("head."):]: v for k, v in blob.items()
+                if k.startswith("head.")}
+        self.classifier.load_state_dict(head)
+        if not with_backbone:
+            return
+        params = dict(self.backbone.module.named_parameters())
+        with torch.no_grad():
+            for k, v in blob.items():
+                if not k.startswith("backbone."):
+                    continue
+                name = k[len("backbone."):]
+                if name not in params or params[name].shape != v.shape:
+                    raise KeyError(f"checkpoint tensor {k} "
+                                   f"{tuple(v.shape)} fits no backbone "
+                                   f"parameter")
+                params[name].copy_(v)

@@ -1,0 +1,287 @@
+"""Probe-training loop (``vlm_tpu/probing/train/base_trainer.py``):
+best-only checkpoints, early stopping, resume, the history artifacts.
+
+- ReduceLROnPlateau on the host (mode min, patience = early-stop patience
+  // 2, relative threshold): ``lr_scale`` multiplies every param group's
+  base LR in place, so AdamW keeps its moments; it survives resume;
+- checkpoints in the port's format (:mod:`.utils`), a
+  ``head_config.yaml`` snapshot for the testers, ``history.csv`` and
+  ``loss_curve.png`` (drawn with Pillow);
+- a resumed run draws the shuffles of the epochs it skips, so it sees the
+  batches a straight run would.
+
+``last_stats`` counts the training steps, their images and seconds (host
+wall clock, each step ending in the loss's copy to the host).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from pathlib import Path
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from .utils import (MODEL_FILE, load_tensors, refuse_msgpack, save_tensors,
+                    save_training_state, set_seed, try_resume_training)
+
+
+class BaseTrainer:
+    """Subclasses implement ``build_probe``, ``build_data``,
+    ``build_optimizer``, ``train_batch(batch) -> {task: loss}``,
+    ``eval_batch(batch) -> {task: loss}``, ``model_state``,
+    ``load_model_state``, ``opt_state`` and ``load_opt_state``."""
+
+    def __init__(self, cfg: dict, run_name: str, ckpt_root: Path):
+        import yaml
+        self.cfg = cfg
+        self.run_name = run_name
+        self.ckpt_dir = Path(ckpt_root) / run_name
+        refuse_msgpack(self.ckpt_dir)
+        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+
+        tcfg = cfg["train"]
+        self.seed = int(tcfg.get("seed", 42))
+        set_seed(self.seed)
+
+        scfg = tcfg.get("scheduler", {}) or {}
+        self.sched_factor = float(scfg.get("factor", 0.1))
+        self.sched_threshold = float(scfg.get("threshold", 1e-4))
+        es_patience = int(tcfg.get("patience", 5))
+        self.sched_patience = max(1, es_patience // 2)
+        self.lr_scale = 1.0
+        self._sched_best = float("inf")
+        self._sched_bad_epochs = 0
+        self.last_stats = {"train_steps": 0, "train_images": 0,
+                           "train_s": 0.0}
+
+        self.build_probe()
+        self.build_data()
+        self.build_optimizer()
+
+        self.model_file = self.ckpt_dir / MODEL_FILE
+        (self.ckpt_dir / "head_config.yaml").write_text(
+            yaml.safe_dump(self.cfg, sort_keys=False, allow_unicode=True),
+            encoding="utf-8")
+        self.history: Dict[str, List[float]] = {"train": [], "val": []}
+
+    # ----- subclass API -----
+    def build_probe(self):
+        raise NotImplementedError
+
+    def build_data(self):
+        raise NotImplementedError
+
+    def build_optimizer(self):
+        raise NotImplementedError
+
+    def train_batch(self, batch) -> Dict[str, float]:
+        raise NotImplementedError
+
+    def eval_batch(self, batch) -> Dict[str, float]:
+        raise NotImplementedError
+
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def load_model_state(self, blob: Dict[str, torch.Tensor]):
+        raise NotImplementedError
+
+    def opt_state(self) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def load_opt_state(self, blob: Dict[str, torch.Tensor]):
+        raise NotImplementedError
+
+    def on_lr_change(self):
+        """Called after ``lr_scale`` changes."""
+
+    @staticmethod
+    def batch_valid_counts(loss_dict, batch) -> Dict[str, int]:
+        """Per-task valid (label != -1) samples in the batch: the weights of
+        the epoch's mean."""
+        from .data import Batch
+        if isinstance(batch, Batch):
+            return batch.valid_counts(list(loss_dict))
+        return {k: 1 for k in loss_dict}
+
+    # ----- fit loop -----
+    def fit(self):
+        tcfg = self.cfg["train"]
+        epochs = int(tcfg.get("epochs", 50))
+        patience = int(tcfg.get("patience", 5))
+        eval_every = int(tcfg.get("eval_every", 2))
+
+        blob = load_tensors(self.model_file)
+        if blob is not None:
+            self.load_model_state(blob)
+            print(f"[RESUME] model weights loaded from {self.model_file}")
+        opt_blob, start_epoch, best_val, lr_scale, plateau = \
+            try_resume_training(self.ckpt_dir)
+        if opt_blob is not None:
+            self.load_opt_state(opt_blob)
+        if lr_scale != self.lr_scale:
+            self.lr_scale = lr_scale
+            self.on_lr_change()
+        self._sched_best = float(plateau.get("best", float("inf")))
+        self._sched_bad_epochs = int(plateau.get("bad_epochs", 0))
+        self.train_loader.skip_epochs(start_epoch)
+
+        patience_left = patience
+        for epoch in range(start_epoch, epochs):
+            self.history["train"].append(
+                self._run_epoch(epoch, epochs, train=True))
+            if (epoch + 1) % eval_every:
+                self.history["val"].append(
+                    self.history["val"][-1] if self.history["val"]
+                    else float("nan"))
+                continue
+            val_monitor = self._run_epoch(epoch, epochs, train=False)
+            self.history["val"].append(val_monitor)
+            self._scheduler_step(val_monitor)
+            if val_monitor < best_val - 1e-8:
+                best_val = val_monitor
+                patience_left = patience
+                save_tensors(self.model_file, self.model_state())
+                save_training_state(
+                    self.ckpt_dir, self.opt_state(), next_epoch=epoch + 1,
+                    best_val=best_val, meta=self.run_meta(),
+                    cfg_path=self.cfg.get("_cfg_path", "unknown"),
+                    lr_scale=self.lr_scale,
+                    plateau={"best": self._sched_best,
+                             "bad_epochs": self._sched_bad_epochs})
+                print(f"[SAVE] improvement → {self.model_file} "
+                      f"(monitor={val_monitor:.6f})")
+            else:
+                patience_left -= 1
+                if patience_left <= 0:
+                    print(f"[EARLY STOP] epoch {epoch + 1} (patience = "
+                          f"{patience}). Best monitor: {best_val:.6f}")
+                    break
+        self._save_history_csv()
+        self._save_history_plot()
+
+    def _run_epoch(self, epoch: int, epochs: int, train: bool) -> float:
+        split = "train" if train else "val"
+        running_sum: Dict[str, float] = {}
+        running_n: Dict[str, int] = {}
+        t0 = time.perf_counter()
+        for batch in self.train_loader if train else self.val_loader:
+            loss_dict = self.train_batch(batch) if train \
+                else self.eval_batch(batch)
+            if train:
+                self.last_stats["train_steps"] += 1
+                self.last_stats["train_images"] += len(batch.targets)
+            counts = self.batch_valid_counts(loss_dict, batch)
+            for k, v in loss_dict.items():
+                n = counts.get(k, 1)
+                if n <= 0 or not math.isfinite(float(v)):
+                    continue
+                running_sum[k] = running_sum.get(k, 0.0) + float(v) * n
+                running_n[k] = running_n.get(k, 0) + n
+        if train:
+            self.last_stats["train_s"] += time.perf_counter() - t0
+        return self._epoch_log(split, epoch, epochs, running_sum, running_n)
+
+    @staticmethod
+    def _epoch_log(split, epoch, epochs, running_sum, running_n) -> float:
+        keys = sorted(running_sum)
+        if not keys:
+            print(f"[{split}] no aggregated losses")
+            return float("inf")
+        vals = [running_sum[k] / max(1, running_n[k]) for k in keys]
+        logs = " | ".join(f"{k}: {v:.4f}" for k, v in zip(keys, vals))
+        print(f"[{split.upper()} {epoch + 1}/{epochs}] {logs} | "
+              f"monitor(mean)={float(np.mean(vals)):.6f}")
+        return float(np.mean(vals))
+
+    # ----- ReduceLROnPlateau -----
+    def _scheduler_step(self, val_monitor: float):
+        if val_monitor < self._sched_best * (1 - self.sched_threshold):
+            self._sched_best = val_monitor
+            self._sched_bad_epochs = 0
+            return
+        self._sched_bad_epochs += 1
+        if self._sched_bad_epochs > self.sched_patience:
+            self.lr_scale *= self.sched_factor
+            self._sched_bad_epochs = 0
+            print(f"[SCHED] plateau → lr_scale={self.lr_scale:.2e}")
+            self.on_lr_change()
+
+    # ----- artifacts -----
+    def _save_history_csv(self):
+        csv_path = self.ckpt_dir / "history.csv"
+        with open(csv_path, "w", encoding="utf-8") as f:
+            f.write("epoch,train_loss,val_loss\n")
+            for i, (tr, va) in enumerate(zip(self.history["train"],
+                                             self.history["val"]), start=1):
+                tr_str = f"{tr:.6f}" if math.isfinite(tr) else ""
+                va_str = f"{va:.6f}" if math.isfinite(va) else ""
+                f.write(f"{i},{tr_str},{va_str}\n")
+        print(f"[HISTORY] CSV saved: {csv_path}")
+
+    def _save_history_plot(self):
+        out = self.ckpt_dir / "loss_curve.png"
+        draw_loss_curve(self.history, self.run_name, out)
+        print(f"[HISTORY] plot saved: {out}")
+
+    def run_meta(self) -> dict:
+        mcfg = self.cfg["model"]
+        return {"model_name": mcfg["name"],
+                "quantization": mcfg.get("quantization")}
+
+
+def draw_loss_curve(history: Dict[str, List[float]], title: str,
+                    path) -> None:
+    """A 750 x 450 PNG of the train and val losses per epoch, drawn with
+    Pillow (``vlm_tpu`` draws the same figure with matplotlib): axes with
+    ticks, a light grid, the two curves (non-finite points left out) and a
+    legend."""
+    from PIL import Image, ImageDraw, ImageFont
+
+    font = ImageFont.load_default()
+    img = Image.new("RGB", (750, 450), "white")
+    draw = ImageDraw.Draw(img)
+    left, top, right, bottom = 70, 40, 720, 390
+    series = {"train": ((31, 119, 180), history["train"]),
+              "val": ((255, 127, 14), history["val"])}
+    pts = [v for _, vals in series.values() for v in vals if math.isfinite(v)]
+    n = max(len(history["train"]), 1)
+    lo, hi = (min(pts), max(pts)) if pts else (0.0, 1.0)
+    if hi - lo < 1e-12:
+        lo, hi = lo - 0.5, hi + 0.5
+
+    def xy(i, v):
+        x = left + (right - left) * (i / max(n - 1, 1))
+        return x, bottom - (bottom - top) * (v - lo) / (hi - lo)
+
+    for frac in np.linspace(0.0, 1.0, 5):
+        y = bottom - (bottom - top) * frac
+        draw.line((left, y, right, y), fill=(225, 225, 225))
+        draw.text((left - 6, y), f"{lo + (hi - lo) * frac:.4g}", anchor="rm",
+                  font=font, fill="black")
+    for i in range(n):
+        x, _ = xy(i, lo)
+        draw.line((x, bottom, x, bottom + 4), fill="black")
+        draw.text((x, bottom + 6), str(i + 1), anchor="mt", font=font,
+                  fill="black")
+    draw.rectangle((left, top, right, bottom), outline="black")
+    for k, (name, (color, vals)) in enumerate(series.items()):
+        line = [xy(i, v) for i, v in enumerate(vals) if math.isfinite(v)]
+        if len(line) > 1:
+            draw.line(line, fill=color, width=2)
+        for x, y in line:
+            draw.ellipse((x - 2, y - 2, x + 2, y + 2), fill=color)
+        ly = top + 12 + 16 * k
+        draw.line((right - 80, ly, right - 60, ly), fill=color, width=2)
+        draw.text((right - 54, ly), name, anchor="lm", font=font,
+                  fill="black")
+    draw.text(((left + right) / 2, 20), title, anchor="mm", font=font,
+              fill="black")
+    draw.text(((left + right) / 2, 430), "epoch", anchor="mm", font=font,
+              fill="black")
+    draw.text((10, (top + bottom) / 2), "loss", anchor="lm", font=font,
+              fill="black")
+    img.save(path, format="PNG")

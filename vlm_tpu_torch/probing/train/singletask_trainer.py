@@ -1,0 +1,293 @@
+"""Single-task probe trainer (``vlm_tpu/probing/train/singletask_trainer.py``).
+
+- Class-weighted cross-entropy with ignore -1 (:func:`masked_cross_entropy`);
+- **feature cache** while the backbone is fully frozen: the dataset goes
+  once through the tower (B4 and B1 under ``inference_mode``) into
+  ``probing/linear_probing/features/<model>_<quant>_<task>[_<size>][_vq]/
+  <split>_features.npz`` under the project root, and only the head trains
+  on the cached features; an npz written by ``vlm_tpu`` (keys x | features
+  | feats and y | labels) loads as it is;
+- **end to end** when layers are unfrozen: each step runs the tower with
+  autograd (B1's differentiable form) and AdamW takes two param groups,
+  the head at ``lr`` and the unfrozen backbone at ``backbone_lr``, frozen
+  parameters left out (optax's ``set_to_zero``). AdamW is ``optax.adamw``'s:
+  b1 0.9, b2 0.999, eps 1e-8, decoupled ``weight_decay``; a trainable
+  parameter that receives no gradient gets a zero one, so its moments and
+  its decay move as optax moves every leaf.
+
+LoRA (``model.lora.enabled``) waits for the multi-task slice (ROADMAP
+A16b) and is refused.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ...core.config import project_root
+from ...data.augment import train_augmentation
+from ...data.dataset_factory import DatasetFactory
+from ...models.base_model import resolve_quantize_vision
+from ...models.factory import create_model
+from ..probes import LinearProbe
+from .base_trainer import BaseTrainer
+from .data import ArrayBatchLoader, ImageBatchLoader
+from .utils import (GENERATOR_KEY, counts_to_weights,
+                    get_num_classes_for_task, load_optimizer_tensors,
+                    masked_cross_entropy, optimizer_tensors,
+                    targets_to_arrays)
+
+
+class SingleTaskTrainer(BaseTrainer):
+    def __init__(self, cfg: dict, run_name: str, ckpt_root: Path):
+        self.task = str(cfg["task"]).lower()
+        self.use_feature_cache = False
+        self.features_dir: Optional[Path] = None
+        self.extract_stats = {"images": 0, "seconds": 0.0}
+        super().__init__(cfg, run_name, ckpt_root)
+
+    # ------------ probe ------------
+    def build_probe(self):
+        mcfg = self.cfg["model"]
+        if (mcfg.get("lora") or {}).get("enabled"):
+            raise NotImplementedError(
+                "LoRA probing is not ported yet (ROADMAP A16b); set "
+                "model.lora.enabled: false")
+        bb_cfg = mcfg.get("backbone") or {}
+        freeze_flag = bool(bb_cfg.get("freeze", True))
+        unfreeze_k = int(bb_cfg.get("unfreeze_last_k", 0))
+        # resolved here and written back, so head_config.yaml records the
+        # tower the features and the head were trained with
+        mcfg["quantize_vision"] = resolve_quantize_vision(
+            mcfg.get("quantize_vision"))
+        vlm = create_model(
+            mcfg["name"], model_id=mcfg.get("model_id"),
+            quantization=mcfg.get("quantization") or "fp32",
+            size=mcfg.get("size"), mesh=self.cfg.get("mesh"),
+            quantize_vision=mcfg["quantize_vision"])
+        backbone = vlm.get_vision_backbone()
+        del vlm
+        self.device = backbone.device
+        self.probe = LinearProbe(
+            backbone=backbone,
+            n_out_classes=get_num_classes_for_task(self.task),
+            freeze_backbone=freeze_flag,
+            dropout_p=float(mcfg.get("dropout_p", 0.3)),
+            deeper_head=bool(mcfg.get("deeper_head", False)),
+            hidden_dim=int(mcfg.get("hidden_dim", 512)), seed=self.seed)
+        if freeze_flag and unfreeze_k > 0:
+            self.probe.unfreeze_last_backbone_k_layers(
+                k=unfreeze_k,
+                parts=str(bb_cfg.get("unfreeze_parts", "all")),
+                include_embeddings=bool(bb_cfg.get("include_embeddings",
+                                                   True)))
+        # the dropout masks' generator, on the probe's device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.seed)
+
+    # ------------ data ------------
+    def build_data(self):
+        dcfg = self.cfg["data"]
+        base_path = dcfg.get("base_path", None)
+        batch_size = int(dcfg.get("batch_size", 64))
+        n_classes = get_num_classes_for_task(self.task)
+        transform = train_augmentation(self.seed) \
+            if bool(dcfg.get("use_augmentation", False)) else None
+        train_ds, agg_counts = DatasetFactory.create_multi_task_dataset(
+            tasks=[self.task], split="train", base_path=base_path,
+            transform=transform, num_classes={self.task: n_classes})
+        val_ds, _ = DatasetFactory.create_multi_task_dataset(
+            tasks=[self.task], split="val", base_path=base_path,
+            transform=None, num_classes={self.task: n_classes})
+
+        counts = agg_counts.get(self.task)
+        w = np.ones(n_classes) if counts is None else \
+            counts_to_weights(np.asarray(counts, dtype=np.float64))
+        self.class_weights = torch.tensor(w, dtype=torch.float32,
+                                          device=self.device)
+        print(f"Class weights: {np.asarray(w)}")
+
+        self.use_feature_cache = self.probe.fully_frozen
+        print(f"[Trainer] Feature cache for probing: "
+              f"{'ENABLED' if self.use_feature_cache else 'DISABLED'} "
+              f"(backbone fully frozen: {self.probe.fully_frozen})")
+        if self.use_feature_cache:
+            mcfg = self.cfg["model"]
+            # another size, or a quantized tower, never shares a cache
+            size_tag = f"_{mcfg['size']}" if mcfg.get("size") else ""
+            vq_tag = "_vq" if mcfg.get("quantize_vision") else ""
+            self.features_dir = (
+                project_root() / "probing" / "linear_probing" / "features" /
+                f"{mcfg['name']}_{mcfg.get('quantization')}_{self.task}"
+                f"{size_tag}{vq_tag}")
+            self.features_dir.mkdir(parents=True, exist_ok=True)
+            xtr, ytr = self._ensure_features(train_ds, "train")
+            xva, yva = self._ensure_features(val_ds, "val")
+            self.train_loader = ArrayBatchLoader(
+                xtr, ytr, batch_size, shuffle=True, seed=self.seed)
+            self.val_loader = ArrayBatchLoader(xva, yva, batch_size)
+        else:
+            self.train_loader = ImageBatchLoader(
+                train_ds, batch_size, shuffle=True, seed=self.seed)
+            self.val_loader = ImageBatchLoader(val_ds, batch_size)
+
+    def _ensure_features(self, img_ds, split: str):
+        """Load the split's cached features, or extract and save them."""
+        fpath = self.features_dir / f"{split}_features.npz"
+        backbone = self.probe.backbone
+        if fpath.exists():
+            blob = np.load(fpath)
+            x_key = next((k for k in ("x", "features", "feats")
+                          if k in blob), None)
+            y_key = next((k for k in ("y", "labels") if k in blob), None)
+            if x_key is None or y_key is None:
+                raise KeyError(
+                    f"Unrecognized feature cache keys: {list(blob.keys())}")
+            feats = blob[x_key]
+            if feats.shape[-1] != backbone.output_dim:
+                raise ValueError(
+                    f"stale feature cache {fpath}: dim {feats.shape[-1]} != "
+                    f"backbone dim {backbone.output_dim}; delete it to "
+                    f"re-extract")
+            return feats, blob[y_key].astype(np.int64)
+        t0 = time.perf_counter()
+        if any(getattr(d, "transform", None) is not None
+               for d in getattr(img_ds, "datasets", [img_ds])):
+            # an augmented dataset extracts through __getitem__, so its
+            # one-shot transform is baked into the cached features
+            bs = backbone.batch_size
+            parts = []
+            with torch.inference_mode():
+                for start in range(0, len(img_ds), bs):
+                    images = [img_ds[i][0] for i in
+                              range(start, min(start + bs, len(img_ds)))]
+                    n = len(images)
+                    images += [images[-1]] * (bs - n)
+                    parts.append(backbone.forward(images)[:n])
+            feats = torch.cat(parts).float().cpu().numpy()
+        else:
+            feats = backbone.extract_features_dataset(img_ds.image_paths())
+        self.extract_stats["images"] += len(feats)
+        self.extract_stats["seconds"] += time.perf_counter() - t0
+        ys = targets_to_arrays(img_ds.labels_list(), [self.task])[self.task]
+        np.savez(fpath, x=feats, y=ys)
+        return feats, ys
+
+    # ------------ optimizer ------------
+    def build_optimizer(self):
+        tcfg = self.cfg.get("train", {})
+        self.head_lr = float(tcfg.get("lr", 1e-4))
+        self.backbone_lr = float(tcfg.get("backbone_lr", self.head_lr))
+        self.weight_decay = float(tcfg.get("weight_decay", 1e-4))
+        self.params = {f"head.{n}": p for n, p in
+                       self.probe.classifier.named_parameters()}
+        groups = [{"params": list(self.params.values()),
+                   "base_lr": self.head_lr}]
+        if not self.use_feature_cache:
+            bb = {f"backbone.{n}": p for n, p in
+                  self.probe.backbone.module.named_parameters()
+                  if p.requires_grad}
+            if bb:
+                groups.append({"params": list(bb.values()),
+                               "base_lr": self.backbone_lr})
+            self.params.update(bb)
+        for g in groups:
+            g["lr"] = g["base_lr"] * self.lr_scale
+        self.optimizer = torch.optim.AdamW(
+            groups, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=self.weight_decay)
+
+    def on_lr_change(self):
+        # in place: AdamW's moments do not depend on the LR
+        for g in self.optimizer.param_groups:
+            g["lr"] = g["base_lr"] * self.lr_scale
+
+    # ------------ per batch ------------
+    def loss(self, batch, train: bool) -> torch.Tensor:
+        """The batch's loss (:func:`probe_loss`) with the trainer's class
+        weights and dropout generator."""
+        inputs, targets = batch
+        y = np.asarray(targets) if self.use_feature_cache else \
+            targets_to_arrays(targets, [self.task])[self.task]
+        return probe_loss(self.probe, inputs, y, self.class_weights,
+                          train=train, generator=self.generator,
+                          cached=self.use_feature_cache)
+
+    def train_batch(self, batch) -> Dict[str, float]:
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.loss(batch, train=True)
+        loss.backward()
+        for p in self.params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.optimizer.step()
+        return {self.task: float(loss.detach())}
+
+    def eval_batch(self, batch) -> Dict[str, float]:
+        with torch.no_grad():
+            return {self.task: float(self.loss(batch, train=False))}
+
+    # ------------ state ------------
+    def _saves_backbone(self) -> bool:
+        return not self.use_feature_cache and not self.probe.fully_frozen
+
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        return self.probe.state_tensors(self._saves_backbone())
+
+    def load_model_state(self, blob: Dict[str, torch.Tensor]):
+        self.probe.load_state_tensors(blob, not self.use_feature_cache)
+
+    def opt_state(self) -> Dict[str, torch.Tensor]:
+        names = {p: n for n, p in self.params.items()}
+        return {**optimizer_tensors(self.optimizer, names),
+                GENERATOR_KEY: self.generator.get_state()}
+
+    def load_opt_state(self, blob: Dict[str, torch.Tensor]):
+        load_optimizer_tensors(self.optimizer, self.params, blob)
+        if GENERATOR_KEY in blob:
+            self.generator.set_state(blob[GENERATOR_KEY])
+
+    def run_meta(self) -> dict:
+        meta = super().run_meta()
+        mcfg = self.cfg["model"]
+        bb_cfg = mcfg.get("backbone") or {}
+        meta.update({
+            "trainer": "single_task",
+            "task": self.task,
+            "feature_cache": bool(self.use_feature_cache),
+            "sampler": "none",
+            "backbone": {
+                "freeze": bool(bb_cfg.get("freeze",
+                                          mcfg.get("freeze_backbone", True))),
+                "unfreeze_last_k": int(bb_cfg.get("unfreeze_last_k", 0)),
+                "unfreeze_parts": str(bb_cfg.get("unfreeze_parts", "all")),
+                "include_embeddings": bool(bb_cfg.get("include_embeddings",
+                                                      True)),
+            },
+        })
+        return meta
+
+
+def probe_loss(probe: LinearProbe, inputs, y, class_weights: torch.Tensor,
+               *, train: bool, generator: Optional[torch.Generator] = None,
+               cached: bool = False) -> torch.Tensor:
+    """The masked, class-weighted cross-entropy of ``probe`` on ``inputs``:
+    cached features (``cached``), or images through the backbone (B4, then
+    the tower: with autograd where it trains). ``train`` puts the head in
+    training mode: its BatchNorm moves its statistics and dropout draws
+    from ``generator``."""
+    clf = probe.classifier
+    clf.train(train)
+    device = probe.backbone.device
+    if cached:
+        feats = torch.as_tensor(np.asarray(inputs)).to(device, torch.float32)
+    else:
+        feats = probe.features_fn(probe.backbone.to_pixels(inputs))
+    logits = clf(feats, generator=generator)
+    return masked_cross_entropy(
+        logits, torch.as_tensor(np.asarray(y), dtype=torch.int64,
+                                device=device), class_weights)

@@ -87,3 +87,28 @@ def load_flax_params(module: torch.nn.Module, params: Mapping) -> None:
                 raise ValueError(f"{name}: flax {tuple(src.shape)} vs port "
                                  f"{tuple(tensor.shape)}")
             tensor.copy_(src.to(tensor.dtype))
+
+
+def head_state_to_state_dict(head_state: Mapping) -> Dict[str, torch.Tensor]:
+    """A ``vlm_tpu`` probe head's ``{"params", "batch_stats"}`` (numpy) as
+    the port's head ``state_dict``: ``bn`` scale and bias -> ``bn.weight``,
+    ``bn.bias``; ``fc*`` kernel [in, out] -> weight [out, in]; the
+    BatchNorm's ``mean`` and ``var`` -> ``bn.running_mean`` and
+    ``bn.running_var``."""
+    out = flax_to_state_dict(head_state["params"])
+    for mod, stats in head_state["batch_stats"].items():
+        out[f"{mod}.running_mean"] = torch.tensor(np.asarray(stats["mean"]))
+        out[f"{mod}.running_var"] = torch.tensor(np.asarray(stats["var"]))
+    return out
+
+
+def load_head_state(head: torch.nn.Module, head_state: Mapping) -> None:
+    """Copy a ``vlm_tpu`` head state into the port's head, in place."""
+    state = head_state_to_state_dict(head_state)
+    own = head.state_dict()
+    if set(state) != set(own):
+        raise KeyError(f"head bridge mismatch: "
+                       f"{sorted(set(state) ^ set(own))}")
+    with torch.no_grad():
+        for name, t in own.items():
+            t.copy_(state[name].to(t.dtype))

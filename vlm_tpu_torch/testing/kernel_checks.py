@@ -128,9 +128,19 @@ KERNELS = {
     "B7": dict(name="int4_matmul", source="vlm_tpu_torch/csrc/int4_matmul.cu",
                replaces="vlm_tpu/ops/quant.py:300",
                forms=("int4_matmul",)),
+    # B1's differentiable form (ops/attention.py FlashAttentionFn): B1's
+    # kernel as its forward, a recompute through plain tensor operations
+    # as its backward, as vlm_tpu's custom VJP (checked by run_diff)
+    "B1-diff": dict(name="flash_attention_diff",
+                    source="vlm_tpu_torch/csrc/flash_attention.cu",
+                    replaces="vlm_tpu/ops/attention.py:250",
+                    forms=("flash_attention_diff_fp32",
+                           "flash_attention_diff")),
 }
 # forms whose source is not their kernel's
 FORM_SOURCES = {"flash_attention_fp32":
+                "vlm_tpu_torch/csrc/flash_attention_fp32.cu",
+                "flash_attention_diff_fp32":
                 "vlm_tpu_torch/csrc/flash_attention_fp32.cu",
                 "kv_write_fused": "vlm_tpu_torch/csrc/decode_attention.cu",
                 "kv_write_int8_fused":
@@ -1220,5 +1230,110 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
                             else lib_err <= tol,
                             library_note=c.library_note))
     del flush
+    _lib.reset_counts()
+    return records
+
+
+# the end-to-end probing step's attention: CLIP-L/336 (16 heads of 64 over
+# 577 tokens) at the trainer's batch of 32 images
+DIFF_SHAPE = (32, 16, 577, 64)
+
+
+def diff_work(b: int, h: int, s: int, d: int, elem: int, peak: str
+              ) -> Dict[str, Tuple[float, float, str]]:
+    """B1-diff without masks: the forward 4 b h s² d operations, q, k, v
+    read and o written; the backward 10 b h s² d (five products, the
+    scores' recompute counted), q, k, v and the output's gradient read,
+    dq, dk, dv written."""
+    t = float(b * h * s * d * elem)
+    fwd = (4.0 * b * h * s * s * d, 4 * t, peak)
+    bwd = (10.0 * b * h * s * s * d, 7 * t, peak)
+    return {"fwd": fwd, "bwd": bwd,
+            "both": (fwd[0] + bwd[0], fwd[1] + bwd[1], peak)}
+
+
+def run_diff(device="cuda", iters: int = 10,
+             shape: Tuple[int, int, int, int] = DIFF_SHAPE) -> List[Dict]:
+    """B1's differentiable form against autograd through
+    :func:`attention_plain` on the card, in fp32 (the probing path's form)
+    and bf16, at ``shape`` [B, H, S, D] ([B, S, H, D] memory, as the tower
+    passes it). The forward must equal the no-gradient call bitwise
+    (``exact_err``); dq, dk, dv within ``FP32_TOL`` x max (fp32) or
+    ``ATTN_TOL`` (bf16). Times: the forward, the backward (``retain_graph``
+    over one forward) and both, with events and profiled; the plain
+    version's and SDPA's forward + backward (SDPA timed only, never called
+    by the port). Records carry :func:`run`'s keys (``ms`` and the bound
+    for forward + backward) and ``fwd_*`` / ``bwd_*`` ones."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    b, h, sq, d = shape
+    records = []
+    for dtype, form in ((torch.float32, "flash_attention_diff_fp32"),
+                        (torch.bfloat16, "flash_attention_diff")):
+        fp32 = dtype == torch.float32
+        q, k, v = (torch.randn(b, sq, h, d, generator=gen, device=dev)
+                   .to(dtype).transpose(1, 2).requires_grad_()
+                   for _ in range(3))
+        g = torch.randn(b, h, sq, d, generator=gen, device=dev).to(dtype)
+        qkv = (q, k, v)
+
+        def fwd():
+            return flash_attention(q, k, v)
+
+        def both(attend=flash_attention):
+            return torch.autograd.grad(attend(q, k, v), qkv, g)
+
+        out = fwd()
+        exact_err = _max_err(out.detach(), flash_attention(
+            q.detach(), k.detach(), v.detach()))
+        got, want = both(), both(attention_plain)
+        err = max(_max_err(a, w) for a, w in zip(got, want))
+        scale = max(float(w.float().abs().max()) for w in want) if fp32 \
+            else 1.0
+        tol = FP32_TOL if fp32 else ATTN_TOL
+
+        def library():
+            return torch.autograd.grad(
+                F.scaled_dot_product_attention(q, k, v), qkv, g)
+        lib_err = max(_max_err(a, w) for a, w in zip(library(), want))
+        torch.cuda.synchronize()
+
+        def bwd():
+            torch.autograd.grad(out, qkv, g, retain_graph=True)
+        t = {}
+        for name, fn in (("plain", lambda: both(attention_plain)),
+                         ("fwd", fwd), ("bwd", bwd), ("both", both),
+                         ("library", library)):
+            t[name] = _ms(fn, iters)
+        for name, fn in (("library", library), ("both", both),
+                         ("bwd", bwd), ("fwd", fwd),
+                         ("plain", lambda: both(attention_plain))):
+            t[name] = (t[name] + _ms(fn, iters)) / 2
+        dev_ms = {name: _device_ms(fn, iters) for name, fn in
+                  (("fwd", fwd), ("bwd", bwd), ("both", both),
+                   ("library", library))}
+        work = diff_work(b, h, sq, d, q.element_size(),
+                         "fp32_3xtf32" if fp32 else "bf16")
+        bounds = {k_: bound_ms(*w) for k_, w in work.items()}
+        records.append(dict(
+            kernel="B1-diff", form=form,
+            case=f"clip_l336_g{b}_h{h}_s{sq}_d{d}_fwd_bwd"
+            + ("_fp32" if fp32 else ""),
+            on_path=fp32, max_abs_err=err, tol=tol, rel=fp32,
+            ok=err <= tol * scale and exact_err == 0.0, exact_err=exact_err,
+            baseline_device_ms=None, ms=t["both"], plain_ms=t["plain"],
+            ops=work["both"][0], bytes=work["both"][1],
+            peak=work["both"][2], bound_ms=bounds["both"][0],
+            bound_by=bounds["both"][1], library_ms=t["library"],
+            device_ms=dev_ms["both"], library_device_ms=dev_ms["library"],
+            library_err=lib_err, library_ok=lib_err <= tol * scale,
+            library_note="scaled_dot_product_attention forward + backward",
+            fwd_ms=t["fwd"], bwd_ms=t["bwd"], fwd_device_ms=dev_ms["fwd"],
+            bwd_device_ms=dev_ms["bwd"], fwd_bound_ms=bounds["fwd"][0],
+            fwd_bound_by=bounds["fwd"][1], bwd_bound_ms=bounds["bwd"][0],
+            bwd_bound_by=bounds["bwd"][1]))
+        del out, got, want, q, k, v, g
+        torch.cuda.empty_cache()
     _lib.reset_counts()
     return records
