@@ -103,7 +103,29 @@ Phases, each of which raises on failure:
     and metrics written, the preds the probe's own argmax;
 24. probe reference: a depth-cut CLIP-L (2 blocks, full width) and a
     linear head, one end-to-end step with the last block unfrozen, card
-    against CPU in fp32: loss and gradients within ``REF_TOL_FP32``.
+    against CPU in fp32: loss and gradients within ``REF_TOL_FP32``;
+25. probe multi: ``train_probe --profile multi`` (age, gender and emotion
+    over one tower, augmentation and the weighted sampler, the 0.33
+    emotion balancing: 256 train rows, 51 with emotion, 50 duplicates;
+    the profile's backbone block) at batch 32 for 2 epochs, the second on
+    the loss EMA's task weights: B1's differentiable form in every block
+    of every step, blocks 20-23 and the embeddings changed, blocks 0-19
+    bitwise as built; then a few more steps under the profiler (the
+    device's busy share);
+26. probe lora: the single profile with ``lora.enabled`` (rank 8, alpha
+    16, the last 2 blocks' attention) and the tower frozen, at batch 32
+    for an epoch: B1's differentiable form in blocks 22-23 only, every
+    base weight bitwise as built, every adapter's B moved off zero, a
+    checkpoint of the adapters and no tower;
+27. probe multi test: ``test_probe --profile multi`` on the multi
+    checkpoint (preds, gts and metrics per task, the preds each head's own
+    argmax) and the single tester on the LoRA checkpoint (the adapters
+    merged at load: no differentiable form);
+28. probe multi reference: a depth-cut CLIP-L (2 blocks, full width), three
+    heads, LoRA on the last block (A and B drawn nonzero) and uncertainty
+    weighting, one step card against CPU in fp32: the loss and the
+    gradients of A, B, the log-variances and the heads within
+    ``REF_TOL_FP32``.
 
 Each slice's launch counts are set to 0 just before it is driven and read
 just after. Each phase prints its seconds.
@@ -717,38 +739,72 @@ def run_phases(torch, np, gpu, launches, tmp):
                   f"{time.perf_counter() - t0:.1f} s")
 
 
-# the probing phases: LLaVA-1.5-7B's tower in fp32, the single profile of
-# configs/train_probe.yaml; the dataset's split sizes and the end-to-end
-# batch (the multi profile's backbone block)
+# the probing phases: LLaVA-1.5-7B's tower in fp32, the single and multi
+# profiles of configs/train_probe.yaml; the dataset's split sizes and the
+# end-to-end batch (the multi profile's backbone block; its own batch of
+# 256 would need about 8 times the 32.66 GiB measured at 32)
 PROBE_SPLITS = {"train": 256, "val": 64, "test": 64}
 PROBE_E2E_BATCH = 32
 CLIP_BLOCKS = 24
+PROBE_TASKS = ("age", "gender", "emotion")
+# the multi profile's training set: emotion on every fifth train row (51
+# of 256), so the 0.33 balancing adds round((0.33 * 256 - 51) / 0.67) = 50
+# duplicates
+PROBE_MULTI_TRAIN = 306
+# the LoRA phase: the shipped lora block's last_k
+LORA_BLOCKS = 2
+# profiled steps after a run, for the device's busy share
+BUSY_STEPS = 3
 
 
 def probe_root(tmp, name, base):
-    """A project root whose ``configs/task_datasets.yaml`` maps age to the
-    synthetic dataset under ``base``, made the current one."""
+    """A project root whose ``configs/task_datasets.yaml`` maps age, gender
+    and emotion to the synthetic dataset under ``base``, made the current
+    one."""
     import yaml
     root = tmp / name
     (root / "configs").mkdir(parents=True)
     (root / "configs" / "task_datasets.yaml").write_text(yaml.safe_dump(
-        {s: {"age": ["TestDataset"]} for s in PROBE_SPLITS}))
+        {s: {t: ["TestDataset"] for t in PROBE_TASKS}
+         for s in PROBE_SPLITS}))
     os.environ["VLM_TPU_ROOT"] = str(root)
     return root
 
 
 def probe_data(np, tmp):
-    """The synthetic face dataset: 336 px JPEGs with ages from a seed."""
+    """The synthetic face dataset: 336 px JPEGs with ages from a seed,
+    gender on every row, emotion on every fifth train row and on every
+    val and test row; the train split's class counts (the class weights
+    and the sampler's), as a real dataset ships them."""
     from vlm_tpu_torch.testing.synthetic import make_face_dataset
     rng = np.random.default_rng(0)
     base = tmp / "probe_datasets"
     t0 = time.perf_counter()
+    counts = {t: {} for t in PROBE_TASKS}
     for split, n in PROBE_SPLITS.items():
-        make_face_dataset(base, "TestDataset", split,
-                          [{"gender": i % 2, "age": int(rng.integers(1, 90))}
-                           for i in range(n)], size=(336, 336))
+        rows = [{"gender": i % 2, "age": int(rng.integers(1, 90)),
+                 "emotion": i % 7 if split != "train" or i % 5 == 1
+                 else ""} for i in range(n)]
+        make_face_dataset(base, "TestDataset", split, rows, size=(336, 336))
+        if split == "train":
+            from vlm_tpu_torch.data.dataset_factory import DatasetFactory
+            ds = DatasetFactory.create_dataset("TestDataset", split="train",
+                                               base_path=str(base))
+            for t in PROBE_TASKS:
+                for r in ds.labels_list():
+                    c = r.get(t)
+                    if c is not None and int(c) >= 0:
+                        counts[t][str(int(c))] = \
+                            counts[t].get(str(int(c)), 0) + 1
+    (base / "TestDataset" / "train" / "class_counts.json").write_text(
+        json.dumps(counts))
+    n_emotion = sum(counts["emotion"].values())
+    if n_emotion != 51:
+        raise RuntimeError(f"[probe data] {n_emotion} train rows with "
+                           f"emotion, 51 expected")
     print(f"[probe data] {sum(PROBE_SPLITS.values())} 336 px JPEGs "
-          f"{PROBE_SPLITS}: {time.perf_counter() - t0:.1f} s")
+          f"{PROBE_SPLITS}, {n_emotion} train rows with emotion: "
+          f"{time.perf_counter() - t0:.1f} s")
     return base
 
 
@@ -776,6 +832,26 @@ def _check_launches(tag, launches, plain, want):
         raise RuntimeError(f"{tag}: launches (got, want) {bad} ({launches})")
     if any(plain.values()):
         raise RuntimeError(f"{tag}: plain versions ran: {plain}")
+
+
+def _check_trained(torch, tag, module, before, first):
+    """Blocks ``first``.. and the embeddings moved from ``before``, the
+    blocks before ``first`` bitwise as built. Not ``post_ln``: mean pooling
+    does not reach it (a zero gradient, and a decay of lr x weight_decay
+    that rounds away)."""
+    embeds = ("patch_embed.", "cls_token", "pos_embed", "pre_ln.")
+    same, moved = [], []
+    for n, p in module.named_parameters():
+        block = int(n.split(".")[1]) if n.startswith("blocks.") else None
+        changed = not torch.equal(p.detach(), before[n])
+        if block is not None and block < first and changed:
+            moved.append(n)
+        if ((block is not None and block >= first) or n.startswith(embeds)) \
+                and not changed:
+            same.append(n)
+    if moved or same:
+        raise RuntimeError(f"{tag} frozen parameters moved {moved[:8]}, "
+                           f"trained ones did not {same[:8]}")
 
 
 def probe_cache_phase(torch, gpu, tmp, base):
@@ -856,21 +932,7 @@ def probe_e2e_phase(torch, gpu, tmp, base):
         raise RuntimeError(f"[probe e2e] {steps} steps, recomputes "
                            f"{recomputes}")
     first = CLIP_BLOCKS - multi["unfreeze_last_k"]
-    # post_ln: mean pooling does not reach it (a zero gradient, and a decay
-    # of lr x weight_decay that rounds away)
-    embeds = ("patch_embed.", "cls_token", "pos_embed", "pre_ln.")
-    same, moved = [], []
-    for n, p in module.named_parameters():
-        block = int(n.split(".")[1]) if n.startswith("blocks.") else None
-        changed = not torch.equal(p.detach(), before[n])
-        if block is not None and block < first and changed:
-            moved.append(n)
-        if ((block is not None and block >= first) or n.startswith(embeds)) \
-                and not changed:
-            same.append(n)
-    if moved or same:
-        raise RuntimeError(f"[probe e2e] frozen parameters moved {moved[:8]}"
-                           f", trained ones did not {same[:8]}")
+    _check_trained(torch, "[probe e2e]", module, before, first)
     n_train = sum(p.numel() for p in module.parameters() if p.requires_grad)
     print(f"[probe e2e llava fp32] blocks {first}-{CLIP_BLOCKS - 1} and the "
           f"embeddings unfrozen ({n_train} parameters): {steps} steps of "
@@ -1006,6 +1068,367 @@ def probe_reference_phase(torch, np, gpu, card="cuda"):
         raise RuntimeError("[probe reference] card disagrees with the CPU")
 
 
+class _Tee:
+    """Writes to the real stdout and keeps a copy (a run's log lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def busy_share(torch, trainer, steps=BUSY_STEPS):
+    """``steps`` more training steps from the trainer's own loader (its
+    prefetch thread decoding and augmenting) under ``torch.profiler``: the
+    wall ms a step, the device's kernel ms a step, their ratio (the
+    device's busy share; None where the profiler saw no device time) and
+    the largest kernels (ms a step, launches a step)."""
+    from torch.profiler import ProfilerActivity, profile
+    batches = iter(trainer.train_loader)
+    next(batches)                 # the prefetch thread is running
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_batch(next(batches))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    batches.close()
+    rows = sorted(((e.self_device_time_total / 1e3 / steps, e.count / steps,
+                    e.key) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA")
+                   and e.self_device_time_total > 0), reverse=True)
+    dev = sum(r[0] for r in rows)
+    top = "; ".join(f"{k[:48]} {ms:.1f} ({n:g})" for ms, n, k in rows[:5])
+    return wall, dev, (dev / wall if dev > 0 else None), top
+
+
+def _step_line(st, peak, busy):
+    wall, dev, share, top = busy
+    step_ms = st["train_s"] / st["train_steps"] * 1e3
+    share = "not measured" if share is None else f"{share:.3f}"
+    return (f"{st['train_steps']} steps of {PROBE_E2E_BATCH} in "
+            f"{st['train_s']:.2f} s: {step_ms:.1f} ms a step, "
+            f"{st['train_images'] / st['train_s']:.1f} images/s; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; {BUSY_STEPS} more "
+            f"steps profiled: {wall:.1f} ms a step, device {dev:.1f} ms, "
+            f"busy share {share}; largest kernels, ms (launches) a step: "
+            f"{top}")
+
+
+def probe_multi_phase(torch, gpu, tmp, base):
+    """``train_probe --profile multi`` at batch 32 for 2 epochs; returns
+    the launches, the project root and the run name."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.scripts import train_probe
+    root = probe_root(tmp, "probe_multi", base)
+    path, cfg = probe_config(root, base, "train_probe.yaml", **{
+        "train.epochs": 2, "data.batch_size": PROBE_E2E_BATCH})
+    trainer = train_probe.build_trainer(["--config", str(path), "--profile",
+                                         "multi"])
+    if len(trainer.train_loader.dataset) != PROBE_MULTI_TRAIN or \
+            not trainer.use_sampler or trainer.augment is None:
+        raise RuntimeError(f"[probe multi] {len(trainer.train_loader.dataset)}"
+                           f" train rows, sampler {trainer.use_sampler}")
+    module = trainer.probe.backbone.module
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
+    _lib.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_lib.launches), dict(_lib.plain_calls)
+    recomputes = dict(_lib.recomputes)
+    peak = torch.cuda.max_memory_allocated()
+    st = trainer.last_stats
+    steps = st["train_steps"]
+    val = 2 * -(-PROBE_SPLITS["val"] // PROBE_E2E_BATCH)
+    _check_launches("[probe multi]", launches, plain, {
+        "flash_attention_diff_fp32": CLIP_BLOCKS * steps,
+        "flash_attention_fp32": CLIP_BLOCKS * (steps + val),
+        "normalize_fp32": steps + val})
+    if steps != 2 * -(-PROBE_MULTI_TRAIN // PROBE_E2E_BATCH) or \
+            recomputes["flash_attention_diff_fp32"] != CLIP_BLOCKS * steps:
+        raise RuntimeError(f"[probe multi] {steps} steps, recomputes "
+                           f"{recomputes}")
+    # epoch 2 ran on the loss EMA's task weights: logged, mean 1, not the
+    # static ones
+    w = trainer.current_task_weights
+    static = trainer.static_task_weights
+    if "[Weights][Epoch 2]" not in tee.text() or \
+            abs(sum(w.values()) / len(w) - 1.0) > 1e-9 or \
+            max(abs(w[t] - static[t]) for t in w) < 1e-6 or \
+            any(trainer.rm.get(t) is None for t in w):
+        raise RuntimeError(f"[probe multi] epoch-2 task weights {w}")
+    first = CLIP_BLOCKS - cfg["multi"]["model"]["backbone"]["unfreeze_last_k"]
+    _check_trained(torch, "[probe multi]", module, before, first)
+    del before
+    busy = busy_share(torch, trainer)
+    print(f"[probe multi llava fp32] {'/'.join(trainer.tasks)} over one "
+          f"tower, {PROBE_MULTI_TRAIN} balanced train rows, the weighted "
+          f"sampler and augmentation, blocks {first}-{CLIP_BLOCKS - 1} and "
+          f"the embeddings unfrozen: {_step_line(st, peak, busy)}; epoch-2 "
+          f"task weights {({t: round(v, 4) for t, v in w.items()})}; "
+          f"losses {trainer.history}; blocks 0-{first - 1} bitwise as "
+          f"built; {wall:.1f} s in all ({gpu})")
+    print(f"[probe multi llava fp32] launches {launches}, recomputes "
+          f"{recomputes}")
+    run_name = trainer.run_name
+    del trainer, module
+    torch.cuda.empty_cache()
+    return launches, root, run_name
+
+
+def probe_lora_phase(torch, gpu, tmp, base):
+    """The single profile with the shipped ``lora:`` block enabled, the
+    tower frozen, at batch 32 for an epoch; returns the launches and the
+    project root."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.probing.train.utils import load_tensors
+    from vlm_tpu_torch.scripts import train_probe
+    root = probe_root(tmp, "probe_lora", base)
+    path, cfg = probe_config(root, base, "train_probe.yaml", **{
+        "train.epochs": 1, "data.batch_size": PROBE_E2E_BATCH,
+        "model.lora.enabled": True})
+    trainer = train_probe.build_trainer(["--config", str(path)])
+    spec = trainer.lora_spec
+    adapted = sorted({int(n.split(".")[1]) for n in trainer.lora})
+    if spec["last_k"] != LORA_BLOCKS or not trainer.probe.fully_frozen or \
+            trainer.use_feature_cache or \
+            adapted != list(range(CLIP_BLOCKS - LORA_BLOCKS, CLIP_BLOCKS)):
+        raise RuntimeError(f"[probe lora] spec {spec}, adapted {adapted}")
+    module = trainer.probe.backbone.module
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _lib.reset_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_lib.launches), dict(_lib.plain_calls)
+    recomputes = dict(_lib.recomputes)
+    peak = torch.cuda.max_memory_allocated()
+    st = trainer.last_stats
+    steps = st["train_steps"]
+    val = -(-PROBE_SPLITS["val"] // PROBE_E2E_BATCH)
+    _check_launches("[probe lora]", launches, plain, {
+        "flash_attention_diff_fp32": LORA_BLOCKS * steps,
+        "flash_attention_fp32": CLIP_BLOCKS * (steps + val),
+        "normalize_fp32": steps + val})
+    if steps != -(-PROBE_SPLITS["train"] // PROBE_E2E_BATCH) or \
+            recomputes["flash_attention_diff_fp32"] != LORA_BLOCKS * steps:
+        raise RuntimeError(f"[probe lora] {steps} steps, recomputes "
+                           f"{recomputes}")
+    moved = [n for n, p in module.named_parameters()
+             if not torch.equal(p.detach(), before[n]) or p.grad is not None]
+    zero_b = [n for n, ab in trainer.lora.items() if not ab["B"].any()]
+    saved = load_tensors(trainer.model_file)
+    n_lora = sum(k.startswith("lora.") for k in saved)
+    if moved or zero_b or n_lora != 2 * len(trainer.lora) or \
+            any(k.startswith("backbone.") for k in saved):
+        raise RuntimeError(f"[probe lora] base weights moved {moved[:8]}, "
+                           f"B still zero {zero_b[:8]}, checkpoint "
+                           f"{sorted(saved)[:8]}")
+    del before
+    busy = busy_share(torch, trainer)
+    n_adapter = sum(t.numel() for ab in trainer.lora.values()
+                    for t in ab.values())
+    print(f"[probe lora llava fp32] rank {spec['rank']}, alpha "
+          f"{spec['alpha']}, {len(trainer.lora)} adapters on blocks "
+          f"{adapted} ({n_adapter} parameters), the tower frozen: "
+          f"{_step_line(st, peak, busy)}; losses {trainer.history}; every "
+          f"base weight bitwise as built, every B moved; the checkpoint "
+          f"holds {n_lora} adapter tensors and no tower; {wall:.1f} s in "
+          f"all ({gpu})")
+    print(f"[probe lora llava fp32] launches {launches}, recomputes "
+          f"{recomputes}")
+    del trainer, module
+    torch.cuda.empty_cache()
+    return launches, root
+
+
+def probe_multi_test_phase(torch, gpu, multi_root, lora_root, base,
+                           run_name):
+    """``test_probe --profile multi`` on the multi checkpoint, then the
+    single tester on the LoRA checkpoint."""
+    from vlm_tpu_torch.data.dataset_factory import DatasetFactory
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.scripts import test_probe
+    n = PROBE_SPLITS["test"]
+    total = dict.fromkeys(_lib.KERNELS, 0)
+    lines = []
+    for root, profile in ((multi_root, "multi"), (lora_root, "single")):
+        os.environ["VLM_TPU_ROOT"] = str(root)
+        path, cfg = probe_config(root, base, "test_probe.yaml")
+        _lib.reset_counts()
+        t0 = time.perf_counter()
+        tester = test_probe.main(["--config", str(path), "--profile",
+                                  profile])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_lib.launches), dict(_lib.plain_calls)
+        recomputes = dict(_lib.recomputes)
+        tasks = list(tester.iter_tasks())
+        batches = len(tasks) * -(-n // cfg["common"]["data"]["batch_size"])
+        _check_launches(f"[probe {profile} test]", launches, plain, {
+            "flash_attention_fp32": CLIP_BLOCKS * batches,
+            "normalize_fp32": batches, "flash_attention_diff_fp32": 0})
+        if any(recomputes.values()):
+            raise RuntimeError(f"[probe {profile} test] recomputes "
+                               f"{recomputes}")
+        for k, v in launches.items():
+            total[k] += v
+        ds = DatasetFactory.create_dataset("TestDataset", split="test",
+                                           base_path=str(base))
+        images = [ds[i][0] for i in range(len(ds))]
+        direct = tester.model.predict(images)
+        accs = {}
+        for t in tasks:
+            out = root / "probing" / ("multitask_probing" if profile ==
+                                      "multi" else "linear_probing") / \
+                "eval" / (run_name if profile == "multi" else
+                          "llava_fp32_linear") / t / "TestDataset"
+            preds = json.loads((out / "preds.json").read_text())
+            gts = json.loads((out / "gts.json").read_text())
+            metrics = json.loads((out / "metrics.json").read_text())
+            want = direct[t] if profile == "multi" else direct
+            if len(preds) != n or len(gts) != n or \
+                    [p[t] for p in preds] != want.tolist():
+                raise RuntimeError(f"[probe {profile} test] {t}: preds "
+                                   f"differ from the probe's own argmax")
+            accs[t] = round(metrics["average_accuracy"], 4)
+        lines.append(f"{profile}: {tasks} on {n} test images in {wall:.1f} "
+                     f"s, accuracy {accs}")
+        del tester
+        torch.cuda.empty_cache()
+    print(f"[probe multi test] {'; '.join(lines)} (random weights); preds "
+          f"= each head's argmax; the LoRA tester merged its adapters at "
+          f"load: no differentiable form ({gpu})")
+    return total
+
+
+def probe_multi_reference_phase(torch, np, gpu, card="cuda"):
+    """A depth-cut CLIP-L/336 (2 blocks, full width), three heads (dropout
+    0), LoRA on the last block's attention with A and B drawn nonzero from
+    a seed (training starts B at zero, where A's first gradient is zero in
+    exact arithmetic), and uncertainty weighting, on the ``card`` and on
+    the CPU from the same weights: one step's loss and the gradients of
+    A, B, the log-variances and the heads, fp32 on both sides."""
+    from vlm_tpu_torch.models.backbone import VisionBackbone
+    from vlm_tpu_torch.models.configs import VLM_CONFIGS
+    from vlm_tpu_torch.models.layers import init_random_
+    from vlm_tpu_torch.models.vit import ViTEncoder
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.preprocess import RECIPES
+    from vlm_tpu_torch.probing.lora import (lora_features, lora_named,
+                                            resolve_lora)
+    from vlm_tpu_torch.probing.probes import MultiTaskProbe
+    from vlm_tpu_torch.probing.train.losses import UncertaintyWeighter
+    from vlm_tpu_torch.probing.train.multitask_trainer import \
+        multitask_losses
+    from vlm_tpu_torch.probing.train.utils import get_num_classes_for_task
+    full = VLM_CONFIGS["llava"]("7b")
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, layers=2))
+    tasks = {t: get_num_classes_for_task(t) for t in PROBE_TASKS}
+    rng = np.random.default_rng(5)
+    u8 = rng.integers(0, 256, (4, 336, 336, 3), dtype=np.uint8)
+    ys = {"age": np.array([0, 3, 8, -1]), "gender": np.array([1, -1, 0, 1]),
+          "emotion": np.array([-1, 6, 2, -1])}
+    cw = {t: np.linspace(0.5, 1.5, n).astype(np.float32)
+          for t, n in tasks.items()}
+    b_draws = None
+    runs = {}
+    for dev in (card, "cpu"):
+        tower = ViTEncoder(cfg.vision, dtype=torch.float32, device=dev)
+        bb = VisionBackbone(cfg, tower, torch.float32, RECIPES["llava"])
+        probe = MultiTaskProbe(bb, tasks, dropout_p=0.0, seed=3)
+        # the card's weights (the heads' too: a generator on the card
+        # draws other values than one on the CPU) copied to the CPU
+        if dev == card:
+            init_random_(tower, seed=2)
+            state = {k: v.cpu() for k, v in probe.state_tensors(
+                with_backbone=False).items()}
+            state.update({f"tower.{k}": v.cpu()
+                          for k, v in tower.state_dict().items()})
+        else:
+            tower.load_state_dict({k[len("tower."):]: v
+                                   for k, v in state.items()
+                                   if k.startswith("tower.")})
+            probe.load_state_tensors(state, with_backbone=False)
+        spec, lora = resolve_lora({"lora": {"enabled": True, "last_k": 1}},
+                                  bb, seed=4)
+        if b_draws is None:
+            gen = torch.Generator().manual_seed(6)
+            b_draws = {n: 0.02 * torch.randn(ab["B"].shape, generator=gen)
+                       for n, ab in lora.items()}
+        log_vars = UncertaintyWeighter(list(tasks)).init_params(dev)
+        with torch.no_grad():
+            for n, ab in lora.items():
+                ab["B"].copy_(b_draws[n])
+            for v, s_t in zip(log_vars.values(), (0.1, -0.2, 0.3)):
+                v.fill_(s_t)
+        _lib.reset_counts()
+        losses = multitask_losses(
+            probe, torch.from_numpy(u8), ys,
+            {t: torch.from_numpy(w).to(dev) for t, w in cw.items()},
+            train=True, features=lora_features(bb, spec, lora))
+        total = UncertaintyWeighter.combine(log_vars, losses)
+        total.backward()
+        named = {**{f"heads.{t}.{n}": p
+                    for t, clf in probe.classifiers.items()
+                    for n, p in clf.named_parameters()},
+                 **{f"log_vars.{t}": v for t, v in log_vars.items()},
+                 **lora_named(lora)}
+        runs[dev] = (float(total.detach()),
+                     {n: p.grad.cpu() for n, p in named.items()
+                      if p.grad is not None},
+                     dict(_lib.launches), dict(_lib.recomputes),
+                     sum(p.grad is not None for p in tower.parameters()))
+    _lib.reset_counts()
+    (card_loss, grads, launches, recomputes, base_grads), \
+        (cpu_loss, ref, _, _, _) = runs[card], runs["cpu"]
+    if launches["flash_attention_diff_fp32"] != 1 or \
+            launches["flash_attention_fp32"] != 2 or \
+            recomputes["flash_attention_diff_fp32"] != 1 or base_grads or \
+            set(grads) != set(ref) or len(grads) != len(named):
+        raise RuntimeError(f"[probe multi reference] launches {launches}, "
+                           f"recomputes {recomputes}, base gradients "
+                           f"{base_grads}, gradients "
+                           f"{sorted(set(named) - set(grads))}")
+    if not grads["lora.blocks.1.attn.q_proj.A"].abs().max() > 0:
+        raise RuntimeError("[probe multi reference] no gradient reached A "
+                           "of q_proj through B1")
+    worst, worst_name = abs(card_loss - cpu_loss) / abs(cpu_loss), "loss"
+    for n, g in ref.items():
+        err = float((grads[n] - g).abs().max()) / float(g.abs().max())
+        if err > worst:
+            worst, worst_name = err, n
+    print(f"[probe multi reference] depth-cut CLIP-L/336 (2 blocks, full "
+          f"width), heads {list(tasks)}, LoRA on block 1's attention (A "
+          f"and B nonzero), uncertainty weighting, one step: loss "
+          f"{card_loss:.6f} (cpu {cpu_loss:.6f}), {len(ref)} gradients, max "
+          f"|card - cpu| / max|cpu| = {worst:.3e} at {worst_name} (tol "
+          f"{REF_TOL_FP32:.0e}); B1's differentiable form in block 1 only "
+          f"({gpu})")
+    if not worst <= REF_TOL_FP32:
+        raise RuntimeError("[probe multi reference] card disagrees with the "
+                           "CPU")
+
+
 def probe_phases(torch, np, gpu, launches, tmp):
     """The probing phases, adding their launch counts into ``launches``."""
     t0 = time.perf_counter()
@@ -1024,6 +1447,22 @@ def probe_phases(torch, np, gpu, launches, tmp):
     t1 = time.perf_counter()
     probe_reference_phase(torch, np, gpu)
     print(f"[time] probe reference {time.perf_counter() - t1:.1f} s")
+    for phase in ("multi", "lora", "multi test"):
+        t1 = time.perf_counter()
+        if phase == "multi":
+            path, multi_root, multi_run = probe_multi_phase(torch, gpu, tmp,
+                                                            base)
+        elif phase == "lora":
+            path, lora_root = probe_lora_phase(torch, gpu, tmp, base)
+        else:
+            path = probe_multi_test_phase(torch, gpu, multi_root, lora_root,
+                                          base, multi_run)
+        for name, n in path.items():
+            launches[name] += n
+        print(f"[time] probe {phase} {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    probe_multi_reference_phase(torch, np, gpu)
+    print(f"[time] probe multi reference {time.perf_counter() - t1:.1f} s")
     print(f"[time] probing {time.perf_counter() - t0:.1f} s")
 
 

@@ -772,3 +772,50 @@ def test_serving_launches_unchanged_by_the_differentiable_form(card):
     assert counts[1]["flash_attention"] > 0
     assert counts[1]["flash_attention_diff"] == 0
     assert sum(_lib.recomputes.values()) == 0
+
+
+def test_lora_step_takes_b1_diff_only_in_the_adapted_blocks(card):
+    """A LoRA step on a depth-cut CLIP-L/336 (3 blocks, full width, fp32),
+    adapters on the last 2 blocks with B drawn nonzero: B1's
+    differentiable form launches (and recomputes) in those 2 blocks only,
+    its no-grad form in block 0; the gradient reaches A of every adapted
+    q_proj through the kernel's forward; the base weights get none and
+    stay as built."""
+    import dataclasses
+    from vlm_tpu_torch.models.backbone import VisionBackbone
+    from vlm_tpu_torch.models.configs import VLM_CONFIGS
+    from vlm_tpu_torch.models.layers import init_random_
+    from vlm_tpu_torch.models.vit import ViTEncoder
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.preprocess import RECIPES
+    from vlm_tpu_torch.probing.lora import lora_features, resolve_lora
+    full = VLM_CONFIGS["llava"]("7b")
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, layers=3))
+    tower = init_random_(ViTEncoder(cfg.vision, dtype=torch.float32,
+                                    device=card), seed=1)
+    bb = VisionBackbone(cfg, tower, torch.float32, RECIPES["llava"])
+    spec, lora = resolve_lora({"lora": {"enabled": True, "last_k": 2}}, bb,
+                              seed=0)
+    assert sorted({n.split(".")[1] for n in lora}) == ["1", "2"]
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for ab in lora.values():
+            ab["B"].copy_(0.02 * torch.randn(ab["B"].shape, generator=gen))
+    base = {n: p.detach().clone() for n, p in tower.named_parameters()}
+    u8 = torch.randint(0, 256, (2, 336, 336, 3), dtype=torch.uint8,
+                       generator=gen).to(card)
+    _lib.reset_counts()
+    feats = lora_features(bb, spec, lora)(bb.to_pixels(u8))
+    feats.square().mean().backward()
+    torch.cuda.synchronize()
+    assert _lib.launches["flash_attention_diff_fp32"] == 2
+    assert _lib.recomputes["flash_attention_diff_fp32"] == 2
+    assert _lib.launches["flash_attention_fp32"] == 3
+    assert sum(_lib.plain_calls.values()) == 0
+    for i in (1, 2):
+        for k in ("A", "B"):
+            g = lora[f"blocks.{i}.attn.q_proj"][k].grad
+            assert g is not None and float(g.abs().max()) > 0
+    for n, p in tower.named_parameters():
+        assert p.grad is None and torch.equal(p, base[n]), n

@@ -7,8 +7,8 @@ prefill, then 4bit with an int4 tower, then LLaVA in fp32, then BLIP-2 in
 the 8bit recipe with the int8 tower and cache), and others run the port's
 CLI ``main()`` on a synthetic dataset with ``VLM_TPU_PLATFORM=cpu``, for
 PaliGemma, LLaVA and BLIP-2, and the probing CLIs' ``main()`` (train in
-both modes, then test). None imports triton or builds the kernel
-library."""
+both modes, then test; the multi-task profile and LoRA, then their
+testers). None imports triton or builds the kernel library."""
 
 import json
 import subprocess
@@ -100,6 +100,10 @@ def test_port_imports_and_runs_without_jax(tmp_path):
             "vlm_tpu_torch.probing.heads", "vlm_tpu_torch.probing.probes",
             "vlm_tpu_torch.probing.train.singletask_trainer",
             "vlm_tpu_torch.probing.test.singletask_tester",
+            "vlm_tpu_torch.probing.lora",
+            "vlm_tpu_torch.probing.train.losses",
+            "vlm_tpu_torch.probing.train.multitask_trainer",
+            "vlm_tpu_torch.probing.test.multitask_tester",
             "vlm_tpu_torch.scripts.train_probe",
             "vlm_tpu_torch.scripts.test_probe"} <= set(res["modules"])
     for toks in (res["tokens"], res["tokens8"], res["tokens4"],
@@ -298,5 +302,79 @@ def test_port_probing_clis_run_without_jax(tmp_path):
     assert res["loaded"] == [] and not res["lib_loaded"]
     assert res["runs"] == {"cache": [True, 1], "e2e": [False, 1]}
     out = tmp_path / "probing" / "linear_probing" / "eval" / \
+        "llava_fp32_linear" / "age" / "TestDataset"
+    assert len(json.loads((out / "preds.json").read_text())) == 8
+
+
+MULTI = BLOCKER + r"""
+import json, os, sys
+import torch
+torch.set_num_threads(1)
+from vlm_tpu_torch.ops import _lib
+from vlm_tpu_torch.scripts import test_probe, train_probe
+runs = {}
+for name, profile in (("multi", "multi"), ("lora", "single")):
+    os.environ["VLM_TPU_ROOT"] = os.environ[f"ROOT_{name}"]
+    trainer = train_probe.main(["--config", os.environ[f"TRAIN_{name}"],
+                                "--profile", profile])
+    tester = test_probe.main(["--config", os.environ["TEST_CONFIG"],
+                              "--profile", profile])
+    runs[name] = [type(trainer).__name__, bool(trainer.lora_spec),
+                  len(trainer.history["train"]), type(tester).__name__]
+print(json.dumps({"runs": runs, "lib_loaded": _lib._lib is not None,
+                  "loaded": sorted(m for m in ("jax", "flax", "optax",
+                                               "triton", "vlm_tpu")
+                                   if m in sys.modules)}))
+"""
+
+
+def test_port_multitask_and_lora_clis_run_without_jax(tmp_path):
+    """The port's ``train_probe`` and ``test_probe`` with ``--profile
+    multi`` (age, gender and emotion, the profile's backbone block,
+    augmentation and the sampler) and the single profile with LoRA, from
+    the shipped configs at size "test" on the CPU, each in a project root
+    of its own, with ``vlm_tpu``, ``jax``, ``flax`` and ``optax``
+    unimportable."""
+    from tests.conftest import make_face_dataset
+    base = tmp_path / "datasets"
+    rows = [{"gender": i % 2, "age": 3 + 9 * i, "emotion": i % 7}
+            for i in range(8)]
+    for split in ("train", "val", "test"):
+        make_face_dataset(base, "TestDataset", split, rows)
+    env = {}
+    for name in ("multi", "lora"):
+        root = tmp_path / name
+        (root / "configs").mkdir(parents=True)
+        (root / "configs" / "task_datasets.yaml").write_text(yaml.safe_dump(
+            {s: {t: ["TestDataset"] for t in ("age", "gender", "emotion")}
+             for s in ("train", "val", "test")}))
+        cfg = yaml.safe_load((REPO / "configs" / "train_probe.yaml")
+                             .read_text())
+        cfg["common"]["model"]["size"] = "test"
+        cfg["common"]["model"]["lora"]["enabled"] = name == "lora"
+        cfg["common"]["data"].update(base_path=str(base), batch_size=4)
+        cfg["common"]["train"]["epochs"] = 1
+        path = tmp_path / f"train_{name}.yaml"
+        path.write_text(yaml.safe_dump(cfg))
+        env[f"TRAIN_{name}"] = str(path)
+        env[f"ROOT_{name}"] = str(root)
+    test_cfg = yaml.safe_load((REPO / "configs" / "test_probe.yaml")
+                              .read_text())
+    test_cfg["common"]["data"]["base_path"] = str(base)
+    (tmp_path / "test.yaml").write_text(yaml.safe_dump(test_cfg))
+    proc = _run(MULTI, tmp_path, VLM_TPU_PLATFORM="cpu",
+                TEST_CONFIG=str(tmp_path / "test.yaml"), **env)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and not res["lib_loaded"]
+    assert res["runs"] == {
+        "multi": ["MultiTaskTrainer", False, 1, "MultiTaskTester"],
+        "lora": ["SingleTaskTrainer", True, 1, "SingleTaskTester"]}
+    for task in ("age", "gender", "emotion"):
+        out = tmp_path / "multi" / "probing" / "multitask_probing" / \
+            "eval" / "llava_fp32_age-gender-emotion_linear" / task / \
+            "TestDataset"
+        assert len(json.loads((out / "preds.json").read_text())) == 8
+    out = tmp_path / "lora" / "probing" / "linear_probing" / "eval" / \
         "llava_fp32_linear" / "age" / "TestDataset"
     assert len(json.loads((out / "preds.json").read_text())) == 8

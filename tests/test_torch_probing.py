@@ -587,20 +587,29 @@ def test_clis_train_then_test(env, e2e):
 
 
 def test_clis_refuse_what_is_not_ported(env):
+    """What the port still refuses through the CLIs: a mesh of more than
+    one device (ROADMAP A17) in either profile and either CLI, and LoRA on
+    a quantized tower (as ``vlm_tpu``: no float weight to adapt). The
+    multi-task profile and LoRA run (``tests/test_torch_multitask.py``,
+    ``tests/test_torch_lora.py``)."""
     root, base = env
     train_yaml, test_yaml = _write_cli_configs(root, base)
-    with pytest.raises(NotImplementedError, match="A16b"):
-        t_train_cli.main(["--config", str(train_yaml), "--profile", "multi"])
-    with pytest.raises(NotImplementedError, match="A16b"):
-        t_test_cli.main(["--config", str(test_yaml), "--profile", "multi"])
-    lora_yaml, _ = _write_cli_configs(root, base, lora={"enabled": True})
-    with pytest.raises(NotImplementedError, match="A16b"):
+    for path in (train_yaml, test_yaml):
+        mesh = yaml.safe_load(path.read_text())
+        mesh["common"]["mesh"] = {"data": 2, "model": 1}
+        path.write_text(yaml.safe_dump(mesh))
+    for profile in ("single", "multi"):
+        with pytest.raises(ValueError):
+            t_train_cli.main(["--config", str(train_yaml), "--profile",
+                              profile])
+        with pytest.raises(ValueError):
+            t_test_cli.main(["--config", str(test_yaml), "--profile",
+                             profile])
+    lora_yaml, _ = _write_cli_configs(root, base, quantization="8bit",
+                                      quantize_vision=True,
+                                      lora={"enabled": True})
+    with pytest.raises(ValueError, match="quantized vision tower"):
         t_train_cli.main(["--config", str(lora_yaml)])
-    mesh = yaml.safe_load(train_yaml.read_text())
-    mesh["common"]["mesh"] = {"data": 2, "model": 1}
-    train_yaml.write_text(yaml.safe_dump(mesh))
-    with pytest.raises(ValueError):
-        t_train_cli.main(["--config", str(train_yaml)])
 
 
 # ------------------------- the copied helpers -------------------------

@@ -1,6 +1,5 @@
 """Dataset registry and task-to-datasets map: the port's own copy of
-``vlm_tpu/data/dataset_factory.py`` but for the balanced dataset, which
-waits for the multi-task trainer (ROADMAP A16b).
+``vlm_tpu/data/dataset_factory.py``.
 
 ``DatasetFactory.create_dataset(name, split, base_path, transform)``
 builds a registered face or MiviaPar dataset, with the same registry, the
@@ -9,7 +8,9 @@ same duplicate-registration check and the same error for an unknown name.
 the project root (cached per resolved path, with the same validation);
 ``create_multi_task_dataset`` instantiates the datasets a list of tasks
 needs once each, concatenated, with per-task class counts
-(:func:`aggregate_counts_from_datasets`).
+(:func:`aggregate_counts_from_datasets`);
+``create_balanced_multi_task_dataset`` wraps that in the duplication
+balancer (the base dataset's counts returned).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import numpy as np
 
 from .face_dataset import FaceDataset
 from .mivia_par_dataset import MiviaParDataset
-from .multitask_dataset import MultiTaskDataset
+from .multitask_dataset import BalancedMultiTaskDataset, MultiTaskDataset
 
 
 def aggregate_counts_from_datasets(
@@ -233,6 +234,36 @@ class DatasetFactory:
             counts_per_task[t] = aggregate_counts_from_datasets(
                 mtd, t, num_classes=num_classes.get(t))
         return mtd, counts_per_task
+
+
+    @staticmethod
+    def create_balanced_multi_task_dataset(
+        tasks: Iterable[str],
+        split: str = "train",
+        *,
+        desired_fractions: Dict[str, float],
+        base_path=None,
+        transform=None,
+        num_classes: Optional[Dict[str, int]] = None,
+        duplicate_transform=None,
+        random_seed: Optional[int] = 0,
+        **kwargs,
+    ) -> Tuple[BalancedMultiTaskDataset, Dict[str, Optional[np.ndarray]]]:
+        """Deduped multi-task dataset wrapped in a duplication-based balancer;
+        the returned counts are those of the *base* (pre-duplication) dataset
+        (reference: dataset_factory.py:272-307)."""
+        mtd, counts = DatasetFactory.create_multi_task_dataset(
+            tasks=tasks, split=split, base_path=base_path,
+            transform=transform, num_classes=num_classes, **kwargs)
+        btd = BalancedMultiTaskDataset(
+            base_dataset=mtd,
+            tasks=[t.lower().strip() for t in tasks],
+            desired_fractions={k.lower().strip(): float(v)
+                               for k, v in desired_fractions.items()},
+            duplicate_transform=duplicate_transform,
+            random_seed=random_seed,
+        )
+        return btd, counts
 
 
 for _cls in DatasetFactory._registered_dataset_classes:

@@ -1,15 +1,16 @@
 """Multi-task dataset composition: the port's own copy of
-``MultiTaskDataset`` from ``vlm_tpu/data/multitask_dataset.py`` (a
+``vlm_tpu/data/multitask_dataset.py``: ``MultiTaskDataset`` (a
 concatenation of datasets with per-task label and class-count metadata
-read without decoding images), which the single-task trainer builds its
-data through. ``BalancedMultiTaskDataset`` waits for the multi-task
-trainer (ROADMAP A16b).
+read without decoding images), which both trainers build their data
+through, and ``BalancedMultiTaskDataset``, the multi-task trainer's
+training set (samples with a task's label duplicated up to a fraction).
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+import random
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 
@@ -149,3 +150,109 @@ class MultiTaskDataset:
                 arr = tmp
             agg += arr
         return agg
+
+
+class BalancedMultiTaskDataset:
+    """Wraps a base dataset and *duplicates* samples with a valid label per
+    task until a desired valid fraction is met
+    (reference: multitask_dataset.py:139-241).
+
+    The extended index is ``[(base_idx, is_dup)]``; ``duplicate_transform``
+    applies to duplicated samples only. ``to_add = round((d·N − c)/(1 − d))``
+    (reference: multitask_dataset.py:235). The draws come from an instance
+    ``random.Random(random_seed)``, so a seed gives ``vlm_tpu``'s index.
+    """
+
+    def __init__(
+        self,
+        base_dataset: Any,
+        *,
+        tasks: Iterable[str],
+        desired_fractions: Dict[str, float],
+        duplicate_transform: Optional[Callable[[Any], Any]] = None,
+        random_seed: Optional[int] = 0,
+    ) -> None:
+        self.base = base_dataset
+        self.tasks = [t.lower().strip() for t in tasks]
+        self.desired = {k.lower().strip(): float(v)
+                        for k, v in desired_fractions.items()}
+        self._dup_tf = duplicate_transform
+        self._rng = random.Random(int(random_seed)) \
+            if random_seed is not None else random.Random()
+        self._labels_cache: Dict[str, np.ndarray] = {
+            t: self._compute_labels(t) for t in self.tasks}
+        self._index: List[Tuple[int, bool]] = [
+            (i, False) for i in range(len(self.base))]
+        self._apply_balancing()
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def __getitem__(self, i: int):
+        idx, is_dup = self._index[i]
+        sample = self.base[idx]
+        if is_dup and self._dup_tf is not None:
+            if isinstance(sample, (tuple, list)) and len(sample) >= 2:
+                return (self._dup_tf(sample[0]), sample[1])
+            return self._dup_tf(sample)
+        return sample
+
+    # --------- bulk metadata (extended index order) ---------
+    def extended_index(self) -> List[Tuple[int, bool]]:
+        return list(self._index)
+
+    def get_all_labels(self, task: str) -> np.ndarray:
+        t = task.lower().strip()
+        base = self._labels_cache.get(t)
+        if base is None:
+            base = self._compute_labels(t)
+        return np.asarray([base[i] for i, _ in self._index], dtype=np.int64)
+
+    def labels_list(self) -> List[Any]:
+        base = self.base.labels_list() if hasattr(self.base, "labels_list") \
+            else [_labels_from_raw_sample(self.base[i])
+                  for i in range(len(self.base))]
+        return [base[i] for i, _ in self._index]
+
+    def image_paths(self) -> List[Any]:
+        base = self.base.image_paths()
+        return [base[i] for i, _ in self._index]
+
+    # ------------------------------ internals ------------------------------
+    def _compute_labels(self, t: str) -> np.ndarray:
+        if hasattr(self.base, "get_all_labels"):
+            arr = np.asarray(self.base.get_all_labels(t), dtype=np.int64)
+        else:
+            arr = np.asarray([_extract_label(
+                _labels_from_raw_sample(self.base[i]) or {}, t)
+                for i in range(len(self.base))], dtype=np.int64)
+        if arr.ndim != 1 or len(arr) != len(self.base):
+            raise ValueError(f"{t}: {arr.shape} labels for "
+                             f"{len(self.base)} samples")
+        return arr
+
+    def _apply_balancing(self) -> None:
+        original_len = len(self._index)
+        for t, desired in self.desired.items():
+            if not (0.0 < desired < 1.0):
+                raise ValueError(
+                    f"desired_fractions['{t}'] must be in (0,1), got "
+                    f"{desired}")
+            if t not in self.tasks:
+                # the multi-task trainer always asks for emotion balancing;
+                # a run without that task has nothing to balance
+                continue
+            labels = self._labels_cache[t]
+            valid_idx = [i for i, v in enumerate(labels)
+                         if int(v) != MISSING_LABEL]
+            c = len(valid_idx)
+            frac = c / float(original_len) if original_len > 0 else 0.0
+            if frac >= desired or original_len == 0:
+                continue
+            to_add = int(round((desired * original_len - c)
+                               / max(1e-8, 1.0 - desired)))
+            if to_add <= 0:
+                continue
+            chosen = self._rng.choices(valid_idx, k=to_add)
+            self._index.extend((j, True) for j in chosen)
+        self._rng.shuffle(self._index)

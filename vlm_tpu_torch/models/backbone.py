@@ -7,13 +7,14 @@ already normalised pixels. Freeze/unfreeze sets ``requires_grad`` on the
 tower's parameters, selected by ``vlm_tpu``'s key sets matched against the
 port's names (``blocks.<i>.attn.q_proj.weight``, ``patch_embed.weight``,
 ...); the tower is built all frozen, as every model of the port.
+``get_lora_target_names`` selects LoRA's layers by the same key sets.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import List, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,14 +55,22 @@ class VisionBackbone:
         return self.module.pos_embed.device
 
     # ------------------------- forward -------------------------
-    def features(self, pixels: torch.Tensor,
-                 pooling: Optional[str] = None) -> torch.Tensor:
+    def features(self, pixels: torch.Tensor, pooling: Optional[str] = None,
+                 params: Optional[Mapping[str, torch.Tensor]] = None
+                 ) -> torch.Tensor:
         """The differentiable path: normalised pixels (NHWC or patch
-        vectors) -> pooled ``[B, D]``."""
+        vectors) -> pooled ``[B, D]``. ``params`` (names -> tensors) stand
+        in for the tower's own through ``torch.func.functional_call``
+        (LoRA's merged weights)."""
         pooling = pooling or self.cfg.backbone_pooling
         if pooling not in ("pooler", "cls", "mean"):
             raise ValueError(f"unsupported pooling strategy {pooling!r}")
-        out = self.module(pixels, keep_hidden_states=False)
+        if params is None:
+            out = self.module(pixels, keep_hidden_states=False)
+        else:
+            out = torch.func.functional_call(
+                self.module, dict(params), (pixels,),
+                {"keep_hidden_states": False})
         if pooling == "pooler":
             return out["pooled"]
         if pooling == "cls":
@@ -181,3 +190,32 @@ class VisionBackbone:
                 p.requires_grad_(True)
         print(f"[unfreeze_last_k_layers] unfroze {len(selected)} layers "
               f"(indices: {sorted(selected)})")
+
+    # ------------------------- LoRA -------------------------
+    def get_lora_target_names(self, strategy: Dict) -> List[str]:
+        """The Dense layers of the last ``last_k`` blocks that take
+        adapters (``vlm_tpu``'s selection; reference llava.py:189-230):
+        the attention projections, with ``attn_only: false`` fc1 and fc2
+        too, sorted, by the port's names (``blocks.23.attn.q_proj``)."""
+        if self.quant_bits:
+            # an int8/int4 Dense holds q and scale: no float weight to merge
+            # adapters into, and a LoRA run would train nothing
+            raise ValueError(
+                "LoRA targets unavailable on a quantized vision tower "
+                f"(quant_bits={self.quant_bits}); use quantize_vision="
+                "false (the default) for LoRA fine-tuning")
+        last_k = int(strategy.get("last_k", 2))
+        attn_only = bool(strategy.get("attn_only", True))
+        n_layers = self.vit_cfg.layers
+        selected = set(range(max(0, n_layers - last_k), n_layers))
+        wanted = set(_ATTN_KEYS) if attn_only else \
+            set(_ATTN_KEYS) | set(_MLP_KEYS)
+        names = set()
+        for name, p in self.module.named_parameters():
+            m = _BLOCK.match(name)
+            if (not name.endswith(".weight") or p.dim() != 2 or m is None
+                    or int(m.group(1)) not in selected):
+                continue
+            if wanted & set(name.split(".")):
+                names.add(name[:-len(".weight")])
+        return sorted(names)

@@ -1,15 +1,20 @@
 """Probes (``vlm_tpu/probing/probes.py``): a frozen or partly unfrozen
-vision backbone and a classification head.
+vision backbone and classification heads.
 
-:class:`LinearProbe`: one head, ``forward(images) -> logits [B, C]``,
-``predict`` = argmax. ``extract_features`` runs the backbone without
-autograd while it is fully frozen (the reference's eval + no_grad switch).
-The multi-task probe is not ported yet (ROADMAP A16b).
+- :class:`LinearProbe`: one head, ``forward(images) -> logits [B, C]``;
+- :class:`MultiTaskProbe`: one head per task over the shared ``[B, D]``
+  features, ``forward(images) -> {"logits": {task: [B, C]}}``;
+- ``predict`` = argmax; ``extract_features`` runs the backbone without
+  autograd while it is fully frozen (the reference's eval + no_grad
+  switch).
+
+Checkpoint tensors: ``head.<k>`` (one head) or ``heads.<task>.<k>``, and
+the backbone's trainable parameters under ``backbone.``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -44,6 +49,26 @@ class BaseProbe:
         """The differentiable path the end-to-end steps take."""
         return self.backbone.features(pixels)
 
+    def backbone_tensors(self) -> Dict[str, torch.Tensor]:
+        """The backbone's trainable parameters under ``backbone.`` (the
+        frozen rest is the model's own weights)."""
+        return {f"backbone.{n}": p.detach() for n, p in
+                self.backbone.module.named_parameters() if p.requires_grad}
+
+    def load_backbone_tensors(self, blob: Mapping[str, torch.Tensor]) -> None:
+        """Copy the ``backbone.`` tensors of ``blob`` into the tower."""
+        params = dict(self.backbone.module.named_parameters())
+        with torch.no_grad():
+            for k, v in blob.items():
+                if not k.startswith("backbone."):
+                    continue
+                name = k[len("backbone."):]
+                if name not in params or params[name].shape != v.shape:
+                    raise KeyError(f"checkpoint tensor {k} "
+                                   f"{tuple(v.shape)} fits no backbone "
+                                   f"parameter")
+                params[name].copy_(v)
+
 
 class LinearProbe(BaseProbe):
     """Single-task probe (reference ``linear_probe.py``); the head's
@@ -77,9 +102,7 @@ class LinearProbe(BaseProbe):
         out = {f"head.{k}": v for k, v in
                self.classifier.state_dict().items()}
         if with_backbone:
-            out.update({f"backbone.{n}": p.detach() for n, p in
-                        self.backbone.module.named_parameters()
-                        if p.requires_grad})
+            out.update(self.backbone_tensors())
         return out
 
     def load_state_tensors(self, blob: Mapping[str, torch.Tensor],
@@ -89,16 +112,65 @@ class LinearProbe(BaseProbe):
         head = {k[len("head."):]: v for k, v in blob.items()
                 if k.startswith("head.")}
         self.classifier.load_state_dict(head)
-        if not with_backbone:
-            return
-        params = dict(self.backbone.module.named_parameters())
+        if with_backbone:
+            self.load_backbone_tensors(blob)
+
+
+class MultiTaskProbe(BaseProbe):
+    """Shared backbone, one head per task (reference multitask_probe.py);
+    task ``i``'s head is drawn from ``seed + i``."""
+
+    def __init__(self, backbone: VisionBackbone, tasks: Dict[str, int],
+                 freeze_backbone: bool = True, dropout_p: float = 0.3,
+                 deeper_heads: bool = False, hidden_dim: int = 512,
+                 seed: int = 0):
+        super().__init__(backbone, freeze_backbone)
+        self.tasks = dict(tasks)
+        self.classifiers = {
+            t: make_head(backbone.output_dim, n, dropout_p=dropout_p,
+                         deeper=deeper_heads, hidden_dim=hidden_dim,
+                         seed=seed + i, device=backbone.device)
+            for i, (t, n) in enumerate(self.tasks.items())}
+
+    def train_heads(self, mode: bool) -> None:
+        for clf in self.classifiers.values():
+            clf.train(mode)
+
+    def apply_heads(self, feats: torch.Tensor,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """Every head's logits on ``feats``, in the heads' current mode;
+        dropout draws from ``generator`` head by head."""
+        return {t: clf(feats, generator=generator)
+                for t, clf in self.classifiers.items()}
+
+    def forward(self, images) -> Dict[str, Dict[str, torch.Tensor]]:
+        self.train_heads(False)
         with torch.no_grad():
-            for k, v in blob.items():
-                if not k.startswith("backbone."):
-                    continue
-                name = k[len("backbone."):]
-                if name not in params or params[name].shape != v.shape:
-                    raise KeyError(f"checkpoint tensor {k} "
-                                   f"{tuple(v.shape)} fits no backbone "
-                                   f"parameter")
-                params[name].copy_(v)
+            return {"logits": self.apply_heads(self.extract_features(images))}
+
+    __call__ = forward
+
+    def predict(self, images) -> Dict[str, torch.Tensor]:
+        return {t: v.argmax(dim=-1)
+                for t, v in self.forward(images)["logits"].items()}
+
+    def state_tensors(self, with_backbone: bool) -> Dict[str, torch.Tensor]:
+        """``heads.<task>.<k>`` for every head's state, and with
+        ``with_backbone`` the backbone's trainable parameters."""
+        out = {f"heads.{t}.{k}": v for t, clf in self.classifiers.items()
+               for k, v in clf.state_dict().items()}
+        if with_backbone:
+            out.update(self.backbone_tensors())
+        return out
+
+    def load_state_tensors(self, blob: Mapping[str, torch.Tensor],
+                           with_backbone: bool = True) -> None:
+        """Fill every head (each tensor required) and, with
+        ``with_backbone``, the backbone parameters the blob holds."""
+        for t, clf in self.classifiers.items():
+            pre = f"heads.{t}."
+            clf.load_state_dict({k[len(pre):]: v for k, v in blob.items()
+                                 if k.startswith(pre)})
+        if with_backbone:
+            self.load_backbone_tensors(blob)

@@ -2,7 +2,9 @@
 datasets, a batched forward and argmax per batch, per-sample ``{task:
 int}`` preds and gts, then ``Evaluator.evaluate(age_mode=
 "classification")``, which writes preds, gts, metrics and the confusion
-PNGs."""
+PNGs. A checkpoint trained with LoRA has its adapters merged into the
+tower once, in place, at load (:meth:`BaseTester._apply_lora`), so
+inference runs at the base model's speed."""
 
 from __future__ import annotations
 
@@ -24,6 +26,22 @@ class BaseTester:
         self.base_path = dcfg.get("base_path", None)
         self.batch_size = int(dcfg.get("batch_size", 128))
         self.model = None
+
+    @staticmethod
+    def _apply_lora(probe, blob, lora_cfg) -> None:
+        """Merge the checkpoint's adapters (``lora.<layer>.A`` / ``.B``)
+        into the tower when the run used LoRA: the targets and shapes from
+        the trainers' own :func:`..lora.resolve_lora`, the values from the
+        checkpoint."""
+        from ..lora import load_lora_tensors, merge_lora_, resolve_lora
+        spec, lora = resolve_lora({"lora": lora_cfg}, probe.backbone, seed=0)
+        if not spec:
+            return
+        if not any(k.startswith("lora.") for k in blob):
+            raise KeyError("head_config declares LoRA but the checkpoint "
+                           "has no lora.* tensors")
+        load_lora_tensors(lora, blob)
+        merge_lora_(probe.backbone.module, lora, spec["alpha"])
 
     def load_backbone(self):
         raise NotImplementedError

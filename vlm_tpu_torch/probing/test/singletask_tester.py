@@ -6,7 +6,8 @@ factory, loads the port's ``model.safetensors`` (:mod:`..train.utils`; a
 ``vlm_tpu`` msgpack checkpoint raises) and evaluates on ``dataset_name``,
 or with ``auto`` on the test datasets ``configs/task_datasets.yaml`` maps
 the task to. Results go to ``probing/linear_probing/eval/<model>_<quant>_
-<linear|deeper>/<task>/<dataset>`` under the project root.
+<linear|deeper>/<task>/<dataset>`` under the project root. A LoRA
+checkpoint's adapters are merged into the tower at load.
 """
 
 from __future__ import annotations
@@ -41,10 +42,7 @@ class SingleTaskTester(BaseTester):
         else:
             bb = m.get("backbone") or {}
             self.model_name = m["name"]
-        if (m.get("lora") or {}).get("enabled"):
-            raise NotImplementedError(
-                "the checkpoint was trained with LoRA, which is not ported "
-                "yet (ROADMAP A16b)")
+        self.lora_cfg = m.get("lora")
         self.quantization = m.get("quantization", "fp32")
         self.deeper_head = bool(m.get("deeper_head", False))
         self.freeze_bb = bool(bb.get("freeze", m.get("freeze_backbone",
@@ -82,6 +80,7 @@ class SingleTaskTester(BaseTester):
             raise FileNotFoundError(
                 f"No checkpoint found in {self.ckpt_from} ({MODEL_FILE})")
         probe.load_state_tensors(blob)
+        self._apply_lora(probe, blob, self.lora_cfg)
         return probe
 
     def iter_tasks(self) -> List[str]:

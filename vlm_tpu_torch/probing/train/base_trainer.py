@@ -7,8 +7,12 @@ best-only checkpoints, early stopping, resume, the history artifacts.
 - checkpoints in the port's format (:mod:`.utils`), a
   ``head_config.yaml`` snapshot for the testers, ``history.csv`` and
   ``loss_curve.png`` (drawn with Pillow);
-- a resumed run draws the shuffles of the epochs it skips, so it sees the
-  batches a straight run would.
+- a resumed run draws the shuffles (or the sampler's draws) of the epochs
+  it skips, so it sees the batches a straight run would;
+- the hooks ``on_train_epoch_start``, ``after_train_batch``,
+  ``extra_state_dicts`` and ``load_extra_state_dicts`` (the multi-task
+  trainer's task weights and loss EMAs); the extra state is saved as
+  ``extra_state.json`` beside the model file and restored with it.
 
 ``last_stats`` counts the training steps, their images and seconds (host
 wall clock, each step ending in the loss's copy to the host).
@@ -16,6 +20,7 @@ wall clock, each step ending in the loss's copy to the host).
 
 from __future__ import annotations
 
+import json
 import math
 import time
 from pathlib import Path
@@ -24,15 +29,18 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .utils import (MODEL_FILE, load_tensors, refuse_msgpack, save_tensors,
-                    save_training_state, set_seed, try_resume_training)
+from .utils import (EXTRA_FILE, GENERATOR_KEY, MODEL_FILE,
+                    load_optimizer_tensors, load_tensors, optimizer_tensors,
+                    refuse_msgpack, save_tensors, save_training_state,
+                    set_seed, try_resume_training)
 
 
 class BaseTrainer:
-    """Subclasses implement ``build_probe``, ``build_data``,
-    ``build_optimizer``, ``train_batch(batch) -> {task: loss}``,
-    ``eval_batch(batch) -> {task: loss}``, ``model_state``,
-    ``load_model_state``, ``opt_state`` and ``load_opt_state``."""
+    """Subclasses implement ``build_probe`` (setting ``self.generator``, the
+    dropout masks'), ``build_data``, ``build_optimizer`` (through
+    :meth:`make_adamw`), ``train_batch(batch) -> {task: loss}``,
+    ``eval_batch(batch) -> {task: loss}``, ``model_state`` and
+    ``load_model_state``, and may take the optional hooks."""
 
     def __init__(self, cfg: dict, run_name: str, ckpt_root: Path):
         import yaml
@@ -56,6 +64,7 @@ class BaseTrainer:
         self._sched_bad_epochs = 0
         self.last_stats = {"train_steps": 0, "train_images": 0,
                            "train_s": 0.0}
+        self.rm = None    # a subclass may attach a RunningMeans
 
         self.build_probe()
         self.build_data()
@@ -89,14 +98,66 @@ class BaseTrainer:
     def load_model_state(self, blob: Dict[str, torch.Tensor]):
         raise NotImplementedError
 
-    def opt_state(self) -> Dict[str, torch.Tensor]:
-        raise NotImplementedError
+    # ----- AdamW -----
+    def make_adamw(self, groups) -> None:
+        """``self.params`` (every trained tensor by its checkpoint name) and
+        ``self.optimizer``: AdamW with ``optax.adamw``'s settings (b1 0.9,
+        b2 0.999, eps 1e-8, decoupled ``self.weight_decay`` on every
+        group), a param group for each non-empty ``(named tensors, base
+        LR)`` of ``groups``."""
+        self.params = {}
+        param_groups = []
+        for named, base_lr in groups:
+            if named:
+                self.params.update(named)
+                param_groups.append({"params": list(named.values()),
+                                     "base_lr": base_lr,
+                                     "lr": base_lr * self.lr_scale})
+        self.optimizer = torch.optim.AdamW(
+            param_groups, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=self.weight_decay)
 
-    def load_opt_state(self, blob: Dict[str, torch.Tensor]):
-        raise NotImplementedError
+    def apply_gradients(self, loss: torch.Tensor) -> None:
+        """One AdamW step on ``loss``'s gradients; a trained tensor that
+        receives none gets a zero one, so its moments and its decay move
+        as optax moves every leaf."""
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for p in self.params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        self.optimizer.step()
 
     def on_lr_change(self):
-        """Called after ``lr_scale`` changes."""
+        """Called after ``lr_scale`` changes: every group's LR in place
+        (AdamW's moments do not depend on it)."""
+        for g in self.optimizer.param_groups:
+            g["lr"] = g["base_lr"] * self.lr_scale
+
+    def opt_state(self) -> Dict[str, torch.Tensor]:
+        """AdamW's state by parameter name, and the dropout generator's."""
+        names = {p: n for n, p in self.params.items()}
+        return {**optimizer_tensors(self.optimizer, names),
+                GENERATOR_KEY: self.generator.get_state()}
+
+    def load_opt_state(self, blob: Dict[str, torch.Tensor]):
+        load_optimizer_tensors(self.optimizer, self.params, blob)
+        if GENERATOR_KEY in blob:
+            self.generator.set_state(blob[GENERATOR_KEY])
+
+    # ----- optional hooks (reference base_trainer.py:86-93) -----
+    def extra_state_dicts(self) -> dict:
+        """JSON-able state saved beside the model file."""
+        return {}
+
+    def load_extra_state_dicts(self, blob: dict):
+        pass
+
+    def on_train_epoch_start(self, epoch: int, epochs: int):
+        pass
+
+    def after_train_batch(self, loss_dict: Dict[str, float], batch):
+        pass
 
     @staticmethod
     def batch_valid_counts(loss_dict, batch) -> Dict[str, int]:
@@ -117,6 +178,10 @@ class BaseTrainer:
         blob = load_tensors(self.model_file)
         if blob is not None:
             self.load_model_state(blob)
+            extra = self.ckpt_dir / EXTRA_FILE
+            if extra.exists():
+                self.load_extra_state_dicts(
+                    json.loads(extra.read_text(encoding="utf-8")))
             print(f"[RESUME] model weights loaded from {self.model_file}")
         opt_blob, start_epoch, best_val, lr_scale, plateau = \
             try_resume_training(self.ckpt_dir)
@@ -131,6 +196,7 @@ class BaseTrainer:
 
         patience_left = patience
         for epoch in range(start_epoch, epochs):
+            self.on_train_epoch_start(epoch, epochs)
             self.history["train"].append(
                 self._run_epoch(epoch, epochs, train=True))
             if (epoch + 1) % eval_every:
@@ -145,6 +211,8 @@ class BaseTrainer:
                 best_val = val_monitor
                 patience_left = patience
                 save_tensors(self.model_file, self.model_state())
+                (self.ckpt_dir / EXTRA_FILE).write_text(
+                    json.dumps(self.extra_state_dicts()), encoding="utf-8")
                 save_training_state(
                     self.ckpt_dir, self.opt_state(), next_epoch=epoch + 1,
                     best_val=best_val, meta=self.run_meta(),
@@ -172,6 +240,7 @@ class BaseTrainer:
             loss_dict = self.train_batch(batch) if train \
                 else self.eval_batch(batch)
             if train:
+                self.after_train_batch(loss_dict, batch)
                 self.last_stats["train_steps"] += 1
                 self.last_stats["train_images"] += len(batch.targets)
             counts = self.batch_valid_counts(loss_dict, batch)
@@ -221,6 +290,8 @@ class BaseTrainer:
                 va_str = f"{va:.6f}" if math.isfinite(va) else ""
                 f.write(f"{i},{tr_str},{va_str}\n")
         print(f"[HISTORY] CSV saved: {csv_path}")
+        if self.rm is not None:
+            self.rm.save_history(self.ckpt_dir / "EMA_history.json")
 
     def _save_history_plot(self):
         out = self.ckpt_dir / "loss_curve.png"
@@ -233,22 +304,35 @@ class BaseTrainer:
                 "quantization": mcfg.get("quantization")}
 
 
+#: matplotlib's default colour cycle (tab10), which ``vlm_tpu``'s plots use
+COLORS = ((31, 119, 180), (255, 127, 14), (44, 160, 44), (214, 39, 40),
+          (148, 103, 189), (140, 86, 75), (227, 119, 194), (127, 127, 127))
+
+
 def draw_loss_curve(history: Dict[str, List[float]], title: str,
                     path) -> None:
-    """A 750 x 450 PNG of the train and val losses per epoch, drawn with
-    Pillow (``vlm_tpu`` draws the same figure with matplotlib): axes with
-    ticks, a light grid, the two curves (non-finite points left out) and a
-    legend."""
+    """A 750 x 450 PNG of the train and val losses per epoch (``vlm_tpu``
+    draws the same figure with matplotlib)."""
+    draw_curves({"train": history["train"], "val": history["val"]}, path,
+                title=title, xlabel="epoch", ylabel="loss", size=(750, 450),
+                first_x=1)
+
+
+def draw_curves(series: Dict[str, List[float]], path, *, title: str,
+                xlabel: str, ylabel: str, size=(750, 450),
+                first_x: int = 0) -> None:
+    """A line plot drawn with Pillow: axes with ticks (x from ``first_x``),
+    a light grid, one curve per series (non-finite points left out) in
+    matplotlib's colours, and a legend."""
     from PIL import Image, ImageDraw, ImageFont
 
     font = ImageFont.load_default()
-    img = Image.new("RGB", (750, 450), "white")
+    width, height = size
+    img = Image.new("RGB", size, "white")
     draw = ImageDraw.Draw(img)
-    left, top, right, bottom = 70, 40, 720, 390
-    series = {"train": ((31, 119, 180), history["train"]),
-              "val": ((255, 127, 14), history["val"])}
-    pts = [v for _, vals in series.values() for v in vals if math.isfinite(v)]
-    n = max(len(history["train"]), 1)
+    left, top, right, bottom = 70, 40, width - 30, height - 60
+    pts = [v for vals in series.values() for v in vals if math.isfinite(v)]
+    n = max((len(v) for v in series.values()), default=1) or 1
     lo, hi = (min(pts), max(pts)) if pts else (0.0, 1.0)
     if hi - lo < 1e-12:
         lo, hi = lo - 0.5, hi + 0.5
@@ -262,26 +346,28 @@ def draw_loss_curve(history: Dict[str, List[float]], title: str,
         draw.line((left, y, right, y), fill=(225, 225, 225))
         draw.text((left - 6, y), f"{lo + (hi - lo) * frac:.4g}", anchor="rm",
                   font=font, fill="black")
-    for i in range(n):
+    step = max(1, -(-n // 20))
+    for i in range(0, n, step):
         x, _ = xy(i, lo)
         draw.line((x, bottom, x, bottom + 4), fill="black")
-        draw.text((x, bottom + 6), str(i + 1), anchor="mt", font=font,
+        draw.text((x, bottom + 6), str(i + first_x), anchor="mt", font=font,
                   fill="black")
     draw.rectangle((left, top, right, bottom), outline="black")
-    for k, (name, (color, vals)) in enumerate(series.items()):
+    for k, (name, vals) in enumerate(series.items()):
+        color = COLORS[k % len(COLORS)]
         line = [xy(i, v) for i, v in enumerate(vals) if math.isfinite(v)]
         if len(line) > 1:
             draw.line(line, fill=color, width=2)
         for x, y in line:
             draw.ellipse((x - 2, y - 2, x + 2, y + 2), fill=color)
         ly = top + 12 + 16 * k
-        draw.line((right - 80, ly, right - 60, ly), fill=color, width=2)
-        draw.text((right - 54, ly), name, anchor="lm", font=font,
+        draw.line((right - 110, ly, right - 90, ly), fill=color, width=2)
+        draw.text((right - 84, ly), name, anchor="lm", font=font,
                   fill="black")
     draw.text(((left + right) / 2, 20), title, anchor="mm", font=font,
               fill="black")
-    draw.text(((left + right) / 2, 430), "epoch", anchor="mm", font=font,
-              fill="black")
-    draw.text((10, (top + bottom) / 2), "loss", anchor="lm", font=font,
+    draw.text(((left + right) / 2, height - 20), xlabel, anchor="mm",
+              font=font, fill="black")
+    draw.text((10, (top + bottom) / 2), ylabel, anchor="lm", font=font,
               fill="black")
     img.save(path, format="PNG")

@@ -7,8 +7,10 @@
 
 Shuffled loaders draw one permutation an epoch from
 ``numpy.random.default_rng(seed)``, so the same seed gives ``vlm_tpu``'s
-order; ``skip_epochs(n)`` draws the first n, so a resumed run sees the
-order a straight run would.
+order; an image loader with a ``sampler`` (:class:`.utils.WeightedSampler`)
+takes the sampler's draw an epoch instead. ``skip_epochs(n)`` draws the
+first n permutations or samples, so a resumed run sees the order a
+straight run would.
 """
 
 from __future__ import annotations
@@ -45,22 +47,27 @@ class Batch:
 
 class ImageBatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
-                 seed: int = 0, drop_last: bool = False, prefetch: int = 2):
+                 sampler=None, seed: int = 0, drop_last: bool = False,
+                 prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.sampler = sampler
         self.drop_last = drop_last
         self.prefetch = prefetch
         self._rng = np.random.default_rng(seed)
 
     def _order(self) -> List[int]:
+        if self.sampler is not None:
+            return list(self.sampler)
         if self.shuffle:
             return self._rng.permutation(len(self.dataset)).tolist()
         return list(range(len(self.dataset)))
 
     def skip_epochs(self, n: int) -> None:
-        for _ in range(n if self.shuffle else 0):
-            self._order()
+        if self.shuffle or self.sampler is not None:
+            for _ in range(n):
+                self._order()
 
     def _load(self, idxs) -> Batch:
         images, targets = [], []
@@ -85,7 +92,8 @@ class ImageBatchLoader:
                 yield self._load(idxs)
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.sampler) if self.sampler is not None else \
+            len(self.dataset)
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 

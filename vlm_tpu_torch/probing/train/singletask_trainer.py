@@ -13,17 +13,19 @@
   parameters left out (optax's ``set_to_zero``). AdamW is ``optax.adamw``'s:
   b1 0.9, b2 0.999, eps 1e-8, decoupled ``weight_decay``; a trainable
   parameter that receives no gradient gets a zero one, so its moments and
-  its decay move as optax moves every leaf.
-
-LoRA (``model.lora.enabled``) waits for the multi-task slice (ROADMAP
-A16b) and is refused.
+  its decay move as optax moves every leaf;
+- **LoRA** (``model.lora.enabled``, :mod:`..lora`): adapters on the last
+  blocks' Denses of the frozen tower, merged functionally each step; the
+  feature cache is off (the features change as the adapters train), the
+  adapters take a third group at ``lora.lr`` (else ``lr``), and the
+  checkpoint holds them under ``lora.``.
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -33,13 +35,13 @@ from ...data.augment import train_augmentation
 from ...data.dataset_factory import DatasetFactory
 from ...models.base_model import resolve_quantize_vision
 from ...models.factory import create_model
+from ..lora import (load_lora_tensors, lora_features, lora_lr, lora_named,
+                    resolve_lora)
 from ..probes import LinearProbe
 from .base_trainer import BaseTrainer
 from .data import ArrayBatchLoader, ImageBatchLoader
-from .utils import (GENERATOR_KEY, counts_to_weights,
-                    get_num_classes_for_task, load_optimizer_tensors,
-                    masked_cross_entropy, optimizer_tensors,
-                    targets_to_arrays)
+from .utils import (counts_to_weights, get_num_classes_for_task,
+                    masked_cross_entropy, targets_to_arrays)
 
 
 class SingleTaskTrainer(BaseTrainer):
@@ -53,10 +55,6 @@ class SingleTaskTrainer(BaseTrainer):
     # ------------ probe ------------
     def build_probe(self):
         mcfg = self.cfg["model"]
-        if (mcfg.get("lora") or {}).get("enabled"):
-            raise NotImplementedError(
-                "LoRA probing is not ported yet (ROADMAP A16b); set "
-                "model.lora.enabled: false")
         bb_cfg = mcfg.get("backbone") or {}
         freeze_flag = bool(bb_cfg.get("freeze", True))
         unfreeze_k = int(bb_cfg.get("unfreeze_last_k", 0))
@@ -85,6 +83,8 @@ class SingleTaskTrainer(BaseTrainer):
                 parts=str(bb_cfg.get("unfreeze_parts", "all")),
                 include_embeddings=bool(bb_cfg.get("include_embeddings",
                                                    True)))
+        self.lora_spec, self.lora = resolve_lora(mcfg, backbone, self.seed)
+        self.features = lora_features(backbone, self.lora_spec, self.lora)
         # the dropout masks' generator, on the probe's device
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.seed)
@@ -111,7 +111,10 @@ class SingleTaskTrainer(BaseTrainer):
                                           device=self.device)
         print(f"Class weights: {np.asarray(w)}")
 
-        self.use_feature_cache = self.probe.fully_frozen
+        # LoRA changes the features as it trains: no cache, though the
+        # base weights are all frozen
+        self.use_feature_cache = self.probe.fully_frozen and \
+            not self.lora_spec
         print(f"[Trainer] Feature cache for probing: "
               f"{'ENABLED' if self.use_feature_cache else 'DISABLED'} "
               f"(backbone fully frozen: {self.probe.fully_frozen})")
@@ -183,28 +186,15 @@ class SingleTaskTrainer(BaseTrainer):
         self.head_lr = float(tcfg.get("lr", 1e-4))
         self.backbone_lr = float(tcfg.get("backbone_lr", self.head_lr))
         self.weight_decay = float(tcfg.get("weight_decay", 1e-4))
-        self.params = {f"head.{n}": p for n, p in
-                       self.probe.classifier.named_parameters()}
-        groups = [{"params": list(self.params.values()),
-                   "base_lr": self.head_lr}]
-        if not self.use_feature_cache:
-            bb = {f"backbone.{n}": p for n, p in
-                  self.probe.backbone.module.named_parameters()
-                  if p.requires_grad}
-            if bb:
-                groups.append({"params": list(bb.values()),
-                               "base_lr": self.backbone_lr})
-            self.params.update(bb)
-        for g in groups:
-            g["lr"] = g["base_lr"] * self.lr_scale
-        self.optimizer = torch.optim.AdamW(
-            groups, betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=self.weight_decay)
-
-    def on_lr_change(self):
-        # in place: AdamW's moments do not depend on the LR
-        for g in self.optimizer.param_groups:
-            g["lr"] = g["base_lr"] * self.lr_scale
+        bb = {} if self.use_feature_cache else {
+            f"backbone.{n}": p for n, p in
+            self.probe.backbone.module.named_parameters() if p.requires_grad}
+        self.make_adamw([
+            ({f"head.{n}": p for n, p in
+              self.probe.classifier.named_parameters()}, self.head_lr),
+            (bb, self.backbone_lr),
+            (lora_named(self.lora) if self.lora_spec else {},
+             lora_lr(self.lora_spec, self.head_lr))])
 
     # ------------ per batch ------------
     def loss(self, batch, train: bool) -> torch.Tensor:
@@ -215,16 +205,12 @@ class SingleTaskTrainer(BaseTrainer):
             targets_to_arrays(targets, [self.task])[self.task]
         return probe_loss(self.probe, inputs, y, self.class_weights,
                           train=train, generator=self.generator,
-                          cached=self.use_feature_cache)
+                          cached=self.use_feature_cache,
+                          features=self.features)
 
     def train_batch(self, batch) -> Dict[str, float]:
-        self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss(batch, train=True)
-        loss.backward()
-        for p in self.params.values():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        self.optimizer.step()
+        self.apply_gradients(loss)
         return {self.task: float(loss.detach())}
 
     def eval_batch(self, batch) -> Dict[str, float]:
@@ -236,20 +222,16 @@ class SingleTaskTrainer(BaseTrainer):
         return not self.use_feature_cache and not self.probe.fully_frozen
 
     def model_state(self) -> Dict[str, torch.Tensor]:
-        return self.probe.state_tensors(self._saves_backbone())
+        state = self.probe.state_tensors(self._saves_backbone())
+        if self.lora_spec:
+            state.update({k: v.detach() for k, v in
+                          lora_named(self.lora).items()})
+        return state
 
     def load_model_state(self, blob: Dict[str, torch.Tensor]):
         self.probe.load_state_tensors(blob, not self.use_feature_cache)
-
-    def opt_state(self) -> Dict[str, torch.Tensor]:
-        names = {p: n for n, p in self.params.items()}
-        return {**optimizer_tensors(self.optimizer, names),
-                GENERATOR_KEY: self.generator.get_state()}
-
-    def load_opt_state(self, blob: Dict[str, torch.Tensor]):
-        load_optimizer_tensors(self.optimizer, self.params, blob)
-        if GENERATOR_KEY in blob:
-            self.generator.set_state(blob[GENERATOR_KEY])
+        if self.lora_spec:
+            load_lora_tensors(self.lora, blob)
 
     def run_meta(self) -> dict:
         meta = super().run_meta()
@@ -274,10 +256,12 @@ class SingleTaskTrainer(BaseTrainer):
 
 def probe_loss(probe: LinearProbe, inputs, y, class_weights: torch.Tensor,
                *, train: bool, generator: Optional[torch.Generator] = None,
-               cached: bool = False) -> torch.Tensor:
+               cached: bool = False,
+               features: Optional[Callable] = None) -> torch.Tensor:
     """The masked, class-weighted cross-entropy of ``probe`` on ``inputs``:
     cached features (``cached``), or images through the backbone (B4, then
-    the tower: with autograd where it trains). ``train`` puts the head in
+    the tower: with autograd where it trains; ``features``, LoRA's merged
+    tower, in place of ``probe.features_fn``). ``train`` puts the head in
     training mode: its BatchNorm moves its statistics and dropout draws
     from ``generator``."""
     clf = probe.classifier
@@ -286,7 +270,8 @@ def probe_loss(probe: LinearProbe, inputs, y, class_weights: torch.Tensor,
     if cached:
         feats = torch.as_tensor(np.asarray(inputs)).to(device, torch.float32)
     else:
-        feats = probe.features_fn(probe.backbone.to_pixels(inputs))
+        feats = (features or probe.features_fn)(
+            probe.backbone.to_pixels(inputs))
     logits = clf(feats, generator=generator)
     return masked_cross_entropy(
         logits, torch.as_tensor(np.asarray(y), dtype=torch.int64,

@@ -1,6 +1,6 @@
 """Probe-training utilities (``vlm_tpu/probing/train/utils.py``): seeds,
-class counts and weights, the masked cross-entropy, and the port's probe
-checkpoint.
+class counts and weights, the per-sample weighted sampler, the masked
+cross-entropy, and the port's probe checkpoint.
 
 A checkpoint directory holds ``model.safetensors`` (the head's parameters
 and running statistics under ``head.``, and the backbone's trainable
@@ -9,15 +9,17 @@ parameters under ``backbone.`` when the backbone trains),
 by the same names, and the dropout generator's state) and
 ``training_state.yaml`` (next epoch, best monitor, ``lr_scale``, the
 plateau scheduler, run metadata), all written by
-:mod:`...utils.safetensors_io` and PyYAML. ``vlm_tpu``'s flax msgpack
-files are not read.
+:mod:`...utils.safetensors_io` and PyYAML; a trainer's extra state (the
+multi-task trainer's loss EMAs, uncertainty log-variances and
+augmentation generator) goes into ``extra_state.json`` beside the model
+file. ``vlm_tpu``'s flax msgpack files are not read.
 """
 
 from __future__ import annotations
 
 import random
 from pathlib import Path
-from typing import Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ MISSING_LABEL = -1
 MODEL_FILE = "model.safetensors"
 STATE_FILE = "training_state.safetensors"
 STATE_YAML = "training_state.yaml"
+EXTRA_FILE = "extra_state.json"
 GENERATOR_KEY = "_dropout_generator"
 
 
@@ -71,6 +74,115 @@ def counts_to_weights(counts: np.ndarray) -> np.ndarray:
     counts = np.maximum(counts.astype(np.float64), 1.0)
     inv = 1.0 / counts
     return inv * (len(counts) / inv.sum())
+
+
+# ---------------- class / sample weights ----------------
+def build_per_sample_weights(dataset, tasks: List[str], agg_counts,
+                             beta: float = 1.0,
+                             eps: float = 1e-8) -> np.ndarray:
+    """``w_i ∝ sum_t 1[y_{i,t} != -1] * (1/freq_t)^beta``, normalised to mean
+    ~1 (reference utils.py:53-80), from the labels' metadata (no image
+    decoded)."""
+    tasks = [t.lower() for t in tasks]
+    freq = {t: float(max(1, int(np.sum(
+        agg_counts.get(t, []) if isinstance(agg_counts, dict) else []))))
+        for t in tasks}
+    inv_pow = {t: (1.0 / freq[t]) ** beta for t in tasks}
+    labels = {t: _labels_for(dataset, t) for t in tasks}
+    w = np.zeros(len(dataset), dtype=np.float32)
+    for t in tasks:
+        w += np.where(labels[t] != MISSING_LABEL, inv_pow[t], 0.0)
+    fallback = min(inv_pow.values()) if inv_pow else 1.0
+    w = np.where(w <= 0.0, fallback, w)
+    return w / (float(np.mean(w)) + eps)
+
+
+def _labels_for(dataset, task: str) -> np.ndarray:
+    """``task``'s labels of every sample: the dataset's metadata
+    (``get_all_labels``) where it has it, else each sample's label dict."""
+    if hasattr(dataset, "get_all_labels"):
+        try:
+            arr = np.asarray(dataset.get_all_labels(task),
+                             dtype=np.int64).reshape(-1)
+            if arr.shape[0] == len(dataset):
+                return arr
+        except (KeyError, TypeError, ValueError):
+            pass
+    out = np.full(len(dataset), MISSING_LABEL, dtype=np.int64)
+    for i in range(len(dataset)):
+        sample = dataset[i]
+        lab = sample[1] if isinstance(sample, (tuple, list)) else \
+            sample.get("labels", {}) if isinstance(sample, dict) else {}
+        try:
+            out[i] = int(lab.get(task, MISSING_LABEL)) \
+                if isinstance(lab, dict) else MISSING_LABEL
+        except (TypeError, ValueError):
+            out[i] = MISSING_LABEL
+    return out
+
+
+def build_weighted_sampler(
+    dataset,
+    task_class_weights: Dict[str, Optional[np.ndarray]],
+    *,
+    combine: str = "mean",
+    min_weight: float = 1e-4,
+    normalize: bool = True,
+    replacement: bool = True,
+    seed: int = 0,
+) -> Tuple["WeightedSampler", np.ndarray]:
+    """A per-sample weighted sampler from per-task class weights
+    (reference utils.py:122-215): a sample's weight is the mean (or max)
+    of its valid labels' class weights, ``min_weight`` without one.
+    Returns ``(sampler, weights)``."""
+    tasks = list(task_class_weights.keys())
+    n = len(dataset)
+    labels_per_task = {t: _labels_for(dataset, t) for t in tasks}
+    weights = np.zeros(n, dtype=np.float32)
+    n_parts = np.zeros(n, dtype=np.int32)
+    for t in tasks:
+        table = task_class_weights.get(t)
+        if table is None:
+            continue
+        table = np.asarray(table, dtype=np.float32).ravel()
+        lab = labels_per_task[t]
+        valid = (lab != MISSING_LABEL) & (lab >= 0) & (lab < len(table))
+        w_t = np.where(valid, table[np.clip(lab, 0, len(table) - 1)], 0.0)
+        if combine == "max":
+            weights = np.maximum(weights, w_t)
+        else:
+            weights += w_t
+        n_parts += valid.astype(np.int32)
+    if combine == "mean":
+        weights = np.where(n_parts > 0, weights / np.maximum(n_parts, 1),
+                           weights)
+    weights = np.where(n_parts == 0, min_weight, weights)
+    if normalize:
+        weights = weights / max(float(weights.mean()), 1e-8)
+    return WeightedSampler(weights, num_samples=n, replacement=replacement,
+                           seed=seed), weights
+
+
+class WeightedSampler:
+    """``WeightedRandomSampler`` in numpy: each iteration draws
+    ``num_samples`` indices in proportion to ``weights`` from
+    ``numpy.random.default_rng(seed)``, draw for draw as ``vlm_tpu``'s."""
+
+    def __init__(self, weights: np.ndarray, num_samples: int,
+                 replacement: bool = True, seed: int = 0):
+        self.weights = np.asarray(weights, dtype=np.float64)
+        self.p = self.weights / self.weights.sum()
+        self.num_samples = num_samples
+        self.replacement = replacement
+        self._rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        idx = self._rng.choice(len(self.p), size=self.num_samples,
+                               replace=self.replacement, p=self.p)
+        return iter(idx.tolist())
+
+    def __len__(self):
+        return self.num_samples
 
 
 def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,

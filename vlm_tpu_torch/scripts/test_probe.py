@@ -8,9 +8,10 @@ Same arguments and YAML as ``scripts/test_probe.py``:
 
 Reads the port's checkpoint (``eval.ckpt_from``, relative to the project
 root) and writes preds, gts and metrics under
-``probing/linear_probing/eval/``. Runs on the card;
-``VLM_TPU_PLATFORM=cpu`` runs it on the CPU. The multi-task profile is not
-ported yet (ROADMAP A16b) and raises.
+``probing/linear_probing/eval/`` (single) or
+``probing/multitask_probing/eval/`` (multi); a LoRA checkpoint's adapters
+are merged into the tower at load. Runs on the card;
+``VLM_TPU_PLATFORM=cpu`` runs it on the CPU.
 """
 
 import argparse
@@ -35,6 +36,7 @@ def main(argv=None):
     from vlm_tpu_torch.core.config import (build_cfg_from_profile,
                                            load_config, project_root)
     from vlm_tpu_torch.core.mesh import mesh_from_config
+    from vlm_tpu_torch.probing.test.multitask_tester import MultiTaskTester
     from vlm_tpu_torch.probing.test.singletask_tester import \
         SingleTaskTester
 
@@ -46,12 +48,10 @@ def main(argv=None):
     if profile not in ("single", "multi"):
         raise ValueError("Specify the profile: --profile single|multi or "
                          "profile: single|multi in the YAML")
-    if profile == "multi":
-        raise NotImplementedError("the multi-task tester is not ported yet "
-                                  "(ROADMAP A16b); use --profile single")
     cfg = build_cfg_from_profile(raw, profile, cfg_path, require_eval=True)
     mesh_from_config(cfg.get("mesh"))   # the port runs on one device
-    tester = SingleTaskTester(cfg)
+    tester = MultiTaskTester(cfg) if profile == "multi" \
+        else SingleTaskTester(cfg)
     tester.run()
     return tester
 

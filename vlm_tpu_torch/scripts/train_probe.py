@@ -8,10 +8,11 @@ and ``--profile single|multi``:
     python vlm_tpu_torch/scripts/train_probe.py \\
         --config configs/train_probe.yaml [--profile single]
 
-Checkpoints go to ``probing/linear_probing/checkpoints/<run name>`` under
-the project root (``VLM_TPU_ROOT``, by default the repository). Runs on
-the card; ``VLM_TPU_PLATFORM=cpu`` runs it on the CPU. The multi-task
-profile is not ported yet (ROADMAP A16b) and raises.
+Checkpoints go to ``probing/linear_probing/checkpoints/<run name>``
+(single) or ``probing/multitask_probing/checkpoints/<run name>`` (multi)
+under the project root (``VLM_TPU_ROOT``, by default the repository).
+``model.lora.enabled: true`` trains LoRA adapters in either profile. Runs
+on the card; ``VLM_TPU_PLATFORM=cpu`` runs it on the CPU.
 """
 
 import argparse
@@ -39,6 +40,8 @@ def build_trainer(argv=None):
                                            load_config, make_run_name,
                                            project_root)
     from vlm_tpu_torch.core.mesh import mesh_from_config
+    from vlm_tpu_torch.probing.train.multitask_trainer import \
+        MultiTaskTrainer
     from vlm_tpu_torch.probing.train.singletask_trainer import \
         SingleTaskTrainer
 
@@ -50,13 +53,14 @@ def build_trainer(argv=None):
     if profile not in ("single", "multi"):
         raise ValueError("Specify the profile: --profile single|multi or "
                          "profile: single|multi in the YAML")
-    if profile == "multi":
-        raise NotImplementedError("the multi-task trainer is not ported yet "
-                                  "(ROADMAP A16b); use --profile single")
     cfg = build_cfg_from_profile(raw, profile, cfg_path)
     mesh_from_config(cfg.get("mesh"))   # the port runs on one device
-    ckpt_root = project_root() / "probing" / "linear_probing" / "checkpoints"
-    return SingleTaskTrainer(cfg, make_run_name(cfg, profile), ckpt_root)
+    run_name = make_run_name(cfg, profile)
+    if profile == "multi":
+        return MultiTaskTrainer(cfg, run_name, project_root() / "probing" /
+                                "multitask_probing" / "checkpoints")
+    return SingleTaskTrainer(cfg, run_name, project_root() / "probing" /
+                             "linear_probing" / "checkpoints")
 
 
 def main(argv=None):

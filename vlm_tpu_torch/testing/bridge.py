@@ -15,6 +15,11 @@ an int4 Dense with one group gets its [out, 1] back in
 norm's ``scale`` and a token or position table's ``embedding`` become
 ``weight``; ``bias``, the tower's ``pos_embed``, ``cls_token`` and the
 Q-Former's ``query_tokens`` copy across.
+
+Probing: a probe head's ``{"params", "batch_stats"}`` (one, or one per task
+of a multi-task probe), a LoRA adapter tree (``A`` ``[in, r]`` and ``B``
+``[r, out]`` keyed ``block_<i>/attn/q_proj``: the same matrices under
+``blocks.<i>.attn.q_proj``) and the uncertainty weighting's log-variances.
 """
 
 from __future__ import annotations
@@ -112,3 +117,41 @@ def load_head_state(head: torch.nn.Module, head_state: Mapping) -> None:
     with torch.no_grad():
         for name, t in own.items():
             t.copy_(state[name].to(t.dtype))
+
+
+def load_multitask_heads(probe, head_states: Mapping) -> None:
+    """A ``vlm_tpu`` multi-task probe's ``head_state`` ({task: head state},
+    numpy) into the port's :class:`MultiTaskProbe`, in place."""
+    if set(head_states) != set(probe.classifiers):
+        raise KeyError(f"tasks {sorted(head_states)} vs "
+                       f"{sorted(probe.classifiers)}")
+    for t, st in head_states.items():
+        load_head_state(probe.classifiers[t], st)
+
+
+def lora_name(name: str) -> str:
+    """``block_23/attn/q_proj`` -> ``blocks.23.attn.q_proj``."""
+    parts = []
+    for m in name.split("/"):
+        block = _BLOCK.match(m)
+        parts.append(f"blocks.{block.group(1)}" if block else m)
+    return ".".join(parts)
+
+
+def load_lora(lora: Mapping, jax_lora: Mapping) -> None:
+    """A ``vlm_tpu`` adapter tree (numpy) into the port's adapters, in
+    place (the same names, shapes and values)."""
+    got = {lora_name(n): ab for n, ab in jax_lora.items()}
+    if set(got) != set(lora):
+        raise KeyError(f"adapters {sorted(got)} vs {sorted(lora)}")
+    with torch.no_grad():
+        for name, ab in got.items():
+            for k in ("A", "B"):
+                lora[name][k].copy_(torch.tensor(np.asarray(ab[k])))
+
+
+def load_log_vars(log_vars: Mapping, jax_log_vars: Mapping) -> None:
+    """``vlm_tpu``'s uncertainty log-variances into the port's, in place."""
+    with torch.no_grad():
+        for t, v in jax_log_vars.items():
+            log_vars[t].fill_(float(np.asarray(v)))
