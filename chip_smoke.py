@@ -89,22 +89,42 @@ Phases, each of which raises on failure:
 20. BLIP-2 8bit reference (int8 decoder and tower weights, the int8
     cache), and an fp32 reference (the fp32 forms of B1 at D = 88, 64 and
     128 and of B2 at G = 1, D = 128);
-21. probe cache: single-task probing of LLaVA-1.5-7B's CLIP-L/336 tower in
+21. wave paligemma bf16: PaliGemma-3B from the checkpoint, bf16,
+    ``generate_batch`` greedy over one wave of 32 synthetic images (the
+    wave engine: one prefill, up to 32 new tokens); img/s, the prefill's
+    and a step's wall and device ms (each profiled alone on the same
+    inputs), steps run, peak memory; B1, B4 and B2 with B3's uniform
+    fused write at a live column under ``kv_len`` on every decode step,
+    no plain version;
+22. beam paligemma 8bit: the 8bit slice's recipe (int8 weights, the
+    int8 KV cache) with ``num_beams=4`` over 8 images (32 beam rows): B5
+    at m = 32, B6 at the prefill, the int8 B2/B3; the same prints;
+23. beam llava bf16: LLaVA-1.5-7B (random weights) with 4 beams over 8
+    images, the same prints and the cache gather's device ms a step over
+    the columns decode wrote, its share of the step, and over whole rows;
+24. beam reference: a depth-cut LLaVA-1.5-7B (2+2 layers, full width)
+    in fp32, 4 beams over 2 images, 16 tokens, card against CPU: the best
+    tokens and lengths identical, scores within ``REF_TOL_FP32``;
+25. cli wave: the port's CLI with ``continuous_batching: false`` and
+    ``num_beams: 2`` (the shipped config otherwise), PaliGemma-3B bf16
+    from the checkpoint, over 8 of the probing data's JPEGs laid out as a
+    MiviaPar test split; its summary and files;
+26. probe cache: single-task probing of LLaVA-1.5-7B's CLIP-L/336 tower in
     fp32 (``configs/train_probe.yaml``'s single profile, random weights)
     through the port's ``train_probe`` entry point on a synthetic face
     dataset of 336 px JPEGs (256 train, 64 val, 64 test images, task age)
     in a temporary project root: the decoder dropped, the features
     extracted by B4's and B1's fp32 forms, the head trained for 2 epochs;
-22. probe e2e: the same data with the multi profile's backbone block (the
+27. probe e2e: the same data with the multi profile's backbone block (the
     last 4 blocks and the embeddings unfrozen) at batch 32 for an epoch and
     its validation: B1's differentiable form in every block of every step,
     blocks 20-23 and the embeddings changed, blocks 0-19 bitwise as built;
-23. probe test: the port's ``test_probe`` on that checkpoint: preds, gts
+28. probe test: the port's ``test_probe`` on that checkpoint: preds, gts
     and metrics written, the preds the probe's own argmax;
-24. probe reference: a depth-cut CLIP-L (2 blocks, full width) and a
+29. probe reference: a depth-cut CLIP-L (2 blocks, full width) and a
     linear head, one end-to-end step with the last block unfrozen, card
     against CPU in fp32: loss and gradients within ``REF_TOL_FP32``;
-25. probe multi: ``train_probe --profile multi`` (age, gender and emotion
+30. probe multi: ``train_probe --profile multi`` (age, gender and emotion
     over one tower, augmentation and the weighted sampler, the 0.33
     emotion balancing: 256 train rows, 51 with emotion, 50 duplicates;
     the profile's backbone block) at batch 32 for 2 epochs, the second on
@@ -112,16 +132,16 @@ Phases, each of which raises on failure:
     of every step, blocks 20-23 and the embeddings changed, blocks 0-19
     bitwise as built; then a few more steps under the profiler (the
     device's busy share);
-26. probe lora: the single profile with ``lora.enabled`` (rank 8, alpha
+31. probe lora: the single profile with ``lora.enabled`` (rank 8, alpha
     16, the last 2 blocks' attention) and the tower frozen, at batch 32
     for an epoch: B1's differentiable form in blocks 22-23 only, every
     base weight bitwise as built, every adapter's B moved off zero, a
     checkpoint of the adapters and no tower;
-27. probe multi test: ``test_probe --profile multi`` on the multi
+32. probe multi test: ``test_probe --profile multi`` on the multi
     checkpoint (preds, gts and metrics per task, the preds each head's own
     argmax) and the single tester on the LoRA checkpoint (the adapters
     merged at load: no differentiable form);
-28. probe multi reference: a depth-cut CLIP-L (2 blocks, full width), three
+33. probe multi reference: a depth-cut CLIP-L (2 blocks, full width), three
     heads, LoRA on the last block (A and B drawn nonzero) and uncertainty
     weighting, one step card against CPU in fp32: the loss and the
     gradients of A, B, the log-variances and the heads within
@@ -140,6 +160,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -692,12 +713,12 @@ def _compare(torch, gpu_mod, cpu_mod, cfg, u8, pre, post, plen, steps,
     return worst
 
 
-def run_phases(torch, np, gpu, launches, tmp):
+def run_phases(torch, np, gpu, launches, tmp, pali):
     """The checkpoint phases, the slices and the references, adding each
     slice's launch counts into ``launches``. PaliGemma's four slices load
-    their weights from a synthetic full-size checkpoint in ``tmp``; LLaVA's
-    and BLIP-2's name maps run on depth-cut checkpoints there."""
-    pali = tmp / "paligemma"
+    their weights from a synthetic full-size checkpoint written to
+    ``pali``; LLaVA's and BLIP-2's name maps run on depth-cut checkpoints
+    in ``tmp``."""
     t0 = time.perf_counter()
     checkpoint_write_phase(torch, gpu, "paligemma", pali)
     quantize_on_load_phase(torch, gpu, pali)
@@ -722,8 +743,6 @@ def run_phases(torch, np, gpu, launches, tmp):
                   f"{time.perf_counter() - t0:.1f} s")
             for name, n in path.items():
                 launches[name] += n
-        if (model_name, quantization) == ("paligemma", "fp32"):
-            shutil.rmtree(pali)
         t0 = time.perf_counter()
         reference_phase(torch, np, gpu, quantization, model_name)
         print(f"[time] reference {model_name} {quantization} "
@@ -737,6 +756,390 @@ def run_phases(torch, np, gpu, launches, tmp):
             shutil.rmtree(cut)
             print(f"[time] checkpoint {model_name} "
                   f"{time.perf_counter() - t0:.1f} s")
+
+
+# the generation phases: the wave engine and beam search through
+# ``generate_batch``, as a user calls it on PIL images. A wave of 32
+# images; beams of 4 over 8 images (32 beam rows); up to 32 new tokens.
+# The prompt texts' byte-level ids (the synthetic and random models have
+# no tokenizer files) give the slices' prompts, so the kernels meet the
+# checks' shapes: PaliGemma BOS + 58 + "\n" after the 256 image tokens
+# (316); LLaVA BOS + "USER: " before the 576, "\n" + 46 + " ASSISTANT:"
+# after them (641)
+WAVE_IMAGES, BEAM_IMAGES, BEAMS, GEN_NEW = 32, 8, 4, 32
+_TEXT = "Describe the person: upper and lower colours, gender, bag, hat."
+GEN_PROMPTS = {"paligemma": (_TEXT[:58], 316), "llava": (_TEXT[:46], 641)}
+# the steps run before the profiled ones: the beam gather's columns then
+# cover about half the new tokens, a step's average
+PROFILE_AT, PROFILED_STEPS = 15, 3
+# timed calls of generate_batch after the warm-up, on the same inputs
+GEN_REPS = 5
+# the beam reference: a depth-cut LLaVA in fp32, card against CPU
+BEAM_REF_IMAGES, BEAM_REF_NEW = 2, 16
+# the CLI's wave phase: images of the probing data, new tokens
+CLI_IMAGES, CLI_NEW = 8, 16
+
+
+def device_ms(torch, fn, reps=1):
+    """``fn`` run ``reps`` times under ``torch.profiler``: the device's
+    kernel ms a run (the kernels' own time summed; None where the profiler
+    saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if str(e.device_type).endswith("CUDA"))
+    return total / 1e3 / reps if total > 0 else None
+
+
+def _ms(x):
+    return "not measured" if x is None else f"{x:.3f} ms"
+
+
+@contextlib.contextmanager
+def uniform_writes():
+    """Counts the decode steps' attention calls and how many of them wrote
+    every row at one shared column (B3's uniform form inside B2)."""
+    from vlm_tpu_torch.models import decoder
+    real, seen = decoder.decode_attention, {"calls": 0, "uniform": 0}
+
+    def spy(*args, **kw):
+        seen["calls"] += 1
+        seen["uniform"] += bool(kw["uniform"]) and \
+            kw["write_start"].numel() == 1
+        return real(*args, **kw)
+    decoder.decode_attention = spy
+    try:
+        yield seen
+    finally:
+        decoder.decode_attention = real
+
+
+def generation_phase(torch, np, gpu, tag, model_name, quantization,
+                     n_images, num_beams, model_id=None):
+    """``generate_batch`` over ``n_images`` synthetic images, greedy
+    (``num_beams`` 1: the wave engine) or with beams, timed ``GEN_REPS``
+    times after a short warm-up (median and range); then one call, its
+    prefill and decode steps (and for beams the cache gather, over the
+    written columns and over whole rows) profiled alone on the same
+    inputs, for the device's share of the wall time. Returns the timed
+    calls' launch counts."""
+    from PIL import Image
+
+    from vlm_tpu_torch.generate.beam import gather_cache
+    from vlm_tpu_torch.generate.decode import build_prompt_ids
+    from vlm_tpu_torch.models.factory import create_model
+    from vlm_tpu_torch.models.vlm import num_image_tokens
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.preprocess import normalize_images
+
+    spec = MODELS[model_name]
+    t0 = time.perf_counter()
+    with int8_prefill(model_name, quantization) as mode:
+        model = create_model(
+            model_name, size=spec["size"], device="cuda", seed=0,
+            model_id=model_id, quantization=quantization,
+            kv_cache="int8" if quantization == "8bit" else None,
+            quantize_vision=quantization == "8bit" and spec["quantize_vision"])
+    torch.cuda.synchronize()
+    source = " from the checkpoint" if model_id else ""
+    print(f"{tag} {spec['label']} built{source}: KV cache {model.cache_dtype}"
+          f"{', int8 prefill ' + mode if mode else ''}, "
+          f"{time.perf_counter() - t0:.1f} s ({gpu})")
+    side = spec["image"]
+    u8 = np.random.default_rng(0).integers(0, 256, (n_images, side, side, 3),
+                                           dtype=np.uint8)
+    images = [Image.fromarray(a) for a in u8]
+    prompt, want_len = GEN_PROMPTS[model_name]
+    kw = dict(num_beams=num_beams)
+    model.generate_batch(images, prompt, max_tokens=4, **kw)     # warm-up
+    torch.cuda.synchronize()
+    _lib.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    walls, stats = [], []
+    with uniform_writes() as writes:
+        for _ in range(GEN_REPS):
+            t0 = time.perf_counter()
+            texts = model.generate_batch(images, prompt, max_tokens=GEN_NEW,
+                                         **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            engine = next(e for e in model._engines.values()
+                          if e.max_new_tokens == GEN_NEW)
+            stats.append(dict(engine.last_stats))
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(_lib.launches)
+    plain = dict(_lib.plain_calls)
+    if len({st["steps"] for st in stats}) != 1:
+        raise RuntimeError(f"{tag} the timed calls ran different step "
+                           f"counts on the same inputs: {stats}")
+    steps = stats[0]["steps"]
+
+    pixels = normalize_images(torch.from_numpy(u8).cuda(),
+                              recipe=model.recipe, compute_dtype=model.dtype,
+                              patch_size=model.cfg.vision.patch_size)
+    pre_t, post_t, bos_pre, bos_post = model.format_prompt(prompt)
+    pre, post, plen = build_prompt_ids(
+        model.tokenizer, pre_t, post_t, num_image_tokens(model.cfg),
+        n_images, add_bos_to_pre=bos_pre, add_bos_to_post=bos_post,
+        device="cuda")
+    if int(plen[0]) != want_len:
+        raise RuntimeError(f"{tag} prompt of {int(plen[0])} ids, the kernel "
+                           f"checks' {want_len} expected")
+    if len(texts) != n_images or not all(isinstance(t, str) for t in texts):
+        raise RuntimeError(f"{tag} {len(texts)} texts for {n_images} images")
+    b2_form, fused_form = PATH_KERNELS[quantization][1:3]
+    want = ["flash_attention", "normalize", b2_form, fused_form]
+    if quantization == "8bit":
+        want += ["int8_matmul", "int8xint8_matmul", "kv_write_int8"]
+    idle = [k for k in want if launches[k] <= 0]
+    if idle:
+        raise RuntimeError(f"{tag} kernels never launched: {idle}")
+    if any(plain.values()):
+        raise RuntimeError(f"{tag} plain versions ran: {plain}")
+    # every decode step writes inside B2, in the uniform form; standalone
+    # B3 only for the int8 prefill's rows (one launch a layer)
+    prefill_rows = model.cfg.decoder.layers if quantization == "8bit" else 0
+    if not (launches[fused_form] == launches[b2_form] == writes["calls"]
+            == writes["uniform"]
+            == model.cfg.decoder.layers * steps * GEN_REPS
+            and launches["kv_write"] == 0
+            and launches["kv_write_int8"] == prefill_rows * GEN_REPS):
+        raise RuntimeError(f"{tag} decode writes not all uniform inside B2: "
+                           f"{writes}, {launches}, {steps} steps a call")
+    call_dev = device_ms(torch, lambda: model.generate_batch(
+        images, prompt, max_tokens=GEN_NEW, **kw))
+
+    with torch.inference_mode():
+        held = {}
+        prefill_dev = device_ms(torch, lambda: held.update(
+            s=engine.start(pixels, pre, post, plen)))
+        s = held["s"]
+        while engine.running(s) and s.step < PROFILE_AT:
+            engine.step(s)
+        step_dev = device_ms(torch, lambda: engine.step(s), PROFILED_STEPS) \
+            if engine.running(s) else None
+        gather = ""
+        if num_beams > 1:
+            k = num_beams
+            rows = (torch.arange(n_images, device="cuda")[:, None] * k
+                    + torch.arange(k - 1, -1, -1, device="cuda")).reshape(-1)
+            lo, hi = s.cols
+            cols = slice(lo, hi + s.step - 1)
+            col_dev = device_ms(torch, lambda: gather_cache(s.cache, rows,
+                                                            cols), 3)
+            row_dev = device_ms(torch, lambda: gather_cache(s.cache, rows), 3)
+            share = "not measured" if None in (col_dev, step_dev) else \
+                f"{col_dev / step_dev:.1%}"
+            gather = (f"; the gather a step over columns {lo}.."
+                      f"{hi + s.step - 2} ({s.step - 1} written): "
+                      f"{_ms(col_dev)} device, "
+                      f"{share} of the step; over whole rows (vlm_tpu's "
+                      f"design) {_ms(row_dev)}")
+        del s, held
+    rows = n_images * num_beams
+    rates = sorted(n_images / w for w in walls)
+    step_ms = sorted(st["decode_s"] * 1e3 / max(steps, 1) for st in stats)
+    pre_ms = sorted(st["prefill_s"] * 1e3 for st in stats)
+    wall = statistics.median(walls)
+    step_wall = statistics.median(step_ms)
+    host = "not measured" if step_dev is None else \
+        f"{(step_wall - step_dev) / step_wall:.1%}"
+    busy = "not measured" if call_dev is None else \
+        f"{call_dev / 1e3 / wall:.1%}"
+    print(f"{tag} {n_images} images"
+          f"{f' x {num_beams} beams ({rows} rows)' if num_beams > 1 else ''}"
+          f", prompt {int(plen[0])} ids, {steps} decode steps run (of "
+          f"{GEN_NEW - 1}), {GEN_REPS} calls: median "
+          f"{statistics.median(rates):.3f} img/s (range {rates[0]:.3f}-"
+          f"{rates[-1]:.3f}), {wall:.3f} s a call; one call's device time "
+          f"{_ms(call_dev)}, {busy} of the median wall ({gpu})")
+    print(f"{tag} wall (median, range): prefill "
+          f"{statistics.median(pre_ms):.1f} ms ({pre_ms[0]:.1f}-"
+          f"{pre_ms[-1]:.1f}), a step {step_wall:.2f} ms ({step_ms[0]:.2f}-"
+          f"{step_ms[-1]:.2f}); device (profiled alone): prefill "
+          f"{_ms(prefill_dev)}, a step {_ms(step_dev)} (steps {PROFILE_AT}-"
+          f"{PROFILE_AT + PROFILED_STEPS - 1}); the host's share of a step "
+          f"(wall - device) / wall {host}{gather} ({gpu})")
+    print(f"{tag} max_memory_allocated {peak / 2**30:.2f} GiB ({gpu})")
+    print(f"{tag} launches "
+          f"{ {k: v for k, v in launches.items() if v} }, uniform fused "
+          f"writes {writes['uniform']} of {writes['calls']}, plain calls "
+          f"{sum(plain.values())}; first text {texts[0][:40]!r}")
+    del model, pixels
+    torch.cuda.empty_cache()
+    return launches
+
+
+def beam_reference_phase(torch, np, gpu):
+    """Depth-cut LLaVA-1.5-7B (2 vision and 2 decoder layers, full width),
+    fp32 on the card against fp32 on the CPU, same weights: beam search
+    (4 beams, 2 images, 16 tokens). Best tokens and lengths identical,
+    scores within ``REF_TOL_FP32``; where the beams part, the step and the
+    CPU's score gap between the candidates the two sides swapped, which
+    must be under the tolerance."""
+    from vlm_tpu_torch.generate.beam import BeamSearchEngine
+    from vlm_tpu_torch.models.configs import VLM_CONFIGS
+    from vlm_tpu_torch.models.layers import init_random_
+    from vlm_tpu_torch.models.vlm import VLMModule, num_image_tokens
+    from vlm_tpu_torch.ops.preprocess import RECIPES, normalize_images
+
+    spec = MODELS["llava"]
+    full = VLM_CONFIGS["llava"](spec["size"])
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, layers=2),
+        decoder=dataclasses.replace(full.decoder, layers=2))
+    mods = {"cuda": init_random_(VLMModule(cfg, device="cuda"), seed=1)}
+    mods["cpu"] = VLMModule(cfg, device="cpu")
+    mods["cpu"].load_state_dict({k: v.cpu() for k, v in
+                                 mods["cuda"].state_dict().items()})
+    rng = np.random.default_rng(2)
+    b, side = BEAM_REF_IMAGES, spec["image"]
+    u8 = torch.from_numpy(rng.integers(0, 256, (b, side, side, 3),
+                                       dtype=np.uint8))
+    vocab = cfg.decoder.vocab_size
+    pre = np.concatenate([np.full((b, 1), cfg.decoder.bos_token_id),
+                          rng.integers(3, vocab, (b, spec["pre_ids"] - 1))],
+                         1).astype(np.int32)
+    post = rng.integers(3, vocab, (b, PROMPT_IDS)).astype(np.int32)
+    plen = spec["pre_ids"] + num_image_tokens(cfg) + PROMPT_IDS
+    picks, results = {}, {}
+    for dev, mod in mods.items():
+        eng = BeamSearchEngine(mod, cfg, batch_size=b, max_prompt_len=plen,
+                               num_beams=BEAMS, max_new_tokens=BEAM_REF_NEW)
+        real, picks[dev] = eng._select, []
+
+        def select(s, step, logp, real=real, out=picks[dev]):
+            before = s.beam_scores.clone()
+            src, tok = real(s, step, logp)
+            out.append((before.cpu(), logp.float().cpu(), src.cpu(),
+                        tok.cpu()))
+            return src, tok
+        eng._select = select
+        px = normalize_images(u8.to(dev), recipe=RECIPES["llava"],
+                              compute_dtype=torch.float32,
+                              patch_size=cfg.vision.patch_size)
+        results[dev] = eng.generate(
+            px, torch.from_numpy(pre).to(dev), torch.from_numpy(post).to(dev),
+            torch.full((b,), plen, dtype=torch.int32, device=dev))
+    card, cpu = results["cuda"], results["cpu"]
+    same = torch.equal(card.lengths.cpu(), cpu.lengths) and torch.equal(
+        card.tokens.cpu(), cpu.tokens)
+    err = float(((card.scores.cpu() - cpu.scores).abs()
+                 / cpu.scores.abs()).max())
+    parted, gap = None, 0.0
+    for step, (c, p) in enumerate(zip(picks["cuda"], picks["cpu"])):
+        if torch.equal(c[2], p[2]) and torch.equal(c[3], p[3]):
+            continue
+        parted = step
+        cand = p[0][:, :, None] + p[1]            # the CPU's candidates
+        for i in range(b):
+            mine = set(zip(c[2][i].tolist(), c[3][i].tolist()))
+            theirs = set(zip(p[2][i].tolist(), p[3][i].tolist()))
+            for sa, ta in mine - theirs:
+                for sb, tb in theirs - mine:
+                    ref = float(cand[i, sb, tb])
+                    gap = max(gap, abs(float(cand[i, sa, ta]) - ref)
+                              / abs(ref))
+        break
+    print(f"[beam reference] depth-cut {spec['label']} (2+2 layers, full "
+          f"width), fp32, {BEAMS} beams x {b} images, {BEAM_REF_NEW} tokens: "
+          f"best tokens and lengths {'identical' if same else 'DIFFER'} "
+          f"(lengths {card.lengths.tolist()}), scores {card.scores.tolist()}"
+          f" vs {cpu.scores.tolist()}, max relative {err:.3e} (tol "
+          f"{REF_TOL_FP32:.0e})"
+          + ("" if parted is None else
+             f"; the beams part at step {parted}, the swapped candidates' "
+             f"score gap {gap:.3e}") + f" ({gpu})")
+    if err > REF_TOL_FP32 or not (same or (parted is not None
+                                           and gap < REF_TOL_FP32)):
+        raise RuntimeError("[beam reference] the card's beams disagree "
+                           "with the CPU's")
+
+
+def cli_wave_phase(torch, gpu, tmp, ckpt, base):
+    """The port's CLI with ``continuous_batching: false`` and ``num_beams:
+    2`` (the shipped YAML otherwise: its MiviaPar prompt), PaliGemma-3B in
+    bf16 from the checkpoint, over 8 of the probing data's JPEGs laid out
+    as a MiviaPar test split; its summary and files. Returns the launch
+    counts."""
+    import yaml
+
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.scripts.prompt_inference import main
+    d = tmp / "mivia" / "MiviaPar" / "test"
+    (d / "images").mkdir(parents=True)
+    colours = ("black", "white", "red", "blue")
+    lines = []
+    for i, src in enumerate(sorted(
+            (base / "TestDataset" / "test" / "images").glob("*.jpg"))[
+                :CLI_IMAGES]):
+        shutil.copy(src, d / "images" / src.name)
+        lines.append(f"{src.name},{colours[i % 4]},{colours[(i + 1) % 4]},"
+                     f"{i % 2},{(i // 2) % 2},{(i // 4) % 2}")
+    (d / "labels.csv").write_text("\n".join(lines) + "\n")
+    root = tmp / "cli_root"
+    (root / "configs").mkdir(parents=True)
+    shutil.copy(ROOT / "configs" / "task_datasets.yaml", root / "configs")
+    cfg = yaml.safe_load((ROOT / "configs" / "prompt_inference.yaml")
+                         .read_text())
+    cfg.update(model_name="paligemma", model_id=str(ckpt),
+               quantization="bf16", continuous_batching=False, num_beams=2,
+               max_tokens=CLI_NEW, batch_size=CLI_IMAGES,
+               dataset={"base_path": str(tmp / "mivia")})
+    path = root / "cli.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    os.environ["VLM_TPU_ROOT"] = str(root)
+    _lib.reset_counts()
+    t0 = time.perf_counter()
+    summary = main(["--config", str(path)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_lib.launches), dict(_lib.plain_calls)
+    out = root / "eval" / "prompt_inference" / "paligemma_bf16" / "MiviaPar"
+    missing = [f for f in ("preds.json", "gts.json", "metrics.json",
+                           "used_config.yaml") if not (out / f).exists()]
+    print(f"[cli wave] the port's CLI, continuous_batching false, "
+          f"num_beams 2, PaliGemma-3B bf16 from the checkpoint, "
+          f"{CLI_IMAGES} JPEGs, max_tokens {CLI_NEW}: "
+          f"{json.dumps({k: v for k, v in summary.items() if k != 'metrics'})}"
+          f", {wall:.1f} s with the load; files "
+          f"{'written' if not missing else f'MISSING {missing}'}, metrics "
+          f"{sorted(summary['metrics'])} ({gpu})")
+    if missing or summary["images_completed"] != CLI_IMAGES:
+        raise RuntimeError("[cli wave] the CLI did not complete")
+    if any(plain.values()) or not launches["decode_attention"]:
+        raise RuntimeError(f"[cli wave] the path left the kernels: "
+                           f"{launches}, {plain}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def generation_phases(torch, np, gpu, launches, tmp, ckpt, base):
+    """The wave and beam phases, the beam reference and the CLI's wave
+    path, adding the serving phases' launch counts into ``launches``."""
+    for tag, model_name, quantization, n, beams in (
+            ("[wave paligemma bf16]", "paligemma", "bf16", WAVE_IMAGES, 1),
+            ("[beam paligemma 8bit]", "paligemma", "8bit", BEAM_IMAGES,
+             BEAMS),
+            ("[beam llava bf16]", "llava", "bf16", BEAM_IMAGES, BEAMS)):
+        t0 = time.perf_counter()
+        path = generation_phase(
+            torch, np, gpu, tag, model_name, quantization, n, beams,
+            model_id=str(ckpt) if model_name == "paligemma" else None)
+        for name, k in path.items():
+            launches[name] += k
+        print(f"[time] {tag[1:-1]} {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    beam_reference_phase(torch, np, gpu)
+    print(f"[time] beam reference {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, k in cli_wave_phase(torch, gpu, tmp, ckpt, base).items():
+        launches[name] += k
+    print(f"[time] cli wave {time.perf_counter() - t0:.1f} s")
 
 
 # the probing phases: LLaVA-1.5-7B's tower in fp32, the single and multi
@@ -1429,10 +1832,10 @@ def probe_multi_reference_phase(torch, np, gpu, card="cuda"):
                            "CPU")
 
 
-def probe_phases(torch, np, gpu, launches, tmp):
-    """The probing phases, adding their launch counts into ``launches``."""
+def probe_phases(torch, np, gpu, launches, tmp, base):
+    """The probing phases on the dataset under ``base``, adding their
+    launch counts into ``launches``."""
     t0 = time.perf_counter()
-    base = probe_data(np, tmp)
     for phase in ("cache", "e2e", "test"):
         t1 = time.perf_counter()
         if phase == "cache":
@@ -1499,8 +1902,14 @@ def main() -> int:
     launches = dict.fromkeys(_lib.KERNELS, 0)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
-        run_phases(torch, np, gpu, launches, tmp)
-        probe_phases(torch, np, gpu, launches, tmp)
+        pali = tmp / "paligemma"
+        run_phases(torch, np, gpu, launches, tmp, pali)
+        base = probe_data(np, tmp)
+        t0 = time.perf_counter()
+        generation_phases(torch, np, gpu, launches, tmp, pali, base)
+        shutil.rmtree(pali)
+        print(f"[time] generation {time.perf_counter() - t0:.1f} s")
+        probe_phases(torch, np, gpu, launches, tmp, base)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s")

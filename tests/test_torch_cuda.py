@@ -819,3 +819,66 @@ def test_lora_step_takes_b1_diff_only_in_the_adapted_blocks(card):
             assert g is not None and float(g.abs().max()) > 0
     for n, p in tower.named_parameters():
         assert p.grad is None and torch.equal(p, base[n]), n
+
+
+# B3 inside B2 in its uniform form at a live column under kv_len: the wave
+# and beam engines' decode step (32 rows: 32 images, or 8 images x 4 beams)
+WAVE_FUSED = ("fused_uniform_kv_len_32slots",
+              "int8_fused_uniform_kv_len_32slots",
+              "llava_fused_uniform_kv_len_32slots")
+
+
+@pytest.mark.parametrize("case", WAVE_FUSED)
+def test_uniform_fused_write_at_a_live_column_is_b3_then_b2_bitwise(
+        all_cases, case):
+    c = all_cases[f"B3 {case}"]
+    got, exact = c.kernel_fn(), c.exact_fn()
+    torch.cuda.synchronize()
+    assert torch.equal(got, exact)
+    _check(c)
+
+
+# the wave and beam engines' prefills at their batches: 32 PaliGemma
+# images (the wave), 8 (the 8bit beams: B6 at 8 x 316 rows, the int8 prompt
+# rows), 8 LLaVA images (the bf16 beams)
+WAVE_PREFILL = (
+    "B1 siglip_g32_h16_s256_d72", "B1 gemma_prefill_g32_s316_kvlen",
+    "B4 patch14_u8_g32_224", "B1 siglip_g8_h16_s256_d72",
+    "B1 gemma_prefill_g8_s316_kvlen", "B4 patch14_u8_g8_224",
+    *(f"B6 m2528_k{k}_n{n}_fp32" for k, n in GEMMA),
+    "B3 int8_prefill_g8_s316", "B1 clip_l336_g8_h16_s577_d64",
+    "B1 vicuna_prefill_g8_h32_s641_d128_kvlen", "B4 patch14_u8_g8_336")
+
+
+@pytest.mark.parametrize("case", WAVE_PREFILL)
+def test_wave_and_beam_prefill_shapes_match_plain(all_cases, case):
+    assert all_cases[case].on_path
+    _check(all_cases[case])
+
+
+@pytest.mark.parametrize("num_beams", [1, 2])
+def test_wave_and_beams_run_on_the_card_with_no_plain_call(card, num_beams):
+    """``generate_batch`` at the "test" size in fp32 (B1, B2 and B4's fp32
+    forms), greedy and with beams: texts for every image, every decode
+    step's write inside B2, no plain version."""
+    import numpy as np
+    from PIL import Image
+
+    from vlm_tpu_torch.models.factory import create_model
+    from vlm_tpu_torch.ops import _lib
+    model = create_model("paligemma", size="test")
+    rng = np.random.default_rng(0)
+    images = [Image.fromarray(rng.integers(0, 256, (40, 50, 3),
+                                           dtype=np.uint8)) for _ in range(3)]
+    _lib.reset_counts()
+    texts = model.generate_batch(images, "colours?", max_tokens=5,
+                                 num_beams=num_beams)
+    torch.cuda.synchronize()
+    assert len(texts) == 3 and all(isinstance(t, str) for t in texts)
+    for k in ("flash_attention_fp32", "decode_attention_fp32",
+              "normalize_fp32", "kv_write_fused"):
+        assert _lib.launches[k] > 0, k
+    assert _lib.launches["kv_write_fused"] == \
+        _lib.launches["decode_attention_fp32"]
+    assert _lib.launches["kv_write"] == 0
+    assert sum(_lib.plain_calls.values()) == 0

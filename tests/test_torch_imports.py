@@ -6,9 +6,10 @@ tiny slices end to end (model, batcher, every op's CPU version: fp32, then
 prefill, then 4bit with an int4 tower, then LLaVA in fp32, then BLIP-2 in
 the 8bit recipe with the int8 tower and cache), and others run the port's
 CLI ``main()`` on a synthetic dataset with ``VLM_TPU_PLATFORM=cpu``, for
-PaliGemma, LLaVA and BLIP-2, and the probing CLIs' ``main()`` (train in
-both modes, then test; the multi-task profile and LoRA, then their
-testers). None imports triton or builds the kernel library."""
+PaliGemma, LLaVA and BLIP-2, the wave and beam entry points with the
+CLI's ``continuous_batching: false``, and the probing CLIs' ``main()``
+(train in both modes, then test; the multi-task profile and LoRA, then
+their testers). None imports triton or builds the kernel library."""
 
 import json
 import subprocess
@@ -378,3 +379,66 @@ def test_port_multitask_and_lora_clis_run_without_jax(tmp_path):
     out = tmp_path / "lora" / "probing" / "linear_probing" / "eval" / \
         "llava_fp32_linear" / "age" / "TestDataset"
     assert len(json.loads((out / "preds.json").read_text())) == 8
+
+
+WAVES = BLOCKER + r"""
+import json, os, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from PIL import Image
+from vlm_tpu_torch.models.factory import create_model
+from vlm_tpu_torch.ops import _lib
+from vlm_tpu_torch.scripts.prompt_inference import main
+rng = np.random.default_rng(0)
+images = [Image.fromarray(rng.integers(0, 256, (30, 40, 3), dtype=np.uint8))
+          for _ in range(3)]
+paths = []
+for i, im in enumerate(images):
+    paths.append(os.path.join(os.environ["HOME"], f"{i}.png"))
+    im.save(paths[-1])
+out = {}
+for name, kv in (("paligemma", None), ("llava", None), ("blip2", "int8")):
+    model = create_model(name, size="test", device="cpu", kv_cache=kv)
+    out[name] = [model.generate_batch(images, "p", max_tokens=3),
+                 model.generate_batch(images, "p", max_tokens=3,
+                                      num_beams=2),
+                 model.generate_text(images[0], "p", max_tokens=2),
+                 model.generate_dataset(paths, "p", max_tokens=3,
+                                        batch_size=2, num_beams=2)]
+summary = main(["--config", os.environ["CLI_CONFIG"]])
+print(json.dumps({"out": out, "summary": summary,
+                  "lib_loaded": _lib._lib is not None,
+                  "loaded": sorted(m for m in ("jax", "flax", "triton",
+                                               "vlm_tpu")
+                                   if m in sys.modules)}))
+"""
+
+
+def test_port_waves_beams_and_wave_cli_run_without_jax(tmp_path, mivia_base):
+    """``generate_batch`` greedy and with beams, ``generate_text`` and
+    ``generate_dataset(num_beams=2)`` for the three families (BLIP-2 with
+    the int8 cache), then the CLI with ``continuous_batching: false`` and
+    ``num_beams: 2``, with vlm_tpu, jax and flax unimportable."""
+    cfg = {"model_name": "paligemma", "model_size": "test",
+           "quantization": "fp32", "dataset_name": "MiviaPar",
+           "continuous_batching": False, "num_beams": 2,
+           "max_tokens": 3, "batch_size": 3,
+           "dataset": {"base_path": str(mivia_base)},
+           "prompts": {"MiviaPar": "describe"}}
+    path = tmp_path / "cli.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    proc = _run(WAVES, tmp_path, CLI_CONFIG=str(path),
+                VLM_TPU_ROOT=str(tmp_path), VLM_TPU_PLATFORM="cpu")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and not res["lib_loaded"]
+    for greedy, beams, text, dataset in res["out"].values():
+        assert len(greedy) == len(beams) == len(dataset) == 3
+        assert all(isinstance(t, str) for t in greedy + beams + dataset)
+        assert isinstance(text, str)
+    assert res["summary"]["images_completed"] == 4
+    out = tmp_path / "eval" / "prompt_inference" / "paligemma_fp32" / \
+        "MiviaPar"
+    assert len(json.loads((out / "preds.json").read_text())) == 4
+    assert (out / "metrics.json").exists()

@@ -246,7 +246,7 @@ def test_padded_prompt_is_masked(pair):
 
 # ------------------------------- model classes -------------------------------
 
-def test_model_classes_and_roadmap_errors():
+def test_model_classes_and_roadmap_errors(tmp_path):
     m = create_model("paligemma", quantization="fp32", size="test",
                      device="cpu")
     assert m.format_prompt("hi") == ("", "hi\n", False, True)
@@ -288,8 +288,12 @@ def test_model_classes_and_roadmap_errors():
     # tests/test_torch_blip2.py)
     assert type(create_model("blip2", size="test", device="cpu")
                 ).__name__ == "BLIP2OptModel"
-    with pytest.raises(NotImplementedError, match="A15"):
-        m.generate_dataset([], "p", num_beams=2)
+    # beam search runs in waves (A15; tests/test_torch_beam.py)
+    from PIL import Image
+    Image.fromarray(np.zeros((30, 40, 3), np.uint8)).save(tmp_path / "a.png")
+    out = m.generate_dataset([tmp_path / "a.png"], "p", max_tokens=2,
+                             num_beams=2)
+    assert len(out) == 1 and isinstance(out[0], str)
 
 
 @pytest.mark.parametrize("ask", ["nothing", "device", "env"])

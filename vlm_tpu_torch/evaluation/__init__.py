@@ -2,6 +2,6 @@
 zero-shot driver (the port's copies of ``vlm_tpu/evaluation``)."""
 
 from .evaluator import Evaluator
-from .zero_shot import run_zero_shot
+from .zero_shot import evaluate_outputs, run_zero_shot
 
-__all__ = ["Evaluator", "run_zero_shot"]
+__all__ = ["Evaluator", "evaluate_outputs", "run_zero_shot"]

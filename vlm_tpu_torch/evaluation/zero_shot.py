@@ -36,7 +36,6 @@ def run_zero_shot(model, dataset, prompt: str, output_dir, *,
     """
     n = len(dataset) if limit is None else min(limit, len(dataset))
     paths = dataset.image_paths()[:n]
-    labels = dataset.labels_list()[:n]
 
     gen = dict(generation or {})
     allowed = {"num_beams", "temperature", "top_k", "top_p", "seed"}
@@ -49,8 +48,17 @@ def run_zero_shot(model, dataset, prompt: str, output_dir, *,
     outputs = model.generate_dataset(paths, prompt, max_tokens=max_tokens,
                                      batch_size=batch_size,
                                      progress=progress, **gen)
-    elapsed = time.perf_counter() - t0
+    return evaluate_outputs(outputs, dataset, output_dir,
+                            time.perf_counter() - t0)
 
+
+def evaluate_outputs(outputs, dataset, output_dir, elapsed: float
+                     ) -> Dict[str, Any]:
+    """Parse the texts generated for the first ``len(outputs)`` images of
+    ``dataset`` (None: not generated), evaluate the parsed ones into
+    ``output_dir`` and return :func:`run_zero_shot`'s summary."""
+    n = len(outputs)
+    labels = dataset.labels_list()[:n]
     preds, gts = [], []
     for out, label in zip(outputs, labels):
         if out is None:

@@ -1,1 +1,2 @@
-"""Generation: sampling, prompt ids and the continuous batcher."""
+"""Generation: sampling, prompt ids, the wave engine, beam search and the
+continuous batcher."""

@@ -33,7 +33,7 @@ import torch
 from ..data.pipeline import prefetch_batches
 from ..models.decoder import QuantizedKV, init_kv_cache
 from ..models.vlm import VLMModule
-from .decode import sample
+from .decode import check_positions, feed_token, sample
 
 
 @dataclasses.dataclass
@@ -57,27 +57,17 @@ class ContinuousBatcher:
         self.batch_size = batch_size
         self.max_new_tokens = max_new_tokens
         self.max_prompt_len = max_prompt_len
-        self.cache_len = max_prompt_len + max_new_tokens
-        if self.cache_len > cfg.decoder.max_position:
-            # a position past the decoder's table (RoPE's, or OPT's
-            # learned one) would fault on the device; refuse it here
-            raise ValueError(
-                f"prompt {max_prompt_len} + {max_new_tokens} new tokens "
-                f"exceed the decoder's {cfg.decoder.max_position} positions")
+        self.cache_len = check_positions(cfg, max_prompt_len,
+                                         max_new_tokens)
         # "int8" for the quantized cache; default: the compute dtype
         self.cache_dtype = cache_dtype or module.dtype
         self.eos_id = cfg.decoder.eos_token_id if eos_id is None else eos_id
         self.pad_id = cfg.decoder.pad_token_id if pad_id is None else pad_id
-        # the token an idle slot is fed: the pad id where it lies in the
-        # vocabulary, else 0. The pad id still fills the history and the
-        # results. An idle slot's logits are discarded and the rows it
-        # writes stay masked for its next occupant; but an id past the
-        # table would raise here, and in vlm_tpu (whose lookup fills such
-        # a row with NaN) makes those rows NaN, which a masked weight of
-        # 0 does not cancel (LLaVA's "test" config: pad 32001, vocabulary
-        # 512).
-        vocab = cfg.decoder.vocab_size
-        self.feed_id = self.pad_id if 0 <= self.pad_id < vocab else 0
+        # the token an idle slot is fed (the pad id still fills the history
+        # and the results); the rows it writes stay masked for its next
+        # occupant. In vlm_tpu an out-of-vocabulary pad makes those rows
+        # NaN, which a masked weight of 0 does not cancel
+        self.feed_id = feed_token(self.pad_id, cfg.decoder.vocab_size)
         # ~8 slots per admission, fewer for small batches (vlm_tpu's default;
         # tuned on a TPU and to be re-tuned on the card)
         self.admit_block = admit_block or min(

@@ -1,4 +1,12 @@
-"""Token sampling and prompt ids (``vlm_tpu/generate/decode.py``).
+"""Token sampling, prompt ids and the wave engine
+(``vlm_tpu/generate/decode.py``).
+
+:class:`GenerationEngine` generates for one batch at a time: one prefill
+over the batch of merged (text + image) prompts into a cache it allocates,
+the first token from the prefill's logits, then decode steps until every
+row has emitted EOS or reached its cap. ``vlm_tpu`` runs the steps in a
+``lax.while_loop`` that tests "all done" on the device; here a Python loop
+reads that one flag on the host after each step.
 
 Greedy decoding matches ``vlm_tpu`` token for token; sampled tokens come
 from a ``torch.Generator`` and cannot match ``jax.random``'s stream.
@@ -6,9 +14,13 @@ from a ``torch.Generator`` and cannot match ``jax.random``'s stream.
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Optional
 
 import torch
+
+from ..models.decoder import init_kv_cache
 
 
 def sample(logits: torch.Tensor, temperature: float = 0.0,
@@ -38,6 +50,187 @@ def sample(logits: torch.Tensor, temperature: float = 0.0,
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+def feed_token(pad_id: int, vocab_size: int) -> int:
+    """The id fed for a row that is done or idle: the pad id where it lies
+    in the vocabulary, else 0. Its logits are discarded and the KV rows it
+    writes are never attended to by a live row, but an id past the table
+    would raise here (``vlm_tpu``'s lookup fills such a row with NaN;
+    LLaVA's "test" config: pad 32001, vocabulary 512)."""
+    return pad_id if 0 <= pad_id < vocab_size else 0
+
+
+def check_positions(cfg, max_prompt_len: int, max_new_tokens: int) -> int:
+    """The cache's length, prompt + new tokens; refused past the decoder's
+    positions (RoPE's table, or OPT's learned one), where a lookup would
+    fault on the device."""
+    if max_prompt_len + max_new_tokens > cfg.decoder.max_position:
+        raise ValueError(
+            f"prompt {max_prompt_len} + {max_new_tokens} new tokens "
+            f"exceed the decoder's {cfg.decoder.max_position} positions")
+    return max_prompt_len + max_new_tokens
+
+
+def uniform_prompts(prompt_len: torch.Tensor) -> bool:
+    """Whether every row's prompt has the same length (one host read). Only
+    then may a decode step write every row's KV at one shared column: with
+    mixed lengths that column, ``prompt_len[0]``, would overwrite the
+    longer prompts' rows."""
+    lengths = prompt_len.cpu()
+    return bool((lengths == lengths[0]).all())
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    """tokens: [B, max_new] generated ids (pad after EOS); lengths: [B]
+    number of generated tokens (including the EOS token if emitted)."""
+    tokens: torch.Tensor
+    lengths: torch.Tensor
+
+
+@dataclasses.dataclass
+class _WaveState:
+    cache: dict
+    prompt_len: torch.Tensor
+    caps: torch.Tensor
+    tokens: torch.Tensor
+    cur: torch.Tensor
+    done: torch.Tensor
+    lengths: torch.Tensor
+    uniform: bool
+    generator: Optional[torch.Generator]
+    step: int = 1
+
+
+class Engine:
+    """What the wave and beam engines share: the cache's length and dtype,
+    the EOS, pad and feed ids, the loop's condition and the timed loop.
+
+    After :meth:`generate`, ``last_stats`` holds the decode steps run and
+    the host's seconds to the first read of the done flags (the prefill
+    and the first token) and after it (the steps).
+    """
+
+    def __init__(self, module, cfg, *, batch_size: int, max_prompt_len: int,
+                 max_new_tokens: int, cache_dtype=None,
+                 eos_id: Optional[int] = None, pad_id: Optional[int] = None):
+        self.module = module
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.max_new_tokens = max_new_tokens
+        self.cache_len = check_positions(cfg, max_prompt_len,
+                                         max_new_tokens)
+        self.cache_dtype = cache_dtype or module.dtype
+        self.eos_id = cfg.decoder.eos_token_id if eos_id is None else eos_id
+        self.pad_id = cfg.decoder.pad_token_id if pad_id is None else pad_id
+        self.feed_id = feed_token(self.pad_id, cfg.decoder.vocab_size)
+        self.last_stats: dict = {}
+
+    def new_cache(self, rows: int) -> dict:
+        return init_kv_cache(self.cfg.decoder, rows, self.cache_len,
+                             self.cache_dtype, self.module.device)
+
+    def running(self, s) -> bool:
+        """The loop's condition; reads the done flags on the host."""
+        return not bool(s.done.all()) and s.step < self.max_new_tokens
+
+    def _run(self, s_fn):
+        """``s_fn()`` (the prefill and the first token), then :meth:`step`
+        while :meth:`running`; returns the last state."""
+        t0 = time.perf_counter()
+        s = s_fn()
+        go = self.running(s)
+        t1 = time.perf_counter()
+        while go:
+            self.step(s)
+            go = self.running(s)
+        self.last_stats = {"steps": s.step - 1, "prefill_s": t1 - t0,
+                           "decode_s": time.perf_counter() - t1}
+        return s
+
+
+class GenerationEngine(Engine):
+    """Batched generation over a :class:`VLMModule`.
+
+    Args:
+        module: the assembled VLM.
+        cfg: its config (cache geometry, EOS and pad ids).
+        batch_size: rows generated together.
+        max_prompt_len: the merged prompt's width (pre + image + post).
+        max_new_tokens: generation cap.
+        cache_dtype: ``"int8"`` for the quantized cache; default the
+            module's compute dtype.
+    """
+
+    def __init__(self, module, cfg, *, batch_size: int, max_prompt_len: int,
+                 max_new_tokens: int = 100, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 1.0, cache_dtype=None,
+                 eos_id: Optional[int] = None, pad_id: Optional[int] = None):
+        super().__init__(module, cfg, batch_size=batch_size,
+                         max_prompt_len=max_prompt_len,
+                         max_new_tokens=max_new_tokens,
+                         cache_dtype=cache_dtype, eos_id=eos_id,
+                         pad_id=pad_id)
+        self.temperature = temperature
+        self.top_k = top_k
+        self.top_p = top_p
+
+    def _sample(self, logits, generator):
+        return sample(logits, self.temperature, generator, self.top_k,
+                      self.top_p)
+
+    def start(self, pixels, pre_ids, post_ids, prompt_len,
+              generator: Optional[torch.Generator] = None,
+              max_new_per_seq: Optional[torch.Tensor] = None) -> _WaveState:
+        """The prefill and the first token; the state :meth:`step`
+        advances."""
+        cache = self.new_cache(self.batch_size)
+        last = self.module.prefill(pixels, pre_ids, post_ids, cache,
+                                   prompt_len)
+        b, dev = pixels.shape[0], prompt_len.device
+        caps = torch.full((b,), self.max_new_tokens, dtype=torch.int32,
+                          device=dev) if max_new_per_seq is None else \
+            max_new_per_seq.to(device=dev, dtype=torch.int32).clamp(
+                max=self.max_new_tokens)
+        tok0 = self._sample(last, generator)
+        tokens = torch.full((b, self.max_new_tokens), self.pad_id,
+                            dtype=torch.int32, device=dev)
+        tokens[:, 0] = tok0
+        return _WaveState(
+            cache=cache, prompt_len=prompt_len, caps=caps, tokens=tokens,
+            cur=tok0, done=(tok0 == self.eos_id) | (caps <= 1),
+            lengths=torch.ones((b,), dtype=torch.int32, device=dev),
+            uniform=uniform_prompts(prompt_len), generator=generator)
+
+    def step(self, s: _WaveState) -> None:
+        """One decode step for every row; rows done before it get pad."""
+        logits = self.module.decode_step(
+            s.cur[:, None], s.prompt_len + (s.step - 1), s.cache,
+            uniform_write=s.uniform)
+        nxt = torch.where(s.done, self.pad_id,
+                          self._sample(logits, s.generator))
+        s.tokens[:, s.step] = nxt
+        s.lengths += (~s.done).int()
+        s.cur = torch.where(s.done, self.feed_id, nxt)
+        s.done = s.done | (nxt == self.eos_id) | (s.step + 1 >= s.caps)
+        s.step += 1
+
+    @torch.inference_mode()
+    def generate(self, pixels: torch.Tensor, pre_ids: torch.Tensor,
+                 post_ids: torch.Tensor, prompt_len: torch.Tensor,
+                 generator: Optional[torch.Generator] = None,
+                 max_new_per_seq: Optional[torch.Tensor] = None
+                 ) -> GenerationResult:
+        """``pixels`` normalized ([B,H,W,3] or the patch layout);
+        ``pre_ids``/``post_ids`` [B, P] left-aligned (padded with the pad
+        id); ``prompt_len`` [B] the true merged lengths, on the module's
+        device. ``max_new_per_seq`` [B] caps each row (clamped to
+        ``max_new_tokens``)."""
+        s = self._run(lambda: self.start(pixels, pre_ids, post_ids,
+                                         prompt_len, generator,
+                                         max_new_per_seq))
+        return GenerationResult(tokens=s.tokens, lengths=s.lengths)
 
 
 def build_prompt_ids(tokenizer, pre_text: str, post_text: str,

@@ -1,14 +1,15 @@
 """User-facing model objects (``vlm_tpu/models/base_model.py``):
-``VLMModel(...).generate_dataset(paths, prompt)`` on the continuous batcher,
-the call ``run_zero_shot`` makes, and ``get_vision_backbone()``, the tower
-alone for probing.
+``VLMModel(...).generate_dataset(paths, prompt)`` on the continuous batcher
+(beam search in waves of ``generate_batch``), the call ``run_zero_shot``
+makes; ``generate_batch(images, prompt)`` and ``generate_text`` on the wave
+engine or beam search; and ``get_vision_backbone()``, the tower alone for
+probing.
 
 Weights are random, drawn on the device from ``seed``, unless ``model_id``
 names a local directory: a checkpoint in the port's own format
 (:mod:`..utils.checkpoint`) or HF safetensors (:mod:`.hf_weights`),
 chosen by the directory's contents. The tokenizer (from ``model_id`` when
-given), the image files and PIL are reached only inside
-:meth:`VLMModel.generate_dataset`.
+given), the image files and PIL are reached only when generating.
 
 A model runs on the card unless the caller asks for the CPU
 (:func:`resolve_device`).
@@ -20,14 +21,16 @@ import dataclasses
 import gc
 import os
 from pathlib import Path
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
 from ..core.mesh import mesh_from_config
 from ..generate.batcher import ContinuousBatcher
-from ..generate.decode import build_prompt_ids
-from ..ops.preprocess import load_batch, normalize_images, recipe_for
+from ..generate.beam import BeamSearchEngine
+from ..generate.decode import GenerationEngine, build_prompt_ids
+from ..ops.preprocess import (host_batch, load_batch, normalize_images,
+                              recipe_for)
 from ..utils.checkpoint import (is_vlm_checkpoint, load_vlm_checkpoint,
                                 save_vlm_checkpoint)
 from .backbone import VisionBackbone
@@ -148,6 +151,7 @@ class VLMModel:
             init_random_(self.module, seed)
         self.module.eval()
         self._tokenizer = None
+        self._engines: Dict[Any, Any] = {}
 
     @property
     def cache_dtype(self):
@@ -188,23 +192,133 @@ class VLMModel:
         around the image-token block."""
         raise NotImplementedError
 
+    def _engine(self, batch: int, prompt_len: int, max_tokens: int,
+                temperature: float = 0.0, top_k: int = 0,
+                top_p: float = 1.0) -> GenerationEngine:
+        # the cache dtype is in the key: flipping VLM_TPU_KV_CACHE between
+        # calls must not reuse an engine of the other dtype
+        key = (batch, prompt_len, max_tokens, str(self.cache_dtype),
+               temperature, top_k, top_p)
+        if key not in self._engines:
+            self._engines[key] = GenerationEngine(
+                self.module, self.cfg, batch_size=batch,
+                max_prompt_len=prompt_len, max_new_tokens=max_tokens,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                cache_dtype=self.cache_dtype, eos_id=self.tokenizer.eos_id,
+                pad_id=self.tokenizer.pad_id)
+        return self._engines[key]
+
+    def _beam_engine(self, batch: int, prompt_len: int, max_tokens: int,
+                     num_beams: int) -> BeamSearchEngine:
+        key = ("beam", batch, prompt_len, max_tokens, num_beams,
+               str(self.cache_dtype))
+        if key not in self._engines:
+            self._engines[key] = BeamSearchEngine(
+                self.module, self.cfg, batch_size=batch,
+                max_prompt_len=prompt_len, num_beams=num_beams,
+                max_new_tokens=max_tokens, cache_dtype=self.cache_dtype,
+                eos_id=self.tokenizer.eos_id, pad_id=self.tokenizer.pad_id)
+        return self._engines[key]
+
+    def generate_batch(self, images: Sequence, prompt: str,
+                       max_tokens: int = 100, num_beams: int = 1,
+                       temperature: float = 0.0, top_k: int = 0,
+                       top_p: float = 1.0, seed: int = 0) -> List[str]:
+        """One prefill and one decode loop over a batch of PIL images;
+        decoded texts, EOS removed. ``num_beams > 1`` runs beam search (HF
+        ``generate`` semantics); ``temperature > 0`` samples (optionally
+        top-k / nucleus filtered) from a generator seeded with ``seed``."""
+        # one device: no mesh pads the batch (A17)
+        b = len(images)
+        u8 = torch.from_numpy(host_batch(images, self.recipe))
+        pixels = normalize_images(u8.to(self.device), recipe=self.recipe,
+                                  compute_dtype=self.dtype,
+                                  patch_size=self.cfg.vision.patch_size)
+        tok = self.tokenizer
+        pre_t, post_t, bos_pre, bos_post = self.format_prompt(prompt)
+        pre_ids, post_ids, prompt_len = build_prompt_ids(
+            tok, pre_t, post_t, num_image_tokens(self.cfg), b,
+            add_bos_to_pre=bos_pre, add_bos_to_post=bos_post,
+            device=self.device)
+        plen = int(prompt_len[0])
+        if num_beams > 1:
+            if temperature > 0:
+                raise ValueError("beam search is deterministic; "
+                                 "temperature>0 with num_beams>1 is not "
+                                 "supported (HF raises the same way)")
+            result = self._beam_engine(b, plen, max_tokens, num_beams
+                                       ).generate(pixels, pre_ids, post_ids,
+                                                  prompt_len)
+        else:
+            generator = None
+            if temperature > 0:
+                generator = torch.Generator(device=self.device)
+                generator.manual_seed(seed)
+            result = self._engine(b, plen, max_tokens, temperature, top_k,
+                                  top_p).generate(pixels, pre_ids, post_ids,
+                                                  prompt_len,
+                                                  generator=generator)
+        toks = result.tokens.cpu().numpy()
+        lens = result.lengths.cpu().numpy()
+        return [tok.decode([int(t) for t in toks[i, :lens[i]]
+                            if int(t) != tok.eos_id]).strip()
+                for i in range(b)]
+
+    def generate_text(self, image, prompt: str, max_tokens: int = 100) -> str:
+        """One image (the reference's API); prefer :meth:`generate_batch`."""
+        return self.generate_batch([image], prompt, max_tokens)[0]
+
+    def generate_waves(self, image_paths: Sequence, prompt: str,
+                       batch_size: Optional[int] = None, progress=None,
+                       **generation) -> List[Optional[str]]:
+        """Waves of ``batch_size`` image files through
+        :meth:`generate_batch` (``generation``: its keyword arguments), a
+        short last wave padded with its last image so that one engine
+        serves every wave: the loop of ``vlm_tpu``'s beam
+        ``generate_dataset`` and of its CLI without continuous batching.
+        Texts in input order; None for the waves an interrupt left
+        undone."""
+        from PIL import Image
+        bs = batch_size or self.batch_size
+        paths = list(image_paths)
+        out: List[Optional[str]] = [None] * len(paths)
+        try:
+            for start in range(0, len(paths), bs):
+                images = [Image.open(p).convert("RGB")
+                          for p in paths[start:start + bs]]
+                k = len(images)
+                images += [images[-1]] * (bs - k)
+                out[start:start + k] = self.generate_batch(
+                    images, prompt, **generation)[:k]
+                if progress is not None:
+                    progress(k)
+        except KeyboardInterrupt:
+            print("\n[generate_waves] interrupted — returning completed "
+                  "results")
+        return out
+
     def generate_dataset(self, image_paths: Sequence, prompt: str,
                          max_tokens: int = 100,
                          batch_size: Optional[int] = None, progress=None,
                          num_beams: int = 1, temperature: float = 0.0,
                          top_k: int = 0, top_p: float = 1.0,
                          seed: int = 0) -> List[Optional[str]]:
-        """Continuous-batched generation over image files; decoded texts in
-        input order (None for inputs an interrupt left unfinished)."""
+        """Generation over image files; decoded texts in input order (None
+        for inputs an interrupt left unfinished). Continuous batching, or
+        with ``num_beams > 1`` :meth:`generate_waves` (the beams of a wave
+        share its cache)."""
         if num_beams > 1:
-            raise NotImplementedError("beam search is not ported yet "
-                                      "(ROADMAP A15)")
+            return self.generate_waves(
+                image_paths, prompt, batch_size, progress,
+                max_tokens=max_tokens, num_beams=num_beams,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                seed=seed)
+        paths = list(image_paths)
         tok = self.tokenizer
         pre_t, post_t, bos_pre, bos_post = self.format_prompt(prompt)
         pre_ids, post_ids, prompt_len = build_prompt_ids(
             tok, pre_t, post_t, num_image_tokens(self.cfg), 1,
             add_bos_to_pre=bos_pre, add_bos_to_post=bos_post)
-        paths = list(image_paths)
 
         def pixel_fn(idxs):
             batch = torch.from_numpy(load_batch([paths[i] for i in idxs],
@@ -242,6 +356,7 @@ class VLMModel:
             else 0)
         if cleanup:
             self.module = None
+            self._engines.clear()
             gc.collect()
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()

@@ -101,12 +101,17 @@ class VLMModule(nn.Module):
         return logits[:, 0]
 
     def decode_step(self, token_ids: torch.Tensor, seq_len: torch.Tensor,
-                    cache: Dict[str, tuple],
+                    cache: Dict[str, tuple], uniform_write: bool = False,
                     write_col: Optional[torch.Tensor] = None,
                     kv_valid: Optional[torch.Tensor] = None,
                     kv_window=None) -> torch.Tensor:
         """One token per sequence: ``token_ids`` [B,1]; ``seq_len`` [B] is
         the new token's position. Returns logits [B, V].
+
+        Without ``write_col``, each row writes at ``seq_len`` and attends
+        over ``seq_len + 1`` rows; ``uniform_write=True`` promises that
+        every row is at ``seq_len[0]`` (the wave and beam engines over
+        batch-constant prompts), so B3 writes at that one column.
 
         ``write_col`` (a 0-d int32 tensor) with ``kv_valid`` [B, L] or
         ``kv_window`` ``(pcol, W, acol, gcnt)``: the continuous batcher's
@@ -117,6 +122,8 @@ class VLMModule(nn.Module):
         positions = seq_len[:, None]
         if write_col is not None:
             write_start = write_col.reshape(1)
+        elif uniform_write:
+            write_start = seq_len[:1]
         else:
             write_start = seq_len
         masked = kv_valid is not None or kv_window is not None
@@ -124,7 +131,7 @@ class VLMModule(nn.Module):
             input_ids=token_ids, positions=positions, cache=cache,
             write_start=write_start,
             kv_len=None if masked else seq_len + 1, causal=False,
-            uniform_write=write_col is not None,
+            uniform_write=uniform_write or write_col is not None,
             kv_valid=kv_valid, kv_window=kv_window, logits_dtype=self.dtype)
         return logits[:, 0]
 

@@ -2,7 +2,9 @@
 """Zero-shot prompt inference over a dataset with the PyTorch/CUDA port.
 
 Same YAML surface as ``scripts/prompt_inference.py``; runs the port's model
-through the port's ``run_zero_shot`` (the continuous batcher) on the card:
+on the card through the port's ``run_zero_shot`` (the continuous batcher),
+or with ``continuous_batching: false`` in waves of ``batch_size`` images
+through ``generate_batch`` (beam search with ``num_beams > 1``):
 
     python vlm_tpu_torch/scripts/prompt_inference.py \\
         --config configs/prompt_inference.yaml [--limit N]
@@ -18,11 +20,28 @@ import argparse
 import json
 import os
 import sys
+import time
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 if str(REPO_ROOT) not in sys.path:
     sys.path.insert(0, str(REPO_ROOT))
+
+
+def run_waves(model, dataset, prompt: str, output_dir, *, max_tokens: int,
+              batch_size: int, limit=None, generation=None) -> dict:
+    """``continuous_batching: false``: waves of ``batch_size`` images
+    through ``model.generate_waves``, then the evaluator on what completed
+    (all of it, unless interrupted). Returns ``run_zero_shot``'s
+    summary."""
+    from vlm_tpu_torch.evaluation import evaluate_outputs
+    n = len(dataset) if limit is None else min(limit, len(dataset))
+    t0 = time.perf_counter()
+    outputs = model.generate_waves(dataset.image_paths()[:n], prompt,
+                                   batch_size, max_tokens=max_tokens,
+                                   **(generation or {}))
+    return evaluate_outputs(outputs, dataset, output_dir,
+                            time.perf_counter() - t0)
 
 
 def main(argv=None):
@@ -45,9 +64,7 @@ def main(argv=None):
     cfg_path = args.config if os.path.isabs(args.config) \
         else os.path.join(root, args.config)
     cfg = load_config(cfg_path)
-    if not cfg.get("continuous_batching", True):
-        raise NotImplementedError("the wave engine is not ported yet "
-                                  "(ROADMAP A6); use continuous batching")
+    continuous = bool(cfg.get("continuous_batching", True))
 
     mesh_from_config(cfg.get("mesh"))   # the port runs on one device
     model_name = cfg["model_name"]
@@ -82,11 +99,13 @@ def main(argv=None):
            ("num_beams", "temperature", "top_k", "top_p", "seed")
            if cfg.get(k) is not None}
     print(f"Running inference on dataset: {dataset_name} on "
-          f"{model.device} (batch={cfg.get('batch_size', 32)})")
-    summary = run_zero_shot(model, dataset, prompt, output_dir,
-                            max_tokens=int(cfg.get("max_tokens", 100)),
-                            batch_size=int(cfg.get("batch_size", 32)),
-                            limit=args.limit, generation=gen)
+          f"{model.device} (batch={cfg.get('batch_size', 32)}, "
+          f"continuous={continuous})")
+    run = run_zero_shot if continuous else run_waves
+    summary = run(model, dataset, prompt, output_dir,
+                  max_tokens=int(cfg.get("max_tokens", 100)),
+                  batch_size=int(cfg.get("batch_size", 32)),
+                  limit=args.limit, generation=gen)
     print(json.dumps({k: v for k, v in summary.items() if k != "metrics"}))
     return summary
 

@@ -165,6 +165,9 @@ VICUNA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 # q/v/out, fc1, fc2
 BLIP2_SLOTS, BLIP2_SLOTS_8BIT, BLIP2_PROMPT, BLIP2_GROUP_8BIT = 32, 64, 92, 8
 BLIP2_CACHE = BLIP2_PROMPT + NEW
+# the wave and beam engines' batches: one prefill of 32 PaliGemma images
+# (the wave), of 8 images (4 beams each, 8bit PaliGemma and bf16 LLaVA)
+WAVE_IMAGES, BEAM_IMAGES = 32, 8
 OPT_KN = ((4096, 4096), (4096, 16384), (16384, 4096))
 EVA_KN = ((1408, 1408), (1408, 6144), (6144, 1408))
 
@@ -702,6 +705,13 @@ def cases(device) -> List[Case]:
         b3_fused(f"{tag}fused_uniform_outside", qq, caches, kr, vr,
                  torch.full((1,), CACHE, **i32), True,
                  dict(kv_window=(pcol, NEW, acol, gcnt)), False)
+        if tag != "fp32_":
+            # the wave and beam engines' step: every row at one live
+            # column under kv_len (8 images x 4 beams)
+            b3_fused(f"{tag}fused_uniform_kv_len_32slots", qq, caches, kr,
+                     vr, torch.full((1,), PROMPT + 7, **i32), True,
+                     dict(kv_len=torch.full((SLOTS,), PROMPT + 8, **i32)),
+                     True)
 
     u8 = torch.randint(0, 256, (GROUP, 224, 224, 3), generator=gen,
                        device=dev).to(torch.uint8)
@@ -892,6 +902,10 @@ def cases(device) -> List[Case]:
     lstart[:4] = torch.tensor([0, 63, 64, LLAVA_CACHE - 1], **i32)
     b3_fused("llava_fused_scatter_kv_len_32slots", lq, (lk, lv), lkr, lvr,
              lstart, False, dict(kv_len=(lstart + 1).int()), False)
+    # the beam engine's step: 8 images x 4 beams at one live column
+    b3_fused("llava_fused_uniform_kv_len_32slots", lq, (lk, lv), lkr, lvr,
+             lcol, True, dict(kv_len=torch.full((LLAVA_SLOTS,), lp + 8,
+                                                **i32)), True)
     # 8bit: 16 slots over the int8 cache
     win8 = llava_window(LLAVA_SLOTS_8BIT)
     q8 = query(LLAVA_SLOTS_8BIT, 32, 128)
@@ -1059,6 +1073,57 @@ def cases(device) -> List[Case]:
     for k, n in EVA_KN:
         b6(BLIP2_GROUP_8BIT * 257, k, n, *eva_w[(k, n)], torch.bfloat16,
            True)
+
+    # ---- the wave and beam engines' prefills: one batch of images ----
+    # (every prompt of one length, so kv_len is the prompt's in every row)
+    def b4_patch(case, u8, rec):
+        out.append(Case(
+            "B4", case,
+            functools.partial(normalize_images, u8, recipe=rec,
+                              compute_dtype=torch.bfloat16, patch_size=14),
+            functools.partial(normalize_plain, u8, rec, torch.bfloat16, 14),
+            0.0, True, form="normalize", work=(0.0, 3.0 * u8.numel(), "bf16"),
+            baseline_fn=lambda: unfold_patches(normalize_images(
+                u8, recipe=rec, compute_dtype=torch.bfloat16), 14),
+            library_note=b4_note))
+
+    # PaliGemma-3B: the wave's 32 images (bf16) and the 8bit beams' 8
+    for g in (WAVE_IMAGES, BEAM_IMAGES):
+        b1(f"siglip_g{g}_h16_s256_d72", *(_bhsd(gen, g, 256, 16, 72, dev)
+                                          for _ in range(3)), on_path=True)
+        b1(f"gemma_prefill_g{g}_s316_kvlen", _bhsd(gen, g, PROMPT, 8, 256,
+                                                   dev),
+           *(_bhsd(gen, g, PROMPT, 1, 256, dev) for _ in range(2)),
+           on_path=True, kv_len=torch.full((g,), PROMPT, **i32))
+        b4_patch(f"patch14_u8_g{g}_224", torch.randint(
+            0, 256, (g, 224, 224, 3), generator=gen, device=dev).to(
+                torch.uint8), recipe)
+    # the 8bit beams' int8 prefill: B6 on Gemma's products at 8 x 316 rows
+    # (fp32 out, as the admission's) and the prompt rows into the int8 cache
+    for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
+        b6(BEAM_IMAGES * PROMPT, k, n, *gemma_w[(k, n)], torch.float32,
+           True)
+    k_pre, v_pre = (torch.randn(BEAM_IMAGES, PROMPT, 1, 256, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+    group8 = tuple((torch.zeros(BEAM_IMAGES, PROMPT, 1, 256,
+                                dtype=torch.int8, device=dev),
+                    torch.zeros(BEAM_IMAGES, PROMPT, 1, 1, device=dev))
+                   for _ in range(2))
+    b3_int8(f"int8_prefill_g{BEAM_IMAGES}_s316", k_pre, v_pre, group8,
+            torch.zeros(1, **i32), True, True)
+    # LLaVA-1.5-7B bf16: the beams' 8 images through CLIP-L/336 and
+    # Vicuna's causal prefill
+    b1(f"clip_l336_g{BEAM_IMAGES}_h16_s577_d64",
+       *(_bhsd(gen, BEAM_IMAGES, 577, 16, 64, dev) for _ in range(3)),
+       on_path=True)
+    b1(f"vicuna_prefill_g{BEAM_IMAGES}_h32_s641_d128_kvlen",
+       *(_bhsd(gen, BEAM_IMAGES, lp, 32, 128, dev) for _ in range(3)),
+       on_path=True, causal=True,
+       kv_len=torch.full((BEAM_IMAGES,), lp, **i32))
+    b4_patch(f"patch14_u8_g{BEAM_IMAGES}_336", torch.randint(
+        0, 256, (BEAM_IMAGES, 336, 336, 3), generator=gen, device=dev).to(
+            torch.uint8), clip)
     return out
 
 
