@@ -71,8 +71,13 @@ Phases, each of which raises on failure:
     weights with ``VLM_TPU_INT8_PREFILL=dynamic_noout`` (B6 at every
     admission product), the int8 KV cache, 16 slots, admission groups of
     4, the same traffic;
-16. LLaVA 8bit reference (int8 decoder weights and cache), and an fp32
-    reference (the fp32 forms of B1 and B2 at G = 1, D = 128);
+16. LLaVA 8bit reference (int8 decoder weights and cache); then the 4bit
+    slice (grouped int4 decoder weights, the bf16 cache, 32 slots: B7 at
+    every decode product, counted, the dequantized product at the
+    admissions' 2,564 rows) and its reference; then the fp32 slice at full
+    depth (28.3 GB of fp32 weights, 16 slots, 16 images, up to 8 new
+    tokens: the fp32 forms of B1 at CLIP-L's D = 64 and Vicuna's D = 128
+    and of B2 at G = 1) and its fp32 reference;
 17. BLIP-2 bf16 slice: ``create_model("blip2", size="6.7b")`` (EVA ViT-g,
     the Q-Former through B1, OPT-6.7B with learned positions and its tied
     head; MHA, 32 heads of 128) in bf16 at full width and depth, the same
@@ -87,8 +92,14 @@ Phases, each of which raises on failure:
     ``VLM_TPU_INT8_PREFILL=dynamic_noout`` (B6 at every admission product),
     the int8 KV cache, 64 slots, admission groups of 8, the same traffic;
 20. BLIP-2 8bit reference (int8 decoder and tower weights, the int8
-    cache), and an fp32 reference (the fp32 forms of B1 at D = 88, 64 and
-    128 and of B2 at G = 1, D = 128);
+    cache); the 4bit slice (int4 decoder and tower, ``quantize_vision``,
+    32 slots: B7 at every decode product and at the OPT prefill's 368
+    rows, the tower's 1,028 rows dequantized) and its reference (the
+    1-image prefill takes B7 at EVA's 257 rows); and an fp32 reference
+    (the fp32 forms of B1 at D = 88, 64 and 128 and of B2 at G = 1,
+    D = 128). Every slice prints the fit check's ``param_bytes``, the
+    card's memory and the bytes its build allocated, which must be the
+    weights' bytes;
 21. wave paligemma bf16: PaliGemma-3B from the checkpoint, bf16,
     ``generate_batch`` greedy over one wave of 32 synthetic images (the
     wave engine: one prefill, up to 32 new tokens); img/s, the prefill's
@@ -108,23 +119,34 @@ Phases, each of which raises on failure:
 25. cli wave: the port's CLI with ``continuous_batching: false`` and
     ``num_beams: 2`` (the shipped config otherwise), PaliGemma-3B bf16
     from the checkpoint, over 8 of the probing data's JPEGs laid out as a
-    MiviaPar test split; its summary and files;
-26. probe cache: single-task probing of LLaVA-1.5-7B's CLIP-L/336 tower in
+    MiviaPar test split; its summary and files; then cli profile: the same
+    on the continuous path with ``--profile``: the meter's line printed,
+    the Chrome trace naming B1's, B2's and B4's kernels;
+26. sweep: the port's ``compare_models`` on a copy of
+    ``configs/compare_models.yaml`` with the three families in bf16, 8bit
+    and 4bit at full size (random weights) over the same 8 JPEGs, 16 new
+    tokens, 8 slots: nine rows without an error, each build allocating
+    its ``param_bytes``, the device memory back to where the sweep began
+    (within 64 MiB) after each model, B7 under LLaVA's and BLIP-2's 4bit
+    rows, no plain version, each batcher at the slots, admission block,
+    prompt length and new tokens of the kernel checks' sweep cases; each
+    row's img/s, peak memory and build seconds;
+27. probe cache: single-task probing of LLaVA-1.5-7B's CLIP-L/336 tower in
     fp32 (``configs/train_probe.yaml``'s single profile, random weights)
     through the port's ``train_probe`` entry point on a synthetic face
     dataset of 336 px JPEGs (256 train, 64 val, 64 test images, task age)
     in a temporary project root: the decoder dropped, the features
     extracted by B4's and B1's fp32 forms, the head trained for 2 epochs;
-27. probe e2e: the same data with the multi profile's backbone block (the
+28. probe e2e: the same data with the multi profile's backbone block (the
     last 4 blocks and the embeddings unfrozen) at batch 32 for an epoch and
     its validation: B1's differentiable form in every block of every step,
     blocks 20-23 and the embeddings changed, blocks 0-19 bitwise as built;
-28. probe test: the port's ``test_probe`` on that checkpoint: preds, gts
+29. probe test: the port's ``test_probe`` on that checkpoint: preds, gts
     and metrics written, the preds the probe's own argmax;
-29. probe reference: a depth-cut CLIP-L (2 blocks, full width) and a
+30. probe reference: a depth-cut CLIP-L (2 blocks, full width) and a
     linear head, one end-to-end step with the last block unfrozen, card
     against CPU in fp32: loss and gradients within ``REF_TOL_FP32``;
-30. probe multi: ``train_probe --profile multi`` (age, gender and emotion
+31. probe multi: ``train_probe --profile multi`` (age, gender and emotion
     over one tower, augmentation and the weighted sampler, the 0.33
     emotion balancing: 256 train rows, 51 with emotion, 50 duplicates;
     the profile's backbone block) at batch 32 for 2 epochs, the second on
@@ -132,16 +154,16 @@ Phases, each of which raises on failure:
     of every step, blocks 20-23 and the embeddings changed, blocks 0-19
     bitwise as built; then a few more steps under the profiler (the
     device's busy share);
-31. probe lora: the single profile with ``lora.enabled`` (rank 8, alpha
+32. probe lora: the single profile with ``lora.enabled`` (rank 8, alpha
     16, the last 2 blocks' attention) and the tower frozen, at batch 32
     for an epoch: B1's differentiable form in blocks 22-23 only, every
     base weight bitwise as built, every adapter's B moved off zero, a
     checkpoint of the adapters and no tower;
-32. probe multi test: ``test_probe --profile multi`` on the multi
+33. probe multi test: ``test_probe --profile multi`` on the multi
     checkpoint (preds, gts and metrics per task, the preds each head's own
     argmax) and the single tester on the LoRA checkpoint (the adapters
     merged at load: no differentiable form);
-33. probe multi reference: a depth-cut CLIP-L (2 blocks, full width), three
+34. probe multi reference: a depth-cut CLIP-L (2 blocks, full width), three
     heads, LoRA on the last block (A and B drawn nonzero) and uncertainty
     weighting, one step card against CPU in fp32: the loss and the
     gradients of A, B, the log-variances and the heads within
@@ -175,14 +197,16 @@ SLOTS, N_IMAGES, PROMPT_IDS, NEW = 32, 96, 60, 32
 # batcher admits 4 at a time at 16 and 32 slots, 8 at 64); the 60 prompt
 # ids come after the image tokens (PaliGemma's and BLIP-2's start with
 # BOS). The 8bit recipe: ``VLM_TPU_INT8_PREFILL`` (None: the default,
-# ``dynamic``) and whether the tower is quantized (``quantize_vision``);
-# ``ref_vision``: whether the 8bit and 4bit references quantize the tower
+# ``dynamic``) and whether the 8bit and 4bit slices quantize the tower
+# (``quantize_vision``); ``ref_vision``: whether the 8bit and 4bit
+# references quantize the tower
 MODELS = {
     "paligemma": dict(label="PaliGemma-3B", size="3b", image=224,
                       pre_ids=0, slots={}, int8_prefill=None,
                       quantize_vision=False, ref_vision=True),
     "llava": dict(label="LLaVA-1.5-7B", size="7b", image=336, pre_ids=5,
-                  slots={"8bit": 16}, int8_prefill="dynamic_noout",
+                  slots={"8bit": 16, "fp32": 16},
+                  int8_prefill="dynamic_noout",
                   quantize_vision=False, ref_vision=False),
     "blip2": dict(label="BLIP-2 OPT-6.7B", size="6.7b", image=224,
                   pre_ids=0, slots={"8bit": 64},
@@ -325,9 +349,11 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
     kw = {} if quantization == "fp32" else dict(
         quantization=quantization,
         kv_cache="int8" if quantization == "8bit" else None,
-        quantize_vision=quantization == "8bit" and spec["quantize_vision"])
+        quantize_vision=quantization in ("8bit", "4bit")
+        and spec["quantize_vision"])
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
+    before = device_bytes(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with int8_prefill(model_name, quantization) as mode:
@@ -346,6 +372,7 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
           f"{build_s:.1f} s ({gpu})")
     if model_id is not None:
         load_report(tag, model_id, build_s, load_peak, n_bytes, gpu)
+    fit_report(torch, tag, model, before, gpu)
     cfg = model.cfg
     dec = cfg.decoder
     rng = np.random.default_rng(0)
@@ -409,6 +436,15 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
             or launches["kv_write_int8"] != prefill_rows):
         raise RuntimeError(f"KV writes outside B2's launch: {launches} "
                            f"(int8 prefill rows: {prefill_rows})")
+    if quantization == "4bit":
+        groups = [min(b.admit_block, n_images - i)
+                  for i in range(0, n_images, b.admit_block)]
+        want = int4_launches(cfg, model.quantize_vision,
+                             b.last_stats["steps"], groups, prompt_len)
+        if launches["int4_matmul"] != want:
+            raise RuntimeError(f"{tag} B7 launched {launches['int4_matmul']}"
+                               f" times, {want} decode and admission "
+                               f"products under 512 rows")
     lat = np.asarray(b.last_latency_s) * 1e3
     print(f"{tag} prompt {prompt_len} ids ({len(pre_ids)} + "
           f"{num_image_tokens(cfg)} image + {len(post_ids)}), "
@@ -466,6 +502,56 @@ def load_report(tag, model_id, seconds, peak, model_bytes, gpu):
     if peak > bound:
         raise RuntimeError(f"the load took {peak} bytes of device memory, "
                            f"more than {bound}")
+
+
+def device_bytes(torch):
+    """(bytes the live tensors asked the allocator for, bytes of its
+    blocks that hold them): the second rounds a tensor up to its block
+    (by up to 1 MiB above 10 MiB)."""
+    return (torch.cuda.memory_stats()["requested_bytes.all.current"],
+            torch.cuda.memory_allocated())
+
+
+# the allocator's blocks above the bytes a build's tensors ask for, at
+# most (a share of ``param_bytes``): the margin the fit check leaves out
+BLOCK_ROUNDING = 0.02
+
+
+def fit_report(torch, tag, model, before, gpu):
+    """Print the fit check's weights bytes (``param_bytes``, the module on
+    ``meta``), the card's memory and the bytes the build allocated since
+    ``before`` (:func:`device_bytes`); fail unless the tensors it asked
+    for are the weights' bytes within 1 % and the allocator's blocks hold
+    them within ``BLOCK_ROUNDING`` more."""
+    from vlm_tpu_torch.models.vlm import device_memory_limit, param_bytes
+    bits = model.policy.quantized_bits
+    want = param_bytes(model.cfg, dtype=model.dtype, quant_bits=bits,
+                       vision_quant_bits=bits if model.quantize_vision else 0)
+    limit = device_memory_limit("cuda")
+    asked, blocks = (b - a for a, b in zip(before, device_bytes(torch)))
+    print(f"{tag} param_bytes {want} ({want / 1e9:.2f} GB), device limit "
+          f"{limit} ({limit / 2**30:.2f} GiB), the build allocated {asked} "
+          f"bytes ({blocks} in the allocator's blocks) ({gpu})")
+    if abs(asked - want) > want / 100:
+        raise RuntimeError(f"{tag} the build allocated {asked} bytes, "
+                           f"param_bytes says {want}")
+    if blocks - asked > BLOCK_ROUNDING * want:
+        raise RuntimeError(f"{tag} the allocator's blocks hold {blocks} "
+                           f"bytes for {asked} requested")
+
+
+def int4_launches(cfg, tower, steps, groups, prompt_len):
+    """B7's launches in a 4bit run: every decode step's decoder products,
+    and an admission of ``g`` images' products where their rows stay under
+    512 (the decoder's g x ``prompt_len``; the tower's g x its tokens, when
+    it is quantized); more rows take the dequantized product."""
+    dec = (7 if cfg.decoder.gated_mlp else 6) * cfg.decoder.layers
+    n = dec * steps
+    for g in groups:
+        n += dec * (g * prompt_len < 512)
+        if tower:
+            n += 6 * cfg.vision.layers * (g * cfg.vision.seq_len < 512)
+    return n
 
 
 def reference_phase(torch, np, gpu, quantization, model_name="paligemma",
@@ -728,8 +814,9 @@ def run_phases(torch, np, gpu, launches, tmp, pali):
             ("paligemma", "bf16", True), ("paligemma", "8bit", True),
             ("paligemma", "4bit", True), ("paligemma", "fp32", True),
             ("llava", "bf16", True), ("llava", "8bit", True),
-            ("llava", "fp32", False), ("blip2", "bf16", True),
-            ("blip2", "8bit", True), ("blip2", "fp32", False)):
+            ("llava", "4bit", True), ("llava", "fp32", True),
+            ("blip2", "bf16", True), ("blip2", "8bit", True),
+            ("blip2", "4bit", True), ("blip2", "fp32", False)):
         if serve:
             size = dict(n_images=FP32_IMAGES, new=FP32_NEW) \
                 if quantization == "fp32" else {}
@@ -772,8 +859,9 @@ GEN_PROMPTS = {"paligemma": (_TEXT[:58], 316), "llava": (_TEXT[:46], 641)}
 # the steps run before the profiled ones: the beam gather's columns then
 # cover about half the new tokens, a step's average
 PROFILE_AT, PROFILED_STEPS = 15, 3
-# timed calls of generate_batch after the warm-up, on the same inputs
-GEN_REPS = 5
+# timed calls of generate_batch after the warm-up, on the same inputs (3:
+# the whole run stays near 650 s with the sweep and the new slices)
+GEN_REPS = 3
 # the beam reference: a depth-cut LLaVA in fp32, card against CPU
 BEAM_REF_IMAGES, BEAM_REF_NEW = 2, 16
 # the CLI's wave phase: images of the probing data, new tokens
@@ -1060,17 +1148,14 @@ def beam_reference_phase(torch, np, gpu):
                            "with the CPU's")
 
 
-def cli_wave_phase(torch, gpu, tmp, ckpt, base):
-    """The port's CLI with ``continuous_batching: false`` and ``num_beams:
-    2`` (the shipped YAML otherwise: its MiviaPar prompt), PaliGemma-3B in
-    bf16 from the checkpoint, over 8 of the probing data's JPEGs laid out
-    as a MiviaPar test split; its summary and files. Returns the launch
-    counts."""
-    import yaml
-
-    from vlm_tpu_torch.ops import _lib
-    from vlm_tpu_torch.scripts.prompt_inference import main
-    d = tmp / "mivia" / "MiviaPar" / "test"
+def mivia_split(tmp, base):
+    """8 of the probing data's JPEGs laid out as a MiviaPar test split
+    under ``tmp/mivia`` (made once), labels cycling through colours and
+    flags; returns its base path."""
+    mivia = tmp / "mivia"
+    d = mivia / "MiviaPar" / "test"
+    if d.exists():
+        return mivia
     (d / "images").mkdir(parents=True)
     colours = ("black", "white", "red", "blue")
     lines = []
@@ -1081,18 +1166,38 @@ def cli_wave_phase(torch, gpu, tmp, ckpt, base):
         lines.append(f"{src.name},{colours[i % 4]},{colours[(i + 1) % 4]},"
                      f"{i % 2},{(i // 2) % 2},{(i // 4) % 2}")
     (d / "labels.csv").write_text("\n".join(lines) + "\n")
-    root = tmp / "cli_root"
+    return mivia
+
+
+def project_root(tmp, name, config, **over):
+    """A project root ``tmp/name`` holding the task map, made the current
+    one (``VLM_TPU_ROOT``), and a copy of ``configs/<config>`` with
+    ``over`` in it; returns (root, the copy's path)."""
+    import yaml
+    root = tmp / name
     (root / "configs").mkdir(parents=True)
     shutil.copy(ROOT / "configs" / "task_datasets.yaml", root / "configs")
-    cfg = yaml.safe_load((ROOT / "configs" / "prompt_inference.yaml")
-                         .read_text())
-    cfg.update(model_name="paligemma", model_id=str(ckpt),
-               quantization="bf16", continuous_batching=False, num_beams=2,
-               max_tokens=CLI_NEW, batch_size=CLI_IMAGES,
-               dataset={"base_path": str(tmp / "mivia")})
-    path = root / "cli.yaml"
+    cfg = yaml.safe_load((ROOT / "configs" / config).read_text())
+    cfg.update(over)
+    path = root / config
     path.write_text(yaml.safe_dump(cfg))
     os.environ["VLM_TPU_ROOT"] = str(root)
+    return root, path
+
+
+def cli_wave_phase(torch, gpu, tmp, ckpt, base):
+    """The port's CLI with ``continuous_batching: false`` and ``num_beams:
+    2`` (the shipped YAML otherwise: its MiviaPar prompt), PaliGemma-3B in
+    bf16 from the checkpoint, over 8 of the probing data's JPEGs laid out
+    as a MiviaPar test split; its summary and files. Returns the launch
+    counts."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.scripts.prompt_inference import main
+    root, path = project_root(
+        tmp, "cli_root", "prompt_inference.yaml", model_name="paligemma",
+        model_id=str(ckpt), quantization="bf16", continuous_batching=False,
+        num_beams=2, max_tokens=CLI_NEW, batch_size=CLI_IMAGES,
+        dataset={"base_path": str(mivia_split(tmp, base))})
     _lib.reset_counts()
     t0 = time.perf_counter()
     summary = main(["--config", str(path)])
@@ -1118,6 +1223,174 @@ def cli_wave_phase(torch, gpu, tmp, ckpt, base):
     return launches
 
 
+# the kernels a CLI trace must name: B1's, B2's and B4's (their symbols in
+# csrc/flash_attention.cu, decode_attention.cu, normalize.cu)
+TRACE_KERNELS = {"B1": "flash_kernel", "B2": "decode_kernel",
+                 "B4": "normalize_kernel"}
+
+
+def cli_profile_phase(torch, gpu, tmp, ckpt, base):
+    """The port's CLI on the continuous path with ``--profile``,
+    PaliGemma-3B in bf16 from the checkpoint, over the same 8 JPEGs: its
+    files, the meter's ``[THROUGHPUT]`` line, and a Chrome trace that names
+    B1's, B2's and B4's kernels. Returns the launch counts."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.scripts.prompt_inference import main
+    from vlm_tpu_torch.utils.profiling import TRACE_FILE
+    root, path = project_root(
+        tmp, "cli_profile_root", "prompt_inference.yaml",
+        model_name="paligemma", model_id=str(ckpt), quantization="bf16",
+        continuous_batching=True, num_beams=1, max_tokens=CLI_NEW,
+        batch_size=CLI_IMAGES,
+        dataset={"base_path": str(mivia_split(tmp, base))})
+    trace_dir = tmp / "cli_trace"
+    tee = _Tee(sys.stdout)
+    _lib.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        summary = main(["--config", str(path), "--profile", str(trace_dir)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(_lib.launches), dict(_lib.plain_calls)
+    trace = trace_dir / TRACE_FILE
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    named = {k: sum(sym in n for n in kernels)
+             for k, sym in TRACE_KERNELS.items()}
+    meter = [ln for ln in tee.text().splitlines()
+             if ln.startswith("[THROUGHPUT]")]
+    print(f"[cli profile] the port's CLI, continuous, --profile, "
+          f"PaliGemma-3B bf16 from the checkpoint, {CLI_IMAGES} JPEGs, "
+          f"max_tokens {CLI_NEW}: {summary['images_completed']} images, "
+          f"{wall:.1f} s with the load and the trace; trace "
+          f"{trace.stat().st_size / 1e6:.1f} MB, {len(events)} events, "
+          f"{len(kernels)} kernel events, B1/B2/B4 kernels named {named}; "
+          f"meter {meter} ({gpu})")
+    if summary["images_completed"] != CLI_IMAGES or len(meter) != 1:
+        raise RuntimeError("[cli profile] the CLI did not complete")
+    if not all(named.values()):
+        raise RuntimeError(f"[cli profile] the trace misses kernels: {named}")
+    if any(plain.values()) or not launches["decode_attention"]:
+        raise RuntimeError(f"[cli profile] the path left the kernels: "
+                           f"{launches}, {plain}")
+    return launches
+
+
+# the sweep: configs/compare_models.yaml with these keys changed, over the
+# 8 JPEGs of the CLI phases
+SWEEP = dict(models=["paligemma", "llava", "blip2"],
+             quantizations=["bf16", "8bit", "4bit"], datasets=["MiviaPar"],
+             max_tokens=16, batch_size=8)
+# device memory a released model may leave behind
+SWEEP_LEFT = 64 << 20
+
+
+def sweep_phase(torch, gpu, tmp, base, launches):
+    """The port's ``compare_models`` at full size (random weights), every
+    model in bf16, 8bit and 4bit: nine rows, none an error, 8 images
+    each; each build allocating its ``param_bytes``; after each model the
+    device memory back to where the sweep began (within ``SWEEP_LEFT``);
+    B7 under the 4bit rows of LLaVA and BLIP-2; no plain version. Adds
+    the launch counts into ``launches``."""
+    from vlm_tpu_torch.models import base_model
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.scripts import compare_models
+    from vlm_tpu_torch.testing import kernel_checks
+    root, path = project_root(
+        tmp, "sweep_root", "compare_models.yaml",
+        dataset={"base_path": str(mivia_split(tmp, base))}, **SWEEP)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated()
+    runs = []
+    real_create, real_release = (compare_models.create_model,
+                                 compare_models.release)
+    real_batcher = base_model.ContinuousBatcher
+
+    class Batcher(real_batcher):
+        """The batcher, its shapes recorded: the kernel checks' sweep
+        cases are at these."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            runs[-1]["batcher"] = (self.batch_size, self.admit_block,
+                                   self.max_prompt_len, self.max_new_tokens)
+
+    def create(name, **kw):
+        _lib.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before = device_bytes(torch)
+        t0 = time.perf_counter()
+        model = real_create(name, **kw)
+        torch.cuda.synchronize()
+        runs.append(dict(model=name, quantization=kw["quantization"],
+                         build_s=time.perf_counter() - t0))
+        fit_report(torch, f"[sweep] {name} {kw['quantization']}", model,
+                   before, gpu)
+        return model
+
+    def release(model):
+        run = runs[-1]
+        torch.cuda.synchronize()
+        run.update(peak=torch.cuda.max_memory_allocated(),
+                   launches=dict(_lib.launches),
+                   plain=dict(_lib.plain_calls))
+        real_release(model)
+        run["left"] = torch.cuda.memory_allocated() - start
+
+    compare_models.create_model, compare_models.release = create, release
+    base_model.ContinuousBatcher = Batcher
+    t0 = time.perf_counter()
+    try:
+        rows = compare_models.main(["--config", str(path)])
+    finally:
+        compare_models.create_model, compare_models.release = \
+            real_create, real_release
+        base_model.ContinuousBatcher = real_batcher
+    wall = time.perf_counter() - t0
+    bad = [r for r in rows if "error" in r]
+    if bad:
+        raise RuntimeError(f"[sweep] error rows {bad}")
+    for row, run in zip(rows, runs):
+        print(f"[sweep] {row['model']} {row['quantization']}: "
+              f"{row['images']} images, {row['images_per_sec']} img/s"
+              f" (the summary's), build {run['build_s']:.1f} s, peak "
+              f"{run['peak'] / 2**30:.2f} GiB, after the release "
+              f"{run['left'] / 2**20:.1f} MiB above the start, B7 "
+              f"{run['launches']['int4_matmul']}, B5 "
+              f"{run['launches']['int8_matmul']}, B6 "
+              f"{run['launches']['int8xint8_matmul']} launches ({gpu})")
+    print(f"[sweep] {len(rows)} rows in {wall:.1f} s; summary.json and "
+          f"summary.csv under {root / 'eval' / 'comparison'} ({gpu})")
+    want = [(m, q) for m in SWEEP["models"] for q in SWEEP["quantizations"]]
+    if [(r["model"], r["quantization"]) for r in rows] != want or any(
+            r["images"] != CLI_IMAGES for r in rows):
+        raise RuntimeError(f"[sweep] rows {rows}")
+    shapes = [(r["model"], r["quantization"], r["batcher"]) for r in runs
+              if r["batcher"] != (kernel_checks.SWEEP_SLOTS,
+                                  kernel_checks.SWEEP_GROUP,
+                                  kernel_checks.SWEEP_PROMPTS[r["model"]],
+                                  kernel_checks.SWEEP_NEW)]
+    if shapes:
+        raise RuntimeError(f"[sweep] batcher shapes the kernel checks do "
+                           f"not hold: {shapes}")
+    left = [(r["model"], r["quantization"], r["left"]) for r in runs
+            if r["left"] > SWEEP_LEFT]
+    if left:
+        raise RuntimeError(f"[sweep] memory not returned: {left}")
+    for r in runs:
+        need = ["flash_attention", "decode_attention", "kv_write_fused",
+                "normalize"]
+        if r["quantization"] == "4bit" and r["model"] != "paligemma":
+            need.append("int4_matmul")
+        idle = [k for k in need if not r["launches"][k]]
+        if idle or any(r["plain"].values()):
+            raise RuntimeError(f"[sweep] {r['model']} {r['quantization']}: "
+                               f"never launched {idle}, plain {r['plain']}")
+        for name, n in r["launches"].items():
+            launches[name] += n
+
+
 def generation_phases(torch, np, gpu, launches, tmp, ckpt, base):
     """The wave and beam phases, the beam reference and the CLI's wave
     path, adding the serving phases' launch counts into ``launches``."""
@@ -1140,6 +1413,10 @@ def generation_phases(torch, np, gpu, launches, tmp, ckpt, base):
     for name, k in cli_wave_phase(torch, gpu, tmp, ckpt, base).items():
         launches[name] += k
     print(f"[time] cli wave {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, k in cli_profile_phase(torch, gpu, tmp, ckpt, base).items():
+        launches[name] += k
+    print(f"[time] cli profile {time.perf_counter() - t0:.1f} s")
 
 
 # the probing phases: LLaVA-1.5-7B's tower in fp32, the single and multi
@@ -1909,6 +2186,9 @@ def main() -> int:
         generation_phases(torch, np, gpu, launches, tmp, pali, base)
         shutil.rmtree(pali)
         print(f"[time] generation {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        sweep_phase(torch, gpu, tmp, base, launches)
+        print(f"[time] sweep {time.perf_counter() - t0:.1f} s")
         probe_phases(torch, np, gpu, launches, tmp, base)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

@@ -882,3 +882,94 @@ def test_wave_and_beams_run_on_the_card_with_no_plain_call(card, num_beams):
         _lib.launches["decode_attention_fp32"]
     assert _lib.launches["kv_write"] == 0
     assert sum(_lib.plain_calls.values()) == 0
+
+
+# the 4bit slices of LLaVA and BLIP-2: B7 at group 128 at Vicuna's and
+# OPT's decode products (32 slots), BLIP-2's admissions of 4 x 92 rows
+# and EVA's int4 tower (one image, 257 rows)
+B7_SLICE_CASES = tuple(
+    f"B7 m{m}_k{k}_n{n}_gs128"
+    for m, k, n in ((32, 4096, 4096), (32, 4096, 11008), (32, 11008, 4096),
+                    (32, 4096, 16384), (32, 16384, 4096), (257, 1408, 1408),
+                    (257, 1408, 6144), (257, 6144, 1408), (368, 4096, 4096),
+                    (368, 4096, 16384), (368, 16384, 4096)))
+
+
+@pytest.mark.parametrize("case", B7_SLICE_CASES)
+def test_b7_at_the_4bit_slices_shapes(all_cases, case):
+    _check(all_cases[case])
+
+
+# LLaVA's fp32 slice at full depth: Vicuna's fp32 prefill of 4 images, the
+# fp32 decode window of 16 slots over 641 + 8 rows
+LLAVA_FP32_CASES = ("B1 fp32_vicuna_prefill_g4_h32_s641_d128_kvlen",
+                    "B2 fp32_llava_window_16slots_cold")
+
+
+@pytest.mark.parametrize("case", LLAVA_FP32_CASES)
+def test_fp32_llava_slice_shapes_match_plain(all_cases, case):
+    assert all_cases[case].on_path
+    _check(all_cases[case])
+
+
+@pytest.mark.parametrize("family,size,quantization,qv", [
+    ("paligemma", "test", "fp32", False), ("llava", "test", "8bit", True),
+    ("blip2", "test", "4bit", True), ("blip2", "6.7b", "4bit", True)])
+def test_param_bytes_is_what_a_built_model_allocates(card, family, size,
+                                                     quantization, qv):
+    """The fit check's ``param_bytes`` (the module on ``meta``) against the
+    device memory ``create_model`` asks the allocator for when it builds
+    the same model (its requested bytes: the blocks round each tensor
+    up), within 1 %; all of it back once the model is gone."""
+    from vlm_tpu_torch.models.factory import create_model
+    from vlm_tpu_torch.models.vlm import param_bytes
+
+    def requested():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+    torch.cuda.empty_cache()
+    before = requested()
+    model = create_model(family, size=size, quantization=quantization,
+                         quantize_vision=qv)
+    built = requested() - before
+    bits = {"8bit": 8, "4bit": 4}.get(quantization, 0)
+    want = param_bytes(model.cfg, dtype=model.dtype, quant_bits=bits,
+                       vision_quant_bits=bits if qv else 0)
+    assert abs(built - want) <= want / 100, (want, built)
+    del model
+    assert requested() == before
+
+
+# chip_smoke.py's sweep: each decoder's prefill of its admission block
+# of MiviaPar prompts, the decode window of its slots (B2, and B3 inside
+# it), B5 and B7 at the decode step's rows, B6 at the 8bit admission's
+# rows (names as kernel_checks.cases builds them)
+def _sweep_cases():
+    from vlm_tpu_torch.testing import kernel_checks as kc
+    slots, group, new = kc.SWEEP_SLOTS, kc.SWEEP_GROUP, kc.SWEEP_NEW
+    for model, (dec, h, d, kns) in {
+            "paligemma": ("gemma", 8, 256, kc.GEMMA_KN),
+            "llava": ("vicuna", 32, 128, kc.VICUNA_KN),
+            "blip2": ("opt", 32, 128, kc.OPT_KN)}.items():
+        p = kc.SWEEP_PROMPTS[model]
+        yield f"B1 {dec}_prefill_g{group}_h{h}_s{p}_d{d}_kvlen"
+        yield f"B2 {dec}_window_{slots}slots_s{p + new}_cold"
+        yield f"B3 {dec}_fused_window_{slots}slots_s{p + new}_cold"
+        for k, n in kns:
+            yield f"B5 m{slots}_k{k}_n{n}"
+            yield f"B6 m{group * p}_k{k}_n{n}_fp32"
+            yield f"B7 m{slots}_k{k}_n{n}_gs128"
+
+
+SWEEP_CASES = tuple(dict.fromkeys(_sweep_cases()))
+
+
+@pytest.mark.parametrize("case", SWEEP_CASES)
+def test_sweep_shapes_match_plain(all_cases, case):
+    c = all_cases[case]
+    assert c.on_path
+    if c.kernel == "B3":
+        got, exact = c.kernel_fn(), c.exact_fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got, exact)
+    _check(c)

@@ -187,11 +187,13 @@ def test_production_conversion_complete(family, layout):
 
 
 @pytest.mark.parametrize("family,bits", [("paligemma", 8), ("paligemma", 4),
-                                         ("blip2", 8)])
+                                         ("blip2", 8), ("llava", 8),
+                                         ("llava", 4), ("blip2", 4)])
 def test_production_conversion_quantized(family, bits):
     """Quantized on load at full size, the tower too (``quantize_vision``):
     int8 (q, scale) and int4 (packed q, group scales; SigLIP's fc2 at
-    group 16) from the fp checkpoint weights."""
+    group 16; Vicuna's down at K = 11008, EVA's at K = 6144 and OPT's at
+    16384, all group 128) from the fp checkpoint weights."""
     cfg, fname = CASES[family]
     report = validate_vlm_conversion(family, cfg, _manifest(fname)["hub"],
                                      quant_bits=bits, vision_quant_bits=bits)

@@ -7,9 +7,10 @@ prefill, then 4bit with an int4 tower, then LLaVA in fp32, then BLIP-2 in
 the 8bit recipe with the int8 tower and cache), and others run the port's
 CLI ``main()`` on a synthetic dataset with ``VLM_TPU_PLATFORM=cpu``, for
 PaliGemma, LLaVA and BLIP-2, the wave and beam entry points with the
-CLI's ``continuous_batching: false``, and the probing CLIs' ``main()``
+CLI's ``continuous_batching: false``, the probing CLIs' ``main()``
 (train in both modes, then test; the multi-task profile and LoRA, then
-their testers). None imports triton or builds the kernel library."""
+their testers), and the model-comparison sweep, the CLI with
+``--profile`` and the face-dataset preparation. None imports triton or builds the kernel library."""
 
 import json
 import subprocess
@@ -106,7 +107,11 @@ def test_port_imports_and_runs_without_jax(tmp_path):
             "vlm_tpu_torch.probing.train.multitask_trainer",
             "vlm_tpu_torch.probing.test.multitask_tester",
             "vlm_tpu_torch.scripts.train_probe",
-            "vlm_tpu_torch.scripts.test_probe"} <= set(res["modules"])
+            "vlm_tpu_torch.scripts.test_probe",
+            "vlm_tpu_torch.scripts.compare_models",
+            "vlm_tpu_torch.utils.profiling",
+            "vlm_tpu_torch.data.preprocess_face_datasets"} <= set(
+                res["modules"])
     for toks in (res["tokens"], res["tokens8"], res["tokens4"],
                  res["tokensl"], res["tokensb"]):
         assert len(toks) == 5
@@ -442,3 +447,64 @@ def test_port_waves_beams_and_wave_cli_run_without_jax(tmp_path, mivia_base):
         "MiviaPar"
     assert len(json.loads((out / "preds.json").read_text())) == 4
     assert (out / "metrics.json").exists()
+
+
+SWEEP = BLOCKER + r"""
+import json, os, sys
+import torch
+torch.set_num_threads(1)
+from vlm_tpu_torch.data import preprocess_face_datasets
+from vlm_tpu_torch.ops import _lib
+from vlm_tpu_torch.scripts import compare_models, prompt_inference
+rows = compare_models.main(["--config", os.environ["SWEEP_CONFIG"]])
+summary = prompt_inference.main(["--config", os.environ["CLI_CONFIG"],
+                                 "--profile", os.environ["TRACE_DIR"]])
+preprocess_face_datasets.main(["--base", os.environ["FACE_BASE"]])
+print(json.dumps({"rows": rows, "summary": summary,
+                  "lib_loaded": _lib._lib is not None,
+                  "loaded": sorted(m for m in ("jax", "flax", "triton",
+                                               "vlm_tpu") if m in sys.modules)}))
+"""
+
+
+def test_sweep_profile_and_face_preparation_run_without_jax(tmp_path,
+                                                            mivia_base):
+    """``compare_models`` over PaliGemma and BLIP-2 at size "test" in fp32
+    and 4bit, the CLI with ``--profile`` (its trace written) and
+    ``preprocess_face_datasets`` (a val split and the class counts), with
+    vlm_tpu, jax and flax unimportable."""
+    from tests.conftest import make_face_dataset
+    sweep = {"models": ["paligemma", "blip2"],
+             "quantizations": ["fp32", "4bit"], "datasets": ["MiviaPar"],
+             "max_tokens": 3, "batch_size": 2, "model_size": "test",
+             "dataset": {"base_path": str(mivia_base)},
+             "prompts": {"MiviaPar": "describe"}}
+    cli = {"model_name": "paligemma", "model_size": "test",
+           "quantization": "fp32", "dataset_name": "MiviaPar",
+           "max_tokens": 3, "batch_size": 2,
+           "dataset": {"base_path": str(mivia_base)},
+           "prompts": {"MiviaPar": "describe"}}
+    for name, cfg in (("sweep", sweep), ("cli", cli)):
+        (tmp_path / f"{name}.yaml").write_text(yaml.safe_dump(cfg))
+    faces = tmp_path / "faces"
+    make_face_dataset(faces, "TestDataset", "train",
+                      [{"gender": i % 2, "age": 20 + i} for i in range(10)])
+    proc = _run(SWEEP, tmp_path, SWEEP_CONFIG=str(tmp_path / "sweep.yaml"),
+                CLI_CONFIG=str(tmp_path / "cli.yaml"),
+                TRACE_DIR=str(tmp_path / "trace"), FACE_BASE=str(faces),
+                VLM_TPU_ROOT=str(tmp_path), VLM_TPU_PLATFORM="cpu")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == [] and not res["lib_loaded"]
+    assert [(r["model"], r["quantization"], r["images"])
+            for r in res["rows"]] == [("paligemma", "fp32", 4),
+                                      ("paligemma", "4bit", 4),
+                                      ("blip2", "fp32", 4),
+                                      ("blip2", "4bit", 4)]
+    assert (tmp_path / "eval" / "comparison" / "summary.csv").exists()
+    assert res["summary"]["images_completed"] == 4
+    assert "[THROUGHPUT] prompt_inference:" in proc.stdout
+    assert json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert (faces / "TestDataset" / "val" / "labels.csv").exists()
+    assert json.loads((faces / "TestDataset" / "train" /
+                       "class_counts.json").read_text())["gender"]

@@ -70,6 +70,27 @@ def _splits(plan):
 @pytest.mark.parametrize("shape", SHAPES, ids=[f"k{k}_n{n}"
                                                for k, n, _ in SHAPES])
 def test_plan_covers_k_once_and_matches_plain(shape, fmt, m, clusters):
+    _check_plan(shape, fmt, m, clusters)
+
+
+# the 4bit slices of LLaVA and BLIP-2 (group 128): Vicuna's and OPT's decode
+# products at 32 slots (K = 11008: 43 chunks, a prime; K = 16384: 64), and
+# EVA's int4 tower at a one-image prefill of 257 rows (K = 1408: 5.5
+# chunks, the last half a chunk)
+SLICE_SHAPES = [(32, 4096, 4096), (32, 4096, 11008), (32, 11008, 4096),
+                (32, 4096, 16384), (32, 16384, 4096), (257, 1408, 1408),
+                (257, 1408, 6144), (257, 6144, 1408)]
+
+
+@pytest.mark.parametrize("m,k,n", SLICE_SHAPES,
+                         ids=[f"m{m}_k{k}_n{n}" for m, k, n in SLICE_SHAPES])
+def test_plan_at_the_4bit_slices_shapes(m, k, n):
+    """The same checks at the shapes B7 takes in the 4bit LLaVA and BLIP-2
+    slices, with the H100's cluster table."""
+    _check_plan((k, n, 128), "int4", m, H100_CLUSTERS)
+
+
+def _check_plan(shape, fmt, m, clusters):
     k, n, gs = shape
     row_bytes = k if fmt == "int8" else k // 2
     plan = stream_plan(m, n, row_bytes, H100_SMS, clusters)

@@ -20,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import os
+import sys
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -37,7 +38,7 @@ from .backbone import VisionBackbone
 from .configs import VLM_CONFIGS, VLMConfig
 from .hf_weights import load_vlm_weights
 from .layers import init_random_
-from .vlm import VLMModule, num_image_tokens
+from .vlm import VLMModule, check_hbm_fit, num_image_tokens
 
 @dataclasses.dataclass(frozen=True)
 class DTypePolicy:
@@ -139,9 +140,10 @@ class VLMModel:
                 self.recipe, image_size=self.cfg.vision.image_size)
         bits = self.policy.quantized_bits
         self.quantize_vision = resolve_quantize_vision(quantize_vision)
-        self.module = VLMModule(
-            self.cfg, dtype=self.dtype, device=self.device, quant_bits=bits,
-            vision_quant_bits=bits if self.quantize_vision else 0)
+        quant = dict(dtype=self.dtype, quant_bits=bits,
+                     vision_quant_bits=bits if self.quantize_vision else 0)
+        check_hbm_fit(self.cfg, self.device, **quant)
+        self.module = VLMModule(self.cfg, device=self.device, **quant)
         if weights == "native":
             load_vlm_checkpoint(model_id, self.module,
                                 self._checkpoint_meta())
@@ -342,6 +344,8 @@ class VLMModel:
             post_ids_row=post_ids[0].numpy(),
             prompt_len_scalar=int(prompt_len[0]), n_images=len(paths),
             progress=progress)
+        if os.environ.get("VLM_TPU_BATCHER_STATS", "0") == "1":
+            print(f"[batcher stats] {batcher.last_stats}", file=sys.stderr)
         return [tok.decode(t).strip() if t is not None else None
                 for t in token_lists]
 

@@ -8,6 +8,7 @@ bidirectionally, generated tokens causally. LLaVA's is [BOS + "USER: "]
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
 
 import torch
@@ -143,3 +144,53 @@ def num_image_tokens(cfg: VLMConfig) -> int:
     if not cfg.drop_cls_for_llm and cfg.vision.use_cls_token:
         n += 1
     return n
+
+
+def device_memory_limit(device) -> Optional[int]:
+    """The card's total memory in bytes (``torch.cuda.mem_get_info``),
+    which stands for ``vlm_tpu``'s ``bytes_limit``; None off the card,
+    where the fit check is skipped (as ``vlm_tpu`` skips a backend without
+    ``memory_stats``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(device)[1]
+
+
+def param_bytes(cfg: VLMConfig, *, dtype=torch.float32, quant_bits: int = 0,
+                vision_quant_bits: int = 0) -> int:
+    """The weights' bytes, computed without allocating: the module built on
+    ``meta``, its parameters and buffers summed at their real dtypes (int8
+    tables, packed int4 bytes, fp32 scales)."""
+    module = VLMModule(cfg, dtype=dtype, device="meta", quant_bits=quant_bits,
+                       vision_quant_bits=vision_quant_bits)
+    return sum(t.numel() * t.element_size()
+               for t in (*module.parameters(), *module.buffers()))
+
+
+def check_hbm_fit(cfg: VLMConfig, device, *, dtype=torch.float32,
+                  quant_bits: int = 0, vision_quant_bits: int = 0) -> None:
+    """Refuse a build whose weights alone cannot fit the card's memory,
+    before anything is allocated: ``vlm_tpu``'s decision with its model
+    axis of 1, the port's one device. Weights only: the KV cache and the
+    activations come on top, so a refusal is never a false positive.
+    ``param_bytes`` is what the tensors ask the allocator for; its blocks
+    round each tensor up (on an H100, up to 96 MiB more for LLaVA-7B's
+    8bit weights, 1.3 %; ``chip_smoke.py`` fails a build past 2 %), a
+    margin the check leaves to the caller, as ``vlm_tpu``'s leaves XLA's
+    padding. ``VLM_TPU_SKIP_FIT_CHECK=1`` skips it."""
+    if os.environ.get("VLM_TPU_SKIP_FIT_CHECK") == "1":
+        return
+    limit = device_memory_limit(device)
+    if limit is None:
+        return
+    total = param_bytes(cfg, dtype=dtype, quant_bits=quant_bits,
+                        vision_quant_bits=vision_quant_bits)
+    if total <= limit:
+        return
+    raise ValueError(
+        f"Model weights ({total / 2**30:.1f} GiB) exceed the device's "
+        f"memory ({limit / 2**30:.1f} GiB) before any KV cache or "
+        f"activations. Use `quantization: 8bit` (or 4bit) "
+        f"to shrink the weights; tensor parallelism over several devices "
+        f"is not ported yet (ROADMAP A17).")

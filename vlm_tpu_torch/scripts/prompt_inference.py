@@ -7,10 +7,16 @@ or with ``continuous_batching: false`` in waves of ``batch_size`` images
 through ``generate_batch`` (beam search with ``num_beams > 1``):
 
     python vlm_tpu_torch/scripts/prompt_inference.py \\
-        --config configs/prompt_inference.yaml [--limit N]
+        --config configs/prompt_inference.yaml [--limit N] [--profile DIR]
 
-``VLM_TPU_PLATFORM=cpu`` runs it on the CPU instead (fp32 or a "test"
-size); without it and without a CUDA device the model refuses to build.
+It prints the throughput meter's ``[THROUGHPUT]`` line (the first image
+left out of the steady rate), "Interrupted: evaluated k/n images." after
+an interrupt and "Nothing to evaluate." when no image completed, then the
+JSON summary. ``--profile DIR`` writes a ``torch.profiler`` Chrome trace
+of the run (host and card) to ``DIR/trace.json``, also when the run
+raises. ``VLM_TPU_PLATFORM=cpu`` runs it on the CPU instead (fp32 or a
+"test" size); without it and without a CUDA device the model refuses to
+build.
 Imports only the port (dataset readers, tokenizer, evaluator and config
 helpers are its own copies); reading the YAML config needs PyYAML and
 reading images needs Pillow.
@@ -29,7 +35,8 @@ if str(REPO_ROOT) not in sys.path:
 
 
 def run_waves(model, dataset, prompt: str, output_dir, *, max_tokens: int,
-              batch_size: int, limit=None, generation=None) -> dict:
+              batch_size: int, limit=None, progress=None,
+              generation=None) -> dict:
     """``continuous_batching: false``: waves of ``batch_size`` images
     through ``model.generate_waves``, then the evaluator on what completed
     (all of it, unless interrupted). Returns ``run_zero_shot``'s
@@ -38,7 +45,8 @@ def run_waves(model, dataset, prompt: str, output_dir, *, max_tokens: int,
     n = len(dataset) if limit is None else min(limit, len(dataset))
     t0 = time.perf_counter()
     outputs = model.generate_waves(dataset.image_paths()[:n], prompt,
-                                   batch_size, max_tokens=max_tokens,
+                                   batch_size, progress,
+                                   max_tokens=max_tokens,
                                    **(generation or {}))
     return evaluate_outputs(outputs, dataset, output_dir,
                             time.perf_counter() - t0)
@@ -51,6 +59,9 @@ def main(argv=None):
                         default="configs/prompt_inference.yaml")
     parser.add_argument("--limit", type=int, default=None,
                         help="optional cap on the number of images")
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="write a torch.profiler trace of the inference "
+                             "run to DIR/trace.json (view with Perfetto)")
     args = parser.parse_args(argv)
     os.environ.setdefault("VLM_TPU_ROOT", str(REPO_ROOT))
 
@@ -59,6 +70,7 @@ def main(argv=None):
     from vlm_tpu_torch.data.dataset_factory import DatasetFactory
     from vlm_tpu_torch.evaluation import run_zero_shot
     from vlm_tpu_torch.models.factory import create_model
+    from vlm_tpu_torch.utils.profiling import ThroughputMeter, profile_trace
 
     root = os.environ["VLM_TPU_ROOT"]
     cfg_path = args.config if os.path.isabs(args.config) \
@@ -98,14 +110,28 @@ def main(argv=None):
     gen = {k: cfg[k] for k in
            ("num_beams", "temperature", "top_k", "top_p", "seed")
            if cfg.get(k) is not None}
-    print(f"Running inference on dataset: {dataset_name} on "
-          f"{model.device} (batch={cfg.get('batch_size', 32)}, "
-          f"continuous={continuous})")
+    n = len(dataset) if args.limit is None else min(args.limit, len(dataset))
+    batch_size = int(cfg.get("batch_size", 32))
+    print(f"Running inference on dataset: {dataset_name} ({n} images, "
+          f"batch={batch_size}, continuous={continuous}) on {model.device}")
+    meter = ThroughputMeter()
     run = run_zero_shot if continuous else run_waves
-    summary = run(model, dataset, prompt, output_dir,
-                  max_tokens=int(cfg.get("max_tokens", 100)),
-                  batch_size=int(cfg.get("batch_size", 32)),
-                  limit=args.limit, generation=gen)
+    try:
+        # the trace covers the whole run and is written even if it raises
+        with profile_trace(args.profile):
+            summary = run(model, dataset, prompt, output_dir,
+                          max_tokens=int(cfg.get("max_tokens", 100)),
+                          batch_size=batch_size, limit=args.limit,
+                          progress=meter.update, generation=gen)
+            meter.report("prompt_inference")
+            if summary["partial"]:
+                print(f"Interrupted: evaluated "
+                      f"{summary['images_completed']}/{n} images.")
+            elif summary["images_completed"] == 0:
+                print("Nothing to evaluate.")
+    finally:
+        if args.profile:
+            print(f"Profiler trace written to {args.profile}")
     print(json.dumps({k: v for k, v in summary.items() if k != "metrics"}))
     return summary
 

@@ -158,6 +158,8 @@ CACHE = PROMPT + NEW
 # gate/up, down (K = 11008 = 86 x 128)
 LLAVA_SLOTS, LLAVA_SLOTS_8BIT, LLAVA_PROMPT = 32, 16, 641
 LLAVA_CACHE = LLAVA_PROMPT + NEW
+# the fp32 slice: 16 slots, up to 8 new tokens
+LLAVA_SLOTS_FP32, LLAVA_FP32_NEW = 16, 8
 VICUNA_KN = ((4096, 4096), (4096, 11008), (11008, 4096))
 # BLIP-2 OPT-6.7B's: 32 query tokens + BOS + 59 ids, 32 slots in bf16 and
 # 64 in 8bit (admissions of 8); OPT's block products (K, N): q/k/v/o, fc1,
@@ -170,6 +172,12 @@ BLIP2_CACHE = BLIP2_PROMPT + NEW
 WAVE_IMAGES, BEAM_IMAGES = 32, 8
 OPT_KN = ((4096, 4096), (4096, 16384), (16384, 4096))
 EVA_KN = ((1408, 1408), (1408, 6144), (6144, 1408))
+# chip_smoke.py's sweep (compare_models.yaml, batch_size 8, max_tokens
+# 16): 8 slots, the batcher's admissions of 4, and each model's prompt:
+# the MiviaPar prompt in byte ids (no tokenizer files) after the image
+# tokens (PaliGemma 256 + 704, LLaVA 7 + 576 + 714, BLIP-2 32 + 722)
+SWEEP_SLOTS, SWEEP_GROUP, SWEEP_NEW = 8, 4, 16
+SWEEP_PROMPTS = {"paligemma": 960, "llava": 1297, "blip2": 754}
 
 
 @dataclasses.dataclass
@@ -932,6 +940,22 @@ def cases(device) -> List[Case]:
     kr32, vr32 = rows(4, torch.float32)
     b3_fused("llava_fp32_fused_window_4slots", q32, (k32, v32), kr32, vr32,
              lcol, True, dict(kv_window=win32), False)
+    # the fp32 slice at full depth: an admission of 4 through Vicuna's
+    # causal prefill, and the decode window of its 16 slots over 641 + 8
+    # rows (8 new tokens)
+    b1("fp32_vicuna_prefill_g4_h32_s641_d128_kvlen",
+       *(f32(GROUP, lp, 32, 128) for _ in range(3)), on_path=True,
+       causal=True, kv_len=torch.full((GROUP,), lp, **i32))
+    new32 = LLAVA_FP32_NEW
+    ac32 = torch.randint(0, new32, (LLAVA_SLOTS_FP32,), generator=gen,
+                         device=dev).int()
+    gc32 = torch.randint(1, new32 + 1, (LLAVA_SLOTS_FP32,), generator=gen,
+                         device=dev).int()
+    (k16, v16, _), _ = cache(LLAVA_SLOTS_FP32, lp + new32, 32, 128)
+    b2("fp32_llava_window_16slots", query(LLAVA_SLOTS_FP32, 32, 128).float(),
+       k16.float(), v16.float(),
+       dict(kv_window=(torch.tensor(lp, **i32), new32, ac32, gc32)), True,
+       {}, True)
     b3_fused("llava_fp32_fused_scatter_kv_len_4slots", q32, (k32, v32),
              kr32, vr32, lstart[:4].contiguous(),
              False, dict(kv_len=(lstart[:4] + 1).int()), False)
@@ -1073,6 +1097,63 @@ def cases(device) -> List[Case]:
     for k, n in EVA_KN:
         b6(BLIP2_GROUP_8BIT * 257, k, n, *eva_w[(k, n)], torch.bfloat16,
            True)
+
+    # ---- the 4bit slices of LLaVA and BLIP-2: B7 at group 128 ----
+    # the decode step at 32 slots: Vicuna's and OPT's three products (their
+    # 4096 -> 4096 once; K = 11008 is 43 chunks of 256 k); BLIP-2's
+    # admissions of 4 x 92 rows (under 512: B7, not the dequantized
+    # product); EVA's int4 tower (``quantize_vision``) at a one-image
+    # prefill, m = 257 (K = 1408 is 5.5 chunks; admissions of 4 pass 512
+    # rows and take the dequantized product)
+    dec_w4 = {kn: weights4(*kn, 128) for kn in dict.fromkeys(VICUNA_KN +
+                                                               OPT_KN)}
+    for kn, w4 in dec_w4.items():
+        b7(SLOTS, *kn, w4, True)
+    for kn in OPT_KN:
+        b7(GROUP * bp, *kn, dec_w4[kn], True)
+    for k, n in EVA_KN:
+        b7(257, k, n, weights4(k, n, 128), False)
+
+    # ---- the sweep: configs/compare_models.yaml's MiviaPar prompt ----
+    # 8 slots, admissions of 4, up to 16 new tokens, a bf16 tower and cache
+    # in every row: each decoder's prefill of 4 prompts, the decode window
+    # of 8 slots over prompt + 16 rows (with B3's write), B5 (8bit) and B7
+    # (4bit) at the decode step's 8 rows, B6 at the 8bit admission's 4 x
+    # prompt rows (the default int8 prefill: fp32 out)
+    def sweep_window(slots, prompt, new):
+        ac = torch.randint(0, new, (slots,), generator=gen, device=dev).int()
+        gc = torch.randint(1, new + 1, (slots,), generator=gen,
+                           device=dev).int()
+        return (torch.tensor(prompt, **i32), new, ac, gc)
+
+    for model, (h, kvh, d, causal, kns, w8, w4) in {
+            "paligemma": (8, 1, 256, False, GEMMA_KN, gemma_w, gemma_w4),
+            "llava": (32, 32, 128, True, VICUNA_KN, vicuna_w, dec_w4),
+            "blip2": (32, 32, 128, True, OPT_KN, opt_w, dec_w4)}.items():
+        sp = SWEEP_PROMPTS[model]
+        dec = {"paligemma": "gemma", "llava": "vicuna", "blip2": "opt"}[model]
+        b1(f"{dec}_prefill_g{SWEEP_GROUP}_h{h}_s{sp}_d{d}_kvlen",
+           _bhsd(gen, SWEEP_GROUP, sp, h, d, dev),
+           *(_bhsd(gen, SWEEP_GROUP, sp, kvh, d, dev) for _ in range(2)),
+           on_path=True, causal=causal,
+           kv_len=torch.full((SWEEP_GROUP,), sp, **i32))
+        win = sweep_window(SWEEP_SLOTS, sp, SWEEP_NEW)
+        qq = query(SWEEP_SLOTS, h, d)
+        (kk, vv, _), _ = cache(SWEEP_SLOTS, sp + SWEEP_NEW, kvh, d)
+        b2(f"{dec}_window_{SWEEP_SLOTS}slots_s{sp + SWEEP_NEW}", qq, kk, vv,
+           dict(kv_window=win), True, {}, True)
+        kr, vr = (torch.randn(SWEEP_SLOTS, 1, kvh, d, generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        b3_fused(f"{dec}_fused_window_{SWEEP_SLOTS}slots_s{sp + SWEEP_NEW}",
+                 qq, (kk, vv), kr, vr, torch.full((1,), sp + 7, **i32), True,
+                 dict(kv_window=win), True, True)
+        for k, n in kns:
+            b6(SWEEP_GROUP * sp, k, n, *w8[(k, n)], torch.float32, True)
+    for kn, w in {**gemma_w, **vicuna_w, **opt_w}.items():
+        b5(SWEEP_SLOTS, *kn, *w, True)
+    for kn, w4 in {**gemma_w4, **dec_w4}.items():
+        b7(SWEEP_SLOTS, *kn, w4, True)
 
     # ---- the wave and beam engines' prefills: one batch of images ----
     # (every prompt of one length, so kv_len is the prompt's in every row)

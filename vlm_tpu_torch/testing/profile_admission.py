@@ -61,6 +61,11 @@ recipe (``admission_8bit``, ``step_8bit``: int8 decoder weights with
 128]; the admissions (32 query tokens, BOS + 59 ids: 92) and decode steps
 in bf16 (groups of 4, 32 slots) and in the 8bit recipe (int8 decoder and
 tower, ``dynamic_noout``, the int8 cache; groups of 8, 64 slots).
+Both models' admissions and steps then run in ``4bit`` too (int4
+decoder weights, BLIP-2's tower too, the bf16 cache, 32 slots;
+``admission_4bit``, ``step_4bit``: each step's ``top`` kernels show B7,
+``stream_kernel``, beside B2) and LLaVA's in ``fp32`` (the default
+quantization, 16 slots): every mode of the model's ``slots``.
 """
 
 import argparse
@@ -84,14 +89,16 @@ CACHE = PROMPT + NEW
 SLICES = {
     # LLaVA-1.5-7B: 336 px, BOS + 4 ids before the 576 image tokens
     "llava": dict(image=336, pre_ids=5, prompt=641,
-                  slots={"bf16": 32, "8bit": 16},
-                  group={"bf16": 4, "8bit": 4}, quantize_vision=False,
+                  slots={"bf16": 32, "8bit": 16, "4bit": 32, "fp32": 16},
+                  group={"bf16": 4, "8bit": 4, "4bit": 4, "fp32": 4},
+                  quantize_vision=False,
                   b1={"clip": (577, 577, 16, 64, None),
                       "vicuna": (641, 641, 32, 128, 600)}),
     # BLIP-2 OPT-6.7B: 224 px, the 32 query tokens, then BOS + 59 ids
     "blip2": dict(image=224, pre_ids=0, prompt=92,
-                  slots={"bf16": 32, "8bit": 64},
-                  group={"bf16": 4, "8bit": 8}, quantize_vision=True,
+                  slots={"bf16": 32, "8bit": 64, "4bit": 32},
+                  group={"bf16": 4, "8bit": 8, "4bit": 4},
+                  quantize_vision=True,
                   b1={"eva": (257, 257, 16, 88, None),
                       "qformer_self": (32, 32, 12, 64, None),
                       "qformer_cross": (32, 257, 12, 64, None),
@@ -319,17 +326,19 @@ def main_mha(torch, args):
     del flush, kc, vc, calls, sdpa
     out = {"root": args.root, "gpu": gpu, "model": args.model,
            "b1_ms": b1_ms, "device_us": device}
-    for quantization in ("bf16", "8bit"):
+    for quantization in spec["slots"]:
         kw = dict(quantization=quantization)
+        if quantization in ("8bit", "4bit"):
+            kw.update(quantize_vision=spec["quantize_vision"])
         if quantization == "8bit":
-            kw.update(kv_cache="int8",
-                      quantize_vision=spec["quantize_vision"])
+            kw.update(kv_cache="int8")
             os.environ["VLM_TPU_INT8_PREFILL"] = "dynamic_noout"
         try:
             model = create_model(args.model, device="cuda", seed=0, **kw)
         finally:
             os.environ.pop("VLM_TPU_INT8_PREFILL", None)
-        key = "admission" if quantization == "bf16" else "admission_8bit"
+        key = "admission" if quantization == "bf16" else \
+            f"admission_{quantization}"
         out[key] = profile_admission(torch, model, args.admissions,
                                      image=spec["image"],
                                      pre_ids=spec["pre_ids"],
