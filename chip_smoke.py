@@ -100,29 +100,41 @@ Phases, each of which raises on failure:
     D = 128). Every slice prints the fit check's ``param_bytes``, the
     card's memory and the bytes its build allocated, which must be the
     weights' bytes;
-21. wave paligemma bf16: PaliGemma-3B from the checkpoint, bf16,
+21. loader: which path decodes the serving phases' image files (the
+    native C++ loader of ``vlm_tpu_torch/native``, built here with g++,
+    libjpeg and libpng, or PIL with the build's error) and the host ms an
+    image on both paths over the probing data's 384 JPEGs at 224 px
+    (``warp``) and 336 px (``shortest_edge_crop``);
+22. loop: PaliGemma-3B bf16 from the checkpoint through
+    ``generate_dataset`` over those 384 JPEGs (at most 16 new tokens, 32
+    slots), at the default loop (pipelined: one blocking read an admission
+    cycle, none inside a chunk) and at ``sync_every=4``: the texts
+    identical, no result None, no plain version; each loop's blocking reads
+    (the batcher's own and the synchronizing operations CUDA's sync debug
+    mode reports) and guarded steps an image, img/s, p50 and p99;
+23. wave paligemma bf16: PaliGemma-3B from the checkpoint, bf16,
     ``generate_batch`` greedy over one wave of 32 synthetic images (the
     wave engine: one prefill, up to 32 new tokens); img/s, the prefill's
     and a step's wall and device ms (each profiled alone on the same
     inputs), steps run, peak memory; B1, B4 and B2 with B3's uniform
     fused write at a live column under ``kv_len`` on every decode step,
     no plain version;
-22. beam paligemma 8bit: the 8bit slice's recipe (int8 weights, the
+24. beam paligemma 8bit: the 8bit slice's recipe (int8 weights, the
     int8 KV cache) with ``num_beams=4`` over 8 images (32 beam rows): B5
     at m = 32, B6 at the prefill, the int8 B2/B3; the same prints;
-23. beam llava bf16: LLaVA-1.5-7B (random weights) with 4 beams over 8
+25. beam llava bf16: LLaVA-1.5-7B (random weights) with 4 beams over 8
     images, the same prints and the cache gather's device ms a step over
     the columns decode wrote, its share of the step, and over whole rows;
-24. beam reference: a depth-cut LLaVA-1.5-7B (2+2 layers, full width)
+26. beam reference: a depth-cut LLaVA-1.5-7B (2+2 layers, full width)
     in fp32, 4 beams over 2 images, 16 tokens, card against CPU: the best
     tokens and lengths identical, scores within ``REF_TOL_FP32``;
-25. cli wave: the port's CLI with ``continuous_batching: false`` and
+27. cli wave: the port's CLI with ``continuous_batching: false`` and
     ``num_beams: 2`` (the shipped config otherwise), PaliGemma-3B bf16
     from the checkpoint, over 8 of the probing data's JPEGs laid out as a
     MiviaPar test split; its summary and files; then cli profile: the same
     on the continuous path with ``--profile``: the meter's line printed,
     the Chrome trace naming B1's, B2's and B4's kernels;
-26. sweep: the port's ``compare_models`` on a copy of
+28. sweep: the port's ``compare_models`` on a copy of
     ``configs/compare_models.yaml`` with the three families in bf16, 8bit
     and 4bit at full size (random weights) over the same 8 JPEGs, 16 new
     tokens, 8 slots: nine rows without an error, each build allocating
@@ -131,22 +143,22 @@ Phases, each of which raises on failure:
     rows, no plain version, each batcher at the slots, admission block,
     prompt length and new tokens of the kernel checks' sweep cases; each
     row's img/s, peak memory and build seconds;
-27. probe cache: single-task probing of LLaVA-1.5-7B's CLIP-L/336 tower in
+29. probe cache: single-task probing of LLaVA-1.5-7B's CLIP-L/336 tower in
     fp32 (``configs/train_probe.yaml``'s single profile, random weights)
     through the port's ``train_probe`` entry point on a synthetic face
     dataset of 336 px JPEGs (256 train, 64 val, 64 test images, task age)
     in a temporary project root: the decoder dropped, the features
     extracted by B4's and B1's fp32 forms, the head trained for 2 epochs;
-28. probe e2e: the same data with the multi profile's backbone block (the
+30. probe e2e: the same data with the multi profile's backbone block (the
     last 4 blocks and the embeddings unfrozen) at batch 32 for an epoch and
     its validation: B1's differentiable form in every block of every step,
     blocks 20-23 and the embeddings changed, blocks 0-19 bitwise as built;
-29. probe test: the port's ``test_probe`` on that checkpoint: preds, gts
+31. probe test: the port's ``test_probe`` on that checkpoint: preds, gts
     and metrics written, the preds the probe's own argmax;
-30. probe reference: a depth-cut CLIP-L (2 blocks, full width) and a
+32. probe reference: a depth-cut CLIP-L (2 blocks, full width) and a
     linear head, one end-to-end step with the last block unfrozen, card
     against CPU in fp32: loss and gradients within ``REF_TOL_FP32``;
-31. probe multi: ``train_probe --profile multi`` (age, gender and emotion
+33. probe multi: ``train_probe --profile multi`` (age, gender and emotion
     over one tower, augmentation and the weighted sampler, the 0.33
     emotion balancing: 256 train rows, 51 with emotion, 50 duplicates;
     the profile's backbone block) at batch 32 for 2 epochs, the second on
@@ -154,16 +166,16 @@ Phases, each of which raises on failure:
     of every step, blocks 20-23 and the embeddings changed, blocks 0-19
     bitwise as built; then a few more steps under the profiler (the
     device's busy share);
-32. probe lora: the single profile with ``lora.enabled`` (rank 8, alpha
+34. probe lora: the single profile with ``lora.enabled`` (rank 8, alpha
     16, the last 2 blocks' attention) and the tower frozen, at batch 32
     for an epoch: B1's differentiable form in blocks 22-23 only, every
     base weight bitwise as built, every adapter's B moved off zero, a
     checkpoint of the adapters and no tower;
-33. probe multi test: ``test_probe --profile multi`` on the multi
+35. probe multi test: ``test_probe --profile multi`` on the multi
     checkpoint (preds, gts and metrics per task, the preds each head's own
     argmax) and the single tester on the LoRA checkpoint (the adapters
     merged at load: no differentiable form);
-34. probe multi reference: a depth-cut CLIP-L (2 blocks, full width), three
+36. probe multi reference: a depth-cut CLIP-L (2 blocks, full width), three
     heads, LoRA on the last block (A and B drawn nonzero) and uncertainty
     weighting, one step card against CPU in fp32: the loss and the
     gradients of A, B, the log-variances and the heads within
@@ -178,6 +190,7 @@ Prints a JSON line of per-kernel results, then as its last line
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -432,15 +445,20 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
     b2_form, fused_form = PATH_KERNELS[quantization][1:3]
     prefill_rows = dec.layers * b.last_stats["admits"] \
         if quantization == "8bit" else 0
+    # a guarded step (dispatched past its chunk's stop, taking no effect)
+    # runs the whole decode forward: launches follow dispatched steps
+    dispatched = b.last_stats["steps"] + b.last_stats["guarded_steps"]
     if (launches[fused_form] != launches[b2_form] or launches["kv_write"]
-            or launches["kv_write_int8"] != prefill_rows):
+            or launches["kv_write_int8"] != prefill_rows
+            or launches[b2_form] != dec.layers * dispatched):
         raise RuntimeError(f"KV writes outside B2's launch: {launches} "
-                           f"(int8 prefill rows: {prefill_rows})")
+                           f"(int8 prefill rows: {prefill_rows}, "
+                           f"{dispatched} steps dispatched)")
     if quantization == "4bit":
         groups = [min(b.admit_block, n_images - i)
                   for i in range(0, n_images, b.admit_block)]
-        want = int4_launches(cfg, model.quantize_vision,
-                             b.last_stats["steps"], groups, prompt_len)
+        want = int4_launches(cfg, model.quantize_vision, dispatched, groups,
+                             prompt_len)
         if launches["int4_matmul"] != want:
             raise RuntimeError(f"{tag} B7 launched {launches['int4_matmul']}"
                                f" times, {want} decode and admission "
@@ -449,7 +467,9 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
     print(f"{tag} prompt {prompt_len} ids ({len(pre_ids)} + "
           f"{num_image_tokens(cfg)} image + {len(post_ids)}), "
           f"{b.last_stats['admits']} admissions of {b.admit_block}, "
-          f"{b.last_stats['steps']} decode steps")
+          f"{b.last_stats['steps']} decode steps (and "
+          f"{b.last_stats['guarded_steps']} guarded), "
+          f"{b.last_stats['blocking_reads']} blocking reads")
     print(f"{tag} {n_images} images, {len(toks)} tokens in {wall:.3f} s: "
           f"{n_images / wall:.3f} img/s, {len(toks) / wall:.1f} tok/s "
           f"({gpu})")
@@ -965,6 +985,9 @@ def generation_phase(torch, np, gpu, tag, model_name, quantization,
         raise RuntimeError(f"{tag} the timed calls ran different step "
                            f"counts on the same inputs: {stats}")
     steps = stats[0]["steps"]
+    # steps dispatched after every row was done (the flags read late) run
+    # the decode forward too
+    dispatched = sum(st["steps"] + st["guarded_steps"] for st in stats)
 
     pixels = normalize_images(torch.from_numpy(u8).cuda(),
                               recipe=model.recipe, compute_dtype=model.dtype,
@@ -993,11 +1016,12 @@ def generation_phase(torch, np, gpu, tag, model_name, quantization,
     prefill_rows = model.cfg.decoder.layers if quantization == "8bit" else 0
     if not (launches[fused_form] == launches[b2_form] == writes["calls"]
             == writes["uniform"]
-            == model.cfg.decoder.layers * steps * GEN_REPS
+            == model.cfg.decoder.layers * dispatched
             and launches["kv_write"] == 0
             and launches["kv_write_int8"] == prefill_rows * GEN_REPS):
         raise RuntimeError(f"{tag} decode writes not all uniform inside B2: "
-                           f"{writes}, {launches}, {steps} steps a call")
+                           f"{writes}, {launches}, {steps} steps a call,"
+                           f" {dispatched} dispatched in all")
     call_dev = device_ms(torch, lambda: model.generate_batch(
         images, prompt, max_tokens=GEN_NEW, **kw))
 
@@ -1041,7 +1065,8 @@ def generation_phase(torch, np, gpu, tag, model_name, quantization,
     print(f"{tag} {n_images} images"
           f"{f' x {num_beams} beams ({rows} rows)' if num_beams > 1 else ''}"
           f", prompt {int(plen[0])} ids, {steps} decode steps run (of "
-          f"{GEN_NEW - 1}), {GEN_REPS} calls: median "
+          f"{GEN_NEW - 1}; {dispatched - steps * GEN_REPS} guarded in all), "
+          f"{GEN_REPS} calls: median "
           f"{statistics.median(rates):.3f} img/s (range {rates[0]:.3f}-"
           f"{rates[-1]:.3f}), {wall:.3f} s a call; one call's device time "
           f"{_ms(call_dev)}, {busy} of the median wall ({gpu})")
@@ -1391,9 +1416,178 @@ def sweep_phase(torch, gpu, tmp, base, launches):
             launches[name] += n
 
 
+# the loop phase: generate_dataset over the probing data's JPEGs, once at
+# the default loop and once at a synchronous loop of LOOP_SYNC steps a chunk
+LOOP_NEW, LOOP_SYNC = 16, 4
+
+
+def probe_jpegs(base):
+    """The probing data's 384 JPEGs (336 px), in a fixed order."""
+    return sorted((base / "TestDataset").glob("*/images/*.jpg"))
+
+
+@contextlib.contextmanager
+def sync_warnings(torch):
+    """Collects the synchronizing CUDA operations that
+    ``torch.cuda.set_sync_debug_mode`` reports inside the block (a read or
+    a copy that waits for the card: ``.item()``, ``.cpu()``, an upload
+    from pageable memory), from every thread; the list fills when the block
+    ends. An event's ``synchronize`` is not among them: the port counts
+    its own (``blocking_reads``)."""
+    import warnings
+    seen = []
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield seen
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    seen.extend(str(w.message) for w in caught
+                if "synchroniz" in str(w.message))
+
+
+def loader_phase(np, gpu, base):
+    """Which path decodes the serving phases' files (the native loader, or
+    PIL with the build's error), and the host ms an image on both paths
+    over the probing JPEGs at 224 px (``warp``) and 336 px
+    (``shortest_edge_crop``), batches of 8 with the loader's 4 threads.
+    Returns the path's name."""
+    from vlm_tpu_torch.data import native_loader
+    from vlm_tpu_torch.ops.preprocess import recipe_for
+    paths = probe_jpegs(base)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        native = native_loader.native_available()
+    build_s = time.perf_counter() - t0
+    served = "native" if native else \
+        f"PIL (the native build failed: {out.getvalue().strip()!r})"
+    print(f"[loader] the serving path decodes with {served}; build and "
+          f"load {build_s:.1f} s ({gpu})")
+    for family in ("paligemma", "llava"):
+        recipe = recipe_for(family)
+        ms = {}
+        for name, use in (("native", True), ("PIL", False)):
+            if use and not native:
+                ms[name] = "not measured (no build)"
+                continue
+            t0 = time.perf_counter()
+            for i in range(0, len(paths), 8):
+                batch = native_loader.load_batch(paths[i:i + 8], recipe,
+                                                 use_native=use)
+            ms[name] = f"{(time.perf_counter() - t0) * 1e3 / len(paths):.3f}"
+            if batch.shape[1:] != (recipe.image_size,) * 2 + (3,):
+                raise RuntimeError(f"[loader] batch {batch.shape}")
+        print(f"[loader] {len(paths)} JPEGs (336 px) at "
+              f"{recipe.image_size} px ({recipe.mode}): native "
+              f"{ms['native']} ms an image, PIL {ms['PIL']} ms an image "
+              f"(host, one thread calling) ({gpu})")
+    return "native" if native else "PIL"
+
+
+def loop_phase(torch, np, gpu, ckpt, base, served):
+    """PaliGemma-3B bf16 from the checkpoint through ``generate_dataset``
+    (the native loader, B4, the batcher) over the 384 probing JPEGs, at
+    most ``LOOP_NEW`` new tokens, 32 slots: once at the default loop
+    (pipelined, no blocking read inside a chunk) and once at
+    ``sync_every=LOOP_SYNC``. The texts must agree; no result may be None,
+    no plain version may run, and the sync debug mode may report no
+    synchronizing operation (the loop's own reads, event waits, are
+    counted in ``blocking_reads``). Prints each loop's blocking reads and
+    guarded steps an image, img/s and p50/p99. Returns the launch
+    counts."""
+    from vlm_tpu_torch.models import base_model
+    from vlm_tpu_torch.models.factory import create_model
+    from vlm_tpu_torch.ops import _lib
+    paths = probe_jpegs(base)
+    n = len(paths)
+    model = create_model("paligemma", size="3b", device="cuda", seed=0,
+                         model_id=str(ckpt), quantization="bf16")
+    prompt = GEN_PROMPTS["paligemma"][0]
+    real, made = base_model.ContinuousBatcher, []
+
+    def loop(sync_every):
+        class Batcher(real):
+            def __init__(self, *args, **kw):
+                super().__init__(*args, sync_every=sync_every, **kw)
+                made.append(self)
+        return Batcher
+
+    model.generate_dataset(paths[:8], prompt, max_tokens=4,
+                           batch_size=SLOTS)                  # warm-up
+    torch.cuda.synchronize()
+    texts, total = {}, dict.fromkeys(_lib.KERNELS, 0)
+    for label, sync_every in (("default", 0),
+                              (f"sync_every={LOOP_SYNC}", LOOP_SYNC)):
+        base_model.ContinuousBatcher = loop(sync_every)
+        _lib.reset_counts()
+        try:
+            with sync_warnings(torch) as syncs:
+                t0 = time.perf_counter()
+                texts[label] = model.generate_dataset(
+                    paths, prompt, max_tokens=LOOP_NEW, batch_size=SLOTS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            base_model.ContinuousBatcher = real
+        launches, plain = dict(_lib.launches), dict(_lib.plain_calls)
+        b = made[-1]
+        st = b.last_stats
+        if any(t is None for t in texts[label]) or len(texts[label]) != n:
+            raise RuntimeError(f"[loop] {label}: a text is missing")
+        if any(plain.values()):
+            raise RuntimeError(f"[loop] {label}: plain versions ran {plain}")
+        idle = [k for k in PATH_KERNELS["bf16"] if launches[k] <= 0]
+        if idle:
+            raise RuntimeError(f"[loop] {label}: never launched {idle}")
+        if launches["decode_attention"] != model.cfg.decoder.layers * (
+                st["steps"] + st["guarded_steps"]):
+            raise RuntimeError(f"[loop] {label}: B2 launches {launches} for "
+                               f"{st['steps']} + {st['guarded_steps']} steps")
+        lat = np.asarray(b.last_latency_s) * 1e3
+        reads = st["blocking_reads"] + len(syncs)
+        print(f"[loop] {label}: {n} JPEGs ({served} decode), "
+              f"{n / wall:.3f} img/s, latency p50 "
+              f"{np.percentile(lat, 50):.1f} ms p99 "
+              f"{np.percentile(lat, 99):.1f} ms; {st['admits']} admissions, "
+              f"{st['chunks']} chunks, {st['steps']} steps and "
+              f"{st['guarded_steps']} guarded: {reads / n:.3f} blocking "
+              f"reads an image ({st['blocking_reads']} the loop's, "
+              f"{len(syncs)} synchronizing operations reported), "
+              f"{st['guarded_steps'] / n:.3f} guarded steps an image, "
+              f"{st['steps'] / max(st['chunks'], 1):.2f} steps a chunk; "
+              f"{wall * 1e3 / max(st['steps'] + st['guarded_steps'], 1):.2f}"
+              f" ms of wall a dispatched step ({gpu})")
+        print(f"[loop] {label} loop {st}")
+        # every wait for the card goes through the loop's counted reads
+        # (a chunk's result; a step flag when the host runs too far ahead)
+        if syncs:
+            raise RuntimeError(f"[loop] {label}: {len(syncs)} synchronizing "
+                               f"operations outside the loop's reads")
+        for k, v in launches.items():
+            total[k] += v
+    if texts["default"] != texts[f"sync_every={LOOP_SYNC}"]:
+        diff = sum(a != b for a, b in zip(*texts.values()))
+        raise RuntimeError(f"[loop] {diff} texts differ between the loops")
+    print(f"[loop] the two loops' {n} texts are identical; first "
+          f"{texts['default'][0][:40]!r}")
+    del model
+    torch.cuda.empty_cache()
+    return total
+
+
 def generation_phases(torch, np, gpu, launches, tmp, ckpt, base):
     """The wave and beam phases, the beam reference and the CLI's wave
-    path, adding the serving phases' launch counts into ``launches``."""
+    path, adding the serving phases' launch counts into ``launches``; first
+    the image loader's and the batcher loop's phases."""
+    t0 = time.perf_counter()
+    served = loader_phase(np, gpu, base)
+    print(f"[time] loader {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, k in loop_phase(torch, np, gpu, ckpt, base, served).items():
+        launches[name] += k
+    print(f"[time] loop {time.perf_counter() - t0:.1f} s")
     for tag, model_name, quantization, n, beams in (
             ("[wave paligemma bf16]", "paligemma", "bf16", WAVE_IMAGES, 1),
             ("[beam paligemma 8bit]", "paligemma", "8bit", BEAM_IMAGES,

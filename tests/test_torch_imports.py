@@ -10,7 +10,9 @@ PaliGemma, LLaVA and BLIP-2, the wave and beam entry points with the
 CLI's ``continuous_batching: false``, the probing CLIs' ``main()``
 (train in both modes, then test; the multi-task profile and LoRA, then
 their testers), and the model-comparison sweep, the CLI with
-``--profile`` and the face-dataset preparation. None imports triton or builds the kernel library."""
+``--profile`` and the face-dataset preparation. None imports triton or builds the kernel library;
+importing the port's modules (the native image loader's build and loader
+among them) starts no process (no compiler) and builds no loader."""
 
 import json
 import subprocess
@@ -31,15 +33,25 @@ sys.meta_path.insert(0, _Refuse())
 """
 
 SCRIPT = BLOCKER + r"""
-import importlib, json, pkgutil
+import importlib, json, pkgutil, subprocess
 import numpy as np
 import torch
 torch.set_num_threads(1)
+# a compiler (nvcc, g++) run at import would go through Popen
+_spawned = []
+_popen = subprocess.Popen.__init__
+def _counted(self, *a, **kw):
+    _spawned.append(a[0] if a else kw.get("args"))
+    _popen(self, *a, **kw)
+subprocess.Popen.__init__ = _counted
 import vlm_tpu_torch
 mods = sorted(m.name for m in pkgutil.walk_packages(
     vlm_tpu_torch.__path__, "vlm_tpu_torch."))
 for m in mods:
     importlib.import_module(m)
+spawned_at_import = list(_spawned)
+from vlm_tpu_torch.data import native_loader
+imgloader_checked = native_loader._lib_checked
 from vlm_tpu_torch.generate.batcher import ContinuousBatcher
 from vlm_tpu_torch.models.factory import create_model
 from vlm_tpu_torch.models.vlm import num_image_tokens
@@ -76,7 +88,9 @@ print(json.dumps({
     "tokensl": outl, "tokensb": outb,
     "loaded": sorted(m for m in ("jax", "flax", "triton", "vlm_tpu")
                      if m in sys.modules),
-    "plain_calls": _lib.plain_calls, "lib_loaded": _lib._lib is not None}))
+    "plain_calls": _lib.plain_calls, "lib_loaded": _lib._lib is not None,
+    "spawned_at_import": [str(a) for a in spawned_at_import],
+    "imgloader_checked": imgloader_checked}))
 """
 
 
@@ -93,6 +107,7 @@ def test_port_imports_and_runs_without_jax(tmp_path):
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["loaded"] == []
     assert not res["lib_loaded"]
+    assert res["spawned_at_import"] == [] and not res["imgloader_checked"]
     assert {"vlm_tpu_torch.models.base_model", "vlm_tpu_torch.ops.kvcache",
             "vlm_tpu_torch.data.bpe",
             "vlm_tpu_torch.scripts.prompt_inference",
@@ -110,7 +125,10 @@ def test_port_imports_and_runs_without_jax(tmp_path):
             "vlm_tpu_torch.scripts.test_probe",
             "vlm_tpu_torch.scripts.compare_models",
             "vlm_tpu_torch.utils.profiling",
-            "vlm_tpu_torch.data.preprocess_face_datasets"} <= set(
+            "vlm_tpu_torch.data.preprocess_face_datasets",
+            "vlm_tpu_torch.data.native_loader",
+            "vlm_tpu_torch.native.build",
+            "vlm_tpu_torch.generate.readback"} <= set(
                 res["modules"])
     for toks in (res["tokens"], res["tokens8"], res["tokens4"],
                  res["tokensl"], res["tokensb"]):

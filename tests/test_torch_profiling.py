@@ -202,9 +202,8 @@ def test_cli_interrupt_and_empty_messages_match_vlm_tpu(
     """Continuous path, interrupted before the first admission: both CLIs
     print the meter's line and "Interrupted: evaluated 0/4 images.";
     ``--limit 0``: "Nothing to evaluate." in both. Interrupted at the
-    second image, the port evaluates the 2 it finished. (vlm_tpu's
-    pipelined loop would then finish the chunks it had dispatched, here
-    every image: a host loop the port does not have.)"""
+    second image, both batchers finish the chunks they had dispatched and
+    evaluate the same images (here every one, so neither run is partial)."""
     cfg = _config(ckpt, mivia_base)
     text = {}
     for name in ("jax", "port"):
@@ -220,12 +219,17 @@ def test_cli_interrupt_and_empty_messages_match_vlm_tpu(
              ["--limit", "0"])
         assert _messages(capsys.readouterr().out)[-1] == \
             "Nothing to evaluate.", name
-    with monkeypatch.context() as m:
-        _interrupt_after(m, tprof, 2)
-        out = _run("port", tmp_path / "port_int", cfg, monkeypatch)
-    assert _messages(capsys.readouterr().out)[1] == \
-        "Interrupted: evaluated 2/4 images."
-    assert len(json.loads((out / "preds.json").read_text())) == 2
+    preds, said = {}, {}
+    for name, mod in (("jax", jprof), ("port", tprof)):
+        with monkeypatch.context() as m:
+            _interrupt_after(m, mod, 2)
+            out = _run(name, tmp_path / f"{name}_int", cfg, monkeypatch)
+        said[name] = _messages(capsys.readouterr().out)
+        preds[name] = json.loads((out / "preds.json").read_text())
+    assert said["port"] == said["jax"] == [
+        "[THROUGHPUT] prompt_inference: <rate> items/s steady (<rate> incl. "
+        "compile), 4 items total"]
+    assert len(preds["port"]) == len(preds["jax"]) == 4
 
 
 def test_wave_path_meter_and_messages(ckpt, mivia_base, tmp_path,

@@ -36,7 +36,7 @@ from typing import Optional
 import torch
 
 from ..models.decoder import QuantizedKV
-from .decode import Engine, uniform_prompts
+from .decode import Engine
 
 NEG = -1e9
 
@@ -130,6 +130,7 @@ class BeamSearchEngine(Engine):
         """The prefill, its rows repeated to every beam, and the first
         token chosen from the prefill's logits."""
         b, k, dev = pixels.shape[0], self.num_beams, prompt_len.device
+        lengths = prompt_len.cpu()              # read before the prefill
         cache = self.new_cache(b)
         last = self.module.prefill(pixels, pre_ids, post_ids, cache,
                                    prompt_len)
@@ -138,7 +139,6 @@ class BeamSearchEngine(Engine):
             if isinstance(layer, QuantizedKV) else
             layer.repeat_interleave(k, 0) for layer in layers)
             for kv, layers in cache.items()}
-        lengths = prompt_len.cpu()
         f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
         beam_scores = torch.full((b, k), NEG, **f32)
@@ -146,7 +146,7 @@ class BeamSearchEngine(Engine):
         tokens = torch.full((b, k, self.max_new_tokens), self.pad_id, **i32)
         s = _BeamState(
             cache=cache, prompt_len=prompt_len.repeat_interleave(k),
-            uniform=uniform_prompts(prompt_len),
+            uniform=bool((lengths == lengths[0]).all()),
             cols=(int(lengths.min()), int(lengths.max())),
             beam_scores=beam_scores, tokens=tokens,
             hyp_scores=torch.full((b, k), NEG, **f32),
@@ -155,6 +155,8 @@ class BeamSearchEngine(Engine):
             done=torch.zeros((b,), dtype=torch.bool, device=dev))
         logp = torch.log_softmax(last.float(), dim=-1)
         self._advance(s, 0, logp[:, None].expand(b, k, logp.shape[-1]))
+        self.flags.start()
+        self.push_flag(s.done)
         return s
 
     def step(self, s: _BeamState) -> None:
@@ -166,6 +168,7 @@ class BeamSearchEngine(Engine):
         logp = torch.log_softmax(logits.float(), dim=-1)
         self._advance(s, s.step, logp.view(b, k, -1))
         s.step += 1
+        self.push_flag(s.done)
 
     def _advance(self, s: _BeamState, step: int, logp: torch.Tensor):
         """Choose the beams of ``step`` (0-based in the generated suffix)

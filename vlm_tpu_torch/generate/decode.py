@@ -5,8 +5,13 @@
 over the batch of merged (text + image) prompts into a cache it allocates,
 the first token from the prefill's logits, then decode steps until every
 row has emitted EOS or reached its cap. ``vlm_tpu`` runs the steps in a
-``lax.while_loop`` that tests "all done" on the device; here a Python loop
-reads that one flag on the host after each step.
+``lax.while_loop`` that tests "all done" on the device. Here each step
+pushes that test as a step flag
+(:class:`~vlm_tpu_torch.generate.readback.StepFlags`) and the host reads
+the flags without waiting, enqueueing up to ``steps_ahead`` steps past the
+last one read; a step after every row is done changes no token, length or
+score (done rows are fed pad and keep theirs), so the steps past the end
+are only device time. The host waits once, at the wave's end.
 
 Greedy decoding matches ``vlm_tpu`` token for token; sampled tokens come
 from a ``torch.Generator`` and cannot match ``jax.random``'s stream.
@@ -21,6 +26,7 @@ from typing import Optional
 import torch
 
 from ..models.decoder import init_kv_cache
+from .readback import StepFlags
 
 
 def sample(logits: torch.Tensor, temperature: float = 0.0,
@@ -73,7 +79,8 @@ def check_positions(cfg, max_prompt_len: int, max_new_tokens: int) -> int:
 
 
 def uniform_prompts(prompt_len: torch.Tensor) -> bool:
-    """Whether every row's prompt has the same length (one host read). Only
+    """Whether every row's prompt has the same length (one host read, so
+    the engines take it before they enqueue the prefill). Only
     then may a decode step write every row's KV at one shared column: with
     mixed lengths that column, ``prompt_len[0]``, would overwrite the
     longer prompts' rows."""
@@ -107,10 +114,15 @@ class Engine:
     """What the wave and beam engines share: the cache's length and dtype,
     the EOS, pad and feed ids, the loop's condition and the timed loop.
 
-    After :meth:`generate`, ``last_stats`` holds the decode steps run and
-    the host's seconds to the first read of the done flags (the prefill
-    and the first token) and after it (the steps).
+    After :meth:`generate`, ``last_stats`` holds the decode steps that took
+    effect (``steps``), those dispatched after every row was done
+    (``guarded_steps``), the host's blocking reads, and its seconds to the
+    first read of the done flags (the prefill and the first token) and
+    after it (the steps, to the last one's end on the device).
     """
+
+    #: decode steps the host may enqueue past the last flag it has read
+    steps_ahead = 2
 
     def __init__(self, module, cfg, *, batch_size: int, max_prompt_len: int,
                  max_new_tokens: int, cache_dtype=None,
@@ -125,6 +137,7 @@ class Engine:
         self.eos_id = cfg.decoder.eos_token_id if eos_id is None else eos_id
         self.pad_id = cfg.decoder.pad_token_id if pad_id is None else pad_id
         self.feed_id = feed_token(self.pad_id, cfg.decoder.vocab_size)
+        self.flags = StepFlags(module.device)
         self.last_stats: dict = {}
 
     def new_cache(self, rows: int) -> dict:
@@ -132,21 +145,40 @@ class Engine:
                              self.cache_dtype, self.module.device)
 
     def running(self, s) -> bool:
-        """The loop's condition; reads the done flags on the host."""
+        """The loop's condition, read on the host (a blocking read), for
+        a caller that steps by hand."""
         return not bool(s.done.all()) and s.step < self.max_new_tokens
 
+    def push_flag(self, done: torch.Tensor) -> None:
+        """Push the next step's flag: whether a row is still running."""
+        self.flags.push(~done.all())
+
     def _run(self, s_fn):
-        """``s_fn()`` (the prefill and the first token), then :meth:`step`
-        while :meth:`running`; returns the last state."""
+        """``s_fn()`` (the prefill and the first token; it starts the
+        flags and pushes the first), then :meth:`step` until a flag read
+        says every row is done or the cap is reached; returns the last
+        state with ``step`` at the steps that took effect + 1."""
+        flags = self.flags
+        waits = flags.waits
         t0 = time.perf_counter()
         s = s_fn()
-        go = self.running(s)
-        t1 = time.perf_counter()
-        while go:
+        t1 = None
+        while s.step < self.max_new_tokens and flags.poll() is None:
+            if t1 is None and flags.read:
+                t1 = time.perf_counter()
+            behind = s.step - self.steps_ahead
+            if behind > flags.read and flags.wait(behind) is not None:
+                break
             self.step(s)
-            go = self.running(s)
-        self.last_stats = {"steps": s.step - 1, "prefill_s": t1 - t0,
-                           "decode_s": time.perf_counter() - t1}
+        dispatched = s.step - 1
+        flags.drain()
+        t2 = time.perf_counter()
+        t1 = t2 if t1 is None else t1
+        took = flags.effective(dispatched)
+        s.step = took + 1
+        self.last_stats = {"steps": took, "guarded_steps": dispatched - took,
+                           "blocking_reads": flags.waits - waits,
+                           "prefill_s": t1 - t0, "decode_s": t2 - t1}
         return s
 
 
@@ -185,6 +217,7 @@ class GenerationEngine(Engine):
               max_new_per_seq: Optional[torch.Tensor] = None) -> _WaveState:
         """The prefill and the first token; the state :meth:`step`
         advances."""
+        uniform = uniform_prompts(prompt_len)     # read before the prefill
         cache = self.new_cache(self.batch_size)
         last = self.module.prefill(pixels, pre_ids, post_ids, cache,
                                    prompt_len)
@@ -197,11 +230,14 @@ class GenerationEngine(Engine):
         tokens = torch.full((b, self.max_new_tokens), self.pad_id,
                             dtype=torch.int32, device=dev)
         tokens[:, 0] = tok0
+        done = (tok0 == self.eos_id) | (caps <= 1)
+        self.flags.start()
+        self.push_flag(done)
         return _WaveState(
             cache=cache, prompt_len=prompt_len, caps=caps, tokens=tokens,
-            cur=tok0, done=(tok0 == self.eos_id) | (caps <= 1),
+            cur=tok0, done=done,
             lengths=torch.ones((b,), dtype=torch.int32, device=dev),
-            uniform=uniform_prompts(prompt_len), generator=generator)
+            uniform=uniform, generator=generator)
 
     def step(self, s: _WaveState) -> None:
         """One decode step for every row; rows done before it get pad."""
@@ -215,6 +251,7 @@ class GenerationEngine(Engine):
         s.cur = torch.where(s.done, self.feed_id, nxt)
         s.done = s.done | (nxt == self.eos_id) | (s.step + 1 >= s.caps)
         s.step += 1
+        self.push_flag(s.done)
 
     @torch.inference_mode()
     def generate(self, pixels: torch.Tensor, pre_ids: torch.Tensor,

@@ -19,8 +19,8 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.preprocess import (PreprocessRecipe, host_batch, load_batch,
-                              normalize_images)
+from ..data.native_loader import load_batch
+from ..ops.preprocess import PreprocessRecipe, host_batch, normalize_images
 from .configs import VLMConfig
 from .vit import ViTEncoder
 

@@ -27,11 +27,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 
 from ..core.mesh import mesh_from_config
+from ..data.native_loader import load_batch
 from ..generate.batcher import ContinuousBatcher
 from ..generate.beam import BeamSearchEngine
 from ..generate.decode import GenerationEngine, build_prompt_ids
-from ..ops.preprocess import (host_batch, load_batch, normalize_images,
-                              recipe_for)
+from ..generate.readback import upload
+from ..ops.preprocess import host_batch, normalize_images, recipe_for
 from ..utils.checkpoint import (is_vlm_checkpoint, load_vlm_checkpoint,
                                 save_vlm_checkpoint)
 from .backbone import VisionBackbone
@@ -232,17 +233,17 @@ class VLMModel:
         top-k / nucleus filtered) from a generator seeded with ``seed``."""
         # one device: no mesh pads the batch (A17)
         b = len(images)
-        u8 = torch.from_numpy(host_batch(images, self.recipe))
-        pixels = normalize_images(u8.to(self.device), recipe=self.recipe,
-                                  compute_dtype=self.dtype,
-                                  patch_size=self.cfg.vision.patch_size)
+        pixels = normalize_images(
+            upload(host_batch(images, self.recipe), self.device),
+            recipe=self.recipe, compute_dtype=self.dtype,
+            patch_size=self.cfg.vision.patch_size)
         tok = self.tokenizer
         pre_t, post_t, bos_pre, bos_post = self.format_prompt(prompt)
-        pre_ids, post_ids, prompt_len = build_prompt_ids(
+        ids = build_prompt_ids(
             tok, pre_t, post_t, num_image_tokens(self.cfg), b,
-            add_bos_to_pre=bos_pre, add_bos_to_post=bos_post,
-            device=self.device)
-        plen = int(prompt_len[0])
+            add_bos_to_pre=bos_pre, add_bos_to_post=bos_post)
+        plen = int(ids[2][0])
+        pre_ids, post_ids, prompt_len = (upload(t, self.device) for t in ids)
         if num_beams > 1:
             if temperature > 0:
                 raise ValueError("beam search is deterministic; "
@@ -323,9 +324,9 @@ class VLMModel:
             add_bos_to_pre=bos_pre, add_bos_to_post=bos_post)
 
         def pixel_fn(idxs):
-            batch = torch.from_numpy(load_batch([paths[i] for i in idxs],
-                                                self.recipe))
-            return normalize_images(batch.to(self.device), recipe=self.recipe,
+            batch = upload(load_batch([paths[i] for i in idxs], self.recipe),
+                           self.device)
+            return normalize_images(batch, recipe=self.recipe,
                                     compute_dtype=self.dtype,
                                     patch_size=self.cfg.vision.patch_size)
 

@@ -265,8 +265,10 @@ class Decoder(nn.Module):
         compute dtype first (45.25 in bf16, not 45.2548), as JAX does."""
         x = F.embedding(input_ids.long(), self.embed.weight).to(self.dtype)
         if self.cfg.embed_scale:
-            x = x * torch.tensor(self.cfg.hidden ** 0.5, dtype=self.dtype,
-                                 device=x.device)
+            # a Python number (the rounded scale, exact in the dtype): a
+            # tensor made on the card here would be a blocking upload
+            x = x * float(torch.tensor(self.cfg.hidden ** 0.5,
+                                       dtype=self.dtype))
         return x
 
     def forward(self, *, input_ids: Optional[torch.Tensor] = None,

@@ -86,16 +86,6 @@ def host_batch(images: Iterable, recipe: PreprocessRecipe) -> np.ndarray:
     return np.stack([host_resize(im, recipe) for im in images], axis=0)
 
 
-def load_batch(paths: Sequence, recipe: PreprocessRecipe) -> np.ndarray:
-    """Decode and recipe-resize image files into uint8 [N, S, S, 3]."""
-    from PIL import Image
-    out = []
-    for p in paths:
-        with Image.open(p) as im:
-            out.append(host_resize(im.convert("RGB"), recipe))
-    return np.stack(out, axis=0)
-
-
 # ------------------------- device side -------------------------
 
 def _constants(recipe: PreprocessRecipe):
