@@ -181,6 +181,31 @@ Phases, each of which raises on failure:
     gradients of A, B, the log-variances and the heads within
     ``REF_TOL_FP32``.
 
+Between the generation phases and the sweep, the mesh phases:
+PaliGemma-3B from the checkpoint through ``generate_dataset`` over 32
+probing JPEGs (32 slots, 16 new tokens) on one GPU, then under a mesh of
+two ranks (``vlm_tpu_torch/testing/mesh_serve.py`` under
+``python -m torch.distributed.run``, each launch with its own timeout; one
+GPU a rank over NCCL where the machine has them, else both sharing the
+GPU over gloo): ``[mesh paligemma bf16 model=2]`` (shard-on-load, the
+vocabulary-parallel head), ``[mesh paligemma 8bit model=2]`` (the 8bit
+slice's recipe with the int8 cache: B5 and B6 at the shard shapes, the
+row abs-max over the model group) and ``[mesh paligemma bf16 data=2]``
+(16 slots a rank). Each prints the backend and devices, each rank's
+``param_bytes`` (what its build left allocated must equal it within 1 %),
+peak memory and launches (every kernel of the plan at its count, no plain
+version), img/s marked "not a scaling figure" when the ranks share a
+GPU, and how many texts equal the single-GPU run's; the texts must be the
+same on every rank and the data ranks' slots must serve every image once.
+Then ``[mesh reference bf16|8bit|fp32]``: a depth-cut copy (2 + 2 layers)
+over ``model=2`` on the card against fp32 on the CPU (``REF_TOL``, and
+``REF_TOL_FP32`` for fp32); in the bf16 one's launch, ``[mesh row-parallel]``:
+Gemma's o product (2048 -> 2048, 1024 inputs a rank) in bf16, int8 and
+int4 at 32 and 1264 rows against the same layer whole on the rank, on
+inputs whose halves of K nearly cancel, within one of the output's bf16
+steps (a rank's partial rounded to bf16 before the all-reduce misses by
+several).
+
 Each slice's launch counts are set to 0 just before it is driven and read
 just after. Each phase prints its seconds.
 
@@ -1613,6 +1638,286 @@ def generation_phases(torch, np, gpu, launches, tmp, ckpt, base):
     print(f"[time] cli profile {time.perf_counter() - t0:.1f} s")
 
 
+# the mesh phases: PaliGemma-3B from the checkpoint under a mesh of two
+# ranks (``vlm_tpu_torch/testing/mesh_serve.py`` under torchrun), through
+# ``generate_dataset`` over the first 32 probing JPEGs, 32 slots, up to 16
+# new tokens (the kernel checks' MESH_* cases); the ranks share the one
+# GPU over gloo unless the machine has one a rank
+MESH_PHASES = (("bf16", {"data": 1, "model": 2}),
+               ("8bit", {"data": 1, "model": 2}),
+               ("bf16", {"data": 2, "model": 1}))
+MESH_IMAGES, MESH_NEW = 32, 16
+# the depth-cut references (2 + 2 layers, full width, model=2): 4 images,
+# 2 decode steps, card against fp32 on the CPU
+MESH_REFS = ("bf16", "8bit", "fp32")
+MESH_REF_IMAGES, MESH_REF_STEPS = 4, 2
+# the row-parallel check: Gemma's o product, a decode step's 32 slots and
+# a 4-image admission's 1264 rows
+MESH_ROW_PARALLEL = dict(k=2048, n=2048, rows=[32, 4 * 316])
+# seconds a phase's ranks may take before they are killed
+MESH_TIMEOUT = 420
+
+
+def mesh_launch(torch, spec, run, n=2):
+    """``spec``'s ranks under torchrun (one GPU a rank when the machine
+    has that many, else sharing it over gloo); their records by rank. A
+    rank that fails, hangs or passes ``MESH_TIMEOUT`` fails the phase, and
+    every process of the launch is killed."""
+    import signal
+    run.mkdir(parents=True, exist_ok=True)
+    (run / "spec.json").write_text(json.dumps(spec))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), "-m", "vlm_tpu_torch.testing.mesh_serve",
+         str(run / "spec.json"), str(run / "out")],
+        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, start_new_session=True,
+        env=dict(os.environ, VLM_TPU_DIST_TIMEOUT=str(MESH_TIMEOUT)))
+    try:
+        log, _ = proc.communicate(timeout=MESH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        log, _ = proc.communicate()
+        raise RuntimeError(f"mesh ranks passed {MESH_TIMEOUT} s:\n"
+                           f"{log[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    if proc.returncode:
+        raise RuntimeError(f"mesh ranks failed ({proc.returncode}):\n"
+                           f"{log[-6000:]}")
+    for line in log.splitlines():
+        if line.startswith("[mesh]"):
+            print(line)
+    return [json.loads((run / "out" / f"rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def mesh_plan(cfg, quantization, stats):
+    """Each rank's kernel launches for a run of ``stats`` (the batcher's
+    admissions and dispatched steps): every admission whole on every rank
+    (B4 once, B1 at each tower and decoder layer; 8bit: B6 at each of the
+    7 block products, B3's int8 prompt rows), every decode step's layers
+    (B2 with B3's write inside it; 8bit: B5 at the 7 products)."""
+    admits = stats["admits"]
+    steps = stats["steps"] + stats["guarded_steps"]
+    dec = cfg.decoder.layers
+    plan = {"normalize": admits,
+            "flash_attention": admits * (cfg.vision.layers + dec)}
+    if quantization == "8bit":
+        plan.update(decode_attention_int8=dec * steps,
+                    kv_write_int8_fused=dec * steps,
+                    kv_write_int8=dec * admits,
+                    int8_matmul=7 * dec * steps,
+                    int8xint8_matmul=7 * dec * admits)
+    else:
+        plan.update(decode_attention=dec * steps, kv_write_fused=dec * steps)
+    return plan
+
+
+def mesh_phase(torch, gpu, quantization, mesh, ckpt, paths, single, tmp,
+               launches):
+    """One mesh phase: the ranks' texts, launches, memory and img/s,
+    checked; returns the texts."""
+    from vlm_tpu_torch.models.configs import VLM_CONFIGS
+    tag = (f"[mesh paligemma {quantization} "
+           f"{'model' if mesh['model'] > 1 else 'data'}=2]")
+    spec = dict(family="paligemma", size="3b", quantization=quantization,
+                kv_cache="int8" if quantization == "8bit" else None,
+                mesh=mesh, device="cuda", model_id=str(ckpt), pre_ids=[],
+                post_ids=[], tasks=[["dataset", dict(
+                    paths=[str(p) for p in paths],
+                    prompt=GEN_PROMPTS["paligemma"][0], new=MESH_NEW,
+                    slots=SLOTS, warmup=4)]])
+    t0 = time.perf_counter()
+    recs = mesh_launch(torch, spec, tmp / f"mesh_{quantization}_"
+                       f"{mesh['data']}x{mesh['model']}")
+    wall = time.perf_counter() - t0
+    cfg = VLM_CONFIGS["paligemma"]("3b")
+    gpus = {r["device"] for r in recs}
+    shared = len(gpus) < len(recs)
+    scaling = (f"{len(recs)} ranks on one GPU: not a scaling figure"
+               if shared else "one GPU a rank")
+    tasks = [r["tasks"][0] for r in recs]
+    texts = tasks[0]["texts"]
+    if any(t["texts"] != texts for t in tasks):
+        raise RuntimeError(f"{tag} the ranks' texts differ")
+    if any(t is None for t in texts) or len(texts) != len(paths):
+        raise RuntimeError(f"{tag} an image returned no text")
+    served = sorted(i for r, t in zip(recs, tasks) if r["model_rank"] == 0
+                    for i in t["images_served_here"])
+    if served != list(range(len(paths))):
+        raise RuntimeError(f"{tag} the data ranks' slots served {served}")
+    for r, t in zip(recs, tasks):
+        plan = mesh_plan(cfg, quantization, t["stats"])
+        if t["launches"] != plan or t["plain_calls"]:
+            raise RuntimeError(f"{tag} rank {r['rank']} launched "
+                               f"{t['launches']} (plan {plan}), plain "
+                               f"{t['plain_calls']}")
+        asked = r["build_asked_bytes"]
+        if abs(asked - r["param_bytes"]) > r["param_bytes"] / 100:
+            raise RuntimeError(f"{tag} rank {r['rank']} holds {asked} bytes "
+                               f"after its build, param_bytes says "
+                               f"{r['param_bytes']}")
+        for name, k in t["launches"].items():
+            launches[name] += k
+        coll = t["collectives"]
+        print(f"{tag} rank {r['rank']} (data {r['data_rank']}, model "
+              f"{r['model_rank']}) {r['backend']} on {r['device']}: "
+              f"param_bytes {r['param_bytes']} ({r['param_bytes'] / 1e9:.2f}"
+              f" GB), after the build {asked} bytes, peak "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB of "
+              f"{r['device_total_bytes'] / 2**30:.2f}; load "
+              f"{r['build_s']:.1f} s; {t['stats']}; launches "
+              f"{t['launches']} = plan, plain none; collectives {coll} "
+              f"({gpu})")
+    steps = tasks[0]["stats"]["steps"] + tasks[0]["stats"]["guarded_steps"]
+    coll = tasks[0]["collectives"]
+    per_step = {k: v for k, v in coll.items() if not k.endswith("_bytes")}
+    print(f"{tag} {len(paths)} images in {tasks[0]['wall_s']:.3f} s: "
+          f"{tasks[0]['img_per_s']:.3f} img/s ({scaling}; ranks "
+          f"{sorted(gpus)}), {steps} decode steps dispatched, collectives "
+          f"of rank 0 {per_step} ({gpu})")
+    same = sum(a == b for a, b in zip(texts, single))
+    print(f"{tag} texts: identical on every rank, {same}/{len(texts)} equal "
+          f"to the single-GPU bf16 run's (not gated: a sum over ranks "
+          f"rounds in another order); phase {wall:.1f} s with the ranks' "
+          f"start and load")
+    return texts
+
+
+def mesh_reference_phase(torch, np, gpu, quantization, tmp):
+    """A depth-cut PaliGemma-3B (2 + 2 layers, full width, model=2) under
+    the mesh on the card against the same weights in fp32 on the CPU: a
+    prefill of 4 images and 2 decode steps, the CPU fed the card's tokens;
+    within ``REF_TOL`` (bf16, 8bit: int8 decoder and cache) or
+    ``REF_TOL_FP32`` (fp32)."""
+    from vlm_tpu_torch.core.mesh import Mesh
+    from vlm_tpu_torch.models.configs import VLM_CONFIGS
+    from vlm_tpu_torch.models.layers import init_random_
+    from vlm_tpu_torch.models.vlm import VLMModule
+    from vlm_tpu_torch.ops.preprocess import RECIPES
+    from vlm_tpu_torch.testing import mesh_serve
+    full = VLM_CONFIGS["paligemma"]("3b")
+    cfg = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, layers=2),
+        decoder=dataclasses.replace(full.decoder, layers=2))
+    bits = 8 if quantization == "8bit" else 0
+    card = torch.float32 if quantization == "fp32" else torch.bfloat16
+    tol = REF_TOL_FP32 if quantization == "fp32" else REF_TOL
+    run = tmp / f"mesh_ref_{quantization}"
+    run.mkdir(parents=True, exist_ok=True)
+    with torch.no_grad():
+        gpu_mod = VLMModule(cfg, dtype=card, device="cuda", quant_bits=bits)
+        init_random_(gpu_mod, seed=1)
+        state = {k: v.cpu() for k, v in gpu_mod.state_dict().items()}
+        del gpu_mod
+        torch.save(state, run / "state.pt")
+    rng = np.random.default_rng(2)
+    np.save(run / "u8.npy", rng.integers(0, 256, (MESH_REF_IMAGES, 224, 224,
+                                                  3), dtype=np.uint8))
+    post = prompt_ids(np, rng, cfg.decoder, 0)[1].tolist()
+    spec = dict(family="paligemma", size="3b", layers=[2, 2],
+                quantization=quantization, dtype=str(card).split(".")[1],
+                bits=bits, kv_cache="int8" if bits else None,
+                mesh={"data": 1, "model": 2}, device="cuda",
+                state=str(run / "state.pt"), images=str(run / "u8.npy"),
+                pre_ids=[], post_ids=post,
+                tasks=[["logits", dict(n=MESH_REF_IMAGES,
+                                       steps=MESH_REF_STEPS)]])
+    if quantization == "bf16":
+        spec["tasks"].append(["row_parallel", MESH_ROW_PARALLEL])
+    recs = mesh_launch(torch, spec, run)
+    if quantization == "bf16":
+        row_parallel_check(recs, gpu)
+    got = [r["tasks"][0] for r in recs]
+    cards = [np.load(t["logits_file"]) for t in got]
+    if not np.array_equal(cards[0], cards[1]):
+        raise RuntimeError("the model ranks' logits differ")
+    cpu_mod = VLMModule(cfg, dtype=torch.float32, device="cpu",
+                        quant_bits=bits)
+    cpu_mod.load_state_dict({k: v.float() if v.is_floating_point() else v
+                             for k, v in state.items()})
+    cpu_spec = dict(spec, kv_cache="int8" if bits else None)
+    inputs = mesh_serve._Inputs(cpu_spec, cfg, torch.device("cpu"),
+                                torch.float32, RECIPES["paligemma"])
+    ref = mesh_serve.task_logits(
+        cpu_mod, cfg, Mesh(1, 1, groups=False), inputs, cpu_spec,
+        n=MESH_REF_IMAGES, steps=MESH_REF_STEPS, feed=got[0]["fed"])
+    ref = ref["logits"]
+    if not np.isfinite(cards[0]).all():
+        raise RuntimeError("non-finite logits on the card")
+    worst = max(float(np.abs(c - r).max() / np.abs(r).max())
+                for c, r in zip(cards[0], ref))
+    print(f"[mesh reference {quantization}] depth-cut PaliGemma-3B (2+2 "
+          f"layers, full width) over model=2 on the card "
+          f"({recs[0]['backend']}), {MESH_REF_IMAGES} images, "
+          f"{MESH_REF_STEPS} decode steps: max |card - cpu| / max|cpu| = "
+          f"{worst:.3e} (tol {tol:.0e}); launches {got[0]['launches']}, "
+          f"plain {got[0]['plain_calls']} ({gpu})")
+    if worst > tol or got[0]["plain_calls"]:
+        raise RuntimeError(f"[mesh reference {quantization}] the card "
+                           f"disagrees with the CPU or ran a plain version")
+    shutil.rmtree(run)
+
+
+def row_parallel_check(recs, gpu):
+    """The ranks' ``row_parallel`` task: every case within one bf16 step
+    of the whole layer, on inputs where a double rounding would miss by
+    more than two; on the kernels, no plain version."""
+    for r in recs:
+        t = r["tasks"][-1]
+        for c in t["cases"]:
+            print(f"[mesh row-parallel] rank {r['rank']} bits {c['bits']} "
+                  f"rows {c['rows']}: |sharded - whole| = "
+                  f"{c['err_steps']:.3f} bf16 steps (tol 1), partials "
+                  f"rounded first {c['naive_steps']:.3f} steps, partial / "
+                  f"output {c['partial_over_out']:.1f} ({gpu})")
+            if c["err_steps"] > 1 or c["naive_steps"] <= 2:
+                raise RuntimeError(f"[mesh row-parallel] rank {r['rank']} "
+                                   f"{c}")
+        if t["plain_calls"]:
+            raise RuntimeError(f"[mesh row-parallel] plain versions ran: "
+                               f"{t['plain_calls']}")
+        print(f"[mesh row-parallel] rank {r['rank']} launches "
+              f"{t['launches']}")
+
+
+def mesh_phases(torch, np, gpu, launches, tmp, ckpt, base):
+    """The mesh phases and their depth-cut references, adding the ranks'
+    launches into ``launches``."""
+    from vlm_tpu_torch.models.factory import create_model
+    t0 = time.perf_counter()
+    paths = probe_jpegs(base)[:MESH_IMAGES]
+    prompt = GEN_PROMPTS["paligemma"][0]
+    model = create_model("paligemma", size="3b", device="cuda",
+                         model_id=str(ckpt), quantization="bf16")
+    model.generate_dataset(paths[:4], prompt, max_tokens=2,
+                           batch_size=SLOTS)                  # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    single = model.generate_dataset(paths, prompt, max_tokens=MESH_NEW,
+                                    batch_size=SLOTS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t1
+    print(f"[mesh single] PaliGemma-3B bf16 on one GPU, the same "
+          f"{len(paths)} images: {len(paths) / dt:.3f} img/s ({gpu})")
+    del model
+    torch.cuda.empty_cache()
+    print(f"[time] mesh single {time.perf_counter() - t0:.1f} s")
+    for quantization, mesh in MESH_PHASES:
+        t0 = time.perf_counter()
+        mesh_phase(torch, gpu, quantization, mesh, ckpt, paths, single, tmp,
+                   launches)
+        print(f"[time] mesh {quantization} {mesh} "
+              f"{time.perf_counter() - t0:.1f} s")
+    for quantization in MESH_REFS:
+        t0 = time.perf_counter()
+        mesh_reference_phase(torch, np, gpu, quantization, tmp)
+        print(f"[time] mesh reference {quantization} "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
 # the probing phases: LLaVA-1.5-7B's tower in fp32, the single and multi
 # profiles of configs/train_probe.yaml; the dataset's split sizes and the
 # end-to-end batch (the multi profile's backbone block; its own batch of
@@ -2378,8 +2683,11 @@ def main() -> int:
         base = probe_data(np, tmp)
         t0 = time.perf_counter()
         generation_phases(torch, np, gpu, launches, tmp, pali, base)
-        shutil.rmtree(pali)
         print(f"[time] generation {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_phases(torch, np, gpu, launches, tmp, pali, base)
+        print(f"[time] mesh {time.perf_counter() - t0:.1f} s")
+        shutil.rmtree(pali)
         t0 = time.perf_counter()
         sweep_phase(torch, gpu, tmp, base, launches)
         print(f"[time] sweep {time.perf_counter() - t0:.1f} s")

@@ -149,6 +149,45 @@ def test_int4_wrapper_launches_on_cuda_and_raises_on_wrong_types(card):
     assert _lib.launches["int4_matmul"] == 1
 
 
+def test_b5_and_b7_write_fp32_partials(card):
+    """A row-parallel rank's partial product: B5 and B7 write their fp32
+    accumulators unrounded (the plain versions' numbers), and refuse
+    another output type."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.quant import (int4_matmul, int4_matmul_plain,
+                                         int8_matmul, int8_matmul_plain,
+                                         matmul_fp32)
+    _lib.reset_counts()
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(32, 1024, device=card, generator=g).to(torch.bfloat16)
+    q8 = torch.randint(-127, 128, (2048, 1024), device=card,
+                       generator=g).to(torch.int8)
+    s8 = torch.rand(2048, device=card, generator=g) / 1024
+    q4 = torch.randint(-128, 128, (2048, 512), device=card,
+                       generator=g).to(torch.int8)
+    s4 = torch.rand(2048, 8, device=card, generator=g) / 1024
+    for got, want in ((int8_matmul(x, q8, s8, torch.float32),
+                       int8_matmul_plain(x, q8, s8, torch.float32)),
+                      (int4_matmul(x, q4, s4, 128, torch.float32),
+                       int4_matmul_plain(x, q4, s4, 128, torch.float32))):
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        # fp32 sums in another order: far inside one bf16 step
+        assert float((got - want).abs().max()) <= \
+            2.0 ** -16 * float(want.abs().max())
+    assert _lib.launches["int8_matmul"] == _lib.launches["int4_matmul"] == 1
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        int8_matmul(x, q8, s8, torch.float16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        int4_matmul(x, q4, s4, 128, torch.float16)
+    w = q8.to(torch.bfloat16)
+    y = matmul_fp32(x, w)
+    ref = x.float() @ w.float().T
+    assert y.dtype == torch.float32
+    assert float((y - ref).abs().max()) <= 2.0 ** -16 * float(
+        ref.abs().max())
+
+
 # the fp32 forms and B5 / B7 at every shape kernel_checks holds (names as
 # kernel_checks.cases builds them)
 FP32_CASES = ("fp32_siglip_g4_h16_s256_d72", "fp32_gemma_prefill_g4_s316_kvlen",
@@ -968,6 +1007,52 @@ SWEEP_CASES = tuple(dict.fromkeys(_sweep_cases()))
 def test_sweep_shapes_match_plain(all_cases, case):
     c = all_cases[case]
     assert c.on_path
+    if c.kernel == "B3":
+        got, exact = c.kernel_fn(), c.exact_fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got, exact)
+    _check(c)
+
+
+# chip_smoke.py's mesh phases: PaliGemma-3B at one rank's shard shapes
+# (model=2: 8 tower heads, 4 query heads over the whole KV head, half of
+# each block product's split axis; data=2: 16 slots; the depth-cut
+# references' 4 rows), names as kernel_checks.cases builds them
+def _mesh_cases():
+    from vlm_tpu_torch.testing import kernel_checks as kc
+    yield from ("B1 tp_siglip_g4_h8_s256_d72",
+                "B1 tp_gemma_prefill_g4_q4_s316_kvlen",
+                "B1 fp32_tp_siglip_g4_h8_s256_d72",
+                "B1 fp32_tp_gemma_prefill_g4_q4_s316_kvlen")
+    for name in ("tp_window_32slots_h4", "tp_window_32slots_h4_int8",
+                 "dp_window_16slots_h8"):
+        yield f"B2 {name}_cold"
+    for name in ("tp_fused_window_32slots_h4_cold",
+                 "tp_int8_fused_window_32slots_h4_cold",
+                 "dp_fused_window_16slots_h8_cold",
+                 "tp_ref_fused_scatter_kv_len_4rows_h4",
+                 "tp_ref_int8_fused_scatter_kv_len_4rows_h4",
+                 "tp_ref_fp32_fused_scatter_kv_len_4rows_h4"):
+        yield f"B3 {name}"
+    for k, n in kc.GEMMA_TP_KN:
+        if (k, n) in kc.GEMMA_KN:
+            continue
+        f32 = "_fp32" if (k, n) in kc.GEMMA_TP_ROW else ""
+        yield f"B5 m{kc.MESH_SLOTS}_k{k}_n{n}{f32}"
+        yield f"B6 m{kc.GROUP * kc.PROMPT}_k{k}_n{n}_fp32"
+        yield f"B7 m{kc.MESH_SLOTS}_k{k}_n{n}_gs128{f32}"
+
+
+MESH_CASES = tuple(_mesh_cases())
+
+
+@pytest.mark.parametrize("case", MESH_CASES)
+def test_mesh_shard_shapes_match_plain(all_cases, case):
+    """Each kernel at a mesh rank's shapes against its plain version at
+    the tolerance its other cases take; B3's write inside B2 bitwise the
+    unfused B3 then B2."""
+    c = all_cases[case]
+    assert c.on_path == (c.kernel != "B7")
     if c.kernel == "B3":
         got, exact = c.kernel_fn(), c.exact_fn()
         torch.cuda.synchronize()

@@ -105,29 +105,35 @@ DECISIONS = [(10 * GiB, 10 * GiB), (10 * GiB + 1, 10 * GiB),
              (28253708288, 26 * GiB), (28253708288, 27 * GiB)]
 
 
+@pytest.mark.parametrize("ways", [1, 2])
 @pytest.mark.parametrize("total,limit", DECISIONS)
-def test_check_refuses_exactly_where_vlm_tpu_does(monkeypatch, total, limit):
-    """vlm_tpu with its model axis of 1 (the port runs one device)."""
+def test_check_refuses_exactly_where_vlm_tpu_does(monkeypatch, total, limit,
+                                                  ways):
+    """vlm_tpu with a model axis of 1 and of 2 (a rank's bytes: here the
+    total over the ways, as vlm_tpu divides it)."""
     cfg = VLM_CONFIGS["llava"]("test")
     monkeypatch.setattr(jvlm, "_device_hbm_limit", lambda: limit)
     monkeypatch.setattr(jvlm, "param_bytes", lambda m, c: total)
     monkeypatch.setattr(tvlm, "device_memory_limit", lambda d: limit)
-    monkeypatch.setattr(tvlm, "param_bytes", lambda c, **kw: total)
+    monkeypatch.setattr(tvlm, "param_bytes",
+                        lambda c, model_ways=1, **kw: total // model_ways)
     jerr = terr = None
     try:
-        jvlm.check_hbm_fit(None, JAX_CONFIGS["llava"]("test"))
+        jvlm.check_hbm_fit(None, JAX_CONFIGS["llava"]("test"),
+                           model_ways=ways)
     except ValueError as e:
         jerr = str(e)
     try:
-        tvlm.check_hbm_fit(cfg, "cuda")
+        tvlm.check_hbm_fit(cfg, "cuda", model_ways=ways)
     except ValueError as e:
         terr = str(e)
     assert (jerr is None) == (terr is None)
     if terr is not None:
-        # the same sizes, and the advice the port can follow
+        # the same sizes, and the same advice: quantize, or shard
         sizes = [f"{total / GiB:.1f} GiB", f"{limit / GiB:.1f} GiB"]
         assert all(s in jerr and s in terr for s in sizes)
-        assert "quantization: 8bit" in terr and "A17" in terr
+        advice = jerr[jerr.index("`mesh: {"):].split("`")[1]
+        assert "quantization: 8bit" in terr and f"`{advice}`" in terr
 
 
 def test_skip_env_and_the_cpu_have_no_check(monkeypatch):

@@ -10,7 +10,9 @@ PaliGemma, LLaVA and BLIP-2, the wave and beam entry points with the
 CLI's ``continuous_batching: false``, the probing CLIs' ``main()``
 (train in both modes, then test; the multi-task profile and LoRA, then
 their testers), and the model-comparison sweep, the CLI with
-``--profile`` and the face-dataset preparation. None imports triton or builds the kernel library;
+``--profile`` and the face-dataset preparation, and the CLI and the mesh
+serving worker under ``torchrun`` over a two-rank mesh on gloo. None
+imports triton or builds the kernel library;
 importing the port's modules (the native image loader's build and loader
 among them) starts no process (no compiler) and builds no loader."""
 
@@ -128,7 +130,10 @@ def test_port_imports_and_runs_without_jax(tmp_path):
             "vlm_tpu_torch.data.preprocess_face_datasets",
             "vlm_tpu_torch.data.native_loader",
             "vlm_tpu_torch.native.build",
-            "vlm_tpu_torch.generate.readback"} <= set(
+            "vlm_tpu_torch.generate.readback",
+            "vlm_tpu_torch.core.mesh", "vlm_tpu_torch.parallel.sharding",
+            "vlm_tpu_torch.parallel.distributed",
+            "vlm_tpu_torch.testing.mesh_serve"} <= set(
                 res["modules"])
     for toks in (res["tokens"], res["tokens8"], res["tokens4"],
                  res["tokensl"], res["tokensb"]):
@@ -526,3 +531,96 @@ def test_sweep_profile_and_face_preparation_run_without_jax(tmp_path,
     assert (faces / "TestDataset" / "val" / "labels.csv").exists()
     assert json.loads((faces / "TestDataset" / "train" /
                        "class_counts.json").read_text())["gender"]
+
+
+MESH_CLI = BLOCKER + r"""
+import json, os, sys
+import torch
+torch.set_num_threads(1)
+from vlm_tpu_torch.scripts.prompt_inference import main
+summary = main(["--config", os.environ["CLI_CONFIG"]])
+print("RESULT " + json.dumps({
+    "rank": int(os.environ.get("RANK", 0)), "summary": summary,
+    "loaded": sorted(m for m in ("jax", "flax", "triton", "vlm_tpu")
+                     if m in sys.modules)}))
+"""
+
+MESH_WORKER = BLOCKER + r"""
+import sys
+from vlm_tpu_torch.testing.mesh_serve import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def _torchrun(script, args, tmp_path, n=2, **env):
+    path = tmp_path / "rank.py"
+    path.write_text(script)
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(n), str(path), *args], cwd=tmp_path,
+        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin",
+             "HOME": str(tmp_path), "OMP_NUM_THREADS": "1",
+             "VLM_TPU_DIST_TIMEOUT": "60", **env},
+        capture_output=True, text=True, timeout=180)
+
+
+def _results(proc):
+    return [json.loads(line.split("RESULT ", 1)[1])
+            for line in proc.stdout.splitlines() if "RESULT " in line]
+
+
+def test_port_cli_serves_under_a_mesh_with_torchrun(tmp_path, mivia_base):
+    """``mesh: {data: 1, model: 2}`` under torchrun on the CPU (gloo): both
+    ranks serve, rank 0 alone writes the artifacts and prints the meter,
+    and the predictions are the single-process run's, with vlm_tpu, jax
+    and flax unimportable in every rank."""
+    cfg = {"model_name": "paligemma", "model_size": "test",
+           "quantization": "fp32", "dataset_name": "MiviaPar",
+           "max_tokens": 3, "batch_size": 2,
+           "dataset": {"base_path": str(mivia_base)},
+           "prompts": {"MiviaPar": "describe"}}
+    one, two = tmp_path / "one", tmp_path / "two"
+    for root, mesh in ((one, None), (two, {"data": 1, "model": 2})):
+        root.mkdir()
+        path = root / "cli.yaml"
+        path.write_text(yaml.safe_dump(dict(cfg, mesh=mesh)))
+        env = dict(CLI_CONFIG=str(path), VLM_TPU_ROOT=str(root),
+                   VLM_TPU_PLATFORM="cpu")
+        if mesh is None:
+            proc = _run(MESH_CLI, root, **env)
+        else:
+            proc = _torchrun(MESH_CLI, [], root, **env)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        res = _results(proc)
+        assert len(res) == (1 if mesh is None else 2)
+        assert all(r["loaded"] == [] for r in res)
+        assert all(r["summary"]["images_completed"] == 4 for r in res)
+    assert proc.stdout.count("[THROUGHPUT]") == 1
+    assert proc.stdout.count("Output directory:") == 1
+    out = "eval/prompt_inference/paligemma_fp32/MiviaPar/preds.json"
+    assert json.loads((two / out).read_text()) == \
+        json.loads((one / out).read_text())
+
+
+def test_mesh_worker_runs_without_jax(tmp_path):
+    """``testing/mesh_serve.py`` at ``data=2`` with random weights (the
+    unsharded model's from the seed), jax unimportable: both ranks write
+    the same batcher tokens, and each served its own slots."""
+    import numpy as np
+    s = 56
+    np.save(tmp_path / "u8.npy", np.random.default_rng(0).integers(
+        0, 256, (6, s, s, 3), dtype=np.uint8))
+    spec = dict(family="llava", size="test", mesh={"data": 2, "model": 1},
+                device="cpu", seed=3, images=str(tmp_path / "u8.npy"),
+                pre_ids=[1, 7], post_ids=[9, 11], pad_id=0, threads=1,
+                tasks=[["batcher", {"n": 6, "slots": 4, "new": 3}]])
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    proc = _torchrun(MESH_WORKER, [str(tmp_path / "spec.json"),
+                                   str(tmp_path / "out")], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    recs = [json.loads((tmp_path / "out" / f"rank{r}.json").read_text())
+            for r in range(2)]
+    a, b = (r["tasks"][0] for r in recs)
+    assert a["tokens"] == b["tokens"] and all(a["tokens"])
+    assert sorted(a["images_served_here"] + b["images_served_here"]) == \
+        list(range(6))

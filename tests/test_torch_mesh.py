@@ -1,7 +1,9 @@
-"""The port's check of the ``mesh: {data, model}`` block against
-``vlm_tpu.core.mesh.mesh_from_config``: the same specs at 1 and 8 devices
-give the same errors, and where ``vlm_tpu`` builds a mesh of more than one
-device the port (one device only) raises ``NotImplementedError``."""
+"""The port's ``mesh: {data, model}`` block against
+``vlm_tpu.core.mesh.mesh_from_config``: the same specs at world sizes 1,
+2, 4 and 8 resolve to the same ``(data, model)`` shape or raise the same
+error, with one contract difference: ``vlm_tpu`` builds a mesh over some of
+its devices, the port needs a process group of exactly ``data x model``
+ranks and raises ``ValueError`` naming the ``torchrun`` line otherwise."""
 
 import types
 
@@ -27,34 +29,53 @@ def _outcome(fn, spec):
         return type(e).__name__, None
 
 
-@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
 @pytest.mark.parametrize("spec", SPECS, ids=[repr(s) for s in SPECS])
 def test_mesh_checks_match_vlm_tpu(spec, n, monkeypatch):
     # vlm_tpu sees n devices and builds (data, model) for a mesh; the port
-    # sees n CUDA devices
+    # sees a process group of n ranks and builds (data, model) over it
     monkeypatch.setattr(j_mesh, "jax", types.SimpleNamespace(
         devices=lambda: list(range(n))))
     monkeypatch.setattr(j_mesh, "make_mesh",
                         lambda data, model, devices: (data, model))
-    monkeypatch.setattr(t_mesh, "device_count", lambda: n)
+    monkeypatch.setattr(t_mesh, "world_size", lambda: n)
+    monkeypatch.setattr(t_mesh, "make_mesh",
+                        lambda data, model, device=None: (data, model))
     j_kind, j_val = _outcome(j_mesh.mesh_from_config, spec)
     t_kind, t_val = _outcome(t_mesh.mesh_from_config, spec)
-    if j_kind == "ok" and j_val is not None:
-        assert t_kind == "NotImplementedError"     # a mesh of > 1 device
+    if j_kind == "ok" and j_val is not None and j_val[0] * j_val[1] < n:
+        # vlm_tpu's mesh over some of the devices: the port refuses
+        assert t_kind == "ValueError"
     else:
         assert (t_kind, t_val) == (j_kind, j_val)
+
+
+@pytest.mark.parametrize("ranks", [None, 8, 16])
+def test_a_mesh_without_its_process_group_raises_with_the_torchrun_line(
+        monkeypatch, ranks):
+    """More than one device and no process group of data x model ranks:
+    ValueError with the launcher's line, never a run on one device. With
+    no group the devices are the CUDA devices."""
+    monkeypatch.setattr(t_mesh, "world_size", lambda: ranks)
+    monkeypatch.setattr(t_mesh, "device_count", lambda: 4)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
+        t_mesh.mesh_from_config({"data": 2, "model": 2})
 
 
 def test_mesh_device_count_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert t_mesh.device_count() == 1
+    assert t_mesh.world_size() is None
+    assert t_mesh.mesh_from_config({"data": -1}) is None
 
 
 def test_model_and_cli_refuse_a_larger_mesh(monkeypatch, tmp_path):
-    """``VLMModel`` and the CLI call the check: on 8 devices a 2 x 1 mesh
-    is A17's work, a typo'd key is refused, a 1 x 1 mesh runs."""
+    """``VLMModel`` and the CLI read the block: on 8 devices without a
+    process group a 2 x 1 mesh raises with the torchrun line, a typo'd key
+    is refused, a 1 x 1 mesh runs; the probing scripts refuse a mesh of
+    more than one device, naming A17b."""
     monkeypatch.setattr(t_mesh, "device_count", lambda: 8)
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="torchrun"):
         create_model("paligemma", size="test", device="cpu",
                      mesh={"data": 2})
     with pytest.raises(ValueError, match="unknown mesh"):
@@ -62,7 +83,7 @@ def test_model_and_cli_refuse_a_larger_mesh(monkeypatch, tmp_path):
                      mesh={"modle": 2})
     m = create_model("paligemma", size="test", device="cpu",
                      mesh={"data": 1, "model": 1})
-    assert m.device == torch.device("cpu")
+    assert m.device == torch.device("cpu") and m.mesh is None
 
     import yaml
 
@@ -74,5 +95,9 @@ def test_model_and_cli_refuse_a_larger_mesh(monkeypatch, tmp_path):
         "mesh": {"data": 4}}))
     monkeypatch.setenv("VLM_TPU_ROOT", str(tmp_path))
     monkeypatch.setenv("VLM_TPU_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match="A17"):
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
         main(["--config", str(cfg)])
+    for what in ("training a probe", "testing a probe"):
+        with pytest.raises(NotImplementedError, match="A17b"):
+            t_mesh.refuse_mesh({"model": 2}, what)
+        t_mesh.refuse_mesh({"data": 1, "model": 1}, what)

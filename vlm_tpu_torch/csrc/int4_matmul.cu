@@ -31,10 +31,10 @@
 
 // bm, bn: the plan's tile (16, 32 or 64 rows; 64 or 128 columns;
 // ops/quant.py `stream_plan`); splits blocks of one cluster share each
-// output tile, `per` 128-byte chunks each.
+// output tile, `per` 128-byte chunks each; y is bf16, or fp32 where f32.
 extern "C" int vlm_int4_matmul(const void* x, const void* q, const void* scale,
                                void* y, int M, int N, int K, int group_size,
-                               int bm, int bn, int splits, int per,
+                               int bm, int bn, int splits, int per, int f32,
                                void* stream) {
   constexpr int kChunk = vlm::ws::kSubs * vlm::ws::kSub;
   const int row_bytes = K / 2;
@@ -49,8 +49,8 @@ extern "C" int vlm_int4_matmul(const void* x, const void* q, const void* scale,
   const vlm::ws::Args a{static_cast<const __nv_bfloat16*>(x),
                         static_cast<const uint8_t*>(q),
                         static_cast<const float*>(scale),
-                        static_cast<__nv_bfloat16*>(y), M, N, K, row_bytes,
-                        K / group_size, lg, per, 0};
+                        y, M, N, K, row_bytes, K / group_size, lg, per, 0,
+                        f32 != 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return row_bytes % 16 == 0
              ? vlm::ws::launch<vlm::ws::Fmt::kInt4, 0>(a, bm, bn, splits, st)

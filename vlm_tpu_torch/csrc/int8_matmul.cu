@@ -22,10 +22,10 @@
 
 // bm, bn: the plan's tile (16, 32 or 64 rows; 64 or 128 columns;
 // ops/quant.py `stream_plan`); splits blocks of one cluster share each
-// output tile, `per` 128-byte chunks each.
+// output tile, `per` 128-byte chunks each; y is bf16, or fp32 where f32.
 extern "C" int vlm_int8_matmul(const void* x, const void* q, const void* scale,
                                void* y, int M, int N, int K, int bm, int bn,
-                               int splits, int per, void* stream) {
+                               int splits, int per, int f32, void* stream) {
   constexpr int kChunk = vlm::ws::kSubs * vlm::ws::kSub;
   if (M <= 0 || N <= 0 || K <= 0 || K % 16 != 0 || N % 2 != 0 || per < 1 ||
       (long long)per * splits * kChunk < K ||
@@ -34,8 +34,7 @@ extern "C" int vlm_int8_matmul(const void* x, const void* q, const void* scale,
   const vlm::ws::Args a{static_cast<const __nv_bfloat16*>(x),
                         static_cast<const uint8_t*>(q),
                         static_cast<const float*>(scale),
-                        static_cast<__nv_bfloat16*>(y), M, N, K, K, 0, 0, per,
-                        0};
+                        y, M, N, K, K, 0, 0, per, 0, f32 != 0};
   return vlm::ws::launch<vlm::ws::Fmt::kInt8, 0>(
       a, bm, bn, splits, static_cast<cudaStream_t>(stream));
 }

@@ -54,6 +54,8 @@
 //   cluster's blocks in rank order through distributed shared memory (a
 //   fixed order: deterministic) and writes them. No device-memory round
 //   trip, no counters, no serial last block.
+// - The output is bf16, or fp32 (`f32`): a tensor-parallel rank's partial
+//   product, which the model group sums before its one rounding.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -143,11 +145,12 @@ struct Args {
   const __nv_bfloat16* x;  // [M, K]
   const uint8_t* q;        // [N, row_bytes]
   const float* scale;      // int8: [N]; int4: [N, G]
-  __nv_bfloat16* y;        // [M, N]
+  void* y;                 // [M, N] bf16, or fp32 where f32
   int M, N, K, row_bytes;
   int G, lg;               // int4: groups a row, log2(group size)
   int per;                 // chunks a split
   int stages;              // chunks in the ring
+  int f32;                 // the output's type: 0 bf16, 1 fp32
 };
 
 // bytes of one sub-chunk's weights, x and scales in the ring of a block of
@@ -340,8 +343,13 @@ stream_kernel(const __grid_constant__ CUtensorMap tm_q, const Args a) {
       v0 *= a.scale[col];
       v1 *= a.scale[col + 1];
     }
-    *reinterpret_cast<__nv_bfloat162*>(a.y + (int64_t)row * a.N + col) =
-        __floats2bfloat162_rn(v0, v1);
+    const int64_t at = (int64_t)row * a.N + col;
+    if (a.f32)
+      *reinterpret_cast<float2*>(static_cast<float*>(a.y) + at) =
+          make_float2(v0, v1);
+    else
+      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.y) +
+                                         at) = __floats2bfloat162_rn(v0, v1);
   };
 
   const int splits = gridDim.z;

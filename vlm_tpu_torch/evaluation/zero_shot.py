@@ -21,7 +21,8 @@ def run_zero_shot(model, dataset, prompt: str, output_dir, *,
                   generation: Optional[Dict[str, Any]] = None
                   ) -> Dict[str, Any]:
     """Run continuous-batched zero-shot inference over ``dataset`` and write
-    evaluator artifacts to ``output_dir``.
+    evaluator artifacts to ``output_dir`` (None: no artifacts and no
+    metrics, as on a mesh's ranks other than 0).
 
     ``generation`` optionally carries the decoding knobs of the reference's
     ``model.generate`` kwargs surface
@@ -67,7 +68,7 @@ def evaluate_outputs(outputs, dataset, output_dir, elapsed: float
         gts.append(label)
 
     metrics = {}
-    if preds:
+    if preds and output_dir is not None:
         Evaluator.evaluate(preds, gts, output_dir,
                            dataset_name=dataset.name)
         mfile = _resolve_output_dir(output_dir) / "metrics.json"

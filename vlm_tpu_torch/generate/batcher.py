@@ -33,11 +33,28 @@ reach changes. The chunk's packed result (history, active flags, counts
 and ``k``) is copied to pinned memory when the chunk is dispatched and read
 when the loop needs it: at once in the synchronous loop (``sync_every >
 0``), one admission cycle later in the pipelined one (the default).
+
+Under a mesh (the module's; ``vlm_tpu``'s ``mesh=``) every rank runs this
+loop over the same images in the same order, and the slot state is whole
+on every rank. Tensor parallelism lives in the module. Over ``data > 1``
+the slots split into contiguous blocks, one a data rank, which holds only
+its slots' KV cache (and one spare row, where an admission's rows for
+other ranks' slots land) and runs the decode forward of its slots only;
+the step's tokens are all-gathered over the data group, so the state,
+the step flags, the chunk's packed result and every slot decision are
+the same on every rank. An admission's prefill runs on every data rank
+over the whole admission block, as ``vlm_tpu``'s admission group is not
+sharded over ``data`` either; each rank keeps its slots' rows. The flags
+are read in lockstep (:class:`StepFlags`), and an interrupt on any rank
+stops every rank at the same chunk boundary (one all-reduce of a stop flag
+a chunk).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import signal
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -45,9 +62,9 @@ import numpy as np
 import torch
 
 from ..data.pipeline import prefetch_batches
-from ..models.decoder import QuantizedKV, init_kv_cache
+from ..models.decoder import QuantizedKV, init_kv_cache, local_heads
 from ..models.vlm import VLMModule
-from .decode import check_positions, feed_token, sample
+from .decode import check_positions, feed_token, sample, sample_rows
 from .readback import Pull, StepFlags, upload
 
 
@@ -56,6 +73,41 @@ class _Slot:
     # Host mirror of identity + liveness; caps/EOS/counts live on the device
     image_idx: int = -1
     active: bool = False
+
+
+class _MeshStop:
+    """Under a mesh, an interrupt on any rank stops every rank at the same
+    chunk boundary: SIGINT sets a flag instead of raising, and
+    :meth:`check`, at each chunk's dispatch, all-reduces the flag over the
+    mesh on the host (:meth:`Mesh.any`, no device read; counted in
+    :attr:`reads`) and raises ``KeyboardInterrupt`` on every rank if one is
+    set. Without a mesh, Python's own ``KeyboardInterrupt`` serves."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.flag = False
+        self.prev = None
+        self.reads = 0
+
+    def __enter__(self):
+        if self.mesh is not None and \
+                threading.current_thread() is threading.main_thread():
+            self.prev = signal.signal(signal.SIGINT, self._set)
+        return self
+
+    def _set(self, *_):
+        self.flag = True
+
+    def check(self) -> None:
+        if self.mesh is None:
+            return
+        self.reads += 1
+        if self.mesh.any(self.flag):
+            raise KeyboardInterrupt
+
+    def __exit__(self, *_):
+        if self.prev is not None:
+            signal.signal(signal.SIGINT, self.prev)
 
 
 class ContinuousBatcher:
@@ -76,6 +128,15 @@ class ContinuousBatcher:
         self.cfg = cfg
         self.device = module.device
         self.batch_size = batch_size
+        self.mesh = getattr(module, "mesh", None)
+        if self.mesh is not None and batch_size % self.mesh.data:
+            raise ValueError(f"batch_size {batch_size} not divisible by the "
+                             f"mesh data axis {self.mesh.data}")
+        #: this data rank's slots (all of them without a data split)
+        self.local = self.mesh.rows(batch_size) if self.mesh is not None \
+            else slice(0, batch_size)
+        self.split = self.mesh is not None and self.mesh.data > 1
+        self.kv_heads = local_heads(cfg.decoder, self.mesh)[1]
         self.max_new_tokens = max_new_tokens
         self.max_prompt_len = max_prompt_len
         self.cache_len = check_positions(cfg, max_prompt_len,
@@ -136,25 +197,36 @@ class ContinuousBatcher:
             "k": torch.zeros((), **i32),
         }
 
+    def _new_cache(self, rows: int, length: int) -> dict:
+        return init_kv_cache(self.cfg.decoder, rows, length,
+                             self.cache_dtype, self.device,
+                             kv_heads=self.kv_heads)
+
     def _admit(self, state: dict, cache: dict, pixels, pre_ids, post_ids,
                prompt_len, caps_new) -> None:
         """Prefill ``g`` images into the first ``g`` free slots (chosen on
         the device: lowest indices with ``occ`` False) and update the slot
-        state and the cache in place."""
+        state and the cache in place. Under a data split, rows for other
+        ranks' slots go to the cache's spare row."""
         g = pixels.shape[0]
         slots = torch.argsort(state["occ"].to(torch.int8), stable=True)[:g]
         p = self.max_prompt_len
-        group = init_kv_cache(self.cfg.decoder, g, p, self.cache_dtype,
-                              self.device)
+        group = self._new_cache(g, p)
+        # every data rank prefills the whole admission
         last = self.module.prefill(pixels, pre_ids, post_ids, group,
-                                   prompt_len)
+                                   prompt_len, replicated=True)
+        rows = slots
+        if self.split:
+            lo, n = self.local.start, self.local.stop - self.local.start
+            rows = torch.where((slots >= lo) & (slots < lo + n), slots - lo,
+                               n)
         for full, part in zip(cache["k"] + cache["v"],
                               group["k"] + group["v"]):
             if isinstance(full, QuantizedKV):           # values and scales
                 for f, t in zip(full, part):
-                    f[slots, :p] = t
+                    f[rows, :p] = t
             else:
-                full[slots, :p] = part                  # in place
+                full[rows, :p] = part                   # in place
         first = self._sample(last)
         act_new = (first != self.eos_id) & (caps_new > 1)
         # index_fill_ takes its value as a kernel argument: an index_put_ of
@@ -187,11 +259,14 @@ class ContinuousBatcher:
         n_new = self.max_new_tokens
         act, gcnt = state["act"], state["gcnt"]
         wcol = state["pcol"] + torch.remainder(state["dstep"], n_new)
+        r = self.local
         logits = self.module.decode_step(
-            state["cur"][:, None], state["slen"], cache, write_col=wcol,
-            kv_window=(state["pcol"], n_new, state["acol"], gcnt))
+            state["cur"][r, None], state["slen"][r], cache, write_col=wcol,
+            kv_window=(state["pcol"], n_new, state["acol"][r], gcnt[r]))
         live = act & go
-        nxt = torch.where(live, self._sample(logits), self.pad_id)
+        nxt = torch.where(live, sample_rows(
+            logits, self.mesh, self.temperature, self.generator, self.top_k,
+            self.top_p), self.pad_id)
         state["hist"] = torch.where(
             live[:, None] & (self._cols == gcnt[:, None]), nxt[:, None],
             state["hist"])
@@ -254,16 +329,24 @@ class ContinuousBatcher:
         ``admits``, ``chunk_dispatch_s``, ``chunks``, ``sync_s``: the
         blocking reads' seconds, ``block_wait_s``), ``steps`` (decode steps
         that took effect), ``guarded_steps`` (dispatched steps that took
-        none) and ``blocking_reads`` (the chunks' result reads and the
-        waits for a step flag)."""
+        none), ``blocking_reads`` (the chunks' result reads and the
+        waits for a step flag) and, under a mesh, ``stop_reads`` (the
+        host reads of the ranks' stop flag, one a chunk)."""
         B = self.batch_size
         n_new = self.max_new_tokens
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
-        cache = init_kv_cache(self.cfg.decoder, B, self.cache_len,
-                              self.cache_dtype, dev)
+        n_local = self.local.stop - self.local.start
+        # under a data split one spare row takes other ranks' admissions
+        cache = self._new_cache(n_local + (1 if self.split else 0),
+                                self.cache_len)
+        view = cache if not self.split else {
+            kv: tuple(QuantizedKV(*(t[:n_local] for t in layer))
+                      if isinstance(layer, QuantizedKV) else layer[:n_local]
+                      for layer in layers) for kv, layers in cache.items()}
         state = self._init_state()
-        flags = StepFlags(dev)
+        flags = StepFlags(dev, lockstep=self.mesh is not None)
+        stop_flag = _MeshStop(self.mesh)
         slots = [_Slot() for _ in range(B)]
         results: List[Optional[List[int]]] = [None] * n_images
         self.last_latency_s: List[Optional[float]] = [None] * n_images
@@ -331,9 +414,10 @@ class ContinuousBatcher:
                 left[i] = (c - 1, len(known))
 
         def dispatch_chunk(stop_free: int):
+            stop_flag.check()
             stats["chunks"] += 1
             t0 = time.perf_counter()
-            pull, n = self._chunk(state, cache, stop_free, max_steps,
+            pull, n = self._chunk(state, view, stop_free, max_steps,
                                   limit(stop_free, max_steps), flags)
             known.append(flags.effective(n))
             stats["chunk_dispatch_s"] += time.perf_counter() - t0
@@ -440,10 +524,11 @@ class ContinuousBatcher:
                 process_event()
 
         try:
-            if self.sync_every > 0:
-                run_sync()
-            else:
-                run_pipelined()
+            with stop_flag:
+                if self.sync_every > 0:
+                    run_sync()
+                else:
+                    run_pipelined()
         except KeyboardInterrupt:
             # unfinished inputs stay None so the caller can evaluate what
             # completed, as the reference does; the chunks already
@@ -458,4 +543,6 @@ class ContinuousBatcher:
         finally:
             block_iter.close()
             stats["blocking_reads"] += flags.waits
+            if self.mesh is not None:
+                stats["stop_reads"] = stop_flag.reads
         return results

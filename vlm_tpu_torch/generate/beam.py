@@ -118,6 +118,11 @@ class BeamSearchEngine(Engine):
                          max_new_tokens=max_new_tokens,
                          cache_dtype=cache_dtype, eos_id=eos_id,
                          pad_id=pad_id)
+        if self.mesh is not None and self.mesh.data > 1:
+            raise NotImplementedError(
+                "beam search under a data-parallel mesh (a beam's rows on "
+                "one data rank) is not ported (ROADMAP A17b); a mesh of "
+                "data=1 runs beams under tensor parallelism")
         self.num_beams = num_beams
         self.length_penalty = length_penalty
 

@@ -15,6 +15,12 @@ are only device time. The host waits once, at the wave's end.
 
 Greedy decoding matches ``vlm_tpu`` token for token; sampled tokens come
 from a ``torch.Generator`` and cannot match ``jax.random``'s stream.
+
+Under a mesh (the module's) the state of every row is whole on every rank
+and each data rank runs the forwards of its own rows: its pixels are its
+rows' (:meth:`Engine.rows`), and the tokens they give are all-gathered
+over the data group (:func:`sample_rows`), so every rank takes the same
+decisions. The flags are read in lockstep.
 """
 
 from __future__ import annotations
@@ -25,7 +31,8 @@ from typing import Optional
 
 import torch
 
-from ..models.decoder import init_kv_cache
+from ..core.mesh import DATA_AXIS
+from ..models.decoder import init_kv_cache, local_heads
 from .readback import StepFlags
 
 
@@ -56,6 +63,22 @@ def sample(logits: torch.Tensor, temperature: float = 0.0,
     probs = torch.softmax(logits, dim=-1)
     return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
         torch.int32)
+
+
+def sample_rows(logits: torch.Tensor, mesh, temperature: float = 0.0,
+                generator: Optional[torch.Generator] = None, top_k: int = 0,
+                top_p: float = 1.0) -> torch.Tensor:
+    """:func:`sample` of a data rank's rows, returning every row's token
+    (int32 [B]): greedy tokens are all-gathered over the data group;
+    sampling all-gathers the logits and draws every row on every rank from
+    the same generator, as one device would. Without a split of the rows,
+    :func:`sample` itself."""
+    if mesh is None or mesh.data == 1:
+        return sample(logits, temperature, generator, top_k, top_p)
+    if temperature <= 0.0:
+        return mesh.all_gather(sample(logits), DATA_AXIS, 0)
+    return sample(mesh.all_gather(logits, DATA_AXIS, 0), temperature,
+                  generator, top_k, top_p)
 
 
 def feed_token(pad_id: int, vocab_size: int) -> int:
@@ -137,12 +160,24 @@ class Engine:
         self.eos_id = cfg.decoder.eos_token_id if eos_id is None else eos_id
         self.pad_id = cfg.decoder.pad_token_id if pad_id is None else pad_id
         self.feed_id = feed_token(self.pad_id, cfg.decoder.vocab_size)
-        self.flags = StepFlags(module.device)
+        self.mesh = getattr(module, "mesh", None)
+        if self.mesh is not None and batch_size % self.mesh.data:
+            raise ValueError(f"batch_size {batch_size} does not split over "
+                             f"the mesh's data axis {self.mesh.data}")
+        #: the rank's KV heads (its cache's)
+        self.kv_heads = local_heads(cfg.decoder, self.mesh)[1]
+        self.flags = StepFlags(module.device,
+                               lockstep=self.mesh is not None)
         self.last_stats: dict = {}
+
+    def rows(self, n: int) -> slice:
+        """This data rank's rows of ``n``: all of them without a mesh."""
+        return self.mesh.rows(n) if self.mesh is not None else slice(0, n)
 
     def new_cache(self, rows: int) -> dict:
         return init_kv_cache(self.cfg.decoder, rows, self.cache_len,
-                             self.cache_dtype, self.module.device)
+                             self.cache_dtype, self.module.device,
+                             kv_heads=self.kv_heads)
 
     def running(self, s) -> bool:
         """The loop's condition, read on the host (a blocking read), for
@@ -209,19 +244,21 @@ class GenerationEngine(Engine):
         self.top_p = top_p
 
     def _sample(self, logits, generator):
-        return sample(logits, self.temperature, generator, self.top_k,
-                      self.top_p)
+        return sample_rows(logits, self.mesh, self.temperature, generator,
+                           self.top_k, self.top_p)
 
     def start(self, pixels, pre_ids, post_ids, prompt_len,
               generator: Optional[torch.Generator] = None,
               max_new_per_seq: Optional[torch.Tensor] = None) -> _WaveState:
         """The prefill and the first token; the state :meth:`step`
-        advances."""
+        advances. Under a mesh ``pixels`` are this data rank's rows and the
+        other arguments every row's."""
         uniform = uniform_prompts(prompt_len)     # read before the prefill
-        cache = self.new_cache(self.batch_size)
-        last = self.module.prefill(pixels, pre_ids, post_ids, cache,
-                                   prompt_len)
-        b, dev = pixels.shape[0], prompt_len.device
+        b, dev = prompt_len.shape[0], prompt_len.device
+        r = self.rows(b)
+        cache = self.new_cache(r.stop - r.start)
+        last = self.module.prefill(pixels, pre_ids[r], post_ids[r], cache,
+                                   prompt_len[r])
         caps = torch.full((b,), self.max_new_tokens, dtype=torch.int32,
                           device=dev) if max_new_per_seq is None else \
             max_new_per_seq.to(device=dev, dtype=torch.int32).clamp(
@@ -241,8 +278,9 @@ class GenerationEngine(Engine):
 
     def step(self, s: _WaveState) -> None:
         """One decode step for every row; rows done before it get pad."""
+        r = self.rows(s.cur.shape[0])
         logits = self.module.decode_step(
-            s.cur[:, None], s.prompt_len + (s.step - 1), s.cache,
+            s.cur[r, None], (s.prompt_len + (s.step - 1))[r], s.cache,
             uniform_write=s.uniform)
         nxt = torch.where(s.done, self.pad_id,
                           self._sample(logits, s.generator))

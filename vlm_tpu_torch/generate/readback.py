@@ -70,12 +70,19 @@ class StepFlags:
     events have completed, in order, and never waits; :meth:`wait` blocks
     for one (a blocking read, counted in :attr:`waits`). On the CPU a
     pushed flag is known at once.
+
+    ``lockstep`` (the ranks of a mesh): :meth:`poll` reads nothing new, so
+    the flags read, and with them the steps a loop enqueues, depend only on
+    the loop's own :meth:`wait` calls and never on when a flag happened to
+    complete: every rank enqueues the same steps and meets its peers in
+    each collective.
     """
 
     RING = 64   # more than a loop ever leaves unread (its steps ahead)
 
-    def __init__(self, device):
+    def __init__(self, device, lockstep: bool = False):
         self.cuda = torch.device(device).type == "cuda"
+        self.lockstep = lockstep
         if self.cuda:
             self._host = torch.zeros(self.RING, dtype=torch.bool,
                                      pin_memory=True)
@@ -126,7 +133,7 @@ class StepFlags:
     def poll(self) -> Optional[int]:
         """Read the flags that are ready; the index of the first False
         flag, or None while none has been read."""
-        if self.stop is None:
+        if self.stop is None and not self.lockstep:
             self._take(self._ready())
         return self.stop
 

@@ -13,6 +13,14 @@ given), the image files and PIL are reached only when generating.
 
 A model runs on the card unless the caller asks for the CPU
 (:func:`resolve_device`).
+
+``mesh={data, model}`` (one process a rank under ``torchrun``,
+:mod:`..core.mesh`) builds this rank's shard of the model on the rank's
+device: random weights are the unsharded model's from the same seed, a
+checkpoint is read a tensor at a time and sliced to the shard. The
+generation calls pad a batch to a multiple of ``data`` with a repeat of
+its last image (the extras dropped), decode only this data rank's images
+(``generate_batch``) and give every rank the full, ordered results.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
-from ..core.mesh import mesh_from_config
+from ..core.mesh import mesh_from_config, pad_to_multiple
 from ..data.native_loader import load_batch
 from ..generate.batcher import ContinuousBatcher
 from ..generate.beam import BeamSearchEngine
@@ -124,14 +132,15 @@ class VLMModel:
                  seed: int = 0, batch_size: int = 8, mesh=None,
                  kv_cache: Optional[str] = None,
                  quantize_vision: Optional[bool] = None):
-        mesh_from_config(mesh)      # one device: raises for any other mesh
+        self.mesh = mesh_from_config(mesh, device)
         self.model_id = model_id
         weights = _checkpoint_kind(model_id) if model_id else None
         self.quantization = quantization
         self.policy = policy_for(quantization)
         self.dtype = self.policy.compute_dtype
         self.kv_cache = kv_cache
-        self.device = resolve_device(device)
+        self.device = self.mesh.device if self.mesh is not None else \
+            resolve_device(device)
         self.cfg: VLMConfig = VLM_CONFIGS[self.family](
             size or self.DEFAULT_SIZE)
         self.batch_size = batch_size
@@ -143,15 +152,18 @@ class VLMModel:
         self.quantize_vision = resolve_quantize_vision(quantize_vision)
         quant = dict(dtype=self.dtype, quant_bits=bits,
                      vision_quant_bits=bits if self.quantize_vision else 0)
-        check_hbm_fit(self.cfg, self.device, **quant)
-        self.module = VLMModule(self.cfg, device=self.device, **quant)
+        ways = self.mesh.model if self.mesh is not None else 1
+        check_hbm_fit(self.cfg, self.device, model_ways=ways, **quant)
+        self.module = VLMModule(self.cfg, device=self.device, mesh=self.mesh,
+                                **quant)
         if weights == "native":
             load_vlm_checkpoint(model_id, self.module,
                                 self._checkpoint_meta())
         elif weights == "hf":
             load_vlm_weights(self.family, self.cfg, model_id, self.module)
         else:
-            init_random_(self.module, seed)
+            init_random_(self.module, seed, full=VLMModule(
+                self.cfg, device="meta", **quant) if ways > 1 else None)
         self.module.eval()
         self._tokenizer = None
         self._engines: Dict[Any, Any] = {}
@@ -187,8 +199,16 @@ class VLMModel:
 
     def save_checkpoint(self, path) -> None:
         """Write the model in the port's format; ``model_id=path`` loads
-        it back."""
+        it back. A model split over a mesh's model axis holds no whole
+        tensor to write and raises."""
+        if self.mesh is not None and self.mesh.model > 1:
+            raise ValueError("save_checkpoint of a tensor-parallel shard: "
+                             "save the model built without a mesh")
         save_vlm_checkpoint(path, self.module, self._checkpoint_meta())
+
+    def data_ways(self) -> int:
+        """The mesh's data axis (1 without a mesh)."""
+        return self.mesh.data if self.mesh is not None else 1
 
     def format_prompt(self, prompt: str):
         """(pre_text, post_text, add_bos_to_pre, add_bos_to_post): the text
@@ -231,10 +251,14 @@ class VLMModel:
         decoded texts, EOS removed. ``num_beams > 1`` runs beam search (HF
         ``generate`` semantics); ``temperature > 0`` samples (optionally
         top-k / nucleus filtered) from a generator seeded with ``seed``."""
-        # one device: no mesh pads the batch (A17)
-        b = len(images)
+        # under a mesh the batch splits over the data axis: pad it with a
+        # repeat of the last image, drop the extras at the end
+        n = len(images)
+        b = pad_to_multiple(n, self.data_ways())
+        images = list(images) + [images[-1]] * (b - n)
+        mine = self.mesh.rows(b) if self.mesh is not None else slice(0, b)
         pixels = normalize_images(
-            upload(host_batch(images, self.recipe), self.device),
+            upload(host_batch(images[mine], self.recipe), self.device),
             recipe=self.recipe, compute_dtype=self.dtype,
             patch_size=self.cfg.vision.patch_size)
         tok = self.tokenizer
@@ -265,7 +289,7 @@ class VLMModel:
         lens = result.lengths.cpu().numpy()
         return [tok.decode([int(t) for t in toks[i, :lens[i]]
                             if int(t) != tok.eos_id]).strip()
-                for i in range(b)]
+                for i in range(n)]
 
     def generate_text(self, image, prompt: str, max_tokens: int = 100) -> str:
         """One image (the reference's API); prefer :meth:`generate_batch`."""
@@ -282,7 +306,7 @@ class VLMModel:
         Texts in input order; None for the waves an interrupt left
         undone."""
         from PIL import Image
-        bs = batch_size or self.batch_size
+        bs = pad_to_multiple(batch_size or self.batch_size, self.data_ways())
         paths = list(image_paths)
         out: List[Optional[str]] = [None] * len(paths)
         try:
@@ -335,7 +359,9 @@ class VLMModel:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(seed)
         batcher = ContinuousBatcher(
-            self.module, self.cfg, batch_size=batch_size or self.batch_size,
+            self.module, self.cfg,
+            batch_size=pad_to_multiple(batch_size or self.batch_size,
+                                       self.data_ways()),
             max_prompt_len=int(prompt_len[0]), max_new_tokens=max_tokens,
             eos_id=tok.eos_id, pad_id=tok.pad_id, temperature=temperature,
             top_k=top_k, top_p=top_p, generator=generator,
@@ -353,7 +379,12 @@ class VLMModel:
     def get_vision_backbone(self, cleanup: bool = True) -> VisionBackbone:
         """The vision tower for probing, frozen. ``cleanup=True`` drops the
         projector and decoder and returns their device memory to the card
-        (LLaVA-7B's fp32 decoder holds ~27 GB)."""
+        (LLaVA-7B's fp32 decoder holds ~27 GB). Not under a mesh: probing
+        with a sharded tower is ROADMAP A17b."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "probing under a mesh (the sharded tower's extraction and "
+                "data-parallel training steps) is not ported (ROADMAP A17b)")
         backbone = VisionBackbone(
             self.cfg, self.module.vision, self.dtype, self.recipe,
             batch_size=self.batch_size,

@@ -13,7 +13,10 @@ to the parameter's dtype) or, for an int8 or int4 Dense, quantized there
 from its fp32 values with the port's ``quantize_int8`` / ``quantize_int4``
 at the layer's own group size. So a 7B checkpoint never sits whole in host
 or device memory: the device holds the model plus the tensor being
-written.
+written. A module built at a rank's shard of a mesh takes its part of each
+tensor: a float tensor is sliced on the host, then moved; a quantized one
+is moved whole, quantized there (int8's per-output scale spans all of K)
+and then sliced.
 
 :func:`load_vlm_weights` fills a module in place and raises if any
 parameter is left unfilled (``vlm_tpu`` keeps a random LLaVA head when the
@@ -32,6 +35,7 @@ from typing import Callable, Dict, List, Mapping
 import torch
 
 from ..ops.quant import quantize_int4, quantize_int8
+from ..parallel.sharding import shard_tensor
 from ..utils.safetensors_io import open_dir
 from .layers import Dense
 from .vlm import VLMModule
@@ -81,6 +85,7 @@ class _Writer:
     def __init__(self, module: torch.nn.Module,
                  source: Mapping[str, Callable[[], torch.Tensor]]):
         self.source = source
+        self.module = module
         self.params = dict(module.named_parameters())
         self.quantized = {name: m for name, m in module.named_modules()
                           if isinstance(m, Dense) and m.quant_bits}
@@ -109,6 +114,7 @@ class _Writer:
             self._set_quantized(mod, dense, value)
             return
         param = self.params[name]
+        value = shard_tensor(self.module, name, value)
         if tuple(param.shape) != tuple(value.shape):
             raise ValueError(f"shape mismatch at {name}: ours "
                              f"{tuple(param.shape)} vs checkpoint "
@@ -123,16 +129,17 @@ class _Writer:
         int4 Dense's (packed q, group scales), quantized on the device from
         fp32 values. The int4 group is the layer's own ``group_size``,
         which is ``in / groups`` of its scale, the group ``vlm_tpu``
-        derives."""
-        if tuple(value.shape) != (dense.out_dim, dense.in_dim):
+        derives (a shard's smaller group is cut from it)."""
+        full = (dense.full_out, dense.full_in)
+        if tuple(value.shape) != full:
             raise ValueError(f"shape mismatch at {mod}.weight: ours "
-                             f"{(dense.out_dim, dense.in_dim)} vs checkpoint "
-                             f"{tuple(value.shape)}")
+                             f"{full} vs checkpoint {tuple(value.shape)}")
         w = value.to(dense.q.device).float()
-        qw = quantize_int4(w, dense.group_size) if dense.quant_bits == 4 \
+        qw = quantize_int4(w, dense.full_group) if dense.quant_bits == 4 \
             else quantize_int8(w)
         with torch.no_grad():
             for leaf, src in (("q", qw.q), ("scale", qw.scale)):
+                src = dense.shard_full(leaf, src)
                 param = getattr(dense, leaf)
                 if tuple(param.shape) != tuple(src.shape):
                     raise ValueError(f"quantized shape mismatch at "

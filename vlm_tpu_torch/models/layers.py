@@ -6,19 +6,28 @@ policies, as ``vlm_tpu`` stores them); norms compute in fp32 and cast back;
 a dense layer feeds its operands in the compute dtype with fp32
 accumulation. An 8bit dense layer keeps int8 weights with fp32 scales, a
 4bit one packed int4 weights with fp32 group scales.
+
+Under a mesh a dense layer holds its shard of ``vlm_tpu``'s Megatron
+layout (its ``shard`` annotation): column-parallel layers
+(``shard=(None, "model")``) a slice of the output features, row-parallel
+ones (``("model", None)``) a slice of the input features and one
+all-reduce of the output over the model group, the bias added once after
+it.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Callable
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.quant import QuantizedWeight, dense_int4, dense_int8
+from ..core.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from ..ops.quant import (QuantizedWeight, dense_int4, dense_int8,
+                         matmul_fp32)
 
 
 def int8_prefill_mode() -> str:
@@ -118,6 +127,38 @@ class LayerNorm(nn.Module):
         return (xf * self.weight.float() + self.bias.float()).to(x.dtype)
 
 
+class ShardComm:
+    """What a sharded quantized product needs of the mesh: the global row
+    count of its forwards (``row_ways`` data ranks share their rows: the
+    mesh's ``data``, or 1 for rows that are the same on every data rank),
+    the row abs-max over all of K (a row-parallel layer holds
+    ``[k_lo, k_lo + K/model)``), the column maxima over every row and
+    all of K (llm.int8's outlier choice) and the model group's outlier
+    columns."""
+
+    def __init__(self, mesh: Mesh, row_parallel: bool, k_lo: int,
+                 row_ways: int):
+        self.mesh = mesh
+        self.row_parallel = row_parallel
+        self.k_lo = k_lo
+        self.row_ways = row_ways
+
+    def row_max(self, absmax: torch.Tensor) -> torch.Tensor:
+        if self.row_parallel:
+            self.mesh.all_reduce(absmax, MODEL_AXIS, "max")
+        return absmax
+
+    def col_max(self, col: torch.Tensor) -> torch.Tensor:
+        if self.row_ways > 1:
+            self.mesh.all_reduce(col, DATA_AXIS, "max")
+        if self.row_parallel:
+            col = self.mesh.all_gather(col, MODEL_AXIS, 0)
+        return col
+
+    def outliers(self, t: torch.Tensor) -> torch.Tensor:
+        return self.mesh.all_reduce(t, MODEL_AXIS)
+
+
 class Dense(nn.Module):
     """Dense layer in ``nn.Linear``'s ``[out, in]`` layout (``vlm_tpu``
     stores ``[in, out]``).
@@ -130,13 +171,43 @@ class Dense(nn.Module):
     validated when the layer is built. ``quant_bits=4``: ``q``
     ``[out, in/2]`` packed int4 and ``scale`` ``[out, in/group_size]`` fp32
     (:func:`int4_group_size`); B7 below 512 rows, else the plain dequantized
-    product (``VLM_TPU_INT4_PREFILL=dequant``, validated when built)."""
+    product (``VLM_TPU_INT4_PREFILL=dequant``, validated when built).
+
+    ``shard`` names ``vlm_tpu``'s (in, out) mesh axes. With a ``mesh`` of
+    ``model > 1`` a column-parallel layer holds ``out / model`` rows of
+    each tensor (``gather=True``: its output is all-gathered over the
+    model group) and a row-parallel one ``in / model`` columns, its int8
+    ``scale`` whole, its int4 scales as groups of ``gcd(group, in /
+    model)`` (the same weights when a group straddles two ranks); its
+    partial products come out of their fp32 accumulators unrounded (B5
+    and B7 write fp32) and are summed by one all-reduce in fp32, so the
+    output is rounded once, as on one device. ``in_dim`` and ``out_dim``
+    are the shard's; ``full_in``/``full_out`` the layer's.
+    :meth:`shard_full` cuts a full tensor to this rank's. With
+    ``model == 1`` no collective runs and the layer is what it is
+    without a mesh, except that under any mesh the quantized dispatch
+    counts the rows of every data rank, as ``vlm_tpu`` counts the global
+    batch, unless ``forward(x, replicated=True)`` says that every data
+    rank has the same rows."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, *,
-                 dtype=torch.float32, device=None, quant_bits: int = 0):
+                 dtype=torch.float32, device=None, quant_bits: int = 0,
+                 shard: Tuple[Optional[str], Optional[str]] = (None, None),
+                 mesh: Optional[Mesh] = None, gather: bool = False):
         super().__init__()
         if quant_bits not in (0, 4, 8):
             raise ValueError(f"quant_bits must be 0, 4 or 8, got {quant_bits}")
+        self.full_in, self.full_out = in_dim, out_dim
+        self.mesh = mesh
+        ways = mesh.model if mesh is not None else 1
+        self.split = None
+        if ways > 1 and shard[1] == MODEL_AXIS:
+            self.split = "col"
+            out_dim = shard_size(out_dim, ways, "output features")
+        elif ways > 1 and shard[0] == MODEL_AXIS:
+            self.split = "row"
+            in_dim = shard_size(in_dim, ways, "input features")
+        self.gather = gather and self.split == "col"
         self.in_dim = in_dim
         self.out_dim = out_dim
         self.dtype = dtype
@@ -144,10 +215,24 @@ class Dense(nn.Module):
         self.group_size = 0
         if quant_bits == 8:
             self.int8_mode = int8_prefill_mode()
+            if self.split == "row" and in_dim % 16:
+                raise ValueError(
+                    f"an int8 layer of {self.full_in} inputs split {ways} "
+                    f"ways leaves {in_dim} inputs a rank, not a multiple "
+                    f"of B5's and B6's 16: this tensor-parallel layout is "
+                    f"not supported (ROADMAP A17b)")
             q_shape, s_shape = (out_dim, in_dim), (out_dim,)
         elif quant_bits == 4:
             int4_prefill_mode()
-            self.group_size = int4_group_size(in_dim)
+            self.full_group = int4_group_size(self.full_in)
+            self.group_size = math.gcd(self.full_group, in_dim)
+            if self.group_size < min(self.full_group, 16) or in_dim % 2:
+                raise ValueError(
+                    f"an int4 layer of {self.full_in} inputs (group "
+                    f"{self.full_group}) split {ways} ways leaves "
+                    f"{in_dim} inputs a rank in groups of "
+                    f"{self.group_size}, under B7's 16: this tensor-"
+                    f"parallel layout is not supported (ROADMAP A17b)")
             q_shape = (out_dim, in_dim // 2)
             s_shape = (out_dim, in_dim // self.group_size)
         if quant_bits:
@@ -164,6 +249,41 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(
             torch.empty(out_dim, dtype=dtype, device=device),
             requires_grad=False) if use_bias else None
+        # the quantized products' view of the mesh: rows split over the
+        # data ranks, or (``forward(replicated=True)``) the same on each
+        self.comm = self.comm_replicated = None
+        if mesh is not None:
+            row = self.split == "row"
+            k_lo = mesh.model_rank * in_dim if row else 0
+            self.comm = ShardComm(mesh, row, k_lo, mesh.data)
+            self.comm_replicated = ShardComm(mesh, row, k_lo, 1)
+
+    def split_dim(self, leaf: str) -> Optional[int]:
+        """The axis of tensor ``leaf`` that the mesh splits (None: whole on
+        every rank)."""
+        if self.split == "col":
+            return 0
+        if self.split == "row" and leaf in ("weight", "q") or \
+                self.split == "row" and leaf == "scale" and \
+                self.quant_bits == 4:
+            return 1
+        return None
+
+    def shard_full(self, leaf: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of ``leaf``'s full tensor (a view where it is a
+        slice)."""
+        dim = self.split_dim(leaf)
+        if dim is None:
+            return full
+        if leaf == "scale" and self.split == "row":
+            # int4 group scales: local group j covers inputs lo + j * g,
+            # which lie in full group (lo + j * g) // full_group
+            g, lo = self.group_size, self.comm.k_lo
+            idx = (lo + torch.arange(self.in_dim // g) * g) // \
+                self.full_group
+            return full.index_select(1, idx.to(full.device))
+        size = full.shape[dim] // self.mesh.model
+        return full.narrow(dim, self.mesh.model_rank * size, size)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         if self.quant_bits:
@@ -179,31 +299,81 @@ class Dense(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _finish(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel layer's fp32 partial products summed over the
+        model group, then the bias as on one device: a float product takes
+        it in fp32 before its one rounding, a quantized one after its
+        rounding to the compute dtype."""
+        y = self.mesh.all_reduce(y, MODEL_AXIS)
+        if self.bias is None:
+            return y.to(self.dtype)
+        if self.quant_bits:
+            y = y.to(self.dtype)
+        return (y.float() + self.bias.float()).to(self.dtype)
+
+    def forward(self, x: torch.Tensor,
+                replicated: bool = False) -> torch.Tensor:
+        row = self.split == "row"
         if not self.quant_bits:
+            if row:
+                return self._finish(matmul_fp32(x, self.weight))
             # bf16 operands, fp32 accumulate; the bias joins the fp32 sum
             # before the one rounding to the compute dtype.
-            return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+            y = F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+            return self.mesh.all_gather(y, MODEL_AXIS, -1) if self.gather \
+                else y
         x2 = x.reshape(-1, self.in_dim).to(self.dtype).contiguous()
         qw = QuantizedWeight(self.q, self.scale, self.group_size)
-        y = dense_int4(x2, qw, self.dtype) if self.quant_bits == 4 else \
-            dense_int8(x2, qw, self.int8_mode, self.dtype)
+        out = torch.float32 if row else self.dtype
+        comm = self.comm_replicated if replicated else self.comm
+        y = dense_int4(x2, qw, out, comm) if self.quant_bits == 4 \
+            else dense_int8(x2, qw, self.int8_mode, out, comm)
         y = y.reshape(*x.shape[:-1], self.out_dim)
+        if row:
+            return self._finish(y)
         if self.bias is not None:
             # as vlm_tpu: the product rounds to the compute dtype first
             y = y.float() + self.bias.float()
-        return y.to(self.dtype)
+        y = y.to(self.dtype)
+        return self.mesh.all_gather(y, MODEL_AXIS, -1) if self.gather else y
 
 
-def init_random_(module: nn.Module, seed: int) -> nn.Module:
+def shard_size(n: int, ways: int, what: str) -> int:
+    """``n`` split ``ways`` ways; raises unless it splits evenly."""
+    if n % ways:
+        raise ValueError(f"{n} {what} do not split {ways} ways")
+    return n // ways
+
+
+def init_random_(module: nn.Module, seed: int,
+                 full: Optional[nn.Module] = None) -> nn.Module:
     """Random weights, drawn in place on the module's own device from one
     seeded generator (a full-size model never passes through host memory).
-    Every submodule with ``reset_parameters(gen)`` initialises itself."""
+    Every submodule with ``reset_parameters(gen)`` initialises itself.
+
+    With ``full``, the same model unsharded on ``meta``, a module sharded
+    over a mesh draws each submodule's full tensors in turn on its device
+    and keeps its shard (:meth:`Dense.shard_full`): the weights of the
+    unsharded model drawn from the same seed, one submodule's tensors at a
+    time on the device beside the shards."""
     device = next(module.parameters()).device
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     with torch.no_grad():
-        for m in module.modules():
-            if hasattr(m, "reset_parameters"):
-                m.reset_parameters(gen)
+        if full is None:
+            for m in module.modules():
+                if hasattr(m, "reset_parameters"):
+                    m.reset_parameters(gen)
+            return module
+        fulls = dict(full.named_modules())
+        for name, m in module.named_modules():
+            if not hasattr(m, "reset_parameters"):
+                continue
+            f = fulls[name].to_empty(device=device, recurse=False)
+            f.reset_parameters(gen)
+            for leaf, p in m.named_parameters(recurse=False):
+                src = getattr(f, leaf)
+                p.copy_(m.shard_full(leaf, src) if hasattr(m, "shard_full")
+                        else src)
+            f.to_empty(device="meta", recurse=False)
     return module

@@ -1,6 +1,12 @@
 """Vision-to-language projectors (``vlm_tpu/models/projector.py``):
 PaliGemma's single linear projection, LLaVA's two-layer GELU MLP and
-BLIP-2's Q-Former. None is quantized in any mode, as in ``vlm_tpu``."""
+BLIP-2's Q-Former. None is quantized in any mode, as in ``vlm_tpu``.
+
+Under a mesh of ``model > 1`` ways they take ``vlm_tpu``'s shards: the
+linear projection and the Q-Former's ``language_projection`` are
+column-parallel and all-gather their output (the decoder's hidden state is
+whole on every rank); the MLP's ``fc1`` is column- and ``fc2``
+row-parallel. The Q-Former's layers are whole on every rank."""
 
 from __future__ import annotations
 
@@ -8,16 +14,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core.mesh import MODEL_AXIS
 from ..ops.attention import flash_attention
 from .configs import QFormerConfig, VLMConfig
 from .layers import Dense, LayerNorm, activation
 
+COL, ROW = (None, MODEL_AXIS), (MODEL_AXIS, None)
+
 
 class LinearProjector(nn.Module):
     def __init__(self, in_dim: int, out_dim: int, *, dtype=torch.float32,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
-        self.proj = Dense(in_dim, out_dim, dtype=dtype, device=device)
+        self.proj = Dense(in_dim, out_dim, dtype=dtype, device=device,
+                          shard=COL, mesh=mesh, gather=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(x)
@@ -28,10 +38,12 @@ class MLPProjector(nn.Module):
     GELU, ``fc2`` (decoder width -> decoder width)."""
 
     def __init__(self, in_dim: int, out_dim: int, *, dtype=torch.float32,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
-        self.fc1 = Dense(in_dim, out_dim, dtype=dtype, device=device)
-        self.fc2 = Dense(out_dim, out_dim, dtype=dtype, device=device)
+        self.fc1 = Dense(in_dim, out_dim, dtype=dtype, device=device,
+                         shard=COL, mesh=mesh)
+        self.fc2 = Dense(out_dim, out_dim, dtype=dtype, device=device,
+                         shard=ROW, mesh=mesh)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="none"))
@@ -95,7 +107,7 @@ class QFormer(nn.Module):
     then ``language_projection`` -> [B, Q, out_dim]."""
 
     def __init__(self, cfg: QFormerConfig, out_dim: int, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, device=None, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -107,7 +119,8 @@ class QFormer(nn.Module):
         self.layers = nn.ModuleList(
             QFormerLayer(cfg, i % cfg.cross_attention_frequency == 0, dd)
             for i in range(cfg.layers))
-        self.language_projection = Dense(cfg.hidden, out_dim, **dd)
+        self.language_projection = Dense(cfg.hidden, out_dim, shard=COL,
+                                         mesh=mesh, gather=True, **dd)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         self.query_tokens.normal_(0.0, 0.02, generator=gen)
@@ -121,12 +134,13 @@ class QFormer(nn.Module):
         return self.language_projection(x)
 
 
-def build_projector(cfg: VLMConfig, *, dtype, device) -> nn.Module:
+def build_projector(cfg: VLMConfig, *, dtype, device,
+                    mesh=None) -> nn.Module:
     if cfg.projector in ("linear", "mlp"):
         cls = LinearProjector if cfg.projector == "linear" else MLPProjector
         return cls(cfg.vision.hidden, cfg.decoder.hidden, dtype=dtype,
-                   device=device)
+                   device=device, mesh=mesh)
     if cfg.projector == "qformer":
         return QFormer(cfg.qformer, cfg.decoder.hidden, dtype=dtype,
-                       device=device)
+                       device=device, mesh=mesh)
     raise ValueError(f"unknown projector {cfg.projector!r}")

@@ -8,7 +8,9 @@ matmul (the weight holds the HWIO conv kernel flattened to
 ``[hidden, P*P*3]``); attention runs through B1. ``quant_bits`` 8 or 4
 makes the block Dense layers (q/k/v/out, fc1/fc2) int8 or grouped int4, as
 ``vlm_tpu``'s ``quantize_vision``; the patch embedding and the norms stay
-in the compute dtype.
+in the compute dtype. Under a mesh of ``model > 1`` ways each rank holds
+``heads / model`` heads of q/k/v (column-parallel) and the matching rows
+of ``out_proj`` (row-parallel), and a slice of the MLP's width.
 """
 
 from __future__ import annotations
@@ -19,30 +21,40 @@ import torch
 from torch import nn
 
 from ..ops.attention import flash_attention
+from ..core.mesh import MODEL_AXIS
 from ..ops.preprocess import unfold_patches
 from .configs import ViTConfig
-from .layers import Dense, LayerNorm, activation
+from .layers import Dense, LayerNorm, activation, shard_size
+
+COL, ROW = (None, MODEL_AXIS), (MODEL_AXIS, None)
 
 
 class ViTAttention(nn.Module):
     def __init__(self, cfg: ViTConfig, dd: dict):
         super().__init__()
         self.cfg = cfg
-        self.q_proj = Dense(cfg.hidden, cfg.hidden, **dd)
-        self.k_proj = Dense(cfg.hidden, cfg.hidden, use_bias=cfg.k_bias, **dd)
-        self.v_proj = Dense(cfg.hidden, cfg.hidden, **dd)
-        self.out_proj = Dense(cfg.hidden, cfg.hidden, **dd)
+        mesh = dd.get("mesh")
+        self.heads = shard_size(
+            cfg.heads, mesh.model if mesh is not None else 1, "heads")
+        self.q_proj = Dense(cfg.hidden, cfg.hidden, shard=COL, **dd)
+        self.k_proj = Dense(cfg.hidden, cfg.hidden, use_bias=cfg.k_bias,
+                            shard=COL, **dd)
+        self.v_proj = Dense(cfg.hidden, cfg.hidden, shard=COL, **dd)
+        self.out_proj = Dense(cfg.hidden, cfg.hidden, shard=ROW, **dd)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                replicated: bool = False) -> torch.Tensor:
         cfg = self.cfg
         b, s, _ = x.shape
 
         def heads(t):       # [B, S, hidden] -> [B, H, S, Dh] view
-            return t.view(b, s, cfg.heads, cfg.head_dim).transpose(1, 2)
+            return t.view(b, s, self.heads, cfg.head_dim).transpose(1, 2)
 
-        o = flash_attention(heads(self.q_proj(x)), heads(self.k_proj(x)),
-                            heads(self.v_proj(x)), causal=False)
-        return self.out_proj(o.transpose(1, 2).reshape(b, s, cfg.hidden))
+        q, k, v = (proj(x, replicated) for proj in
+                   (self.q_proj, self.k_proj, self.v_proj))
+        o = flash_attention(heads(q), heads(k), heads(v), causal=False)
+        return self.out_proj(o.transpose(1, 2).reshape(
+            b, s, self.heads * cfg.head_dim), replicated)
 
 
 class ViTBlock(nn.Module):
@@ -53,13 +65,15 @@ class ViTBlock(nn.Module):
         self.ln1 = LayerNorm(cfg.hidden, **norm)
         self.attn = ViTAttention(cfg, dd)
         self.ln2 = LayerNorm(cfg.hidden, **norm)
-        self.fc1 = Dense(cfg.hidden, cfg.mlp_dim, **dd)
-        self.fc2 = Dense(cfg.mlp_dim, cfg.hidden, **dd)
+        self.fc1 = Dense(cfg.hidden, cfg.mlp_dim, shard=COL, **dd)
+        self.fc2 = Dense(cfg.mlp_dim, cfg.hidden, shard=ROW, **dd)
         self.act = activation(cfg.act)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        return x + self.fc2(self.act(self.fc1(self.ln2(x))))
+    def forward(self, x: torch.Tensor,
+                replicated: bool = False) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x), replicated)
+        return x + self.fc2(self.act(self.fc1(self.ln2(x), replicated)),
+                            replicated)
 
 
 class ViTEncoder(nn.Module):
@@ -70,7 +84,7 @@ class ViTEncoder(nn.Module):
     (CLS after the final LN; None without a CLS token)."""
 
     def __init__(self, cfg: ViTConfig, *, dtype=torch.float32, device=None,
-                 quant_bits: int = 0):
+                 quant_bits: int = 0, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
@@ -86,7 +100,7 @@ class ViTEncoder(nn.Module):
         norm = dict(eps=cfg.layer_norm_eps, **dd)
         self.pre_ln = LayerNorm(cfg.hidden, **norm) if cfg.pre_layernorm \
             else None
-        block_dd = dict(dd, quant_bits=quant_bits)
+        block_dd = dict(dd, quant_bits=quant_bits, mesh=mesh)
         self.blocks = nn.ModuleList(ViTBlock(cfg, block_dd)
                                     for _ in range(cfg.layers))
         self.post_ln = LayerNorm(cfg.hidden, **norm)
@@ -96,8 +110,10 @@ class ViTEncoder(nn.Module):
         if self.cls_token is not None:
             self.cls_token.zero_()
 
-    def forward(self, pixels: torch.Tensor,
-                keep_hidden_states: bool = True) -> Dict[str, Any]:
+    def forward(self, pixels: torch.Tensor, keep_hidden_states: bool = True,
+                replicated: bool = False) -> Dict[str, Any]:
+        """``replicated``: under a mesh, ``pixels`` are the same on every
+        data rank (:meth:`Dense.forward`)."""
         cfg = self.cfg
         b = pixels.shape[0]
         p = cfg.patch_size
@@ -116,7 +132,7 @@ class ViTEncoder(nn.Module):
             x = self.pre_ln(x)
         hidden_states = [x] if keep_hidden_states else None
         for block in self.blocks:
-            x = block(x)
+            x = block(x, replicated)
             if keep_hidden_states:
                 hidden_states.append(x)
         if cfg.post_layernorm == "all":

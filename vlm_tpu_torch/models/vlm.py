@@ -24,30 +24,37 @@ class VLMModule(nn.Module):
     """``quant_bits`` (8, 4 or 0): the decoder blocks' weights, int8,
     grouped int4 or unquantized; ``vision_quant_bits``: the vision blocks'
     (``quantize_vision``). The patch embedding, the projector and the tied
-    head stay in ``dtype``."""
+    head stay in ``dtype``. ``mesh``: built at this rank's shard of
+    ``vlm_tpu``'s tensor-parallel layout (each part's module docs)."""
 
     def __init__(self, cfg: VLMConfig, *, dtype=torch.float32, device=None,
-                 quant_bits: int = 0, vision_quant_bits: int = 0):
+                 quant_bits: int = 0, vision_quant_bits: int = 0,
+                 mesh=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.mesh = mesh
         self.vision = ViTEncoder(cfg.vision, dtype=dtype, device=device,
-                                 quant_bits=vision_quant_bits)
-        self.projector = build_projector(cfg, dtype=dtype, device=device)
+                                 quant_bits=vision_quant_bits, mesh=mesh)
+        self.projector = build_projector(cfg, dtype=dtype, device=device,
+                                         mesh=mesh)
         self.decoder = Decoder(cfg.decoder, dtype=dtype, device=device,
-                               quant_bits=quant_bits)
+                               quant_bits=quant_bits, mesh=mesh)
 
     @property
     def device(self) -> torch.device:
         return self.decoder.embed.weight.device
 
     # ---------------- vision ----------------
-    def encode_images(self, pixels: torch.Tensor) -> torch.Tensor:
+    def encode_images(self, pixels: torch.Tensor,
+                      replicated: bool = False) -> torch.Tensor:
         """[B,H,W,3] normalized pixels, or their [B, N, P*P*3] patch
-        vectors -> [B, T_img, decoder_hidden]."""
+        vectors -> [B, T_img, decoder_hidden]. ``replicated``: as
+        :meth:`prefill`'s."""
         cfg = self.cfg
         out = self.vision(pixels,
-                          keep_hidden_states=cfg.vision_feature_layer != -1)
+                          keep_hidden_states=cfg.vision_feature_layer != -1,
+                          replicated=replicated)
         if cfg.vision_feature_layer == -1:
             feats = out["last_hidden_state"]
         else:
@@ -86,19 +93,27 @@ class VLMModule(nn.Module):
 
     def prefill(self, pixels: torch.Tensor, pre_ids: torch.Tensor,
                 post_ids: torch.Tensor, cache: Dict[str, tuple],
-                prompt_len: torch.Tensor) -> torch.Tensor:
+                prompt_len: torch.Tensor,
+                replicated: bool = False) -> torch.Tensor:
         """Run the prompt through the decoder, writing the cache in place
         from column 0; ``prompt_len`` [B] are the true merged lengths.
-        Returns next-token logits [B, V] in the compute dtype."""
-        embeds = self.merge_embeds(pre_ids, self.encode_images(pixels),
-                                   post_ids)
+        Returns next-token logits [B, V] in the compute dtype.
+
+        Under a mesh the rows are this data rank's share of a batch split
+        over the data ranks, or, with ``replicated`` (the batcher's
+        admissions), the same rows on every data rank: the quantized
+        products' 512-row dispatch and llm.int8's outlier columns count
+        the global rows either way."""
+        embeds = self.merge_embeds(
+            pre_ids, self.encode_images(pixels, replicated), post_ids)
         b, s, _ = embeds.shape
         positions = torch.arange(s, device=embeds.device).expand(b, s)
         logits = self.decoder(
             input_embeds=embeds, positions=positions, cache=cache,
             write_start=0, kv_len=prompt_len,
             causal=not self.cfg.prefix_lm, logits_index=prompt_len - 1,
-            uniform_write=True, logits_dtype=self.dtype)
+            uniform_write=True, logits_dtype=self.dtype,
+            replicated=replicated)
         return logits[:, 0]
 
     def decode_step(self, token_ids: torch.Tensor, seq_len: torch.Tensor,
@@ -158,22 +173,29 @@ def device_memory_limit(device) -> Optional[int]:
 
 
 def param_bytes(cfg: VLMConfig, *, dtype=torch.float32, quant_bits: int = 0,
-                vision_quant_bits: int = 0) -> int:
+                vision_quant_bits: int = 0, model_ways: int = 1) -> int:
     """The weights' bytes, computed without allocating: the module built on
     ``meta``, its parameters and buffers summed at their real dtypes (int8
-    tables, packed int4 bytes, fp32 scales)."""
+    tables, packed int4 bytes, fp32 scales); with ``model_ways``, one
+    rank's shard of them (a replicated tensor counted whole)."""
+    from ..core.mesh import Mesh
+    mesh = Mesh(1, model_ways, groups=False) if model_ways > 1 else None
     module = VLMModule(cfg, dtype=dtype, device="meta", quant_bits=quant_bits,
-                       vision_quant_bits=vision_quant_bits)
+                       vision_quant_bits=vision_quant_bits, mesh=mesh)
     return sum(t.numel() * t.element_size()
                for t in (*module.parameters(), *module.buffers()))
 
 
 def check_hbm_fit(cfg: VLMConfig, device, *, dtype=torch.float32,
-                  quant_bits: int = 0, vision_quant_bits: int = 0) -> None:
+                  quant_bits: int = 0, vision_quant_bits: int = 0,
+                  model_ways: int = 1) -> None:
     """Refuse a build whose weights alone cannot fit the card's memory,
-    before anything is allocated: ``vlm_tpu``'s decision with its model
-    axis of 1, the port's one device. Weights only: the KV cache and the
-    activations come on top, so a refusal is never a false positive.
+    before anything is allocated: ``vlm_tpu``'s decision, with a rank's
+    bytes over ``model_ways`` tensor-parallel ways counted as its shard
+    holds them (``vlm_tpu`` divides the total; the port also counts what
+    every rank holds whole, such as MQA's K/V projections). Weights only:
+    the KV cache and the activations come on top, so a refusal is never a
+    false positive.
     ``param_bytes`` is what the tensors ask the allocator for; its blocks
     round each tensor up (on an H100, up to 96 MiB more for LLaVA-7B's
     8bit weights, 1.3 %; ``chip_smoke.py`` fails a build past 2 %), a
@@ -184,13 +206,21 @@ def check_hbm_fit(cfg: VLMConfig, device, *, dtype=torch.float32,
     limit = device_memory_limit(device)
     if limit is None:
         return
-    total = param_bytes(cfg, dtype=dtype, quant_bits=quant_bits,
-                        vision_quant_bits=vision_quant_bits)
-    if total <= limit:
+    quant = dict(dtype=dtype, quant_bits=quant_bits,
+                 vision_quant_bits=vision_quant_bits)
+    total = param_bytes(cfg, **quant)
+    per_rank = total if model_ways <= 1 else \
+        param_bytes(cfg, model_ways=model_ways, **quant)
+    if per_rank <= limit:
         return
+    need_ways = -(-total // limit)
     raise ValueError(
-        f"Model weights ({total / 2**30:.1f} GiB) exceed the device's "
-        f"memory ({limit / 2**30:.1f} GiB) before any KV cache or "
-        f"activations. Use `quantization: 8bit` (or 4bit) "
-        f"to shrink the weights; tensor parallelism over several devices "
-        f"is not ported yet (ROADMAP A17).")
+        f"Model weights ({total / 2**30:.1f} GiB"
+        + (f", {per_rank / 2**30:.1f} GiB a rank over model={model_ways}"
+           if model_ways > 1 else "")
+        + f") exceed the device's memory ({limit / 2**30:.1f} GiB) before "
+        f"any KV cache or activations. Use `quantization: 8bit` (or 4bit) "
+        f"to shrink the weights, or shard them with tensor parallelism: "
+        f"`mesh: {{model: {max(need_ways, 2)}}}` under `torchrun "
+        f"--nproc_per_node N` (weights-only bound; leave headroom for the "
+        f"KV cache).")

@@ -72,9 +72,9 @@ _SIGNATURES = {
     "vlm_kv_write": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],
     "vlm_kv_write_int8": [_P] * 7 + [_I] * 6 + [_P],
     "vlm_normalize": [_P, _P] + [_I] * 5 + [_P, _P, _I, _P],
-    "vlm_int8_matmul": [_P] * 4 + [_I] * 7 + [_P],
+    "vlm_int8_matmul": [_P] * 4 + [_I] * 8 + [_P],
     "vlm_int8xint8_matmul": [_P] * 5 + [_I] * 4 + [_P],
-    "vlm_int4_matmul": [_P] * 4 + [_I] * 8 + [_P],
+    "vlm_int4_matmul": [_P] * 4 + [_I] * 9 + [_P],
     "vlm_stream_clusters": [_I, ctypes.POINTER(_I)],
 }
 

@@ -89,13 +89,19 @@ def dequantize(qw: QuantizedWeight, dtype=torch.float32) -> torch.Tensor:
     return w.reshape(n, k).to(dtype)
 
 
-def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activations(x: torch.Tensor, row_max=None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 quantization (llm.int8 without outliers):
     x [..., K] -> (q int8 [..., K], scale fp32 [..., 1]). Plain tensor code
     on either device, as JAX computed it in XLA: abs-max / 127 floored at
-    1e-8 / 127, IEEE division, round half to even, clamp to +-127."""
+    1e-8 / 127, IEEE division, round half to even, clamp to +-127.
+    ``row_max`` (a row-parallel layer's :class:`ShardComm.row_max`) takes
+    each row's abs-max over the ranks that hold the rest of K."""
     xf = x.float()
-    scale = _abs_max_scale(xf.abs().amax(dim=-1, keepdim=True))
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    if row_max is not None:
+        absmax = row_max(absmax)
+    scale = _abs_max_scale(absmax)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -169,6 +175,12 @@ def stream_plan(m: int, n: int, row_bytes: int, sms: int,
 
 # ------------------------------ B5 ------------------------------
 
+def _check_out(name: str, out_dtype) -> None:
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: the CUDA kernel writes bfloat16 or "
+                        f"float32, not {out_dtype}")
+
+
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                       out_dtype=None) -> torch.Tensor:
     """x [m, K] @ (q [N, K] int8)^T, fp32 accumulate, per-column scale on
@@ -181,7 +193,8 @@ def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 out_dtype=None) -> torch.Tensor:
     """B5, the weight-only int8 product: x [m, K], q [N, K] int8, scale
-    [N] fp32 -> [m, N]. On the card x and the output are bf16."""
+    [N] fp32 -> [m, N]. On the card x is bf16 and the output bf16, or fp32
+    (a row-parallel rank's partial product)."""
     if _lib.is_cpu(x, "int8_matmul"):
         return int8_matmul_plain(x, q, scale, out_dtype)
     name = "int8_matmul"
@@ -190,9 +203,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _lib.check_bf16(name, x)
     _lib.check_dtype(name, torch.int8, q)
     _lib.check_dtype(name, torch.float32, scale)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel writes bfloat16, not "
-                        f"{out_dtype}")
+    _check_out(name, out_dtype)
     m, k = x.shape
     n = q.shape[0]
     if q.shape != (n, k) or scale.shape != (n,) or k % 16 or n % 2:
@@ -200,12 +211,13 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                          f"q={tuple(q.shape)} scale={tuple(scale.shape)} "
                          f"(needs K % 16 == 0, N even)")
     _lib.check_contiguous(name, x, q, scale)
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     plan = stream_plan(m, n, k, _lib.sm_count(x.device),
                        _lib.max_clusters(x.device))
     _lib.launch(name, "vlm_int8_matmul", x.data_ptr(), q.data_ptr(),
                 scale.data_ptr(), y.data_ptr(), m, n, k, plan.bm, plan.bn,
-                plan.splits, plan.per, _lib.stream_ptr(x))
+                plan.splits, plan.per, int(out_dtype == torch.float32),
+                _lib.stream_ptr(x))
     return y
 
 
@@ -264,9 +276,10 @@ def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                 group_size: int, out_dtype=None) -> torch.Tensor:
     """B7, the grouped int4 product: x [m, K], q [N, K/2] packed int4,
-    scale [N, K/group_size] fp32 -> [m, N]. On the card x and the output
-    are bf16, K divides by 16, group_size is 16, 32, 64 or 128 (every
-    group ``models.layers.int4_group_size`` gives) and N is even."""
+    scale [N, K/group_size] fp32 -> [m, N]. On the card x is bf16, the
+    output bf16 or fp32 (as B5's), K divides by 16, group_size is 16, 32,
+    64 or 128 (every group ``models.layers.int4_group_size`` gives) and N
+    is even."""
     if _lib.is_cpu(x, "int4_matmul"):
         return int4_matmul_plain(x, q, scale, group_size, out_dtype)
     name = "int4_matmul"
@@ -275,9 +288,7 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     _lib.check_bf16(name, x)
     _lib.check_dtype(name, torch.int8, q)
     _lib.check_dtype(name, torch.float32, scale)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the CUDA kernel writes bfloat16, not "
-                        f"{out_dtype}")
+    _check_out(name, out_dtype)
     m, k = x.shape
     n = q.shape[0]
     if (group_size not in (16, 32, 64, 128) or k % 16 or k % group_size
@@ -288,40 +299,48 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                          f"group_size={group_size} (needs K % 16 == 0, "
                          f"group_size 16, 32, 64 or 128, N even)")
     _lib.check_contiguous(name, x, q, scale)
-    y = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     plan = stream_plan(m, n, k // 2, _lib.sm_count(x.device),
                        _lib.max_clusters(x.device))
     _lib.launch(name, "vlm_int4_matmul", x.data_ptr(), q.data_ptr(),
                 scale.data_ptr(), y.data_ptr(), m, n, k, group_size, plan.bm,
-                plan.bn, plan.splits, plan.per, _lib.stream_ptr(x))
+                plan.bn, plan.splits, plan.per,
+                int(out_dtype == torch.float32), _lib.stream_ptr(x))
     return y
 
 
 # ------------------------- the quantized matmul modes -------------------------
 
 def quant_matmul_dynamic(x: torch.Tensor, qw: QuantizedWeight, *,
-                         out_dtype=None) -> torch.Tensor:
+                         out_dtype=None, row_max=None) -> torch.Tensor:
     """llm.int8 without outliers: per-row int8 activations x int8 weights
-    through B6. ``x`` [m, K] -> [m, N]. int8 weights only."""
+    through B6. ``x`` [m, K] -> [m, N]. int8 weights only. ``row_max``:
+    as :func:`quantize_activations`'s."""
     assert qw.group_size == 0, "dynamic path requires int8 weights"
-    qx, sx = quantize_activations(x)
+    qx, sx = quantize_activations(x, row_max)
     return int8xint8_matmul(qx, sx, qw.q, qw.scale,
                             out_dtype=out_dtype or x.dtype)
 
 
 def quant_matmul_outlier(x: torch.Tensor, qw: QuantizedWeight, *,
-                         n_outliers: int = 32,
-                         out_dtype=None) -> torch.Tensor:
+                         n_outliers: int = 32, out_dtype=None,
+                         comm=None) -> torch.Tensor:
     """llm.int8 with outlier decomposition: the ``n_outliers`` input
     columns of largest |x| take a bf16 product against their dequantized
     weight columns (plain ``torch.matmul``, as JAX left it to XLA, with the
     reference's bf16 casts kept even in fp32 compute), and the rest goes
     through :func:`quant_matmul_dynamic` with those columns zeroed. int8
-    weights only."""
+    weights only. With ``comm`` (a sharded layer's
+    :class:`~vlm_tpu_torch.models.layers.ShardComm`) the columns are chosen
+    from the maxima over every rank's rows and all of K, and this rank
+    computes the part of both products that its columns of K hold."""
     assert qw.group_size == 0, "outlier decomposition requires int8 weights"
     out_dtype = out_dtype or x.dtype
     k = x.shape[-1]
     col_mag = x.float().abs().amax(dim=0)                        # [K]
+    if comm is not None:
+        return _outlier_sharded(x, qw, n_outliers, out_dtype, comm,
+                                comm.col_max(col_mag))
     idx = torch.topk(col_mag, min(n_outliers, k)).indices
     x_out = x[:, idx].to(torch.bfloat16).float()                 # [m, n_out]
     w_out = (qw.q[:, idx].float() * qw.scale[:, None]).to(
@@ -332,42 +351,100 @@ def quant_matmul_outlier(x: torch.Tensor, qw: QuantizedWeight, *,
     return (y_int8 + y_out.float()).to(out_dtype)
 
 
+def _outlier_sharded(x, qw, n_outliers, out_dtype, comm, col_mag):
+    """:func:`quant_matmul_outlier` on a shard: ``col_mag`` holds the
+    maxima of all of K; the chosen columns outside this rank's
+    ``[k_lo, k_lo + K)`` are zero here (masked, so the shapes stay fixed
+    and nothing is read back). A row-parallel rank then sums its model
+    group's outlier columns (:meth:`ShardComm.outliers`: each is nonzero on
+    one rank, so the sum is exact), so that their bf16 product is rounded
+    once, over all of them, as ``vlm_tpu``'s is; one rank of the group
+    adds it to its partial product."""
+    k = x.shape[-1]
+    m = x.shape[0]
+    idx = torch.topk(col_mag, min(n_outliers, col_mag.shape[0])).indices
+    local = idx - comm.k_lo
+    mine = (local >= 0) & (local < k)
+    at = torch.where(mine, local, 0)
+    x_out = torch.where(mine, x[:, at], 0).to(torch.bfloat16).float()
+    w_out = torch.where(mine, qw.q[:, at].float() * qw.scale[:, None],
+                        0).to(torch.bfloat16).float()
+    if comm.row_parallel:
+        both = comm.outliers(torch.cat([x_out, w_out]))
+        x_out, w_out = both[:m], both[m:]
+    drop = torch.zeros(k + 1, dtype=torch.bool, device=x.device).index_fill_(
+        0, torch.where(mine, local, k), True)[:k]
+    y_int8 = quant_matmul_dynamic(x.masked_fill(drop, 0), qw,
+                                  out_dtype=torch.float32,
+                                  row_max=comm.row_max)
+    if comm.row_parallel and comm.mesh.model_rank:
+        return y_int8.to(out_dtype)
+    y_out = torch.matmul(x_out, w_out.T).to(torch.bfloat16)
+    return (y_int8 + y_out.float()).to(out_dtype)
+
+
+def matmul_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] @ w [N, K]^T`` with the operands in ``w``'s dtype and
+    the fp32 accumulator as the result, unrounded: a row-parallel rank's
+    partial product, which the model group sums before its one rounding.
+    bf16 operands take ``torch.mm``'s fp32 output on the card; on the CPU
+    their exact products are summed in fp32."""
+    x = x.to(w.dtype)
+    if w.dtype == torch.float32:
+        return torch.nn.functional.linear(x, w)
+    if x.is_cuda:
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                     out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[0])
+    return torch.nn.functional.linear(x.float(), w.float())
+
+
 def quant_matmul_dequant(x: torch.Tensor, qw: QuantizedWeight, *,
                          out_dtype=None) -> torch.Tensor:
     """One-pass dequantize (int8 or int4), then ``torch.matmul`` with fp32
     accumulation (``quant_matmul(use_pallas=False)``): the weight in bf16
-    for a bf16 result, else fp32. JAX computed this outside any kernel
-    too."""
+    for bf16 activations, else fp32, and one rounding to ``out_dtype``
+    (an fp32 result keeps the accumulator: :func:`matmul_fp32`). JAX
+    computed this outside any kernel too."""
     out_dtype = out_dtype or x.dtype
-    w = dequantize(qw, torch.bfloat16 if out_dtype == torch.bfloat16
+    w = dequantize(qw, torch.bfloat16 if x.dtype == torch.bfloat16
                    else torch.float32)
+    if out_dtype == torch.float32:
+        return matmul_fp32(x, w)
     return torch.matmul(x.to(w.dtype), w.T).to(out_dtype)
 
 
 def dense_int8(x2: torch.Tensor, qw: QuantizedWeight, mode: str,
-               out_dtype: torch.dtype) -> torch.Tensor:
+               out_dtype: torch.dtype, comm=None) -> torch.Tensor:
     """The int8 dispatch of ``vlm_tpu``'s ``Dense`` on the row count of the
     flattened input: fewer than 512 rows take the weight-only product (B5,
     the int8 branch of ``quant_matmul``); otherwise ``mode``
     (``VLM_TPU_INT8_PREFILL``) picks outlier decomposition plus B6
     (``dynamic``), B6 alone (``dynamic_noout``) or the plain dequantized
-    product (``dequant``)."""
-    if x2.shape[0] < 512:
+    product (``dequant``). With ``comm`` the rows counted are every data
+    rank's (``comm.row_ways`` shares), as ``vlm_tpu`` counts the global
+    batch, and the activations' maxima span the shards."""
+    rows = x2.shape[0] * (comm.row_ways if comm is not None else 1)
+    if rows < 512:
         return int8_matmul(x2, qw.q, qw.scale, out_dtype=out_dtype)
     if mode == "dequant":
         return quant_matmul_dequant(x2, qw, out_dtype=out_dtype)
     if mode == "dynamic_noout":
-        return quant_matmul_dynamic(x2, qw, out_dtype=out_dtype)
-    return quant_matmul_outlier(x2, qw, out_dtype=out_dtype)
+        return quant_matmul_dynamic(
+            x2, qw, out_dtype=out_dtype,
+            row_max=comm.row_max if comm is not None else None)
+    return quant_matmul_outlier(x2, qw, out_dtype=out_dtype, comm=comm)
 
 
 def dense_int4(x2: torch.Tensor, qw: QuantizedWeight,
-               out_dtype: torch.dtype) -> torch.Tensor:
+               out_dtype: torch.dtype, comm=None) -> torch.Tensor:
     """The int4 dispatch of ``vlm_tpu``'s ``Dense`` with
     ``VLM_TPU_INT4_PREFILL=dequant``: fewer than 512 rows take B7, more the
     plain dequantized product, which unpacks each weight once instead of
-    once per row tile."""
-    if x2.shape[0] < 512:
+    once per row tile. With ``comm`` the rows counted are every data
+    rank's."""
+    rows = x2.shape[0] * (comm.row_ways if comm is not None else 1)
+    if rows < 512:
         return int4_matmul(x2, qw.q, qw.scale, qw.group_size,
                            out_dtype=out_dtype)
     return quant_matmul_dequant(x2, qw, out_dtype=out_dtype)

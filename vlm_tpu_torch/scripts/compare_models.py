@@ -20,6 +20,12 @@ model's device memory goes back to the card before the next is built.
 
 ``VLM_TPU_PLATFORM=cpu`` runs it on the CPU (``model_size: test``);
 without it and without a CUDA device every model refuses to build.
+
+A ``mesh`` block of more than one device runs under ``torchrun
+--nproc_per_node N`` (one process a rank): every model is built at its
+rank's shard, rank 0 alone writes the summary and the run directories, and
+a failure raises on every rank instead of becoming a row (a rank that went
+on alone would wait for its peers in the next collective).
 """
 
 import argparse
@@ -59,6 +65,7 @@ def main(argv=None):
     os.environ.setdefault("VLM_TPU_ROOT", str(REPO_ROOT))
 
     from vlm_tpu_torch.core.config import load_config, project_root
+    from vlm_tpu_torch.core.mesh import mesh_from_config
     from vlm_tpu_torch.data.dataset_factory import DatasetFactory
     from vlm_tpu_torch.evaluation import run_zero_shot
 
@@ -66,6 +73,8 @@ def main(argv=None):
     if not cfg_path.is_absolute():
         cfg_path = project_root() / cfg_path
     cfg = load_config(cfg_path)
+    mesh = mesh_from_config(cfg.get("mesh"))
+    lead = mesh is None or mesh.rank == 0
 
     models = cfg.get("models", ["llava", "paligemma", "blip2"])
     quants = cfg.get("quantizations", ["bf16"])
@@ -76,10 +85,13 @@ def main(argv=None):
     base_path = (cfg.get("dataset", {}) or {}).get("base_path")
 
     out_root = project_root() / "eval" / "comparison"
-    out_root.mkdir(parents=True, exist_ok=True)
+    if lead:
+        out_root.mkdir(parents=True, exist_ok=True)
     rows = []
 
     def flush():
+        if not lead:
+            return
         # after every row: an interrupt or a failure keeps what completed
         (out_root / "summary.json").write_text(json.dumps(rows, indent=2))
         fieldnames = sorted({k for r in rows for k in r})
@@ -101,10 +113,12 @@ def main(argv=None):
             try:
                 model = create_model(
                     model_name, model_id=model_id, quantization=quant,
-                    size=cfg.get("model_size"), mesh=cfg.get("mesh"),
+                    size=cfg.get("model_size"), mesh=mesh,
                     kv_cache=cfg.get("kv_cache"),
                     quantize_vision=cfg.get("quantize_vision"))
             except Exception as e:    # noqa: BLE001 — one row a failure
+                if mesh is not None:
+                    raise
                 print(f"[sweep][ERR] {model_name}/{quant}: {e}")
                 rows.append({"model": model_name, "quantization": quant,
                              "error": f"create_model: {e}"})
@@ -124,7 +138,8 @@ def main(argv=None):
                     print(f"[sweep] {model_name}/{quant}/{ds_name}")
                     summary = run_zero_shot(
                         model, dataset, prompt,
-                        out_root / f"{model_name}_{quant}" / ds_name,
+                        out_root / f"{model_name}_{quant}" / ds_name
+                        if lead else None,
                         max_tokens=max_tokens, batch_size=batch_size,
                         limit=args.limit)
                     metrics = summary["metrics"]
@@ -141,6 +156,8 @@ def main(argv=None):
                     # the sweep stops too
                     interrupted = summary["partial"]
                 except Exception as e:     # noqa: BLE001 — one row a failure
+                    if mesh is not None:
+                        raise
                     print(f"[sweep][ERR] {model_name}/{quant}/{ds_name}: {e}")
                     row["error"] = str(e)
                 rows.append(row)

@@ -17,6 +17,16 @@ of the run (host and card) to ``DIR/trace.json``, also when the run
 raises. ``VLM_TPU_PLATFORM=cpu`` runs it on the CPU instead (fp32 or a
 "test" size); without it and without a CUDA device the model refuses to
 build.
+
+With a ``mesh: {data, model}`` block of more than one device, launch one
+process a rank:
+
+    torchrun --nproc_per_node N -m vlm_tpu_torch.scripts.prompt_inference \\
+        --config <yaml>
+
+Rank 0 alone writes the artifacts and prints the meter and the summary;
+every rank takes part in every collective, and an interrupt on any rank
+stops them all at the same chunk boundary.
 Imports only the port (dataset readers, tokenizer, evaluator and config
 helpers are its own copies); reading the YAML config needs PyYAML and
 reading images needs Pillow.
@@ -78,15 +88,17 @@ def main(argv=None):
     cfg = load_config(cfg_path)
     continuous = bool(cfg.get("continuous_batching", True))
 
-    mesh_from_config(cfg.get("mesh"))   # the port runs on one device
+    mesh = mesh_from_config(cfg.get("mesh"))   # under torchrun: the group
+    lead = mesh is None or mesh.rank == 0
     model_name = cfg["model_name"]
     quantization = cfg["quantization"]
     dataset_name = cfg["dataset_name"]
     output_dir = os.path.join(
         root, f"eval/prompt_inference/{model_name}_{quantization}/"
         f"{dataset_name}")
-    os.makedirs(output_dir, exist_ok=True)
-    print("Output directory:", output_dir)
+    if lead:
+        os.makedirs(output_dir, exist_ok=True)
+        print("Output directory:", output_dir)
 
     if cfg.get("int8_prefill"):
         # the int8 prefill product (dequant | dynamic | dynamic_noout), read
@@ -94,7 +106,7 @@ def main(argv=None):
         os.environ["VLM_TPU_INT8_PREFILL"] = str(cfg["int8_prefill"]).lower()
     model = create_model(
         model_name, model_id=cfg.get("model_id"), quantization=quantization,
-        size=cfg.get("model_size"), mesh=cfg.get("mesh"),
+        size=cfg.get("model_size"), mesh=mesh,
         kv_cache=cfg.get("kv_cache"),
         quantize_vision=cfg.get("quantize_vision"))
     ds_cfg = cfg.get("dataset", {}) or {}
@@ -105,34 +117,41 @@ def main(argv=None):
     prompt = prompts.get(dataset_name) or prompts.get("face_dataset", "")
     if not prompt:
         raise ValueError("No prompt found in config (section 'prompts').")
-    save_config(cfg, os.path.join(output_dir, "used_config.yaml"))
+    if lead:
+        save_config(cfg, os.path.join(output_dir, "used_config.yaml"))
 
     gen = {k: cfg[k] for k in
            ("num_beams", "temperature", "top_k", "top_p", "seed")
            if cfg.get(k) is not None}
     n = len(dataset) if args.limit is None else min(args.limit, len(dataset))
     batch_size = int(cfg.get("batch_size", 32))
-    print(f"Running inference on dataset: {dataset_name} ({n} images, "
-          f"batch={batch_size}, continuous={continuous}) on {model.device}")
+    if lead:
+        print(f"Running inference on dataset: {dataset_name} ({n} images, "
+              f"batch={batch_size}, continuous={continuous}) on "
+              f"{model.device}" + (f", {mesh}" if mesh is not None else ""))
     meter = ThroughputMeter()
     run = run_zero_shot if continuous else run_waves
     try:
         # the trace covers the whole run and is written even if it raises
-        with profile_trace(args.profile):
-            summary = run(model, dataset, prompt, output_dir,
+        with profile_trace(args.profile if lead else None):
+            summary = run(model, dataset, prompt,
+                          output_dir if lead else None,
                           max_tokens=int(cfg.get("max_tokens", 100)),
                           batch_size=batch_size, limit=args.limit,
                           progress=meter.update, generation=gen)
-            meter.report("prompt_inference")
-            if summary["partial"]:
-                print(f"Interrupted: evaluated "
-                      f"{summary['images_completed']}/{n} images.")
-            elif summary["images_completed"] == 0:
-                print("Nothing to evaluate.")
+            if lead:
+                meter.report("prompt_inference")
+                if summary["partial"]:
+                    print(f"Interrupted: evaluated "
+                          f"{summary['images_completed']}/{n} images.")
+                elif summary["images_completed"] == 0:
+                    print("Nothing to evaluate.")
     finally:
-        if args.profile:
+        if args.profile and lead:
             print(f"Profiler trace written to {args.profile}")
-    print(json.dumps({k: v for k, v in summary.items() if k != "metrics"}))
+    if lead:
+        print(json.dumps({k: v for k, v in summary.items()
+                          if k != "metrics"}))
     return summary
 
 

@@ -35,7 +35,7 @@ def main(argv=None):
 
     from vlm_tpu_torch.core.config import (build_cfg_from_profile,
                                            load_config, project_root)
-    from vlm_tpu_torch.core.mesh import mesh_from_config
+    from vlm_tpu_torch.core.mesh import refuse_mesh
     from vlm_tpu_torch.probing.test.multitask_tester import MultiTaskTester
     from vlm_tpu_torch.probing.test.singletask_tester import \
         SingleTaskTester
@@ -49,7 +49,7 @@ def main(argv=None):
         raise ValueError("Specify the profile: --profile single|multi or "
                          "profile: single|multi in the YAML")
     cfg = build_cfg_from_profile(raw, profile, cfg_path, require_eval=True)
-    mesh_from_config(cfg.get("mesh"))   # the port runs on one device
+    refuse_mesh(cfg.get("mesh"), "testing a probe")
     tester = MultiTaskTester(cfg) if profile == "multi" \
         else SingleTaskTester(cfg)
     tester.run()

@@ -39,7 +39,7 @@ def build_trainer(argv=None):
     from vlm_tpu_torch.core.config import (build_cfg_from_profile,
                                            load_config, make_run_name,
                                            project_root)
-    from vlm_tpu_torch.core.mesh import mesh_from_config
+    from vlm_tpu_torch.core.mesh import refuse_mesh
     from vlm_tpu_torch.probing.train.multitask_trainer import \
         MultiTaskTrainer
     from vlm_tpu_torch.probing.train.singletask_trainer import \
@@ -54,7 +54,7 @@ def build_trainer(argv=None):
         raise ValueError("Specify the profile: --profile single|multi or "
                          "profile: single|multi in the YAML")
     cfg = build_cfg_from_profile(raw, profile, cfg_path)
-    mesh_from_config(cfg.get("mesh"))   # the port runs on one device
+    refuse_mesh(cfg.get("mesh"), "training a probe")
     run_name = make_run_name(cfg, profile)
     if profile == "multi":
         return MultiTaskTrainer(cfg, run_name, project_root() / "probing" /

@@ -178,6 +178,20 @@ EVA_KN = ((1408, 1408), (1408, 6144), (6144, 1408))
 # tokens (PaliGemma 256 + 704, LLaVA 7 + 576 + 714, BLIP-2 32 + 722)
 SWEEP_SLOTS, SWEEP_GROUP, SWEEP_NEW = 8, 4, 16
 SWEEP_PROMPTS = {"paligemma": 960, "llava": 1297, "blip2": 754}
+# chip_smoke.py's mesh phases (PaliGemma-3B, ranks sharing one GPU): 32
+# slots, admissions of 4, up to 16 new tokens; under model=2 each rank
+# holds 8 of SigLIP's 16 heads, 4 of Gemma's 8 query heads over its one KV
+# head (whole on every rank) and half of each block product's split axis;
+# under data=2 each rank holds 16 slots (admissions whole on every rank);
+# the depth-cut references prefill 4 images and take 2 decode steps
+MESH_SLOTS, MESH_NEW, MESH_REF_STEPS = 32, 16, 2
+MESH_CACHE = PROMPT + MESH_NEW
+# Gemma's block products (K, N) on one of model=2 ranks: q, k/v (whole),
+# o, gate/up, down
+GEMMA_TP_KN = ((2048, 1024), (2048, 256), (1024, 2048), (2048, 8192),
+               (8192, 2048))
+# the row-parallel ones: o and down
+GEMMA_TP_ROW = ((1024, 2048), (8192, 2048))
 
 
 @dataclasses.dataclass
@@ -757,16 +771,20 @@ def cases(device) -> List[Case]:
         sw = torch.rand(n, generator=gen, device=dev) * (2 / k ** 0.5 / 64)
         return qw, sw
 
-    def b5(m, k, n, qw, sw, on_path):
+    def b5(m, k, n, qw, sw, on_path, out_dtype=torch.bfloat16):
+        # fp32 out: a row-parallel rank's partial product
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
         sw16 = sw.to(torch.bfloat16)
         fn, why = _library(lambda: functools.partial(
             torch._weight_int8pack_mm, x, qw, sw16))
+        f32 = out_dtype == torch.float32
         out.append(Case(
-            "B5", f"m{m}_k{k}_n{n}", lambda: int8_matmul(x, qw, sw),
-            lambda: int8_matmul_plain(x, qw, sw), GEMM_REL_TOL, on_path,
-            rel=True, cold=True,
-            work=gemm_work(m, k, n, 2 * m * k, n * k, 4 * n, 2, "bf16"),
+            "B5", f"m{m}_k{k}_n{n}{'_fp32' if f32 else ''}",
+            lambda: int8_matmul(x, qw, sw, out_dtype),
+            lambda: int8_matmul_plain(x, qw, sw, out_dtype), GEMM_REL_TOL,
+            on_path, rel=True, cold=True,
+            work=gemm_work(m, k, n, 2 * m * k, n * k, 4 * n, 4 if f32 else 2,
+                           "bf16"),
             library_fn=fn,
             library_note=why or "torch._weight_int8pack_mm, scales in bf16"))
 
@@ -833,7 +851,7 @@ def cases(device) -> List[Case]:
             4 * k ** 0.5)
         return q4, s4, gs
 
-    def b7(m, k, n, w4, on_path):
+    def b7(m, k, n, w4, on_path, out_dtype=torch.bfloat16):
         x = torch.randn(m, k, generator=gen, device=dev).to(torch.bfloat16)
         q4, s4, gs = w4
         def library():
@@ -841,12 +859,14 @@ def cases(device) -> List[Case]:
             return functools.partial(torch._weight_int4pack_mm, x, packed, gs,
                                      sz)
         fn, why = _library(library)
+        f32 = out_dtype == torch.float32
         out.append(Case(
-            "B7", f"m{m}_k{k}_n{n}_gs{gs}",
-            lambda: int4_matmul(x, *w4), lambda: int4_matmul_plain(x, *w4),
+            "B7", f"m{m}_k{k}_n{n}_gs{gs}{'_fp32' if f32 else ''}",
+            lambda: int4_matmul(x, *w4, out_dtype=out_dtype),
+            lambda: int4_matmul_plain(x, *w4, out_dtype=out_dtype),
             GEMM_REL_TOL, on_path, rel=True, cold=True,
             work=gemm_work(m, k, n, 2 * m * k, n * k // 2, 4 * n * (k // gs),
-                           2, "bf16"),
+                           4 if f32 else 2, "bf16"),
             library_fn=fn,
             library_note=why or "torch._weight_int4pack_mm on weights "
                                 "repacked by _convert_weight_to_int4pack, "
@@ -1205,6 +1225,81 @@ def cases(device) -> List[Case]:
     b4_patch(f"patch14_u8_g{BEAM_IMAGES}_336", torch.randint(
         0, 256, (BEAM_IMAGES, 336, 336, 3), generator=gen, device=dev).to(
             torch.uint8), clip)
+
+    # ---- the mesh phases: PaliGemma-3B at one rank's shard shapes ----
+    # model=2: B1 at the tower's 8 heads and the prefill's 4 query heads
+    # over the KV head, bf16 and (the fp32 depth-cut reference) fp32
+    b1("tp_siglip_g4_h8_s256_d72", *(_bhsd(gen, GROUP, 256, 8, 72, dev)
+                                     for _ in range(3)), on_path=True)
+    b1("tp_gemma_prefill_g4_q4_s316_kvlen",
+       _bhsd(gen, GROUP, PROMPT, 4, 256, dev),
+       *(_bhsd(gen, GROUP, PROMPT, 1, 256, dev) for _ in range(2)),
+       on_path=True, kv_len=torch.full((GROUP,), PROMPT, **i32))
+    b1("fp32_tp_siglip_g4_h8_s256_d72", *(f32(GROUP, 256, 8, 72)
+                                          for _ in range(3)), on_path=True)
+    b1("fp32_tp_gemma_prefill_g4_q4_s316_kvlen", f32(GROUP, PROMPT, 4, 256),
+       *(f32(GROUP, PROMPT, 1, 256) for _ in range(2)), on_path=True,
+       kv_len=torch.full((GROUP,), PROMPT, **i32))
+
+    # B2 with B3's write inside it over the rotating window: 4 query
+    # heads over the KV head at 32 slots (model=2, bf16 and int8), 8 heads
+    # at 16 slots (data=2, bf16)
+    def mesh_window(slots):
+        ac = torch.randint(0, MESH_NEW, (slots,), generator=gen,
+                           device=dev).int()
+        gc = torch.randint(1, MESH_NEW + 1, (slots,), generator=gen,
+                           device=dev).int()
+        gc[1] = 0                                     # a slot not admitted
+        return (torch.tensor(PROMPT, **i32), MESH_NEW, ac, gc)
+
+    mcol = torch.full((1,), PROMPT + 5, **i32)
+    for tag, slots, heads, int8 in (("tp", MESH_SLOTS, 4, False),
+                                    ("tp", MESH_SLOTS, 4, True),
+                                    ("dp", MESH_SLOTS // 2, 8, False)):
+        win = mesh_window(slots)
+        qq = query(slots, heads, 256)
+        (kk, vv, _), (kq8, vq8, sc8) = cache(slots, MESH_CACHE, 1, 256)
+        kr, vr = (torch.randn(slots, 1, 1, 256, generator=gen,
+                              device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        caches, scales = ((kq8, vq8, sc8["k_scale"], sc8["v_scale"]), sc8) \
+            if int8 else ((kk, vv), {})
+        name = f"{tag}_{'int8_' if int8 else ''}window_{slots}slots_h{heads}"
+        b2(name.replace("_int8", ""), qq, caches[0], caches[1],
+           dict(kv_window=win), True, scales, True)
+        b3_fused(name.replace("window", "fused_window"), qq, caches, kr, vr,
+                 mcol, True, dict(kv_window=win), True, True)
+    # the depth-cut references' decode steps: 4 rows at their own
+    # positions (kv_len), 4 query heads over the KV head, each row's write
+    # at its column: bf16, int8 (the 8bit reference) and fp32
+    ref_len = PROMPT + MESH_REF_STEPS
+    rstart = torch.full((GROUP,), PROMPT + 1, **i32)
+    for dtype, int8 in ((torch.bfloat16, False), (torch.bfloat16, True),
+                        (torch.float32, False)):
+        qq = query(GROUP, 4, 256).to(dtype)
+        (kk, vv, _), (kq8, vq8, sc8) = cache(GROUP, ref_len, 1, 256)
+        kr, vr = (torch.randn(GROUP, 1, 1, 256, generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+        caches = (kq8, vq8, sc8["k_scale"], sc8["v_scale"]) if int8 else \
+            (kk.to(dtype), vv.to(dtype))
+        tag = "int8_" if int8 else "fp32_" if dtype == torch.float32 else ""
+        b3_fused(f"tp_ref_{tag}fused_scatter_kv_len_4rows_h4", qq, caches,
+                 kr, vr, rstart, False,
+                 dict(kv_len=(rstart + 1).int()), True)
+
+    # B5 (decode, m = 32 slots), B6 (the admission's llm.int8 product,
+    # m = 4 x 316, fp32 out) and B7 (4bit decode) at model=2's shard
+    # shapes (k/v's whole products are the single-device cases above),
+    # B5 and B7 with fp32 out at the row-parallel o and down (a rank's
+    # partial, summed before its one rounding); no card phase serves 4bit
+    # under a mesh (the CPU parity tests hold it), so B7's are not on a
+    # path
+    tp_w = {kn: weights(*kn) for kn in GEMMA_TP_KN if kn not in GEMMA_KN}
+    for k, n in tp_w:
+        f32 = torch.float32 if (k, n) in GEMMA_TP_ROW else torch.bfloat16
+        b5(MESH_SLOTS, k, n, *tp_w[(k, n)], True, f32)
+        b6(GROUP * PROMPT, k, n, *tp_w[(k, n)], torch.float32, True)
+        b7(MESH_SLOTS, k, n, weights4(k, n, 128), False, f32)
     return out
 
 

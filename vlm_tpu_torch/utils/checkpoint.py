@@ -8,7 +8,9 @@ included), written by :mod:`.safetensors_io`, and ``config.yaml`` with
 ``vlm_tpu``'s metadata keys (``family``, ``quantization``,
 ``vision_layers``, ``decoder_layers``) and ``format: vlm_tpu_torch``,
 which marks the port's format.
-``VLMModel(model_id=<dir>)`` loads it back (``models/base_model.py``).
+``VLMModel(model_id=<dir>)`` loads it back (``models/base_model.py``),
+a module built at a rank's shard of a mesh taking its part of each tensor
+(sliced on the host, then moved).
 """
 
 from __future__ import annotations
@@ -70,9 +72,10 @@ def load_vlm_checkpoint(path, module: torch.nn.Module,
     if missing or extra:
         raise ValueError(f"checkpoint {path}: missing {missing[:10]}, "
                          f"unexpected {extra[:10]}")
+    from ..parallel.sharding import shard_tensor
     with torch.no_grad():
         for name, t in own.items():
-            src = refs[name].load()
+            src = shard_tensor(module, name, refs[name].load())
             if src.shape != t.shape or src.dtype != t.dtype:
                 raise ValueError(f"checkpoint {path}: {name} is "
                                  f"{src.dtype} {tuple(src.shape)}, the model "
