@@ -28,7 +28,7 @@ Phases, each of which raises on failure:
    that checkpoint through ``create_model(..., model_id=<dir>)`` (the
    load's seconds, GB/s and device memory printed; the memory bounded by
    the model plus two fp32 copies of the largest tensor), through the
-   port's continuous batcher (32 slots, 96 synthetic
+   port's continuous batcher (32 slots, 64 synthetic
    224 px images fed through the normalisation kernel straight into the
    patch embedding's layout, a 60-id prompt, up to 32 new tokens with
    per-image caps from [8, 32]); every kernel of the path must have
@@ -49,8 +49,9 @@ Phases, each of which raises on failure:
    admissions' 1264 rows) and the bf16 KV cache;
 10. 4bit reference: the depth-cut copy with int4 decoder and vision
     weights against fp32 compute on the CPU, through a 2-image prefill (512
-    rows and more: the dequantized product), a 1-image prefill (B7 at 256
-    and 316 rows, SigLIP fc2 at group 16) and decode steps;
+    rows and more: the dequantized product) and 3 decode steps, then a
+    1-image prefill (B7 at 256 and 316 rows, SigLIP fc2 at group 16) and
+    one decode step;
 11. fp32 slice: ``create_model("paligemma", size="3b", device="cuda",
     model_id=<dir>)`` with its default quantization, fp32, through the fp32
     forms of B1, B2 and B4 (16 images, up to 8 new tokens);
@@ -59,7 +60,7 @@ Phases, each of which raises on failure:
 13. LLaVA bf16 slice (random weights, as BLIP-2's):
     ``create_model("llava", size="7b")`` (CLIP-L/336, the MLP projector,
     Vicuna-7B with its untied head; MHA, 32 heads of 128) in bf16, the
-    same checks as PaliGemma's: 32 slots, 96 synthetic
+    same checks as PaliGemma's: 32 slots, 64 synthetic
     336 px images, BOS + 4 ids before the 576 image tokens and 60 ids
     after them (a prompt of 641), up to 32 new tokens;
 14. LLaVA bf16 reference: the depth-cut copy (full width, 2 vision and 2
@@ -81,7 +82,7 @@ Phases, each of which raises on failure:
 17. BLIP-2 bf16 slice: ``create_model("blip2", size="6.7b")`` (EVA ViT-g,
     the Q-Former through B1, OPT-6.7B with learned positions and its tied
     head; MHA, 32 heads of 128) in bf16 at full width and depth, the same
-    checks: 32 slots, 96 synthetic 224 px images, the 32 query tokens then
+    checks: 32 slots, 64 synthetic 224 px images, the 32 query tokens then
     BOS + 59 ids (a prompt of 92), up to 32 new tokens;
 18. BLIP-2 bf16 reference: the depth-cut copy (full width, 2 EVA and 2 OPT
     layers, the Q-Former at its full 12 layers); then the name maps from a
@@ -106,7 +107,7 @@ Phases, each of which raises on failure:
     image on both paths over the probing data's 384 JPEGs at 224 px
     (``warp``) and 336 px (``shortest_edge_crop``);
 22. loop: PaliGemma-3B bf16 from the checkpoint through
-    ``generate_dataset`` over those 384 JPEGs (at most 16 new tokens, 32
+    ``generate_dataset`` over the first 192 of them (at most 16 new tokens, 32
     slots), at the default loop (pipelined: one blocking read an admission
     cycle, none inside a chunk) and at ``sync_every=4``: the texts
     identical, no result None, no plain version; each loop's blocking reads
@@ -182,16 +183,20 @@ Phases, each of which raises on failure:
     ``REF_TOL_FP32``.
 
 Between the generation phases and the sweep, the mesh phases:
-PaliGemma-3B from the checkpoint through ``generate_dataset`` over 32
+PaliGemma-3B from the checkpoint through ``generate_dataset`` over 16
 probing JPEGs (32 slots, 16 new tokens) on one GPU, then under a mesh of
-two ranks (``vlm_tpu_torch/testing/mesh_serve.py`` under
-``python -m torch.distributed.run``, each launch with its own timeout; one
-GPU a rank over NCCL where the machine has them, else both sharing the
-GPU over gloo): ``[mesh paligemma bf16 model=2]`` (shard-on-load, the
-vocabulary-parallel head), ``[mesh paligemma 8bit model=2]`` (the 8bit
-slice's recipe with the int8 cache: B5 and B6 at the shard shapes, the
-row abs-max over the model group) and ``[mesh paligemma bf16 data=2]``
-(16 slots a rank). Each prints the backend and devices, each rank's
+two ranks (``vlm_tpu_torch/testing/mesh_serve.py`` on ranks launched
+once under ``python -m torch.distributed.run`` by
+``vlm_tpu_torch/testing/mesh_pool.py``, which take every mesh phase in
+turn, each run with its own timeout; one GPU a rank over NCCL where the
+machine has them, else both sharing the GPU over gloo):
+``[mesh paligemma bf16 model=2]`` (shard-on-load, the vocabulary-parallel
+head), ``[mesh paligemma 8bit model=2]`` (the 8bit slice's recipe with
+the int8 cache: B5 and B6 at the shard shapes, the row abs-max over the
+model group) and ``[mesh paligemma bf16 data=2]`` (16 slots a rank; then
+``[beam mesh data=2]`` on the same model: 4 beams over 8 images, 16 new
+tokens, tokens and lengths identical to the same call on one GPU). Each
+prints the backend and devices, each rank's
 ``param_bytes`` (what its build left allocated must equal it within 1 %),
 peak memory and launches (every kernel of the plan at its count, no plain
 version), img/s marked "not a scaling figure" when the ranks share a
@@ -199,12 +204,33 @@ GPU, and how many texts equal the single-GPU run's; the texts must be the
 same on every rank and the data ranks' slots must serve every image once.
 Then ``[mesh reference bf16|8bit|fp32]``: a depth-cut copy (2 + 2 layers)
 over ``model=2`` on the card against fp32 on the CPU (``REF_TOL``, and
-``REF_TOL_FP32`` for fp32); in the bf16 one's launch, ``[mesh row-parallel]``:
+``REF_TOL_FP32`` for fp32); in the bf16 one's run, ``[mesh row-parallel]``:
 Gemma's o product (2048 -> 2048, 1024 inputs a rank) in bf16, int8 and
 int4 at 32 and 1264 rows against the same layer whole on the rank, on
 inputs whose halves of K nearly cancel, within one of the output's bf16
 steps (a rank's partial rounded to bf16 before the all-reduce misses by
 several).
+
+Then the mesh beyond serving, each phase against the same work on one GPU
+in this process, two ranks sharing the GPU over gloo (``mesh_probe.py``
+and ``mesh_serve.py`` on the same two ranks; one run at ``data=2`` and one
+at ``model=2`` carry the probing phases), on LLaVA-1.5-7B's
+CLIP-L/336 tower in fp32 (random weights from the model's seed) and a
+synthetic face dataset of 336 px JPEGs (48 train, 16 val, 16 test):
+``[probe mesh cache data=2|model=2]`` (64 of the probing JPEGs through
+``extract_features_dataset`` at batch 16: features within 1e-3 relative),
+``[probe mesh e2e data=2|model=2]`` (3 steps of 16, the last 4 blocks and
+the embeddings trained: each step's loss within 1e-3 relative, B1's fp32
+and differentiable forms at their plan's counts, no plain call),
+``[probe mesh multi data=2]`` (the multi profile, 2 steps of 24),
+``[probe mesh lora model=2]`` (2 steps of 24: the adapters identical on
+both ranks), ``[probe mesh test data=2]`` (the single tester on the
+one-GPU e2e checkpoint: metrics equal), ``[mesh int8 tower model=2]`` and
+``[mesh int4 tower model=2]`` (PaliGemma-3B's SigLIP from the checkpoint
+split unevenly over the ranks, 16 images at batches of 8 and of 1: B6 and
+B5, or B7, at K = 2144 and 2160; features within ``REF_TOL``). Each
+prints its seconds,
+img/s or step ms, each rank's peak memory and rank 0's collectives.
 
 Each slice's launch counts are set to 0 just before it is driven and read
 just after. Each phase prints its seconds.
@@ -229,7 +255,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-SLOTS, N_IMAGES, PROMPT_IDS, NEW = 32, 96, 60, 32
+SLOTS, N_IMAGES, PROMPT_IDS, NEW = 32, 64, 60, 32
 # each model's slice: its label, size, image side, the ids before the image
 # tokens (LLaVA: BOS + "USER: ", 5 ids) and the slots of each mode (the
 # batcher admits 4 at a time at 16 and 32 slots, 8 at 64); the 60 prompt
@@ -296,8 +322,12 @@ def device_phase(torch):
 
 def kernel_phase(gpu):
     from vlm_tpu_torch.testing import kernel_checks
-    records = kernel_checks.run("cuda", iters=20)
-    diff = kernel_checks.run_diff("cuda", iters=10)
+    spent = {}
+    records = kernel_checks.run("cuda", iters=20, spent=spent)
+    print(f"[time] kernel checks: {len(records)} cases, "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    diff = kernel_checks.run_diff("cuda", iters=10) + kernel_checks.run_diff(
+        "cuda", iters=10, shape=kernel_checks.MESH_DIFF_SHAPE)
     for r in diff:
         print(f"[kernel] B1-diff {r['case']}: forward {r['fwd_ms']:.4f} ms "
               f"(profiled {r['fwd_device_ms']}, bound {r['fwd_bound_ms']:.4f}"
@@ -599,6 +629,11 @@ def int4_launches(cfg, tower, steps, groups, prompt_len):
     return n
 
 
+# the references' passes, (images, decode steps), by weight bits: 4bit
+# adds a 1-image prefill, where B7 takes the prefill's products
+REF_PASSES = {0: ((2, 3),), 4: ((2, 3), (1, 1))}
+
+
 def reference_phase(torch, np, gpu, quantization, model_name="paligemma",
                     ckpt=None):
     """Full-width, depth-cut model (2 vision and 2 decoder layers; BLIP-2's
@@ -645,13 +680,14 @@ def reference_phase(torch, np, gpu, quantization, model_name="paligemma",
         for mod in (gpu_mod, cpu_mod):
             load_vlm_weights(model_name, cfg, ckpt, mod)
     rng = np.random.default_rng(1)
-    steps = 3
     n_pre = spec["pre_ids"]
     plen = n_pre + num_image_tokens(cfg) + PROMPT_IDS
     recipe = RECIPES[model_name]
     side = spec["image"]
     worst = 0.0
-    for b in (2, 1) if bits == 4 else (2,):
+    # (images, decode steps): the 1-image prefill is there for B7 at the
+    # prefill's products, so one decode step follows it
+    for b, steps in REF_PASSES[4 if bits == 4 else 0]:
         u8 = torch.from_numpy(rng.integers(0, 256, (b, side, side, 3),
                                            dtype=np.uint8))
         pre, post = (torch.from_numpy(rng.integers(3, 1000, (b, n),
@@ -676,9 +712,11 @@ def reference_phase(torch, np, gpu, quantization, model_name="paligemma",
         name = f"checkpoint {model_name}"
     qformer = f", Q-Former {cfg.qformer.layers} layers" if cfg.qformer \
         else ""
+    passes = ", then ".join(f"{b} image{'s' * (b > 1)}: prefill + {n} "
+                            f"decode step{'s' * (n > 1)}"
+                            for b, n in REF_PASSES[4 if bits == 4 else 0])
     print(f"[{name} {quantization}] depth-cut {spec['label']} (2+2 layers"
-          f"{qformer}, full width): prefill + {steps} decode steps"
-          f"{' (2 and 1 images)' if bits == 4 else ''}, max |card - cpu| / "
+          f"{qformer}, full width): {passes}, max |card - cpu| / "
           f"max|cpu| = {worst:.3e} (tol {tol:.0e}) ({gpu})")
     if worst > tol:
         raise RuntimeError("card disagrees with the CPU reference")
@@ -1441,9 +1479,10 @@ def sweep_phase(torch, gpu, tmp, base, launches):
             launches[name] += n
 
 
-# the loop phase: generate_dataset over the probing data's JPEGs, once at
-# the default loop and once at a synchronous loop of LOOP_SYNC steps a chunk
-LOOP_NEW, LOOP_SYNC = 16, 4
+# the loop phase: generate_dataset over the first LOOP_IMAGES of the
+# probing data's JPEGs, once at the default loop and once at a synchronous
+# loop of LOOP_SYNC steps a chunk
+LOOP_NEW, LOOP_SYNC, LOOP_IMAGES = 16, 4, 192
 
 
 def probe_jpegs(base):
@@ -1513,7 +1552,8 @@ def loader_phase(np, gpu, base):
 
 def loop_phase(torch, np, gpu, ckpt, base, served):
     """PaliGemma-3B bf16 from the checkpoint through ``generate_dataset``
-    (the native loader, B4, the batcher) over the 384 probing JPEGs, at
+    (the native loader, B4, the batcher) over the first ``LOOP_IMAGES``
+    probing JPEGs, at
     most ``LOOP_NEW`` new tokens, 32 slots: once at the default loop
     (pipelined, no blocking read inside a chunk) and once at
     ``sync_every=LOOP_SYNC``. The texts must agree; no result may be None,
@@ -1525,7 +1565,7 @@ def loop_phase(torch, np, gpu, ckpt, base, served):
     from vlm_tpu_torch.models import base_model
     from vlm_tpu_torch.models.factory import create_model
     from vlm_tpu_torch.ops import _lib
-    paths = probe_jpegs(base)
+    paths = probe_jpegs(base)[:LOOP_IMAGES]
     n = len(paths)
     model = create_model("paligemma", size="3b", device="cuda", seed=0,
                          model_id=str(ckpt), quantization="bf16")
@@ -1639,14 +1679,15 @@ def generation_phases(torch, np, gpu, launches, tmp, ckpt, base):
 
 
 # the mesh phases: PaliGemma-3B from the checkpoint under a mesh of two
-# ranks (``vlm_tpu_torch/testing/mesh_serve.py`` under torchrun), through
-# ``generate_dataset`` over the first 32 probing JPEGs, 32 slots, up to 16
-# new tokens (the kernel checks' MESH_* cases); the ranks share the one
-# GPU over gloo unless the machine has one a rank
+# ranks (``vlm_tpu_torch/testing/mesh_serve.py`` on the ranks of
+# ``mesh_launch``), through ``generate_dataset`` over the first 16 probing
+# JPEGs, 32 slots, up to 16 new tokens (the kernel checks' MESH_* cases);
+# the bf16 ``data=2`` run then runs the beams on its model; the ranks
+# share the one GPU over gloo unless the machine has one a rank
 MESH_PHASES = (("bf16", {"data": 1, "model": 2}),
                ("8bit", {"data": 1, "model": 2}),
                ("bf16", {"data": 2, "model": 1}))
-MESH_IMAGES, MESH_NEW = 32, 16
+MESH_IMAGES, MESH_NEW = 16, 16
 # the depth-cut references (2 + 2 layers, full width, model=2): 4 images,
 # 2 decode steps, card against fp32 on the CPU
 MESH_REFS = ("bf16", "8bit", "fp32")
@@ -1658,39 +1699,37 @@ MESH_ROW_PARALLEL = dict(k=2048, n=2048, rows=[32, 4 * 316])
 MESH_TIMEOUT = 420
 
 
-def mesh_launch(torch, spec, run, n=2):
-    """``spec``'s ranks under torchrun (one GPU a rank when the machine
-    has that many, else sharing it over gloo); their records by rank. A
-    rank that fails, hangs or passes ``MESH_TIMEOUT`` fails the phase, and
-    every process of the launch is killed."""
-    import signal
+def start_mesh_pool():
+    """The mesh phases' two ranks, launched under torchrun (one GPU a rank
+    when the machine has that many, else sharing it over gloo). They form
+    their group and import the port while this process builds the kernels
+    and runs the phases before the mesh's, then take every mesh run in
+    turn: their launch, imports and group set-up are paid once."""
+    from vlm_tpu_torch.testing.mesh_pool import MeshPool
+    return MeshPool(2, Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_")),
+                    MESH_TIMEOUT, device="cuda",
+                    env=dict(os.environ,
+                             VLM_TPU_DIST_TIMEOUT=str(MESH_TIMEOUT)))
+
+
+def mesh_launch(pool, spec, run, worker="mesh_serve"):
+    """``spec`` through ``vlm_tpu_torch.testing.<worker>`` on ``pool``'s
+    ranks; their records by rank. A rank that fails, hangs or passes
+    ``MESH_TIMEOUT`` fails the phase, and every process of the launch is
+    killed."""
     run.mkdir(parents=True, exist_ok=True)
-    (run / "spec.json").write_text(json.dumps(spec))
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", str(n), "-m", "vlm_tpu_torch.testing.mesh_serve",
-         str(run / "spec.json"), str(run / "out")],
-        cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, start_new_session=True,
-        env=dict(os.environ, VLM_TPU_DIST_TIMEOUT=str(MESH_TIMEOUT)))
-    try:
-        log, _ = proc.communicate(timeout=MESH_TIMEOUT)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        log, _ = proc.communicate()
-        raise RuntimeError(f"mesh ranks passed {MESH_TIMEOUT} s:\n"
-                           f"{log[-4000:]}")
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-    if proc.returncode:
-        raise RuntimeError(f"mesh ranks failed ({proc.returncode}):\n"
-                           f"{log[-6000:]}")
-    for line in log.splitlines():
-        if line.startswith("[mesh]"):
-            print(line)
-    return [json.loads((run / "out" / f"rank{r}.json").read_text())
-            for r in range(n)]
+    return pool.run(worker, spec, run / "out")
+
+
+def close_mesh_pool(pool):
+    """Print the ranks' ``[mesh]`` lines (their group), then end them
+    (killed if they do not end)."""
+    if pool.proc.poll() is None:
+        for line in pool.log().splitlines():
+            if line.startswith("[mesh]"):
+                print(line)
+        pool.close()
+    shutil.rmtree(pool.queue, ignore_errors=True)
 
 
 def mesh_plan(cfg, quantization, stats):
@@ -1715,23 +1754,26 @@ def mesh_plan(cfg, quantization, stats):
     return plan
 
 
-def mesh_phase(torch, gpu, quantization, mesh, ckpt, paths, single, tmp,
-               launches):
+def mesh_phase(pool, gpu, quantization, mesh, ckpt, paths, single, tmp,
+               launches, more=None):
     """One mesh phase: the ranks' texts, launches, memory and img/s,
-    checked; returns the texts."""
+    checked; returns the ranks' records. ``more``: fields added to the
+    spec, with ``tasks`` run after the dataset's on the same model."""
     from vlm_tpu_torch.models.configs import VLM_CONFIGS
     tag = (f"[mesh paligemma {quantization} "
            f"{'model' if mesh['model'] > 1 else 'data'}=2]")
+    more = dict(more or {})
     spec = dict(family="paligemma", size="3b", quantization=quantization,
                 kv_cache="int8" if quantization == "8bit" else None,
                 mesh=mesh, device="cuda", model_id=str(ckpt), pre_ids=[],
                 post_ids=[], tasks=[["dataset", dict(
                     paths=[str(p) for p in paths],
                     prompt=GEN_PROMPTS["paligemma"][0], new=MESH_NEW,
-                    slots=SLOTS, warmup=4)]])
+                    slots=SLOTS, warmup=4)]] + more.pop("tasks", []))
+    spec.update(more)
     t0 = time.perf_counter()
-    recs = mesh_launch(torch, spec, tmp / f"mesh_{quantization}_"
-                       f"{mesh['data']}x{mesh['model']}")
+    recs = mesh_launch(pool, spec, tmp / f"mesh_{quantization}_"
+                      f"{mesh['data']}x{mesh['model']}")
     wall = time.perf_counter() - t0
     cfg = VLM_CONFIGS["paligemma"]("3b")
     gpus = {r["device"] for r in recs}
@@ -1782,11 +1824,11 @@ def mesh_phase(torch, gpu, quantization, mesh, ckpt, paths, single, tmp,
     print(f"{tag} texts: identical on every rank, {same}/{len(texts)} equal "
           f"to the single-GPU bf16 run's (not gated: a sum over ranks "
           f"rounds in another order); phase {wall:.1f} s with the ranks' "
-          f"start and load")
-    return texts
+          f"load")
+    return recs
 
 
-def mesh_reference_phase(torch, np, gpu, quantization, tmp):
+def mesh_reference_phase(torch, np, gpu, quantization, tmp, pool):
     """A depth-cut PaliGemma-3B (2 + 2 layers, full width, model=2) under
     the mesh on the card against the same weights in fp32 on the CPU: a
     prefill of 4 images and 2 decode steps, the CPU fed the card's tokens;
@@ -1827,7 +1869,7 @@ def mesh_reference_phase(torch, np, gpu, quantization, tmp):
                                        steps=MESH_REF_STEPS)]])
     if quantization == "bf16":
         spec["tasks"].append(["row_parallel", MESH_ROW_PARALLEL])
-    recs = mesh_launch(torch, spec, run)
+    recs = mesh_launch(pool, spec, run)
     if quantization == "bf16":
         row_parallel_check(recs, gpu)
     got = [r["tasks"][0] for r in recs]
@@ -1883,7 +1925,7 @@ def row_parallel_check(recs, gpu):
               f"{t['launches']}")
 
 
-def mesh_phases(torch, np, gpu, launches, tmp, ckpt, base):
+def mesh_phases(torch, np, gpu, launches, tmp, ckpt, base, pool):
     """The mesh phases and their depth-cut references, adding the ranks'
     launches into ``launches``."""
     from vlm_tpu_torch.models.factory import create_model
@@ -1902,20 +1944,398 @@ def mesh_phases(torch, np, gpu, launches, tmp, ckpt, base):
     dt = time.perf_counter() - t1
     print(f"[mesh single] PaliGemma-3B bf16 on one GPU, the same "
           f"{len(paths)} images: {len(paths) / dt:.3f} img/s ({gpu})")
+    beam_spec, beam_ref = beam_mesh_reference(torch, np, tmp, model)
     del model
     torch.cuda.empty_cache()
     print(f"[time] mesh single {time.perf_counter() - t0:.1f} s")
     for quantization, mesh in MESH_PHASES:
         t0 = time.perf_counter()
-        mesh_phase(torch, gpu, quantization, mesh, ckpt, paths, single, tmp,
-                   launches)
+        beams = quantization == "bf16" and mesh["data"] == 2
+        recs = mesh_phase(pool, gpu, quantization, mesh, ckpt, paths,
+                          single, tmp, launches,
+                          more=beam_spec if beams else None)
+        if beams:
+            beam_mesh_check(recs, beam_ref, gpu, launches)
         print(f"[time] mesh {quantization} {mesh} "
               f"{time.perf_counter() - t0:.1f} s")
     for quantization in MESH_REFS:
         t0 = time.perf_counter()
-        mesh_reference_phase(torch, np, gpu, quantization, tmp)
+        mesh_reference_phase(torch, np, gpu, quantization, tmp, pool)
         print(f"[time] mesh reference {quantization} "
               f"{time.perf_counter() - t0:.1f} s")
+
+
+# the mesh beyond serving: the probing data's splits, the steps' batches,
+# the e2e run's trained blocks, the features' images, the bound the CPU
+# tests give fp32 under another order of sums; the beams' images, beams
+# and new tokens; the quantized towers' images
+PMESH_SPLITS = {"train": 48, "val": 16, "test": 16}
+PMESH_BATCH, PMESH_MULTI_BATCH = 16, 24
+PMESH_BLOCKS = 4
+PMESH_FEATURES = 64
+PMESH_TOL = 1e-3
+BEAM_MESH_IMAGES, BEAM_MESH_K, BEAM_MESH_NEW = 8, 4, 16
+TOWER_MESH_IMAGES, TOWER_CHUNKS = 16, [8, 1]
+SIGLIP_BLOCKS = 27
+PMESH_DATA, PMESH_MODEL = {"data": 2, "model": 1}, {"data": 1, "model": 2}
+
+
+def pmesh_data(np, tmp):
+    """The mesh phases' face dataset: 336 px JPEGs, every label on every
+    row (so the multi profile's 0.33 balancing adds no row), the train
+    split's class counts."""
+    from vlm_tpu_torch.data.dataset_factory import DatasetFactory
+    from vlm_tpu_torch.testing.synthetic import make_face_dataset
+    rng = np.random.default_rng(4)
+    base = tmp / "pmesh_datasets"
+    for split, n in PMESH_SPLITS.items():
+        rows = [{"gender": i % 2, "age": int(rng.integers(1, 90)),
+                 "emotion": i % 7} for i in range(n)]
+        make_face_dataset(base, "TestDataset", split, rows, size=(336, 336))
+    ds = DatasetFactory.create_dataset("TestDataset", split="train",
+                                       base_path=str(base))
+    counts = {t: {} for t in PROBE_TASKS}
+    for r in ds.labels_list():
+        for t in PROBE_TASKS:
+            c = str(int(r[t]))
+            counts[t][c] = counts[t].get(c, 0) + 1
+    (base / "TestDataset" / "train" / "class_counts.json").write_text(
+        json.dumps(counts))
+    return base
+
+
+def pmesh_cfgs(base):
+    """The trainers' configs (the shapes of ``build_cfg_from_profile``'s):
+    single e2e, multi (the profile's backbone block, augmentation and the
+    sampler) and LoRA (the shipped block); dropout 0.3 in every head."""
+    import copy
+
+    import yaml
+    raw = yaml.safe_load((ROOT / "configs" / "train_probe.yaml").read_text())
+    common = raw["common"]
+    single = copy.deepcopy(common)
+    single.pop("mesh")
+    single["data"].update(base_path=str(base), batch_size=PMESH_BATCH)
+    single["train"].update(epochs=1, patience=3)
+    single.update(task="gender", _cfg_path="chip_smoke")
+    e2e = copy.deepcopy(single)
+    e2e["model"]["backbone"] = dict(raw["multi"]["model"]["backbone"],
+                                    unfreeze_last_k=PMESH_BLOCKS)
+    multi = copy.deepcopy(single)
+    multi.pop("task")
+    multi.update(tasks=list(raw["multi"]["tasks"]))
+    multi["data"].update(raw["multi"]["data"], batch_size=PMESH_MULTI_BATCH)
+    multi["model"]["backbone"] = dict(raw["multi"]["model"]["backbone"])
+    multi["train"].update(raw["multi"]["train"])
+    lora = copy.deepcopy(single)
+    lora["data"]["batch_size"] = PMESH_MULTI_BATCH
+    lora["model"]["lora"]["enabled"] = True
+    return {"e2e": e2e, "multi": multi, "lora": lora}
+
+
+def pmesh_root(tmp, name):
+    import yaml
+    root = tmp / name
+    (root / "configs").mkdir(parents=True)
+    (root / "configs" / "task_datasets.yaml").write_text(yaml.safe_dump(
+        {s: {t: ["TestDataset"] for t in PROBE_TASKS}
+         for s in PMESH_SPLITS}))
+    return root
+
+
+def _task(rec, tid):
+    return next(t for t in rec["tasks"] if t["id"] == tid)
+
+
+def _rel(a, b):
+    """max |a - b| / max |b| of two numpy arrays."""
+    return float(abs(a - b).max() / max(float(abs(b).max()), 1e-30))
+
+
+def _coll_line(coll):
+    return ", ".join(f"{k} {v}" for k, v in sorted(coll.items()))
+
+
+def _peaks(recs, tid):
+    return ", ".join(f"rank {r['rank']} "
+                     f"{_task(r, tid)['peak_bytes'] / 2**30:.2f} GiB"
+                     for r in recs)
+
+
+def _probe_plan(blocks_diff, steps, val):
+    return {"flash_attention_diff_fp32": blocks_diff * steps,
+            "flash_attention_fp32": CLIP_BLOCKS * (steps + val),
+            "normalize_fp32": steps + val}
+
+
+def _check_rank_launches(tag, rec, res, want):
+    bad = {k: (res["launches"].get(k, 0), n) for k, n in want.items()
+           if res["launches"].get(k, 0) != n}
+    if bad or res["plain_calls"]:
+        raise RuntimeError(f"{tag} rank {rec['rank']}: launches (got, want) "
+                           f"{bad}, plain {res['plain_calls']}")
+
+
+def probe_mesh_references(torch, np, tmp, base, paths, ckpt, cfgs):
+    """The mesh phases' work on one GPU, in this process: the same
+    functions the ranks run (``mesh_probe``'s tasks with no mesh)."""
+    from vlm_tpu_torch.data.dataset_factory import DatasetFactory
+    from vlm_tpu_torch.testing import mesh_probe
+    root = pmesh_root(tmp, "pmesh_one")
+    out = tmp / "pmesh_one_out"
+    out.mkdir()
+    os.environ["VLM_TPU_ROOT"] = str(root)
+    DatasetFactory.load_task_map(force=True)
+    spec = {"mesh": None, "device": "cuda", "root": str(root)}
+    ref, t0 = {}, time.perf_counter()
+    ref["feat"] = mesh_probe.task_features(None, spec, out, "feat", "llava",
+                                           paths=paths,
+                                           batch_size=PMESH_BATCH)
+    ref["feat"]["features"] = np.load(out / "feat_dataset.npy")
+    torch.cuda.empty_cache()
+    for name, profile in (("e2e", "single"), ("multi", "multi"),
+                          ("lora", "single")):
+        ref[name] = mesh_probe.task_train(None, spec, out, name, profile,
+                                          cfgs[name], run=name)
+        torch.cuda.empty_cache()
+    test_cfg = {"data": {"base_path": str(base), "batch_size": PMESH_BATCH},
+                "eval": {"ckpt_from": ref["e2e"]["ckpt_dir"],
+                         "dataset_name": "auto"}}
+    mesh_probe.task_test(None, spec, out, "test", "single", test_cfg)
+    ref["metrics"] = json.loads((root / PMESH_EVAL / "metrics.json")
+                                .read_text())
+    torch.cuda.empty_cache()
+    for bits, quant in ((8, "8bit"), (4, "4bit")):
+        ref[f"int{bits}"] = mesh_probe.task_features(
+            None, spec, out, f"int{bits}", "paligemma", quantization=quant,
+            quantize_vision=True, model_id=str(ckpt),
+            images=str(tmp / "pmesh_u8.npy"), chunks=TOWER_CHUNKS)
+        ref[f"int{bits}"]["features"] = {
+            c: np.load(out / f"int{bits}_features_{c}.npy")
+            for c in TOWER_CHUNKS}
+        torch.cuda.empty_cache()
+    ref["seconds"] = time.perf_counter() - t0
+    return ref, test_cfg
+
+
+PMESH_EVAL = Path("probing/linear_probing/eval/llava_fp32_linear/gender/"
+                  "TestDataset")
+
+
+def beam_mesh_reference(torch, np, tmp, model):
+    """The beams' spec fields (8 random images, the serving prompt's ids
+    after them, BOS first, as PaliGemma's prompt; the ``beam`` task) and
+    their run on ``model``, PaliGemma-3B bf16 on one GPU."""
+    from vlm_tpu_torch.core.mesh import Mesh
+    from vlm_tpu_torch.testing import mesh_serve
+    post = model.tokenizer.encode(f"{GEN_PROMPTS['paligemma'][0]}\n",
+                                  add_bos=True)
+    rng = np.random.default_rng(6)
+    np.save(tmp / "beam_mesh_u8.npy", rng.integers(
+        0, 256, (BEAM_MESH_IMAGES, 224, 224, 3), dtype=np.uint8))
+    task = dict(n=BEAM_MESH_IMAGES, new=BEAM_MESH_NEW, k=BEAM_MESH_K)
+    spec = dict(images=str(tmp / "beam_mesh_u8.npy"),
+                post_ids=[int(t) for t in post], tasks=[["beam", task]])
+    inputs = mesh_serve._Inputs(spec, model.cfg, torch.device("cuda"),
+                                model.dtype, model.recipe)
+    ref = mesh_serve.task_beam(
+        model.module, model.cfg, Mesh(1, 1, device="cuda", groups=False),
+        inputs, dict(spec, pre_ids=[]), **task)
+    return spec, ref
+
+
+def beam_mesh_check(recs, want, gpu, launches):
+    """``[beam mesh data=2]``: the beam task of the bf16 ``data=2`` run
+    against its run on one GPU (tokens and lengths identical)."""
+    tag = "[beam mesh data=2]"
+    shared = "2 ranks on one GPU over gloo: a figure of the layout, not of " \
+        "scaling"
+
+    def beam(rec):
+        return next(t for t in rec["tasks"] if t["name"] == "beam")
+    for r in recs:
+        t = beam(r)
+        if t["tokens"] != want["tokens"] or t["lengths"] != want["lengths"] \
+                or t["plain_calls"]:
+            raise RuntimeError(f"{tag} rank {r['rank']}: tokens or lengths "
+                               f"differ from one GPU's, or plain "
+                               f"{t['plain_calls']}")
+        for name, n in t["launches"].items():
+            launches[name] += n
+    t = beam(recs[0])
+    scores = max(abs(a - b) / abs(b) for a, b in zip(t["scores"],
+                                                      want["scores"]))
+    print(f"{tag} PaliGemma-3B bf16 from the checkpoint, {BEAM_MESH_K} beams"
+          f" over {BEAM_MESH_IMAGES} images ({BEAM_MESH_IMAGES // 2} a rank),"
+          f" {BEAM_MESH_NEW} new tokens: tokens and lengths identical to one "
+          f"GPU's, scores within {scores:.3e} relative; "
+          f"{BEAM_MESH_IMAGES / t['wall_s']:.3f} img/s (one GPU "
+          f"{BEAM_MESH_IMAGES / want['wall_s']:.3f}; {shared}); "
+          f"{t['stats']}; peak of the run (the dataset's and the beams') "
+          f"{[round(r['peak_bytes'] / 2**30, 2) for r in recs]} GiB; rank "
+          f"0's collectives {_coll_line(t['collectives'])}; launches "
+          f"{t['launches']}, plain none; {t['seconds']:.1f} s on the loaded "
+          f"model ({gpu})")
+
+
+def probe_mesh_phases(torch, np, gpu, launches, tmp, ckpt, base, pool):
+    """The mesh beyond serving (see the docstring), each phase held against
+    its one-GPU reference; the ranks' launches added into ``launches``."""
+    t_all = time.perf_counter()
+    pbase = pmesh_data(np, tmp)
+    cfgs = pmesh_cfgs(pbase)
+    rng = np.random.default_rng(6)
+    np.save(tmp / "pmesh_u8.npy", rng.integers(
+        0, 256, (TOWER_MESH_IMAGES, 224, 224, 3), dtype=np.uint8))
+    paths = [str(p) for p in probe_jpegs(base)[:PMESH_FEATURES]]
+    ref, test_cfg = probe_mesh_references(torch, np, tmp, pbase, paths,
+                                          ckpt, cfgs)
+    print(f"[time] probe mesh references on one GPU {ref['seconds']:.1f} s")
+    u8 = str(tmp / "pmesh_u8.npy")
+    feat = ["features", dict(id="feat", family="llava", paths=paths,
+                             batch_size=PMESH_BATCH)]
+    train = {name: ["train", dict(id=name, profile=profile, cfg=cfgs[name],
+                                  run=name)]
+             for name, profile in (("e2e", "single"), ("multi", "multi"),
+                                   ("lora", "single"))}
+    towers = [["features", dict(id=f"int{bits}", family="paligemma",
+                                quantization=f"{bits}bit",
+                                quantize_vision=True, model_id=str(ckpt),
+                                images=u8, chunks=TOWER_CHUNKS)]
+              for bits in (8, 4)]
+    runs = {
+        "data": (PMESH_DATA, [feat, train["e2e"], train["multi"],
+                              ["test", dict(id="test", profile="single",
+                                            cfg=test_cfg)]]),
+        "model": (PMESH_MODEL, [feat, train["e2e"], train["lora"],
+                                *towers])}
+    recs = {}
+    for axis, (mesh, tasks) in runs.items():
+        root = pmesh_root(tmp, f"pmesh_{axis}")
+        t0 = time.perf_counter()
+        recs[axis] = mesh_launch(pool, dict(mesh=mesh, device="cuda",
+                                            root=str(root), tasks=tasks),
+                                 tmp / f"pmesh_{axis}_run",
+                                 worker="mesh_probe")
+        recs[axis + "_root"] = root
+        print(f"[time] probe mesh launch {axis}=2 "
+              f"{time.perf_counter() - t0:.1f} s")
+        for r in recs[axis]:
+            for t in r["tasks"]:
+                for name, n in t["launches"].items():
+                    launches[name] += n
+    val = -(-PMESH_SPLITS["val"] // PMESH_BATCH)
+    shared = "2 ranks on one GPU over gloo: a figure of the layout, not of " \
+        "scaling"
+    # ---- feature extraction ----
+    for axis in ("data", "model"):
+        tag = f"[probe mesh cache {axis}=2]"
+        rs = recs[axis]
+        got = np.load(tmp / f"pmesh_{axis}_run" / "out" / "feat_dataset.npy")
+        err = _rel(got, ref["feat"]["features"])
+        chunks = -(-PMESH_FEATURES // PMESH_BATCH)
+        for r in rs:
+            _check_rank_launches(tag, r, _task(r, "feat")["dataset"], {
+                "flash_attention_fp32": CLIP_BLOCKS * chunks,
+                "normalize_fp32": chunks})
+        d0 = _task(rs[0], "feat")["dataset"]
+        print(f"{tag} {PMESH_FEATURES} JPEGs through CLIP-L/336 fp32 at "
+              f"batch {PMESH_BATCH}: {d0['seconds']:.3f} s, "
+              f"{d0['img_per_s']:.2f} img/s (one GPU "
+              f"{ref['feat']['dataset']['img_per_s']:.2f}; {shared}); "
+              f"max |mesh - one GPU| / max = {err:.3e} (tol "
+              f"{PMESH_TOL:.0e}); peak {_peaks(rs, 'feat')}; rank 0's "
+              f"collectives {_coll_line(d0['collectives'])}; launches "
+              f"{d0['launches']}, plain none ({gpu})")
+        if err > PMESH_TOL or got.shape != ref["feat"]["features"].shape:
+            raise RuntimeError(f"{tag} features disagree with one GPU's")
+    # ---- training ----
+    for axis, name, tag in (("data", "e2e", "[probe mesh e2e data=2]"),
+                            ("model", "e2e", "[probe mesh e2e model=2]"),
+                            ("data", "multi", "[probe mesh multi data=2]"),
+                            ("model", "lora", "[probe mesh lora model=2]")):
+        rs = recs[axis]
+        one = [s["losses"] for s in ref[name]["steps"]]
+        for r in rs:
+            t = _task(r, name)
+            mine = [s["losses"] for s in t["steps"]]
+            worst = max(abs(m[k] - o[k]) / abs(o[k]) for m, o in
+                        zip(mine, one) for k in o)
+            steps = len(mine)
+            if steps != len(one) or worst > PMESH_TOL:
+                raise RuntimeError(f"{tag} rank {r['rank']}: losses {mine}, "
+                                   f"one GPU {one}")
+            diff = LORA_BLOCKS if name == "lora" else CLIP_BLOCKS
+            _check_rank_launches(tag, r, t, _probe_plan(diff, steps, val))
+            if t["recomputes"].get("flash_attention_diff_fp32") != \
+                    diff * steps:
+                raise RuntimeError(f"{tag} recomputes {t['recomputes']}")
+        if name == "lora" and len({_task(r, name)["digest_own"]
+                                   for r in rs}) != 1:
+            raise RuntimeError(f"{tag} the ranks' adapters differ")
+        if len({_task(r, name)["digest_heads"] for r in rs}) != 1:
+            raise RuntimeError(f"{tag} the ranks' heads differ")
+        t0 = _task(rs[0], name)
+        ms = [round(s["ms"], 1) for s in t0["steps"]]
+        one_ms = [round(s["ms"], 1) for s in ref[name]["steps"]]
+        print(f"{tag} {len(ms)} steps of "
+              f"{cfgs[name]['data']['batch_size']}: step ms {ms} (one GPU "
+              f"{one_ms}; {shared}); losses "
+              f"{[s['losses'] for s in t0['steps']]}, within {PMESH_TOL:.0e}"
+              f" of one GPU's; peak {_peaks(rs, name)}; rank 0's "
+              f"collectives {_coll_line(t0['collectives'])}; launches "
+              f"{t0['launches']} = plan, recomputes {t0['recomputes']}, "
+              f"plain none; {t0['seconds']:.1f} s with the build ({gpu})")
+    # ---- the tester ----
+    tag = "[probe mesh test data=2]"
+    got = json.loads((recs["data_root"] / PMESH_EVAL / "metrics.json")
+                     .read_text())
+    if got != ref["metrics"]:
+        raise RuntimeError(f"{tag} metrics {got} vs one GPU {ref['metrics']}")
+    t0 = _task(recs["data"][0], "test")
+    batches = -(-PMESH_SPLITS["test"] // PMESH_BATCH)
+    for r in recs["data"]:
+        _check_rank_launches(tag, r, _task(r, "test"), {
+            "flash_attention_fp32": CLIP_BLOCKS * batches,
+            "normalize_fp32": batches, "flash_attention_diff_fp32": 0})
+    print(f"{tag} the single tester on the one-GPU e2e checkpoint: metrics "
+          f"equal to one GPU's ({got.get('average_accuracy')}); "
+          f"{t0['seconds']:.1f} s with the build; peak "
+          f"{_peaks(recs['data'], 'test')}; rank 0's collectives "
+          f"{_coll_line(t0['collectives'])} ({gpu})")
+    # ---- the quantized towers ----
+    for bits in (8, 4):
+        tag = f"[mesh int{bits} tower model=2]"
+        rs = recs["model"]
+        for c in TOWER_CHUNKS:
+            got = np.load(tmp / "pmesh_model_run" / "out" /
+                          f"int{bits}_features_{c}.npy")
+            err = _rel(got, ref[f"int{bits}"]["features"][c])
+            if err > REF_TOL or not np.isfinite(got).all():
+                raise RuntimeError(f"{tag} batch {c}: {err:.3e} from one GPU")
+            chunks = -(-TOWER_MESH_IMAGES // c)
+            for r in rs:
+                res = _task(r, f"int{bits}")[f"chunk{c}"]
+                want = {"flash_attention": SIGLIP_BLOCKS * chunks,
+                        "normalize": chunks}
+                kernel = {8: "int8xint8_matmul" if c * 256 >= 512
+                          else "int8_matmul", 4: "int4_matmul"}[bits]
+                if bits == 8 or c * 256 < 512:
+                    want[kernel] = 6 * SIGLIP_BLOCKS * chunks
+                _check_rank_launches(f"{tag} batch {c}", r, res, want)
+            r0 = _task(rs[0], f"int{bits}")[f"chunk{c}"]
+            print(f"{tag} PaliGemma-3B's SigLIP int{bits} from the "
+                  f"checkpoint, fc2's inputs 2144 | 2160 over the ranks, "
+                  f"{TOWER_MESH_IMAGES} images at batch {c}: "
+                  f"{r0['seconds']:.3f} s, {r0['img_per_s']:.2f} img/s (one "
+                  f"GPU {ref[f'int{bits}'][f'chunk{c}']['img_per_s']:.2f}; "
+                  f"{shared}); max |mesh - one GPU| / max = {err:.3e} (tol "
+                  f"{REF_TOL:.0e}); launches {r0['launches']}, plain none; "
+                  f"rank 0's collectives {_coll_line(r0['collectives'])} "
+                  f"({gpu})")
+        print(f"{tag} peak {_peaks(rs, f'int{bits}')}; held bytes "
+              f"{[_task(r, f'int{bits}')['held_bytes'] for r in rs]}")
+    print(f"[time] probe mesh {time.perf_counter() - t_all:.1f} s")
 
 
 # the probing phases: LLaVA-1.5-7B's tower in fp32, the single and multi
@@ -2667,17 +3087,18 @@ def main() -> int:
 
     t_start = time.perf_counter()
     gpu = device_phase(torch)
-    t0 = time.perf_counter()
-    _lib.lib()
-    print(f"[build] kernels from vlm_tpu_torch/csrc: "
-          f"{time.perf_counter() - t0:.1f} s (nvcc "
-          f"{_lib.last_build['seconds']:.1f} s) ({gpu})")
-    t0 = time.perf_counter()
-    records = kernel_phase(gpu)
-    print(f"[time] kernels {time.perf_counter() - t0:.1f} s")
-    launches = dict.fromkeys(_lib.KERNELS, 0)
+    pool = start_mesh_pool()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     try:
+        t0 = time.perf_counter()
+        _lib.lib()
+        print(f"[build] kernels from vlm_tpu_torch/csrc: "
+              f"{time.perf_counter() - t0:.1f} s (nvcc "
+              f"{_lib.last_build['seconds']:.1f} s) ({gpu})")
+        t0 = time.perf_counter()
+        records = kernel_phase(gpu)
+        print(f"[time] kernels {time.perf_counter() - t0:.1f} s")
+        launches = dict.fromkeys(_lib.KERNELS, 0)
         pali = tmp / "paligemma"
         run_phases(torch, np, gpu, launches, tmp, pali)
         base = probe_data(np, tmp)
@@ -2685,14 +3106,17 @@ def main() -> int:
         generation_phases(torch, np, gpu, launches, tmp, pali, base)
         print(f"[time] generation {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        mesh_phases(torch, np, gpu, launches, tmp, pali, base)
+        mesh_phases(torch, np, gpu, launches, tmp, pali, base, pool)
         print(f"[time] mesh {time.perf_counter() - t0:.1f} s")
+        probe_mesh_phases(torch, np, gpu, launches, tmp, pali, base, pool)
+        close_mesh_pool(pool)
         shutil.rmtree(pali)
         t0 = time.perf_counter()
         sweep_phase(torch, gpu, tmp, base, launches)
         print(f"[time] sweep {time.perf_counter() - t0:.1f} s")
         probe_phases(torch, np, gpu, launches, tmp, base)
     finally:
+        close_mesh_pool(pool)
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[time] all phases {time.perf_counter() - t_start:.1f} s")
 

@@ -133,7 +133,9 @@ def test_port_imports_and_runs_without_jax(tmp_path):
             "vlm_tpu_torch.generate.readback",
             "vlm_tpu_torch.core.mesh", "vlm_tpu_torch.parallel.sharding",
             "vlm_tpu_torch.parallel.distributed",
-            "vlm_tpu_torch.testing.mesh_serve"} <= set(
+            "vlm_tpu_torch.testing.mesh_serve",
+            "vlm_tpu_torch.testing.mesh_probe",
+            "vlm_tpu_torch.testing.mesh_pool"} <= set(
                 res["modules"])
     for toks in (res["tokens"], res["tokens8"], res["tokens4"],
                  res["tokensl"], res["tokensb"]):
@@ -624,3 +626,37 @@ def test_mesh_worker_runs_without_jax(tmp_path):
     assert a["tokens"] == b["tokens"] and all(a["tokens"])
     assert sorted(a["images_served_here"] + b["images_served_here"]) == \
         list(range(6))
+
+
+PROBE_WORKER = BLOCKER + r"""
+import sys
+from vlm_tpu_torch.testing.mesh_probe import main
+sys.exit(main(sys.argv[1:]))
+"""
+
+
+def test_probing_mesh_worker_runs_without_jax(tmp_path):
+    """``testing/mesh_probe.py`` at ``data=2, model=1`` with random weights,
+    jax unimportable: the backbone's features of 3 images (padded to 4
+    over the data axis) written by rank 0, gathered on every rank."""
+    import numpy as np
+    np.save(tmp_path / "u8.npy", np.random.default_rng(0).integers(
+        0, 256, (3, 56, 56, 3), dtype=np.uint8))
+    root = tmp_path / "root"
+    (root / "configs").mkdir(parents=True)
+    (root / "configs" / "task_datasets.yaml").write_text("{}")
+    spec = dict(mesh={"data": 2, "model": 1}, device="cpu", root=str(root),
+                threads=1, tasks=[["features", dict(
+                    id="f", family="llava", size="test", chunks=[3],
+                    images=str(tmp_path / "u8.npy"), batch_size=2)]])
+    (tmp_path / "spec.json").write_text(json.dumps(spec))
+    proc = _torchrun(PROBE_WORKER, [str(tmp_path / "spec.json"),
+                                    str(tmp_path / "out")], tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    feats = np.load(tmp_path / "out" / "f_features_3.npy")
+    assert feats.shape == (3, 64) and np.isfinite(feats).all()
+    recs = [json.loads((tmp_path / "out" / f"rank{r}.json").read_text())
+            for r in range(2)]
+    assert {r["data_rank"] for r in recs} == {0, 1}
+    assert all(r["tasks"][0]["chunk3"]["collectives"]["all_gather_data"] == 1
+               for r in recs)

@@ -55,3 +55,13 @@ def test_work_and_bound(name, work, ops, nbytes, ms, kind):
         kc.PEAK_OPS_PER_S[work[2]]
     assert got_ms == pytest.approx(
         (nbytes if kind == "bytes" else ops) / rate * 1e3)
+
+
+@pytest.mark.parametrize("enqueue_s,cycles", [
+    (0.0, kc._SLEEP_MIN_CYCLES),           # a floor of ~1 ms
+    (20 * 10e-6, kc._SLEEP_MIN_CYCLES),    # 20 calls of 10 us: under it
+    (20 * 100e-6, 16_000_000),             # 2 ms of enqueue: 4 x 2 ms
+    (20 * 2e-3, kc._SLEEP_CYCLES),         # 40 ms: capped at ~30 ms
+])
+def test_sleep_covers_the_enqueue_with_its_margin(enqueue_s, cycles):
+    assert kc.sleep_cycles(enqueue_s) == cycles

@@ -72,8 +72,9 @@ def test_mesh_device_count_without_cuda(monkeypatch):
 def test_model_and_cli_refuse_a_larger_mesh(monkeypatch, tmp_path):
     """``VLMModel`` and the CLI read the block: on 8 devices without a
     process group a 2 x 1 mesh raises with the torchrun line, a typo'd key
-    is refused, a 1 x 1 mesh runs; the probing scripts refuse a mesh of
-    more than one device, naming A17b."""
+    is refused, a 1 x 1 mesh runs; the probing scripts take the block
+    (1 x 1: no group, no mesh) and refuse one whose process group is not
+    ``data x model`` ranks, naming their own torchrun line."""
     monkeypatch.setattr(t_mesh, "device_count", lambda: 8)
     with pytest.raises(ValueError, match="torchrun"):
         create_model("paligemma", size="test", device="cpu",
@@ -97,7 +98,73 @@ def test_model_and_cli_refuse_a_larger_mesh(monkeypatch, tmp_path):
     monkeypatch.setenv("VLM_TPU_PLATFORM", "cpu")
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 4"):
         main(["--config", str(cfg)])
-    for what in ("training a probe", "testing a probe"):
-        with pytest.raises(NotImplementedError, match="A17b"):
-            t_mesh.refuse_mesh({"model": 2}, what)
-        t_mesh.refuse_mesh({"data": 1, "model": 1}, what)
+    from vlm_tpu_torch.scripts import test_probe, train_probe
+    for script, cli in (("train_probe", train_probe),
+                        ("test_probe", test_probe)):
+        assert t_mesh.mesh_from_config({"data": 1, "model": 1},
+                                       script=script) is None
+        for ranks in (None, 8):
+            monkeypatch.setattr(t_mesh, "world_size", lambda: ranks)
+            with pytest.raises(ValueError, match=(
+                    f"torchrun --nproc_per_node 4 -m "
+                    f"vlm_tpu_torch.scripts.{script}")):
+                t_mesh.mesh_from_config({"data": 2, "model": 2},
+                                        script=script)
+        # the CLI reads the block before it builds anything
+        probe = tmp_path / f"{script}.yaml"
+        probe.write_text(yaml.safe_dump({
+            "profile": "single",
+            "common": {"model": {"name": "llava", "size": "test"},
+                       "data": {"base_path": str(tmp_path)},
+                       "mesh": {"data": 2, "model": 2},
+                       "eval": {"ckpt_from": str(tmp_path)}},
+            "single": {"task": "gender"}}))
+        with pytest.raises(ValueError, match=f"scripts.{script}"):
+            cli.main(["--config", str(probe)])
+
+
+def test_an_explicit_group_maps_to_torchrun_variables(monkeypatch):
+    """``initialize_distributed``'s ``coordinator_address``,
+    ``num_processes`` and ``process_id`` (``vlm_tpu``'s
+    ``initialize_multihost``) become torchrun's variables; a malformed
+    address, or a group of several processes without a rank or an
+    address, raises."""
+    import os
+
+    from vlm_tpu_torch.parallel import distributed
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK",
+              "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        # recorded, so that the teardown takes back what the call sets
+        monkeypatch.setenv(k, "")
+        monkeypatch.delenv(k)
+    distributed._explicit_env("127.0.0.1:29555", 4, 3)
+    assert (os.environ["MASTER_ADDR"], os.environ["MASTER_PORT"],
+            os.environ["WORLD_SIZE"], os.environ["RANK"]) == \
+        ("127.0.0.1", "29555", "4", "3")
+    with pytest.raises(ValueError, match="host:port"):
+        distributed._explicit_env("nohost", None, None)
+    monkeypatch.delenv("RANK")
+    with pytest.raises(ValueError, match="RANK"):
+        distributed._explicit_env(None, 2, None)
+
+
+def test_an_explicit_group_that_cannot_form_raises():
+    """Rank 0 of a two-process group whose rank 1 never comes (rank 0
+    hosts the group's store on a free local port, so the test touches no
+    other process's port): the call raises once the group's timeout
+    passes; it never carries on as one process."""
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    code = ("from vlm_tpu_torch.parallel.distributed import "
+            "initialize_distributed as init\n"
+            f"print(init(device='cpu', coordinator_address='127.0.0.1:{port}',"
+            " num_processes=2, process_id=0))")
+    env = {"PYTHONPATH": str(__import__("pathlib").Path(__file__).parents[1]),
+           "PATH": "/usr/bin:/bin", "VLM_TPU_DIST_TIMEOUT": "3"}
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "None" not in proc.stdout, proc.stdout

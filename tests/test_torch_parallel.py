@@ -16,6 +16,7 @@ Where the layouts differ, by the port's contract:
   its scale): its slices put back together dequantize to the full weight.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -31,6 +32,7 @@ from vlm_tpu.models.vlm import init_vlm
 from vlm_tpu.parallel.sharding import param_specs as jax_param_specs
 from vlm_tpu_torch.core.mesh import Mesh
 from vlm_tpu_torch.models.configs import VLM_CONFIGS
+from vlm_tpu_torch.models.vit import ViTEncoder
 from vlm_tpu_torch.models.vlm import VLMModule, param_bytes
 from vlm_tpu_torch.ops.quant import QuantizedWeight, dequantize
 from vlm_tpu_torch.parallel.sharding import param_specs, shard_state_dict
@@ -173,20 +175,64 @@ def test_full_size_shards_and_their_bytes(family, size):
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantized_siglip_tower_split_off_16_is_refused(bits):
-    """SigLIP's MLP width 4304 over model=2 leaves 2152 inputs a rank: not
-    a multiple of 16 (B5's and B6's K), and for int4 (groups of 16) groups
-    of 8, below B7's 16: the layout is refused at build, naming A17b.
-    EVA's and CLIP's towers split into whole groups of 16 or more."""
-    with pytest.raises(ValueError, match="A17b"):
-        VLMModule(VLM_CONFIGS["paligemma"]("3b"), dtype=torch.bfloat16,
-                  device="meta", quant_bits=bits, vision_quant_bits=bits,
-                  mesh=Mesh(1, 2, groups=False))
+    """Once refused, now built: SigLIP's MLP width 4304 over model=2 would
+    leave 2152 inputs a rank, not a multiple of 16 (B5's and B6's K) and,
+    for int4 (groups of 16), groups of 8. The port splits it at a multiple
+    of 16 (int4: of max(16, group)): fc2 takes 2144 inputs on rank 0 and
+    2160 on rank 1, fc1 the same output columns, the int4 groups whole.
+    PaliGemma-3B builds on ``meta`` at full size on both ranks; the ranks'
+    parts make the whole layer, and ``param_bytes`` counts rank 0's. EVA's
+    and CLIP's towers still split evenly into whole groups of 16 or
+    more."""
+    cfg = VLM_CONFIGS["paligemma"]("3b")
+    parts = []
+    for rank in (0, 1):
+        m = VLMModule(cfg, dtype=torch.bfloat16, device="meta",
+                      quant_bits=bits, vision_quant_bits=bits,
+                      mesh=Mesh(1, 2, model_rank=rank, groups=False))
+        fc1, fc2 = m.vision.blocks[0].fc1, m.vision.blocks[0].fc2
+        k = (2144, 2160)[rank]
+        assert (fc2.split, fc2.in_dim, fc2.comm.k_lo) == \
+            ("row", k, (0, 2144)[rank])
+        assert (fc1.split, fc1.out_dim) == ("col", k)
+        assert fc2.q.shape == (1152, k if bits == 8 else k // 2)
+        assert fc1.q.shape[0] == fc1.scale.shape[0] == fc1.bias.shape[0] == k
+        if bits == 4:
+            assert fc2.group_size == fc2.full_group == 16
+            assert fc2.scale.shape == (1152, k // 16)
+        else:
+            assert fc2.scale.shape == (1152,)
+        parts.append(sum(t.numel() * t.element_size()
+                         for t in (*m.parameters(), *m.buffers())))
+    whole = param_bytes(cfg, dtype=torch.bfloat16, quant_bits=bits,
+                        vision_quant_bits=bits)
+    assert parts[0] == param_bytes(cfg, dtype=torch.bfloat16, model_ways=2,
+                                   quant_bits=bits, vision_quant_bits=bits)
+    assert whole / 2 < parts[0] < whole and parts[0] < parts[1]
+    # the ranks' parts of one full fc2 put back together
+    one = dataclasses.replace(cfg.vision, layers=1)
+    full = ViTEncoder(one, dtype=torch.bfloat16, device="cpu",
+                      quant_bits=bits).blocks[0]
+    full.fc2.q.random_(-100, 100)
+    full.fc2.scale.uniform_(0.5, 1.5)
+    for leaf, dim in (("q", 1), ("scale", 1 if bits == 4 else None)):
+        cuts = []
+        for rank in (0, 1):
+            m = ViTEncoder(one, dtype=torch.bfloat16, device="meta",
+                           quant_bits=bits,
+                           mesh=Mesh(1, 2, model_rank=rank, groups=False))
+            cuts.append(m.blocks[0].fc2.shard_full(
+                leaf, getattr(full.fc2, leaf)))
+        t = getattr(full.fc2, leaf)
+        assert torch.equal(torch.cat(cuts, dim) if dim is not None
+                           else cuts[0], t), leaf
     for family, size in (("blip2", "6.7b"), ("llava", "7b")):
         m = VLMModule(VLM_CONFIGS[family](size), dtype=torch.bfloat16,
                       device="meta", quant_bits=bits, vision_quant_bits=bits,
                       mesh=Mesh(1, 2, groups=False))
         fc2 = m.vision.blocks[0].fc2
         assert fc2.split == "row" and fc2.in_dim % 16 == 0
+        assert fc2.in_dim * 2 == fc2.full_in
         assert bits == 8 or fc2.in_dim % fc2.group_size == 0 and \
             fc2.group_size >= 16
 

@@ -1,4 +1,4 @@
-"""Shared by the mesh serving tests (``tests/test_torch_mesh_*.py``):
+"""Shared by the mesh tests (``tests/test_torch_mesh_*.py``):
 ``vlm_tpu``'s references on one device and on its ``{data: 2, model: 2}``
 mesh (8 virtual CPU devices, ``tests/conftest.py``), and the port's ranks
 launched under ``torchrun`` on gloo.
@@ -44,9 +44,12 @@ class Case:
     """One family and weight mode: vlm_tpu's model and the port's full
     state on the same weights, the inputs, and vlm_tpu's results."""
 
-    def __init__(self, family, bits=0, cache="fp32", n_post=3, seed=0):
+    def __init__(self, family, bits=0, cache="fp32", n_post=3, seed=0,
+                 vision=None, n_images=16):
         self.family, self.bits = family, bits
-        self.jcfg = JAX_CONFIGS[family]("test")
+        #: fields of the tower's config replaced in both packages
+        self.vision = dict(vision or {})
+        self.jcfg = _with_vision(JAX_CONFIGS[family]("test"), self.vision)
         self.jmod, params = init_vlm(self.jcfg, jax.random.key(seed),
                                      dtype=jnp.float32, quant_bits=bits,
                                      vision_quant_bits=bits)
@@ -55,11 +58,12 @@ class Case:
             tree = _affine_from_seed(tree)
         self.tree = tree
         self.params = jax.tree.map(jnp.asarray, tree)
-        self.cfg = VLM_CONFIGS[family]("test")
+        self.cfg = _with_vision(VLM_CONFIGS[family]("test"), self.vision)
         self.cache = cache
         s = self.cfg.vision.image_size
         rng = np.random.default_rng(seed + 1)
-        self.pixels = rng.normal(size=(16, s, s, 3)).astype(np.float32)
+        self.pixels = rng.normal(size=(n_images, s, s, 3)).astype(
+            np.float32)
         self.pre = [self.cfg.decoder.bos_token_id, 5, 6] \
             if family == "llava" else []
         self.post = [int(t) for t in rng.integers(3, 500, n_post)]
@@ -84,7 +88,8 @@ class Case:
                     kv_cache="int8" if self.cache == "int8" else None,
                     device="cpu", state=str(tmp / "state.pt"),
                     pixels=str(tmp / "pixels.npy"), pre_ids=self.pre,
-                    post_ids=self.post, pad_id=self.pad, threads=1)
+                    post_ids=self.post, pad_id=self.pad, threads=1,
+                    vision=self.vision)
 
     # ---------------- vlm_tpu ----------------
     def _jcache(self):
@@ -188,24 +193,42 @@ class Case:
         return out, {k: b.last_stats[k] for k in ("admits", "chunks")}
 
 
+def _with_vision(cfg, fields):
+    import dataclasses
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, **fields)) if fields \
+        else cfg
+
+
 def jax_mesh_2x2():
     return make_mesh(data=2, model=2, devices=jax.devices()[:4])
 
 
-def launch(spec: dict, tmp: Path, mesh: dict, name: str = "run"):
-    """The port's ranks of ``mesh`` under torchrun on gloo (CPU): their
-    records, by rank."""
+def launch(spec: dict, tmp: Path, mesh: dict, name: str = "run",
+           worker: str = "mesh_serve"):
+    """The port's ranks of ``mesh`` under torchrun on gloo (CPU), running
+    ``vlm_tpu_torch.testing.<worker>``: their records, by rank."""
     n = mesh["data"] * mesh["model"]
     run = tmp / name
     run.mkdir(parents=True, exist_ok=True)
     (run / "spec.json").write_text(json.dumps(dict(spec, mesh=mesh)))
+    torchrun(n, f"vlm_tpu_torch.testing.{worker}",
+             [str(run / "spec.json"), str(run / "out")])
+    return [json.loads((run / "out" / f"rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def torchrun(n: int, module: str, args, **env) -> str:
+    """``python -m <module> <args>`` in ``n`` ranks under torchrun on gloo
+    (CPU), with ``env`` added; its output. A rank that fails or hangs
+    fails the caller: the group's collectives time out after 60 s, the
+    run after 180 s, and then every child is killed."""
     env = dict(os.environ, VLM_TPU_DIST_TIMEOUT="60", OMP_NUM_THREADS="1",
-               PYTHONPATH=str(REPO))
+               PYTHONPATH=str(REPO), **env)
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", str(n), "-m", "vlm_tpu_torch.testing.mesh_serve",
-         str(run / "spec.json"), str(run / "out")],
+         "--nproc_per_node", str(n), "-m", module, *args],
         cwd=str(REPO), env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True, start_new_session=True)
     try:
@@ -217,9 +240,11 @@ def launch(spec: dict, tmp: Path, mesh: dict, name: str = "run"):
     finally:
         if proc.poll() is None:
             os.killpg(proc.pid, signal.SIGKILL)
-    assert proc.returncode == 0, log[-4000:]
-    return [json.loads((run / "out" / f"rank{r}.json").read_text())
-            for r in range(n)]
+    # the first rank's error, then the end of the log
+    first = log.find("Traceback")
+    assert proc.returncode == 0, \
+        (log[first:first + 6000] if first >= 0 else "") + log[-4000:]
+    return log
 
 
 def task(record, name):
@@ -281,3 +306,19 @@ def check_ranks(recs, mesh):
         for t in rec["tasks"]:
             assert not t["launches"] and t["plain_calls"]
         assert rec["backend"] == "gloo" and rec["device"] == "cpu"
+
+
+def assert_history_equal(got: str, want: str) -> None:
+    """Two ``history.csv`` texts equal to their 6 printed decimals: the
+    same rows and columns, each value within one unit of the 6th decimal
+    (two runs whose sums round in another order may print either side of
+    a rounding boundary)."""
+    g, w = got.strip().splitlines(), want.strip().splitlines()
+    assert g[0] == w[0] and len(g) == len(w), (got, want)
+    for a, b in zip(g[1:], w[1:]):
+        fa, fb = a.split(","), b.split(",")
+        assert fa[0] == fb[0] and len(fa) == len(fb), (a, b)
+        for x, y in zip(fa[1:], fb[1:]):
+            assert (x == "") == (y == ""), (a, b)
+            if x:
+                assert abs(float(x) - float(y)) <= 1.01e-6, (a, b)

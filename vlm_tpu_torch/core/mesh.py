@@ -9,6 +9,11 @@ weights and meet in an all-reduce after each row-parallel product. The
 ``data`` axis splits the rows (decode slots, a wave's images) over the
 data groups.
 
+Under autograd (training a probe's tower) the collectives are
+differentiable (:meth:`Mesh.sum`, :meth:`Mesh.copy_to`,
+:meth:`Mesh.reduce_from`, :meth:`Mesh.gather`); without it the in-place
+:meth:`Mesh.all_reduce` and :meth:`Mesh.all_gather` serve.
+
 :func:`mesh_from_config` reads the config surface's ``mesh: {data,
 model}`` block. It refuses what ``vlm_tpu``'s refuses, with the devices
 counted as the process group's ranks (``torch.cuda.device_count()``
@@ -20,7 +25,6 @@ may cover some of the devices, the port needs a process group of exactly
 
 from __future__ import annotations
 
-import math
 import os
 from collections import Counter
 from typing import Optional
@@ -130,19 +134,63 @@ class Mesh:
                         else dist.ReduceOp.SUM, group=self._groups[axis])
         return t
 
-    def all_gather(self, t: torch.Tensor, axis: str,
-                   dim: int = 0) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, axis: str, dim: int = 0,
+                   sizes=None) -> torch.Tensor:
         """The ranks' ``t`` along ``axis``, concatenated on ``dim`` in rank
-        order."""
+        order. ``sizes``: each rank's length on ``dim`` where they differ
+        (an uneven split): the parts travel padded to the longest."""
         import torch.distributed as dist
         n = self.ways(axis)
         if n == 1:
             return t
+        if sizes is not None:
+            pad = max(sizes) - t.shape[dim]
+            if pad:
+                shape = list(t.shape)
+                shape[dim] = pad
+                t = torch.cat([t, t.new_zeros(shape)], dim)
         t = t.contiguous()
         self._count("all_gather", axis, t)
         parts = [torch.empty_like(t) for _ in range(n)]
         dist.all_gather(parts, t, group=self._groups[axis])
+        if sizes is not None:
+            parts = [p.narrow(dim, 0, k) for p, k in zip(parts, sizes)]
         return torch.cat(parts, dim=dim)
+
+    # ---- differentiable collectives (autograd), one node each ----
+    def sum(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """``t`` summed over ``axis`` (a new tensor); its backward sums
+        the gradient over the same axis: the data axis's batch statistics
+        and loss sums, each rank's gradient standing for its own rows."""
+        return t if self.ways(axis) == 1 else _Sum.apply(t, self, axis)
+
+    def copy_to(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Megatron's copy into a column-parallel layer: the identity, its
+        backward an all-reduce over ``axis`` (each rank's input gradient
+        covers only its columns)."""
+        return t if self.ways(axis) == 1 else _CopyTo.apply(t, self, axis)
+
+    def reduce_from(self, t: torch.Tensor, axis: str) -> torch.Tensor:
+        """Megatron's reduction after a row-parallel layer: an all-reduce
+        (a new tensor), its backward the identity."""
+        return t if self.ways(axis) == 1 else \
+            _ReduceFrom.apply(t, self, axis)
+
+    def gather(self, t: torch.Tensor, axis: str,
+               dim: int = 0) -> torch.Tensor:
+        """:meth:`all_gather` whose backward takes this rank's slice of the
+        gradient."""
+        return t if self.ways(axis) == 1 else \
+            _Gather.apply(t, self, axis, dim)
+
+    def axis_rank(self, axis: str) -> int:
+        return self.data_rank if axis == DATA_AXIS else self.model_rank
+
+    def barrier(self) -> None:
+        """Every rank of the mesh meets here (over gloo, on the host)."""
+        import torch.distributed as dist
+        self.counts["barrier"] += 1
+        dist.barrier(group=self._host)
 
     def any(self, flag: bool) -> bool:
         """Whether ``flag`` holds on any rank, for host decisions every
@@ -160,15 +208,69 @@ class Mesh:
                 f"{self.backend or 'no groups'})")
 
 
-def torchrun_line(n: int) -> str:
-    return (f"torchrun --nproc_per_node {n} -m "
-            f"vlm_tpu_torch.scripts.prompt_inference --config <yaml>")
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_reduce(t.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), ctx.axis), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce(g.clone(), ctx.axis), None, None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return mesh.all_reduce(t.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.rank, ctx.size, ctx.dim = mesh.axis_rank(axis), t.shape[dim], dim
+        return mesh.all_gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None, \
+            None
+
+
+#: the module each entry point runs as under ``torchrun``
+SCRIPTS = {"prompt_inference": "vlm_tpu_torch.scripts.prompt_inference",
+           "train_probe": "vlm_tpu_torch.scripts.train_probe",
+           "test_probe": "vlm_tpu_torch.scripts.test_probe"}
+
+
+def torchrun_line(n: int, script: str = "prompt_inference") -> str:
+    return (f"torchrun --nproc_per_node {n} -m {SCRIPTS[script]} "
+            f"--config <yaml>")
+
+
+_MESHES: dict = {}
 
 
 def make_mesh(data: int, model: int, device=None) -> Mesh:
     """The mesh over the process group, which must hold ``data x model``
     ranks (:func:`~vlm_tpu_torch.parallel.distributed.initialize_distributed`
-    forms it and picks this rank's device)."""
+    forms it and picks this rank's device). A process forms each shape's
+    groups once: asking again returns the same :class:`Mesh`."""
     from ..parallel.distributed import initialize_distributed
     info = initialize_distributed(device=device)
     n = world_size()
@@ -178,7 +280,10 @@ def make_mesh(data: int, model: int, device=None) -> Mesh:
             f" ranks (have {n or 'none'}): launch one process a rank with "
             f"`{torchrun_line(data * model)}`")
     backend, dev = info
-    return Mesh(data, model, device=dev, backend=backend)
+    if (data, model) not in _MESHES:
+        _MESHES[(data, model)] = Mesh(data, model, device=dev,
+                                      backend=backend)
+    return _MESHES[(data, model)]
 
 
 def _resolve(spec):
@@ -210,7 +315,8 @@ def _resolve(spec):
     return data, model
 
 
-def mesh_from_config(spec, device=None) -> Optional[Mesh]:
+def mesh_from_config(spec, device=None,
+                     script: str = "prompt_inference") -> Optional[Mesh]:
     """``None`` for no block or one that resolves to 1 x 1; else the
     :class:`Mesh` over the process group.
 
@@ -221,8 +327,9 @@ def mesh_from_config(spec, device=None) -> Optional[Mesh]:
     ``model < 1``, ``data < 1`` other than -1, ``data x model`` beyond the
     devices, or a mesh of more than one device without a process group of
     exactly ``data x model`` ranks (the message gives the ``torchrun``
-    line). Under ``torchrun`` (``WORLD_SIZE`` set) the process group is
-    formed here if no one has formed it, on ``device`` when given."""
+    line of ``script``, a key of :data:`SCRIPTS`). Under ``torchrun``
+    (``WORLD_SIZE`` set) the process group is formed here if no one has
+    formed it, on ``device`` when given."""
     if isinstance(spec, Mesh):
         return spec if spec.size > 1 else None
     if spec is not None and world_size() is None and \
@@ -239,17 +346,5 @@ def mesh_from_config(spec, device=None) -> Optional[Mesh]:
             f"a {data}x{model} mesh needs a process group of exactly "
             f"{data * model} ranks (have {ws or 'none'}; the port does not "
             f"run a mesh over some of the ranks): launch one process a rank "
-            f"with `{torchrun_line(data * model)}`")
+            f"with `{torchrun_line(data * model, script)}`")
     return make_mesh(data, model, device=device)
-
-
-def refuse_mesh(spec, what: str) -> None:
-    """For the paths not ported under a mesh (probing): check the block
-    as :func:`mesh_from_config` does, without forming a group, and raise
-    ``NotImplementedError`` naming ROADMAP A17b for more than one
-    device."""
-    shape = spec.shape.values() if isinstance(spec, Mesh) else _resolve(spec)
-    if shape is not None and math.prod(shape) > 1:
-        raise NotImplementedError(
-            f"{what} under a mesh of more than one device is not ported "
-            f"(ROADMAP A17b); serving runs under one")

@@ -26,6 +26,16 @@ moves just those: from the shortest prompt's end to the longest's plus the
 steps run. That is bitwise the cache a gather of whole rows gives
 (``vlm_tpu``'s ``_gather_cache``, which moves every row of the cache each
 step).
+
+Under a mesh whose data axis splits the images, each data rank runs the K
+beams of its own images (its pixels; its rows of the prompt ids), with
+its own scorer, cache and gather: nothing of one image's search depends on
+another's. Each step's "still running" flag is the MAX over the data
+ranks, so every rank runs the steps one device runs (a done image's beams
+stay frozen) and meets its peers in any collective a step holds
+(llm.int8's column maxima over every rank's rows); the flags are read in
+lockstep as the wave engine's. The best tokens, lengths and scores are
+all-gathered over the data axis at the end.
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from ..core.mesh import DATA_AXIS
 from ..models.decoder import QuantizedKV
 from .decode import Engine
 
@@ -118,13 +129,16 @@ class BeamSearchEngine(Engine):
                          max_new_tokens=max_new_tokens,
                          cache_dtype=cache_dtype, eos_id=eos_id,
                          pad_id=pad_id)
-        if self.mesh is not None and self.mesh.data > 1:
-            raise NotImplementedError(
-                "beam search under a data-parallel mesh (a beam's rows on "
-                "one data rank) is not ported (ROADMAP A17b); a mesh of "
-                "data=1 runs beams under tensor parallelism")
         self.num_beams = num_beams
         self.length_penalty = length_penalty
+
+    def push_flag(self, done: torch.Tensor) -> None:
+        """Push whether an image of any data rank is still running."""
+        go = ~done.all()
+        if self.mesh is not None and self.mesh.data > 1:
+            go = self.mesh.all_reduce(go.reshape(1).int(), DATA_AXIS,
+                                      "max")[0].bool()
+        self.flags.push(go)
 
     def _norm(self, length: int) -> float:
         """``length ** length_penalty`` in fp32, as ``vlm_tpu`` forms it."""
@@ -133,7 +147,11 @@ class BeamSearchEngine(Engine):
 
     def start(self, pixels, pre_ids, post_ids, prompt_len) -> _BeamState:
         """The prefill, its rows repeated to every beam, and the first
-        token chosen from the prefill's logits."""
+        token chosen from the prefill's logits. Under a mesh ``pixels``
+        are this data rank's images and the other arguments every
+        image's."""
+        r = self.rows(prompt_len.shape[0])
+        pre_ids, post_ids, prompt_len = pre_ids[r], post_ids[r], prompt_len[r]
         b, k, dev = pixels.shape[0], self.num_beams, prompt_len.device
         lengths = prompt_len.cpu()              # read before the prefill
         cache = self.new_cache(b)
@@ -264,6 +282,11 @@ class BeamSearchEngine(Engine):
                  post_ids: torch.Tensor, prompt_len: torch.Tensor
                  ) -> BeamResult:
         """Arguments as :meth:`GenerationEngine.generate`'s; ``B`` images
-        run ``B * num_beams`` rows."""
-        return self.finish(self._run(lambda: self.start(
+        run ``B * num_beams`` rows (under a mesh, each data rank its
+        images'; every rank returns every image's result)."""
+        res = self.finish(self._run(lambda: self.start(
             pixels, pre_ids, post_ids, prompt_len)))
+        if self.mesh is None or self.mesh.data == 1:
+            return res
+        return BeamResult(*(self.mesh.all_gather(t, DATA_AXIS, 0) for t in
+                            (res.tokens, res.lengths, res.scores)))

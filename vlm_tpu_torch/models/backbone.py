@@ -8,6 +8,14 @@ tower's parameters, selected by ``vlm_tpu``'s key sets matched against the
 port's names (``blocks.<i>.attn.q_proj.weight``, ``patch_embed.weight``,
 ...); the tower is built all frozen, as every model of the port.
 ``get_lora_target_names`` selects LoRA's layers by the same key sets.
+
+Under a mesh (``mesh=``, the model's) the tower holds its tensor-parallel
+shard and a batch splits over the data axis: :meth:`forward` and
+:meth:`extract_features_dataset` pad it to a multiple of ``data`` with
+its last image, run this data rank's rows (each rank decodes only its
+files) and all-gather the pooled features, so every rank returns the
+whole ``[B, D]``; :meth:`features` runs the rows it is given (a trainer's
+rank rows).
 """
 
 from __future__ import annotations
@@ -19,8 +27,11 @@ from typing import Dict, List, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.mesh import DATA_AXIS, pad_to_multiple
 from ..data.native_loader import load_batch
 from ..ops.preprocess import PreprocessRecipe, host_batch, normalize_images
+from ..parallel.distributed import process_local_slice
+from ..parallel.sharding import shard_batch
 from .configs import VLMConfig
 from .vit import ViTEncoder
 
@@ -31,14 +42,32 @@ _NORM_KEYS = ("ln1", "ln2")
 _BLOCK = re.compile(r"^blocks\.(\d+)\.")
 
 
+def pad_rows(images, b: int):
+    """``images`` (a list, an array or a tensor) padded to ``b`` rows with
+    its last one."""
+    n = len(images)
+    if n == b:
+        return images
+    if isinstance(images, (list, tuple)):
+        return list(images) + [images[-1]] * (b - n)
+    if torch.is_tensor(images):
+        return torch.cat([images, images[-1:].expand(b - n,
+                                                     *images.shape[1:])])
+    return np.concatenate([images, np.repeat(images[-1:], b - n, axis=0)])
+
+
 class VisionBackbone:
     """Feature extractor over a :class:`ViTEncoder` with the reference's
     pooling (``cfg.backbone_pooling``: mean, cls or pooler)."""
 
     def __init__(self, cfg: VLMConfig, module: ViTEncoder,
                  dtype: torch.dtype, recipe: PreprocessRecipe,
-                 batch_size: int = 64, quant_bits: int = 0):
+                 batch_size: int = 64, quant_bits: int = 0, mesh=None):
         self.cfg = cfg
+        #: the parent model's ``(data, model)`` mesh, or None
+        self.mesh = mesh
+        if mesh is not None:
+            batch_size = pad_to_multiple(batch_size, mesh.data)
         self.vit_cfg = cfg.vision
         self.output_dim = cfg.backbone_dim
         self.recipe = recipe if recipe.image_size == cfg.vision.image_size \
@@ -79,8 +108,21 @@ class VisionBackbone:
 
     def forward(self, images, strategy: Optional[str] = None) -> torch.Tensor:
         """images: PIL images, a uint8 ``[B, S, S, 3]`` array or tensor, or
-        normalised pixels. ``strategy`` overrides the pooling."""
-        return self.features(self.to_pixels(images), strategy)
+        normalised pixels. ``strategy`` overrides the pooling. Under a mesh
+        every rank passes the whole batch and gets every row's features."""
+        if self.mesh is None or self.mesh.data == 1:
+            return self.features(self.to_pixels(images), strategy)
+        n = len(images)
+        b = pad_to_multiple(n, self.mesh.data)
+        mine = shard_batch(pad_rows(images, b), self.mesh)
+        return self.gather_rows(self.features(self.to_pixels(mine),
+                                              strategy))[:n]
+
+    def gather_rows(self, feats: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of ``feats``, in rank order."""
+        if self.mesh is None or self.mesh.data == 1:
+            return feats
+        return self.mesh.gather(feats, DATA_AXIS, 0)
 
     __call__ = forward
 
@@ -103,19 +145,27 @@ class VisionBackbone:
         feature cache's hot loop). Files are decoded and resized on a
         background thread one batch ahead; the tail is padded to the batch
         size with its last image; features stay on the device until the
-        end, so the loop never waits for a copy."""
+        end, so the loop never waits for a copy. Under a mesh the batch
+        size is a multiple of ``data``, each rank decodes its rows of a
+        batch and the features are all-gathered."""
         from ..data.pipeline import prefetch_batches
 
         bs = batch_size or self.batch_size
+        if self.mesh is not None:
+            bs = pad_to_multiple(bs, self.mesh.data)
+        start, per = process_local_slice(bs, self.mesh)
         paths = list(image_paths)
         chunks = [paths[i:i + bs] for i in range(0, len(paths), bs)]
 
         def make_batch(chunk):
-            arr = load_batch(chunk, self.recipe)
+            # this rank's rows of the chunk padded with its last image: only
+            # the files among them are decoded
             n = len(chunk)
-            if n < bs:
+            real = chunk[start:min(start + per, n)]
+            arr = load_batch(real or chunk[-1:], self.recipe)
+            if len(arr) < per:
                 arr = np.concatenate(
-                    [arr, np.repeat(arr[-1:], bs - n, axis=0)], axis=0)
+                    [arr, np.repeat(arr[-1:], per - len(arr), axis=0)])
             return torch.from_numpy(arr), n
 
         it = prefetch_batches(chunks, make_batch, depth=2)
@@ -129,7 +179,8 @@ class VisionBackbone:
         out = []
         with torch.inference_mode():
             for arr, n in it:
-                out.append(self.forward(arr)[:n])
+                out.append(self.gather_rows(
+                    self.features(self.to_pixels(arr)))[:n])
             if not out:
                 return np.zeros((0, self.output_dim), np.float32)
             return torch.cat(out).float().cpu().numpy()

@@ -379,17 +379,14 @@ class VLMModel:
     def get_vision_backbone(self, cleanup: bool = True) -> VisionBackbone:
         """The vision tower for probing, frozen. ``cleanup=True`` drops the
         projector and decoder and returns their device memory to the card
-        (LLaVA-7B's fp32 decoder holds ~27 GB). Not under a mesh: probing
-        with a sharded tower is ROADMAP A17b."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "probing under a mesh (the sharded tower's extraction and "
-                "data-parallel training steps) is not ported (ROADMAP A17b)")
+        (LLaVA-7B's fp32 decoder holds ~27 GB). Under a mesh the backbone
+        keeps it: the rank's shard of the tower, its batches split over
+        the data axis."""
         backbone = VisionBackbone(
             self.cfg, self.module.vision, self.dtype, self.recipe,
             batch_size=self.batch_size,
             quant_bits=self.policy.quantized_bits if self.quantize_vision
-            else 0)
+            else 0, mesh=self.mesh)
         if cleanup:
             self.module = None
             self._engines.clear()

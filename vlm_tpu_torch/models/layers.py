@@ -12,7 +12,12 @@ layout (its ``shard`` annotation): column-parallel layers
 (``shard=(None, "model")``) a slice of the output features, row-parallel
 ones (``("model", None)``) a slice of the input features and one
 all-reduce of the output over the model group, the bias added once after
-it.
+it. A quantized layer whose even split would leave a rank an input count
+B5, B6 or B7 cannot take is split unevenly at a group boundary
+(:func:`split_bounds`), and its column-parallel partner the same way.
+With autograd on (a tower that trains) the model group's collectives are
+Megatron's differentiable pair (:meth:`Mesh.copy_to`,
+:meth:`Mesh.reduce_from`); without it they run in place as in serving.
 """
 
 from __future__ import annotations
@@ -137,11 +142,14 @@ class ShardComm:
     columns."""
 
     def __init__(self, mesh: Mesh, row_parallel: bool, k_lo: int,
-                 row_ways: int):
+                 row_ways: int, k_sizes=None):
         self.mesh = mesh
         self.row_parallel = row_parallel
         self.k_lo = k_lo
         self.row_ways = row_ways
+        #: each model rank's inputs (a row-parallel layer's, uneven where
+        #: :func:`split_bounds` split it so)
+        self.k_sizes = k_sizes
 
     def row_max(self, absmax: torch.Tensor) -> torch.Tensor:
         if self.row_parallel:
@@ -152,7 +160,7 @@ class ShardComm:
         if self.row_ways > 1:
             self.mesh.all_reduce(col, DATA_AXIS, "max")
         if self.row_parallel:
-            col = self.mesh.all_gather(col, MODEL_AXIS, 0)
+            col = self.mesh.all_gather(col, MODEL_AXIS, 0, self.k_sizes)
         return col
 
     def outliers(self, t: torch.Tensor) -> torch.Tensor:
@@ -176,7 +184,9 @@ class Dense(nn.Module):
     ``shard`` names ``vlm_tpu``'s (in, out) mesh axes. With a ``mesh`` of
     ``model > 1`` a column-parallel layer holds ``out / model`` rows of
     each tensor (``gather=True``: its output is all-gathered over the
-    model group) and a row-parallel one ``in / model`` columns, its int8
+    model group) and a row-parallel one ``in / model`` columns (a
+    quantized layer's part at :func:`split_bounds`, uneven where the even
+    one is not a K its kernel takes), its int8
     ``scale`` whole, its int4 scales as groups of ``gcd(group, in /
     model)`` (the same weights when a group straddles two ranks); its
     partial products come out of their fp32 accumulators unrounded (B5
@@ -201,12 +211,21 @@ class Dense(nn.Module):
         self.mesh = mesh
         ways = mesh.model if mesh is not None else 1
         self.split = None
+        #: the split dimension's boundaries, rank ``r`` holding
+        #: ``[bounds[r], bounds[r + 1])`` (None: no split)
+        self.bounds = None
         if ways > 1 and shard[1] == MODEL_AXIS:
             self.split = "col"
-            out_dim = shard_size(out_dim, ways, "output features")
+            self.bounds = split_bounds(out_dim, ways, quant_bits)
         elif ways > 1 and shard[0] == MODEL_AXIS:
             self.split = "row"
-            in_dim = shard_size(in_dim, ways, "input features")
+            self.bounds = split_bounds(in_dim, ways, quant_bits)
+        if self.bounds is not None:
+            lo, hi = self.bounds[mesh.model_rank:mesh.model_rank + 2]
+            if self.split == "col":
+                out_dim = hi - lo
+            else:
+                in_dim = hi - lo
         self.gather = gather and self.split == "col"
         self.in_dim = in_dim
         self.out_dim = out_dim
@@ -215,24 +234,11 @@ class Dense(nn.Module):
         self.group_size = 0
         if quant_bits == 8:
             self.int8_mode = int8_prefill_mode()
-            if self.split == "row" and in_dim % 16:
-                raise ValueError(
-                    f"an int8 layer of {self.full_in} inputs split {ways} "
-                    f"ways leaves {in_dim} inputs a rank, not a multiple "
-                    f"of B5's and B6's 16: this tensor-parallel layout is "
-                    f"not supported (ROADMAP A17b)")
             q_shape, s_shape = (out_dim, in_dim), (out_dim,)
         elif quant_bits == 4:
             int4_prefill_mode()
             self.full_group = int4_group_size(self.full_in)
             self.group_size = math.gcd(self.full_group, in_dim)
-            if self.group_size < min(self.full_group, 16) or in_dim % 2:
-                raise ValueError(
-                    f"an int4 layer of {self.full_in} inputs (group "
-                    f"{self.full_group}) split {ways} ways leaves "
-                    f"{in_dim} inputs a rank in groups of "
-                    f"{self.group_size}, under B7's 16: this tensor-"
-                    f"parallel layout is not supported (ROADMAP A17b)")
             q_shape = (out_dim, in_dim // 2)
             s_shape = (out_dim, in_dim // self.group_size)
         if quant_bits:
@@ -254,9 +260,11 @@ class Dense(nn.Module):
         self.comm = self.comm_replicated = None
         if mesh is not None:
             row = self.split == "row"
-            k_lo = mesh.model_rank * in_dim if row else 0
-            self.comm = ShardComm(mesh, row, k_lo, mesh.data)
-            self.comm_replicated = ShardComm(mesh, row, k_lo, 1)
+            k_lo = self.bounds[mesh.model_rank] if row else 0
+            sizes = [b - a for a, b in zip(self.bounds, self.bounds[1:])] \
+                if row else None
+            self.comm = ShardComm(mesh, row, k_lo, mesh.data, sizes)
+            self.comm_replicated = ShardComm(mesh, row, k_lo, 1, sizes)
 
     def split_dim(self, leaf: str) -> Optional[int]:
         """The axis of tensor ``leaf`` that the mesh splits (None: whole on
@@ -282,8 +290,10 @@ class Dense(nn.Module):
             idx = (lo + torch.arange(self.in_dim // g) * g) // \
                 self.full_group
             return full.index_select(1, idx.to(full.device))
-        size = full.shape[dim] // self.mesh.model
-        return full.narrow(dim, self.mesh.model_rank * size, size)
+        lo, hi = self.bounds[self.mesh.model_rank:self.mesh.model_rank + 2]
+        if leaf == "q" and self.quant_bits == 4 and dim == 1:
+            lo, hi = lo // 2, hi // 2         # two inputs a byte
+        return full.narrow(dim, lo, hi - lo)
 
     def reset_parameters(self, gen: torch.Generator) -> None:
         if self.quant_bits:
@@ -317,11 +327,16 @@ class Dense(nn.Module):
         if not self.quant_bits:
             if row:
                 return self._finish(matmul_fp32(x, self.weight))
+            grad = self.split == "col" and torch.is_grad_enabled()
+            if grad:
+                x = self.mesh.copy_to(x, MODEL_AXIS)
             # bf16 operands, fp32 accumulate; the bias joins the fp32 sum
             # before the one rounding to the compute dtype.
             y = F.linear(x.to(self.weight.dtype), self.weight, self.bias)
-            return self.mesh.all_gather(y, MODEL_AXIS, -1) if self.gather \
-                else y
+            if not self.gather:
+                return y
+            return self.mesh.gather(y, MODEL_AXIS, -1) if grad else \
+                self.mesh.all_gather(y, MODEL_AXIS, -1)
         x2 = x.reshape(-1, self.in_dim).to(self.dtype).contiguous()
         qw = QuantizedWeight(self.q, self.scale, self.group_size)
         out = torch.float32 if row else self.dtype
@@ -336,6 +351,38 @@ class Dense(nn.Module):
             y = y.float() + self.bias.float()
         y = y.to(self.dtype)
         return self.mesh.all_gather(y, MODEL_AXIS, -1) if self.gather else y
+
+
+def split_bounds(n: int, ways: int, quant_bits: int = 0) -> list:
+    """Where ``n`` features split ``ways`` ways: ``ways + 1`` boundaries.
+    Even, unless a quantized layer's even part is one that B5 and B6 (a
+    multiple of 16) or B7 (int4 groups of at least 16, whole or cut into
+    whole smaller ones) cannot take: then each boundary is rounded down
+    to a multiple of 16 (int8) or of ``max(16, group)`` (int4, so the
+    groups stay whole), the last rank taking the rest (SigLIP's MLP width
+    4304 over two ranks: 2144 and 2160). A row-parallel layer and its
+    column-parallel partner (fc2 and fc1) split their shared width alike,
+    both calling this with it. Raises for a float layer that does not
+    split evenly."""
+    if quant_bits == 0:
+        per = shard_size(n, ways, "features")
+        return [r * per for r in range(ways + 1)]
+    per = n // ways
+    if quant_bits == 8:
+        even = n % ways == 0 and per % 16 == 0
+        align = 16
+    else:
+        group = int4_group_size(n)
+        even = n % ways == 0 and per % 2 == 0 and \
+            math.gcd(group, per) >= min(group, 16)
+        align = max(16, group)
+    if even:
+        return [r * per for r in range(ways + 1)]
+    bounds = [(r * n // ways) // align * align for r in range(ways)] + [n]
+    if any(b <= a for a, b in zip(bounds, bounds[1:])):
+        raise ValueError(f"{n} quantized features do not split {ways} ways "
+                         f"at multiples of {align}")
+    return bounds
 
 
 def shard_size(n: int, ways: int, what: str) -> int:

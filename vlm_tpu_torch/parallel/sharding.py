@@ -7,16 +7,61 @@ it. The port builds each rank's module at its shard's shapes
 vocabulary-parallel ``Embed``) and fills it from a full state a tensor at a
 time: every sharded module cuts a full tensor to its rank's part
 (``shard_full``), so a rank never holds the whole model on its device.
+
+A batch is split over the data axis by :func:`shard_batch` (this data
+rank's rows of every leaf) or :func:`shard_batch_if_divisible` (a leaf
+whose rows do not split stays whole, as ``vlm_tpu`` leaves a ragged tail
+replicated). A tree is tuples and dicts of leaves; a leaf is a tensor, an
+array or a list (a batch of rows, e.g. PIL images).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 from torch import nn
 
 from ..core.mesh import Mesh
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, tuple):
+        return type(tree)(*(_tree_map(fn, t) for t in tree)) \
+            if hasattr(tree, "_fields") else \
+            tuple(_tree_map(fn, t) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _rows(x) -> Optional[int]:
+    if isinstance(x, list):
+        return len(x)
+    shape = getattr(x, "shape", None)
+    return int(shape[0]) if shape is not None and len(shape) else None
+
+
+def shard_batch(tree: Any, mesh: Mesh) -> Any:
+    """This data rank's rows of every leaf (a leaf without rows as it is);
+    raises where a leaf's rows do not split over ``data``."""
+    def place(x):
+        n = _rows(x)
+        return x if n is None else x[mesh.rows(n)]
+    return _tree_map(place, tree)
+
+
+def shard_batch_if_divisible(tree: Any, mesh: Optional[Mesh]) -> Any:
+    """:func:`shard_batch` leaf by leaf: a leaf whose rows do not split
+    over ``data`` (a ragged tail) stays whole; ``mesh=None`` is a
+    no-op."""
+    if mesh is None:
+        return tree
+
+    def place(x):
+        n = _rows(x)
+        return x if n is None or n % mesh.data else x[mesh.rows(n)]
+    return _tree_map(place, tree)
 
 
 def _owner(module: nn.Module, name: str):

@@ -11,6 +11,13 @@ running statistics by ``0.9 * running + 0.1 * batch`` (torch's momentum
 0.1), the variance biased too. Dropout draws its mask from the
 ``torch.Generator`` passed to ``forward``. ``train()`` / ``eval()`` switch
 both, as flax's ``train`` flag. Parameters and statistics are fp32.
+
+With ``mesh`` (a batch split over the data axis: this rank's rows) the
+heads compute what one device computes on the whole batch: BatchNorm's
+statistics are the global batch's (the sums of ``x`` and ``x²`` and the
+row count summed over ``data`` by :meth:`Mesh.sum`, so the running
+statistics move alike on every rank), and dropout draws the whole batch's
+mask from the shared generator and keeps this rank's rows.
 """
 
 from __future__ import annotations
@@ -21,6 +28,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..core.mesh import DATA_AXIS
 
 
 class BatchNorm(nn.Module):
@@ -38,11 +47,19 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(dim, device=device))
         self.register_buffer("running_var", torch.ones(dim, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh=None) -> torch.Tensor:
         x = x.float()
-        if self.training:
+        if self.training and mesh is not None and mesh.data > 1:
+            count = torch.full((1,), float(x.shape[0]), device=x.device)
+            sums = mesh.sum(torch.cat([x.sum(0), (x * x).sum(0), count]),
+                            DATA_AXIS)
+            d = x.shape[1]
+            mean = sums[:d] / sums[-1]
+            var = (sums[d:2 * d] / sums[-1] - mean * mean).clamp_min(0.0)
+        elif self.training:
             mean = x.mean(dim=0)
             var = ((x * x).mean(dim=0) - mean * mean).clamp_min(0.0)
+        if self.training:
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean)
@@ -54,15 +71,20 @@ class BatchNorm(nn.Module):
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], mesh=None) -> torch.Tensor:
     """flax ``nn.Dropout``: keep with probability 1 - p and scale by
-    1 / (1 - p), the mask drawn from ``generator``."""
+    1 / (1 - p), the mask drawn from ``generator`` (under ``mesh``: the
+    whole batch's mask, this rank's rows of it)."""
     if not training or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - p
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    split = mesh is not None and mesh.data > 1
+    shape = (x.shape[0] * mesh.data, *x.shape[1:]) if split else x.shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if split:
+        mask = mask[mesh.rows(shape[0])]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -91,8 +113,10 @@ class LinearHead(nn.Module):
         self.fc = _linear(in_dim, n_classes, gen, device)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = dropout(self.bn(x), self.dropout_p, self.training, generator)
+                generator: Optional[torch.Generator] = None,
+                mesh=None) -> torch.Tensor:
+        x = dropout(self.bn(x, mesh), self.dropout_p, self.training,
+                    generator, mesh)
         return self.fc(x)
 
 
@@ -110,10 +134,12 @@ class DeeperHead(nn.Module):
         self.fc2 = _linear(hidden_dim, n_classes, gen, device)
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = dropout(self.bn(x), self.dropout_p, self.training, generator)
+                generator: Optional[torch.Generator] = None,
+                mesh=None) -> torch.Tensor:
+        x = dropout(self.bn(x, mesh), self.dropout_p, self.training,
+                    generator, mesh)
         x = F.gelu(self.fc1(x), approximate="none")
-        x = dropout(x, self.dropout_p, self.training, generator)
+        x = dropout(x, self.dropout_p, self.training, generator, mesh)
         return self.fc2(x)
 
 

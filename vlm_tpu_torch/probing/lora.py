@@ -19,12 +19,19 @@ Adapters are keyed by the layer names
     lora = init_lora(dict(backbone.module.named_parameters()), targets,
                      rank=8, generator=torch.Generator().manual_seed(0))
     merged = merge_lora(dict(backbone.module.named_parameters()), lora, 16.0)
+
+Under a mesh's model axis ``A`` and ``B`` stay whole on every rank (the
+full layer's shapes) and each rank adds its part of the full delta to its
+shard (``shard``: :meth:`~vlm_tpu_torch.models.layers.Dense.shard_full`,
+rows of a column-parallel q or v, columns of a row-parallel target); each
+rank's adapter gradient then covers its part only, and the trainers sum
+it over ``model`` (:meth:`..train.base_trainer.BaseTrainer.model_partial`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, Sequence, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -43,15 +50,26 @@ def weight_shapes(params: Mapping[str, torch.Tensor]
             and p.is_floating_point()}
 
 
+def full_shapes(module: torch.nn.Module) -> Dict[str, Tuple[int, int]]:
+    """Layer name -> the full layer's (in_dim, out_dim) for every float
+    Dense of ``module``, whatever shard of it a rank holds."""
+    return {n: (m.full_in, m.full_out) for n, m in module.named_modules()
+            if hasattr(m, "full_in") and hasattr(m, "weight")}
+
+
 def init_lora(params: Mapping[str, torch.Tensor], target_names: Sequence[str],
-              rank: int, generator: torch.Generator) -> LoraTree:
+              rank: int, generator: torch.Generator,
+              shapes: Optional[Mapping[str, Tuple[int, int]]] = None
+              ) -> LoraTree:
     """Zero-effect adapters for ``target_names``: ``A`` He-uniform
     ``[in, r]`` (bound sqrt(6 / in), PEFT's kaiming init), drawn on the
     CPU from ``generator`` in sorted name order, ``B`` zeros ``[r, out]``;
-    fp32 leaf tensors on the weight's device that require a gradient."""
+    fp32 leaf tensors on the weight's device that require a gradient.
+    ``shapes`` (:func:`full_shapes`) give the full layers' dims where a
+    rank holds shards; by default the weights' own."""
     if rank < 1:
         raise ValueError(f"lora rank must be >= 1, got {rank}")
-    shapes = weight_shapes(params)
+    shapes = dict(shapes) if shapes is not None else weight_shapes(params)
     lora: LoraTree = {}
     for name in sorted(set(target_names)):
         if name not in shapes:
@@ -72,10 +90,13 @@ def init_lora(params: Mapping[str, torch.Tensor], target_names: Sequence[str],
 
 
 def merge_lora(params: Mapping[str, torch.Tensor], lora: LoraTree,
-               alpha: float) -> Dict[str, torch.Tensor]:
+               alpha: float, shard: Optional[Callable] = None
+               ) -> Dict[str, torch.Tensor]:
     """``params`` (names -> tensors) with ``weight + delta`` at every adapter
     site, cast to the weight's dtype; pure and differentiable in ``A`` and
-    ``B``. An adapter without a matching layer raises ``KeyError``."""
+    ``B``. ``shard(name, delta)`` cuts the full ``[out, in]`` delta to the
+    rank's part of layer ``name``. An adapter without a matching layer
+    raises ``KeyError``."""
     out = dict(params)
     missing = sorted(n for n in lora if f"{n}.weight" not in params)
     if missing:
@@ -84,15 +105,25 @@ def merge_lora(params: Mapping[str, torch.Tensor], lora: LoraTree,
     for name, ab in lora.items():
         w = params[f"{name}.weight"]
         delta = (alpha / ab["A"].shape[1]) * torch.matmul(ab["A"], ab["B"])
-        out[f"{name}.weight"] = w + delta.t().to(w.dtype)
+        delta = delta.t()
+        if shard is not None:
+            delta = shard(name, delta)
+        out[f"{name}.weight"] = w + delta.to(w.dtype)
     return out
+
+
+def module_shard(module: torch.nn.Module) -> Callable:
+    """:func:`merge_lora`'s ``shard`` for ``module``'s Denses."""
+    return lambda name, full: module.get_submodule(name).shard_full(
+        "weight", full)
 
 
 def merge_lora_(module: torch.nn.Module, lora: LoraTree,
                 alpha: float) -> None:
-    """Merge the adapters into ``module``'s weights once, in place."""
+    """Merge the adapters into ``module``'s weights once, in place (each
+    rank its shard's part)."""
     params = dict(module.named_parameters())
-    merged = merge_lora(params, lora, alpha)
+    merged = merge_lora(params, lora, alpha, module_shard(module))
     with torch.no_grad():
         for name in lora:
             params[f"{name}.weight"].copy_(merged[f"{name}.weight"])
@@ -137,7 +168,7 @@ def resolve_lora(mcfg: dict, backbone, seed: int):
             f"(={spec['attn_only']}) against the tower's layer count")
     gen = torch.Generator().manual_seed(int(seed) + SEED_OFFSET)
     lora = init_lora(dict(backbone.module.named_parameters()), targets,
-                     spec["rank"], gen)
+                     spec["rank"], gen, full_shapes(backbone.module))
     print(f"[LoRA] enabled: rank {spec['rank']}, alpha {spec['alpha']}, "
           f"{len(targets)} target layers")
     return spec, lora
@@ -177,6 +208,7 @@ def lora_features(backbone, spec: dict, lora: LoraTree
     def feats(pixels: torch.Tensor) -> torch.Tensor:
         base = {f"{n}.weight": module.get_parameter(f"{n}.weight")
                 for n in lora}
-        return backbone.features(pixels, params=merge_lora(base, lora, alpha))
+        return backbone.features(pixels, params=merge_lora(
+            base, lora, alpha, module_shard(module)))
 
     return feats

@@ -9,7 +9,10 @@ vision backbone and classification heads.
   switch).
 
 Checkpoint tensors: ``head.<k>`` (one head) or ``heads.<task>.<k>``, and
-the backbone's trainable parameters under ``backbone.``.
+the backbone's trainable parameters under ``backbone.``, at their full
+shapes: under a mesh a tower split over the model axis gathers its
+trained tensors to write them and takes its shard of them to load, so a
+checkpoint is the one a single device writes and loads under either.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
+from ..core.mesh import MODEL_AXIS
 from ..models.backbone import VisionBackbone
+from ..parallel.sharding import param_specs, shard_tensor
 from .heads import make_head
 
 
@@ -51,23 +56,31 @@ class BaseProbe:
 
     def backbone_tensors(self) -> Dict[str, torch.Tensor]:
         """The backbone's trainable parameters under ``backbone.`` (the
-        frozen rest is the model's own weights)."""
-        return {f"backbone.{n}": p.detach() for n, p in
-                self.backbone.module.named_parameters() if p.requires_grad}
+        frozen rest is the model's own weights), at their full shapes (a
+        collective under a model axis: every rank calls it)."""
+        module = self.backbone.module
+        return {f"backbone.{n}": full_tensor(self.backbone.mesh,
+                                             param_specs(module)[n],
+                                             p.detach())
+                for n, p in module.named_parameters() if p.requires_grad}
 
     def load_backbone_tensors(self, blob: Mapping[str, torch.Tensor]) -> None:
-        """Copy the ``backbone.`` tensors of ``blob`` into the tower."""
-        params = dict(self.backbone.module.named_parameters())
+        """Copy the ``backbone.`` tensors of ``blob`` (full shapes) into the
+        tower, each rank its shard."""
+        module = self.backbone.module
+        params = dict(module.named_parameters())
         with torch.no_grad():
             for k, v in blob.items():
                 if not k.startswith("backbone."):
                     continue
                 name = k[len("backbone."):]
-                if name not in params or params[name].shape != v.shape:
+                part = shard_tensor(module, name, v) if name in params \
+                    else None
+                if part is None or params[name].shape != part.shape:
                     raise KeyError(f"checkpoint tensor {k} "
                                    f"{tuple(v.shape)} fits no backbone "
                                    f"parameter")
-                params[name].copy_(v)
+                params[name].copy_(part)
 
 
 class LinearProbe(BaseProbe):
@@ -137,11 +150,12 @@ class MultiTaskProbe(BaseProbe):
             clf.train(mode)
 
     def apply_heads(self, feats: torch.Tensor,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    generator: Optional[torch.Generator] = None,
+                    mesh=None) -> Dict[str, torch.Tensor]:
         """Every head's logits on ``feats``, in the heads' current mode;
-        dropout draws from ``generator`` head by head."""
-        return {t: clf(feats, generator=generator)
+        dropout draws from ``generator`` head by head (``mesh``: ``feats``
+        are this data rank's rows, :mod:`.heads`)."""
+        return {t: clf(feats, generator=generator, mesh=mesh)
                 for t, clf in self.classifiers.items()}
 
     def forward(self, images) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -174,3 +188,11 @@ class MultiTaskProbe(BaseProbe):
                                  if k.startswith(pre)})
         if with_backbone:
             self.load_backbone_tensors(blob)
+
+
+def full_tensor(mesh, dim, t: torch.Tensor) -> torch.Tensor:
+    """``t``, a rank's part split on ``dim`` over the model axis (None:
+    whole), gathered to its full shape."""
+    if mesh is None or dim is None or mesh.model == 1:
+        return t
+    return mesh.all_gather(t, MODEL_AXIS, dim)

@@ -4,7 +4,12 @@ int}`` preds and gts, then ``Evaluator.evaluate(age_mode=
 "classification")``, which writes preds, gts, metrics and the confusion
 PNGs. A checkpoint trained with LoRA has its adapters merged into the
 tower once, in place, at load (:meth:`BaseTester._apply_lora`), so
-inference runs at the base model's speed."""
+inference runs at the base model's speed.
+
+Under a mesh (``mesh:``, the model's) every rank reads every batch; the
+backbone runs this data rank's rows and gathers the features over
+``data``, so every rank holds every prediction in dataset order, and
+global rank 0 alone writes the files."""
 
 from __future__ import annotations
 
@@ -75,11 +80,16 @@ class BaseTester:
                 preds.append({task: int(pred_idxs[i])})
                 gts.append({task: int(tgt.get(task, -1))})
         out_dir = self.build_eval_dir(task, dataset_name)
-        os.makedirs(out_dir, exist_ok=True)
-        Evaluator.evaluate(preds, gts, output_dir=out_dir,
-                           dataset_name=dataset_name,
-                           age_mode="classification")
-        print(f"[OK] {task} @ {dataset_name}: results saved in {out_dir}")
+        mesh = model.backbone.mesh
+        if mesh is None or mesh.rank == 0:
+            os.makedirs(out_dir, exist_ok=True)
+            Evaluator.evaluate(preds, gts, output_dir=out_dir,
+                               dataset_name=dataset_name,
+                               age_mode="classification")
+            print(f"[OK] {task} @ {dataset_name}: results saved in "
+                  f"{out_dir}")
+        if mesh is not None:
+            mesh.barrier()
 
     def run(self):
         self.model = self.load_ckpt_and_build_model(self.load_backbone())

@@ -16,6 +16,17 @@ best-only checkpoints, early stopping, resume, the history artifacts.
 
 ``last_stats`` counts the training steps, their images and seconds (host
 wall clock, each step ending in the loss's copy to the host).
+
+Under a mesh (the backbone's) every rank runs this loop on the same
+global batches; a subclass's step takes this data rank's rows of a batch
+whose rows split over ``data``, and a ragged tail whole on every rank.
+:meth:`backward` averages each trained tensor's gradient over ``data``
+(after a split batch only) and sums a tensor fed by each model rank's
+shard (LoRA's adapters) over ``model``, so every rank takes the
+one-device step. The losses are the global batch's on every rank, so the epoch's
+means, the scheduler and the saving decisions agree. The checkpoint (at
+full shapes), the history and the plots are written by global rank 0
+alone; the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -29,6 +40,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ...core.mesh import DATA_AXIS, MODEL_AXIS
+from ...parallel.sharding import param_specs, shard_tensor
+from ..probes import full_tensor
 from .utils import (EXTRA_FILE, GENERATOR_KEY, MODEL_FILE,
                     load_optimizer_tensors, load_tensors, optimizer_tensors,
                     refuse_msgpack, save_tensors, save_training_state,
@@ -65,15 +79,18 @@ class BaseTrainer:
         self.last_stats = {"train_steps": 0, "train_images": 0,
                            "train_s": 0.0}
         self.rm = None    # a subclass may attach a RunningMeans
+        self.mesh = None  # build_probe sets the backbone's
 
         self.build_probe()
         self.build_data()
         self.build_optimizer()
 
         self.model_file = self.ckpt_dir / MODEL_FILE
-        (self.ckpt_dir / "head_config.yaml").write_text(
-            yaml.safe_dump(self.cfg, sort_keys=False, allow_unicode=True),
-            encoding="utf-8")
+        if self.writer:
+            (self.ckpt_dir / "head_config.yaml").write_text(
+                yaml.safe_dump(self.cfg, sort_keys=False, allow_unicode=True),
+                encoding="utf-8")
+        self.sync()
         self.history: Dict[str, List[float]] = {"train": [], "val": []}
 
     # ----- subclass API -----
@@ -98,6 +115,31 @@ class BaseTrainer:
     def load_model_state(self, blob: Dict[str, torch.Tensor]):
         raise NotImplementedError
 
+    # ----- the mesh -----
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes the run's files: global rank 0, or
+        the only process."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def sync(self) -> None:
+        """Every rank waits here (after rank 0's writes)."""
+        if self.mesh is not None:
+            self.mesh.barrier()
+
+    def data_mesh(self, rows: int):
+        """The mesh when a batch of ``rows`` splits over its data axis
+        (each rank then computes its rows), else None (one device, or a
+        ragged tail computed whole on every rank)."""
+        m = self.mesh
+        return m if m is not None and m.data > 1 and rows % m.data == 0 \
+            else None
+
+    def model_partial(self, name: str) -> bool:
+        """A trained tensor held whole on every model rank whose gradient
+        each rank forms from its shard only (LoRA's adapters)."""
+        return name.startswith("lora.")
+
     # ----- AdamW -----
     def make_adamw(self, groups) -> None:
         """``self.params`` (every trained tensor by its checkpoint name) and
@@ -116,17 +158,37 @@ class BaseTrainer:
         self.optimizer = torch.optim.AdamW(
             param_groups, betas=(0.9, 0.999), eps=1e-8,
             weight_decay=self.weight_decay)
+        #: the tensors split over the model axis, by name: their split dim
+        self.split_dims = {}
+        if self.mesh is not None and self.mesh.model > 1:
+            specs = param_specs(self.probe.backbone.module)
+            self.split_dims = {f"backbone.{n}": d for n, d in specs.items()
+                               if d is not None and f"backbone.{n}" in
+                               self.params}
 
-    def apply_gradients(self, loss: torch.Tensor) -> None:
-        """One AdamW step on ``loss``'s gradients; a trained tensor that
-        receives none gets a zero one, so its moments and its decay move
-        as optax moves every leaf."""
+    def apply_gradients(self, loss: torch.Tensor, mesh=None) -> None:
+        """One AdamW step on ``loss``'s gradients (:meth:`backward`)."""
+        self.backward(loss, mesh)
+        self.optimizer.step()
+
+    def backward(self, loss: torch.Tensor, mesh=None) -> None:
+        """``loss``'s gradients as the step takes them; a trained tensor
+        that receives none gets a zero one, so its moments and its decay
+        move as optax moves every leaf. ``mesh`` (:meth:`data_mesh`): the
+        batch was split over the data axis; every rank's loss is the
+        global one, so each rank's gradients are ``data`` times its rows'
+        share, and their mean over ``data`` is the one-device gradient."""
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         for p in self.params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        self.optimizer.step()
+        if self.mesh is not None and self.mesh.model > 1:
+            _reduce_grads([p for n, p in self.params.items()
+                           if self.model_partial(n)], self.mesh, MODEL_AXIS)
+        if mesh is not None:
+            _reduce_grads(list(self.params.values()), mesh, DATA_AXIS,
+                          mean=True)
 
     def on_lr_change(self):
         """Called after ``lr_scale`` changes: every group's LR in place
@@ -135,12 +197,24 @@ class BaseTrainer:
             g["lr"] = g["base_lr"] * self.lr_scale
 
     def opt_state(self) -> Dict[str, torch.Tensor]:
-        """AdamW's state by parameter name, and the dropout generator's."""
+        """AdamW's state by parameter name (full shapes: a collective under
+        a model axis), and the dropout generator's."""
         names = {p: n for n, p in self.params.items()}
-        return {**optimizer_tensors(self.optimizer, names),
-                GENERATOR_KEY: self.generator.get_state()}
+        state = optimizer_tensors(self.optimizer, names)
+        for key, t in state.items():
+            name, _, leaf = key.rpartition(".")
+            if leaf != "step":
+                state[key] = full_tensor(self.mesh,
+                                         self.split_dims.get(name), t)
+        return {**state, GENERATOR_KEY: self.generator.get_state()}
 
     def load_opt_state(self, blob: Dict[str, torch.Tensor]):
+        blob = dict(blob)
+        for key, t in blob.items():
+            name, _, leaf = key.rpartition(".")
+            if leaf != "step" and name in self.split_dims:
+                blob[key] = shard_tensor(self.probe.backbone.module,
+                                         name[len("backbone."):], t)
         load_optimizer_tensors(self.optimizer, self.params, blob)
         if GENERATOR_KEY in blob:
             self.generator.set_state(blob[GENERATOR_KEY])
@@ -210,16 +284,7 @@ class BaseTrainer:
             if val_monitor < best_val - 1e-8:
                 best_val = val_monitor
                 patience_left = patience
-                save_tensors(self.model_file, self.model_state())
-                (self.ckpt_dir / EXTRA_FILE).write_text(
-                    json.dumps(self.extra_state_dicts()), encoding="utf-8")
-                save_training_state(
-                    self.ckpt_dir, self.opt_state(), next_epoch=epoch + 1,
-                    best_val=best_val, meta=self.run_meta(),
-                    cfg_path=self.cfg.get("_cfg_path", "unknown"),
-                    lr_scale=self.lr_scale,
-                    plateau={"best": self._sched_best,
-                             "bad_epochs": self._sched_bad_epochs})
+                self._save(epoch, best_val)
                 print(f"[SAVE] improvement → {self.model_file} "
                       f"(monitor={val_monitor:.6f})")
             else:
@@ -228,8 +293,28 @@ class BaseTrainer:
                     print(f"[EARLY STOP] epoch {epoch + 1} (patience = "
                           f"{patience}). Best monitor: {best_val:.6f}")
                     break
-        self._save_history_csv()
-        self._save_history_plot()
+        if self.writer:
+            self._save_history_csv()
+            self._save_history_plot()
+        self.sync()
+
+    def _save(self, epoch: int, best_val: float) -> None:
+        """The best-so-far checkpoint: gathered on every rank, written by
+        rank 0."""
+        model, opt = self.model_state(), self.opt_state()
+        extra = self.extra_state_dicts()
+        if self.writer:
+            save_tensors(self.model_file, model)
+            (self.ckpt_dir / EXTRA_FILE).write_text(json.dumps(extra),
+                                                    encoding="utf-8")
+            save_training_state(
+                self.ckpt_dir, opt, next_epoch=epoch + 1, best_val=best_val,
+                meta=self.run_meta(),
+                cfg_path=self.cfg.get("_cfg_path", "unknown"),
+                lr_scale=self.lr_scale,
+                plateau={"best": self._sched_best,
+                         "bad_epochs": self._sched_bad_epochs})
+        self.sync()
 
     def _run_epoch(self, epoch: int, epochs: int, train: bool) -> float:
         split = "train" if train else "val"
@@ -302,6 +387,19 @@ class BaseTrainer:
         mcfg = self.cfg["model"]
         return {"model_name": mcfg["name"],
                 "quantization": mcfg.get("quantization")}
+
+
+def _reduce_grads(params, mesh, axis: str, mean: bool = False) -> None:
+    """The gradients of ``params`` summed (``mean``: averaged) over
+    ``axis``, in one all-reduce of their concatenation."""
+    if not params or mesh.ways(axis) == 1:
+        return
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    mesh.all_reduce(flat, axis)
+    if mean:
+        flat.div_(mesh.ways(axis))
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p.grad))
 
 
 #: matplotlib's default colour cycle (tab10), which ``vlm_tpu``'s plots use

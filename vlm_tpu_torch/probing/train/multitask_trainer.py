@@ -21,7 +21,12 @@
 - the checkpoint holds the heads (``heads.<task>.``), the tower's trainable
   parameters when it is not fully frozen, the adapters when LoRA is on;
   ``extra_state.json`` the EMA, the log-variances and the augmentation's
-  generator, so a resumed run equals a straight one.
+  generator, so a resumed run equals a straight one;
+- under a mesh (:mod:`.base_trainer`) every rank draws the same global
+  batch (the balanced dataset, the sampler and the augmentation from the
+  shared seed) and keeps its data rank's rows of one that splits; each
+  task's loss is the global batch's, so the EMA and the task weights are
+  the same on every rank; the log-variances stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ...models.factory import create_model
 from ..lora import (load_lora_tensors, lora_features, lora_lr, lora_named,
                     resolve_lora)
 from ..probes import MultiTaskProbe
+from ...parallel.sharding import shard_batch_if_divisible
 from .base_trainer import BaseTrainer
 from .data import Batch, ImageBatchLoader
 from .losses import RunningMeans, UncertaintyWeighter
@@ -85,6 +91,7 @@ class MultiTaskTrainer(BaseTrainer):
         backbone = vlm.get_vision_backbone()
         del vlm
         self.device = backbone.device
+        self.mesh = backbone.mesh
         self.probe = MultiTaskProbe(
             backbone=backbone,
             tasks={t: get_num_classes_for_task(t) for t in self.tasks},
@@ -204,12 +211,14 @@ class MultiTaskTrainer(BaseTrainer):
         """Each task's masked cross-entropy (:func:`multitask_losses`)
         with the trainer's weights, adapters and dropout generator."""
         images, targets = batch
+        mesh = self.data_mesh(len(targets))
+        images, ys = shard_batch_if_divisible(
+            (images, targets_to_arrays(targets, self.tasks)), mesh)
         return multitask_losses(
-            self.probe, images, targets_to_arrays(targets, self.tasks),
-            self.ce_weights, train=train,
+            self.probe, images, ys, self.ce_weights, train=train,
             generator=self.generator if train else None,
             features=self.features, tower_grad=not (
-                self.probe.fully_frozen and not self.lora_spec))
+                self.probe.fully_frozen and not self.lora_spec), mesh=mesh)
 
     def total_loss(self, losses: Dict[str, torch.Tensor]) -> torch.Tensor:
         if self.use_uw:
@@ -221,7 +230,8 @@ class MultiTaskTrainer(BaseTrainer):
 
     def train_batch(self, batch) -> Dict[str, float]:
         losses = self.losses(batch, train=True)
-        self.apply_gradients(self.total_loss(losses))
+        self.apply_gradients(self.total_loss(losses),
+                             self.data_mesh(len(list(batch)[1])))
         return {t: float(v.detach()) for t, v in losses.items()}
 
     def eval_batch(self, batch) -> Dict[str, float]:
@@ -300,19 +310,22 @@ def multitask_losses(probe: MultiTaskProbe, images, ys: Dict[str, np.ndarray],
                      ce_weights: Dict[str, Optional[torch.Tensor]], *,
                      train: bool, generator: Optional[torch.Generator] = None,
                      features: Optional[Callable] = None,
-                     tower_grad: bool = True) -> Dict[str, torch.Tensor]:
+                     tower_grad: bool = True,
+                     mesh=None) -> Dict[str, torch.Tensor]:
     """Each task's masked cross-entropy on one tower pass (B4, then the
     tower: ``features``, LoRA's merged tower, in place of
     ``probe.features_fn``; without autograd unless ``tower_grad``) feeding
     every head. ``train`` puts the heads in training mode: BatchNorm
-    statistics move, dropout draws from ``generator``."""
+    statistics move, dropout draws from ``generator``. ``mesh``: ``images``
+    and ``ys`` are this data rank's rows; the heads and the losses see the
+    whole batch."""
     pixels = probe.backbone.to_pixels(images)
     with torch.set_grad_enabled(tower_grad and torch.is_grad_enabled()):
         feats = (features or probe.features_fn)(pixels)
     probe.train_heads(train)
-    logits = probe.apply_heads(feats, generator=generator)
+    logits = probe.apply_heads(feats, generator=generator, mesh=mesh)
     device = probe.backbone.device
     return {t: masked_cross_entropy(
         logits[t], torch.as_tensor(np.asarray(ys[t]), dtype=torch.int64,
-                                   device=device), ce_weights.get(t))
+                                   device=device), ce_weights.get(t), mesh)
         for t in probe.classifiers}

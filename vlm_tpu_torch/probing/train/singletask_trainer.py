@@ -18,7 +18,12 @@
   blocks' Denses of the frozen tower, merged functionally each step; the
   feature cache is off (the features change as the adapters train), the
   adapters take a third group at ``lora.lr`` (else ``lr``), and the
-  checkpoint holds them under ``lora.``.
+  checkpoint holds them under ``lora.``;
+- under a mesh (``mesh:``, :mod:`.base_trainer`): the cache is extracted
+  on every rank (each its rows, the features all-gathered), written by
+  rank 0 and read back by every rank after a barrier; a step takes this
+  data rank's rows of a batch that splits over ``data`` and the global
+  loss, a ragged tail whole.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from ...models.factory import create_model
 from ..lora import (load_lora_tensors, lora_features, lora_lr, lora_named,
                     resolve_lora)
 from ..probes import LinearProbe
+from ...parallel.sharding import shard_batch_if_divisible
 from .base_trainer import BaseTrainer
 from .data import ArrayBatchLoader, ImageBatchLoader
 from .utils import (counts_to_weights, get_num_classes_for_task,
@@ -70,6 +76,7 @@ class SingleTaskTrainer(BaseTrainer):
         backbone = vlm.get_vision_backbone()
         del vlm
         self.device = backbone.device
+        self.mesh = backbone.mesh
         self.probe = LinearProbe(
             backbone=backbone,
             n_out_classes=get_num_classes_for_task(self.task),
@@ -142,7 +149,9 @@ class SingleTaskTrainer(BaseTrainer):
         """Load the split's cached features, or extract and save them."""
         fpath = self.features_dir / f"{split}_features.npz"
         backbone = self.probe.backbone
-        if fpath.exists():
+        exists = fpath.exists() if self.mesh is None else \
+            self.mesh.any(fpath.exists())
+        if exists:
             blob = np.load(fpath)
             x_key = next((k for k in ("x", "features", "feats")
                           if k in blob), None)
@@ -177,8 +186,13 @@ class SingleTaskTrainer(BaseTrainer):
         self.extract_stats["images"] += len(feats)
         self.extract_stats["seconds"] += time.perf_counter() - t0
         ys = targets_to_arrays(img_ds.labels_list(), [self.task])[self.task]
-        np.savez(fpath, x=feats, y=ys)
-        return feats, ys
+        if self.writer:
+            np.savez(fpath, x=feats, y=ys)
+        if self.mesh is None:
+            return feats, ys
+        self.sync()
+        blob = np.load(fpath)
+        return blob["x"], blob["y"]
 
     # ------------ optimizer ------------
     def build_optimizer(self):
@@ -199,18 +213,21 @@ class SingleTaskTrainer(BaseTrainer):
     # ------------ per batch ------------
     def loss(self, batch, train: bool) -> torch.Tensor:
         """The batch's loss (:func:`probe_loss`) with the trainer's class
-        weights and dropout generator."""
+        weights and dropout generator; under a mesh this data rank's rows
+        of a batch that splits (the global batch's loss)."""
         inputs, targets = batch
         y = np.asarray(targets) if self.use_feature_cache else \
             targets_to_arrays(targets, [self.task])[self.task]
+        mesh = self.data_mesh(len(y))
+        inputs, y = shard_batch_if_divisible((inputs, y), mesh)
         return probe_loss(self.probe, inputs, y, self.class_weights,
                           train=train, generator=self.generator,
                           cached=self.use_feature_cache,
-                          features=self.features)
+                          features=self.features, mesh=mesh)
 
     def train_batch(self, batch) -> Dict[str, float]:
         loss = self.loss(batch, train=True)
-        self.apply_gradients(loss)
+        self.apply_gradients(loss, self.data_mesh(len(list(batch)[1])))
         return {self.task: float(loss.detach())}
 
     def eval_batch(self, batch) -> Dict[str, float]:
@@ -256,14 +273,16 @@ class SingleTaskTrainer(BaseTrainer):
 
 def probe_loss(probe: LinearProbe, inputs, y, class_weights: torch.Tensor,
                *, train: bool, generator: Optional[torch.Generator] = None,
-               cached: bool = False,
-               features: Optional[Callable] = None) -> torch.Tensor:
+               cached: bool = False, features: Optional[Callable] = None,
+               mesh=None) -> torch.Tensor:
     """The masked, class-weighted cross-entropy of ``probe`` on ``inputs``:
     cached features (``cached``), or images through the backbone (B4, then
     the tower: with autograd where it trains; ``features``, LoRA's merged
     tower, in place of ``probe.features_fn``). ``train`` puts the head in
     training mode: its BatchNorm moves its statistics and dropout draws
-    from ``generator``."""
+    from ``generator``. ``mesh``: ``inputs`` and ``y`` are this data rank's
+    rows, and the heads and the loss see the whole batch (:mod:`..heads`,
+    :func:`.utils.masked_cross_entropy`)."""
     clf = probe.classifier
     clf.train(train)
     device = probe.backbone.device
@@ -272,7 +291,7 @@ def probe_loss(probe: LinearProbe, inputs, y, class_weights: torch.Tensor,
     else:
         feats = (features or probe.features_fn)(
             probe.backbone.to_pixels(inputs))
-    logits = clf(feats, generator=generator)
+    logits = clf(feats, generator=generator, mesh=mesh)
     return masked_cross_entropy(
         logits, torch.as_tensor(np.asarray(y), dtype=torch.int64,
-                                device=device), class_weights)
+                                device=device), class_weights, mesh)

@@ -186,12 +186,14 @@ class WeightedSampler:
 
 
 def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
-                         class_weights: Optional[torch.Tensor] = None
-                         ) -> torch.Tensor:
+                         class_weights: Optional[torch.Tensor] = None,
+                         mesh=None) -> torch.Tensor:
     """Mean cross-entropy over targets != -1, class-weighted as
     ``nn.CrossEntropyLoss(weight=w, ignore_index=-1)`` (sum w_y ce / sum
     w_y), computed in fp32. A batch with no valid target gives 0.0, where
-    ``F.cross_entropy`` gives NaN."""
+    ``F.cross_entropy`` gives NaN. With ``mesh`` (this data rank's rows of
+    the batch) both sums are summed over ``data``: every rank gets the
+    whole batch's loss."""
     valid = targets != MISSING_LABEL
     safe_t = targets.clamp(0, logits.shape[-1] - 1)
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -199,8 +201,11 @@ def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     w = class_weights[safe_t] if class_weights is not None \
         else torch.ones_like(ce)
     w = torch.where(valid, w, torch.zeros_like(w))
-    denom = w.sum()
-    return torch.where(denom > 0, (ce * w).sum() / denom.clamp_min(1e-9),
+    num, denom = (ce * w).sum(), w.sum()
+    if mesh is not None and mesh.data > 1:
+        from ...core.mesh import DATA_AXIS
+        num, denom = mesh.sum(torch.stack([num, denom]), DATA_AXIS)
+    return torch.where(denom > 0, num / denom.clamp_min(1e-9),
                        torch.zeros_like(denom))
 
 

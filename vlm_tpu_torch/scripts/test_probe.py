@@ -12,6 +12,14 @@ root) and writes preds, gts and metrics under
 ``probing/multitask_probing/eval/`` (multi); a LoRA checkpoint's adapters
 are merged into the tower at load. Runs on the card;
 ``VLM_TPU_PLATFORM=cpu`` runs it on the CPU.
+
+Under a ``mesh: {data, model}`` block, one process a rank:
+
+    torchrun --nproc_per_node 4 -m vlm_tpu_torch.scripts.test_probe \\
+        --config <yaml with mesh: {data: 2, model: 2}>
+
+(with ``VLM_TPU_PLATFORM=cpu`` on the CPU, over gloo); global rank 0
+writes the files.
 """
 
 import argparse
@@ -35,7 +43,7 @@ def main(argv=None):
 
     from vlm_tpu_torch.core.config import (build_cfg_from_profile,
                                            load_config, project_root)
-    from vlm_tpu_torch.core.mesh import refuse_mesh
+    from vlm_tpu_torch.core.mesh import mesh_from_config
     from vlm_tpu_torch.probing.test.multitask_tester import MultiTaskTester
     from vlm_tpu_torch.probing.test.singletask_tester import \
         SingleTaskTester
@@ -49,7 +57,9 @@ def main(argv=None):
         raise ValueError("Specify the profile: --profile single|multi or "
                          "profile: single|multi in the YAML")
     cfg = build_cfg_from_profile(raw, profile, cfg_path, require_eval=True)
-    refuse_mesh(cfg.get("mesh"), "testing a probe")
+    # forms the process group under torchrun; a block of more than one
+    # device without a group of data x model ranks raises with the line
+    mesh_from_config(cfg.get("mesh"), script="test_probe")
     tester = MultiTaskTester(cfg) if profile == "multi" \
         else SingleTaskTester(cfg)
     tester.run()

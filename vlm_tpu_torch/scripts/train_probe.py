@@ -13,6 +13,14 @@ Checkpoints go to ``probing/linear_probing/checkpoints/<run name>``
 under the project root (``VLM_TPU_ROOT``, by default the repository).
 ``model.lora.enabled: true`` trains LoRA adapters in either profile. Runs
 on the card; ``VLM_TPU_PLATFORM=cpu`` runs it on the CPU.
+
+Under a ``mesh: {data, model}`` block, one process a rank:
+
+    torchrun --nproc_per_node 4 -m vlm_tpu_torch.scripts.train_probe \\
+        --config <yaml with mesh: {data: 2, model: 2}>
+
+(with ``VLM_TPU_PLATFORM=cpu`` on the CPU, over gloo); global rank 0
+writes the files.
 """
 
 import argparse
@@ -39,7 +47,7 @@ def build_trainer(argv=None):
     from vlm_tpu_torch.core.config import (build_cfg_from_profile,
                                            load_config, make_run_name,
                                            project_root)
-    from vlm_tpu_torch.core.mesh import refuse_mesh
+    from vlm_tpu_torch.core.mesh import mesh_from_config
     from vlm_tpu_torch.probing.train.multitask_trainer import \
         MultiTaskTrainer
     from vlm_tpu_torch.probing.train.singletask_trainer import \
@@ -54,7 +62,9 @@ def build_trainer(argv=None):
         raise ValueError("Specify the profile: --profile single|multi or "
                          "profile: single|multi in the YAML")
     cfg = build_cfg_from_profile(raw, profile, cfg_path)
-    refuse_mesh(cfg.get("mesh"), "training a probe")
+    # forms the process group under torchrun; a block of more than one
+    # device without a group of data x model ranks raises with the line
+    mesh_from_config(cfg.get("mesh"), script="train_probe")
     run_name = make_run_name(cfg, profile)
     if profile == "multi":
         return MultiTaskTrainer(cfg, run_name, project_root() / "probing" /

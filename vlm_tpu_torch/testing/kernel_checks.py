@@ -65,6 +65,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -192,6 +193,11 @@ GEMMA_TP_KN = ((2048, 1024), (2048, 256), (1024, 2048), (2048, 8192),
                (8192, 2048))
 # the row-parallel ones: o and down
 GEMMA_TP_ROW = ((1024, 2048), (8192, 2048))
+# the probing steps under a mesh (a step's images), and SigLIP's MLP width
+# 4304 over model=2 at a multiple of 16: each rank's part
+PMESH_BATCH = 16
+SIGLIP_TP_MLP = (2144, 2160)
+MESH_DIFF_SHAPE = (PMESH_BATCH, 8, 577, 64)
 
 
 @dataclasses.dataclass
@@ -1300,6 +1306,29 @@ def cases(device) -> List[Case]:
         b5(MESH_SLOTS, k, n, *tp_w[(k, n)], True, f32)
         b6(GROUP * PROMPT, k, n, *tp_w[(k, n)], torch.float32, True)
         b7(MESH_SLOTS, k, n, weights4(k, n, 128), False, f32)
+
+    # ---- probing and the quantized tower under a mesh ----
+    # B1's fp32 form at CLIP-L/336's steps of 16: 8 heads a rank
+    # (model=2) and all 16 (data=2 at twice the rows, or one GPU)
+    def clip32(h):
+        return torch.randn(PMESH_BATCH, 577, h, 64, generator=gen,
+                           device=dev).transpose(1, 2)
+    b1("fp32_tp_clip_l336_g16_h8_s577_d64", *(clip32(8) for _ in range(3)),
+       on_path=True)
+    b1("fp32_clip_l336_g16_h16_s577_d64", *(clip32(16) for _ in range(3)),
+       on_path=True)
+    # SigLIP's int8 / int4 MLP split unevenly over model=2: fc1's 2144 or
+    # 2160 output columns (bf16 out) and fc2's 2144 or 2160 inputs (a
+    # rank's fp32 partial), B6 at a batch of 8 images' rows, B5 and B7 at
+    # one image's
+    for part in SIGLIP_TP_MLP:
+        w_in, w_out = weights(1152, part), weights(part, 1152)
+        b6(8 * 256, 1152, part, *w_in, torch.bfloat16, True)
+        b6(8 * 256, part, 1152, *w_out, torch.float32, True)
+        b5(256, 1152, part, *w_in, True)
+        b5(256, part, 1152, *w_out, True, torch.float32)
+        b7(256, 1152, part, weights4(1152, part, 128), True)
+        b7(256, part, 1152, weights4(part, 1152, 16), True, torch.float32)
     return out
 
 
@@ -1326,22 +1355,43 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
         float(diff.max())
 
 
-# ~0.1 s of GPU clock cycles: long enough for the host to queue every
-# timed call behind it
-_SLEEP_CYCLES = 200_000_000
+# ~30 ms of GPU clock cycles: long enough for the host to queue 20 calls
+# of at most ~1 ms of enqueue each behind it; the most :func:`_ms` sleeps
+_SLEEP_CYCLES = 60_000_000
+# the least it sleeps (~1 ms), the clock it assumes (a slower clock sleeps
+# longer), and its margin over the host's measured enqueue time
+_SLEEP_MIN_CYCLES = 2_000_000
+_SLEEP_HZ = 2.0e9
+_SLEEP_MARGIN = 4.0
+
+
+def sleep_cycles(enqueue_s: float) -> int:
+    """Cycles of the sleep kernel that keep the card waiting while the
+    host queues ``enqueue_s`` seconds of calls, with a margin of
+    ``_SLEEP_MARGIN``, between ``_SLEEP_MIN_CYCLES`` and
+    ``_SLEEP_CYCLES``."""
+    want = int(_SLEEP_MARGIN * enqueue_s * _SLEEP_HZ)
+    return min(_SLEEP_CYCLES, max(_SLEEP_MIN_CYCLES, want))
 
 
 def _ms(fn, iters: int, flush: Optional[torch.Tensor] = None) -> float:
     """Mean device ms of ``fn`` over ``iters`` calls. The calls are queued
     behind a sleep kernel, so the card runs them back to back and the
     events time the device, not the host's enqueue (which bounds the small
-    kernels' wrappers). With ``flush``, a buffer larger than the L2 cache
-    is overwritten before each call, outside the timed span."""
+    kernels' wrappers); the sleep is sized from the host time of the
+    warm-up call (:func:`sleep_cycles`). With ``flush``, a buffer larger
+    than the L2 cache is overwritten before each call, outside the timed
+    span."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if flush is not None:
+        flush.zero_()
     fn()
+    enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    torch.cuda._sleep(_SLEEP_CYCLES)
+    torch.cuda._sleep(sleep_cycles(iters * enqueue_s))
     for start, end in events:
         if flush is not None:
             flush.zero_()
@@ -1407,7 +1457,8 @@ def _paired_device_ms(fn, base, iters: int, flush, flush_kernels,
     return median(a), median(b)
 
 
-def run(device="cuda", iters: int = 20) -> List[Dict]:
+def run(device="cuda", iters: int = 20,
+        spent: Optional[Dict[str, float]] = None) -> List[Dict]:
     """Compare and time every case; returns one record per case. Timing
     alternates plain, kernel, library, library, kernel, plain and averages
     each version. The library call is compared with the plain version once
@@ -1415,11 +1466,20 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
     yardstick, not the port). Kernel and library call are then profiled
     once more (``device_ms``, ``library_device_ms``: :func:`_device_ms`).
     The launch counters are reset at the end: launches made here do not
-    count toward the serving path's."""
+    count toward the serving path's. ``spent``, when given, receives the
+    seconds spent building the cases' inputs, comparing, timing with
+    events and profiling."""
     records = []
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     flush_kernels = frozenset(_profiled(flush.zero_))
-    for c in cases(device):
+    spent = {} if spent is None else spent
+    spent.update(dict.fromkeys(("cases", "compare", "events", "profiler"),
+                               0.0))
+    t0 = time.perf_counter()
+    built = list(cases(device))
+    spent["cases"] = time.perf_counter() - t0
+    for c in built:
+        t0 = time.perf_counter()
         got = c.kernel_fn()
         want = c.plain_fn()
         torch.cuda.synchronize()
@@ -1437,6 +1497,8 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
         tp = c.time_plain or c.plain_fn
         fl = flush if c.cold else None
         nan = float("nan")
+        t1 = time.perf_counter()
+        spent["compare"] += t1 - t0
         p1 = _ms(tp, iters, fl) if c.plain_timed else nan
         k1 = _ms(tk, iters, fl)
         lib_ms = None
@@ -1445,6 +1507,8 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
                       + _ms(c.library_fn, iters, fl)) / 2
         k2 = _ms(tk, iters, fl)
         p2 = _ms(tp, iters, fl) if c.plain_timed else nan
+        t2 = time.perf_counter()
+        spent["events"] += t2 - t1
         base_dev_ms = None
         if c.baseline_fn is None:
             dev_ms = _device_ms(tk, iters, fl, flush_kernels)
@@ -1453,6 +1517,7 @@ def run(device="cuda", iters: int = 20) -> List[Dict]:
                 tk, c.baseline_fn, iters, fl, flush_kernels)
         lib_dev_ms = None if c.library_fn is None else _device_ms(
             c.library_fn, iters, fl, flush_kernels)
+        spent["profiler"] += time.perf_counter() - t2
         form = c.form or KERNELS[c.kernel]["name"]
         ops, nbytes, peak = c.work
         b_ms, b_by = bound_ms(ops, nbytes, peak)

@@ -15,7 +15,8 @@
   ``vlm_tpu`` model bridged by ``testing.bridge.flax_to_state_dict``; each
   rank loads its slice) or neither (random weights from ``seed``);
   ``layers`` ``[vision, decoder]`` builds a depth-cut copy of the size's
-  config (then ``state`` or ``seed``, no ``model_id``);
+  config (then ``state`` or ``seed``, no ``model_id``), ``vision`` (with
+  ``bits`` or ``layers``) replaces fields of the tower's config;
 - the inputs: ``pixels`` (a ``.npy`` of normalized NHWC float pixels) or
   ``images`` (a ``.npy`` of uint8 NHWC images, normalized by B4 on the
   rank), ``pre_ids``, ``post_ids``, ``pad_id`` (optional);
@@ -26,7 +27,11 @@
   tokens), ``batcher`` (``n``, ``slots``, ``new``, ``admit``, ``caps``,
   ``sync_every``: the continuous batcher's tokens and counters; timed),
   ``dataset`` (``paths``, ``prompt``, ``new``, ``slots``, ``warmup``:
-  ``generate_dataset``'s texts; timed), ``row_parallel`` (``k``, ``n``,
+  ``generate_dataset``'s texts; timed), ``beam`` (``n``, ``new``, ``k``,
+  ``eos``, ``length_penalty``: beam search's best tokens, lengths and
+  scores; timed), ``beam_texts`` (``paths``, ``prompt``, ``new``, ``k``,
+  ``batch``, ``wave``: ``generate_batch`` and ``generate_dataset`` with
+  ``num_beams=k``), ``row_parallel`` (``k``, ``n``,
   ``rows``, ``bits``: bf16 row-parallel layers against the same layer
   whole on the rank).
 
@@ -70,6 +75,9 @@ def _build(spec: dict):
         # weight bits (fp32 compute over int8 weights, as the CPU parity
         # tests hold vlm_tpu's)
         cfg = VLM_CONFIGS[spec["family"]](spec["size"])
+        if spec.get("vision"):
+            cfg = dataclasses.replace(cfg, vision=dataclasses.replace(
+                cfg.vision, **spec["vision"]))
         if spec.get("layers"):
             cfg = dataclasses.replace(
                 cfg, vision=dataclasses.replace(cfg.vision,
@@ -201,6 +209,53 @@ def task_engine(module, cfg, mesh, inputs, spec, n=4, new=6):
             "lengths": res.lengths.cpu().tolist(),
             "stats": {k: v for k, v in eng.last_stats.items()
                       if not k.endswith("_s")}}
+
+
+def task_beam(module, cfg, mesh, inputs, spec, n=4, new=6, k=2, eos=None,
+              length_penalty=1.0):
+    """Beam search over ``n`` images (each data rank its own images' K
+    beams): every image's best tokens, lengths and scores."""
+    from vlm_tpu_torch.generate.beam import BeamSearchEngine
+    from vlm_tpu_torch.models.vlm import num_image_tokens
+    dev = mesh.device
+    r = mesh.rows(n)
+    pre, post = _ids(spec, n, dev)
+    plen = len(spec["pre_ids"]) + num_image_tokens(cfg) + \
+        len(spec["post_ids"])
+    eng = BeamSearchEngine(module, cfg, batch_size=n, max_prompt_len=plen,
+                           num_beams=k, max_new_tokens=new,
+                           length_penalty=length_penalty,
+                           cache_dtype=spec.get("kv_cache"), eos_id=eos,
+                           pad_id=spec.get("pad_id"))
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = eng.generate(inputs(range(n)[r]), pre, post,
+                       torch.full((n,), plen, dtype=torch.int32, device=dev))
+    _sync(dev)
+    return {"tokens": res.tokens.cpu().tolist(),
+            "lengths": res.lengths.cpu().tolist(),
+            "scores": res.scores.cpu().tolist(),
+            "wall_s": time.perf_counter() - t0,
+            "stats": {k: v for k, v in eng.last_stats.items()
+                      if not k.endswith("_s")}}
+
+
+def task_beam_texts(model, mesh, spec, paths, prompt, new=6, k=2, batch=3,
+                    wave=4):
+    """The user's beam entry points: ``generate_batch`` over the first
+    ``batch`` image files and ``generate_dataset`` over all of them in
+    waves of ``wave`` (both padded to a multiple of ``data``)."""
+    from PIL import Image
+    images = [Image.open(p).convert("RGB") for p in paths[:batch]]
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    batch_texts = model.generate_batch(images, prompt, max_tokens=new,
+                                       num_beams=k)
+    texts = model.generate_dataset(paths, prompt, max_tokens=new,
+                                   batch_size=wave, num_beams=k)
+    _sync(mesh.device)
+    return {"batch_texts": batch_texts, "texts": texts,
+            "wall_s": time.perf_counter() - t0}
 
 
 def _recording():
@@ -361,14 +416,24 @@ def task_row_parallel(module, cfg, mesh, inputs, spec, k=256, n=128,
     return {"cases": cases}
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    spec = json.loads(Path(argv[0]).read_text())
-    out_dir = Path(argv[1])
+def _asked_bytes() -> int:
+    """The bytes this process's tensors ask of the current CUDA device (0
+    before CUDA has been touched)."""
+    if not torch.cuda.is_initialized():
+        return 0
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def run(spec: dict, out_dir: Path) -> dict:
+    """The spec's model and tasks on this rank; writes and returns its
+    record. The process group stays formed (see ``mesh_pool``)."""
     torch.set_num_threads(int(spec.get("threads", 2)))
     from vlm_tpu_torch.models.vlm import param_bytes
     from vlm_tpu_torch.ops import _lib
     from vlm_tpu_torch.parallel.sharding import assert_params_sharded
+    before = _asked_bytes()
+    if torch.cuda.is_initialized():
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model, module, cfg, mesh, dtype, recipe = _build(spec)
     build_s = time.perf_counter() - t0
@@ -391,20 +456,20 @@ def main(argv=None) -> int:
                           (*module.parameters(), *module.buffers())),
         "tasks": []}
     if dev.type == "cuda":
-        # what the build left allocated in this fresh process: the shard,
-        # and nothing of the full tensors it was cut from
-        record["build_asked_bytes"] = torch.cuda.memory_stats(dev)[
-            "requested_bytes.all.current"]
+        # what the build left allocated: the shard, and nothing of the
+        # full tensors it was cut from
+        record["build_asked_bytes"] = _asked_bytes() - before
         record["device_total_bytes"] = torch.cuda.mem_get_info(dev)[1]
     for name, kw in spec["tasks"]:
         _lib.reset_counts()
         mesh.counts.clear()
         t1 = time.perf_counter()
-        if name == "dataset":
-            res = task_dataset(model, mesh, spec, **kw)
+        if name in ("dataset", "beam_texts"):
+            res = (task_dataset if name == "dataset" else task_beam_texts)(
+                model, mesh, spec, **kw)
         else:
             fn = {"logits": task_logits, "engine": task_engine,
-                  "batcher": task_batcher,
+                  "batcher": task_batcher, "beam": task_beam,
                   "row_parallel": task_row_parallel}[name]
             res = fn(module, cfg, mesh, inputs, spec, **kw)
         _sync(dev)
@@ -420,6 +485,12 @@ def main(argv=None) -> int:
         record["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / f"rank{mesh.rank}.json").write_text(json.dumps(record))
+    return record
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    run(json.loads(Path(argv[0]).read_text()), Path(argv[1]))
     import torch.distributed as dist
     dist.barrier()
     dist.destroy_process_group()
