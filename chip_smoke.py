@@ -11,7 +11,10 @@ Phases, each of which raises on failure:
 2. build: compile the CUDA kernels from ``vlm_tpu_torch/csrc``;
 3. kernels: each kernel against its plain PyTorch version at the serving
    paths' shapes (B1's differentiable form, forward and backward, at the
-   probing step's), with error, tolerance, both times, the bound (the least
+   probing step's; its fp32 backward kernel also at SigLIP's, EVA's, the
+   probing mesh's, a causal and a grouped-head shape: against the
+   recompute and the float64 formulation, bitwise on a second run), with
+   error, tolerance, both times, the bound (the least
    time the card could take for the work) and, where one PyTorch call
    computes the same function, that call's time (timed only: the port
    never calls it); kernel and library call also profiled (their kernels'
@@ -152,7 +155,8 @@ Phases, each of which raises on failure:
     extracted by B4's and B1's fp32 forms, the head trained for 2 epochs;
 30. probe e2e: the same data with the multi profile's backbone block (the
     last 4 blocks and the embeddings unfrozen) at batch 32 for an epoch and
-    its validation: B1's differentiable form in every block of every step,
+    its validation: B1's differentiable form in every block of every step
+    (the fp32 backward kernel, no recompute),
     blocks 20-23 and the embeddings changed, blocks 0-19 bitwise as built;
 31. probe test: the port's ``test_probe`` on that checkpoint: preds, gts
     and metrics written, the preds the probe's own argmax;
@@ -326,15 +330,36 @@ def kernel_phase(gpu):
     records = kernel_checks.run("cuda", iters=20, spent=spent)
     print(f"[time] kernel checks: {len(records)} cases, "
           + ", ".join(f"{k} {v:.1f} s" for k, v in spent.items()))
+    t0 = time.perf_counter()
     diff = kernel_checks.run_diff("cuda", iters=10) + kernel_checks.run_diff(
-        "cuda", iters=10, shape=kernel_checks.MESH_DIFF_SHAPE)
+        "cuda", iters=10, shape=kernel_checks.MESH_DIFF_SHAPE) + \
+        kernel_checks.run_diff_bwd("cuda", iters=10)
+    print(f"[time] B1-diff checks: {len(diff)} cases, "
+          f"{time.perf_counter() - t0:.1f} s")
     for r in diff:
-        print(f"[kernel] B1-diff {r['case']}: forward {r['fwd_ms']:.4f} ms "
-              f"(profiled {r['fwd_device_ms']}, bound {r['fwd_bound_ms']:.4f}"
-              f" by {r['fwd_bound_by']}), backward {r['bwd_ms']:.4f} ms "
-              f"(profiled {r['bwd_device_ms']}, bound {r['bwd_bound_ms']:.4f}"
-              f" by {r['bwd_bound_by']}); the forward against the "
-              f"no-gradient call {r['exact_err']:.3e} (bitwise) ({gpu})")
+        if "fwd_ms" in r:
+            print(f"[kernel] B1-diff {r['case']}: forward {r['fwd_ms']:.4f} "
+                  f"ms (profiled {r['fwd_device_ms']}, bound "
+                  f"{r['fwd_bound_ms']:.4f} by {r['fwd_bound_by']}), "
+                  f"backward {r['bwd_ms']:.4f} ms (profiled "
+                  f"{r['bwd_device_ms']}, bound {r['bwd_bound_ms']:.4f} by "
+                  f"{r['bwd_bound_by']}); the forward against the "
+                  f"no-gradient call {r['exact_err']:.3e} (bitwise) ({gpu})")
+        else:
+            lib_err = "n/a" if r["library_err"] is None else \
+                f"{r['library_err']:.3e}"
+            print(f"[kernel] B1-diff backward {r['case']}: {r['ms']:.4f} ms "
+                  f"(profiled {r['device_ms']}), bound {r['bound_ms']:.4f} "
+                  f"by {r['bound_by']} (share "
+                  f"{r['bound_ms'] / r['ms']:.1%}), the recompute "
+                  f"{r['plain_ms']:.4f} ms, SDPA backward "
+                  f"{r['library_ms']:.4f} ms (profiled "
+                  f"{r['library_device_ms']}), SDPA forward + backward "
+                  f"{r['library_both_ms']:.4f} ms (err {lib_err}); against "
+                  f"the recompute {r['max_abs_err']:.3e}, the float64 "
+                  f"formulation {r['render_err']:.3e}, a second run "
+                  f"{r['exact_err']:.3e} (bitwise), lse {r['lse_err']:.3e} "
+                  f"({gpu})")
     records += diff
     for r in records:
         tol = f"{r['tol']:.1e}" + (" x max|plain|" if r["rel"] else "")
@@ -349,7 +374,8 @@ def kernel_phase(gpu):
             + (("baseline_device_ms",) if r["baseline_device_ms"] is not None
                else ()))
         if r["exact_err"] is not None:
-            against = "the no-gradient call" if r["kernel"] == "B1-diff" \
+            against = "a second run" if r["form"].endswith("_bwd") else \
+                "the no-gradient call" if r["kernel"] == "B1-diff" \
                 else "the unfused kernels"
             dev += f", vs {against} {r['exact_err']:.3e} (bitwise)"
         print(f"[kernel] {r['kernel']} {r['case']}: max_abs_err "
@@ -2064,6 +2090,7 @@ def _peaks(recs, tid):
 
 def _probe_plan(blocks_diff, steps, val):
     return {"flash_attention_diff_fp32": blocks_diff * steps,
+            "flash_attention_diff_fp32_bwd": blocks_diff * steps,
             "flash_attention_fp32": CLIP_BLOCKS * (steps + val),
             "normalize_fp32": steps + val}
 
@@ -2267,8 +2294,7 @@ def probe_mesh_phases(torch, np, gpu, launches, tmp, ckpt, base, pool):
                                    f"one GPU {one}")
             diff = LORA_BLOCKS if name == "lora" else CLIP_BLOCKS
             _check_rank_launches(tag, r, t, _probe_plan(diff, steps, val))
-            if t["recomputes"].get("flash_attention_diff_fp32") != \
-                    diff * steps:
+            if t["recomputes"]:
                 raise RuntimeError(f"{tag} recomputes {t['recomputes']}")
         if name == "lora" and len({_task(r, name)["digest_own"]
                                    for r in rs}) != 1:
@@ -2284,8 +2310,8 @@ def probe_mesh_phases(torch, np, gpu, launches, tmp, ckpt, base, pool):
               f"{[s['losses'] for s in t0['steps']]}, within {PMESH_TOL:.0e}"
               f" of one GPU's; peak {_peaks(rs, name)}; rank 0's "
               f"collectives {_coll_line(t0['collectives'])}; launches "
-              f"{t0['launches']} = plan, recomputes {t0['recomputes']}, "
-              f"plain none; {t0['seconds']:.1f} s with the build ({gpu})")
+              f"{t0['launches']} = plan, no recompute, plain none; "
+              f"{t0['seconds']:.1f} s with the build ({gpu})")
     # ---- the tester ----
     tag = "[probe mesh test data=2]"
     got = json.loads((recs["data_root"] / PMESH_EVAL / "metrics.json")
@@ -2297,7 +2323,8 @@ def probe_mesh_phases(torch, np, gpu, launches, tmp, ckpt, base, pool):
     for r in recs["data"]:
         _check_rank_launches(tag, r, _task(r, "test"), {
             "flash_attention_fp32": CLIP_BLOCKS * batches,
-            "normalize_fp32": batches, "flash_attention_diff_fp32": 0})
+            "normalize_fp32": batches, "flash_attention_diff_fp32": 0,
+        "flash_attention_diff_fp32_bwd": 0})
     print(f"{tag} the single tester on the one-GPU e2e checkpoint: metrics "
           f"equal to one GPU's ({got.get('average_accuracy')}); "
           f"{t0['seconds']:.1f} s with the build; peak "
@@ -2472,7 +2499,8 @@ def probe_cache_phase(torch, gpu, tmp, base):
     batches = sum(-(-PROBE_SPLITS[s] // bs) for s in ("train", "val"))
     _check_launches("[probe cache]", launches, plain, {
         "flash_attention_fp32": CLIP_BLOCKS * batches,
-        "normalize_fp32": batches, "flash_attention_diff_fp32": 0})
+        "normalize_fp32": batches, "flash_attention_diff_fp32": 0,
+        "flash_attention_diff_fp32_bwd": 0})
     ex, st = trainer.extract_stats, trainer.last_stats
     if not trainer.use_feature_cache or ex["images"] != \
             PROBE_SPLITS["train"] + PROBE_SPLITS["val"]:
@@ -2524,10 +2552,11 @@ def probe_e2e_phase(torch, gpu, tmp, base):
     val = -(-PROBE_SPLITS["val"] // PROBE_E2E_BATCH)
     _check_launches("[probe e2e]", launches, plain, {
         "flash_attention_diff_fp32": CLIP_BLOCKS * steps,
+        "flash_attention_diff_fp32_bwd": CLIP_BLOCKS * steps,
         "flash_attention_fp32": CLIP_BLOCKS * (steps + val),
         "normalize_fp32": steps + val})
     if steps != -(-PROBE_SPLITS["train"] // PROBE_E2E_BATCH) or \
-            recomputes["flash_attention_diff_fp32"] != CLIP_BLOCKS * steps:
+            any(recomputes.values()):
         raise RuntimeError(f"[probe e2e] {steps} steps, recomputes "
                            f"{recomputes}")
     first = CLIP_BLOCKS - multi["unfreeze_last_k"]
@@ -2566,7 +2595,8 @@ def probe_test_phase(torch, np, gpu, root, base, run_name):
     batches = -(-n // cfg["common"]["data"]["batch_size"])
     _check_launches("[probe test]", launches, plain, {
         "flash_attention_fp32": CLIP_BLOCKS * batches,
-        "normalize_fp32": batches, "flash_attention_diff_fp32": 0})
+        "normalize_fp32": batches, "flash_attention_diff_fp32": 0,
+        "flash_attention_diff_fp32_bwd": 0})
     out = root / "probing" / "linear_probing" / "eval" / \
         "llava_fp32_linear" / "age" / "TestDataset"
     preds = json.loads((out / "preds.json").read_text())
@@ -2632,11 +2662,17 @@ def probe_reference_phase(torch, np, gpu, card="cuda"):
                     if p.requires_grad}}
         res[dev] = (float(loss.detach()),
                     {n: p.grad.cpu() for n, p in named.items()
-                     if p.grad is not None}, dict(_lib.launches))
+                     if p.grad is not None}, dict(_lib.launches),
+                    dict(_lib.recomputes))
     _lib.reset_counts()
-    (card_loss, grads, launches), (cpu_loss, ref, _) = res[card], res["cpu"]
-    if launches["flash_attention_diff_fp32"] != 2 or set(grads) != set(ref):
+    (card_loss, grads, launches, recomputes), (cpu_loss, ref, _, cpu_re) = \
+        res[card], res["cpu"]
+    # the card's backward kernel where the CPU recomputed, and no recompute
+    if launches["flash_attention_diff_fp32"] != 2 or set(grads) != set(ref) \
+            or launches["flash_attention_diff_fp32_bwd"] != \
+            cpu_re["flash_attention_diff_fp32"] or any(recomputes.values()):
         raise RuntimeError(f"[probe reference] launches {launches}, "
+                           f"recomputes {recomputes} (the CPU's {cpu_re}), "
                            f"gradients {sorted(set(grads) ^ set(ref))}")
     if not grads["backbone.blocks.1.attn.q_proj.weight"].abs().max() > 0:
         raise RuntimeError("[probe reference] no gradient reached q_proj "
@@ -2756,10 +2792,11 @@ def probe_multi_phase(torch, gpu, tmp, base):
     val = 2 * -(-PROBE_SPLITS["val"] // PROBE_E2E_BATCH)
     _check_launches("[probe multi]", launches, plain, {
         "flash_attention_diff_fp32": CLIP_BLOCKS * steps,
+        "flash_attention_diff_fp32_bwd": CLIP_BLOCKS * steps,
         "flash_attention_fp32": CLIP_BLOCKS * (steps + val),
         "normalize_fp32": steps + val})
     if steps != 2 * -(-PROBE_MULTI_TRAIN // PROBE_E2E_BATCH) or \
-            recomputes["flash_attention_diff_fp32"] != CLIP_BLOCKS * steps:
+            any(recomputes.values()):
         raise RuntimeError(f"[probe multi] {steps} steps, recomputes "
                            f"{recomputes}")
     # epoch 2 ran on the loss EMA's task weights: logged, mean 1, not the
@@ -2825,10 +2862,11 @@ def probe_lora_phase(torch, gpu, tmp, base):
     val = -(-PROBE_SPLITS["val"] // PROBE_E2E_BATCH)
     _check_launches("[probe lora]", launches, plain, {
         "flash_attention_diff_fp32": LORA_BLOCKS * steps,
+        "flash_attention_diff_fp32_bwd": LORA_BLOCKS * steps,
         "flash_attention_fp32": CLIP_BLOCKS * (steps + val),
         "normalize_fp32": steps + val})
     if steps != -(-PROBE_SPLITS["train"] // PROBE_E2E_BATCH) or \
-            recomputes["flash_attention_diff_fp32"] != LORA_BLOCKS * steps:
+            any(recomputes.values()):
         raise RuntimeError(f"[probe lora] {steps} steps, recomputes "
                            f"{recomputes}")
     moved = [n for n, p in module.named_parameters()
@@ -2884,7 +2922,8 @@ def probe_multi_test_phase(torch, gpu, multi_root, lora_root, base,
         batches = len(tasks) * -(-n // cfg["common"]["data"]["batch_size"])
         _check_launches(f"[probe {profile} test]", launches, plain, {
             "flash_attention_fp32": CLIP_BLOCKS * batches,
-            "normalize_fp32": batches, "flash_attention_diff_fp32": 0})
+            "normalize_fp32": batches, "flash_attention_diff_fp32": 0,
+        "flash_attention_diff_fp32_bwd": 0})
         if any(recomputes.values()):
             raise RuntimeError(f"[probe {profile} test] recomputes "
                                f"{recomputes}")
@@ -2999,10 +3038,12 @@ def probe_multi_reference_phase(torch, np, gpu, card="cuda"):
                      sum(p.grad is not None for p in tower.parameters()))
     _lib.reset_counts()
     (card_loss, grads, launches, recomputes, base_grads), \
-        (cpu_loss, ref, _, _, _) = runs[card], runs["cpu"]
+        (cpu_loss, ref, _, cpu_re, _) = runs[card], runs["cpu"]
     if launches["flash_attention_diff_fp32"] != 1 or \
             launches["flash_attention_fp32"] != 2 or \
-            recomputes["flash_attention_diff_fp32"] != 1 or base_grads or \
+            launches["flash_attention_diff_fp32_bwd"] != 1 or \
+            cpu_re["flash_attention_diff_fp32"] != 1 or \
+            any(recomputes.values()) or base_grads or \
             set(grads) != set(ref) or len(grads) != len(named):
         raise RuntimeError(f"[probe multi reference] launches {launches}, "
                            f"recomputes {recomputes}, base gradients "

@@ -758,7 +758,9 @@ def test_b1_kernel_output_alone_carries_no_gradient_and_the_form_repairs_it(
     (attn(x) * w).sum().backward()
     got = attn.q_proj.weight.grad.clone()
     assert _lib.launches["flash_attention_diff_fp32"] == 1
-    assert _lib.recomputes["flash_attention_diff_fp32"] == 1
+    # the backward is the kernel: no recompute on the card
+    assert _lib.launches["flash_attention_diff_fp32_bwd"] == 1
+    assert sum(_lib.recomputes.values()) == 0
     assert sum(_lib.plain_calls.values()) == 0
     attn.q_proj.weight.grad = None
     orig = vit.flash_attention
@@ -775,10 +777,54 @@ def test_b1_kernel_output_alone_carries_no_gradient_and_the_form_repairs_it(
 def test_b1_diff_matches_plain_in_fp32_and_bf16(card):
     from vlm_tpu_torch.testing import kernel_checks
     records = kernel_checks.run_diff(card, iters=2, shape=(4, 16, 577, 64))
-    assert [r["form"] for r in records] == ["flash_attention_diff_fp32",
-                                            "flash_attention_diff"]
+    assert [r["form"] for r in records] == [
+        "flash_attention_diff_fp32", "flash_attention_diff_fp32_bwd",
+        "flash_attention_diff"]
     for r in records:
         assert r["ok"] and r["exact_err"] == 0.0, r
+
+
+def test_b1_diff_backward_kernel_cases(card):
+    """The fp32 backward kernel at small copies of its cases (CLIP-L's,
+    SigLIP's, EVA's and Vicuna's head dims, causal with rows that see no
+    key and with more keys than rows, G = 2): dq, dk, dv within FP32_TOL
+    of the recompute and of the float64 formulation, bitwise on a second
+    run, lse as the plain one's."""
+    from vlm_tpu_torch.testing import kernel_checks
+    cases = (("clip", 2, 16, 16, 577, 577, 64, False),
+             ("siglip", 2, 16, 16, 256, 256, 72, False),
+             ("eva", 2, 16, 16, 257, 257, 88, False),
+             ("causal_d128", 2, 8, 8, 300, 300, 128, True),
+             ("causal_dead_rows_g2", 2, 8, 4, 80, 48, 64, True),
+             ("causal_sk_gt_sq", 2, 4, 4, 40, 100, 88, True),
+             ("gqa2", 2, 16, 8, 577, 577, 64, False))
+    records = kernel_checks.run_diff_bwd(card, iters=2, cases=cases)
+    for r in records:
+        assert r["form"] == "flash_attention_diff_fp32_bwd"
+        assert r["ok"] and r["exact_err"] == 0.0, r
+
+
+def test_b1_diff_backward_kernel_refuses_unbuilt_head_dims(card):
+    """The backward kernel raises on a head dim it was not built for;
+    nothing falls back to the recompute on the card."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.attention import flash_attention
+    q = torch.randn(1, 2, 8, 80, device=card, requires_grad=True)
+    _lib.reset_counts()
+    o = flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dims"):
+        o.sum().backward()
+    assert sum(_lib.recomputes.values()) == 0
+
+
+def test_b1_diff_bf16_keeps_its_recompute_on_the_card(card):
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.attention import flash_attention
+    q = torch.randn(1, 2, 33, 64, device=card).bfloat16().requires_grad_()
+    _lib.reset_counts()
+    flash_attention(q, q, q).float().sum().backward()
+    assert _lib.recomputes["flash_attention_diff"] == 1
+    assert _lib.launches["flash_attention_diff_fp32_bwd"] == 0
 
 
 def test_b1_diff_refuses_masks_on_the_card(card):
@@ -816,7 +862,8 @@ def test_serving_launches_unchanged_by_the_differentiable_form(card):
 def test_lora_step_takes_b1_diff_only_in_the_adapted_blocks(card):
     """A LoRA step on a depth-cut CLIP-L/336 (3 blocks, full width, fp32),
     adapters on the last 2 blocks with B drawn nonzero: B1's
-    differentiable form launches (and recomputes) in those 2 blocks only,
+    differentiable form launches (forward and backward kernels) in those 2
+    blocks only,
     its no-grad form in block 0; the gradient reaches A of every adapted
     q_proj through the kernel's forward; the base weights get none and
     stay as built."""
@@ -849,7 +896,8 @@ def test_lora_step_takes_b1_diff_only_in_the_adapted_blocks(card):
     feats.square().mean().backward()
     torch.cuda.synchronize()
     assert _lib.launches["flash_attention_diff_fp32"] == 2
-    assert _lib.recomputes["flash_attention_diff_fp32"] == 2
+    assert _lib.launches["flash_attention_diff_fp32_bwd"] == 2
+    assert sum(_lib.recomputes.values()) == 0
     assert _lib.launches["flash_attention_fp32"] == 3
     assert sum(_lib.plain_calls.values()) == 0
     for i in (1, 2):

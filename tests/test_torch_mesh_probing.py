@@ -25,7 +25,10 @@ flax trees), dropout 0:
 - 13 samples a split: a batch of 8 split over ``data=2`` and a ragged
   tail of 5, computed whole on every rank;
 - dropout 0.3 (on the cached features): the one-device run's losses and
-  head, the mask drawn for the whole batch and cut to each rank's rows.
+  head, the mask drawn for the whole batch and cut to each rank's rows;
+- a rank that reaches ``fit`` late (rank 0 has trained an epoch and saved
+  a checkpoint by then) still trains every epoch: it does not resume from
+  this run's own checkpoint, so the ranks meet at the same barriers.
 """
 
 import copy
@@ -325,3 +328,23 @@ def test_dropout_keeps_the_one_device_trajectory(ref, mesh):
                                    atol=1e-6, err_msg=name)
     # and dropout did act: the run differs from the one without it
     assert t["history"]["train"] != task(recs[0], "cache")["history"]["train"]
+
+
+def test_a_late_rank_trains_every_epoch(ref):
+    """Rank 1 sleeps 8 s before ``fit`` while rank 0 trains its first
+    epoch on the cached features (no collective in it) and saves. Every
+    rank reads the checkpoint directory before rank 0's first save: both
+    train both epochs, to the same history, and the launch ends (a rank
+    that resumed from the fresh checkpoint skipped that save's barrier and
+    left rank 0 waiting at its last one)."""
+    tmp = ref["tmp"]
+    spec = dict(root=str(run_root(tmp, "late", ref["root"])), device="cpu",
+                tower=str(tmp / "tower.pt"), threads=1, tasks=[[
+                    "train", dict(id="late", profile="single",
+                                  cfg=ref["modes"]["cache"]["cfg"],
+                                  run="late", delay_rank=1, delay_s=8.0)]])
+    recs = launch(spec, tmp, RUNS["model2"], "late", worker="mesh_probe")
+    hist = [task(rec, "late")["history"] for rec in recs]
+    assert [len(h["train"]) for h in hist] == [2, 2]
+    assert hist[0] == hist[1]
+    assert task(recs[0], "late")["history_csv"] is not None

@@ -60,6 +60,12 @@
 //   row before the first key) loads every tile, so that row's weights are
 //   uniform over all Sk keys (the mean of V), as in the bf16 form.
 //   tests/test_torch_fp32_forms.py emulates the blocks on the CPU.
+// - lse. Where the caller passes lse [B, H, Sq] (B1's differentiable form,
+//   for its backward, flash_attention_fp32_bwd.cu), each row's natural-log
+//   sum of exp of its scaled, masked scores, (m + log2 l) ln 2 from the
+//   running max and sum the row ends with; -1e30 for a row with no live key
+//   (the plain version's logsumexp of -1e30 everywhere). Null (serving):
+//   nothing is written and the output is the same.
 #include "common.cuh"
 
 namespace {
@@ -76,6 +82,7 @@ struct Params {
   const float* k;
   const float* v;
   float* o;
+  float* lse;  // [B, H, Sq] or null
   const int* kv_len;
   const int* prefix_len;
   int H, KV, Sq, Sk, D, causal, lhpb, positions, stages, wq, wk, wv;
@@ -345,6 +352,8 @@ flash_fp32_kernel(const Params p) {
     const float wa1 = exp2f(m1 - mm1), wb1 = exp2f(n1 - mm1);
     l0 = l0 * wa0 + xm[2 * kSlots + slot] * wb0;
     l1 = l1 * wa1 + xm[3 * kSlots + slot] * wb1;
+    m0 = mm0;  // the rows' max, for lse
+    m1 = mm1;
 #pragma unroll
     for (int nd = 0; nd < KD; ++nd)
 #pragma unroll
@@ -364,6 +373,12 @@ flash_fp32_kernel(const Params p) {
     const int pos = p0 + (r >> p.lhpb), h = h0 + (r & (hpb - 1));
     if (pos >= p.Sq) continue;
     const float inv = 1.f / (half ? l1 : l0);
+    if (p.lse && t == 0) {
+      const float m = half ? m1 : m0;
+      p.lse[(static_cast<int64_t>(b) * p.H + h) * p.Sq + pos] =
+          m == vlm::kNegInf ? vlm::kNegInf
+                            : (m + log2f(half ? l1 : l0)) * 0.6931471805599453f;
+    }
     float* orow = p.o + b * p.o_sb + h * p.o_sh +
                   static_cast<int64_t>(pos) * p.o_ss + 2 * t;
 #pragma unroll
@@ -425,9 +440,10 @@ int launch_plan(const Params& p, dim3 grid, int ks, int rg,
 // position tiles of rows / hpb, gy = H / hpb, gz = B), as
 // ops/attention.py gives it (`fp32_rows`, `flash_plan`), with ks (1 or 2)
 // warps a row group (`fp32_key_split`). o's rows must be 8-byte aligned
-// (the wrapper allocates it).
+// (the wrapper allocates it). lse: [B, H, Sq] contiguous fp32, or null.
 extern "C" int vlm_flash_attention_fp32(
-    const void* q, const void* k, const void* v, void* o, const int* kv_len,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    const int* kv_len,
     const int* prefix_len, int B, int H, int KV, int Sq, int Sk, int D,
     int hpb, int gx, int gy, int gz, int ks, int rows,
     int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
@@ -443,7 +459,8 @@ extern "C" int vlm_flash_attention_fp32(
   int lhpb = 0;
   while ((1 << lhpb) < hpb) ++lhpb;
   const Params p{static_cast<const float*>(q), static_cast<const float*>(k),
-                 static_cast<const float*>(v), static_cast<float*>(o), kv_len,
+                 static_cast<const float*>(v), static_cast<float*>(o), lse,
+                 kv_len,
                  causal ? prefix_len : nullptr, H, KV, Sq, Sk, D, causal,
                  lhpb, rows / hpb, 0,
                  vlm::copy_width_f32(q, D, q_sb, q_sh, q_ss),

@@ -11,9 +11,11 @@ Importing this module builds nothing and imports no toolchain.
 Each kernel wrapper counts its launches in :data:`launches`; each plain
 PyTorch version counts its calls in :data:`plain_calls` under the form its
 inputs select (fp32 operands: the ``_fp32`` form), so a run can show which
-path it took. The backward of B1's differentiable form recomputes the
-attention with plain tensor operations and counts that in
-:data:`recomputes`, apart from the plain versions' calls.
+path it took. The backward of B1's differentiable form is a kernel for fp32
+CUDA tensors (counted under ``flash_attention_diff_fp32_bwd``); elsewhere
+(CPU tensors, and bf16 on the card) it recomputes the attention with plain
+tensor operations and counts that in :data:`recomputes`, apart from the
+plain versions' calls.
 """
 
 from __future__ import annotations
@@ -42,9 +44,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # B3 an int8 form; B3's write inside B2's launch (the decode step's) counts
 # under B3's fused forms, once per launch, beside B2's own count; B1's
 # launch as the forward of its differentiable form (a gradient is needed)
-# counts under the ``_diff`` forms too
+# counts under the ``_diff`` forms too, and the fp32 form's backward kernel
+# under ``flash_attention_diff_fp32_bwd``, once a backward
 KERNELS = ("flash_attention", "flash_attention_fp32", "flash_attention_diff",
-           "flash_attention_diff_fp32", "decode_attention",
+           "flash_attention_diff_fp32", "flash_attention_diff_fp32_bwd",
+           "decode_attention",
            "decode_attention_int8", "decode_attention_fp32", "kv_write",
            "kv_write_int8", "kv_write_fused", "kv_write_int8_fused",
            "normalize", "normalize_fp32", "int8_matmul", "int8xint8_matmul",
@@ -52,11 +56,14 @@ KERNELS = ("flash_attention", "flash_attention_fp32", "flash_attention_diff",
 launches = {name: 0 for name in KERNELS}
 # a fused or differentiable form has no plain version of its own: on the
 # CPU its work is the plain versions of the kernels it runs (B3's write and
-# B2's attention; B1's), each counted under its own form
+# B2's attention; B1's), each counted under its own form; the backward's
+# plain version is the recompute
 plain_calls = {name: 0 for name in KERNELS
-               if not name.endswith(("_fused", "_diff", "_diff_fp32"))}
-# the backward of B1's differentiable form: recomputes through plain tensor
-# operations, one count per backward
+               if not name.endswith(("_fused", "_diff", "_diff_fp32",
+                                     "_bwd"))}
+# the backward of B1's differentiable form where it takes no kernel (CPU
+# tensors; bf16 on the card): recomputes through plain tensor operations,
+# one count per backward
 recomputes = {"flash_attention_diff": 0, "flash_attention_diff_fp32": 0}
 
 _P = ctypes.c_void_p
@@ -65,8 +72,10 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
     "vlm_flash_attention": [_P] * 6 + [_I] * 10 + [_L] * 12 + [_F, _I, _P],
-    "vlm_flash_attention_fp32": [_P] * 6 + [_I] * 12 + [_L] * 12 + [_F, _I,
+    "vlm_flash_attention_fp32": [_P] * 7 + [_I] * 12 + [_L] * 12 + [_F, _I,
                                                                      _P],
+    "vlm_flash_attention_fp32_bwd": [_P] * 11 + [_L] + [_I] * 6 + [_L] * 24
+    + [_F, _I, _P],
     "vlm_decode_attention": [_P] * 16 + [_I] * 9 + [_L] * 6 + [_F, _P],
     "vlm_decode_attention_fp32": [_P] * 14 + [_I] * 9 + [_L] * 6 + [_F, _P],
     "vlm_kv_write": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],

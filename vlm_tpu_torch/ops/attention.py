@@ -13,8 +13,10 @@ kernel (``csrc/flash_attention.cu``) or the fp32 one
 tensors the plain version. Where a gradient is needed (grad mode on and
 q, k or v requiring one) it routes to :class:`FlashAttentionFn`, B1's
 differentiable form (``vlm_tpu``'s ``_flash_attention_diff``): the kernel
-as its forward, and a backward that recomputes the attention through
-:func:`attention_plain`'s operators and differentiates that.
+as its forward; as its backward, for fp32 CUDA tensors the kernel of
+``csrc/flash_attention_fp32_bwd.cu`` (:func:`flash_attention_fp32_backward`,
+from the forward's saved output and log-sum-exp), else a recompute of the
+attention through :func:`attention_plain`'s operators, differentiated.
 :func:`flash_plan` is its host-side plan (the grid it launches and the
 packing of (position, head) rows), held against :func:`attention_plain` on
 the CPU by ``tests/test_torch_flash_plan.py`` (bf16 form) and
@@ -181,23 +183,40 @@ class FlashAttentionFn(torch.autograd.Function):
     """B1's differentiable form (``vlm_tpu/ops/attention.py``
     ``_flash_attention_diff``): the forward is B1 (bf16 or fp32 form; the
     plain version on the CPU) and counts a launch under
-    ``flash_attention_diff`` / ``flash_attention_diff_fp32`` too; only q, k
-    and v are saved. The backward recomputes softmax(q kᵀ d^-½) v with
-    :func:`attention_plain`'s operators (fp32 scores, p rounded to v's
-    dtype) under grad mode and differentiates them, as ``_flash_diff_bwd``
-    differentiates ``_xla_attention``; it counts in ``_lib.recomputes``,
-    not as a plain version's call."""
+    ``flash_attention_diff`` / ``flash_attention_diff_fp32`` too.
+
+    fp32 CUDA tensors: the forward also writes each row's log-sum-exp and
+    saves q, k, v, the output and it; the backward is the kernel
+    (:func:`flash_attention_fp32_backward`, counted under
+    ``flash_attention_diff_fp32_bwd``), and a failed launch raises. CPU
+    tensors (and bf16 on the card): only q, k and v are saved, and the
+    backward recomputes softmax(q kᵀ d^-½) v with :func:`attention_plain`'s
+    operators (fp32 scores, p rounded to v's dtype) under grad mode and
+    differentiates them, as ``_flash_diff_bwd`` differentiates
+    ``_xla_attention``; it counts in ``_lib.recomputes``, not as a plain
+    version's call."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        form = "flash_attention_diff_fp32" if q.dtype == torch.float32 \
-            else "flash_attention_diff"
+        fp32 = q.dtype == torch.float32
+        form = "flash_attention_diff_fp32" if fp32 else "flash_attention_diff"
         ctx.form, ctx.causal = form, causal
+        ctx.kernel = fp32 and not _lib.is_cpu(q, "flash_attention")
+        if ctx.kernel:
+            o, lse = _flash_forward(q, k, v, causal=causal, also=form,
+                                    with_lse=True)
+            ctx.save_for_backward(q, k, v, o, lse)
+            return o
         ctx.save_for_backward(q, k, v)
         return _flash_forward(q, k, v, causal=causal, also=form)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.kernel:
+            grads = flash_attention_fp32_backward(*ctx.saved_tensors, g,
+                                                  causal=ctx.causal)
+            return (*(gr if need else None for gr, need in
+                      zip(grads, ctx.needs_input_grad)), None)
         _lib.recomputes[ctx.form] += 1
         saved = ctx.saved_tensors
         with torch.enable_grad():
@@ -210,10 +229,61 @@ class FlashAttentionFn(torch.autograd.Function):
                   for t in (q, k, v)), None)
 
 
+#: the head dims the backward kernel is built for (CLIP-L, SigLIP, EVA; 128)
+BWD_HEAD_DIMS = (64, 72, 88, 128)
+
+
+def flash_attention_fp32_backward(q, k, v, o, lse, do, *, causal=False):
+    """The fp32 backward kernel of B1's differentiable form
+    (``csrc/flash_attention_fp32_bwd.cu``): dq, dk, dv (fp32, laid out as
+    q, k and v) of ``o = attention(q, k, v, causal=causal)`` for the output
+    gradient ``do``, from the forward's ``o`` and ``lse`` [B, H, Sq]. CUDA
+    tensors only (the CPU's backward is the recompute); q ``[B, H, Sq,
+    D]``, k/v ``[B, KV, Sk, D]`` with any strides and a contiguous head
+    dim, D in :data:`BWD_HEAD_DIMS`. Its workspace holds dS, one fp32
+    [B, H, Sq, Sk] matrix. One count under
+    ``flash_attention_diff_fp32_bwd`` a call (its three launches)."""
+    name = "flash_attention_fp32_backward"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: takes cuda tensors (the CPU's backward "
+                         "is the recompute)")
+    _lib.check_cuda(name, q, k, v, o, lse, do)
+    _lib.check_dtype(name, torch.float32, q, k, v, o, lse, do)
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    if (d not in BWD_HEAD_DIMS or k.shape != (b, kvh, sk, d)
+            or v.shape != k.shape or h % kvh or o.shape != q.shape
+            or do.shape != q.shape or lse.shape != (b, h, sq)):
+        raise ValueError(f"{name}: unsupported shapes q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} v={tuple(v.shape)} (head dims "
+                         f"{BWD_HEAD_DIMS})")
+    if any(t.stride(3) != 1 for t in (q, k, v, o)) or \
+            not lse.is_contiguous():
+        raise ValueError(f"{name}: needs a contiguous head dim")
+    if do.stride(3) != 1:
+        do = do.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    # dS for the kernel's dQ pass: [B, H, Sq, Sk rounded up to 4], fp32
+    ld = -(-sk // 4) * 4
+    ds = torch.empty((b, h, sq, ld), dtype=torch.float32, device=q.device)
+    _lib.launch(
+        "flash_attention_diff_fp32_bwd", "vlm_flash_attention_fp32_bwd",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), delta.data_ptr(), ds.data_ptr(), ld, b, h, kvh, sq,
+        sk, d,
+        *(st for t in (q, k, v, o, do, dq, dk, dv) for st in t.stride()[:3]),
+        d ** -0.5, int(causal), _lib.stream_ptr(q))
+    return dq, dk, dv
+
+
 def _flash_forward(q, k, v, *, causal=False, kv_len=None, prefix_len=None,
-                   also: str = "") -> torch.Tensor:
+                   also: str = "", with_lse: bool = False):
     """B1's launch (the plain version for CPU tensors); ``also``: the
-    differentiable form whose forward it is, counted beside the kernel's."""
+    differentiable form whose forward it is, counted beside the kernel's;
+    ``with_lse`` (fp32 CUDA tensors only): also each row's log-sum-exp
+    [B, H, Sq], returned as ``(o, lse)``."""
     if _lib.is_cpu(q, "flash_attention"):
         return attention_plain(q, k, v, causal=causal, kv_len=kv_len,
                                prefix_len=prefix_len)
@@ -235,7 +305,7 @@ def _flash_forward(q, k, v, *, causal=False, kv_len=None, prefix_len=None,
     if causal and prefix_len is not None:
         pfx = prefix_len.to(device=q.device, dtype=torch.int32).contiguous()
     if fp32:
-        return _flash_fp32(q, k, v, kvl, pfx, causal, also)
+        return _flash_fp32(q, k, v, kvl, pfx, causal, also, with_lse)
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
     plan = flash_plan(b, h, kvh, sq)
     # [B, Sq, H, D] memory (the head dim padded to 8 for TMA's 16-byte rows)
@@ -253,24 +323,29 @@ def _flash_forward(q, k, v, *, causal=False, kv_len=None, prefix_len=None,
     return o
 
 
-def _flash_fp32(q, k, v, kvl, pfx, causal, also="") -> torch.Tensor:
+def _flash_fp32(q, k, v, kvl, pfx, causal, also="", with_lse=False):
     """B1's fp32 form: fp32 accuracy from three TF32 products on the tensor
     cores, :func:`fp32_rows` rows a block as :func:`flash_plan` packs them,
     :func:`fp32_key_split` warps a row group, any strides with a contiguous
-    head dim; the output's memory is [B, Sq, H, D]."""
+    head dim; the output's memory is [B, Sq, H, D]. ``with_lse``: returns
+    ``(o, lse)``, lse [B, H, Sq] (natural log; -1e30 for a row with no live
+    key)."""
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     rows = fp32_rows(b, h, kvh, sq, d, _lib.sm_count(q.device))
     plan = flash_plan(b, h, kvh, sq, rows)
     o = torch.empty((b, sq, h, d), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     _lib.launch(
         "flash_attention_fp32", "vlm_flash_attention_fp32",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if with_lse else None,
         kvl.data_ptr() if kvl is not None else None,
         pfx.data_ptr() if pfx is not None else None,
         b, h, kvh, sq, sk, d, plan.heads_per_block, *plan.grid,
         fp32_key_split(d), rows, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], d ** -0.5, int(causal),
         _lib.stream_ptr(q), also=also)
-    return o
+    return (o, lse) if with_lse else o

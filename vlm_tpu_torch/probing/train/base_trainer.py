@@ -267,6 +267,10 @@ class BaseTrainer:
         self._sched_best = float(plateau.get("best", float("inf")))
         self._sched_bad_epochs = int(plateau.get("bad_epochs", 0))
         self.train_loader.skip_epochs(start_epoch)
+        # every rank has read the checkpoint before rank 0's first save can
+        # write one: a rank that reached this point late would otherwise
+        # resume from this run's own epoch and skip that epoch's barrier
+        self.sync()
 
         patience_left = patience
         for epoch in range(start_epoch, epochs):

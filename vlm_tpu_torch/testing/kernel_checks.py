@@ -130,12 +130,15 @@ KERNELS = {
                replaces="vlm_tpu/ops/quant.py:300",
                forms=("int4_matmul",)),
     # B1's differentiable form (ops/attention.py FlashAttentionFn): B1's
-    # kernel as its forward, a recompute through plain tensor operations
-    # as its backward, as vlm_tpu's custom VJP (checked by run_diff)
+    # kernel as its forward; as its backward the fp32 kernel of
+    # flash_attention_fp32_bwd.cu (its own form) for fp32, a recompute
+    # through plain tensor operations for bf16, as vlm_tpu's custom VJP
+    # (checked by run_diff and run_diff_bwd)
     "B1-diff": dict(name="flash_attention_diff",
                     source="vlm_tpu_torch/csrc/flash_attention.cu",
                     replaces="vlm_tpu/ops/attention.py:250",
                     forms=("flash_attention_diff_fp32",
+                           "flash_attention_diff_fp32_bwd",
                            "flash_attention_diff")),
 }
 # forms whose source is not their kernel's
@@ -143,6 +146,8 @@ FORM_SOURCES = {"flash_attention_fp32":
                 "vlm_tpu_torch/csrc/flash_attention_fp32.cu",
                 "flash_attention_diff_fp32":
                 "vlm_tpu_torch/csrc/flash_attention_fp32.cu",
+                "flash_attention_diff_fp32_bwd":
+                "vlm_tpu_torch/csrc/flash_attention_fp32_bwd.cu",
                 "kv_write_fused": "vlm_tpu_torch/csrc/decode_attention.cu",
                 "kv_write_int8_fused":
                 "vlm_tpu_torch/csrc/decode_attention.cu"}
@@ -1543,19 +1548,127 @@ def run(device="cuda", iters: int = 20,
 # the end-to-end probing step's attention: CLIP-L/336 (16 heads of 64 over
 # 577 tokens) at the trainer's batch of 32 images
 DIFF_SHAPE = (32, 16, 577, 64)
+# the backward kernel's other cases (name, B, H, KV, Sq, Sk, D, causal):
+# the probing mesh's data=2 ranks (16 images a rank, all 16 heads), the
+# towers of the other models' probing (SigLIP, EVA), a causal MHA prefill
+# of Vicuna's heads, and grouped heads (G = 2)
+DIFF_BWD_CASES = (
+    ("clip_l336_g16_h16_s577_d64", 16, 16, 16, 577, 577, 64, False),
+    ("siglip_g32_h16_s256_d72", 32, 16, 16, 256, 256, 72, False),
+    ("eva_g32_h16_s257_d88", 32, 16, 16, 257, 257, 88, False),
+    ("causal_mha_g4_h32_s512_d128", 4, 32, 32, 512, 512, 128, True),
+    ("gqa2_g16_h16_kv8_s577_d64", 16, 16, 8, 577, 577, 64, False),
+)
 
 
-def diff_work(b: int, h: int, s: int, d: int, elem: int, peak: str
+def diff_work(b: int, h: int, kvh: int, sq: int, sk: int, d: int,
+              elem: int, peak: str, causal: bool = False
               ) -> Dict[str, Tuple[float, float, str]]:
-    """B1-diff without masks: the forward 4 b h s² d operations, q, k, v
-    read and o written; the backward 10 b h s² d (five products, the
-    scores' recompute counted), q, k, v and the output's gradient read,
-    dq, dk, dv written."""
-    t = float(b * h * s * d * elem)
-    fwd = (4.0 * b * h * s * s * d, 4 * t, peak)
-    bwd = (10.0 * b * h * s * s * d, 7 * t, peak)
+    """B1-diff: the forward 4 d operations per (row, key) over the keys
+    each row's result depends on (:func:`attention_work`), q, k, v read and
+    o written; the backward 10 d (five products, the scores' recompute
+    counted), q, k, v and the output's gradient read, dq, dk, dv
+    written."""
+    fwd = attention_work(b, h, kvh, sq, sk, d, causal, elem=elem, peak=peak)
+    tq, tkv = float(elem * d * b * h * sq), float(elem * d * b * kvh * sk)
+    bwd = (2.5 * fwd[0], 3 * tq + 4 * tkv, peak)
     return {"fwd": fwd, "bwd": bwd,
             "both": (fwd[0] + bwd[0], fwd[1] + bwd[1], peak)}
+
+
+# a row's lse above this has a live key (a dead row's is -1e30)
+NEG_LSE = -1e29
+
+
+def _bwd_record(q, k, v, g, causal: bool, case: str, on_path: bool,
+                iters: int) -> Dict:
+    """The fp32 backward kernel (``flash_attention_diff_fp32_bwd``) on
+    ``q, k, v`` (requiring a gradient) and the output gradient ``g``:
+    dq, dk, dv within ``FP32_TOL`` x max against the recompute (autograd
+    through :func:`attention_plain`) and against the kernel's formulation
+    in float64 (``testing/attention_grad.py``, ``render_err``); a second
+    backward bitwise the same (``exact_err``); the forward's lse against
+    the plain one (``lse_err``; a row with no live key exactly -1e30).
+    Times: the backward (``retain_graph`` over one forward), the
+    recompute's forward and backward (``plain_ms``), SDPA's backward alone
+    (``library_ms``) and its forward and backward (``library_both_ms``)."""
+    from ..ops.attention import _flash_forward
+    from .attention_grad import attention_backward, attention_lse
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    qkv = (q, k, v)
+    base = _lib.launches["flash_attention_diff_fp32_bwd"]
+    out = flash_attention(q, k, v, causal=causal)
+    got = torch.autograd.grad(out, qkv, g, retain_graph=True)
+    again = torch.autograd.grad(out, qkv, g, retain_graph=True)
+    launched = _lib.launches["flash_attention_diff_fp32_bwd"] - base
+    exact_err = max(_max_err(a, c) for a, c in zip(got, again))
+
+    def plain():
+        return torch.autograd.grad(
+            attention_plain(q, k, v, causal=causal), qkv, g)
+    want = plain()
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(_max_err(a, w) for a, w in zip(got, want))
+    with torch.no_grad():
+        qd, kd, vd = (t.detach() for t in qkv)
+        o, lse = _flash_forward(qd, kd, vd, causal=causal, with_lse=True)
+        ref = attention_lse(qd, kd, vd, causal=causal)
+        live = ref > NEG_LSE
+        lse_err = _max_err(lse[live], ref[live]) if bool(live.any()) \
+            else 0.0
+        dead_ok = bool((lse[~live] == -1e30).all())
+        lse_tol = FP32_TOL * max(float(ref[live].abs().max()), 1.0) \
+            if bool(live.any()) else 0.0
+        render_err = max(_max_err(a, w) for a, w in zip(
+            got, attention_backward(qd, kd, vd, o, lse, g, causal=causal)))
+        del o, lse, ref
+    gqa = h != kvh
+    lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                             enable_gqa=gqa)
+
+    def library():
+        torch.autograd.grad(lib_out, qkv, g, retain_graph=True)
+
+    def library_both():
+        return torch.autograd.grad(F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=gqa), qkv, g)
+    # SDPA puts a causal diagonal at the first key: only Sq = Sk agrees
+    lib_err = max(_max_err(a, w) for a, w in zip(library_both(), want)) \
+        if not causal or sq == sk else None
+    del want
+    torch.cuda.synchronize()
+
+    def bwd():
+        torch.autograd.grad(out, qkv, g, retain_graph=True)
+    t = {}
+    for name, fn in (("plain", plain), ("bwd", bwd), ("library", library),
+                     ("library_both", library_both)):
+        t[name] = _ms(fn, iters)
+    for name, fn in (("library_both", library_both), ("library", library),
+                     ("bwd", bwd), ("plain", plain)):
+        t[name] = (t[name] + _ms(fn, iters)) / 2
+    dev_ms = {name: _device_ms(fn, iters) for name, fn in
+              (("bwd", bwd), ("library", library))}
+    work = diff_work(b, h, kvh, sq, sk, d, 4, "fp32_3xtf32", causal)["bwd"]
+    bound, bound_by = bound_ms(*work)
+    ok = (err <= FP32_TOL * scale and render_err <= FP32_TOL * scale
+          and exact_err == 0.0 and lse_err <= lse_tol and dead_ok
+          and launched == 2)
+    return dict(
+        kernel="B1-diff", form="flash_attention_diff_fp32_bwd",
+        case=case + "_bwd_fp32" + ("_causal" if causal else ""),
+        on_path=on_path, max_abs_err=err, tol=FP32_TOL, rel=True, ok=ok,
+        exact_err=exact_err, render_err=render_err, lse_err=lse_err,
+        launches_checked=launched, baseline_device_ms=None, ms=t["bwd"],
+        plain_ms=t["plain"], ops=work[0], bytes=work[1], peak=work[2],
+        bound_ms=bound, bound_by=bound_by, library_ms=t["library"],
+        device_ms=dev_ms["bwd"], library_device_ms=dev_ms["library"],
+        library_err=lib_err, library_ok=lib_err is None
+        or lib_err <= FP32_TOL * scale,
+        library_note="scaled_dot_product_attention backward (its forward "
+        "saved)", library_both_ms=t["library_both"])
+
 
 
 def run_diff(device="cuda", iters: int = 10,
@@ -1564,12 +1677,15 @@ def run_diff(device="cuda", iters: int = 10,
     :func:`attention_plain` on the card, in fp32 (the probing path's form)
     and bf16, at ``shape`` [B, H, S, D] ([B, S, H, D] memory, as the tower
     passes it). The forward must equal the no-gradient call bitwise
-    (``exact_err``); dq, dk, dv within ``FP32_TOL`` x max (fp32) or
+    (``exact_err``: the fp32 form's forward also writes lse, which must
+    leave o as it is); dq, dk, dv within ``FP32_TOL`` x max (fp32) or
     ``ATTN_TOL`` (bf16). Times: the forward, the backward (``retain_graph``
     over one forward) and both, with events and profiled; the plain
     version's and SDPA's forward + backward (SDPA timed only, never called
     by the port). Records carry :func:`run`'s keys (``ms`` and the bound
-    for forward + backward) and ``fwd_*`` / ``bwd_*`` ones."""
+    for forward + backward) and ``fwd_*`` / ``bwd_*`` ones; the fp32 pass
+    adds the backward kernel's own record (:func:`_bwd_record`, the
+    ``flash_attention_diff_fp32_bwd`` form)."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1603,6 +1719,7 @@ def run_diff(device="cuda", iters: int = 10,
             return torch.autograd.grad(
                 F.scaled_dot_product_attention(q, k, v), qkv, g)
         lib_err = max(_max_err(a, w) for a, w in zip(library(), want))
+        del got, want
         torch.cuda.synchronize()
 
         def bwd():
@@ -1619,7 +1736,7 @@ def run_diff(device="cuda", iters: int = 10,
         dev_ms = {name: _device_ms(fn, iters) for name, fn in
                   (("fwd", fwd), ("bwd", bwd), ("both", both),
                    ("library", library))}
-        work = diff_work(b, h, sq, d, q.element_size(),
+        work = diff_work(b, h, h, sq, sq, d, q.element_size(),
                          "fp32_3xtf32" if fp32 else "bf16")
         bounds = {k_: bound_ms(*w) for k_, w in work.items()}
         records.append(dict(
@@ -1639,7 +1756,34 @@ def run_diff(device="cuda", iters: int = 10,
             bwd_device_ms=dev_ms["bwd"], fwd_bound_ms=bounds["fwd"][0],
             fwd_bound_by=bounds["fwd"][1], bwd_bound_ms=bounds["bwd"][0],
             bwd_bound_by=bounds["bwd"][1]))
-        del out, got, want, q, k, v, g
+        del out
+        if fp32:
+            records.append(_bwd_record(
+                q, k, v, g, False, f"clip_l336_g{b}_h{h}_s{sq}_d{d}",
+                shape == DIFF_SHAPE, iters))
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    _lib.reset_counts()
+    return records
+
+
+def run_diff_bwd(device="cuda", iters: int = 10,
+                 cases=DIFF_BWD_CASES) -> List[Dict]:
+    """The fp32 backward kernel's records (:func:`_bwd_record`) at
+    ``cases`` (name, B, H, KV, Sq, Sk, D, causal), q/k/v as transposes of
+    [B, S, H, D]."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    records = []
+    for name, b, h, kvh, sq, sk, d, causal in cases:
+        def bhsd(s, n):
+            return torch.randn(b, s, n, d, generator=gen, device=dev
+                               ).transpose(1, 2).requires_grad_()
+        q, k, v = bhsd(sq, h), bhsd(sk, kvh), bhsd(sk, kvh)
+        g = torch.randn(b, h, sq, d, generator=gen, device=dev)
+        records.append(_bwd_record(q, k, v, g, causal, name, False, iters))
+        del q, k, v, g
         torch.cuda.empty_cache()
     _lib.reset_counts()
     return records

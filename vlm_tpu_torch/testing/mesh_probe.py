@@ -25,7 +25,9 @@ one-device run of the same tasks. ``SPEC.json`` holds:
     ``run``, ``start``: a safetensors file of the trainer's starting
     tensors under their checkpoint names (heads, adapters,
     ``log_vars.<task>``), ``grad_samples``: the step-1 gradients on the
-    first n training samples, ``fit``): the trainer under the mesh; rank 0
+    first n training samples, ``fit``, ``delay_rank`` and ``delay_s``: that
+    rank sleeps so long before ``fit``, as a rank starved of the CPU
+    arrives late): the trainer under the mesh; rank 0
     writes ``<id>_grads.safetensors`` and ``<id>_final.safetensors`` (every
     trained tensor and the heads' statistics, at full shapes); each rank
     records the history, each step's losses and a digest of what it
@@ -212,7 +214,8 @@ def trained_tensors(trainer, full: bool):
 
 
 def task_train(mesh, spec, out, tid, profile, cfg, run="run", start=None,
-               grad_samples=0, fit=True, ckpt_root=None):
+               grad_samples=0, fit=True, ckpt_root=None, delay_rank=None,
+               delay_s=0.0):
     from vlm_tpu_torch.probing.train.multitask_trainer import \
         MultiTaskTrainer
     from vlm_tpu_torch.probing.train.singletask_trainer import \
@@ -251,6 +254,8 @@ def task_train(mesh, spec, out, tid, profile, cfg, run="run", start=None,
             return losses
         trainer.train_batch = train_batch
         _reset(trainer.mesh)
+        if mesh is not None and mesh.rank == delay_rank:
+            time.sleep(delay_s)
         t1 = time.perf_counter()
         trainer.fit()
         _sync(trainer.device)

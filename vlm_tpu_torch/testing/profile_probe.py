@@ -3,6 +3,11 @@ CLIP-L/336 tower in fp32 (random weights, built alone: no decoder), a
 linear head over its mean-pooled features.
 
     python vlm_tpu_torch/testing/profile_probe.py [--steps N] [--batch B]
+        [--root DIR]
+
+``--root``: the repository whose ``vlm_tpu_torch`` to import (default this
+one), e.g. a parent commit unpacked with ``git archive`` under
+``_checkout/``, so that two trees are profiled in one call on one card.
 
 Two phases, each timed by the host clock around synchronised work and
 profiled under ``torch.profiler`` (the kernels' own device time by name):
@@ -13,9 +18,9 @@ profiled under ``torch.profiler`` (the kernels' own device time by name):
   and the embeddings unfrozen (the multi profile's backbone block), the
   single-task trainer's loss (:func:`probe_loss`) and its AdamW
   (``optax.adamw``'s settings, two param groups); B1's differentiable form
-  in every block, its backward a recompute. The forward alone (the loss,
-  synchronised) is timed too; the rest of a step is the backward and
-  AdamW.
+  in every block (its backward the fp32 kernel, where the tree has one,
+  else a recompute). The forward alone (the loss, synchronised) is timed
+  too; the rest of a step is the backward and AdamW.
 
 Prints one JSON line: the card's name and power limit, per phase the wall
 ms, the device ms (the kernels' own times summed) and the top kernels by
@@ -32,8 +37,6 @@ import time
 from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
-if str(REPO_ROOT) not in sys.path:
-    sys.path.insert(0, str(REPO_ROOT))
 
 
 def _top(prof, n=12):
@@ -51,7 +54,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--root", default=str(REPO_ROOT))
     args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
 
     import numpy as np
     import torch
@@ -79,7 +84,7 @@ def main(argv=None):
     probe = LinearProbe(bb, 9, dropout_p=0.3, seed=0)
     rng = np.random.default_rng(0)
     side = cfg.vision.image_size
-    out = {"gpu": gpu}
+    out = {"gpu": gpu, "root": args.root}
 
     # extraction: batches of 8, frozen
     u8 = torch.from_numpy(rng.integers(0, 256, (4, 8, side, side, 3),
