@@ -48,13 +48,13 @@ Phases, each of which raises on failure:
 8. 8bit reference: the depth-cut copy with int8 decoder and vision weights
    and the int8 cache on the card against fp32 compute on the CPU;
 9. 4bit slice: the same traffic with grouped int4 decoder weights, packed
-   on load (B7 at every decode product, the dequantized product at the
-   admissions' 1264 rows) and the bf16 KV cache;
+   on load (B7's decode form at every decode product, its prefill form at
+   the admissions' 1264 rows) and the bf16 KV cache;
 10. 4bit reference: the depth-cut copy with int4 decoder and vision
-    weights against fp32 compute on the CPU, through a 2-image prefill (512
-    rows and more: the dequantized product) and 3 decode steps, then a
-    1-image prefill (B7 at 256 and 316 rows, SigLIP fc2 at group 16) and
-    one decode step;
+    weights against fp32 compute on the CPU, through a 2-image prefill (B7's
+    prefill form at 512 rows and more) and 3 decode steps, then a 1-image
+    prefill (B7 at 256 and 316 rows, SigLIP fc2 at group 16 in the decode
+    form: its 2,152-byte packed rows) and one decode step;
 11. fp32 slice: ``create_model("paligemma", size="3b", device="cuda",
     model_id=<dir>)`` with its default quantization, fp32, through the fp32
     forms of B1, B2 and B4 (16 images, up to 8 new tokens);
@@ -77,8 +77,8 @@ Phases, each of which raises on failure:
     4, the same traffic;
 16. LLaVA 8bit reference (int8 decoder weights and cache); then the 4bit
     slice (grouped int4 decoder weights, the bf16 cache, 32 slots: B7 at
-    every decode product, counted, the dequantized product at the
-    admissions' 2,564 rows) and its reference; then the fp32 slice at full
+    every decode product and at the admissions' 2,564 rows, counted) and
+    its reference; then the fp32 slice at full
     depth (28.3 GB of fp32 weights, 16 slots, 16 images, up to 8 new
     tokens: the fp32 forms of B1 at CLIP-L's D = 64 and Vicuna's D = 128
     and of B2 at G = 1) and its fp32 reference;
@@ -97,8 +97,8 @@ Phases, each of which raises on failure:
     the int8 KV cache, 64 slots, admission groups of 8, the same traffic;
 20. BLIP-2 8bit reference (int8 decoder and tower weights, the int8
     cache); the 4bit slice (int4 decoder and tower, ``quantize_vision``,
-    32 slots: B7 at every decode product and at the OPT prefill's 368
-    rows, the tower's 1,028 rows dequantized) and its reference (the
+    32 slots: B7 at every decode product, at the OPT prefill's 368 rows
+    and the tower's 1,028) and its reference (the
     1-image prefill takes B7 at EVA's 257 rows); and an fp32 reference
     (the fp32 forms of B1 at D = 88, 64 and 128 and of B2 at G = 1,
     D = 128). Every slice prints the fit check's ``param_bytes``, the
@@ -232,7 +232,8 @@ both ranks), ``[probe mesh test data=2]`` (the single tester on the
 one-GPU e2e checkpoint: metrics equal), ``[mesh int8 tower model=2]`` and
 ``[mesh int4 tower model=2]`` (PaliGemma-3B's SigLIP from the checkpoint
 split unevenly over the ranks, 16 images at batches of 8 and of 1: B6 and
-B5, or B7, at K = 2144 and 2160; features within ``REF_TOL``). Each
+B5, or B7, at K = 2144 and 2160, fc2's 2160 at batch 8 on the dequantized
+product, ``dense_int4``'s gate; features within ``REF_TOL``). Each
 prints its seconds,
 img/s or step ms, each rank's peak memory and rank 0's collectives.
 
@@ -538,12 +539,11 @@ def slice_phase(torch, np, gpu, quantization, n_images=N_IMAGES, new=NEW,
     if quantization == "4bit":
         groups = [min(b.admit_block, n_images - i)
                   for i in range(0, n_images, b.admit_block)]
-        want = int4_launches(cfg, model.quantize_vision, dispatched, groups,
-                             prompt_len)
-        if launches["int4_matmul"] != want:
-            raise RuntimeError(f"{tag} B7 launched {launches['int4_matmul']}"
-                               f" times, {want} decode and admission "
-                               f"products under 512 rows")
+        want = int4_launches(cfg, model.quantize_vision, dispatched, groups)
+        if b7_launches(launches) != want:
+            raise RuntimeError(f"{tag} B7 launched {b7_launches(launches)}"
+                               f" times, not the {want} decode and "
+                               f"admission products")
     lat = np.asarray(b.last_latency_s) * 1e3
     print(f"{tag} prompt {prompt_len} ids ({len(pre_ids)} + "
           f"{num_image_tokens(cfg)} image + {len(post_ids)}), "
@@ -641,18 +641,25 @@ def fit_report(torch, tag, model, before, gpu):
                            f"bytes for {asked} requested")
 
 
-def int4_launches(cfg, tower, steps, groups, prompt_len):
-    """B7's launches in a 4bit run: every decode step's decoder products,
-    and an admission of ``g`` images' products where their rows stay under
-    512 (the decoder's g x ``prompt_len``; the tower's g x its tokens, when
-    it is quantized); more rows take the dequantized product."""
+def b7_launches(launches):
+    """B7's launches, its decode and prefill forms together."""
+    return launches["int4_matmul"] + launches["int4_matmul_prefill"]
+
+
+def int4_launches(cfg, tower, steps, groups):
+    """B7's launches in a 4bit run: every decode step's decoder products
+    and every admission's (and the tower's, when it is quantized), less
+    the products ``dense_int4`` gives the dequantized product (the
+    tower's fc2 at K % 32 != 0 from 1,536 rows)."""
+    from vlm_tpu_torch.ops.quant import int4_dequant_gate
     dec = (7 if cfg.decoder.gated_mlp else 6) * cfg.decoder.layers
-    n = dec * steps
-    for g in groups:
-        n += dec * (g * prompt_len < 512)
-        if tower:
-            n += 6 * cfg.vision.layers * (g * cfg.vision.seq_len < 512)
-    return n
+
+    def tower_products(images):
+        rows = images * cfg.vision.seq_len
+        return (5 + (not int4_dequant_gate(rows, cfg.vision.mlp_dim))) \
+            * cfg.vision.layers
+    return dec * (steps + len(groups)) + sum(
+        tower_products(g) for g in groups if tower)
 
 
 # the references' passes, (images, decode steps), by weight bits: 4bit
@@ -723,7 +730,7 @@ def reference_phase(torch, np, gpu, quantization, model_name="paligemma",
         worst = max(worst, _compare(torch, gpu_mod, cpu_mod, cfg, u8, pre,
                                     post, plen, steps, cache_dtypes, recipe,
                                     card))
-        if bits == 4 and not _lib.launches["int4_matmul"]:
+        if bits == 4 and not b7_launches(_lib.launches):
             raise RuntimeError("B7 never launched in the 4bit reference")
         idle = [k for k in PATH_KERNELS["fp32"]
                 if not _lib.launches[k]] if quantization == "fp32" else []
@@ -1471,7 +1478,7 @@ def sweep_phase(torch, gpu, tmp, base, launches):
               f" (the summary's), build {run['build_s']:.1f} s, peak "
               f"{run['peak'] / 2**30:.2f} GiB, after the release "
               f"{run['left'] / 2**20:.1f} MiB above the start, B7 "
-              f"{run['launches']['int4_matmul']}, B5 "
+              f"{b7_launches(run['launches'])}, B5 "
               f"{run['launches']['int8_matmul']}, B6 "
               f"{run['launches']['int8xint8_matmul']} launches ({gpu})")
     print(f"[sweep] {len(rows)} rows in {wall:.1f} s; summary.json and "
@@ -2096,8 +2103,11 @@ def _probe_plan(blocks_diff, steps, val):
 
 
 def _check_rank_launches(tag, rec, res, want):
-    bad = {k: (res["launches"].get(k, 0), n) for k, n in want.items()
-           if res["launches"].get(k, 0) != n}
+    """Each count of ``want`` (a key of forms joined by "+": their sum)
+    equal to the rank's launches, and no plain call."""
+    def got(k):
+        return sum(res["launches"].get(f, 0) for f in k.split("+"))
+    bad = {k: (got(k), n) for k, n in want.items() if got(k) != n}
     if bad or res["plain_calls"]:
         raise RuntimeError(f"{tag} rank {rec['rank']}: launches (got, want) "
                            f"{bad}, plain {res['plain_calls']}")
@@ -2208,6 +2218,8 @@ def beam_mesh_check(recs, want, gpu, launches):
 def probe_mesh_phases(torch, np, gpu, launches, tmp, ckpt, base, pool):
     """The mesh beyond serving (see the docstring), each phase held against
     its one-GPU reference; the ranks' launches added into ``launches``."""
+    from vlm_tpu_torch.ops.quant import int4_dequant_gate
+    from vlm_tpu_torch.testing import kernel_checks
     t_all = time.perf_counter()
     pbase = pmesh_data(np, tmp)
     cfgs = pmesh_cfgs(pbase)
@@ -2342,13 +2354,19 @@ def probe_mesh_phases(torch, np, gpu, launches, tmp, ckpt, base, pool):
                 raise RuntimeError(f"{tag} batch {c}: {err:.3e} from one GPU")
             chunks = -(-TOWER_MESH_IMAGES // c)
             for r in rs:
+                part = kernel_checks.SIGLIP_TP_MLP[r["rank"]]
                 res = _task(r, f"int{bits}")[f"chunk{c}"]
                 want = {"flash_attention": SIGLIP_BLOCKS * chunks,
                         "normalize": chunks}
+                # B7: its two forms together, less fc2 where dense_int4
+                # takes the dequantized product (2,160 inputs at 2,048
+                # rows; 2,144 take the prefill form)
                 kernel = {8: "int8xint8_matmul" if c * 256 >= 512
-                          else "int8_matmul", 4: "int4_matmul"}[bits]
-                if bits == 8 or c * 256 < 512:
-                    want[kernel] = 6 * SIGLIP_BLOCKS * chunks
+                          else "int8_matmul",
+                          4: "int4_matmul+int4_matmul_prefill"}[bits]
+                products = 6 - (bits == 4 and int4_dequant_gate(c * 256,
+                                                                part))
+                want[kernel] = products * SIGLIP_BLOCKS * chunks
                 _check_rank_launches(f"{tag} batch {c}", r, res, want)
             r0 = _task(rs[0], f"int{bits}")[f"chunk{c}"]
             print(f"{tag} PaliGemma-3B's SigLIP int{bits} from the "

@@ -229,6 +229,135 @@ def test_b5_b7_weight_stream_at_every_shape(all_cases, case):
     _check(all_cases[case])
 
 
+# B6's tiles and forms through its C entry: a Gemma admission's k/v (20
+# tiles of 128 x 128), a ragged K (4304 = 33 x 128 + 80) and M, and
+# SigLIP's fc2 over model=2 at 8 images (fp32 partials)
+B6_TILE_SHAPES = ((1264, 2048, 256), (300, 4304, 1152), (2048, 2144, 1152))
+
+
+@pytest.mark.parametrize("m,k,n", B6_TILE_SHAPES,
+                         ids=[f"m{m}_k{k}_n{n}" for m, k, n in B6_TILE_SHAPES])
+@pytest.mark.parametrize("out", ["fp32", "bf16"])
+def test_b6_every_tile_and_form(card, m, k, n, out):
+    """Every tile (64 or 128 rows by 64 or 128 columns) and form (staged
+    through a TMA store, one block an SM; direct, two) the C entry takes,
+    with a block a tile and with fewer persistent blocks than tiles: fp32
+    bitwise to the plain version, bf16 within one ulp of the largest
+    output; and the plan's pick through the wrapper."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.quant import (B6_TILES, int8xint8_matmul,
+                                         int8xint8_matmul_plain)
+    g = torch.Generator(device=card).manual_seed(m + n)
+    qx = torch.randint(-127, 128, (m, k), device=card, generator=g).to(
+        torch.int8)
+    qw = torch.randint(-127, 128, (n, k), device=card, generator=g).to(
+        torch.int8)
+    sx = torch.rand(m, 1, device=card, generator=g) * (4 / 127)
+    sw = torch.rand(n, device=card, generator=g) / 64
+    dt = torch.float32 if out == "fp32" else torch.bfloat16
+    want = int8xint8_matmul_plain(qx, sx, qw, sw, dt).float()
+    tol = 0.0 if out == "fp32" else 2.0 ** -8 * float(want.abs().max())
+    y = torch.empty(m, n, dtype=dt, device=card)
+    lib, st = _lib.lib(), _lib.stream_ptr(qx)
+    for c, bn in B6_TILES:
+        tiles = -(-m // (64 * c)) * -(-n // bn)
+        for staged in (True, False):
+            for grid in (tiles, max(1, tiles // 3)):
+                y.fill_(float("nan"))
+                rc = lib.vlm_int8xint8_matmul(
+                    qx.data_ptr(), sx.data_ptr(), qw.data_ptr(),
+                    sw.data_ptr(), y.data_ptr(), m, n, k, int(out == "bf16"),
+                    c, bn, int(staged), grid, st)
+                assert rc == 0, (c, bn, staged, grid)
+                torch.cuda.synchronize()
+                err = float((y.float() - want).abs().max())
+                assert err <= tol, (c, bn, staged, grid, err)
+    _lib.reset_counts()
+    got = int8xint8_matmul(qx, sx, qw, sw, dt)
+    torch.cuda.synchronize()
+    assert float((got.float() - want).abs().max()) <= tol
+    assert _lib.launches["int8xint8_matmul"] == 1
+
+
+@pytest.mark.parametrize("m", [256, 368, 1264])
+def test_b7_prefill_form_at_admission_rows(card, m):
+    """B7's prefill form (wgmma over weights dequantized once a block) at
+    an int4 tower's one image (256 rows), BLIP-2's admission of 4 x 92 and
+    PaliGemma's of 4 x 316: every consumer count and split of K the C
+    entry takes, and the plan's pick through the wrapper (counted under
+    ``int4_matmul_prefill``), within GEMM_REL_TOL of the largest output;
+    group 128 and group 32, bf16 and fp32 out."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.quant import (PREFILL_STEP, int4_matmul,
+                                         int4_matmul_plain)
+    from vlm_tpu_torch.testing.kernel_checks import GEMM_REL_TOL
+    g = torch.Generator(device=card).manual_seed(m)
+    lib = _lib.lib()
+    for k, n, gs, dt in ((2048, 2048, 128, torch.bfloat16),
+                         (1152, 4304, 32, torch.float32)):
+        x = torch.randn(m, k, device=card, generator=g).to(torch.bfloat16)
+        q = torch.randint(-128, 128, (n, k // 2), device=card,
+                          generator=g).to(torch.int8)
+        s = (0.5 + torch.rand(n, k // gs, device=card, generator=g)) / (
+            4 * k ** 0.5)
+        want = int4_matmul_plain(x, q, s, gs, dt).float()
+        tol = GEMM_REL_TOL * float(want.abs().max())
+        y = torch.empty(m, n, dtype=dt, device=card)
+        stages = -(-k // PREFILL_STEP)
+        for c in (2, 3):
+            for splits in (1, 2, 3, 8):
+                per = -(-stages // splits)
+                if -(-stages // per) != splits:
+                    continue
+                y.fill_(float("nan"))
+                rc = lib.vlm_int4_matmul_prefill(
+                    x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+                    m, n, k, gs, c, splits, per, int(dt == torch.float32),
+                    _lib.stream_ptr(x))
+                assert rc == 0, (c, splits)
+                torch.cuda.synchronize()
+                err = float((y.float() - want).abs().max())
+                assert err <= tol, (k, n, c, splits, err)
+        _lib.reset_counts()
+        got = int4_matmul(x, q, s, gs, dt)
+        torch.cuda.synchronize()
+        assert float((got.float() - want).abs().max()) <= tol
+        assert _lib.launches["int4_matmul_prefill"] == 1
+        assert _lib.launches["int4_matmul"] == 0
+
+
+@pytest.mark.parametrize("m,k", [(1535, 4304), (1536, 4304), (2048, 2160),
+                                 (2048, 2144)])
+def test_dense_int4_gate_on_the_card(card, m, k):
+    """``dense_int4`` on the card: B7 (its decode form at K % 32 != 0, its
+    prefill form at 2,144 inputs), or from 1,536 rows at K % 32 != 0 the
+    dequantized product (no B7 launch, no plain call); within GEMM_REL_TOL
+    of B7's plain version either way."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.quant import (QuantizedWeight, dense_int4,
+                                         int4_dequant_gate,
+                                         int4_matmul_plain)
+    from vlm_tpu_torch.testing.kernel_checks import GEMM_REL_TOL
+    g = torch.Generator(device=card).manual_seed(m + k)
+    n, gs = 1152, 16
+    x = torch.randn(m, k, device=card, generator=g).to(torch.bfloat16)
+    q = torch.randint(-128, 128, (n, k // 2), device=card,
+                      generator=g).to(torch.int8)
+    s = (0.5 + torch.rand(n, k // gs, device=card, generator=g)) / (
+        4 * k ** 0.5)
+    want = int4_matmul_plain(x, q, s, gs, torch.float32)
+    _lib.reset_counts()
+    got = dense_int4(x, QuantizedWeight(q, s, gs), torch.float32)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= (
+        GEMM_REL_TOL * float(want.abs().max()))
+    gated = int4_dequant_gate(m, k)
+    assert gated == (k % 32 != 0 and m >= 1536)
+    assert (_lib.launches["int4_matmul"]
+            + _lib.launches["int4_matmul_prefill"]) == (0 if gated else 1)
+    assert not any(_lib.plain_calls.values())
+
+
 def test_default_fp32_model_serves_a_prompt(card):
     """``create_model`` with no quantization is fp32 and runs on the card
     through the fp32 forms, no plain version."""

@@ -137,12 +137,15 @@ def _dense_pair(k, n=48, seed=0):
     return jd, params, td
 
 
-@pytest.mark.parametrize("m", [8, 600], ids=["b7_m8", "dequant_m600"])
+@pytest.mark.parametrize("m", [8, 600, 1536],
+                         ids=["b7_m8", "dequant_m600", "gate_m1536"])
 @pytest.mark.parametrize("k", [256, 144], ids=["gs128", "gs16"])
 def test_dense_int4_matches_jax(m, k):
     """Bridged random-init weights (bytes with -8 nibbles) and a bias,
-    below 512 rows (B7) and above (the dequantized product): fp32 sums in
-    another order, atol = rtol = 1e-5."""
+    below 512 rows and above (``vlm_tpu`` takes its dequantized product
+    there; the port takes B7, whose plain version is that product, except
+    from 1,536 rows at K % 32 != 0, where it takes that product too):
+    fp32 sums in another order, atol = rtol = 1e-5."""
     jd, params, td = _dense_pair(k)
     assert td.group_size == {256: 128, 144: 16}[k]
     x = np.random.default_rng(3).normal(size=(m, k)).astype(np.float32)
@@ -150,7 +153,8 @@ def test_dense_int4_matches_jax(m, k):
     got = td(_t(x)).numpy()
     want = np.asarray(jd.apply(params, jnp.asarray(x)))
     np.testing.assert_allclose(got, want, **TOL)
-    assert _lib.plain_calls["int4_matmul"] == (1 if m < 512 else 0)
+    assert _lib.plain_calls["int4_matmul"] == (
+        0 if m >= 1536 and k % 32 else 1)
 
 
 @pytest.mark.parametrize("in_dim", [4304, 1152, 2048, 16384, 144, 64, 48])
@@ -255,7 +259,8 @@ def test_4bit_vlm_logits_match_jax(pair4, b, n_post, b7_prefill, cache):
     either KV cache, against ``vlm_tpu``'s: both sides form the same fp32
     weights and differ only in summation order, so logits agree to
     atol = rtol = 1e-4 (the bf16 path's logit tolerance). 4 x 149 prompt
-    rows take the dequantized product, 2 x 23 take B7 (plain here)."""
+    rows take ``vlm_tpu``'s dequantized product, 2 x 23 its kernel; the
+    port takes B7 (plain here) at both."""
     jmod, params, tmod, cfg, _ = pair4
     px, pre, post, plen = _vlm_inputs(cfg, b, n_post, seed=b)
     length = int(plen[0]) + 2
@@ -267,11 +272,10 @@ def test_4bit_vlm_logits_match_jax(pair4, b, n_post, b7_prefill, cache):
     tcache = init_kv_cache(cfg.decoder, b, length, dtype or torch.float32)
     _lib.reset_counts()
     last = tmod.prefill(_t(px), _t(pre), _t(post), tcache, _t(plen))
-    # the tower's 2 or 4 x 16 rows always take B7; the decoder's only
-    # below 512 rows: 7 Denses a block, 2 blocks
+    # the tower's 2 or 4 x 16 rows and the decoder's at any row count take
+    # B7: 7 Denses a block, 2 blocks
     tower = 6 * cfg.vision.layers
-    assert _lib.plain_calls["int4_matmul"] == tower + (
-        7 * cfg.decoder.layers if b7_prefill else 0)
+    assert _lib.plain_calls["int4_matmul"] == tower + 7 * cfg.decoder.layers
     np.testing.assert_allclose(last.numpy(), np.asarray(jlast), **LOGIT_TOL)
     nxt = np.asarray(jnp.argmax(jlast, -1))[:, None].astype(np.int32)
     jstep, _ = jmod.apply(params, jnp.asarray(nxt), jnp.asarray(plen),
@@ -281,16 +285,17 @@ def test_4bit_vlm_logits_match_jax(pair4, b, n_post, b7_prefill, cache):
 
 
 def test_4bit_tower_dequant_branch_matches_jax(pair4):
-    """32 images x 16 patches = 512 rows: the tower's int4 Denses take the
-    dequantized product; features to fp32 rounding (atol 1e-5,
-    rtol 1e-4, the bf16 tower's tolerance)."""
+    """32 images x 16 patches = 512 rows: ``vlm_tpu``'s tower takes its
+    dequantized product there, the port's B7 (its plain version: the same
+    product); features to fp32 rounding (atol 1e-5, rtol 1e-4, the bf16
+    tower's tolerance)."""
     jmod, params, tmod, cfg, _ = pair4
     px = np.random.default_rng(4).normal(
         size=(32, cfg.vision.image_size, cfg.vision.image_size, 3)).astype(
         np.float32)
     _lib.reset_counts()
     got = tmod.encode_images(_t(px)).numpy()
-    assert _lib.plain_calls["int4_matmul"] == 0
+    assert _lib.plain_calls["int4_matmul"] == 6 * cfg.vision.layers
     want = np.asarray(jmod.apply(params, jnp.asarray(px),
                                  method="encode_images"))
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)

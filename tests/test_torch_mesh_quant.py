@@ -9,10 +9,11 @@ hold vlm_tpu's), at ``model=2``, ``data=2`` and ``2 x 2``:
   row abs-max a row-parallel rank takes over the model group and whose
   outlier columns come from the maxima over every data rank's rows and all
   of K;
-- 4bit weights: B7's plain version below 512 rows (a prefill of 2, the
-  decode steps) and the dequantized product at 512 (the wave's prefill of
-  8); the row-parallel layers' groups (64 inputs) straddle the two model
-  ranks' 32, each rank taking the group's scale.
+- 4bit weights: B7's plain version at every row count here (a prefill of 2,
+  the decode steps, the wave's prefill of 8 at 512 rows, where vlm_tpu
+  takes its dequantized product: the same numbers); the row-parallel
+  layers' groups (64 inputs) straddle the two model ranks' 32, each rank
+  taking the group's scale.
 
 Greedy tokens of the wave engine and the batcher identical to vlm_tpu's,
 the batcher's ``admits`` and ``chunks`` identical, the ranks in

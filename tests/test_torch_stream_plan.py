@@ -93,7 +93,8 @@ def test_plan_at_the_4bit_slices_shapes(m, k, n):
 def _check_plan(shape, fmt, m, clusters):
     k, n, gs = shape
     row_bytes = k if fmt == "int8" else k // 2
-    plan = stream_plan(m, n, row_bytes, H100_SMS, clusters)
+    plan = stream_plan(m, n, row_bytes, H100_SMS, clusters,
+                       int4=fmt == "int4")
     # the tile is one the C entry instantiates, its grid covers [M, N]
     assert plan.bm == (16 if m <= 16 else 32 if m <= 32 else 64)
     assert plan.bn in BLOCK_COLS
@@ -101,15 +102,15 @@ def _check_plan(shape, fmt, m, clusters):
     assert (plan.grid[0] - 1) * plan.bn < n
     assert (plan.grid[1] - 1) * plan.bm < m
     # 64 columns only where 128-column tiles at their power-of-two split
-    # (no empty split) would leave an SM one block or none, and then with
-    # more blocks
+    # (no empty split) would leave an SM one block or none (B7: half the SMs
+    # none), and then with more blocks
     tiles128 = -(-n // 128) * -(-m // plan.bm)
     room = max(1, min(MAX_SPLITS, plan.chunks,
                       (2 if plan.bm <= 32 else 4) * H100_SMS // tiles128))
     per128 = -(-plan.chunks // (1 << (room.bit_length() - 1)))
     blocks128 = tiles128 * -(-plan.chunks // per128)
     if plan.bn == 64:
-        assert blocks128 <= H100_SMS
+        assert blocks128 <= (H100_SMS // 2 if fmt == "int4" else H100_SMS)
         assert plan.grid[0] * plan.grid[1] * plan.splits > blocks128
     # K: whole chunks, each split non-empty, every chunk once, in order
     assert plan.chunks == -(-row_bytes // CHUNK_BYTES)
@@ -123,7 +124,8 @@ def _check_plan(shape, fmt, m, clusters):
     # without it (no smaller split above half the power of two fits)
     tiles = plan.grid[0] * plan.grid[1]
     if clusters[plan.splits] < tiles:
-        base = stream_plan(m, n, row_bytes, H100_SMS, NO_LIMIT)
+        base = stream_plan(m, n, row_bytes, H100_SMS, NO_LIMIT,
+                           int4=fmt == "int4")
         assert (plan.bn, plan.splits) == (base.bn, base.splits)
     ranges = _splits(plan)
     assert all(lo < hi for lo, hi in ranges)
@@ -172,42 +174,62 @@ def _x_piece(r, p):
     return p ^ (((p >> 3) & 1) << 1) ^ (r & 1)
 
 
-@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("fmt", ["int8", "int4", "int4_swapped"])
 def test_chunk_order_of_k_is_the_product(fmt):
-    """One warp, one chunk, one m16 tile, one n8 tile, as the kernel reads
-    it: x staged through the swizzle, each lane's 16-byte weight word."""
-    kk = 64 if fmt == "int8" else 128        # k a chunk
+    """One warp, one sub-chunk, as the kernel reads it: x staged through
+    the swizzle, each lane's 16-byte weight word. int8 and int4: x is the
+    A operand (one m16 tile), the weights the B operand (one n8 tile);
+    int4 swapped (128-column tiles, at most 32 rows): the weights (rows g
+    and g + 8: the warp's two n8 column tiles) the A operand, x (8 rows)
+    the B operand, giving W . x^T."""
+    kk = 64 if fmt == "int8" else 128        # k a sub-chunk
     steps = kk // 16
+    swapped = fmt == "int4_swapped"
+    rows_x, rows_w = (8, 16) if swapped else (16, 8)
     rng = np.random.default_rng(0)
-    x = rng.integers(-8, 8, (16, kk)).astype(np.float64)
-    w = rng.integers(-8, 8, (8, kk)).astype(np.float64)
+    x = rng.integers(-8, 8, (rows_x, kk)).astype(np.float64)
+    w = rng.integers(-8, 8, (rows_w, kk)).astype(np.float64)
     # x in shared memory: row r's piece p at _x_piece(r, p)
     pieces = kk // 8
-    smem = np.zeros((16, pieces, 8))
-    for r in range(16):
+    smem = np.zeros((rows_x, pieces, 8))
+    for r in range(rows_x):
         for p in range(pieces):
             smem[r, _x_piece(r, p)] = x[r, 8 * p:8 * p + 8]
-    acc = np.zeros((16, 8))
     span = kk // 4                            # k a lane owns: 16 or 32
+
+    def x_k(r, k0):                           # x[r][k0 .. k0 + 3]
+        row = smem[r, _x_piece(r, k0 // 8)]
+        return row[k0 % 8:k0 % 8 + 4]
+
+    acc = np.zeros((rows_w, rows_x) if swapped else (rows_x, rows_w))
     for s in range(steps):
         a = np.zeros((16, 16))                # logical A of the step
         b = np.zeros((16, 8))                 # logical B
         for lane in range(32):
             g, t = lane // 4, lane % 4
             k0 = span * t + 4 * s             # physical k of the step
-            # the lane's x pieces hold k0 .. k0 + 3
-            p = k0 // 8
-            for hr in range(2):
-                row = smem[g + 8 * hr, _x_piece(g + 8 * hr, p)]
-                vals = row[k0 % 8:k0 % 8 + 4]
-                a[g + 8 * hr, 2 * t:2 * t + 2] = vals[:2]
-                a[g + 8 * hr, 2 * t + 8:2 * t + 10] = vals[2:]
-            # the weight word: k span*t .. + span of row g
-            word = w[g, span * t:span * t + span]
-            b[2 * t:2 * t + 2, g] = word[4 * s:4 * s + 2]
-            b[2 * t + 8:2 * t + 10, g] = word[4 * s + 2:4 * s + 4]
+            if not swapped:
+                for hr in range(2):
+                    vals = x_k(g + 8 * hr, k0)
+                    a[g + 8 * hr, 2 * t:2 * t + 2] = vals[:2]
+                    a[g + 8 * hr, 2 * t + 8:2 * t + 10] = vals[2:]
+                word = w[g, span * t:span * t + span]
+                b[2 * t:2 * t + 2, g] = word[4 * s:4 * s + 2]
+                b[2 * t + 8:2 * t + 10, g] = word[4 * s + 2:4 * s + 4]
+            else:
+                # a0 / a2 from row g's word, a1 / a3 from row g + 8's
+                for hr in range(2):
+                    word = w[g + 8 * hr, span * t:span * t + span]
+                    a[g + 8 * hr, 2 * t:2 * t + 2] = word[4 * s:4 * s + 2]
+                    a[g + 8 * hr, 2 * t + 8:2 * t + 10] = \
+                        word[4 * s + 2:4 * s + 4]
+                # b0 / b1: words 2 s2, 2 s2 + 1 of x row g's piece
+                vals = x_k(g, k0)
+                b[2 * t:2 * t + 2, g] = vals[:2]
+                b[2 * t + 8:2 * t + 10, g] = vals[2:]
         acc += a @ b
-    np.testing.assert_array_equal(acc, x @ w.T)
+    want = w @ x.T if swapped else x @ w.T
+    np.testing.assert_array_equal(acc, want)
 
 
 @pytest.mark.parametrize("fmt", ["int8", "int4"])

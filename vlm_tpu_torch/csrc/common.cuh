@@ -75,6 +75,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// (a & mask) | c in one LOP3: written as C, the compiler spends two (a
+// LOP3 takes one immediate, and it makes both constants immediates)
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t mask,
+                                           uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(d) : "r"(a), "r"(mask),
+      "r"(c));
+  return d;
+}
+
 // c += a (16x16, row) * b (16x8, col), bf16 operands, fp32 accumulators
 __device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {

@@ -1,6 +1,7 @@
-// The weight-streaming mainloop of B5 (int8) and B7 (grouped int4): the
-// products y [M, N] = x [M, K] . W^T with M < 512 rows, where the weights
-// q [N, row_bytes] are the bytes the card must move and x is small.
+// The weight-streaming mainloop of B5 (int8, M < 512 rows) and B7's
+// decode form (grouped int4, M <= 64 rows): the products y [M, N] = x [M,
+// K] . W^T where the weights q [N, row_bytes] are the bytes the card must
+// move and x is small.
 //
 // What bounds them on the H100: weight bytes (2 M FLOPs a weight, M <= 64
 // at decode). The first design (64-column strips, 64-wide K steps, a
@@ -40,12 +41,28 @@
 //   product: lane (g, t) reads x[g][16 t ..] (int8) or x[g][32 t ..] (int4)
 //   as 16-byte words. x's 16-byte pieces are swizzled in shared memory
 //   (piece p of row r at p ^ (2 (p / 8 % 2)) ^ (r % 2)) so those reads are
-//   conflict-free too.
+//   conflict-free too. int8 multiplies x (the A operand, m16 tiles) by the
+//   weights (B, n8 tiles); int4 at 128-column tiles and at most 32 rows
+//   swaps them: its converted weights are the A operand (a warp's rows g
+//   and g + 8) and x the B operand (8 x rows a product), so the conversion
+//   writes the four A registers in place and each 16-byte x load is two B
+//   registers as it lands. As A, x needed four register copies a product
+//   (mma.sync takes A in four consecutive registers, and x's came from two
+//   loads) and half of every m16 tile idled at m = 8; as B, neither. (At
+//   64-column tiles half of a swapped A is zero rows, and at 64-row tiles
+//   its x registers cost a second block an SM: both measured slower
+//   swapped.)
 // - Dequantization in registers, the numbers of the plain versions: an
 //   int8 byte becomes fp32 by one byte permute into 2^23 + (q + 128) and
-//   one subtraction, then a bf16 pair (exact); an int4 nibble by a mask
-//   into 2^23 + (n + 8), a subtraction, and the product with its group's
-//   fp32 scale, rounded once to bf16 (Fmt::kInt4).
+//   one subtraction, then a bf16 pair (exact); an int4 nibble at bit p of
+//   a word (or of the word shifted by 16) by one mask in place into 2^23 +
+//   (n + 8) 2^p, a subtraction and the product with its group's fp32 scale
+//   pre-divided by 2^p (exact), rounded once to bf16 (Fmt::kInt4): three
+//   instructions a nibble and half a pack, where shifting each nibble down
+//   first took four. Both are the issue rate's as much as the bytes':
+//   int4 spends about 8 thread instructions a weight byte, which is what
+//   the card issues while its memory delivers one (B7's prefill form,
+//   int4_prefill.cu, takes the rows where the tensor cores bound).
 // - Split K without a workspace: the wrapper's plan (ops/quant.py:
 //   `stream_plan`) gives each output tile `splits` <= 8 blocks, one thread
 //   block cluster, block z taking chunks [z per, (z + 1) per). Each block
@@ -114,15 +131,20 @@ __device__ __forceinline__ void widen_s8x4(uint32_t u, uint32_t& b0,
   b1 = pack_bf16(f[2], f[3]);
 }
 
-// the 4 nibbles at bit `sh` of a word (already XORed with 0x88888888: n +
-// 8) times the group's fp32 scale, each rounded once to bf16
-__device__ __forceinline__ void dequant_s4x4(uint32_t u, int sh, float s,
+// the 4 nibbles at bits 0, 4, 8 and 12 of v (a word already XORed with
+// 0x88888888: n + 8; or that word shifted right by 16 for its upper four)
+// times the group's fp32 scale, each rounded once to bf16. Each nibble is
+// taken in place by one LOP3: ORed into 0x4B000000 at bit p it is the fp32
+// 2^23 + (n + 8) 2^p, which minus 2^23 + 8 2^p is n 2^p exactly; times
+// s4[p / 4] = scale 2^-p (a power of two: exact) it is n * scale rounded
+// once to fp32, the plain version's value bit for bit.
+__device__ __forceinline__ void dequant_s4x4(uint32_t v, const float* s4,
                                              uint32_t& b0, uint32_t& b1) {
   float f[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    f[j] = (__uint_as_float(0x4B000000u | ((u >> (sh + 4 * j)) & 0xFu)) -
-            8388616.f) * s;
+    f[j] = (__uint_as_float(and_or(v, 0xFu << (4 * j), 0x4B000000u)) -
+            (8388608.f + static_cast<float>(8 << (4 * j)))) * s4[j];
   b0 = pack_bf16(f[0], f[1]);
   b1 = pack_bf16(f[2], f[3]);
 }
@@ -248,18 +270,24 @@ stream_kernel(const __grid_constant__ CUtensorMap tm_q, const Args a) {
     cp_async_arrive(&full[stage]);
   };
 
-  float acc[MI][kNI][4];
+  // int4 with two n8 column tiles a warp and at most 32 rows swaps the
+  // operands (compute_swapped); elsewhere x is the A operand (compute_x_a):
+  // int8 always, int4 at 64-column tiles (half of a swapped A would be
+  // zero rows) and 64-row tiles (the swapped form's x tiles took 153-179
+  // registers there, one block an SM)
+  constexpr bool kSwap = kInt4 && kNI == 2 && MI <= 2;
+  // acc[mi kNI + ni] is the m16 x n8 tile (mi, ni) of x . W^T; swapped,
+  // acc[j] is the 16 x 8 tile W . x^T of the warp's weight rows (ni = 0,
+  // 1: rows g, g + 8) and x rows 8 j .. 8 j + 7
+  constexpr int kAcc = kSwap ? 2 * MI : MI * kNI;
+  float acc[kAcc][4];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < kNI; ++ni)
-      acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+  for (int i = 0; i < kAcc; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  // one sub-chunk's products: weights, x and scales at `base`
-  auto compute = [&](const unsigned char* base) {
-    const unsigned char* xt = base + kWSub;
-    // this lane's 16-byte word of each of its kNI weight rows
-    uint4 w[kNI];
+  // this lane's 16-byte word of each of its kNI weight rows, XORed to q +
+  // 128 (int8) or n + 8 (int4)
+  auto weight_words = [&](const unsigned char* base, uint4 (&w)[kNI]) {
 #pragma unroll
     for (int ni = 0; ni < kNI; ++ni) {
       const uint4 v = *reinterpret_cast<const uint4*>(
@@ -267,20 +295,38 @@ stream_kernel(const __grid_constant__ CUtensorMap tm_q, const Args a) {
       const uint32_t flip = kInt4 ? 0x88888888u : 0x80808080u;
       w[ni] = make_uint4(v.x ^ flip, v.y ^ flip, v.z ^ flip, v.w ^ flip);
     }
+  };
+
+  // the group scale of each of the lane's rows (int4) for the 16 k of
+  // half h of its span, and its copies scaled by 2^-4, 2^-8, 2^-12
+  // (dequant_s4x4)
+  auto group_scales = [&](const unsigned char* xt, int h,
+                          float (&s4)[kNI][4]) {
+    const float* st = reinterpret_cast<const float*>(xt + kXSub);
+#pragma unroll
+    for (int ni = 0; ni < kNI; ++ni) {
+      const float sc = st[((warp * kNI + ni) * 8 + g) * slots +
+                          ((32 * t + 16 * h) >> a.lg)];
+      s4[ni][0] = sc;
+      s4[ni][1] = sc * 0x1p-4f;
+      s4[ni][2] = sc * 0x1p-8f;
+      s4[ni][3] = sc * 0x1p-12f;
+    }
+  };
+
+  // one sub-chunk with x as the A operand (m16 tiles, rows g and g + 8)
+  // and the converted weights as the B operand (n8 tiles)
+  auto compute_x_a = [&](const unsigned char* base) {
+    const unsigned char* xt = base + kWSub;
+    uint4 w[kNI];
+    weight_words(base, w);
     // int8: one half of 4 steps; int4: two, x pieces 4t + 2h and + 1
 #pragma unroll
     for (int h = 0; h < T::kSteps / 4; ++h) {
-      float sc[kNI];
-      if constexpr (kInt4) {
-        const float* st = reinterpret_cast<const float*>(xt + kXSub);
+      float s4[kNI][4];
+      if constexpr (kInt4) group_scales(xt, h, s4);
 #pragma unroll
-        for (int ni = 0; ni < kNI; ++ni)
-          sc[ni] = st[((warp * kNI + ni) * 8 + g) * slots +
-                      ((32 * t + 16 * h) >> a.lg)];
-      }
-      // two steps a piece e of x: rows g and g + 8 of each m16 tile
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
+      for (int e = 0; e < 2; ++e) {  // two steps a piece e of x
         uint4 xa[MI][2];
 #pragma unroll
         for (int mi = 0; mi < MI; ++mi)
@@ -308,14 +354,58 @@ stream_kernel(const __grid_constant__ CUtensorMap tm_q, const Args a) {
             uint32_t b0, b1;
             if constexpr (kInt4) {
               // bytes 8h + 2e + s2 .. of the word: k 32t + 16h + 4s .. + 3
-              dequant_s4x4(word(w[ni], 2 * h + e), 16 * s2, sc[ni], b0, b1);
+              const uint32_t u = word(w[ni], 2 * h + e);
+              dequant_s4x4(s2 ? u >> 16 : u, s4[ni], b0, b1);
             } else {
               widen_s8x4(word(w[ni], 2 * e + s2), b0, b1);
             }
 #pragma unroll
             for (int mi = 0; mi < MI; ++mi)
-              mma16816(acc[mi][ni], af[mi], b0, b1);
+              mma16816(acc[mi * kNI + ni], af[mi], b0, b1);
           }
+        }
+      }
+    }
+  };
+
+  // int4, one sub-chunk, swapped: the converted weights are the A
+  // operand (rows g and g + 8 of the warp's 16: its two n8 column tiles),
+  // x the B operand (8 x rows a product). So the conversion writes the
+  // four A registers in place and each x load is two B registers as they
+  // land: no copies between them, one conversion for every x row tile.
+  // Step s of the lane's span (s = 4h + 2e + s2) is physical k 32t + 4s ..
+  // + 3: bytes 2s, 2s + 1 of the weight word (a0, a2 of row g; a1, a3 of
+  // row g + 8) and x piece 4t + 2h + e's words 2 s2, 2 s2 + 1 (b0, b1).
+  auto compute_swapped = [&](const unsigned char* base) {
+    const unsigned char* xt = base + kWSub;
+    uint4 w[kNI];
+    weight_words(base, w);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s4[kNI][4];
+      group_scales(xt, h, s4);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        uint4 xb[kAcc];
+#pragma unroll
+        for (int j = 0; j < kAcc; ++j) {
+          const int r = 8 * j + g;
+          if (m0 + 8 * j < a.M)
+            xb[j] = *reinterpret_cast<const uint4*>(
+                xt + r * kXRow + x_piece(r, 4 * t + 2 * h + e) * 16);
+        }
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2) {
+          uint32_t af[4];
+          const uint32_t u0 = word(w[0], 2 * h + e);
+          const uint32_t u1 = word(w[kNI - 1], 2 * h + e);
+          dequant_s4x4(s2 ? u0 >> 16 : u0, s4[0], af[0], af[2]);
+          dequant_s4x4(s2 ? u1 >> 16 : u1, s4[kNI - 1], af[1], af[3]);
+#pragma unroll
+          for (int j = 0; j < kAcc; ++j)
+            if (m0 + 8 * j < a.M)
+              mma16816(acc[j], af, s2 ? xb[j].z : xb[j].x,
+                       s2 ? xb[j].w : xb[j].y);
         }
       }
     }
@@ -323,73 +413,107 @@ stream_kernel(const __grid_constant__ CUtensorMap tm_q, const Args a) {
 
   for (int s = 0; s < a.stages - 1; ++s)
     if (s < nk) load(s, c_begin + s);
+  // the ring's slots counted without a division: chunk i in slot `stage`
+  // at barrier phase `phase`, chunk i + stages - 1 loading into `fill`
+  int stage = 0, phase = 0, fill = a.stages - 1;
   for (int i = 0; i < nk; ++i) {
     __syncthreads();  // chunk i - 1 consumed by every warp: its slot is free
-    const int next = i + a.stages - 1;
-    if (next < nk) load(next % a.stages, c_begin + next);
-    const int stage = i % a.stages;
-    mbar_wait(&full[stage], (i / a.stages) & 1);
+    if (i + a.stages - 1 < nk) load(fill, c_begin + i + a.stages - 1);
+    fill = fill + 1 == a.stages ? 0 : fill + 1;
+    mbar_wait(&full[stage], phase);
     const unsigned char* st = ring + stage * stage_bytes;
+    if (++stage == a.stages) {
+      stage = 0;
+      phase ^= 1;
+    }
 #pragma unroll
-    for (int u = 0; u < kSubs; ++u) compute(st + u * sub);
+    for (int u = 0; u < kSubs; ++u) {
+      if constexpr (kSwap)
+        compute_swapped(st + u * sub);
+      else
+        compute_x_a(st + u * sub);
+    }
   }
 
-  // one output pair: (mi, ni, hr) of this lane, two columns
-  auto store = [&](int mi, int ni, int hr, float v0, float v1) {
-    const int row = m0 + mi * 16 + g + 8 * hr;
-    const int col = n0 + (warp * kNI + ni) * 8 + 2 * t;  // N even: col + 1 < N
+  // one output value at (row, col) (the swapped form's)
+  auto put = [&](int row, int col, float v) {
     if (row >= a.M || col >= a.N) return;
-    if constexpr (!kInt4) {
-      v0 *= a.scale[col];
-      v1 *= a.scale[col + 1];
-    }
     const int64_t at = (int64_t)row * a.N + col;
     if (a.f32)
-      *reinterpret_cast<float2*>(static_cast<float*>(a.y) + at) =
-          make_float2(v0, v1);
+      static_cast<float*>(a.y)[at] = v;
     else
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.y) +
-                                         at) = __floats2bfloat162_rn(v0, v1);
+      static_cast<__nv_bfloat16*>(a.y)[at] = __float2bfloat16_rn(v);
+  };
+  // accumulator pair (i, hr): acc[i][2 hr], acc[i][2 hr + 1]; int8's
+  // column scale applied
+  auto store = [&](int i, int hr, float v0, float v1) {
+    if constexpr (kSwap) {
+      // W . x^T: weight row g + 8 hr (a column of y) and x rows 8 i + 2t,
+      // + 1 (rows of y)
+      const int col = n0 + warp * kNI * 8 + g + 8 * hr;
+      put(m0 + 8 * i + 2 * t, col, v0);
+      put(m0 + 8 * i + 2 * t + 1, col, v1);
+    } else {
+      const int mi = i / kNI, ni = i % kNI;
+      const int row = m0 + mi * 16 + g + 8 * hr;
+      const int col = n0 + (warp * kNI + ni) * 8 + 2 * t;  // N even
+      if (row >= a.M || col >= a.N) return;
+      if constexpr (!kInt4) {
+        v0 *= a.scale[col];
+        v1 *= a.scale[col + 1];
+      }
+      const int64_t at = (int64_t)row * a.N + col;
+      if (a.f32)
+        *reinterpret_cast<float2*>(static_cast<float*>(a.y) + at) =
+            make_float2(v0, v1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(a.y) +
+                                           at) = __floats2bfloat162_rn(v0, v1);
+    }
   };
 
   const int splits = gridDim.z;
   if (splits == 1) {
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+    for (int i = 0; i < kAcc; ++i)
 #pragma unroll
-      for (int ni = 0; ni < kNI; ++ni)
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr)
-          store(mi, ni, hr, acc[mi][ni][2 * hr], acc[mi][ni][2 * hr + 1]);
+      for (int hr = 0; hr < 2; ++hr)
+        store(i, hr, acc[i][2 * hr], acc[i][2 * hr + 1]);
     return;
   }
 
   // the cluster's partials: [pair q][thread] float2 in each block's ring
   // (every chunk has landed: each warp waited for each one)
-  constexpr int kPairs = MI * kNI * 2;
+  constexpr int kPairs = kAcc * 2;
   __syncthreads();  // every warp is done with the ring
   float2* part = reinterpret_cast<float2*>(ring);
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
+  for (int i = 0; i < kAcc; ++i)
 #pragma unroll
-    for (int ni = 0; ni < kNI; ++ni)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
-        part[((mi * kNI + ni) * 2 + hr) * kThreads + threadIdx.x] =
-            make_float2(acc[mi][ni][2 * hr], acc[mi][ni][2 * hr + 1]);
+    for (int hr = 0; hr < 2; ++hr)
+      part[(i * 2 + hr) * kThreads + threadIdx.x] =
+          make_float2(acc[i][2 * hr], acc[i][2 * hr + 1]);
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every split's partials are in place
   const int rank = (int)cluster.block_rank();
   for (int q = rank; q < kPairs; q += splits) {
+    // every rank's partial loaded before the sum in rank order: issued
+    // together, the remote loads overlap (one after another, each waited
+    // for its predecessor's add: the reduction took up to 2.5 us of a
+    // 5-us launch, PERF.md)
+    float2 v[kMaxSplits];
+#pragma unroll
+    for (int z = 0; z < kMaxSplits; ++z)
+      if (z < splits)
+        v[z] = cluster.map_shared_rank(part, z)[q * kThreads + threadIdx.x];
     float2 sum = make_float2(0.f, 0.f);
-    for (int z = 0; z < splits; ++z) {
-      const float2 v =
-          cluster.map_shared_rank(part, z)[q * kThreads + threadIdx.x];
-      sum.x += v.x;
-      sum.y += v.y;
-    }
-    const int hr = q % 2, ni = (q / 2) % kNI, mi = q / (2 * kNI);
-    store(mi, ni, hr, sum.x, sum.y);
+#pragma unroll
+    for (int z = 0; z < kMaxSplits; ++z)
+      if (z < splits) {
+        sum.x += v[z].x;
+        sum.y += v[z].y;
+      }
+    store(q / 2, q % 2, sum.x, sum.y);
   }
   cluster.sync();  // no block leaves while another reads its partials
 }

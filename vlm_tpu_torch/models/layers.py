@@ -47,10 +47,11 @@ def int8_prefill_mode() -> str:
 
 
 def int4_prefill_mode() -> str:
-    """``VLM_TPU_INT4_PREFILL``, validated as ``vlm_tpu`` does: ``dequant``
-    (the default and the port's only mode: 512 rows or more take the plain
-    dequantized product); ``fused`` (B7 at every row count) is on ROADMAP's
-    do-not-port list."""
+    """``VLM_TPU_INT4_PREFILL``, validated as ``vlm_tpu`` validates it:
+    ``dequant``, the default, is accepted and selects nothing (the port's
+    int4 dispatch is ``ops.quant.dense_int4``'s, set on the H100);
+    ``fused`` (the TPU's A/B knob, on ROADMAP's do-not-port list) is
+    refused."""
     mode = os.environ.get("VLM_TPU_INT4_PREFILL", "dequant").lower()
     if mode not in ("dequant", "fused"):
         raise ValueError(f"VLM_TPU_INT4_PREFILL={mode!r}: expected "
@@ -178,8 +179,9 @@ class Dense(nn.Module):
     B5 below 512 rows, else the ``VLM_TPU_INT8_PREFILL`` mode, read and
     validated when the layer is built. ``quant_bits=4``: ``q``
     ``[out, in/2]`` packed int4 and ``scale`` ``[out, in/group_size]`` fp32
-    (:func:`int4_group_size`); B7 below 512 rows, else the plain dequantized
-    product (``VLM_TPU_INT4_PREFILL=dequant``, validated when built).
+    (:func:`int4_group_size`); B7, or from 1,536 rows at K % 32 != 0 the
+    dequantized product (``ops.quant.dense_int4``;
+    ``VLM_TPU_INT4_PREFILL=dequant``, validated when built).
 
     ``shard`` names ``vlm_tpu``'s (in, out) mesh axes. With a ``mesh`` of
     ``model > 1`` a column-parallel layer holds ``out / model`` rows of
@@ -341,7 +343,7 @@ class Dense(nn.Module):
         qw = QuantizedWeight(self.q, self.scale, self.group_size)
         out = torch.float32 if row else self.dtype
         comm = self.comm_replicated if replicated else self.comm
-        y = dense_int4(x2, qw, out, comm) if self.quant_bits == 4 \
+        y = dense_int4(x2, qw, out) if self.quant_bits == 4 \
             else dense_int8(x2, qw, self.int8_mode, out, comm)
         y = y.reshape(*x.shape[:-1], self.out_dim)
         if row:

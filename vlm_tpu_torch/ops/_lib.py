@@ -45,22 +45,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # under B3's fused forms, once per launch, beside B2's own count; B1's
 # launch as the forward of its differentiable form (a gradient is needed)
 # counts under the ``_diff`` forms too, and the fp32 form's backward kernel
-# under ``flash_attention_diff_fp32_bwd``, once a backward
+# under ``flash_attention_diff_fp32_bwd``, once a backward; B7 counts its
+# decode form (up to 64 rows) under ``int4_matmul`` and its prefill form
+# under ``int4_matmul_prefill``
 KERNELS = ("flash_attention", "flash_attention_fp32", "flash_attention_diff",
            "flash_attention_diff_fp32", "flash_attention_diff_fp32_bwd",
            "decode_attention",
            "decode_attention_int8", "decode_attention_fp32", "kv_write",
            "kv_write_int8", "kv_write_fused", "kv_write_int8_fused",
            "normalize", "normalize_fp32", "int8_matmul", "int8xint8_matmul",
-           "int4_matmul")
+           "int4_matmul", "int4_matmul_prefill")
 launches = {name: 0 for name in KERNELS}
 # a fused or differentiable form has no plain version of its own: on the
 # CPU its work is the plain versions of the kernels it runs (B3's write and
 # B2's attention; B1's), each counted under its own form; the backward's
-# plain version is the recompute
+# plain version is the recompute; B7's prefill form (more than 64 rows)
+# has B7's plain version, counted under ``int4_matmul``
 plain_calls = {name: 0 for name in KERNELS
                if not name.endswith(("_fused", "_diff", "_diff_fp32",
-                                     "_bwd"))}
+                                     "_bwd", "_prefill"))}
 # the backward of B1's differentiable form where it takes no kernel (CPU
 # tensors; bf16 on the card): recomputes through plain tensor operations,
 # one count per backward
@@ -82,8 +85,10 @@ _SIGNATURES = {
     "vlm_kv_write_int8": [_P] * 7 + [_I] * 6 + [_P],
     "vlm_normalize": [_P, _P] + [_I] * 5 + [_P, _P, _I, _P],
     "vlm_int8_matmul": [_P] * 4 + [_I] * 8 + [_P],
-    "vlm_int8xint8_matmul": [_P] * 5 + [_I] * 4 + [_P],
+    "vlm_int8xint8_matmul": [_P] * 5 + [_I] * 8 + [_P],
     "vlm_int4_matmul": [_P] * 4 + [_I] * 9 + [_P],
+    "vlm_int4_matmul_prefill": [_P] * 4 + [_I] * 8 + [_P],
+    "vlm_int4_matmul_narrow": [_P] * 4 + [_I] * 6 + [_P],
     "vlm_stream_clusters": [_I, ctypes.POINTER(_I)],
 }
 

@@ -130,7 +130,7 @@ class StreamPlan(NamedTuple):
 
 
 def stream_plan(m: int, n: int, row_bytes: int, sms: int,
-                clusters: Sequence[int]) -> StreamPlan:
+                clusters: Sequence[int], int4: bool = False) -> StreamPlan:
     """The tile and the K split of B5 (``row_bytes`` = K) and B7 (K / 2)
     for ``m`` rows on ``sms`` SMs: 16, 32 or 64 rows a tile, and K split
     over the largest power of two of blocks (at most :data:`MAX_SPLITS`,
@@ -143,9 +143,12 @@ def stream_plan(m: int, n: int, row_bytes: int, sms: int,
     whose clusters all fit is taken. Tiles are 128 columns, or 64 where
     128 leaves an SM one block or none and 64 gives the grid more blocks
     (a block alone on its SM does not overlap its loads with its
-    arithmetic). The splits cover K exactly, none empty. (Chosen from a
-    sweep of tiles and splits on the H100: ``testing/profile_quant.py
-    --plans``, PERF.md §6.)"""
+    arithmetic). B7 (``int4``) keeps 128 columns while they give half the
+    SMs a block: its swapped operands (``weight_stream.cuh``, at 32 rows or
+    fewer) make the wide tile the cheaper one, and at 64 rows its wide
+    tile's conversion feeds twice the products. The splits cover K
+    exactly, none empty. (Chosen from a sweep of tiles and splits on the
+    H100: ``testing/profile_quant.py --plans``, PERF.md §6.)"""
     bm = 16 if m <= 16 else 32 if m <= 32 else 64
     chunks = -(-row_bytes // CHUNK_BYTES)
 
@@ -167,7 +170,7 @@ def stream_plan(m: int, n: int, row_bytes: int, sms: int,
         return plan.grid[0] * plan.grid[1] * plan.grid[2]
 
     wide = plan_for(BLOCK_COLS[1])
-    if blocks(wide) > sms:
+    if blocks(wide) > (sms // 2 if int4 else sms):
         return wide
     narrow = plan_for(BLOCK_COLS[0])
     return narrow if blocks(narrow) > blocks(wide) else wide
@@ -223,6 +226,57 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 # ------------------------------ B6 ------------------------------
 
+# B6's tiles (csrc/int8xint8_matmul.cu): (consumer warpgroups, columns), a
+# tile being 64 x consumers rows; K in steps of 128 bytes; the K (in steps)
+# from which the direct form takes tiles between one and two waves
+B6_TILES, B6_STEP, B6_LONG_K = ((2, 128), (2, 64), (1, 64)), 128, 17
+
+
+class B6Plan(NamedTuple):
+    """How B6 cuts ``y [m, n]``: ``tiles`` tiles of ``64 consumers`` rows
+    by ``bn`` columns (row tiles fastest), walked by ``grid`` persistent
+    blocks, ``staged`` (the epilogue through shared memory and a TMA store,
+    one block an SM) or not (from registers, two blocks an SM, a block a
+    tile); every block runs all of K."""
+    consumers: int
+    bn: int
+    staged: bool
+    tiles: int
+    grid: int
+
+
+def int8xint8_plan(m: int, n: int, k: int, sms: int,
+                   out_bytes: int = 4) -> B6Plan:
+    """B6's tile and schedule for ``[m, K] x [n, K]^T`` on ``sms`` SMs
+    (from a sweep of every tile, form and split on the H100:
+    ``testing/profile_quant.py --b6-plans``, PERF.md §6). Where 128 x 128
+    tiles outnumber the SMs: those, staged, persistent on one block an SM;
+    but direct, every tile resident at two an SM, where they are at most
+    two waves and K is at least :data:`B6_LONG_K` steps (the second wave of
+    one block an SM would run mostly alone). Otherwise the tile whose
+    count keeps the most SMs busy in one wave (on a tie, the one that pads
+    fewest rows, then the larger), staged. The staged form needs 16-byte
+    output rows (``n * out_bytes``); without them the direct form runs the
+    same tiles."""
+    steps = -(-k // B6_STEP)
+    staged = (n * out_bytes) % 16 == 0
+
+    def tiles(c, bn):
+        return -(-m // (64 * c)) * -(-n // bn)
+
+    def padded_rows(c):
+        return -(-m // (64 * c)) * 64 * c
+
+    big = tiles(2, 128)
+    if big > sms:
+        direct = not staged or (big <= 2 * sms and steps >= B6_LONG_K)
+        return B6Plan(2, 128, not direct, big, big if direct else sms)
+    c, bn = max((cb for cb in B6_TILES if tiles(*cb) <= sms),
+                key=lambda cb: (tiles(*cb), -padded_rows(cb[0]),
+                                cb[0] * cb[1]))
+    return B6Plan(c, bn, staged, tiles(c, bn), tiles(c, bn))
+
+
 def int8xint8_matmul_plain(qx: torch.Tensor, sx: torch.Tensor,
                            qw: torch.Tensor, sw: torch.Tensor,
                            out_dtype=torch.float32) -> torch.Tensor:
@@ -254,13 +308,105 @@ def int8xint8_matmul(qx: torch.Tensor, sx: torch.Tensor, qw: torch.Tensor,
                          f"qw={tuple(qw.shape)} (needs K % 16 == 0, N even)")
     _lib.check_contiguous(name, qx, sx, qw, sw)
     y = torch.empty((m, n), dtype=out_dtype, device=qx.device)
+    plan = int8xint8_plan(m, n, k, _lib.sm_count(qx.device),
+                          y.element_size())
     _lib.launch(name, "vlm_int8xint8_matmul", qx.data_ptr(), sx.data_ptr(),
                 qw.data_ptr(), sw.data_ptr(), y.data_ptr(), m, n, k,
-                int(out_dtype == torch.bfloat16), _lib.stream_ptr(qx))
+                int(out_dtype == torch.bfloat16), plan.consumers, plan.bn,
+                int(plan.staged), plan.grid, _lib.stream_ptr(qx))
     return y
 
 
 # ------------------------------ B7 ------------------------------
+
+# B7's forms: the weight-streaming decode form (csrc/int4_matmul.cu) up to
+# DECODE_ROWS rows, the wgmma prefill form (csrc/int4_prefill.cu) above,
+# where K % 32 == 0 (16-byte packed rows for its TMA boxes); its tiles:
+# PREFILL_COLS weight rows by 64 rows a consumer warpgroup (2 or 3), K in
+# stages of PREFILL_STEP
+DECODE_ROWS, PREFILL_COLS, PREFILL_STEP = 64, 128, 64
+PREFILL_CONSUMERS, PREFILL_MAX_SPLITS = (3, 2), 8
+# from this many rows dense_int4 takes the dequantized product where the
+# prefill form cannot run (K % 32 != 0): :func:`int4_dequant_gate`
+DEQUANT_ROWS = 1536
+
+
+def int4_narrow_warps(m: int, n: int, k: int) -> int:
+    """The warps a block of B7's narrow decode form (``vlm_int4_matmul_
+    narrow``: 16 weight rows a block, K split over its warps, no cluster)
+    for ``[m, K] x [n, K]^T``, or 0 for the weight-streaming mainloop. From
+    a sweep of both on the H100 (``testing/profile_quant.py --plans``,
+    PERF.md §6): the narrow form re-reads all of x for every 16 columns, a
+    cost that grows with m, and saves the mainloop's ring fill and cluster
+    reduction, which weigh most where the weights are few; it won at every
+    product of at most 8 rows, at 16 rows up to 4,096 columns and at 32
+    rows from 512 to 2,048 columns. 16 warps (half the K a warp) at 16
+    rows or fewer and at most 2,048 columns (128 blocks or fewer)."""
+    if k % 32 or not (m <= 8 or (m <= 16 and n <= 4096)
+                      or (m <= 32 and 512 <= n <= 2048)):
+        return 0
+    return 16 if m <= 16 and n <= 2048 else 8
+
+
+def int4_prefill_form(m: int, n: int, k: int) -> bool:
+    """Whether B7 takes its prefill form for ``[m, K] x [n, K]^T``: above
+    :data:`DECODE_ROWS` rows where K % 32 == 0 (16-byte packed rows for its
+    TMA boxes), except at two column blocks or fewer up to 512 rows, where
+    the decode form's 64-row tiles fill more SMs (Gemma's k/v at 316 rows:
+    12.8 against 15.0 µs, PERF.md §6)."""
+    return (m > DECODE_ROWS and k % 32 == 0
+            and (n > 2 * PREFILL_COLS or m > 512))
+
+
+def int4_dequant_gate(m: int, k: int) -> bool:
+    """Whether ``dense_int4`` takes the plain dequantized product for
+    ``[m, K]`` rather than B7: from :data:`DEQUANT_ROWS` rows where K %
+    32 != 0 (SigLIP's fc2, K = 4,304 at group 16, 2,160 on a model=2
+    rank: 8-byte packed rows, which the prefill form's TMA boxes cannot
+    take). There the decode form re-reads and re-converts every weight for
+    each 64-row tile. Measured on the H100 against the dequantized product
+    (``testing/profile_quant.py --gate``, PERF.md §6): 0.80-0.87 of its
+    time at 1,024 rows, even at 1,536 (0.93-1.04), 1.33-1.35 at 2,048 and
+    1.8-2.8 at 4,096. Where K % 32 == 0 the prefill form beat that product
+    at every admission measured, 4.7x at 1,264 rows, 1.6x at 5,188
+    (``--prefill-plans``)."""
+    return k % 32 != 0 and m >= DEQUANT_ROWS
+
+
+class PrefillPlan(NamedTuple):
+    """How B7's prefill form cuts ``y [m, n]``: blocks of
+    :data:`PREFILL_COLS` columns by ``64 consumers`` rows, ``grid``
+    (column blocks, row blocks, splits); each block's K range is stages
+    ``[z per, min(stages, (z + 1) per))`` of :data:`PREFILL_STEP` k."""
+    consumers: int
+    splits: int
+    per: int
+    stages: int
+    grid: Tuple[int, int, int]
+
+
+def int4_prefill_plan(m: int, n: int, k: int, sms: int) -> PrefillPlan:
+    """The prefill form's consumers (warpgroups of 64 rows a block: the
+    count of 3 or 2 that gives the fewest row blocks, each of which
+    dequantizes every weight once, then pads the m64 row tiles least) and
+    its split of K: the most blocks of one cluster (at most
+    :data:`PREFILL_MAX_SPLITS`, each of at least 4 stages) that keep the
+    grid within one block an SM. The splits cover K exactly, none empty.
+    (From a sweep of both counts and splits 1-8 on the H100:
+    ``testing/profile_quant.py --prefill-plans``, PERF.md §6.)"""
+    tiles = -(-m // 64)
+    consumers = min(PREFILL_CONSUMERS,
+                    key=lambda c: (-(-tiles // c), -(-tiles // c) * c))
+    row_blocks = -(-tiles // consumers)
+    cols = -(-n // PREFILL_COLS)
+    stages = -(-k // PREFILL_STEP)
+    blocks = cols * row_blocks
+    splits = max(1, min(PREFILL_MAX_SPLITS, sms // blocks, stages // 4))
+    per = -(-stages // splits)
+    splits = -(-stages // per)
+    return PrefillPlan(consumers, splits, per, stages,
+                       (cols, row_blocks, splits))
+
 
 def int4_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                       group_size: int, out_dtype=None) -> torch.Tensor:
@@ -279,7 +425,9 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     scale [N, K/group_size] fp32 -> [m, N]. On the card x is bf16, the
     output bf16 or fp32 (as B5's), K divides by 16, group_size is 16, 32,
     64 or 128 (every group ``models.layers.int4_group_size`` gives) and N
-    is even."""
+    is even. The prefill form runs where :func:`int4_prefill_form` says,
+    elsewhere the decode form (its narrow variant where
+    :func:`int4_narrow_warps` says)."""
     if _lib.is_cpu(x, "int4_matmul"):
         return int4_matmul_plain(x, q, scale, group_size, out_dtype)
     name = "int4_matmul"
@@ -300,12 +448,26 @@ def int4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                          f"group_size 16, 32, 64 or 128, N even)")
     _lib.check_contiguous(name, x, q, scale)
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    plan = stream_plan(m, n, k // 2, _lib.sm_count(x.device),
-                       _lib.max_clusters(x.device))
+    f32 = int(out_dtype == torch.float32)
+    sms = _lib.sm_count(x.device)
+    warps = int4_narrow_warps(m, n, k)
+    if warps:
+        _lib.launch(name, "vlm_int4_matmul_narrow", x.data_ptr(),
+                    q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, n, k,
+                    group_size, warps, f32, _lib.stream_ptr(x))
+        return y
+    if int4_prefill_form(m, n, k):
+        pre = int4_prefill_plan(m, n, k, sms)
+        _lib.launch("int4_matmul_prefill", "vlm_int4_matmul_prefill",
+                    x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                    y.data_ptr(), m, n, k, group_size, pre.consumers,
+                    pre.splits, pre.per, f32, _lib.stream_ptr(x))
+        return y
+    plan = stream_plan(m, n, k // 2, sms, _lib.max_clusters(x.device),
+                       int4=True)
     _lib.launch(name, "vlm_int4_matmul", x.data_ptr(), q.data_ptr(),
                 scale.data_ptr(), y.data_ptr(), m, n, k, group_size, plan.bm,
-                plan.bn, plan.splits, plan.per,
-                int(out_dtype == torch.float32), _lib.stream_ptr(x))
+                plan.bn, plan.splits, plan.per, f32, _lib.stream_ptr(x))
     return y
 
 
@@ -437,14 +599,14 @@ def dense_int8(x2: torch.Tensor, qw: QuantizedWeight, mode: str,
 
 
 def dense_int4(x2: torch.Tensor, qw: QuantizedWeight,
-               out_dtype: torch.dtype, comm=None) -> torch.Tensor:
-    """The int4 dispatch of ``vlm_tpu``'s ``Dense`` with
-    ``VLM_TPU_INT4_PREFILL=dequant``: fewer than 512 rows take B7, more the
-    plain dequantized product, which unpacks each weight once instead of
-    once per row tile. With ``comm`` the rows counted are every data
-    rank's."""
-    rows = x2.shape[0] * (comm.row_ways if comm is not None else 1)
-    if rows < 512:
-        return int4_matmul(x2, qw.q, qw.scale, qw.group_size,
-                           out_dtype=out_dtype)
-    return quant_matmul_dequant(x2, qw, out_dtype=out_dtype)
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """The int4 dispatch of ``vlm_tpu``'s ``Dense``
+    (``VLM_TPU_INT4_PREFILL=dequant``), set on the H100: B7, except where
+    :func:`int4_dequant_gate` gives the plain dequantized product on the
+    flattened input's rows. ``vlm_tpu`` takes that product from 512 rows
+    at any K, a figure set on a TPU. On the CPU both are the same numbers
+    (B7's plain version is the dequantized product)."""
+    if int4_dequant_gate(x2.shape[0], x2.shape[1]):
+        return quant_matmul_dequant(x2, qw, out_dtype=out_dtype)
+    return int4_matmul(x2, qw.q, qw.scale, qw.group_size,
+                       out_dtype=out_dtype)

@@ -81,8 +81,8 @@ from ..ops.kvcache import (kv_masked_write, kv_quantized_write,
                            kv_uniform_write, kv_write_plain)
 from ..ops.preprocess import (RECIPES, normalize_images, normalize_plain,
                               unfold_patches)
-from ..ops.quant import (int4_matmul, int4_matmul_plain, int8_matmul,
-                         int8_matmul_plain, int8xint8_matmul,
+from ..ops.quant import (int4_matmul, int4_matmul_plain, int4_prefill_form,
+                         int8_matmul, int8_matmul_plain, int8xint8_matmul,
                          int8xint8_matmul_plain, quantize_activations)
 
 ATTN_TOL = 2e-2
@@ -126,9 +126,10 @@ KERNELS = {
                source="vlm_tpu_torch/csrc/int8xint8_matmul.cu",
                replaces="vlm_tpu/ops/quant.py:110",
                forms=("int8xint8_matmul",)),
+    # B7: the decode form (up to 64 rows) and the prefill form (wgmma)
     "B7": dict(name="int4_matmul", source="vlm_tpu_torch/csrc/int4_matmul.cu",
                replaces="vlm_tpu/ops/quant.py:300",
-               forms=("int4_matmul",)),
+               forms=("int4_matmul", "int4_matmul_prefill")),
     # B1's differentiable form (ops/attention.py FlashAttentionFn): B1's
     # kernel as its forward; as its backward the fp32 kernel of
     # flash_attention_fp32_bwd.cu (its own form) for fp32, a recompute
@@ -150,7 +151,8 @@ FORM_SOURCES = {"flash_attention_fp32":
                 "vlm_tpu_torch/csrc/flash_attention_fp32_bwd.cu",
                 "kv_write_fused": "vlm_tpu_torch/csrc/decode_attention.cu",
                 "kv_write_int8_fused":
-                "vlm_tpu_torch/csrc/decode_attention.cu"}
+                "vlm_tpu_torch/csrc/decode_attention.cu",
+                "int4_matmul_prefill": "vlm_tpu_torch/csrc/int4_prefill.cu"}
 # Gemma-2B block products (K, N): q/o, k/v, gate/up, down; SigLIP fc1/fc2
 GEMMA_KN = ((2048, 2048), (2048, 256), (2048, 16384), (16384, 2048))
 SIGLIP_KN = ((1152, 4304), (4304, 1152))
@@ -876,6 +878,8 @@ def cases(device) -> List[Case]:
             lambda: int4_matmul(x, *w4, out_dtype=out_dtype),
             lambda: int4_matmul_plain(x, *w4, out_dtype=out_dtype),
             GEMM_REL_TOL, on_path, rel=True, cold=True,
+            form="int4_matmul_prefill" if int4_prefill_form(m, n, k)
+            else "",
             work=gemm_work(m, k, n, 2 * m * k, n * k // 2, 4 * n * (k // gs),
                            4 if f32 else 2, "bf16"),
             library_fn=fn,
@@ -892,12 +896,16 @@ def cases(device) -> List[Case]:
     # the int4 tower of one image (m = 256): fc1 at group 128, fc2 at group
     # 16 with 2152-byte packed rows and a ragged K tail (4304 = 64 * 67 + 16)
     b7(256, 1152, 4304, weights4(1152, 4304, 128), False)
-    b7(256, 4304, 1152, weights4(4304, 1152, 16), False)
+    fc2_w4 = weights4(4304, 1152, 16)
+    b7(256, 4304, 1152, fc2_w4, False)
+    # fc2 on the decode form at the 4bit reference's 2-image prefill (512
+    # rows) and an admission of 4 (1,024): below dense_int4's gate
+    b7(2 * 256, 4304, 1152, fc2_w4, True)
+    b7(GROUP * 256, 4304, 1152, fc2_w4, True)
     b7(9, 128, 100, weights4(128, 100, 32), False)   # JAX's padding test
-    # an admission of 4 (m = 1264) runs the dequantized product; B7 here
-    # is timed against it for a later dispatch decision
+    # an admission of 4 (m = 1264): B7's prefill form
     for k, n in sorted(GEMMA_KN, key=lambda kn: -kn[1]):
-        b7(GROUP * PROMPT, k, n, gemma_w4[(k, n)], False)
+        b7(GROUP * PROMPT, k, n, gemma_w4[(k, n)], True)
 
     # ---- LLaVA-1.5-7B's serving shapes (the bf16 and 8bit slices) ----
     # B1: Vicuna's causal prefill of an admission of 4 (MHA, G = 1: one
@@ -1132,18 +1140,23 @@ def cases(device) -> List[Case]:
     # ---- the 4bit slices of LLaVA and BLIP-2: B7 at group 128 ----
     # the decode step at 32 slots: Vicuna's and OPT's three products (their
     # 4096 -> 4096 once; K = 11008 is 43 chunks of 256 k); BLIP-2's
-    # admissions of 4 x 92 rows (under 512: B7, not the dequantized
-    # product); EVA's int4 tower (``quantize_vision``) at a one-image
-    # prefill, m = 257 (K = 1408 is 5.5 chunks; admissions of 4 pass 512
-    # rows and take the dequantized product)
+    # admissions of 4 x 92 rows; EVA's int4 tower (``quantize_vision``) at a
+    # one-image prefill, m = 257 (the reference's), and at an admission of
+    # 4, m = 1028 (B7's prefill form, K = 1408 = 22 stages of 64: fc1, the
+    # largest; its other two products run the same form)
     dec_w4 = {kn: weights4(*kn, 128) for kn in dict.fromkeys(VICUNA_KN +
                                                                OPT_KN)}
     for kn, w4 in dec_w4.items():
         b7(SLOTS, *kn, w4, True)
     for kn in OPT_KN:
         b7(GROUP * bp, *kn, dec_w4[kn], True)
-    for k, n in EVA_KN:
-        b7(257, k, n, weights4(k, n, 128), False)
+    eva_w4 = {kn: weights4(*kn, 128) for kn in EVA_KN}
+    for kn, w4 in eva_w4.items():
+        b7(257, *kn, w4, False)
+    b7(GROUP * 257, *EVA_KN[1], eva_w4[EVA_KN[1]], True)
+    # LLaVA's 4bit admissions of 4 x 641 rows: B7's prefill form
+    for kn in VICUNA_KN:
+        b7(GROUP * lp, *kn, dec_w4[kn], True)
 
     # ---- the sweep: configs/compare_models.yaml's MiviaPar prompt ----
     # 8 slots, admissions of 4, up to 16 new tokens, a bf16 tower and cache
@@ -1463,7 +1476,8 @@ def _paired_device_ms(fn, base, iters: int, flush, flush_kernels,
 
 
 def run(device="cuda", iters: int = 20,
-        spent: Optional[Dict[str, float]] = None) -> List[Dict]:
+        spent: Optional[Dict[str, float]] = None,
+        kernels: Optional[Sequence[str]] = None) -> List[Dict]:
     """Compare and time every case; returns one record per case. Timing
     alternates plain, kernel, library, library, kernel, plain and averages
     each version. The library call is compared with the plain version once
@@ -1473,7 +1487,8 @@ def run(device="cuda", iters: int = 20,
     The launch counters are reset at the end: launches made here do not
     count toward the serving path's. ``spent``, when given, receives the
     seconds spent building the cases' inputs, comparing, timing with
-    events and profiling."""
+    events and profiling. ``kernels`` (e.g. ``("B6", "B7")``) keeps only
+    those kernels' cases."""
     records = []
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=device)
     flush_kernels = frozenset(_profiled(flush.zero_))
@@ -1481,7 +1496,8 @@ def run(device="cuda", iters: int = 20,
     spent.update(dict.fromkeys(("cases", "compare", "events", "profiler"),
                                0.0))
     t0 = time.perf_counter()
-    built = list(cases(device))
+    built = [c for c in cases(device)
+             if kernels is None or c.kernel in kernels]
     spent["cases"] = time.perf_counter() - t0
     for c in built:
         t0 = time.perf_counter()

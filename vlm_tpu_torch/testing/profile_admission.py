@@ -4,7 +4,7 @@ a bf16 and an fp32 PaliGemma-3B admission and of an fp32 decode step, on
 one NVIDIA GPU; prints one JSON line.
 
     python vlm_tpu_torch/testing/profile_admission.py [--root DIR]
-        [--admissions 3]
+        [--admissions 3] [--model llava|blip2 [--modes 8bit,4bit]]
 
 ``--root`` is the checkout whose ``vlm_tpu_torch`` is measured (default:
 this one), so one command can time two trees in turns with this script:
@@ -65,7 +65,8 @@ Both models' admissions and steps then run in ``4bit`` too (int4
 decoder weights, BLIP-2's tower too, the bf16 cache, 32 slots;
 ``admission_4bit``, ``step_4bit``: each step's ``top`` kernels show B7,
 ``stream_kernel``, beside B2) and LLaVA's in ``fp32`` (the default
-quantization, 16 slots): every mode of the model's ``slots``.
+quantization, 16 slots): every mode of the model's ``slots``, or those of
+``--modes``.
 """
 
 import argparse
@@ -112,6 +113,8 @@ def main(argv=None):
     ap.add_argument("--admissions", type=int, default=3)
     ap.add_argument("--model", choices=("paligemma", "llava", "blip2"),
                     default="paligemma")
+    ap.add_argument("--modes", default="",
+                    help="comma-separated modes of --model's (default all)")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -326,7 +329,8 @@ def main_mha(torch, args):
     del flush, kc, vc, calls, sdpa
     out = {"root": args.root, "gpu": gpu, "model": args.model,
            "b1_ms": b1_ms, "device_us": device}
-    for quantization in spec["slots"]:
+    modes = args.modes.split(",") if args.modes else list(spec["slots"])
+    for quantization in modes:
         kw = dict(quantization=quantization)
         if quantization in ("8bit", "4bit"):
             kw.update(quantize_vision=spec["quantize_vision"])
