@@ -1235,3 +1235,236 @@ def test_mesh_shard_shapes_match_plain(all_cases, case):
         torch.cuda.synchronize()
         assert torch.equal(got, exact)
     _check(c)
+
+
+# ---- B1's form for head dims <= 96 and B2's for G < 8 ----
+# (card tests: -k "b1_small or b2_few")
+
+B1_SMALL_SHAPES = [
+    # (B, H, KV, Sq, Sk, D, mask keywords)
+    (4, 16, 16, 577, 577, 64, {}),
+    (2, 16, 16, 256, 256, 72, {}),
+    (2, 16, 16, 257, 257, 88, {}),
+    (2, 12, 12, 32, 257, 64, {}),
+    (2, 4, 4, 150, 150, 96, dict(causal=True)),
+    (2, 8, 1, 70, 200, 80, dict(kv_len=[0, 130])),
+    (2, 8, 2, 60, 60, 64, dict(causal=True, prefix_len=[20, 5],
+                               kv_len=[60, 50])),
+    (2, 4, 4, 80, 48, 72, dict(causal=True)),
+    (2, 2, 2, 33, 33, 42, dict(kv_len=[0, 20])),
+]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,kw", B1_SMALL_SHAPES)
+def test_b1_small_form_matches_plain(card, b, h, kvh, sq, sk, d, kw):
+    """flash_kernel_small (D <= 96) within ATTN_TOL of the plain version
+    under every mask, one launch, no plain call; a row without a live key
+    gives the mean of V."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.attention import attention_plain, flash_attention
+    from vlm_tpu_torch.testing.kernel_checks import ATTN_TOL
+    g = torch.Generator(device=card)
+    g.manual_seed(d + sq)
+    q = torch.randn(b, sq, h, d, generator=g, device=card).bfloat16(
+        ).transpose(1, 2)
+    k = torch.randn(b, sk, kvh, d, generator=g, device=card).bfloat16(
+        ).transpose(1, 2)
+    v = torch.randn(b, sk, kvh, d, generator=g, device=card).bfloat16(
+        ).transpose(1, 2)
+    kw = {key: torch.tensor(val, dtype=torch.int32, device=card)
+          if isinstance(val, list) else val for key, val in kw.items()}
+    _lib.reset_counts()
+    o = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches["flash_attention"] == 1
+    assert _lib.plain_calls["flash_attention"] == 0
+    want = attention_plain(q, k, v, **kw)
+    assert float((o.float() - want.float()).abs().max()) <= ATTN_TOL
+    if "kv_len" in kw and int(kw["kv_len"][0]) == 0:
+        mean = v[0].float().mean(dim=1)                      # [KV, D]
+        rep = mean.repeat_interleave(h // kvh, dim=0)[:, None]
+        assert float((o[0].float() - rep).abs().max()) <= ATTN_TOL
+
+
+@pytest.mark.parametrize("d", [64, 72, 88])
+def test_b1_small_form_diff_forward_is_the_kernel_bitwise(card, d):
+    """B1-diff's bf16 forward is the no-gradient call, bit for bit."""
+    from vlm_tpu_torch.ops.attention import flash_attention
+    g = torch.Generator(device=card)
+    g.manual_seed(d)
+    q, k, v = (torch.randn(2, 257, 16, d, generator=g, device=card).bfloat16(
+        ).transpose(1, 2) for _ in range(3))
+    with torch.no_grad():
+        plain = flash_attention(q, k, v, causal=True)
+    qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+    diff = flash_attention(qq, kk, vv, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(diff.detach(), plain)
+
+
+# B2 at G < 8: (slots, S, KV, G, D, int8)
+B2_FEW_SHAPES = [(32, 673, 32, 1, 128, False), (16, 673, 32, 1, 128, True),
+                 (8, 1313, 32, 1, 128, False), (64, 124, 32, 1, 128, True),
+                 (32, 332, 1, 4, 256, False), (32, 332, 1, 4, 256, True),
+                 (4, 100, 2, 4, 64, False), (4, 100, 2, 4, 64, True),
+                 (3, 70, 4, 2, 72, False), (3, 70, 4, 3, 96, True)]
+
+
+def _few_inputs(card, slots, s, kvh, heads, d, int8, seed):
+    from vlm_tpu_torch.ops.quant import quantize_activations
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    q = torch.randn(slots, 1, kvh * heads, d, generator=g,
+                    device=card).bfloat16().transpose(1, 2)
+    k = torch.randn(slots, s, kvh, d, generator=g, device=card).bfloat16()
+    v = torch.randn(slots, s, kvh, d, generator=g, device=card).bfloat16()
+    kn = torch.randn(slots, 1, kvh, d, generator=g, device=card).bfloat16()
+    vn = torch.randn(slots, 1, kvh, d, generator=g, device=card).bfloat16()
+    caches = [k, v]
+    if int8:
+        (kq, ks), (vq, vs) = quantize_activations(k), quantize_activations(v)
+        caches = [kq, vq, ks, vs]
+    acol = torch.randint(0, 16, (slots,), generator=g, device=card).int()
+    gcnt = torch.randint(0, 17, (slots,), generator=g, device=card).int()
+    window = (torch.tensor(s - 16, dtype=torch.int32, device=card), 16, acol,
+              gcnt)
+    return q, caches, kn, vn, window
+
+
+def _masks(card, slots, s, window, seed):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    kv_len = torch.randint(0, s + 1, (slots,), generator=g,
+                           device=card).int()
+    kv_len[0] = 0
+    valid = torch.rand(slots, s, generator=g, device=card) < 0.5
+    valid[-1] = False
+    return {"window": dict(kv_window=window), "kv_len": dict(kv_len=kv_len),
+            "kv_valid": dict(kv_valid=valid),
+            "window_kv_len": dict(kv_window=window, kv_len=kv_len)}
+
+
+@pytest.mark.parametrize("slots,s,kvh,heads,d,int8", B2_FEW_SHAPES)
+@pytest.mark.parametrize("mode", ["window", "kv_len", "kv_valid",
+                                  "window_kv_len"])
+def test_b2_few_form_matches_plain(card, slots, s, kvh, heads, d, int8,
+                                   mode):
+    """decode_kernel_few within ATTN_TOL of the plain version; a fully
+    masked row returns 0."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.decode_attention import (decode_attention,
+                                                    decode_attention_plain)
+    from vlm_tpu_torch.testing.kernel_checks import ATTN_TOL
+    q, caches, _, _, window = _few_inputs(card, slots, s, kvh, heads, d,
+                                          int8, 7)
+    kw = _masks(card, slots, s, window, 8)[mode]
+    if int8:
+        kw.update(k_scale=caches[2], v_scale=caches[3])
+    _lib.reset_counts()
+    o = decode_attention(q, caches[0], caches[1], **kw)
+    torch.cuda.synchronize()
+    form = "decode_attention_int8" if int8 else "decode_attention"
+    assert _lib.launches[form] == 1 and _lib.plain_calls[form] == 0
+    want = decode_attention_plain(q, caches[0], caches[1], **kw)
+    assert float((o.float() - want.float()).abs().max()) <= ATTN_TOL
+    if mode in ("kv_len", "window_kv_len"):
+        assert (o[0] == 0).all()
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("tiles_a_split", [1, 3, 11])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_b2_few_every_ring_and_split(card, monkeypatch, stages,
+                                     tiles_a_split, int8):
+    """Every ring depth the form takes, at one, several and many tiles a
+    split (LLaVA's 673 rows), against the plain version; and the fused
+    write bitwise B3 then B2 at each."""
+    from vlm_tpu_torch.ops import decode_attention as da
+    from vlm_tpu_torch.ops.kvcache import kv_quantized_write, kv_uniform_write
+    from vlm_tpu_torch.testing.kernel_checks import ATTN_TOL
+    if stages > tiles_a_split:
+        pytest.skip("the ring is at most a split's tiles")
+    slots, s, kvh, d = 6, 673, 32, 128
+    if da._lib.few_blocks(card, int8, d, stages, True) < 1:
+        pytest.skip("this ring does not fit an SM")
+    rows = tiles_a_split * da.TILE_ROWS
+    monkeypatch.setattr(da, "few_plan", lambda *a: (-(-s // rows), rows,
+                                                    stages))
+    q, caches, kn, vn, window = _few_inputs(card, slots, s, kvh, 1, d, int8,
+                                            11)
+    col = torch.full((1,), s - 9, dtype=torch.int32, device=card)
+
+    def scales(c):
+        return dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+    fused = [t.clone() for t in caches]
+    o1 = da.decode_attention(q, fused[0], fused[1], kv_window=window,
+                             **scales(fused), k_new=kn, v_new=vn,
+                             write_start=col, uniform=True)
+    alone = [t.clone() for t in caches]
+    if int8:
+        kv_quantized_write((alone[0], alone[2]), (alone[1], alone[3]), kn, vn,
+                           col, True)
+    else:
+        kv_uniform_write(alone[0], alone[1], kn, vn, col)
+    o2 = da.decode_attention(q, alone[0], alone[1], kv_window=window,
+                             **scales(alone))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    for a, b in zip(fused, alone):
+        assert torch.equal(a, b)
+    want = da.decode_attention_plain(q, alone[0], alone[1], kv_window=window,
+                                     **scales(alone))
+    assert float((o2.float() - want.float()).abs().max()) <= ATTN_TOL
+
+
+@pytest.mark.parametrize("slots,s,kvh,heads,d,int8", B2_FEW_SHAPES)
+def test_b2_few_fused_write_is_b3_then_b2_bitwise(card, slots, s, kvh,
+                                                  heads, d, int8):
+    """The row write inside decode_kernel_few: output and caches bitwise
+    B3's kernel then B2's, scatter at columns on tile edges and outside
+    the cache."""
+    from vlm_tpu_torch.ops.decode_attention import decode_attention
+    from vlm_tpu_torch.ops.kvcache import (kv_quantized_write,
+                                           kv_scatter_write)
+    q, caches, kn, vn, _ = _few_inputs(card, slots, s, kvh, heads, d, int8,
+                                       13)
+    edges = [0, 63, 64, s - 1, -1, s, 127, s // 2]
+    start = torch.tensor([edges[i % len(edges)] for i in range(slots)],
+                         dtype=torch.int32, device=card)
+    kv_len = (start + 1).clamp(0, s).int()
+
+    def scales(c):
+        return dict(k_scale=c[2], v_scale=c[3]) if int8 else {}
+    fused = [t.clone() for t in caches]
+    o1 = decode_attention(q, fused[0], fused[1], kv_len=kv_len,
+                          **scales(fused), k_new=kn, v_new=vn,
+                          write_start=start)
+    alone = [t.clone() for t in caches]
+    if int8:
+        kv_quantized_write((alone[0], alone[2]), (alone[1], alone[3]), kn, vn,
+                           start, False)
+    else:
+        kv_scatter_write(alone[0], alone[1], kn, vn, start)
+    o2 = decode_attention(q, alone[0], alone[1], kv_len=kv_len,
+                          **scales(alone))
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    for a, b in zip(fused, alone):
+        assert torch.equal(a, b)
+
+
+def test_b2_few_plan_fits_the_card(card):
+    """few_plan's ring fits an SM at every path shape of the form."""
+    from vlm_tpu_torch.ops import _lib
+    from vlm_tpu_torch.ops.decode_attention import TILE_ROWS, few_plan
+    for slots, s, kvh, d, int8 in ((32, 673, 32, 128, False),
+                                   (16, 673, 32, 128, True),
+                                   (64, 124, 32, 128, True),
+                                   (8, 1313, 32, 128, False),
+                                   (32, 332, 1, 256, False),
+                                   (32, 332, 1, 256, True)):
+        splits, rows, stages = few_plan(
+            s, kvh * slots, _lib.sm_count(card),
+            lambda st: _lib.few_blocks(card, int8, d, st, True))
+        assert _lib.few_blocks(card, int8, d, stages, True) >= 1
+        assert splits * rows >= s and rows % TILE_ROWS == 0

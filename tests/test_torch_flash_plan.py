@@ -10,13 +10,21 @@ must reproduce ``attention_plain`` in every mask mode: fp32 throughout,
 atol = rtol = 1e-5 (the emulation and the plain version sum in another
 order). So the kernel may skip tiles only where skipping changes nothing,
 and a row with no live key still gets the mean of V.
+
+At D <= ``SMALL_D`` the bf16 form is ``flash_kernel_small``: its grid puts
+the row tiles on the slowest axis (reversed under the causal mask), a
+warpgroup with no live row leaves, and a warp scales its scores inside
+the exponent on tiles where none of its rows has a masked key (masking,
+in base 2, only the others); ``emulate_small`` follows that block by block
+and warp by warp.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vlm_tpu_torch.ops.attention import KEYS, ROWS, attention_plain, flash_plan
+from vlm_tpu_torch.ops.attention import (KEYS, ROWS, SMALL_D, attention_plain,
+                                         flash_plan)
 from vlm_tpu_torch.testing.kernel_checks import row_limits
 
 NEG = np.float32(-1e30)
@@ -49,8 +57,8 @@ def emulate(q, k, v, causal=False, kv_len=None, prefix_len=None):
     for bi in range(b):
         kvl = None if kv_len is None else int(kv_len[bi])
         pfx = None if prefix_len is None else int(prefix_len[bi])
-        for tile in range(plan.grid[0]):
-            for hg in range(plan.grid[1]):
+        for tile in range(plan.tiles):
+            for hg in range(plan.groups):
                 rows = np.arange(ROWS)
                 pos = tile * npos + rows // hpb
                 head = hg * hpb + rows % hpb
@@ -82,6 +90,69 @@ def emulate(q, k, v, causal=False, kv_len=None, prefix_len=None):
                 out[bi, head[live], pos[live]] = acc[live] / den[live, None]
     assert not np.isnan(out).any()               # every row written once
     return out, loaded
+
+
+def emulate_small(q, k, v, causal=False, kv_len=None, prefix_len=None):
+    """``flash_kernel_small``'s blocks over its grid (head groups, B, row
+    tiles): each block's tile from blockIdx.z (reversed when causal), its
+    key tiles, the warpgroups with a live row, and per warp of 16 rows
+    the masked or in-exponent softmax of each tile. Returns the output
+    and how many times each (batch, head, row) was written."""
+    b, h, sq, d = q.shape
+    kvh, sk = k.shape[1], k.shape[2]
+    plan = flash_plan(b, h, kvh, sq, d=d)
+    assert plan.grid == (plan.groups, b, plan.tiles)
+    hpb, npos = plan.heads_per_block, plan.positions
+    out = np.zeros(q.shape, np.float32)
+    writes = np.zeros(q.shape[:3], np.int64)
+    c = np.float32(d ** -0.5 / np.log(2))
+    for z in range(plan.grid[2]):
+        tile = plan.tiles - 1 - z if causal else z
+        for bi in range(b):
+            kvl = None if kv_len is None else int(kv_len[bi])
+            pfx = None if prefix_len is None else int(prefix_len[bi])
+            for hg in range(plan.groups):
+                rows = np.arange(ROWS)
+                pos = tile * npos + rows // hpb
+                head = hg * hpb + rows % hpb
+                kv = head[0] // (h // kvh)
+                consumers = 2 if min(npos, sq - tile * npos) * hpb > 64 \
+                    else 1
+                n = block_key_tiles(plan, tile, sq, sk, causal, kvl, pfx)
+                for warp in range(4 * consumers):
+                    wr = rows[16 * warp:16 * warp + 16]
+                    wpos, whead = pos[wr], head[wr]
+                    lim = row_limits(wpos, sq, sk, causal, kvl, pfx)
+                    lim_warp = min(int(lim.min()), sk)
+                    qb = q[bi, whead, np.minimum(wpos, sq - 1)]
+                    m = np.full(16, -np.inf, np.float32)
+                    den = np.zeros(16, np.float32)
+                    acc = np.zeros((16, d), np.float32)
+                    for t in range(n):
+                        kj = t * KEYS + np.arange(KEYS)
+                        kt = np.where((kj < sk)[:, None],
+                                      k[bi, kv, np.minimum(kj, sk - 1)], 0)
+                        vt = np.where((kj < sk)[:, None],
+                                      v[bi, kv, np.minimum(kj, sk - 1)], 0)
+                        s = qb @ kt.T
+                        if t * KEYS + KEYS > lim_warp:    # masked, base 2
+                            x = s * c
+                            x = np.where(kj[None] < lim[:, None], x, NEG)
+                            x = np.where(kj[None] < sk, x, -np.inf)
+                            m_new = np.maximum(m, x.max(axis=1))
+                            p = np.exp2(x - m_new[:, None])
+                        else:                             # in the exponent
+                            m_new = np.maximum(m, s.max(axis=1) * c)
+                            p = np.exp2(s * c - m_new[:, None])
+                        corr = np.exp2(m - m_new)
+                        den = den * corr + p.sum(axis=1)
+                        acc = acc * corr[:, None] + p @ vt
+                        m = m_new
+                    live = wpos < sq
+                    out[bi, whead[live], wpos[live]] = (acc[live]
+                                                        / den[live, None])
+                    np.add.at(writes, (bi, whead[live], wpos[live]), 1)
+    return out, writes
 
 
 def _data(b, h, kvh, sq, sk, d, seed=0):
@@ -151,3 +222,48 @@ def test_emulation_loads_fewer_tiles_with_kv_len():
     _, full = emulate(q, k, v)
     _, short = emulate(q, k, v, kv_len=[70, 10])
     assert full == 2 * 4 * 4 and short == 4 * 2 + 4 * 1
+
+
+# flash_kernel_small's shapes: CLIP-L's 577 positions, SigLIP's 256, EVA's
+# 257 (a one-row last tile), the Q-Former's 32 (one warpgroup), cross
+# attention over 257 keys; kv_len, causal and prefix masks, a GQA group
+SMALL_CASES = [
+    ("clip_577", (1, 1, 1, 577, 577), {}),
+    ("siglip_256_kvlen", (2, 1, 1, 256, 256), dict(kv_len=[256, 70])),
+    ("eva_257", (1, 2, 2, 257, 257), {}),
+    ("qformer_32", (2, 2, 2, 32, 32), {}),
+    ("qformer_cross_32_257", (1, 2, 2, 32, 257), {}),
+    ("causal_257", (1, 1, 1, 257, 257), dict(causal=True)),
+    ("causal_kvlen_dead_rows", (2, 2, 2, 150, 100),
+     dict(causal=True, kv_len=[100, 0])),
+    ("prefix_lm_gqa", (2, 8, 1, 60, 60),
+     dict(causal=True, prefix_len=[20, 5], kv_len=[60, 50])),
+]
+
+
+@pytest.mark.parametrize("d", [64, 72, 88])
+@pytest.mark.parametrize("name,shape,kw", SMALL_CASES,
+                         ids=[c[0] for c in SMALL_CASES])
+def test_small_form_emulation_matches_plain(name, shape, kw, d):
+    """Every (batch, head, row) is written by exactly one block, and the
+    blocks' output is ``attention_plain``'s."""
+    b, h, kvh, sq, sk = shape
+    q, k, v = _data(b, h, kvh, sq, sk, d, seed=1)
+    got, writes = emulate_small(q, k, v, **kw)
+    assert (writes == 1).all()
+    targ = {key: torch.tensor(val, dtype=torch.int32) if key != "causal"
+            else val for key, val in kw.items()}
+    want = attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), **targ).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_small_form_grid_puts_row_tiles_last():
+    clip = flash_plan(4, 16, 16, 577, d=64)
+    assert (clip.tiles, clip.groups, clip.grid) == (5, 16, (16, 4, 5))
+    eva = flash_plan(8, 16, 16, 257, d=88)
+    assert eva.grid == (16, 8, 3)
+    # D = 128 and the fp32 form keep (row tiles, head groups, B)
+    assert flash_plan(4, 32, 32, 641, d=128).grid == (6, 32, 4)
+    assert flash_plan(4, 16, 16, 577).grid == (5, 16, 4)
+    assert SMALL_D == 96

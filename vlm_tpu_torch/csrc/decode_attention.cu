@@ -89,6 +89,8 @@
 //   its scale): head group 0 of the split that holds wpos.
 // Masks, split plan and merge do not change, so the output and the caches
 // are bitwise those of B3's kernel followed by this kernel.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -187,18 +189,29 @@ __device__ __forceinline__ void store_out(float* o, float x) { *o = x; }
 // output, hq0: the block's first query head, nh heads); otherwise write
 // this split's (m, l, acc) to ws and let the last block of the (slot, kv
 // head, group) merge the splits in split order (vlm::split_k_last).
-template <int kW, int kDT, typename OutT>
+// The head dim of acc[mt][e] is mt * 16 + g + 8 (e >> 1) (`dim_of`: the
+// form for few heads permutes it).
+struct PlainDims {
+  __device__ __forceinline__ int operator()(int mt, int hi, int g) const {
+    return mt * 16 + g + 8 * hi;
+  }
+};
+
+template <int kW, int kDT, typename OutT, typename DimOf = PlainDims,
+          bool kBase2 = false>
 __device__ __forceinline__ void finish(unsigned char* smem, const float (&m)[2],
                                        const float (&l)[2],
                                        const float (&acc)[kDT][4], int D,
                                        int nh, OutT* ob, int64_t o_sh,
-                                       int hq0, float* ws, int* counters) {
+                                       int hq0, float* ws, int* counters,
+                                       DimOf dim_of = DimOf()) {
+  // the maxima are natural logs, or base 2 (kBase2)
+  auto weight = [](float x) { return kBase2 ? exp2f(x) : expf(x); };
   constexpr int kNT = kW * 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int dp = (D + 15) & ~15;
-  const int ndt = dp / 16;
   // merge the kW warps: [warp][head] max and sum, [warp][head][dp] acc
   __syncthreads();
   float* red_m = reinterpret_cast<float*>(smem);  // then each warp's weight
@@ -215,12 +228,14 @@ __device__ __forceinline__ void finish(unsigned char* smem, const float (&m)[2],
   }
 #pragma unroll
   for (int mt = 0; mt < kDT; ++mt) {
-    if (mt >= ndt) break;
-    float* base = red_acc + warp * kHeads * dp + mt * 16 + g;
-    base[(2 * t) * dp] = acc[mt][0];
-    base[(2 * t + 1) * dp] = acc[mt][1];
-    base[(2 * t) * dp + 8] = acc[mt][2];
-    base[(2 * t + 1) * dp + 8] = acc[mt][3];
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {
+      const int d = dim_of(mt, hi, g);
+      if (d >= dp) continue;
+      float* base = red_acc + warp * kHeads * dp + d;
+      base[(2 * t) * dp] = acc[mt][2 * hi];
+      base[(2 * t + 1) * dp] = acc[mt][2 * hi + 1];
+    }
   }
   __syncthreads();
   if (threadIdx.x < kHeads) {
@@ -232,7 +247,7 @@ __device__ __forceinline__ void finish(unsigned char* smem, const float (&m)[2],
 #pragma unroll
     for (int w = 0; w < kW; ++w) {
       const float lw = red_l[w * kHeads + h];
-      const float wt = lw > 0.f ? expf(red_m[w * kHeads + h] - mx) : 0.f;
+      const float wt = lw > 0.f ? weight(red_m[w * kHeads + h] - mx) : 0.f;
       red_m[w * kHeads + h] = wt;
       lsum += lw * wt;
     }
@@ -301,7 +316,7 @@ __device__ __forceinline__ void finish(unsigned char* smem, const float (&m)[2],
     float lsum = 0.f;
     for (int z = 0; z < splits; ++z) {
       const float lw = lz[z * kHeads + h];
-      const float wt = lw > 0.f ? expf(wz[z * kHeads + h] - mx) : 0.f;
+      const float wt = lw > 0.f ? weight(wz[z * kHeads + h] - mx) : 0.f;
       wz[z * kHeads + h] = wt;
       lsum += lw * wt;
     }
@@ -690,6 +705,568 @@ int launch(const Params& p, int B, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the form for fewer than 8 query heads a KV head (G < 8) ----
+//
+// MHA decoders (Vicuna, OPT: G = 1) and a model=2 rank of Gemma (4 query
+// heads over its KV head) read a (slot, KV head)'s cache for 1-4 heads, so
+// a block's time is its bytes and the latency of reaching them, not its
+// products. decode_kernel above, built for Gemma's 8 heads, spent it
+// elsewhere at G = 1 (chip runs of testing/attention_breakdown.py): one
+// 64-row tile in flight a block; the int8 cache widened a byte at a time
+// (258 I2F a warp and tile: the conversion pipe alone ~44 us of LLaVA's
+// 16-slot window, whose bytes take 27) and its scales loaded from device
+// memory inside the loop, after the products; registers for D = 256 at
+// every D (156-168: three blocks an SM). This form:
+// - one block a (HPB KV heads, slot, split) for all their G heads (the
+//   mma's N = 8: column h G + j is query head j of the block's KV head h,
+//   zero in the warps of other KV heads); HPB = 1, or 2 for an int8 cache
+//   at G = 1 on grids of two rounds (BLIP-2's 64 slots: a block's set-up
+//   and first wait serve two heads, 256 contiguous bytes a row; the host's
+//   few_heads), the 4 warps then 2 a head, 32 rows of each tile a warp;
+//   accumulators and query registers sized by the head dim (NDT 16-wide
+//   slices; four blocks an SM up to D = 128);
+// - a ring of `stages` (1 or 2) 64-row tiles, each stage holding the
+//   tile's K and V rows and, int8, its 64 k- and v-scales (cp.async, the
+//   scales 4 bytes a row), so no global load waits inside the loop; the
+//   second stage only where it costs no block an SM (few_plan in
+//   ops/decode_attention.py, from vlm_decode_few_blocks: an SM's blocks,
+//   not a block's depth, kept its bytes in flight on the card; deeper
+//   rings were slower);
+// - the mma's row index m of a warp's 16 rows is cache row row_of(m): lane
+//   t's P^T fragment then holds rows 4t .. 4t + 3, so V^T's A fragment is
+//   four whole rows; K and V rows sit in shared memory as 16-byte chunks
+//   XOR-swizzled by the row (swz_bf16 / swz_int8: every ldmatrix and
+//   16-byte load conflict-free);
+// - int8: a lane reads 16 bytes of a row at once. K's are 64 dims of four
+//   16-deep steps (the query's registers permuted to match: the products'
+//   sums are reordered, not changed); V's are its 16 dims of a row, two of
+//   each of 8 output slices (the output's dims permuted back in finish).
+//   Each byte becomes fp32 exactly (widen4: byte permute into the mantissa
+//   of 2^23, one subtraction), two of them bf16 in one cvt: no I2F.
+// The softmax runs in base 2 (the scores times log2 e after the product;
+// finish merges base-2 maxima). The TPU kernel's roundings stay: q D^-1/2
+// in bf16, P in bf16 before P.V, v_scale folded into the probabilities,
+// the denominator over the unscaled ones; masks, the fused write and the
+// split merge are decode_kernel's.
+
+constexpr int kFewMaxStages = 2;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the exponential unit (ex2.approx: 2 ulp; -inf gives 0)
+__device__ __forceinline__ float fast_ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the cache row (within a warp's 16) of the mma's row index m
+__device__ __forceinline__ int row_of(int m) {
+  return ((m & 7) >> 1) * 4 + (m & 1) + ((m >> 3) << 1);
+}
+// 16-byte chunk swizzles of a row r (r & 15 within a warp's rows): for
+// ldmatrix (bf16: the 8 rows of an 8x8 matrix are row_of(0..7) or
+// row_of(8..15)) and for the int8 form's 16-byte loads
+__device__ __forceinline__ int swz_bf16(int r) {
+  return (r & 1) | (((r >> 2) & 3) << 1);
+}
+__device__ __forceinline__ int swz_int8(int r) {
+  return ((r & 1) << 2) ^ (((r >> 2) & 3) << 1);
+}
+
+// four int8 values (one word) as fp32, exactly: byte x + 128 (the xor)
+// into the low mantissa bits of 2^23, minus 2^23 + 128
+__device__ __forceinline__ void widen4(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+}
+
+// the padded head dim, 16 NDT: bf16 64, 128 or 256 (rows of whole
+// 128-byte lines), int8 128 or 256 (a lane's 16 bytes of a V row cover 8
+// slices of 16)
+__host__ __device__ inline int few_dp(int D, bool int8) {
+  return D <= 64 && !int8 ? 64 : D <= 128 ? 128 : 256;
+}
+
+// shared memory of the form with hpb KV heads a block: the ring, then the
+// fused write's staged rows and scales; at least the merge's (finish)
+__host__ inline size_t few_smem(int D, bool int8, int stages, bool fused,
+                                int hpb) {
+  const size_t elem = int8 ? 1 : 2;
+  const size_t pitch = hpb * few_dp(D, int8) * elem;
+  const size_t stage = 2 * kTile * pitch + (int8 ? 2 * kTile * hpb * 4 : 0);
+  const size_t rbytes = (D * elem + 15) & ~static_cast<size_t>(15);
+  const size_t tiles = stages * stage + (fused ? 2 * hpb * rbytes + 16 : 0);
+  const size_t red = sizeof(float) *
+      (kWarps * kHeads * (2 + ((D + 15) & ~15)) + 2 * kHeads);
+  const size_t merge = sizeof(float) * (2 * kMaxSplits + 1) * kHeads;
+  size_t smem = tiles > red ? tiles : red;
+  return smem > merge ? smem : merge;
+}
+
+// the int8 form's output dims: slice mt, dim g + 8 hi of the O^T
+// accumulators is byte 2 (mt % 8) + hi of lane g's 16 of each V row
+struct Int8Dims {
+  __device__ __forceinline__ int operator()(int mt, int hi, int g) const {
+    return 128 * (mt >> 3) + 16 * g + 2 * (mt & 7) + hi;
+  }
+};
+
+// four blocks an SM up to D = 128 (NDT 8; 128 registers), three above
+template <typename T, int NDT, int HPB>
+__global__ void __launch_bounds__(kThreads, NDT <= 8 ? 4 : 3)
+decode_kernel_few(const Params p, int stages) {
+  constexpr bool kInt8 = sizeof(T) == 1;
+  constexpr int kWPH = kWarps / HPB;      // warps a KV head
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int G = p.H / p.KV;  // HPB G <= 8: every head in the mma's N
+  const int kvh0 = blockIdx.x * HPB;
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int hw = warp / kWPH;  // this warp's KV head of the block's HPB
+  // the fused write's column and new rows first, as decode_kernel: bf16,
+  // thread x holds word x % (D / 2) of head x / (D / 2)'s K and V rows;
+  // int8, warp w head w / 2's K (w even) or V row
+  const int wcol = fused_col(p.k_new, p.wstart, p.uniform, b);
+  const int64_t new_off = (static_cast<int64_t>(b) * p.KV + kvh0) * p.D;
+  uint32_t new_words[2] = {0u, 0u};
+  float new_vals[vlm::kQuantPerLane];
+  if (p.k_new) {
+    if constexpr (kInt8) {
+      if (warp < 2 * HPB)
+        vlm::load_row_warp((warp & 1 ? p.v_new : p.k_new) + new_off +
+                               (warp >> 1) * p.D, p.D, lane, new_vals);
+    } else if (threadIdx.x < HPB * p.D / 2) {
+      new_words[0] = __ldg(reinterpret_cast<const uint32_t*>(p.k_new + new_off) + threadIdx.x);
+      new_words[1] = __ldg(reinterpret_cast<const uint32_t*>(p.v_new + new_off) + threadIdx.x);
+    }
+  }
+  const int dp = few_dp(p.D, kInt8);
+  const int dbytes = p.D * static_cast<int>(sizeof(T));
+  const int hbytes = dp * static_cast<int>(sizeof(T));  // 128-byte lines
+  const int pitch = HPB * hbytes;  // a row: the block's HPB heads
+  const int tile_bytes = kTile * pitch;
+  const int stage_bytes = 2 * tile_bytes + (kInt8 ? 2 * kTile * HPB * 4 : 0);
+
+  const int kvl = p.kv_len ? p.kv_len[b] : p.S;
+  int limit = min(p.S, kvl);
+  int pc = 0, ac = 0, gc = 0;
+  if (p.mode == kWindow) {
+    pc = *p.pcol;
+    ac = p.acol[b];
+    gc = p.gcnt[b];
+    limit = min(limit, pc + p.window);
+  }
+  const int s_begin = blockIdx.z * p.rows_per_split;
+  const int s_end = min(limit, s_begin + p.rows_per_split);
+  const int nt = s_end > s_begin ? (s_end - s_begin + kTile - 1) / kTile : 0;
+  const int wpos = fused_row(wcol, s_begin, p.rows_per_split, p.S);
+
+  const int64_t row_bytes = p.c_ss * static_cast<int64_t>(sizeof(T));
+  const unsigned char* kbase = static_cast<const unsigned char*>(p.k) +
+      (b * p.c_sb + static_cast<int64_t>(kvh0) * p.D) * sizeof(T);
+  const unsigned char* vbase = static_cast<const unsigned char*>(p.v) +
+      (b * p.c_sb + static_cast<int64_t>(kvh0) * p.D) * sizeof(T);
+  const bool vec16 = dbytes % 16 == 0 && row_bytes % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(kbase) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(vbase) % 16 == 0;
+  const int64_t sc_off = static_cast<int64_t>(b) * p.S * p.KV + kvh0;
+  auto swz = [](int r) { return kInt8 ? swz_int8(r) : swz_bf16(r); };
+  // byte offset in a tile of byte x of head h's part of row r
+  auto at = [&](int r, int h, int x) {
+    return r * pitch + h * hbytes + ((((x >> 4) ^ swz(r & 15))) << 4) +
+           (x & 15);
+  };
+  // zero the pad chunks [D, dp) of every staged head row once: the copies
+  // never write them, and 0 x garbage could be NaN in the products
+  const int pad_from = dbytes / 16, pad = hbytes / 16 - pad_from;
+  if (pad > 0) {
+    for (int i = threadIdx.x; i < stages * 2 * kTile * HPB * pad;
+         i += kThreads) {
+      const int row = i / pad;  // (stage, K or V, row, head) in order
+      const int h = row % HPB, r = (row / HPB) % kTile;
+      *reinterpret_cast<uint4*>(
+          smem + (row / (2 * kTile * HPB)) * stage_bytes +
+          ((row / (kTile * HPB)) & 1) * tile_bytes +
+          at(r, h, 16 * (pad_from + i % pad))) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    __syncthreads();
+  }
+
+  // tile i (rows r0 + [0, 64) of the HPB heads) into stage j: K, V and
+  // (int8) the rows' scales; rows at or past s_end are zero-filled
+  // without being read, and the fused write's row is left out (staged)
+  const int width = vec16 ? 16 : 4;
+  const int cph = dbytes / width;  // a head's copies a row
+  const int chunks = HPB * cph;
+  const int r_first = threadIdx.x / chunks;
+  const int c_first = threadIdx.x - r_first * chunks;
+  const int r_step = kThreads / chunks, c_step = kThreads - r_step * chunks;
+  auto load = [&](int j, int r0) {
+    unsigned char* st = smem + j * stage_bytes;
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      const unsigned char* base = which ? vbase : kbase;
+      unsigned char* dst = st + which * tile_bytes;
+      int r = r_first, c = c_first;
+      while (r < kTile) {
+        const int row = r0 + r;
+        const bool ok = row < s_end;
+        if (row != wpos) {
+          const unsigned char* src = ok ? base + row * row_bytes + c * width
+                                        : base;
+          const int h = HPB > 1 && c >= cph;  // HPB <= 2
+          const int x = (c - h * cph) * width;
+          if (vec16) vlm::cp_async16(dst + at(r, h, x), src, ok);
+          else vlm::cp_async_small<4>(dst + at(r, h, x), src, ok);
+        }
+        r += r_step;
+        c += c_step;
+        if (c >= chunks) {
+          c -= chunks;
+          ++r;
+        }
+      }
+    }
+    if constexpr (kInt8) {  // thread x: row x % 64's k (x < 64) or v scales
+      const int r = threadIdx.x % kTile;
+      const int row = r0 + r;
+      const float* sc = threadIdx.x < kTile ? p.k_scale : p.v_scale;
+      unsigned char* dst = st + 2 * tile_bytes +
+                           ((threadIdx.x / kTile) * kTile + r) * HPB * 4;
+      const float* src = row < s_end ? sc + sc_off +
+                                           static_cast<int64_t>(row) * p.KV
+                                     : sc;
+      if (row != wpos) vlm::cp_async_small<4 * HPB>(dst, src, row < s_end);
+    }
+  };
+
+  auto live = [&](int r) {
+    if (r >= s_end) return false;
+    if (p.mode == kWindow) {
+      const int age = (((r - pc - ac) % p.window) + p.window) % p.window;
+      return r < pc || age < gc;
+    }
+    if (p.mode == kValid) return p.kv_valid[static_cast<int64_t>(b) * p.S + r] != 0;
+    return true;
+  };
+
+  // the first stages - 1 tiles in flight (a group each, empty or not)
+  for (int j = 0; j < stages - 1; ++j) {
+    if (j < nt) load(j, s_begin + j * kTile);
+    vlm::cp_async_commit();
+  }
+
+  // Q^T as the B operand, times D^-1/2, in bf16: column g is query head j
+  // = g % G of the block's KV head g / G, zero unless that is this warp's
+  // (and past HPB G); the dims of step kk that lane t's K fragment holds
+  // (bf16: 16 kk + 2t, +1, +8, +9; int8: 64 c + 16 t + 4 j + 0..3 for
+  // step kk = 4 c + j)
+  uint32_t qf[NDT][2];
+  {
+    const bool mine = g < HPB * G && g / G == hw;
+    const __nv_bfloat16* qh = p.q + b * p.q_sb +
+                              static_cast<int64_t>(kvh0 * G + g) * p.q_sh;
+#pragma unroll
+    for (int kk = 0; kk < NDT; ++kk)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int d = kInt8 ? 64 * (kk >> 2) + 16 * t + 4 * (kk & 3) + 2 * hf
+                            : 16 * kk + 2 * t + 8 * hf;
+        float2 x = make_float2(0.f, 0.f);
+        if (mine && d < p.D)
+          x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qh + d));
+        qf[kk][hf] = vlm::pack_bf16(x.x * p.scale, x.y * p.scale);
+      }
+  }
+  // the fused write: the new K and V rows of the HPB heads staged past the
+  // ring ([head][K, V] rows of rbytes, then [head][K, V] scales), written
+  // to the cache by this block (the only one of its slot and heads whose
+  // split holds the column)
+  const int rbytes = (dbytes + 15) & ~15;
+  unsigned char* new_sm = smem + stages * stage_bytes;
+  const float* new_scale = reinterpret_cast<const float*>(new_sm + 2 * HPB * rbytes);
+  if (wpos >= 0) {
+    const int64_t off = b * p.c_sb + static_cast<int64_t>(wpos) * p.c_ss +
+                        static_cast<int64_t>(kvh0) * p.D;
+    if constexpr (kInt8) {
+      if (warp < 2 * HPB) {  // warp 2 h + which
+        int8_t qv[vlm::kQuantPerLane];
+        const float sc = vlm::quantize_row_warp(new_vals, qv);
+        const int h = warp >> 1, which = warp & 1;
+        int8_t* cache = static_cast<int8_t*>(which ? p.v : p.k) + off + h * p.D;
+        unsigned char* row = new_sm + warp * rbytes;
+#pragma unroll
+        for (int i = 0; i < vlm::kQuantPerLane; ++i) {
+          const int d = lane + 32 * i;
+          if (d < p.D) {
+            row[d] = static_cast<unsigned char>(qv[i]);
+            cache[d] = qv[i];
+          }
+        }
+        if (lane == 0) {
+          reinterpret_cast<float*>(new_sm + 2 * HPB * rbytes)[warp] = sc;
+          (which ? p.v_scale : p.k_scale)[(static_cast<int64_t>(b) * p.S + wpos) * p.KV + kvh0 + h] = sc;
+        }
+      }
+    } else if (threadIdx.x < HPB * p.D / 2) {
+      const int h = threadIdx.x / (p.D / 2), w = threadIdx.x - h * (p.D / 2);
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        reinterpret_cast<uint32_t*>(new_sm + (2 * h + which) * rbytes)[w] = new_words[which];
+        reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(which ? p.v : p.k) + off)[threadIdx.x] =
+            new_words[which];
+      }
+    }
+  }
+  __syncthreads();
+
+  // this warp's rows of a tile: HPB steps of 16 from rw; in each, m = g,
+  // g + 8 of the scores are rows + rlo, + rhi, and P^T's lane t holds
+  // rows + 4t .. 4t + 3
+  const int rw = (warp % kWPH) * 16 * HPB;
+  const int rlo = row_of(g), rhi = row_of(g + 8);
+  float m[2] = {vlm::kNegInf, vlm::kNegInf}, l[2] = {0.f, 0.f};
+  float acc[NDT][4];
+#pragma unroll
+  for (int i = 0; i < NDT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  int slot = 0;
+  for (int i = 0; i < nt; ++i) {
+    {  // tile i + stages - 1 into the slot tile i - 1 left
+      const int j = i + stages - 1;
+      int js = slot + stages - 1;
+      if (js >= stages) js -= stages;
+      if (j < nt) load(js, s_begin + j * kTile);
+      vlm::cp_async_commit();
+    }
+    if (stages == 1) vlm::cp_async_wait<0>();
+    else vlm::cp_async_wait<1>();
+    unsigned char* kt = smem + slot * stage_bytes;
+    unsigned char* vt = kt + tile_bytes;
+    float* ks = reinterpret_cast<float*>(vt + tile_bytes);  // [K, V][row][head]
+    const int r0 = s_begin + i * kTile;
+    if (wpos >= r0 && wpos < min(r0 + kTile, s_end)) {
+      // the fused write's rows (and scales) into their tile
+      const int r = wpos - r0;
+      for (int w = threadIdx.x; w < HPB * dbytes / 4; w += kThreads) {
+        const int h = w / (dbytes / 4), x = 4 * (w - h * (dbytes / 4));
+        *reinterpret_cast<uint32_t*>(kt + at(r, h, x)) =
+            *reinterpret_cast<const uint32_t*>(new_sm + 2 * h * rbytes + x);
+        *reinterpret_cast<uint32_t*>(vt + at(r, h, x)) =
+            *reinterpret_cast<const uint32_t*>(new_sm + (2 * h + 1) * rbytes + x);
+      }
+      if (kInt8 && threadIdx.x < 2 * HPB)  // 2 h + which
+        ks[((threadIdx.x & 1) * kTile + r) * HPB + (threadIdx.x >> 1)] =
+            new_scale[threadIdx.x];
+    }
+    __syncthreads();  // tile i landed for every warp
+
+    // scores S^T [16 rows, 8 heads] of each step: lane holds rows rlo,
+    // rhi x heads 2t, 2t + 1
+    float s[HPB][4];
+    bool lv[HPB][2];
+#pragma unroll
+    for (int st = 0; st < HPB; ++st) {
+      const int rb = rw + 16 * st;
+      s[st][0] = s[st][1] = s[st][2] = s[st][3] = 0.f;
+      if constexpr (kInt8) {
+#pragma unroll
+        for (int c = 0; c < NDT / 4; ++c) {
+          const uint4 lo = *reinterpret_cast<const uint4*>(kt + at(rb + rlo, hw, 64 * c + 16 * t));
+          const uint4 hi = *reinterpret_cast<const uint4*>(kt + at(rb + rhi, hw, 64 * c + 16 * t));
+          const uint32_t wl[4] = {lo.x, lo.y, lo.z, lo.w};
+          const uint32_t wh[4] = {hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float fl[4], fh[4];
+            widen4(wl[j], fl);
+            widen4(wh[j], fh);
+            const uint32_t a[4] = {vlm::pack_bf16(fl[0], fl[1]),
+                                   vlm::pack_bf16(fh[0], fh[1]),
+                                   vlm::pack_bf16(fl[2], fl[3]),
+                                   vlm::pack_bf16(fh[2], fh[3])};
+            vlm::mma16816(s[st], a, qf[4 * c + j][0], qf[4 * c + j][1]);
+          }
+        }
+      } else {
+        const int r = rb + row_of((lane & 7) + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int kk = 0; kk < NDT; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4(a, kt + at(r, hw, (2 * kk + (lane >> 4)) * 16), false);
+          vlm::mma16816(s[st], a, qf[kk][0], qf[kk][1]);
+        }
+      }
+      // the scores in base 2 (the query keeps its bf16 rounding)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[st][e] *= kLog2e;
+      lv[st][0] = live(r0 + rb + rlo);
+      lv[st][1] = live(r0 + rb + rhi);
+      if constexpr (kInt8) {
+        const float k0 = lv[st][0] ? ks[(rb + rlo) * HPB + hw] : 0.f;
+        const float k1 = lv[st][1] ? ks[(rb + rhi) * HPB + hw] : 0.f;
+        s[st][0] *= k0;
+        s[st][1] *= k0;
+        s[st][2] *= k1;
+        s[st][3] *= k1;
+      }
+      if (!lv[st][0]) s[st][0] = s[st][1] = vlm::kNegInf;
+      if (!lv[st][1]) s[st][2] = s[st][3] = vlm::kNegInf;
+    }
+    // per-head max and sum over the warp's rows: its steps, then the
+    // lanes that share t
+    float mx0 = vlm::kNegInf, mx1 = vlm::kNegInf;
+#pragma unroll
+    for (int st = 0; st < HPB; ++st) {
+      mx0 = fmaxf(mx0, fmaxf(s[st][0], s[st][2]));
+      mx1 = fmaxf(mx1, fmaxf(s[st][1], s[st][3]));
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(vlm::kFullMask, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(vlm::kFullMask, mx1, o));
+    }
+    const float mn0 = fmaxf(m[0], mx0), mn1 = fmaxf(m[1], mx1);
+    const float c0 = fast_ex2(m[0] - mn0), c1 = fast_ex2(m[1] - mn1);
+    float pr[HPB][4];
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int st = 0; st < HPB; ++st) {
+      pr[st][0] = lv[st][0] ? fast_ex2(s[st][0] - mn0) : 0.f;
+      pr[st][1] = lv[st][0] ? fast_ex2(s[st][1] - mn1) : 0.f;
+      pr[st][2] = lv[st][1] ? fast_ex2(s[st][2] - mn0) : 0.f;
+      pr[st][3] = lv[st][1] ? fast_ex2(s[st][3] - mn1) : 0.f;
+      sum0 += pr[st][0] + pr[st][2];
+      sum1 += pr[st][1] + pr[st][3];
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      sum0 += __shfl_xor_sync(vlm::kFullMask, sum0, o);
+      sum1 += __shfl_xor_sync(vlm::kFullMask, sum1, o);
+    }
+    l[0] = l[0] * c0 + sum0;
+    l[1] = l[1] * c1 + sum1;
+    m[0] = mn0;
+    m[1] = mn1;
+#pragma unroll
+    for (int mt = 0; mt < NDT; ++mt) {
+      acc[mt][0] *= c0;
+      acc[mt][1] *= c1;
+      acc[mt][2] *= c0;
+      acc[mt][3] *= c1;
+    }
+#pragma unroll
+    for (int st = 0; st < HPB; ++st) {
+      const int rb = rw + 16 * st;
+      if constexpr (kInt8) {
+        const float v0 = lv[st][0] ? ks[(kTile + rb + rlo) * HPB + hw] : 0.f;
+        const float v1 = lv[st][1] ? ks[(kTile + rb + rhi) * HPB + hw] : 0.f;
+        pr[st][0] *= v0;
+        pr[st][1] *= v0;
+        pr[st][2] *= v1;
+        pr[st][3] *= v1;
+      }
+      // P^T as the B operand: lane (g, t) gets head g at m = 2t, 2t + 1
+      // (b0) and 2t + 8, 2t + 9 (b1): rows rb + 4t .. 4t + 3
+      const uint32_t pb0 = transpose8x8(vlm::pack_bf16(pr[st][0], pr[st][1]));
+      const uint32_t pb1 = transpose8x8(vlm::pack_bf16(pr[st][2], pr[st][3]));
+      if constexpr (kInt8) {
+        // a lane's 16 bytes of rows rb + 4t + 0..3 at dims 128 h + 16 g ..
+        // + 15: byte 2 j + e of a row is slice 8 h + j, dim g + 8 e
+#pragma unroll
+        for (int h = 0; h < NDT / 8; ++h) {
+          uint4 w[4];
+#pragma unroll
+          for (int rr = 0; rr < 4; ++rr)
+            w[rr] = *reinterpret_cast<const uint4*>(vt + at(rb + 4 * t + rr, hw, 128 * h + 16 * g));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {  // word q: slices 8 h + 2 q, + 1
+            float f[4][4];
+#pragma unroll
+            for (int rr = 0; rr < 4; ++rr) {
+              const uint32_t x = q == 0 ? w[rr].x : q == 1 ? w[rr].y
+                               : q == 2 ? w[rr].z : w[rr].w;
+              widen4(x, f[rr]);
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const uint32_t a[4] = {vlm::pack_bf16(f[0][2 * j], f[1][2 * j]),
+                                     vlm::pack_bf16(f[0][2 * j + 1], f[1][2 * j + 1]),
+                                     vlm::pack_bf16(f[2][2 * j], f[3][2 * j]),
+                                     vlm::pack_bf16(f[2][2 * j + 1], f[3][2 * j + 1])};
+              vlm::mma16816(acc[8 * h + 2 * q + j], a, pb0, pb1);
+            }
+          }
+        }
+      } else {
+        const int r = rb + row_of((lane & 7) + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < NDT; ++mt) {
+          uint32_t a[4];
+          ldmatrix_x4(a, vt + at(r, hw, (2 * mt + ((lane >> 3) & 1)) * 16), true);
+          vlm::mma16816(acc[mt], a, pb0, pb1);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this slot
+    if (++slot == stages) slot = 0;
+  }
+  vlm::cp_async_wait<0>();
+  // a column of another KV head than this warp's weighs 0 in the merge
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    if ((2 * t + j) / G != hw) l[j] = 0.f;
+
+  using Dims = typename std::conditional<kInt8, Int8Dims, PlainDims>::type;
+  finish<kWarps, NDT, __nv_bfloat16, Dims, true>(
+      smem, m, l, acc, p.D, HPB * G, p.o + b * p.o_sb, p.o_sh, kvh0 * G,
+      p.ws, p.counters, Dims());
+}
+
+template <typename T, int NDT, int HPB>
+int launch_few_ndt(const Params& p, int B, int splits, int stages,
+                   cudaStream_t stream) {
+  const size_t smem = few_smem(p.D, sizeof(T) == 1, stages, p.k_new != nullptr,
+                               HPB);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        decode_kernel_few<T, NDT, HPB>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  decode_kernel_few<T, NDT, HPB>
+      <<<dim3(p.KV / HPB, B, splits), kThreads, smem, stream>>>(p, stages);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the instance of a form: NDT = few_dp / 16 (bf16 4, 8, 16; int8 8, 16),
+// hpb KV heads a block (2: the int8 form at G = 1, D <= 128)
+#define VLM_FEW_INSTANCES(X)                                                 \
+  X(__nv_bfloat16, 4, 1, 4) X(__nv_bfloat16, 8, 1, 8)                        \
+  X(__nv_bfloat16, 16, 1, 16) X(int8_t, 8, 1, 108) X(int8_t, 8, 2, 1108)     \
+  X(int8_t, 16, 1, 116)
+__host__ inline int few_instance(int D, bool int8, int hpb) {
+  return few_dp(D, int8) / 16 + (int8 ? 100 : 0) + (hpb == 2 ? 1000 : 0);
+}
+
+int launch_few(const Params& p, bool int8, int B, int stages, int hpb,
+               cudaStream_t stream) {
+  const int splits = (max(p.S, 1) + p.rows_per_split - 1) / p.rows_per_split;
+  switch (few_instance(p.D, int8, hpb)) {
+#define VLM_FEW_LAUNCH(T, NDT, HPB, KEY) \
+    case KEY: return launch_few_ndt<T, NDT, HPB>(p, B, splits, stages, stream);
+    VLM_FEW_INSTANCES(VLM_FEW_LAUNCH)
+#undef VLM_FEW_LAUNCH
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+
 
 // ---- fp32 form ----
 //
@@ -1024,7 +1601,9 @@ int launch32(const Params32& p, dim3 grid, cudaStream_t stream) {
 // rows are cut into splits of rows_per_split (a multiple of 64); with more
 // than one split, ws holds KV * ceil(G / 8) * B * splits * 8 * (2 + dp)
 // floats (dp: D rounded up to 16) and counters one zeroed int per
-// (slot, kv head, group of 8 heads), left zeroed by the kernel.
+// (slot, kv head, group of 8 heads), left zeroed by the kernel. G < 8
+// takes decode_kernel_few with a ring of `stages` tiles (1-2; ignored for
+// G >= 8).
 // k_new != nullptr: the fused write of k_new / v_new [B, 1, KV, D] bf16
 // (contiguous, 4-byte aligned) at column wstart[0] (uniform) or wstart[b]
 // into the caches (values and scales for an int8 cache) before attending.
@@ -1033,9 +1612,9 @@ extern "C" int vlm_decode_attention(
     const int* kv_len, const void* kv_valid, const int* pcol, const int* acol,
     const int* gcnt, const void* k_new, const void* v_new, const int* wstart,
     void* ws, void* counters, int B, int H, int KV, int S, int D, int window,
-    int mode, int rows_per_split, int uniform, int64_t q_sb, int64_t q_sh,
-    int64_t c_sb, int64_t c_ss, int64_t o_sb, int64_t o_sh, float scale,
-    void* stream) {
+    int mode, int rows_per_split, int uniform, int stages,
+    int heads_per_block, int64_t q_sb, int64_t q_sh, int64_t c_sb,
+    int64_t c_ss, int64_t o_sb, int64_t o_sh, float scale, void* stream) {
   const bool int8 = k_scale != nullptr;
   if (D <= 0 || D > kMaxD || D % (int8 ? 4 : 2) != 0 || KV <= 0 ||
       H % KV != 0 || H / KV > 32 || (mode == kWindow && window <= 0) ||
@@ -1063,7 +1642,53 @@ extern "C" int vlm_decode_attention(
            window, mode, rows_per_split, uniform, q_sb, q_sh, c_sb, c_ss,
            o_sb, o_sh, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H / KV < kHeads) {
+    const int hpb = heads_per_block;
+    if (stages < 1 || stages > kFewMaxStages || hpb < 1 || hpb > 2 ||
+        (hpb == 2 && (!int8 || H != KV || KV % 2 != 0 || D > 128)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_few(p, int8, B, stages, hpb, st);
+  }
   return int8 ? launch<int8_t>(p, B, st) : launch<__nv_bfloat16>(p, B, st);
+}
+
+// How many blocks of the G < 8 form with hpb KV heads a block an SM
+// holds with a ring of `stages` tiles
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor: its registers and shared
+// memory), for ops/decode_attention.py's few_plan.
+extern "C" int vlm_decode_few_blocks(int int8, int D, int stages, int fused,
+                                     int hpb, int* blocks) {
+  if (D <= 0 || D > kMaxD || stages < 1 || stages > kFewMaxStages ||
+      hpb < 1 || hpb > 2 || (hpb == 2 && (!int8 || D > 128)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = few_smem(D, int8, stages, fused, hpb);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > static_cast<size_t>(optin)) {  // the ring does not fit
+    *blocks = 0;
+    return 0;
+  }
+  auto query = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, kThreads, smem));
+  };
+  switch (few_instance(D, int8, hpb)) {
+#define VLM_FEW_QUERY(T, NDT, HPB, KEY) \
+    case KEY: return query(decode_kernel_few<T, NDT, HPB>);
+    VLM_FEW_INSTANCES(VLM_FEW_QUERY)
+#undef VLM_FEW_QUERY
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The fp32 form: q [B, H, 1, D] and the cache [B, S, KV, D] in fp32, the

@@ -79,7 +79,8 @@ _SIGNATURES = {
                                                                      _P],
     "vlm_flash_attention_fp32_bwd": [_P] * 11 + [_L] + [_I] * 6 + [_L] * 24
     + [_F, _I, _P],
-    "vlm_decode_attention": [_P] * 16 + [_I] * 9 + [_L] * 6 + [_F, _P],
+    "vlm_decode_attention": [_P] * 16 + [_I] * 11 + [_L] * 6 + [_F, _P],
+    "vlm_decode_few_blocks": [_I] * 5 + [ctypes.POINTER(_I)],
     "vlm_decode_attention_fp32": [_P] * 14 + [_I] * 9 + [_L] * 6 + [_F, _P],
     "vlm_kv_write": [_P] * 5 + [_I] * 3 + [_L] * 3 + [_P],
     "vlm_kv_write_int8": [_P] * 7 + [_I] * 6 + [_P],
@@ -96,6 +97,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _sm_counts: dict = {}
 _max_clusters: dict = {}
+_few_blocks: dict = {}
 _tile_counters: dict = {}
 #: what the last build did: {"path", "seconds", "cached", "log"}
 last_build: dict = {}
@@ -222,6 +224,26 @@ def max_clusters(device: torch.device) -> Tuple[int, ...]:
                 got.append(count.value)
         _max_clusters[device.index] = tuple(got)
     return _max_clusters[device.index]
+
+
+def few_blocks(device: torch.device, int8: bool, d: int, stages: int,
+               fused: bool, heads: int = 1) -> int:
+    """Blocks of B2's form for G < 8 with ``heads`` KV heads a block that an
+    SM of a CUDA device holds with a ring of ``stages`` tiles (its
+    registers and shared memory; cached)."""
+    key = (device.index, int8, d, stages, fused, heads)
+    if key not in _few_blocks:
+        handle = lib()
+        count = ctypes.c_int()
+        with torch.cuda.device(device):
+            rc = handle.vlm_decode_few_blocks(int(int8), d, stages,
+                                              int(fused), heads,
+                                              ctypes.byref(count))
+        if rc != 0:
+            raise RuntimeError(f"vlm_decode_few_blocks: CUDA error {rc} "
+                               f"({handle.vlm_error_string(rc).decode()})")
+        _few_blocks[key] = count.value
+    return _few_blocks[key]
 
 
 def tile_counters(device: torch.device, n: int) -> torch.Tensor:

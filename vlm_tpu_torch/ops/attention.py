@@ -8,7 +8,8 @@ causal with the diagonal at the end of the kv axis, prefix-LM (only with
 causal), ``kv_len`` and ``kv_valid``, all with the finite ``-1e30``.
 
 :func:`flash_attention` is the B1 wrapper: for CUDA tensors the bf16
-kernel (``csrc/flash_attention.cu``) or the fp32 one
+kernel (``csrc/flash_attention.cu``: ``flash_kernel_small`` at head dims
+up to :data:`SMALL_D`, ``flash_kernel`` above) or the fp32 one
 (``csrc/flash_attention_fp32.cu``), by the operands' dtype; for CPU
 tensors the plain version. Where a gradient is needed (grad mode on and
 q, k or v requiring one) it routes to :class:`FlashAttentionFn`, B1's
@@ -88,6 +89,9 @@ def _attention_math(q, k, v, *, causal=False, kv_len=None, kv_valid=None,
 # B1's tiling: query rows of a block, keys of a K/V tile; the fp32 form's
 ROWS, KEYS = 128, 64
 ROWS_FP32, KEYS_FP32 = 64, 32
+#: the bf16 form's head dims of ``flash_kernel_small`` (its grid puts the
+#: row tiles on the slowest axis)
+SMALL_D = 96
 
 
 def fp32_key_split(d: int) -> int:
@@ -120,23 +124,32 @@ class FlashPlan:
     the fp32 form :data:`ROWS_FP32`) of one
     (batch, KV head): ``positions`` positions x ``heads_per_block`` query
     heads of that KV head's group, row ``r`` being position ``p0 + r //
-    heads_per_block`` of head ``h0 + r % heads_per_block``. ``grid`` is
-    (position tiles, H / heads_per_block head groups, B)."""
+    heads_per_block`` of head ``h0 + r % heads_per_block``. ``tiles``
+    position tiles of ``groups`` = H / heads_per_block head groups; ``grid``
+    is (tiles, groups, B), or for the bf16 form at D <= :data:`SMALL_D`
+    (groups, B, tiles): the row tiles slowest, so the last (the fewest
+    rows) launches last, and under the causal mask (the kernel reverses
+    them) the ones with the most keys first."""
     heads_per_block: int
     positions: int
+    tiles: int
+    groups: int
     grid: Tuple[int, int, int]
 
 
 @functools.lru_cache(maxsize=256)
 def flash_plan(b: int, h: int, kvh: int, sq: int,
-               rows: int = ROWS) -> FlashPlan:
-    """The grid and row packing of B1 for q ``[b, h, sq, D]`` over ``kvh``
+               rows: int = ROWS, d: int = 0) -> FlashPlan:
+    """The grid and row packing of B1 for q ``[b, h, sq, d]`` over ``kvh``
     KV heads, ``rows`` query rows a block: gcd(G, 64) heads of a group
     share a block, so one K/V tile feeds them all (all 8 Gemma heads;
-    SigLIP, G = 1, one head)."""
+    SigLIP, G = 1, one head). ``d``: the bf16 form's head dim (0: the
+    fp32 form's grid)."""
     hpb = math.gcd(h // kvh, 64)
     pos = rows // hpb
-    return FlashPlan(hpb, pos, (-(-sq // pos), h // hpb, b))
+    tiles, groups = -(-sq // pos), h // hpb
+    grid = (groups, b, tiles) if 0 < d <= SMALL_D else (tiles, groups, b)
+    return FlashPlan(hpb, pos, tiles, groups, grid)
 
 
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
@@ -307,7 +320,7 @@ def _flash_forward(q, k, v, *, causal=False, kv_len=None, prefix_len=None,
     if fp32:
         return _flash_fp32(q, k, v, kvl, pfx, causal, also, with_lse)
     q, k, v = _tma_ready(q), _tma_ready(k), _tma_ready(v)
-    plan = flash_plan(b, h, kvh, sq)
+    plan = flash_plan(b, h, kvh, sq, d=d)
     # [B, Sq, H, D] memory (the head dim padded to 8 for TMA's 16-byte rows)
     o = torch.empty((b, sq, h, -(-d // 8) * 8), dtype=q.dtype, device=q.device)
     o = (o if d % 8 == 0 else o[..., :d]).transpose(1, 2)

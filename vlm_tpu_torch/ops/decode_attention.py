@@ -17,7 +17,11 @@ On the card B2 is split-S flash-decoding: :func:`split_plan` cuts the S
 rows into splits of whole tiles (64 rows; 32 in the fp32 form), one block
 per (kv head, group of 8 query heads, slot, split), and the last block of
 each (slot, kv head, group) merges the splits' (max, sum, acc) in the same
-launch, through a workspace this wrapper allocates. An fp32 query and cache
+launch, through a workspace this wrapper allocates. With fewer than 8
+query heads a KV head (MHA decoders; a model=2 rank of Gemma) the bf16 and
+int8 caches take the form for few heads (``decode_kernel_few``), one block
+per (kv head, slot, split) with a ring of one or two tiles, cut by
+:func:`few_plan`. An fp32 query and cache
 (models that run with quantization "fp32") take B2's fp32 form, whose
 products are each three TF32 products on the tensor cores (fp32
 accuracy).
@@ -32,7 +36,7 @@ of B3's kernel followed by B2's.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -59,6 +63,42 @@ def split_plan(s_total: int, blocks: int, sm_count: int,
                max(1, -(-per_sm * sm_count // max(1, blocks))))
     per = -(-n_tiles // min(want, n_tiles))
     return -(-n_tiles // per), per * tile
+
+
+#: the form for few heads: at most this many tiles in a block's ring
+FEW_MAX_STAGES = 2
+
+
+def few_heads(g: int, kvh: int, d: int, int8: bool, pairs: int,
+              room: int) -> int:
+    """KV heads a block of B2's form for G < 8 over ``pairs`` = KV x B
+    (slot, KV head) pairs when the card holds ``room`` blocks of one head
+    at once: 2 for an int8 cache of an MHA decoder (G = 1, an even count
+    of KV heads, D <= 128) whose pairs fill two rounds of that room (BLIP-2's
+    64 slots: a block's set-up and its first tile's wait then serve two
+    heads, and it reads 256 contiguous bytes a row; measured faster there,
+    slower where the grid then holds less than a round), else 1."""
+    return 2 if (int8 and g == 1 and kvh % 2 == 0 and d <= 128
+                 and pairs >= 2 * room) else 1
+
+
+def few_plan(s_total: int, pairs: int, sm_count: int,
+             blocks_per_sm: Callable[[int], int]) -> Tuple[int, int, int]:
+    """How B2's form for G < 8 cuts the S cache rows: ``(splits,
+    rows_per_split, stages)``. ``pairs`` is KV x B, the grid without
+    splits; ``blocks_per_sm(stages)`` the blocks an SM holds with a ring of
+    that depth. The splits are :func:`split_plan`'s (about two blocks an
+    SM where S has the tiles). The ring holds a second tile in flight
+    where that keeps the blocks an SM holds: on the card (chip runs of
+    the cuts and depths, PERF.md) an SM's blocks, not a block's depth,
+    kept its bytes in flight; a deeper ring that cost a block an SM was
+    slower, and at the same blocks a third tile was too."""
+    splits, rows = split_plan(s_total, pairs, sm_count)
+    held = blocks_per_sm(1)
+    if held < 1:
+        raise ValueError("decode_attention: no block of the form fits an SM")
+    stages = 2 if rows > TILE_ROWS and blocks_per_sm(2) >= held else 1
+    return splits, rows, stages
 
 
 def window_mask(s_total: int, kv_window: Tuple, device) -> torch.Tensor:
@@ -238,8 +278,20 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mode = _MODE_LEN
     o = torch.empty((b, 1, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     blocks = kvh * -(-(h // kvh) // HEADS_PER_BLOCK) * b
-    splits, rows = split_plan(s_total, blocks, _lib.sm_count(dev),
-                              *((TILE_ROWS_FP32, 3) if fp32 else ()))
+    stages = heads = 1
+    if fp32:
+        splits, rows = split_plan(s_total, blocks, _lib.sm_count(dev),
+                                  TILE_ROWS_FP32, 3)
+    elif h // kvh < HEADS_PER_BLOCK:
+        sms = _lib.sm_count(dev)
+        heads = few_heads(h // kvh, kvh, d, int8, blocks, sms * _lib.few_blocks(
+            dev, int8, d, 1, k_new is not None))
+        splits, rows, stages = few_plan(
+            s_total, blocks // heads, sms,
+            lambda st: _lib.few_blocks(dev, int8, d, st, k_new is not None,
+                                       heads))
+    else:
+        splits, rows = split_plan(s_total, blocks, _lib.sm_count(dev))
     ws = counters = None
     if splits > 1:
         dp = -(-d // 16) * 16
@@ -265,7 +317,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), ptr(k_scale),
         ptr(v_scale), ptr(kvl), ptr(valid), ptr(pcol), ptr(acol), ptr(gcnt),
         *rows_new, ptr(ws), ptr(counters), b, h, kvh, s_total, d, window,
-        mode, rows, int(uniform), q.stride(0), q.stride(1), k.stride(0),
-        k.stride(1), o.stride(0), o.stride(1), d ** -0.5, _lib.stream_ptr(q),
-        also=fused)
+        mode, rows, int(uniform), stages, heads, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), o.stride(0), o.stride(1), d ** -0.5,
+        _lib.stream_ptr(q), also=fused)
     return o
