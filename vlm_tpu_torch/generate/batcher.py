@@ -64,6 +64,7 @@ import torch
 from ..data.pipeline import prefetch_batches
 from ..models.decoder import QuantizedKV, init_kv_cache, local_heads
 from ..models.vlm import VLMModule
+from ..utils.profiling import annotate
 from .decode import check_positions, feed_token, sample, sample_rows
 from .readback import Pull, StepFlags, upload
 
@@ -203,45 +204,51 @@ class ContinuousBatcher:
                              kv_heads=self.kv_heads)
 
     def _admit(self, state: dict, cache: dict, pixels, pre_ids, post_ids,
-               prompt_len, caps_new) -> None:
+               prompt_len, caps_new) -> float:
         """Prefill ``g`` images into the first ``g`` free slots (chosen on
         the device: lowest indices with ``occ`` False) and update the slot
         state and the cache in place. Under a data split, rows for other
-        ranks' slots go to the cache's spare row."""
+        ranks' slots go to the cache's spare row. Returns the host's
+        seconds in the module's prefill (its enqueue)."""
         g = pixels.shape[0]
         slots = torch.argsort(state["occ"].to(torch.int8), stable=True)[:g]
         p = self.max_prompt_len
         group = self._new_cache(g, p)
         # every data rank prefills the whole admission
+        t0 = time.perf_counter()
         last = self.module.prefill(pixels, pre_ids, post_ids, group,
                                    prompt_len, replicated=True)
-        rows = slots
-        if self.split:
-            lo, n = self.local.start, self.local.stop - self.local.start
-            rows = torch.where((slots >= lo) & (slots < lo + n), slots - lo,
-                               n)
-        for full, part in zip(cache["k"] + cache["v"],
-                              group["k"] + group["v"]):
-            if isinstance(full, QuantizedKV):           # values and scales
-                for f, t in zip(full, part):
-                    f[rows, :p] = t
-            else:
-                full[rows, :p] = part                   # in place
-        first = self._sample(last)
-        act_new = (first != self.eos_id) & (caps_new > 1)
-        # index_fill_ takes its value as a kernel argument: an index_put_ of
-        # a Python number would upload it, a blocking copy
-        state["hist"].index_fill_(0, slots, self.pad_id)
-        state["hist"][slots, 0] = first
-        state["cur"][slots] = torch.where(act_new, first, self.feed_id)
-        state["slen"][slots] = prompt_len
-        state["gcnt"].index_fill_(0, slots, 1)
-        state["caps"][slots] = caps_new
-        state["act"][slots] = act_new
-        state["acol"][slots] = torch.remainder(state["dstep"],
-                                               self.max_new_tokens)
-        state["pcol"].copy_(prompt_len[0])
-        state["occ"].index_fill_(0, slots, True)
+        prefill_s = time.perf_counter() - t0
+        with annotate("batcher.cache_copy"):
+            rows = slots
+            if self.split:
+                lo, n = self.local.start, self.local.stop - self.local.start
+                rows = torch.where((slots >= lo) & (slots < lo + n),
+                                   slots - lo, n)
+            for full, part in zip(cache["k"] + cache["v"],
+                                  group["k"] + group["v"]):
+                if isinstance(full, QuantizedKV):       # values and scales
+                    for f, t in zip(full, part):
+                        f[rows, :p] = t
+                else:
+                    full[rows, :p] = part               # in place
+        with annotate("batcher.admit_state"):
+            first = self._sample(last)
+            act_new = (first != self.eos_id) & (caps_new > 1)
+            # index_fill_ takes its value as a kernel argument: an
+            # index_put_ of a Python number would upload it, a blocking copy
+            state["hist"].index_fill_(0, slots, self.pad_id)
+            state["hist"][slots, 0] = first
+            state["cur"][slots] = torch.where(act_new, first, self.feed_id)
+            state["slen"][slots] = prompt_len
+            state["gcnt"].index_fill_(0, slots, 1)
+            state["caps"][slots] = caps_new
+            state["act"][slots] = act_new
+            state["acol"][slots] = torch.remainder(state["dstep"],
+                                                   self.max_new_tokens)
+            state["pcol"].copy_(prompt_len[0])
+            state["occ"].index_fill_(0, slots, True)
+        return prefill_s
 
     def _go(self, state: dict, stop_free: int, max_steps: int):
         """The chunk's condition on the device (0-d bool): fewer than
@@ -299,15 +306,18 @@ class ContinuousBatcher:
             behind = n + 1 - self.steps_ahead
             if behind > flags.read and flags.wait(behind) is not None:
                 break
-            go = self._decode_step(state, cache, go, stop_free, max_steps)
+            with annotate("batcher.step"):
+                go = self._decode_step(state, cache, go, stop_free,
+                                       max_steps)
             flags.push(go)
             n += 1
         state["occ"] = state["act"].clone()
         b = self.batch_size
-        packed = torch.cat([state["hist"], state["act"].int()[:, None],
-                            state["gcnt"][:, None],
-                            state["k"].expand(b)[:, None]], dim=1)
-        return Pull(packed), n
+        with annotate("batcher.pack"):
+            packed = torch.cat([state["hist"], state["act"].int()[:, None],
+                                state["gcnt"][:, None],
+                                state["k"].expand(b)[:, None]], dim=1)
+            return Pull(packed), n
 
     @torch.inference_mode()
     def run(self, pixel_fn: Callable[[List[int]], torch.Tensor],
@@ -326,12 +336,17 @@ class ContinuousBatcher:
         completion time as the host observed it (at the read of the chunk
         that finished it: in the pipelined loop one cycle late), and
         ``last_stats`` the loop's counters: ``vlm_tpu``'s (``admit_s``,
-        ``admits``, ``chunk_dispatch_s``, ``chunks``, ``sync_s``: the
-        blocking reads' seconds, ``block_wait_s``), ``steps`` (decode steps
-        that took effect), ``guarded_steps`` (dispatched steps that took
-        none), ``blocking_reads`` (the chunks' result reads and the
-        waits for a step flag) and, under a mesh, ``stop_reads`` (the
-        host reads of the ranks' stop flag, one a chunk)."""
+        ``admits``, ``chunks``, ``sync_s``: the blocking reads' seconds,
+        ``block_wait_s``), ``prefill_s`` (the host's seconds in the
+        module's prefill, inside ``admit_s``), ``step_enqueue_s`` and
+        ``flag_wait_s`` (a chunk's dispatch seconds: enqueueing its steps
+        and its packed result, and blocked in :meth:`StepFlags.wait`),
+        ``pixels_s`` (``pixel_fn``'s seconds, on the prefetch thread),
+        ``steps`` (decode steps that took effect), ``guarded_steps``
+        (dispatched steps that took none), ``blocking_reads`` (the
+        chunks' result reads and the waits for a step flag) and, under a
+        mesh, ``stop_reads`` (the host reads of the ranks' stop flag, one
+        a chunk)."""
         B = self.batch_size
         n_new = self.max_new_tokens
         dev = self.device
@@ -351,8 +366,9 @@ class ContinuousBatcher:
         results: List[Optional[List[int]]] = [None] * n_images
         self.last_latency_s: List[Optional[float]] = [None] * n_images
         t_admit = [0.0] * n_images
-        stats = {"admit_s": 0.0, "admits": 0, "chunk_dispatch_s": 0.0,
-                 "chunks": 0, "sync_s": 0.0, "block_wait_s": 0.0,
+        stats = {"admit_s": 0.0, "admits": 0, "prefill_s": 0.0,
+                 "step_enqueue_s": 0.0, "flag_wait_s": 0.0, "chunks": 0,
+                 "sync_s": 0.0, "block_wait_s": 0.0, "pixels_s": 0.0,
                  "steps": 0, "guarded_steps": 0, "blocking_reads": 0}
         self.last_stats = stats
         pre_row = upload(np.asarray(pre_ids_row, np.int32), dev)
@@ -385,18 +401,23 @@ class ContinuousBatcher:
                 t = ups[r] if len(ups) > r else 0
             return min(max_steps, t)
 
-        blocks = [list(range(i, min(i + self.admit_block, n_images)))
-                  for i in range(0, n_images, self.admit_block)]
-        block_iter = prefetch_batches(
-            blocks, lambda idxs: (idxs, pixel_fn(idxs)),
-            depth=max(1, prefetch_depth))
-        max_steps = n_new if self.sync_every <= 0 else self.sync_every
-
         def timed(key, fn, *a):
             t0 = time.perf_counter()
             out = fn(*a)
             stats[key + "_s"] += time.perf_counter() - t0
             return out
+
+        blocks = [list(range(i, min(i + self.admit_block, n_images)))
+                  for i in range(0, n_images, self.admit_block)]
+        # on the prefetch thread, the one writer of "pixels_s"
+        block_iter = prefetch_batches(
+            blocks, lambda idxs: (idxs, timed("pixels", pixel_fn, idxs)),
+            depth=max(1, prefetch_depth))
+        max_steps = n_new if self.sync_every <= 0 else self.sync_every
+
+        def next_block():
+            with annotate("batcher.block_wait"):
+                return timed("block_wait", next, block_iter, None)
 
         def dispatch_admit(idxs: List[int], pixels) -> None:
             """Enqueue the admission; the device chooses the slots (first g
@@ -406,21 +427,26 @@ class ContinuousBatcher:
             if g not in plen_g:
                 plen_g[g] = torch.full((g,), prompt_len_scalar, **i32)
             caps = [cap(i) for i in idxs]
-            self._admit(state, cache, pixels.to(dev, non_blocking=True),
-                        pre_row[None].expand(g, -1),
-                        post_row[None].expand(g, -1), plen_g[g],
-                        upload(np.asarray(caps, np.int32), dev))
+            with annotate("batcher.admit"):
+                stats["prefill_s"] += self._admit(
+                    state, cache, pixels.to(dev, non_blocking=True),
+                    pre_row[None].expand(g, -1),
+                    post_row[None].expand(g, -1), plen_g[g],
+                    upload(np.asarray(caps, np.int32), dev))
             for i, c in zip(idxs, caps):
                 left[i] = (c - 1, len(known))
 
         def dispatch_chunk(stop_free: int):
             stop_flag.check()
             stats["chunks"] += 1
-            t0 = time.perf_counter()
-            pull, n = self._chunk(state, view, stop_free, max_steps,
-                                  limit(stop_free, max_steps), flags)
+            t0, w0 = time.perf_counter(), flags.wait_s
+            with annotate("batcher.chunk"):
+                pull, n = self._chunk(state, view, stop_free, max_steps,
+                                      limit(stop_free, max_steps), flags)
             known.append(flags.effective(n))
-            stats["chunk_dispatch_s"] += time.perf_counter() - t0
+            waited = flags.wait_s - w0
+            stats["flag_wait_s"] += waited
+            stats["step_enqueue_s"] += time.perf_counter() - t0 - waited
             return (pull, len(known) - 1, n), t0
 
         def assign_slots(idxs: List[int], t0: float) -> None:
@@ -438,7 +464,8 @@ class ContinuousBatcher:
             cycle) and resolve every slot it finished."""
             pull, c, n = chunk
             t0 = time.perf_counter()
-            arr = pull.get()
+            with annotate("batcher.read"):
+                arr = pull.get()
             stats["sync_s"] += time.perf_counter() - t0
             stats["blocking_reads"] += 1
             act = arr[:, n_new].astype(bool)
@@ -484,7 +511,7 @@ class ContinuousBatcher:
 
         def run_sync() -> None:
             """One blocking read a chunk of at most sync_every steps."""
-            pending = timed("block_wait", next, block_iter, None)
+            pending = next_block()
             while pending is not None or any(s.active for s in slots):
                 n_free = sum(not s.active for s in slots)
                 if pending is not None and n_free >= len(pending[0]):
@@ -492,7 +519,7 @@ class ContinuousBatcher:
                     t0 = time.perf_counter()
                     timed("admit", dispatch_admit, idxs, pixels)
                     assign_slots(idxs, t0)
-                    pending = timed("block_wait", next, block_iter, None)
+                    pending = next_block()
                     continue
                 stop = len(pending[0]) if pending is not None else B + 1
                 resolve(dispatch_chunk(stop)[0])
@@ -506,14 +533,14 @@ class ContinuousBatcher:
             as max(its dispatch, the read before it); completions are seen
             at the lagged reads."""
             guaranteed = B
-            pending = timed("block_wait", next, block_iter, None)
+            pending = next_block()
             while pending is not None:
                 while pending is not None and guaranteed >= len(pending[0]):
                     idxs, pixels = pending
                     timed("admit", dispatch_admit, idxs, pixels)
                     events.append(("admit", idxs, time.perf_counter()))
                     guaranteed -= len(idxs)
-                    pending = timed("block_wait", next, block_iter, None)
+                    pending = next_block()
                 stop = len(pending[0]) if pending is not None else B + 1
                 chunk, t0 = dispatch_chunk(stop)
                 events.append(("chunk", chunk, t0))

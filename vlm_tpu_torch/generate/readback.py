@@ -21,10 +21,13 @@ On the CPU every value is known at once and nothing waits.
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
 import torch
+
+from ..utils.profiling import annotate
 
 
 def upload(array, device) -> torch.Tensor:
@@ -68,8 +71,8 @@ class StepFlags:
     On the card a pushed flag is copied into a ring of pinned host memory
     and an event is recorded behind it; :meth:`poll` reads the flags whose
     events have completed, in order, and never waits; :meth:`wait` blocks
-    for one (a blocking read, counted in :attr:`waits`). On the CPU a
-    pushed flag is known at once.
+    for one (a blocking read, counted in :attr:`waits`, its seconds in
+    :attr:`wait_s`). On the CPU a pushed flag is known at once.
 
     ``lockstep`` (the ranks of a mesh): :meth:`poll` reads nothing new, so
     the flags read, and with them the steps a loop enqueues, depend only on
@@ -90,6 +93,7 @@ class StepFlags:
             self._events = [torch.cuda.Event() for _ in range(self.RING)]
         self._base = 0
         self.waits = 0
+        self.wait_s = 0.0
         self.start()
 
     def start(self) -> None:
@@ -140,20 +144,24 @@ class StepFlags:
     def wait(self, n: int) -> Optional[int]:
         """Block until the first ``n`` flags are read; as :meth:`poll`."""
         if self.stop is None and self.read < n:
-            self.waits += 1
-            if self.cuda:
-                self._events[(self._base + n - 1) % self.RING].synchronize()
+            self._block(n)
             self._take(n)
         return self.stop
+
+    def _block(self, n: int) -> None:
+        """Wait until the first ``n`` flags are written."""
+        self.waits += 1
+        t0 = time.perf_counter()
+        with annotate("batcher.flag_wait"):
+            if self.cuda:
+                self._events[(self._base + n - 1) % self.RING].synchronize()
+        self.wait_s += time.perf_counter() - t0
 
     def drain(self) -> None:
         """Block until every pushed flag is written (the loop's last step
         has run) and read them: the one blocking read at a loop's end."""
         if self.pushed:
-            self.waits += 1
-            if self.cuda:
-                self._events[(self._base + self.pushed - 1)
-                             % self.RING].synchronize()
+            self._block(self.pushed)
             if self.stop is None:
                 self._take(self.pushed)
 

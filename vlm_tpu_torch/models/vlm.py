@@ -14,6 +14,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..utils.profiling import annotate
 from .configs import VLMConfig
 from .decoder import Decoder
 from .projector import build_projector
@@ -52,16 +53,18 @@ class VLMModule(nn.Module):
         vectors -> [B, T_img, decoder_hidden]. ``replicated``: as
         :meth:`prefill`'s."""
         cfg = self.cfg
-        out = self.vision(pixels,
-                          keep_hidden_states=cfg.vision_feature_layer != -1,
-                          replicated=replicated)
-        if cfg.vision_feature_layer == -1:
-            feats = out["last_hidden_state"]
-        else:
-            feats = out["hidden_states"][cfg.vision_feature_layer]
-        if cfg.drop_cls_for_llm and cfg.vision.use_cls_token:
-            feats = feats[:, 1:]
-        return self.projector(feats)
+        with annotate("vlm.vision"):
+            out = self.vision(
+                pixels, keep_hidden_states=cfg.vision_feature_layer != -1,
+                replicated=replicated)
+        with annotate("vlm.projector"):
+            if cfg.vision_feature_layer == -1:
+                feats = out["last_hidden_state"]
+            else:
+                feats = out["hidden_states"][cfg.vision_feature_layer]
+            if cfg.drop_cls_for_llm and cfg.vision.use_cls_token:
+                feats = feats[:, 1:]
+            return self.projector(feats)
 
     # ---------------- merge + decode ----------------
     def merge_embeds(self, pre_ids: torch.Tensor, image_embeds: torch.Tensor,
@@ -104,17 +107,19 @@ class VLMModule(nn.Module):
         admissions), the same rows on every data rank: the quantized
         products' 512-row dispatch and llm.int8's outlier columns count
         the global rows either way."""
-        embeds = self.merge_embeds(
-            pre_ids, self.encode_images(pixels, replicated), post_ids)
-        b, s, _ = embeds.shape
-        positions = torch.arange(s, device=embeds.device).expand(b, s)
-        logits = self.decoder(
-            input_embeds=embeds, positions=positions, cache=cache,
-            write_start=0, kv_len=prompt_len,
-            causal=not self.cfg.prefix_lm, logits_index=prompt_len - 1,
-            uniform_write=True, logits_dtype=self.dtype,
-            replicated=replicated)
-        return logits[:, 0]
+        with annotate("vlm.prefill"):
+            image_embeds = self.encode_images(pixels, replicated)
+            with annotate("vlm.decoder"):
+                embeds = self.merge_embeds(pre_ids, image_embeds, post_ids)
+                b, s, _ = embeds.shape
+                positions = torch.arange(s, device=embeds.device).expand(b, s)
+                logits = self.decoder(
+                    input_embeds=embeds, positions=positions, cache=cache,
+                    write_start=0, kv_len=prompt_len,
+                    causal=not self.cfg.prefix_lm,
+                    logits_index=prompt_len - 1, uniform_write=True,
+                    logits_dtype=self.dtype, replicated=replicated)
+                return logits[:, 0]
 
     def decode_step(self, token_ids: torch.Tensor, seq_len: torch.Tensor,
                     cache: Dict[str, tuple], uniform_write: bool = False,
@@ -143,13 +148,15 @@ class VLMModule(nn.Module):
         else:
             write_start = seq_len
         masked = kv_valid is not None or kv_window is not None
-        logits = self.decoder(
-            input_ids=token_ids, positions=positions, cache=cache,
-            write_start=write_start,
-            kv_len=None if masked else seq_len + 1, causal=False,
-            uniform_write=uniform_write or write_col is not None,
-            kv_valid=kv_valid, kv_window=kv_window, logits_dtype=self.dtype)
-        return logits[:, 0]
+        with annotate("vlm.decode_step"):
+            logits = self.decoder(
+                input_ids=token_ids, positions=positions, cache=cache,
+                write_start=write_start,
+                kv_len=None if masked else seq_len + 1, causal=False,
+                uniform_write=uniform_write or write_col is not None,
+                kv_valid=kv_valid, kv_window=kv_window,
+                logits_dtype=self.dtype)
+            return logits[:, 0]
 
 
 def num_image_tokens(cfg: VLMConfig) -> int:

@@ -2,7 +2,8 @@
 copy of ``vlm_tpu/utils/profiling.py``): a wall-clock images/s meter whose
 first update is left out of the steady rate (on the card that update holds
 the kernels' build and first launches), a trace context that writes a
-Chrome trace of the host and the device, and named ranges in it."""
+Chrome trace of the host and the device, and the program's named ranges
+in it (:func:`annotate`, :data:`SPANS`)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,33 @@ import contextlib
 import time
 from pathlib import Path
 from typing import Optional
+
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
+
+#: every span the program opens, outermost first within each path: the
+#: continuous batcher's admission and the model's part of it, then the
+#: decode loop. Each opens on the thread that enqueues the card's work,
+#: never on the prefetch thread
+SPANS = (
+    "batcher.admit",        # ContinuousBatcher._admit: one admission
+    "vlm.prefill",          # VLMModule.prefill
+    "vlm.vision",           # VLMModule.encode_images: the tower
+    "vlm.projector",        # VLMModule.encode_images: the projector
+    "vlm.decoder",          # VLMModule.prefill: the prompt rows, the head
+    "batcher.cache_copy",   # _admit: the group's rows into the slot cache
+    "batcher.admit_state",  # _admit: the first token and the slot state
+    "batcher.chunk",        # _chunk: one chunk's dispatch
+    "batcher.step",         # _decode_step: one dispatched step
+    "vlm.decode_step",      # VLMModule.decode_step: its forward
+    "batcher.flag_wait",    # StepFlags.wait, drain: a blocking wait
+    "batcher.pack",         # _chunk: the packed result and its Pull
+    "batcher.read",         # run: Pull.get, a cycle's planned read
+    "batcher.block_wait",   # run: the wait for the next pixel block
+)
+
+#: what :func:`annotate` returns while no profiler runs
+_OFF = contextlib.nullcontext()
 
 
 class ThroughputMeter:
@@ -82,9 +110,17 @@ def profile_trace(log_dir):
         prof.export_chrome_trace(str(path))
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """A named range in profiler traces."""
-    from torch.profiler import record_function
-    with record_function(name):
-        yield
+    """A named range in profiler traces (``name``: one of :data:`SPANS`).
+    While no profiler runs on this thread it returns one shared no-op
+    context and builds nothing: its cost is the profiler check.
+
+    The range is a host range (``RecordScope.FUNCTION``), as an operator's
+    is, and not a user range (``record_function``'s): the profiler ties
+    each kernel on the device to the innermost user range open at its
+    launch only, so a user range here would take the kernels of the
+    program's work from every user range a caller opened around it (a
+    benchmark's, an operator's)."""
+    if not _profiler_enabled():
+        return _OFF
+    return _RecordFunctionFast(name)
