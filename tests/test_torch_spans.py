@@ -62,7 +62,7 @@ def test_only_the_profiling_module_opens_ranges():
 
 
 def test_spans_are_named_once():
-    assert len(set(profiling.SPANS)) == len(profiling.SPANS) == 14
+    assert len(set(profiling.SPANS)) == len(profiling.SPANS) == 15
 
 
 # ---------------------------- shared helpers -----------------------------
@@ -136,7 +136,8 @@ def test_every_span_opens_nested_on_the_enqueueing_thread(
             b = _serve(cfg, module, loop=loop)
     main = {e.thread for e in prof.events() if e.name == "test.main_thread"}
     r = _ranges(prof)
-    assert set(r) == set(profiling.SPANS)
+    # CPU pixels take no CUDA graph of the encoding
+    assert set(r) == set(profiling.SPANS) - {"vlm.encode_graph"}
     assert {t for v in r.values() for t, _, _ in v} == main
     assert len(r["batcher.admit"]) == b.last_stats["admits"] == 3
     assert len(r["batcher.chunk"]) == b.last_stats["chunks"]

@@ -344,9 +344,11 @@ class ContinuousBatcher:
         ``pixels_s`` (``pixel_fn``'s seconds, on the prefetch thread),
         ``steps`` (decode steps that took effect), ``guarded_steps``
         (dispatched steps that took none), ``blocking_reads`` (the
-        chunks' result reads and the waits for a step flag) and, under a
-        mesh, ``stop_reads`` (the host reads of the ranks' stop flag, one
-        a chunk)."""
+        chunks' result reads and the waits for a step flag),
+        ``encode_graph_replays`` (admissions whose image encoding replayed
+        a CUDA graph: :meth:`VLMModule.encode_images`) and, under a mesh,
+        ``stop_reads`` (the host reads of the ranks' stop flag, one a
+        chunk)."""
         B = self.batch_size
         n_new = self.max_new_tokens
         dev = self.device
@@ -369,7 +371,8 @@ class ContinuousBatcher:
         stats = {"admit_s": 0.0, "admits": 0, "prefill_s": 0.0,
                  "step_enqueue_s": 0.0, "flag_wait_s": 0.0, "chunks": 0,
                  "sync_s": 0.0, "block_wait_s": 0.0, "pixels_s": 0.0,
-                 "steps": 0, "guarded_steps": 0, "blocking_reads": 0}
+                 "steps": 0, "guarded_steps": 0, "blocking_reads": 0,
+                 "encode_graph_replays": 0}
         self.last_stats = stats
         pre_row = upload(np.asarray(pre_ids_row, np.int32), dev)
         post_row = upload(np.asarray(post_ids_row, np.int32), dev)
@@ -427,12 +430,15 @@ class ContinuousBatcher:
             if g not in plen_g:
                 plen_g[g] = torch.full((g,), prompt_len_scalar, **i32)
             caps = [cap(i) for i in idxs]
+            replays = self.module.encode_graph_replays
             with annotate("batcher.admit"):
                 stats["prefill_s"] += self._admit(
                     state, cache, pixels.to(dev, non_blocking=True),
                     pre_row[None].expand(g, -1),
                     post_row[None].expand(g, -1), plen_g[g],
                     upload(np.asarray(caps, np.int32), dev))
+            stats["encode_graph_replays"] += \
+                self.module.encode_graph_replays - replays
             for i, c in zip(idxs, caps):
                 left[i] = (c - 1, len(known))
 

@@ -9,11 +9,13 @@ bidirectionally, generated tokens causally. LLaVA's is [BOS + "USER: "]
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from ..ops import _lib
 from ..utils.profiling import annotate
 from .configs import VLMConfig
 from .decoder import Decoder
@@ -21,17 +23,81 @@ from .projector import build_projector
 from .vit import ViTEncoder
 
 
+#: CUDA graphs :meth:`VLMModule.encode_images` keeps a module, each holding
+#: its encoding's activations in a private memory pool (~100-200 MB for
+#: BLIP-2 at 8 images) while it is kept: the batcher and the wave engine
+#: make two keys each (their block and the run's last, smaller one), beams
+#: one, so two callers sharing a module fit
+ENCODE_GRAPHS = 4
+
+
+class _EncodeGraph:
+    """One image encoding captured as a CUDA graph: the static input the
+    pixels are copied into, the output each replay rewrites, and the
+    kernel launches a replay makes (added to ``_lib.launches``, as the
+    wrappers count them when called). Made at a key's first call, whose
+    result is :attr:`first`: the encoding run eager on the capture's
+    stream, which warms that stream's library state before the capture."""
+
+    def __init__(self, encode, pixels: torch.Tensor):
+        with torch.inference_mode(False):   # written by later calls too
+            self.pixels = torch.empty(pixels.shape, dtype=pixels.dtype,
+                                      device=pixels.device)
+        self.pixels.copy_(pixels)
+        caller = torch.cuda.current_stream(pixels.device)
+        stream = torch.cuda.Stream(pixels.device)
+        stream.wait_stream(caller)
+        self.launches = {name: 0 for name in _lib.KERNELS}
+        self.first = None
+        try:
+            # the outer context restores the caller's stream also where
+            # the capture fails (torch.cuda.graph's exit then unsets it)
+            with torch.cuda.stream(stream):
+                self.first = encode(self.pixels)
+                self.graph = torch.cuda.CUDAGraph()
+                # thread_local: the batcher's prefetch thread may enqueue
+                # work (on another stream) while the capture runs; its
+                # launches count as ever, this thread's in self.launches
+                with _lib.counting_into(self.launches), torch.cuda.graph(
+                        self.graph, stream=stream,
+                        capture_error_mode="thread_local"):
+                    self.out = encode(self.pixels)
+        finally:
+            caller.wait_stream(stream)
+            if self.first is not None:
+                self.first.record_stream(caller)
+
+    def __call__(self, pixels: torch.Tensor) -> torch.Tensor:
+        self.pixels.copy_(pixels)
+        self.graph.replay()
+        for k, n in self.launches.items():
+            if n:
+                _lib.launches[k] += n
+        # the caller's own tensor: the next replay rewrites self.out
+        return self.out.clone()
+
+
 class VLMModule(nn.Module):
     """``quant_bits`` (8, 4 or 0): the decoder blocks' weights, int8,
     grouped int4 or unquantized; ``vision_quant_bits``: the vision blocks'
     (``quantize_vision``). The patch embedding, the projector and the tied
     head stay in ``dtype``. ``mesh``: built at this rank's shard of
-    ``vlm_tpu``'s tensor-parallel layout (each part's module docs)."""
+    ``vlm_tpu``'s tensor-parallel layout (each part's module docs).
+
+    :meth:`encode_images` counts its calls: ``encode_graph_replays`` were
+    answered by a CUDA graph's replay, ``encode_eager`` ran the encoding
+    eager (a capturing call too); ``encode_graph_captures`` counts the
+    graphs made."""
 
     def __init__(self, cfg: VLMConfig, *, dtype=torch.float32, device=None,
                  quant_bits: int = 0, vision_quant_bits: int = 0,
                  mesh=None):
         super().__init__()
+        # input key -> its _EncodeGraph, or "eager" (its capture failed)
+        self._encode_graphs: Dict[tuple, object] = {}
+        self.encode_graph_replays = 0
+        self.encode_graph_captures = 0
+        self.encode_eager = 0
         self.cfg = cfg
         self.dtype = dtype
         self.mesh = mesh
@@ -46,12 +112,71 @@ class VLMModule(nn.Module):
     def device(self) -> torch.device:
         return self.decoder.embed.weight.device
 
+    def _apply(self, fn, recurse=True):
+        # a graph reads the weights where they lay at its capture
+        self._encode_graphs.clear()
+        return super()._apply(fn, recurse)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._encode_graphs.clear()
+        return super().load_state_dict(*args, **kwargs)
+
     # ---------------- vision ----------------
     def encode_images(self, pixels: torch.Tensor,
                       replicated: bool = False) -> torch.Tensor:
         """[B,H,W,3] normalized pixels, or their [B, N, P*P*3] patch
         vectors -> [B, T_img, decoder_hidden]. ``replicated``: as
-        :meth:`prefill`'s."""
+        :meth:`prefill`'s.
+
+        CUDA pixels with no gradient and no mesh take one CUDA graph of
+        the tower and the projector for their shape, dtype and
+        ``replicated`` (while fewer than :data:`ENCODE_GRAPHS` are kept):
+        the first call at a key runs eager on the capture's stream, then
+        captures; later calls replay the graph, the same kernels in the
+        same order without their host work. A capture that fails leaves
+        its key eager. A mesh's collectives cannot be captured and autograd
+        cannot run through a replay, so those calls run eager."""
+        if not pixels.is_cuda or torch.is_grad_enabled() or \
+                self.mesh is not None:
+            self.encode_eager += 1
+            return self._encode(pixels, replicated)
+        key = (tuple(pixels.shape), pixels.dtype, replicated)
+        graphs = self._encode_graphs
+        entry = graphs.get(key)
+        if isinstance(entry, _EncodeGraph):
+            self.encode_graph_replays += 1
+            with annotate("vlm.encode_graph"):
+                return entry(pixels)
+        self.encode_eager += 1
+        if entry is None and sum(isinstance(g, _EncodeGraph)
+                                 for g in graphs.values()) < ENCODE_GRAPHS:
+            return self._capture(key, pixels, replicated)
+        return self._encode(pixels, replicated)
+
+    def _capture(self, key: tuple, pixels: torch.Tensor,
+                 replicated: bool) -> torch.Tensor:
+        """Capture the graph at ``key`` (or mark it "eager" where the
+        capture fails); the first call's result."""
+        try:
+            graph = _EncodeGraph(
+                lambda px: self._encode(px, replicated), pixels)
+        except RuntimeError as err:   # an operation a capture cannot hold
+            # a capture cut short leaves the CUDA generators in capture
+            # mode (each later draw would raise); a whole one ends it
+            with torch.cuda.graph(torch.cuda.CUDAGraph(),
+                                  capture_error_mode="thread_local"):
+                torch.zeros(1, device=pixels.device)
+            warnings.warn(f"encode_images: no CUDA graph at {key}, which "
+                          f"runs eager: {err}")
+            self._encode_graphs[key] = "eager"
+            return self._encode(pixels, replicated)
+        self.encode_graph_captures += 1
+        self._encode_graphs[key] = graph
+        first, graph.first = graph.first, None
+        return first
+
+    def _encode(self, pixels: torch.Tensor,
+                replicated: bool) -> torch.Tensor:
         cfg = self.cfg
         with annotate("vlm.vision"):
             out = self.vision(

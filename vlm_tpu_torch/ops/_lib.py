@@ -8,7 +8,8 @@ the first kernel launch (or an explicit :func:`build`), goes to
 of the sources and flags, and is reused while that hash holds.
 Importing this module builds nothing and imports no toolchain.
 
-Each kernel wrapper counts its launches in :data:`launches`; each plain
+Each kernel wrapper counts its launches in :data:`launches` (inside
+:func:`counting_into`, on that thread, in the block's own counts); each plain
 PyTorch version counts its calls in :data:`plain_calls` under the form its
 inputs select (fp32 operands: the ``_fp32`` form), so a run can show which
 path it took. The backward of B1's differentiable form is a kernel for fp32
@@ -20,6 +21,7 @@ plain versions' calls.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -68,6 +70,8 @@ plain_calls = {name: 0 for name in KERNELS
 # tensors; bf16 on the card): recomputes through plain tensor operations,
 # one count per backward
 recomputes = {"flash_attention_diff": 0, "flash_attention_diff_fp32": 0}
+# where this thread's launches are counted inside counting_into
+_sink = threading.local()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -183,6 +187,19 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+@contextlib.contextmanager
+def counting_into(counts: dict):
+    """Count the launches this thread makes inside the block in ``counts``
+    (a name -> count dict, as :data:`launches`) instead of
+    :data:`launches`: a CUDA graph's capture, which runs nothing on the
+    card; each replay then adds them. Other threads count as before."""
+    _sink.counts = counts
+    try:
+        yield counts
+    finally:
+        _sink.counts = None
+
+
 def launch(kernel: str, fn_name: str, *args, also: str = "") -> None:
     """Call one C entry point and raise if CUDA refused the launch; counts
     the launch under ``kernel``, and under ``also`` too where the launch
@@ -193,9 +210,12 @@ def launch(kernel: str, fn_name: str, *args, also: str = "") -> None:
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
                            f"({handle.vlm_error_string(rc).decode()})")
-    launches[kernel] += 1
+    counts = getattr(_sink, "counts", None)
+    if counts is None:
+        counts = launches
+    counts[kernel] += 1
     if also:
-        launches[also] += 1
+        counts[also] += 1
 
 
 def sm_count(device: torch.device) -> int:

@@ -24,6 +24,7 @@ SPANS = (
     "vlm.prefill",          # VLMModule.prefill
     "vlm.vision",           # VLMModule.encode_images: the tower
     "vlm.projector",        # VLMModule.encode_images: the projector
+    "vlm.encode_graph",     # encode_images: the two above as a graph replay
     "vlm.decoder",          # VLMModule.prefill: the prompt rows, the head
     "batcher.cache_copy",   # _admit: the group's rows into the slot cache
     "batcher.admit_state",  # _admit: the first token and the slot state
